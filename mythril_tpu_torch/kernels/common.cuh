@@ -1,0 +1,96 @@
+// Shared plumbing of the port's CUDA kernels (sm_90a).
+//
+// Every kernel takes one parameter block `Args`: a flat array of 64-bit
+// slots holding device pointers and sizes at the fixed indices named in
+// layout.cuh (mirrored by kernels/layout.py). The host entry point of each
+// source copies the caller's array into the block, launches on the given
+// stream and returns the cudaError_t of the launch (0 = launched).
+#pragma once
+
+#include <stdint.h>
+
+#ifndef MTPU_LAUNCH
+#include <cuda_runtime.h>
+#define MTPU_LAUNCH(kernel, grid, block, stream, args) \
+    kernel<<<(grid), (block), 0, (cudaStream_t)(stream)>>>(args)
+#define MTPU_LAUNCH_STATUS() ((int)cudaGetLastError())
+#endif
+
+#define MTPU_EXPORT extern "C" __attribute__((visibility("default")))
+
+#include "layout.cuh"
+
+struct Args {
+    long long v[MTPU_MAX_ARGS];
+};
+
+static inline Args mtpu_pack(const long long* values, int n) {
+    Args a;
+    for (int i = 0; i < MTPU_MAX_ARGS; ++i) a.v[i] = i < n ? values[i] : 0;
+    return a;
+}
+
+template <class T>
+__device__ __forceinline__ T* arg_ptr(const Args& a, int i) {
+    return reinterpret_cast<T*>(static_cast<uintptr_t>(a.v[i]));
+}
+
+__device__ __forceinline__ int arg_int(const Args& a, int i) {
+    return static_cast<int>(a.v[i]);
+}
+
+// lane status values (batch.py)
+enum {
+    ST_RUNNING = 0, ST_STOPPED = 1, ST_RETURNED = 2, ST_REVERTED = 3,
+    ST_ERRORED = 4, ST_ESCAPED = 5, ST_FORKING = 6, ST_DEAD = 7
+};
+
+// opcode table rows: int32[256][4] = {pops, pushes, gas_min, flags}
+enum { OPT_POPS = 0, OPT_PUSHES = 1, OPT_GAS = 2, OPT_FLAGS = 3 };
+enum {
+    OPF_VALID = 1, OPF_ESCAPE = 2, OPF_SYM_OK = 4, OPF_PLUMBING = 8
+};
+#define OPF_ENV_CLASS(flags) (((flags) >> 8) & 0xFF)
+
+// opcode bytes the kernels test directly
+enum {
+    OP_STOP = 0x00, OP_ADD = 0x01, OP_MUL = 0x02, OP_SUB = 0x03,
+    OP_DIV = 0x04, OP_SDIV = 0x05, OP_MOD = 0x06, OP_SMOD = 0x07,
+    OP_ADDMOD = 0x08, OP_MULMOD = 0x09, OP_EXP = 0x0A, OP_SIGNEXTEND = 0x0B,
+    OP_LT = 0x10, OP_GT = 0x11, OP_SLT = 0x12, OP_SGT = 0x13, OP_EQ = 0x14,
+    OP_ISZERO = 0x15, OP_AND = 0x16, OP_OR = 0x17, OP_XOR = 0x18,
+    OP_NOT = 0x19, OP_BYTE = 0x1A, OP_SHL = 0x1B, OP_SHR = 0x1C,
+    OP_SAR = 0x1D, OP_SHA3 = 0x20, OP_ADDRESS = 0x30, OP_ORIGIN = 0x32,
+    OP_CALLER = 0x33, OP_CALLVALUE = 0x34, OP_CALLDATALOAD = 0x35,
+    OP_CALLDATASIZE = 0x36, OP_CALLDATACOPY = 0x37, OP_CODESIZE = 0x38,
+    OP_CODECOPY = 0x39, OP_GASPRICE = 0x3A, OP_RETURNDATASIZE = 0x3D,
+    OP_RETURNDATACOPY = 0x3E, OP_COINBASE = 0x41, OP_TIMESTAMP = 0x42,
+    OP_NUMBER = 0x43, OP_PREVRANDAO = 0x44, OP_GASLIMIT = 0x45,
+    OP_CHAINID = 0x46, OP_SELFBALANCE = 0x47, OP_BASEFEE = 0x48,
+    OP_BLOBHASH = 0x49, OP_BLOBBASEFEE = 0x4A, OP_POP = 0x50,
+    OP_MLOAD = 0x51, OP_MSTORE = 0x52, OP_MSTORE8 = 0x53, OP_SLOAD = 0x54,
+    OP_SSTORE = 0x55, OP_JUMP = 0x56, OP_JUMPI = 0x57, OP_PC = 0x58,
+    OP_MSIZE = 0x59, OP_GAS = 0x5A, OP_JUMPDEST = 0x5B, OP_TLOAD = 0x5C,
+    OP_TSTORE = 0x5D, OP_MCOPY = 0x5E, OP_PUSH0 = 0x5F, OP_RETURN = 0xF3,
+    OP_REVERT = 0xFD, OP_INVALID = 0xFE
+};
+
+// Block-wide exclusive prefix sum of one int per thread (Hillis-Steele over
+// shared memory; blockDim.x <= 1024). Returns the thread's exclusive rank;
+// *total receives the block sum. Every thread of the block must call it.
+__device__ __forceinline__ int block_exclusive_scan(int value, int* buf,
+                                                    int* total) {
+    const int t = threadIdx.x, n = blockDim.x;
+    buf[t] = value;
+    __syncthreads();
+    for (int offset = 1; offset < n; offset <<= 1) {
+        int add = t >= offset ? buf[t - offset] : 0;
+        __syncthreads();
+        buf[t] += add;
+        __syncthreads();
+    }
+    int inclusive = buf[t];
+    *total = buf[n - 1];
+    __syncthreads();
+    return inclusive - value;
+}

@@ -1,0 +1,55 @@
+"""The port stands alone: no module of mythril_tpu_torch, and nothing that
+chip_smoke.py imports, loads jax or anything of mythril_tpu; its entry
+points run on the card unless asked for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {repo!r})
+import mythril_tpu_torch
+for info in pkgutil.walk_packages(mythril_tpu_torch.__path__,
+                                  "mythril_tpu_torch."):
+    importlib.import_module(info.name)
+import chip_smoke  # its imports only: main() runs under __main__
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "mythril_tpu" or m.startswith("mythril_tpu."))
+print("LOADED", len([m for m in sys.modules
+                     if m.startswith("mythril_tpu_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_port_and_smoke_import_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _CHECK.format(repo=REPO)],
+                          capture_output=True, text=True, cwd=REPO,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "BAD []" in proc.stdout, proc.stdout
+    loaded = int(proc.stdout.split("LOADED")[1].split()[0])
+    assert loaded >= 15
+
+
+def test_entry_points_default_to_cuda():
+    from mythril_tpu_torch import device
+    from mythril_tpu_torch.parallel import arena, batch, symstep
+
+    assert device.resolve("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default resolves to it")
+    spec = batch.LaneSpec(code=b"\x00")
+    with pytest.raises(RuntimeError):
+        batch.build_batch([spec])
+    with pytest.raises(RuntimeError):
+        arena.new_arena(16, 4)
+    with pytest.raises(RuntimeError):
+        symstep.SymPlanes.empty(1, 4, 32, 2)
+    assert batch.build_batch([spec], device="cpu").stack.device.type == "cpu"

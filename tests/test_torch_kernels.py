@@ -1,0 +1,203 @@
+"""The port's CUDA kernel plumbing, checked without a card.
+
+* the parameter-block layout matches the pytrees' field order, and the
+  opcode table the kernels read matches the twins' tables;
+* the wrappers refuse CPU tensors (they launch or raise, never fall back);
+* the kernel sources themselves, compiled for the host by g++ with
+  `_host_shim.h` standing in for the CUDA runtime (one std::thread per CUDA
+  thread, std::barrier for __syncthreads), agree with the plain twins leaf
+  for leaf. On the card, chip_smoke.py holds the nvcc build against the
+  same twins."""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import seed_frontier, to_port
+from chip_smoke import BENCH_LOOP, mixed_specs
+from mythril_tpu.frontends.asm import assemble
+from mythril_tpu.parallel import symstep as jsym
+from mythril_tpu_torch.kernels import build, layout, ops
+from mythril_tpu_torch.parallel import arena as ta
+from mythril_tpu_torch.parallel import batch as tb
+from mythril_tpu_torch.parallel import convert, keccak as tk
+from mythril_tpu_torch.parallel import lockstep as tl
+from mythril_tpu_torch.parallel import symstep as ts
+
+SHIM = os.path.join(os.path.dirname(__file__), "_host_shim.h")
+
+
+def test_layout_matches_pytree_fields():
+    fields = list(tb.StateBatch._fields) + list(ts.SymPlanes._fields)
+    assert layout.N_ROW_LEAVES == len(fields)
+    assert layout.N_STATE_LEAVES == len(tb.StateBatch._fields)
+    for index, name in enumerate(fields):
+        assert layout.SLOTS[f"L_{name.upper()}"] == index
+    for prefix in ("K1", "K2", "K3", "K4"):
+        assert layout.SLOTS[f"{prefix}_NARGS"] <= layout.MTPU_MAX_ARGS
+    assert layout.K4_ROW_BYTES + layout.N_ROW_LEAVES == layout.K4_B
+
+
+def test_optab_matches_twin_tables():
+    table = ops.optab("cpu").numpy()
+    assert (table[:, 0] == tl.POPS).all() and (table[:, 1] == tl.PUSHES).all()
+    assert (table[:, 2] == tl.GAS_MIN).all()
+    assert ((table[:, 3] & 1) == tl.VALID).all()
+    assert (((table[:, 3] >> 2) & 1) == ts.SYM_OK).all()
+    assert ((table[:, 3] >> 8) == ts.ENV_CLASS).all()
+
+
+def test_wrappers_refuse_cpu_tensors():
+    data = torch.zeros((2, 8), dtype=torch.uint8)
+    length = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ops.keccak256(data, length)
+    state = tb.build_batch([tb.LaneSpec(code=b"\x00")], device="cpu")
+    with pytest.raises(ValueError):
+        ops.evm_step(state)
+    # the dispatching entry points pick the twin only for CPU tensors
+    assert torch.equal(tk.keccak256(data, length),
+                       tk.keccak256_reference(data, length))
+
+
+def test_library_names_follow_sources():
+    a = build.library_path("keccak")
+    assert a == build.library_path("keccak")
+    assert a != build.library_path("keccak", ["-lineinfo"])
+    assert os.path.dirname(a) == build.BUILD_DIR
+
+
+# ---- the kernel sources, compiled for the host -------------------------------------
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    """{source: CDLL} of the kernels built by g++ against the host shim."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel sources with")
+    out = tmp_path_factory.mktemp("host_kernels")
+    procs = {}
+    for name in build.SOURCES:
+        lib = str(out / f"lib{name}.so")
+        cmd = [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+               "-Wall", "-Werror", "-include", SHIM, "-x", "c++",
+               os.path.join(build.KERNEL_DIR, f"{name}.cu"), "-o", lib]
+        procs[name] = (subprocess.Popen(cmd, stderr=subprocess.PIPE,
+                                        text=True), lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err
+        libs[name] = ctypes.CDLL(lib)
+    return libs
+
+
+@pytest.fixture
+def on_host(host_kernels, monkeypatch):
+    """Route the wrappers to the host-built kernels and CPU tensors."""
+
+    class _Stream:
+        cuda_stream = 0
+
+    def check(t, what, dtype, shape=None):
+        assert t.dtype == dtype, what
+        assert shape is None or tuple(t.shape) == tuple(shape), what
+        assert t.is_contiguous(), what
+        return t.data_ptr()
+
+    monkeypatch.setattr(build, "load", lambda name: host_kernels[name])
+    monkeypatch.setattr(ops, "_FUNCS", {})
+    monkeypatch.setattr(ops, "_check", check)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: _Stream())
+
+
+def _same(kernel_tree, plain_tree, what):
+    for (name, got), (_, ref) in zip(convert.leaves(convert.to_numpy(kernel_tree)),
+                                     convert.leaves(convert.to_numpy(plain_tree))):
+        assert got.dtype == ref.dtype and np.array_equal(got, ref), \
+            f"{what}: {name}"
+
+
+def test_host_keccak_matches_twin(on_host):
+    rng = np.random.default_rng(3)
+    lengths = [0, 1, 135, 136, 137, 271, 272, 511, 512]
+    data = torch.from_numpy(rng.integers(0, 256, (len(lengths), 512),
+                                         dtype=np.uint8))
+    length = torch.tensor(lengths, dtype=torch.int32)
+    assert torch.equal(ops.keccak256(data, length),
+                       tk.keccak256_reference(data, length))
+
+
+def test_host_evm_step_matches_twin(on_host):
+    specs = mixed_specs(12) + [tb.LaneSpec(BENCH_LOOP, gas_limit=2 ** 60)] \
+        + [tb.LaneSpec(assemble(src), gas_limit=10_000) for src in (
+            "PUSH1 0x01\nPUSH2 0x1000\nMSTORE\nSTOP",
+            "PUSH2 0x0300\nPUSH1 0x00\nRETURN",
+            "PUSH1 0x03\nJUMP\nSTOP",
+            "PUSH4 0xffffffff\nMLOAD")]
+    plain = tb.build_batch(specs, device="cpu")
+    kernel = convert.clone(plain)
+    for step in range(160):
+        plain = tl.step_reference(plain)
+        ops.evm_step(kernel)
+        if step % 16 == 15:
+            _same(kernel, plain, f"step {step}")
+    assert int((plain.status == tb.RETURNED).sum()) == 12
+    force_escape = torch.tensor([i % 3 == 0 for i in range(len(specs))])
+    force_fork = torch.tensor([i % 5 == 1 for i in range(len(specs))])
+    plain = tb.build_batch(specs, device="cpu")
+    kernel = convert.clone(plain)
+    for step in range(4):
+        plain = tl.step_reference(plain, force_escape, force_fork)
+        ops.evm_step(kernel, force_escape, force_fork)
+    _same(kernel, plain, "forced")
+
+
+def test_host_arena_alloc_matches_twin(on_host):
+    rng = np.random.default_rng(4)
+    plain = ta.new_arena(64, 16, device="cpu")
+    kernel = convert.clone(plain)
+    for round_ in range(10):
+        want = torch.from_numpy(rng.random(16) < 0.6)
+        if round_ % 3 == 0:
+            words = torch.from_numpy(rng.integers(0, 1 << 16, (16, 16))
+                                     .astype(np.int32))
+            plain, ids_p, ovf_p = ta.alloc_consts_reference(plain, want, words)
+            kernel, ids_k, ovf_k = ops.arena_alloc(kernel, want, words)
+        else:
+            n = int(plain.n)
+            args = [torch.from_numpy(v.astype(np.int32)) for v in (
+                rng.choice([0x01, 0x10, ta.VAR, ta.CONST], 16),
+                rng.integers(0, n, 16), rng.integers(0, n, 16),
+                rng.integers(0, n, 16), rng.integers(0, 40, 16),
+                rng.integers(-5, 1 << 20, 16))]
+            plain, ids_p, ovf_p = ta.alloc_rows_reference(plain, want, *args)
+            kernel, ids_k, ovf_k = ops.arena_alloc(kernel, want, None, *args)
+        assert torch.equal(ids_p, ids_k) and torch.equal(ovf_p, ovf_k)
+        _same(kernel, plain, f"round {round_}")
+    assert int(plain.n) == 64
+
+
+def test_host_sym_step_matches_twin(on_host):
+    from test_torch_symstep import CODES as codes
+
+    state, planes, arena = seed_frontier(codes, 8, base_sym=[0])
+    sched = jsym.new_scheduler(state, planes, 4, 3)
+    plain = [to_port(k, t) for k, t in zip(("state", "planes", "arena", "sched"),
+                                           (state, planes, arena, sched))]
+    kernel = [convert.clone(t) for t in plain]
+    for step in range(72):
+        plain = list(ts.sym_step_reference(*plain))
+        kernel = list(ops.sym_step(*kernel))
+        if step % 12 == 11:
+            for kind, got, ref in zip(("state", "planes", "arena", "sched"),
+                                      kernel, plain):
+                _same(got, ref, f"step {step} {kind}")
+            plain[3].esc_count.zero_()
+            kernel[3].esc_count.zero_()
+    assert int(plain[3].pushes) > 0 and int(plain[3].pops) > 0
