@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one CUDA card
 
-It builds the four hand-written kernels from the checkout's sources, holds
+It builds the eight hand-written kernels from the checkout's sources, holds
 each against its plain PyTorch version on the card, then drives the port's
-main device path, the symbolic frontier (`symstep.run_chunk`), at the
-frontier's default geometry on a 2^12-path contract until the tree is
-drained. Every phase prints one JSON line; any mismatch raises, and the run
-exits non-zero. Phases:
+main device path, the frontier's drain loop (`DeviceFrontier.run` around
+`symstep.run_chunk`), at the frontier's default geometry on a 2^12-path
+contract until the tree is drained. Every phase prints one JSON line; any
+mismatch raises, and the run exits non-zero. Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. K1 keccak vs `keccak256_reference`: 4096 random messages of 0..512
@@ -27,10 +27,23 @@ exits non-zero. Phases:
      3072 stack and 1024 escape rows, one RUNNING lane with symbolic env.
      The first 8 chunks run twice, through the kernels and through the plain
      twins on the card, and every leaf is compared. The escape buffer is
-     drained after each chunk as the frontier does; the totals must equal
-     the JAX reference's (computed once with mythril_tpu on the CPU);
-  7. the kernels line: each kernel's launches on the main path, its time,
-     its plain version's time and the least time the card could take.
+     drained (K6 `reset_esc`) after each chunk; the totals must equal the
+     JAX reference's (computed once with mythril_tpu on the CPU);
+  7. frontier_programs: K5-K8 vs their twins on the same contract two
+     chunks in (1024 escape rows, 680+ of them live): the summary, the
+     drain's maxima and pack at its real index and quantized widths, the
+     escape reset, a gather and a scatter of 32 lanes, and the arena delta
+     of the first drain; each timed beside its twin and, where one exists,
+     the PyTorch call that computes the same function;
+  8. frontier: `DeviceFrontier(128).run` on the same contract at the
+     default budgets until the tree drains (K1-K6 and K8 on the main path);
+     its counters and the sha256 digests of its deferred row blocks and of
+     its arena mirror must equal the JAX `_Frontier`'s;
+  9. frontier_spill: 16 lanes, 32 stack rows, branchy(10): the deadlock
+     spill and the host reseed (K7) run on the card, checked the same way;
+ 10. the kernels line: each kernel's launches on the driver phases (8 and
+     9), its time, its plain version's time, the least time the card could
+     take and the library call's time.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result."""
@@ -49,7 +62,8 @@ from mythril_tpu_torch.frontends.asm import assemble, dispatcher
 from mythril_tpu_torch.kernels import build, ops
 from mythril_tpu_torch.parallel import arena as A
 from mythril_tpu_torch.parallel import batch as B
-from mythril_tpu_torch.parallel import convert, keccak, lockstep, symstep
+from mythril_tpu_torch.parallel import (convert, frontier, keccak, lockstep,
+                                        symstep)
 
 # ---- the frontier's default geometry (mythril_tpu/parallel/frontier.py) ---------
 LANES = 128          # DEFAULT_LANES (MYTHRIL_TPU_LANES)
@@ -68,6 +82,41 @@ MAX_CHUNKS = 200
 #: fallback STOP
 EXPECTED = {"escapes": 4097, "forks": 4096, "pushes": 3968, "pops": 3968,
             "executed": 36868, "arena_n": 12291, "n_const": 4097}
+
+#: the JAX reference of the drain loop at the frontier's default budgets and
+#: of the reduced-pool run: `mythril_tpu.parallel.frontier._Frontier(
+#: laser_evm=None, n_lanes=...)` on the CPU with `telemetry_enabled` and
+#: `state_merge` set False on the instance (and `stack_bytes` = 32 rows x
+#: 39306 bytes for the spill run), `run(state, planes)` on the lanes
+#: `DeviceFrontier.seed` makes from one seed (code, {}, False, 10**7, 0).
+#: Chunks, drains and frozen lanes are counted by wrapping
+#: `symstep.run_chunk`, `_fetch_escapes` and `_defer_lanes`; the digests are
+#: `frontier.deferred_digest(_Frontier.deferred)` and
+#: `frontier.mirror_digest(_Frontier.harena)`.
+#: tests/test_torch_frontier.py recomputes both with JAX and checks them.
+EXPECTED_FRONTIER = {
+    "chunks": 8, "drains": 4, "drained_rows": 3713, "frozen_rows": 384,
+    "spilled": 0, "reseeded": 0, "lane_steps": 36868, "forks": 4096,
+    "stack_pushes": 3583, "stack_pops": 3583, "deferred_blocks": 7,
+    "deferred_rows": 4097, "mirror_n": 12291, "mirror_n_const": 4097,
+    "deferred_sha256":
+        "44841bb4765ba59781afd31e1292960e791e41ade47e821f4dca49926b9f394d",
+    "mirror_sha256":
+        "5483260d1d0e0a6acb12f7b4bfacd9f86122f53a4627d0b21e4bc850b9f68da4"}
+SPILL_LANES = 16
+SPILL_STACK_ROWS = 32
+#: branchy(8) never deadlocks at these pools (the JAX run spills nothing);
+#: branchy(10) does
+SPILL_BRANCHES = 10
+EXPECTED_SPILL = {
+    "chunks": 9, "drains": 6, "drained_rows": 649, "frozen_rows": 34,
+    "spilled": 8, "reseeded": 8, "lane_steps": 5692, "forks": 682,
+    "stack_pushes": 338, "stack_pops": 338, "deferred_blocks": 9,
+    "deferred_rows": 683, "mirror_n": 2049, "mirror_n_const": 683,
+    "deferred_sha256":
+        "0c25dae9844a0f01a578c3796f24b5e37fc84bcb8ab24d4b2ff81e0f5d2c87b2",
+    "mirror_sha256":
+        "215f5550dfb3a0f8dc7073eccfe283295fcb225bf151e1ad5d84a00c0df9e2b2"}
 
 # ---- the card's published peaks (H100 SXM data sheet, dense, 700 W) -------------
 PEAK_BYTES_PER_S = 3.35e12
@@ -373,6 +422,27 @@ def event_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of fn() in ms over `reps` calls: every CUDA function
+    it runs, as torch.profiler (CUPTI) records it, without the host's time
+    to enqueue them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(None)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(None)
+        torch.cuda.synchronize()
+    total_us = sum(event.self_device_time_total
+                   for event in prof.key_averages()
+                   if event.device_type == DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total_us / reps / 1e3
+
+
 def bound_ms(nbytes: float, nops: float):
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     op_ms = nops / PEAK_OPS_PER_S * 1e3
@@ -615,7 +685,7 @@ def phase_planes(dev) -> None:
                                   tree, plain):
             assert_same(got, ref, f"planes chunk {chunk} {kind}")
         escapes += drain(tree, at_stop=False)[0]
-        drain(plain, at_stop=False)
+        drain(plain, at_stop=False, reset=frontier.reset_esc_reference)
     paused = int(((tree[0].status == B.FORKING)
                   & (tree[1].fork_cond == 0)).sum())
     if not paused:
@@ -626,10 +696,11 @@ def phase_planes(dev) -> None:
           "forks": int(tree[3].forks), "max_abs_err": 0})
 
 
-def drain(tree, at_stop: bool = True) -> tuple:
-    """Read and zero the escape count as the frontier's drain does; check
-    that buffered rows are escaped lanes (at a STOP, with `at_stop`) or
-    spilled siblings, still RUNNING. Returns (rows, spilled rows)."""
+def drain(tree, at_stop: bool = True, reset=frontier.reset_esc) -> tuple:
+    """Read and zero the escape count as the frontier's drain does (K6's
+    `reset_esc`, or `reset` given); check that buffered rows are escaped
+    lanes (at a STOP, with `at_stop`) or spilled siblings, still RUNNING.
+    Returns (rows, spilled rows)."""
     sched = tree[3]
     rows = int(sched.esc_count)
     status = sched.esc_state.status[:rows].cpu().numpy()
@@ -642,7 +713,7 @@ def drain(tree, at_stop: bool = True) -> tuple:
     at = code[np.arange(rows), np.clip(pc, 0, code.shape[1] - 1)]
     if at_stop and np.any(at[halted] != 0x00):
         raise AssertionError("an escaped row is not at a STOP")
-    sched.esc_count.zero_()
+    reset(sched)
     return rows, spilled
 
 
@@ -652,7 +723,7 @@ def live(tree) -> bool:
     return bool(busy.any()) or int(tree[3].stack_top) > 0
 
 
-def phase_slice(dev) -> tuple:
+def phase_slice(dev) -> dict:
     code = assemble(dispatcher({"stress()": branchy_contract(N_BRANCHES)}))
     torch.cuda.reset_peak_memory_stats()
     tree = seed_frontier(dev, [code])
@@ -678,7 +749,7 @@ def phase_slice(dev) -> tuple:
             for kind, got, ref in zip(("state", "planes", "arena", "sched"),
                                       tree, plain):
                 assert_same(got, ref, f"slice chunk {chunks} {kind}")
-            drain(plain)
+            drain(plain, reset=frontier.reset_esc_reference)
         rows, spill = drain(tree)
         escapes += rows
         spilled += spill
@@ -692,8 +763,9 @@ def phase_slice(dev) -> tuple:
               "n_const": int(arena.n_const)}
     if totals != EXPECTED:
         raise AssertionError(f"slice totals {totals} != JAX reference {EXPECTED}")
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the main path never ran: {launches}")
+    if any(launches[name] == 0 for name in ("keccak", "evm_step", "arena_alloc",
+                                             "sym_step", "pack_rows")):
+        raise AssertionError(f"a kernel of the slice never ran: {launches}")
     if snapshot is None:
         raise AssertionError("the frontier drained before the timing snapshot")
 
@@ -719,7 +791,7 @@ def phase_slice(dev) -> tuple:
                                  wrapped[name]))
     timing = [convert.clone(t) for t in snapshot]
     before = {k: int(getattr(timing[3], k)) for k in ("pops", "forks", "executed")}
-    timing[3].esc_count.zero_()
+    frontier.reset_esc_reference(timing[3])
     try:
         for _ in range(CHUNK):
             timing = list(timed("step", ops.sym_step)(*timing))
@@ -762,7 +834,350 @@ def phase_slice(dev) -> tuple:
               "max_abs_err": 0, "ms": k4_only, "plain_ms": plain_ms,
               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
               "held_by": "phase slice"}
-    return record, launches
+    return record
+
+
+# ---- phases 7-9: the frontier's drain loop -------------------------------------------
+
+def frontier_totals(fr) -> dict:
+    """The counters and digests a drain-loop run is checked by."""
+    return {"chunks": fr.chunks, "drains": fr.drains,
+            "drained_rows": fr.drained_rows, "frozen_rows": fr.frozen_rows,
+            "spilled": fr.spilled, "reseeded": fr.reseeded,
+            "lane_steps": fr.lane_steps, "forks": fr.forks,
+            "stack_pushes": fr.stack_pushes, "stack_pops": fr.stack_pops,
+            "deferred_blocks": len(fr.deferred),
+            "deferred_rows": sum(block[2] for block in fr.deferred),
+            "mirror_n": fr.harena.n, "mirror_n_const": fr.harena.n_const,
+            "deferred_sha256": frontier.deferred_digest(fr.deferred),
+            "mirror_sha256": frontier.mirror_digest(fr.harena)}
+
+
+def stress_seed(n_branches: int):
+    code = assemble(dispatcher({"stress()": branchy_contract(n_branches)}))
+    return [(code, {}, False, 10_000_000, 0)]
+
+
+def check_same(got, ref, what: str) -> None:
+    for mine, theirs in zip(got, ref):
+        if mine.dtype != theirs.dtype or not torch.equal(mine, theirs):
+            raise AssertionError(f"{what} disagrees with its twin")
+
+
+def phase_frontier_programs(dev) -> list:
+    """K5-K8 vs their twins at the main path's shapes, two chunks into the
+    slice, each timed beside its twin and its library yardstick."""
+    fr = frontier.DeviceFrontier(LANES, device=dev)
+    state, planes = fr.seed(stress_seed(N_BRANCHES))
+    sched = fr.new_sched(state, planes)
+    arena = fr.arena
+    for _ in range(2):
+        state, planes, arena, sched = symstep.run_chunk(state, planes, arena,
+                                                        sched, CHUNK)
+    esc_count = int(sched.esc_count)
+    if not esc_count:
+        raise AssertionError("no escape rows buffered after two chunks")
+    records = []
+
+    # K5: the summary
+    packed = frontier.summary(state, planes, arena, sched)
+    check_same([packed], [frontier.summary_reference(state, planes, arena,
+                                                     sched)], "K5")
+    live_rows = esc_count
+    b_ms, b_by = bound_ms(live_rows * (4 + 4 + 64 + 4) + LANES * 12
+                          + (13 + 3 * LANES) * 8 + 6 * 8 + 2 * 4, 0)
+    records.append({
+        "name": "frontier_summary", "route": "cuda",
+        "source": "mythril_tpu_torch/kernels/frontier_summary.cu",
+        "replaces": "mythril_tpu/parallel/frontier.py:99", "max_abs_err": 0,
+        "ms": event_ms(lambda _: frontier.summary(state, planes, arena,
+                                                  sched), 50),
+        "device_ms": device_ms(lambda _: frontier.summary(
+            state, planes, arena, sched), 20),
+        "plain_ms": event_ms(lambda _: frontier.summary_reference(
+            state, planes, arena, sched), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "none: no single PyTorch call packs the summary",
+        "held_by": "phase frontier_programs"})
+
+    # K6: the drain's maxima, pack and reset at its real index and widths
+    scalars = packed[:frontier.SUMMARY_SCALARS].cpu().numpy()
+    esc_cap = sched.esc_state.status.shape[0]
+    bucket = min(B.next_pow2(esc_count), esc_cap)
+    index_np = np.zeros(bucket, dtype=np.int32)
+    index_np[:min(esc_count, bucket)] = np.arange(min(esc_count, bucket))
+    index = torch.from_numpy(index_np).to(dev)
+    rows = (sched.esc_state, sched.esc_planes)
+    check_same([frontier.row_maxima(*rows, index)],
+               [frontier.row_maxima_reference(*rows, index)], "K6 row_maxima")
+    widths = frontier.pack_widths(*rows, *(int(v) for v in scalars[8:12]))
+    packed_rows = frontier.pack_rows(*rows, index, *widths)
+    check_same(packed_rows, frontier.pack_rows_reference(*rows, index,
+                                                         *widths), "K6 pack")
+    reset_k, reset_p = convert.clone(sched), convert.clone(sched)
+    frontier.reset_esc(reset_k)
+    frontier.reset_esc_reference(reset_p)
+    assert_same(reset_k, reset_p, "K6 reset_esc")
+    pack_bytes = sum(t.numel() * t.element_size() for t in packed_rows)
+    b_ms, b_by = bound_ms(2 * pack_bytes + bucket * 4, 0)
+    maxima_ms = event_ms(lambda _: frontier.row_maxima(*rows, index), 50)
+    reset_ms = event_ms(lambda _: frontier.reset_esc(reset_k), 50)
+    records.append({
+        "name": "pack_rows", "route": "cuda",
+        "source": "mythril_tpu_torch/kernels/pack_rows.cu",
+        "replaces": "mythril_tpu/parallel/frontier.py:156", "max_abs_err": 0,
+        "ms": event_ms(lambda _: frontier.pack_rows(*rows, index, *widths),
+                       50),
+        "device_ms": device_ms(lambda _: frontier.pack_rows(
+            *rows, index, *widths), 20),
+        "plain_ms": event_ms(lambda _: frontier.pack_rows_reference(
+            *rows, index, *widths), 20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library": "none: no single PyTorch call packs the row fields",
+        "row_maxima_ms": maxima_ms, "reset_esc_ms": reset_ms,
+        "row_maxima_device_ms": device_ms(
+            lambda _: frontier.row_maxima(*rows, index), 20),
+        "held_by": "phase frontier_programs"})
+
+    # K7: a gather and a scatter of 32 lanes
+    lanes = torch.arange(32, dtype=torch.int32, device=dev) * 4 % LANES
+    gathered = frontier.gather_rows(state, planes, lanes)
+    for got, ref in zip(gathered, frontier.gather_rows_reference(
+            state, planes, lanes)):
+        assert_same(got, ref, "K7 gather")
+    targets = (torch.arange(32, dtype=torch.int32, device=dev) * 4 + 1) % LANES
+    scat_k = [convert.clone(t) for t in (state, planes)]
+    scat_p = [convert.clone(t) for t in (state, planes)]
+    frontier.scatter_rows(*scat_k, targets, *gathered)
+    frontier.scatter_rows_reference(*scat_p, targets, *gathered)
+    assert_same(scat_k[0], scat_p[0], "K7 scatter state")
+    assert_same(scat_k[1], scat_p[1], "K7 scatter planes")
+    row_bytes = fr.row_bytes
+    leaves = list(state) + list(planes)
+    lanes64 = lanes.to(torch.int64)
+
+    def library_gather(_):
+        return [torch.index_select(leaf, 0, lanes64) for leaf in leaves]
+
+    g_rows = list(gathered[0]) + list(gathered[1])
+    dst = [leaf.clone() for leaf in leaves]
+    targets64 = targets.to(torch.int64)
+
+    def library_scatter(_):
+        for leaf, block in zip(dst, g_rows):
+            leaf.index_copy_(0, targets64, block)
+
+    b_ms, b_by = bound_ms(2 * 32 * row_bytes + 32 * 4, 0)
+    records.append({
+        "name": "gather_rows", "route": "cuda",
+        "source": "mythril_tpu_torch/kernels/gather_rows.cu",
+        "replaces": "mythril_tpu/parallel/frontier.py:79", "max_abs_err": 0,
+        "ms": event_ms(lambda _: frontier.gather_rows(state, planes, lanes),
+                       50),
+        "device_ms": device_ms(lambda _: frontier.gather_rows(
+            state, planes, lanes), 20),
+        "plain_ms": event_ms(lambda _: frontier.gather_rows_reference(
+            state, planes, lanes), 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": event_ms(library_gather, 20),
+        "library": "torch.index_select per leaf (46 calls)",
+        "scatter_ms": event_ms(lambda _: frontier.scatter_rows(
+            *scat_k, targets, *gathered), 50),
+        "scatter_device_ms": device_ms(lambda _: frontier.scatter_rows(
+            *scat_k, targets, *gathered), 20),
+        "library_device_ms": device_ms(library_gather, 20),
+        "scatter_plain_ms": event_ms(lambda _: frontier.scatter_rows_reference(
+            *scat_p, targets, *gathered), 20),
+        "scatter_library_ms": event_ms(library_scatter, 20),
+        "held_by": "phase frontier_programs"})
+
+    # K8: the first drain's arena delta (an empty mirror, then [1, arena_n))
+    arena_n, arena_nc = int(scalars[6]), int(scalars[7])
+    d_bucket = min(max(B.next_pow2(arena_n - 1), 16), arena.capacity)
+    d_cbucket = min(max(B.next_pow2(arena_nc), 16), arena.const_vals.shape[0])
+    check_same(A.fetch_delta(arena, 1, 0, d_bucket, d_cbucket),
+               A.fetch_delta_reference(arena, 1, 0, d_bucket, d_cbucket), "K8")
+    cols = [getattr(arena, col) for col in A.ROW_COLS]
+    out_rows = torch.empty((6, d_bucket), dtype=torch.int32, device=dev)
+    out_consts = torch.empty((d_cbucket, 16), dtype=torch.int32, device=dev)
+
+    def library_delta(_):
+        for position, col in enumerate(cols):
+            out_rows[position].copy_(col.narrow(0, 1, d_bucket))
+        out_consts.copy_(arena.const_vals.narrow(0, 0, d_cbucket))
+
+    b_ms, b_by = bound_ms(2 * (6 * d_bucket * 4 + d_cbucket * 64), 0)
+    records.append({
+        "name": "arena_delta", "route": "cuda",
+        "source": "mythril_tpu_torch/kernels/arena_delta.cu",
+        "replaces": "mythril_tpu/parallel/arena.py:185", "max_abs_err": 0,
+        "ms": event_ms(lambda _: A.fetch_delta(arena, 1, 0, d_bucket,
+                                               d_cbucket), 50),
+        "device_ms": device_ms(lambda _: A.fetch_delta(
+            arena, 1, 0, d_bucket, d_cbucket), 20),
+        "plain_ms": event_ms(lambda _: A.fetch_delta_reference(
+            arena, 1, 0, d_bucket, d_cbucket), 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": event_ms(library_delta, 20),
+        "library": "narrow + copy_ per column (7 calls)",
+        "held_by": "phase frontier_programs"})
+    emit({"phase": "frontier_programs", "esc_count": esc_count,
+          "esc_rows": esc_cap, "drain_bucket": bucket,
+          "pack_widths": list(widths), "pack_bytes": pack_bytes,
+          "gather_lanes": 32, "delta": [d_bucket, d_cbucket],
+          "max_abs_err": 0,
+          "ms": {r["name"]: r["ms"] for r in records}})
+    return records
+
+
+def drive_frontier(fr, seeds) -> dict:
+    """Seed and run one DeviceFrontier with the launch counts zeroed just
+    before and read just after; returns the run's timing record."""
+    state, planes = fr.seed(seeds)
+    chunk_events = []
+    drain_s, setup_s = [0.0], [0.0]
+    run_chunk = symstep.run_chunk
+
+    def timed_chunk(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run_chunk(*args)
+        end.record()
+        chunk_events.append((start, end))
+        return out
+
+    def host_timed(fn, total):
+        def run(*args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                total[0] += time.perf_counter() - start
+        return run
+
+    for name in ("_fetch_escapes", "_flush_backlog", "_defer_lanes",
+                 "_spill_host", "_reseed_host"):
+        setattr(fr, name, host_timed(getattr(fr, name), drain_s))
+    fr.new_sched = host_timed(fr.new_sched, setup_s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    symstep.run_chunk = timed_chunk
+    ops.reset_launches()
+    start = time.perf_counter()
+    try:
+        fr.run(state, planes)
+        torch.cuda.synchronize()
+    finally:
+        symstep.run_chunk = run_chunk
+    wall = time.perf_counter() - start
+    launches = dict(ops.LAUNCHES)
+    chunk_ms = sum(s.elapsed_time(e) for s, e in chunk_events)
+    chunks = max(fr.chunks, 1)
+    return {"launches": launches, "wall_s": wall,
+            "setup_ms": setup_s[0] * 1e3,
+            "chunk_stream_ms": chunk_ms / chunks,
+            "host_ms_per_chunk": (wall * 1e3 - chunk_ms) / chunks,
+            "drain_host_ms_per_chunk": drain_s[0] * 1e3 / chunks,
+            "lane_steps_per_s": fr.lane_steps / wall,
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+#: CUDA function -> the port kernel (wrapper) that launches it
+KERNEL_OF = {
+    "keccak_rows_kernel": "keccak", "sha_prep_kernel": "evm_step",
+    "evm_step_kernel": "evm_step", "arena_alloc_kernel": "arena_alloc",
+    "sym_pre_kernel": "sym_step", "sym_mid1_kernel": "sym_step",
+    "sym_mid2_kernel": "sym_step", "sym_post_kernel": "sym_step",
+    "frontier_summary_kernel": "frontier_summary",
+    "row_maxima_kernel": "pack_rows", "pack_rows_kernel": "pack_rows",
+    "reset_esc_kernel": "pack_rows", "gather_rows_kernel": "gather_rows",
+    "scatter_rows_kernel": "gather_rows",
+    "arena_delta_kernel": "arena_delta"}
+
+
+def profiled_run(fr, seeds) -> dict:
+    """Run the drain loop again under torch.profiler (CUPTI): device time
+    per port kernel and for everything else on the card (copies, fills,
+    PyTorch's own kernels), and the share of the run's wall time the card
+    was idle. Profiling slows the host, so the wall here is longer than
+    the unprofiled run's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state, planes = fr.seed(seeds)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fr.run(state, planes)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    by_kernel = {name: 0.0 for name in ops.LAUNCHES}
+    device_calls = {name: 0 for name in ops.LAUNCHES}
+    other_ms = 0.0
+    for event in prof.key_averages():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        ms = event.self_device_time_total / 1e3
+        owner = next((kernel for function, kernel in KERNEL_OF.items()
+                      if event.key.startswith(function)), None)
+        if owner is None:
+            other_ms += ms
+        else:
+            by_kernel[owner] += ms
+            device_calls[owner] += event.count
+    busy_ms = sum(by_kernel.values()) + other_ms
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "kernel_device_ms": by_kernel, "device_calls": device_calls,
+            "other_device_ms": other_ms}
+
+
+def check_totals(totals: dict, expected: dict, what: str) -> None:
+    if totals != expected:
+        diff = {k: (totals.get(k), v) for k, v in expected.items()
+                if totals.get(k) != v}
+        raise AssertionError(f"{what} differs from the JAX reference: {diff}")
+
+
+def phase_frontier(dev) -> tuple:
+    # the first run of the process pays one-time costs (pinned host pages,
+    # the copy stream, pool allocations); the second is the steady state
+    cold = frontier.DeviceFrontier(LANES, device=dev)
+    cold_wall = drive_frontier(cold, stress_seed(N_BRANCHES))["wall_s"]
+    check_totals(frontier_totals(cold), EXPECTED_FRONTIER, "cold frontier")
+    fr = frontier.DeviceFrontier(LANES, device=dev)
+    timing = drive_frontier(fr, stress_seed(N_BRANCHES))
+    totals = frontier_totals(fr)
+    check_totals(totals, EXPECTED_FRONTIER, "frontier")
+    replay = frontier.DeviceFrontier(LANES, device=dev)
+    profiled = profiled_run(replay, stress_seed(N_BRANCHES))
+    check_totals(frontier_totals(replay), EXPECTED_FRONTIER, "profiled frontier")
+    emit({"phase": "frontier", "contract": f"dispatcher(branchy({N_BRANCHES}))",
+          "lanes": LANES, "chunk": fr.chunk, "row_bytes": fr.row_bytes,
+          "drain_batch": fr.drain_batch, "arena_capacity": fr.arena.capacity,
+          **totals, **timing, "cold_wall_s": cold_wall,
+          "profiled": profiled})
+    return timing["launches"], profiled
+
+
+def phase_frontier_spill(dev) -> dict:
+    fr = frontier.DeviceFrontier(SPILL_LANES, device=dev,
+                                 stack_bytes=SPILL_STACK_ROWS * 39306)
+    timing = drive_frontier(fr, stress_seed(SPILL_BRANCHES))
+    if fr.row_bytes != 39306:
+        raise AssertionError(f"row bytes {fr.row_bytes} != 39306")
+    totals = frontier_totals(fr)
+    check_totals(totals, EXPECTED_SPILL, "frontier_spill")
+    if not (fr.spilled and fr.reseeded and fr.frozen_rows):
+        raise AssertionError("the spill run missed a path")
+    emit({"phase": "frontier_spill",
+          "contract": f"dispatcher(branchy({SPILL_BRANCHES}))",
+          "lanes": SPILL_LANES, "stack_rows": SPILL_STACK_ROWS,
+          **totals, **timing})
+    return timing["launches"]
 
 
 def main() -> int:
@@ -782,10 +1197,24 @@ def main() -> int:
     rng = np.random.default_rng(2024)
     records = [phase_keccak(dev, rng), phase_step(dev), phase_arena(dev, rng)]
     phase_planes(dev)
-    slice_record, launches = phase_slice(dev)
-    records.append(slice_record)
+    records.append(phase_slice(dev))
+    records += phase_frontier_programs(dev)
+    # the main path: the drain loop at full width, then the spill run
+    launches = {name: 0 for name in ops.LAUNCHES}
+    frontier_launches, profiled = phase_frontier(dev)
+    for counts in (frontier_launches, phase_frontier_spill(dev)):
+        for name, count in counts.items():
+            launches[name] += count
+    idle = sorted(name for name, count in launches.items() if count == 0)
+    if idle:
+        raise AssertionError(f"kernels the driver phases never ran: {idle}")
     for record in records:
-        record["launches"] = launches[record["name"]]
+        name = record["name"]
+        record["launches"] = launches[name]
+        # device time per wrapper call on the full-width drain loop
+        record["main_path_device_ms"] = (
+            profiled["kernel_device_ms"][name] / frontier_launches[name]
+            if frontier_launches[name] else None)
     print(CARD, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,3 +22,40 @@ def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+_COPY_STREAMS = {}
+
+
+def start_host_copy(tensors):
+    """Start copying `tensors` to the host; returns (host tensors, event).
+
+    On the card the copies run on a side stream, after everything queued on
+    the current stream so far, into pinned memory, so the current stream
+    can go on with the next chunk while they stream; `event.synchronize()`
+    waits for them. CPU tensors are returned as they are, with no event."""
+    tensors = list(tensors)
+    if not tensors or not tensors[0].is_cuda:
+        return tensors, None
+    dev = tensors[0].device
+    side = _COPY_STREAMS.get(dev)
+    if side is None:
+        side = _COPY_STREAMS[dev] = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    hosts = []
+    with torch.cuda.stream(side):
+        for tensor in tensors:
+            host = torch.empty(tensor.shape, dtype=tensor.dtype,
+                               pin_memory=True)
+            host.copy_(tensor, non_blocking=True)
+            tensor.record_stream(side)
+            hosts.append(host)
+        event = torch.cuda.Event()
+        event.record(side)
+    return hosts, event
+
+
+def wait_host_copy(event) -> None:
+    """Block until the copies behind a `start_host_copy` event landed."""
+    if event is not None:
+        event.synchronize()

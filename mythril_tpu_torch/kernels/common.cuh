@@ -94,3 +94,28 @@ __device__ __forceinline__ int block_exclusive_scan(int value, int* buf,
     __syncthreads();
     return inclusive - value;
 }
+
+// Block-wide maximum of one int64 per thread (tree over shared memory;
+// blockDim.x a power of two <= 1024). Every thread of the block must call
+// it and gets the maximum back.
+__device__ __forceinline__ long long block_max(long long value,
+                                               long long* buf) {
+    const int t = threadIdx.x;
+    buf[t] = value;
+    __syncthreads();
+    for (int half = blockDim.x / 2; half > 0; half >>= 1) {
+        if (t < half && buf[t + half] > buf[t]) buf[t] = buf[t + half];
+        __syncthreads();
+    }
+    const long long out = buf[0];
+    __syncthreads();
+    return out;
+}
+
+// Threads for a one-block launch over `n` items: a power of two in
+// [32, 1024].
+static inline int block_threads(long long n) {
+    int threads = 32;
+    while (threads < n && threads < 1024) threads <<= 1;
+    return threads;
+}

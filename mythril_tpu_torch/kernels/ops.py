@@ -1,4 +1,4 @@
-"""Thin PyTorch wrappers around the hand-written CUDA kernels K1-K4.
+"""Thin PyTorch wrappers around the hand-written CUDA kernels K1-K8.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates what the
 kernel writes with `torch.empty`, fills the kernel's parameter block (slot
@@ -12,6 +12,17 @@ that its main path went through the kernels.
   K3 arena_alloc kernels/arena_alloc.cu  arena.alloc_rows/alloc_consts
                                          (arena.py:105, 146)
   K4 sym_step    kernels/sym_step.cu     symstep.sym_step (symstep.py:347)
+  K5 frontier_summary  kernels/frontier_summary.cu  frontier._summary
+                                         (frontier.py:99)
+  K6 pack_rows   kernels/pack_rows.cu    frontier._row_maxima, _pack_rows,
+                                         _reset_esc (frontier.py:191, 156,
+                                         248)
+  K7 gather_rows kernels/gather_rows.cu  frontier._gather_rows,
+                                         _scatter_rows (frontier.py:79, 88)
+  K8 arena_delta kernels/arena_delta.cu  arena._fetch_delta (arena.py:185)
+
+A count is per wrapper call: K4's call makes four device launches of its
+own, K6 counts its three entries together and K7 its two.
 """
 
 from __future__ import annotations
@@ -26,13 +37,21 @@ from . import build, layout as Lay
 
 #: launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"keccak": 0, "evm_step": 0, "arena_alloc": 0,
-                            "sym_step": 0}
+                            "sym_step": 0, "frontier_summary": 0,
+                            "pack_rows": 0, "gather_rows": 0,
+                            "arena_delta": 0}
 
 #: which source each exported entry point lives in
 _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_sha_prep": "evm_step",
               "mtpu_evm_step": "evm_step", "mtpu_arena_alloc": "arena_alloc",
               "mtpu_sym_pre": "sym_step", "mtpu_sym_mid1": "sym_step",
-              "mtpu_sym_mid2": "sym_step", "mtpu_sym_post": "sym_step"}
+              "mtpu_sym_mid2": "sym_step", "mtpu_sym_post": "sym_step",
+              "mtpu_frontier_summary": "frontier_summary",
+              "mtpu_row_maxima": "pack_rows", "mtpu_pack_rows": "pack_rows",
+              "mtpu_reset_esc": "pack_rows",
+              "mtpu_gather_rows": "gather_rows",
+              "mtpu_scatter_rows": "gather_rows",
+              "mtpu_arena_delta": "arena_delta"}
 _FUNCS: Dict[str, object] = {}
 _OPTABS: Dict[str, torch.Tensor] = {}
 
@@ -342,3 +361,199 @@ def sym_step(state, planes, arena, sched):
     _launch("mtpu_sym_post", values)
     LAUNCHES["sym_step"] += 1
     return state, planes, arena, sched
+
+
+# ---- K5 -----------------------------------------------------------------------------
+
+def frontier_summary(state, planes, arena, sched) -> torch.Tensor:
+    """K5: the chunk summary int64[13 + 3B] (single-shard scheduler without
+    telemetry; the caller checks)."""
+    batch = state.status.shape[0]
+    esc_rows, slots = sched.esc_state.storage_used.shape
+    values = [0] * Lay.K5_NARGS
+    for slot, tensor, what in ((Lay.K5_STATUS, state.status, "status"),
+                               (Lay.K5_FORK_COND, planes.fork_cond, "fork_cond"),
+                               (Lay.K5_CTX_ID, planes.ctx_id, "ctx_id")):
+        values[slot] = _check(tensor, what, torch.int32, (batch,))
+    for slot, tensor, dtype in (
+            (Lay.K5_STACK_TOP, sched.stack_top, torch.int32),
+            (Lay.K5_ESC_COUNT, sched.esc_count, torch.int32),
+            (Lay.K5_EXECUTED, sched.executed, torch.int64),
+            (Lay.K5_FORKS, sched.forks, torch.int64),
+            (Lay.K5_PUSHES, sched.pushes, torch.int64),
+            (Lay.K5_POPS, sched.pops, torch.int64),
+            (Lay.K5_ARENA_N, arena.n, torch.int32),
+            (Lay.K5_ARENA_N_CONST, arena.n_const, torch.int32)):
+        values[slot] = _check(tensor, "summary scalar", dtype, ())
+    for slot, tensor, what, dtype, shape in (
+            (Lay.K5_ESC_MSIZE, sched.esc_state.msize, "esc.msize",
+             torch.int32, (esc_rows,)),
+            (Lay.K5_ESC_SP, sched.esc_state.sp, "esc.sp", torch.int32,
+             (esc_rows,)),
+            (Lay.K5_ESC_STORAGE_USED, sched.esc_state.storage_used,
+             "esc.storage_used", torch.bool, (esc_rows, slots)),
+            (Lay.K5_ESC_COND_COUNT, sched.esc_planes.cond_count,
+             "esc.cond_count", torch.int32, (esc_rows,))):
+        values[slot] = _check(tensor, what, dtype, shape)
+    values[Lay.K5_B] = batch
+    values[Lay.K5_E] = esc_rows
+    values[Lay.K5_K] = slots
+    out = torch.empty(13 + 3 * batch, dtype=torch.int64,
+                      device=state.status.device)
+    values[Lay.K5_OUT] = out.data_ptr()
+    _launch("mtpu_frontier_summary", values)
+    LAUNCHES["frontier_summary"] += 1
+    return out
+
+
+# ---- K6 -----------------------------------------------------------------------------
+
+def _row_source(state_like, planes_like, index) -> list:
+    """K6's parameter block with the source rows and the index filled."""
+    rows = state_like.status.shape[0]
+    n = index.shape[0]
+    if n == 0:
+        raise ValueError("index: no rows selected")
+    values = [0] * Lay.K6_NARGS
+    values[Lay.K6_LEAF:Lay.K6_LEAF + Lay.N_ROW_LEAVES] = (
+        _leaf_ptrs(state_like, _STATE_DTYPES, rows, "rows")
+        + _leaf_ptrs(planes_like, _PLANE_DTYPES, rows, "rows"))
+    values[Lay.K6_INDEX] = _check(index, "index", torch.int32, (n,))
+    values[Lay.K6_N] = n
+    values[Lay.K6_ROWS] = rows
+    values[Lay.K6_S] = state_like.stack.shape[1]
+    values[Lay.K6_M] = state_like.memory.shape[1]
+    values[Lay.K6_K] = state_like.storage_keys.shape[1]
+    values[Lay.K6_KC] = planes_like.conds.shape[1]
+    return values
+
+
+def row_maxima(state_like, planes_like, index: torch.Tensor) -> torch.Tensor:
+    """K6 `row_maxima`: int64[4] maxima of msize, sp, used storage slots
+    and cond_count over the rows of `index`."""
+    values = _row_source(state_like, planes_like, index)
+    out = torch.empty(4, dtype=torch.int64, device=index.device)
+    values[Lay.K6_OUT_MAXIMA] = out.data_ptr()
+    _launch("mtpu_row_maxima", values)
+    LAUNCHES["pack_rows"] += 1
+    return out
+
+
+def pack_rows(state_like, planes_like, index: torch.Tensor, mem_b: int,
+              sp_b: int, st_b: int, conds_w: int):
+    """K6 `pack_rows`: the rows of `index` packed into (int32, uint8, int64)
+    flat blocks at the widths given."""
+    values = _row_source(state_like, planes_like, index)
+    for name, width, cap in (("mem_b", mem_b, values[Lay.K6_M]),
+                             ("sp_b", sp_b, values[Lay.K6_S]),
+                             ("st_b", st_b, values[Lay.K6_K]),
+                             ("conds_w", conds_w, values[Lay.K6_KC])):
+        if not 0 <= width <= cap:
+            raise ValueError(f"{name} = {width} outside [0, {cap}]")
+    n = index.shape[0]
+    dev = index.device
+    i32 = torch.empty(n * (8 + 16 * sp_b + 32 * st_b + sp_b + mem_b + st_b
+                           + conds_w), dtype=torch.int32, device=dev)
+    u8 = torch.empty(n * (mem_b + 2 * st_b), dtype=torch.uint8, device=dev)
+    gas = torch.empty(n, dtype=torch.int64, device=dev)
+    values[Lay.K6_MEM_B] = mem_b
+    values[Lay.K6_SP_B] = sp_b
+    values[Lay.K6_ST_B] = st_b
+    values[Lay.K6_CONDS_W] = conds_w
+    values[Lay.K6_OUT_I32] = i32.data_ptr()
+    values[Lay.K6_OUT_U8] = u8.data_ptr()
+    values[Lay.K6_OUT_GAS] = gas.data_ptr()
+    _launch("mtpu_pack_rows", values)
+    LAUNCHES["pack_rows"] += 1
+    return i32, u8, gas
+
+
+def reset_esc(sched):
+    """K6 `reset_esc`: the scheduler's escape count to 0, in place."""
+    values = [0] * Lay.K6_NARGS
+    values[Lay.K6_ESC_COUNT] = _check(sched.esc_count, "esc_count",
+                                      torch.int32, ())
+    _launch("mtpu_reset_esc", values)
+    LAUNCHES["pack_rows"] += 1
+    return sched
+
+
+# ---- K7 -----------------------------------------------------------------------------
+
+def _rows_call(entry: str, src_trees, dst_trees, index, src_rows, dst_rows):
+    leaves_src = [leaf for tree in src_trees for leaf in tree]
+    leaves_dst = [leaf for tree in dst_trees for leaf in tree]
+    n = index.shape[0]
+    values = [0] * Lay.K7_NARGS
+    values[Lay.K7_SRC:Lay.K7_SRC + Lay.N_ROW_LEAVES] = (
+        _leaf_ptrs(src_trees[0], _STATE_DTYPES, src_rows, "src")
+        + _leaf_ptrs(src_trees[1], _PLANE_DTYPES, src_rows, "src"))
+    values[Lay.K7_DST:Lay.K7_DST + Lay.N_ROW_LEAVES] = (
+        _leaf_ptrs(dst_trees[0], _STATE_DTYPES, dst_rows, "dst")
+        + _leaf_ptrs(dst_trees[1], _PLANE_DTYPES, dst_rows, "dst"))
+    for position, (src, dst) in enumerate(zip(leaves_src, leaves_dst)):
+        if src.shape[1:] != dst.shape[1:] or src.dtype != dst.dtype:
+            raise ValueError("source and destination rows differ")
+        values[Lay.K7_ROW_BYTES + position] = \
+            int(np.prod(src.shape[1:])) * src.element_size()
+    values[Lay.K7_INDEX] = _check(index, "index", torch.int32, (n,))
+    values[Lay.K7_N] = n
+    values[Lay.K7_SRC_ROWS] = src_rows
+    values[Lay.K7_DST_ROWS] = dst_rows
+    _launch(entry, values)
+    LAUNCHES["gather_rows"] += 1
+
+
+def gather_rows(state, planes, index: torch.Tensor):
+    """K7 gather: the rows of `index` of every leaf, as new (StateBatch,
+    SymPlanes)."""
+    n = index.shape[0]
+    if n == 0:
+        raise ValueError("index: no rows selected")
+    rows = [type(tree)(*[torch.empty((n,) + tuple(leaf.shape[1:]),
+                                     dtype=leaf.dtype, device=leaf.device)
+                         for leaf in tree]) for tree in (state, planes)]
+    _rows_call("mtpu_gather_rows", (state, planes), rows, index,
+               state.status.shape[0], n)
+    return rows[0], rows[1]
+
+
+def scatter_rows(state, planes, index: torch.Tensor, rows_state, rows_planes):
+    """K7 scatter: row i of (rows_state, rows_planes) to lane index[i] of
+    every leaf, in place; indices outside [0, lanes) are dropped."""
+    n = index.shape[0]
+    if n == 0:
+        raise ValueError("index: no rows selected")
+    _rows_call("mtpu_scatter_rows", (rows_state, rows_planes), (state, planes),
+               index, n, state.status.shape[0])
+    return state, planes
+
+
+# ---- K8 -----------------------------------------------------------------------------
+
+def arena_delta(arena, start: int, cstart: int, bucket: int, cbucket: int):
+    """K8: node rows [start, start+bucket) as int32[6, bucket] and const rows
+    [cstart, cstart+cbucket) as int32[cbucket, 16]; both starts clamp so the
+    blocks fit."""
+    cap, ccap = arena.op.shape[0], arena.const_vals.shape[0]
+    if not (0 < bucket <= cap and 0 < cbucket <= ccap):
+        raise ValueError(f"delta buckets {bucket}, {cbucket} outside the arena")
+    values = [0] * Lay.K8_NARGS
+    for position, col in enumerate((arena.op, arena.a, arena.b, arena.c,
+                                    arena.imm, arena.imm2)):
+        values[Lay.K8_COL + position] = _check(col, "arena column",
+                                               torch.int32, (cap,))
+    values[Lay.K8_CONST_VALS] = _check(arena.const_vals, "arena.const_vals",
+                                       torch.int32, (ccap, 16))
+    values[Lay.K8_START] = max(min(int(start), cap - bucket), 0)
+    values[Lay.K8_CSTART] = max(min(int(cstart), ccap - cbucket), 0)
+    values[Lay.K8_BUCKET] = bucket
+    values[Lay.K8_CBUCKET] = cbucket
+    dev = arena.op.device
+    rows = torch.empty((6, bucket), dtype=torch.int32, device=dev)
+    consts = torch.empty((cbucket, 16), dtype=torch.int32, device=dev)
+    values[Lay.K8_OUT_ROWS] = rows.data_ptr()
+    values[Lay.K8_OUT_CONSTS] = consts.data_ptr()
+    _launch("mtpu_arena_delta", values)
+    LAUNCHES["arena_delta"] += 1
+    return rows, consts

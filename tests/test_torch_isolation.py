@@ -24,6 +24,7 @@ bad = sorted(m for m in sys.modules
              or m == "mythril_tpu" or m.startswith("mythril_tpu."))
 print("LOADED", len([m for m in sys.modules
                      if m.startswith("mythril_tpu_torch")]))
+print("FRONTIER", "mythril_tpu_torch.parallel.frontier" in sys.modules)
 print("BAD", bad)
 """
 
@@ -35,12 +36,12 @@ def test_port_and_smoke_import_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
     loaded = int(proc.stdout.split("LOADED")[1].split()[0])
-    assert loaded >= 15
+    assert loaded >= 16 and "FRONTIER True" in proc.stdout
 
 
 def test_entry_points_default_to_cuda():
     from mythril_tpu_torch import device
-    from mythril_tpu_torch.parallel import arena, batch, symstep
+    from mythril_tpu_torch.parallel import arena, batch, frontier, symstep
 
     assert device.resolve("cpu").type == "cpu"
     if torch.cuda.is_available():
@@ -52,4 +53,6 @@ def test_entry_points_default_to_cuda():
         arena.new_arena(16, 4)
     with pytest.raises(RuntimeError):
         symstep.SymPlanes.empty(1, 4, 32, 2)
+    with pytest.raises(RuntimeError):
+        frontier.DeviceFrontier(4)
     assert batch.build_batch([spec], device="cpu").stack.device.type == "cpu"

@@ -38,9 +38,11 @@ def test_layout_matches_pytree_fields():
     assert layout.N_STATE_LEAVES == len(tb.StateBatch._fields)
     for index, name in enumerate(fields):
         assert layout.SLOTS[f"L_{name.upper()}"] == index
-    for prefix in ("K1", "K2", "K3", "K4"):
+    for prefix in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"):
         assert layout.SLOTS[f"{prefix}_NARGS"] <= layout.MTPU_MAX_ARGS
     assert layout.K4_ROW_BYTES + layout.N_ROW_LEAVES == layout.K4_B
+    assert layout.K6_LEAF + layout.N_ROW_LEAVES == layout.K6_INDEX
+    assert layout.K7_ROW_BYTES + layout.N_ROW_LEAVES == layout.K7_INDEX
 
 
 def test_optab_matches_twin_tables():
@@ -63,13 +65,32 @@ def test_wrappers_refuse_cpu_tensors():
     # the dispatching entry points pick the twin only for CPU tensors
     assert torch.equal(tk.keccak256(data, length),
                        tk.keccak256_reference(data, length))
+    planes = ts.SymPlanes.empty(1, 96, 4096, 64, device="cpu")
+    index = torch.zeros(1, dtype=torch.int32)
+    arena = ta.new_arena(64, 16, device="cpu")
+    sched = ts.new_scheduler(state, planes, 2, 2)
+    for call in (lambda: ops.frontier_summary(state, planes, arena, sched),
+                 lambda: ops.row_maxima(state, planes, index),
+                 lambda: ops.pack_rows(state, planes, index, 1, 4, 1, 16),
+                 lambda: ops.reset_esc(sched),
+                 lambda: ops.gather_rows(state, planes, index),
+                 lambda: ops.scatter_rows(state, planes, index, state, planes),
+                 lambda: ops.arena_delta(arena, 0, 0, 16, 16)):
+        with pytest.raises(ValueError):
+            call()
 
 
-def test_library_names_follow_sources():
-    a = build.library_path("keccak")
-    assert a == build.library_path("keccak")
-    assert a != build.library_path("keccak", ["-lineinfo"])
+@pytest.mark.parametrize("name", build.SOURCES)
+def test_library_names_follow_sources(name):
+    a = build.library_path(name)
+    assert a == build.library_path(name)
+    assert a != build.library_path(name, ["-lineinfo"])
     assert os.path.dirname(a) == build.BUILD_DIR
+    assert os.path.basename(a).startswith(f"lib{name}-")
+    assert os.path.exists(os.path.join(build.KERNEL_DIR, f"{name}.cu"))
+    # every exported entry lives in a built source, and every kernel counts
+    assert set(ops._ENTRY_LIB.values()) == set(build.SOURCES)
+    assert set(ops.LAUNCHES) == set(build.SOURCES)
 
 
 # ---- the kernel sources, compiled for the host -------------------------------------
@@ -201,3 +222,60 @@ def test_host_sym_step_matches_twin(on_host):
             plain[3].esc_count.zero_()
             kernel[3].esc_count.zero_()
     assert int(plain[3].pushes) > 0 and int(plain[3].pops) > 0
+
+
+def test_host_frontier_programs_match_twins(on_host):
+    """K5-K8 against their twins on a mid-run state: escape rows buffered,
+    lanes forking; the escape drain's zero-padded index and a lane index
+    padded by repetition; a scatter with a dropped pad; a delta whose
+    start must clamp."""
+    from mythril_tpu_torch.parallel import frontier as tf
+    from test_torch_symstep import CODES as codes
+
+    state, planes, arena = seed_frontier(codes, 8, base_sym=[0])
+    sched = jsym.new_scheduler(state, planes, 4, 6)
+    tree = [to_port(k, t) for k, t in zip(("state", "planes", "arena", "sched"),
+                                          (state, planes, arena, sched))]
+    tree = list(ts.run_chunk_reference(*tree, 24))
+    state, planes, arena, sched = tree
+    assert int(sched.esc_count) > 0
+    assert torch.equal(ops.frontier_summary(*tree),
+                       tf.summary_reference(*tree))
+    esc_index = torch.tensor([0, 1, 2, 0], dtype=torch.int32)[
+        :tf.next_pow2(int(sched.esc_count))]
+    lane_index = torch.tensor([5, 2, 7, 5], dtype=torch.int32)
+    for rows_state, rows_planes, index in (
+            (sched.esc_state, sched.esc_planes, esc_index),
+            (state, planes, lane_index)):
+        maxima = ops.row_maxima(rows_state, rows_planes, index)
+        assert torch.equal(maxima, tf.row_maxima_reference(
+            rows_state, rows_planes, index))
+        for widths in (tf.pack_widths(rows_state, rows_planes,
+                                      *(int(v) for v in maxima)),
+                       (256, 16, 8, 8)):
+            got = ops.pack_rows(rows_state, rows_planes, index, *widths)
+            ref = tf.pack_rows_reference(rows_state, rows_planes, index,
+                                         *widths)
+            for mine, theirs in zip(got, ref):
+                assert mine.dtype == theirs.dtype and torch.equal(mine, theirs)
+    for got, ref in zip(ops.gather_rows(state, planes, lane_index[:2]),
+                        tf.gather_rows_reference(state, planes,
+                                                 lane_index[:2])):
+        _same(got, ref, "gather")
+    rows = tf.gather_rows_reference(sched.esc_state, sched.esc_planes,
+                                    torch.tensor([1, 0], dtype=torch.int32))
+    scatter_index = torch.tensor([3, 8], dtype=torch.int32)  # 8: dropped
+    plain = [convert.clone(t) for t in (state, planes)]
+    kernel = [convert.clone(t) for t in (state, planes)]
+    tf.scatter_rows_reference(*plain, scatter_index, *rows)
+    ops.scatter_rows(*kernel, scatter_index, *rows)
+    _same(kernel[0], plain[0], "scatter state")
+    _same(kernel[1], plain[1], "scatter planes")
+    for start, cstart, bucket, cbucket in ((0, 0, 16, 16), (int(arena.n), 3, 64, 16),
+                                           (4090, 250, 16, 16)):
+        for mine, theirs in zip(
+                ops.arena_delta(arena, start, cstart, bucket, cbucket),
+                ta.fetch_delta_reference(arena, start, cstart, bucket, cbucket)):
+            assert torch.equal(mine, theirs)
+    ops.reset_esc(sched)
+    assert int(sched.esc_count) == 0
