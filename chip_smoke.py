@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one CUDA card
 
-It builds the eight hand-written kernels from the checkout's sources, holds
-each against its plain PyTorch version on the card, then drives the port's
-main device path, the frontier's drain loop (`DeviceFrontier.run` around
-`symstep.run_chunk`), at the frontier's default geometry on a 2^12-path
-contract until the tree is drained. Every phase prints one JSON line; any
-mismatch raises, and the run exits non-zero. Phases:
+It builds the hand-written kernels (K1-K10, nine sources) from the
+checkout's sources, holds each against its plain PyTorch version on the
+card, then drives the port's main device path, the frontier's drain loop
+(`DeviceFrontier.run` around `symstep.run_chunk`), at the frontier's
+default geometry until the tree is drained: with telemetry and state
+merging off (phases 10-11) and in the default configuration with both on
+(phases 12-13). Every phase prints one JSON line; any mismatch raises, and
+the run exits non-zero. Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. K1 keccak vs `keccak256_reference`: 4096 random messages of 0..512
@@ -41,9 +43,25 @@ mismatch raises, and the run exits non-zero. Phases:
      its arena mirror must equal the JAX `_Frontier`'s;
   9. frontier_spill: 16 lanes, 32 stack rows, branchy(10): the deadlock
      spill and the host reseed (K7) run on the card, checked the same way;
- 10. the kernels line: each kernel's launches on the driver phases (8 and
-     9), its time, its plain version's time, the least time the card could
-     take and the library call's time.
+     phases 7-9 run with telemetry and merging off, as the JAX references
+     they are held to;
+ 10. telemetry: K4 with the telemetry plane armed (K9: tag pcs, fleet
+     slots) vs the twins on the planes contracts for 2 chunks, every leaf
+     and counter, and K5's telemetry tail; K9's device cost per step (the
+     TEL instantiation against the plain one);
+ 11. merge_kernel: K10 (around K3) vs `merge_pass_reference` on the states
+     the default-configuration frontier hands its merge passes: branchy(12)
+     (strict rounds) and mem_branchy(8) with its window table (widened
+     rounds); every leaf, the arena and the stats; K10's time per pass;
+ 12. frontier_default: `DeviceFrontier(128)` on branchy(12) with telemetry
+     and merging on, held to the JAX `_Frontier`'s counters, merges,
+     digests and final telemetry words; its wall time and idle share beside
+     phase 8's;
+ 13. frontier_merge: the same on mem_branchy(8) with the tag and window
+     tables the JAX static analysis builds for it (constants here);
+ 14. the kernels line: each kernel's launches on the driver phases (8, 9,
+     12, 13), its time, its plain version's time, the least time the card
+     could take and the library call's time.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result."""
@@ -117,6 +135,70 @@ EXPECTED_SPILL = {
         "0c25dae9844a0f01a578c3796f24b5e37fc84bcb8ab24d4b2ff81e0f5d2c87b2",
     "mirror_sha256":
         "215f5550dfb3a0f8dc7073eccfe283295fcb225bf151e1ad5d84a00c0df9e2b2"}
+
+#: the default configuration (telemetry and merging on) on the same
+#: contract, and on dispatcher(mem_branchy(8)) with the static tables below:
+#: `_Frontier` as above with `telemetry_enabled` and `state_merge` left on,
+#: `_collect_tag_pcs` / `_merge_pc_table` returning what the JAX static
+#: analysis builds for the contract; merge passes, ITEs, memory blends and
+#: refusals summed over the passes' stats vectors, and the final telemetry
+#: words (`_Frontier._tel_prev`). tests/test_torch_frontier.py recomputes
+#: both.
+EXPECTED_DEFAULT = {
+    "chunks": 8, "drains": 4, "drained_rows": 3697, "frozen_rows": 384,
+    "spilled": 0, "reseeded": 0, "lane_steps": 36788, "forks": 4088,
+    "stack_pushes": 3503, "stack_pops": 3503, "deferred_blocks": 7,
+    "deferred_rows": 4081, "mirror_n": 12267, "mirror_n_const": 4089,
+    "merge_passes": 1, "merges": 8, "merge_ites": 0, "mem_blends": 0,
+    "deferred_sha256":
+        "a2dd2a8c592b782ab25ceaeac7da6cdb27bd7478f4bfe83ab52564a48120f2cf",
+    "mirror_sha256":
+        "c220cf2bd2aedee55047622b72ae7c8a77604775969b07d89e66bcec1ed1365a",
+    "blocked_by": {"depth": 60, "mem_sym": 0, "memory": 0,
+                   "storage_keys": 0, "tstore": 0},
+    "telemetry_words": [
+        0, 4089, 0, 4088, 0, 1, 0, 12263, 12265, 1, 0, 0, 0, 4081, 0, 3503, 0,
+        0, 0, 3697, 18744, 0, 0, 585, 3503, 0, 0, 4081, 0, 0, 0, 0, 0, 0, 0,
+        36788, 512, 640, 1024]}
+MERGE_BRANCHES = 8
+EXPECTED_MERGE = {
+    "chunks": 2, "drains": 1, "drained_rows": 129, "frozen_rows": 0,
+    "spilled": 0, "reseeded": 0, "lane_steps": 2476, "forks": 144,
+    "stack_pushes": 0, "stack_pops": 0, "deferred_blocks": 1,
+    "deferred_rows": 129, "mirror_n": 229, "mirror_n_const": 34,
+    "merge_passes": 1, "merges": 16, "merge_ites": 32, "mem_blends": 16,
+    "deferred_sha256":
+        "1cfac54a20031f5641d5430ffee6e25cb5193ee7172818ee94eca1a87bf72520",
+    "mirror_sha256":
+        "90e9fe1ae3f34e16a298fec845094894580de238a35d8bfc54210dfe20ab9165",
+    "blocked_by": {"depth": 8, "mem_sym": 0, "memory": 0,
+                   "storage_keys": 0, "tstore": 0},
+    "telemetry_words": [
+        0, 2, 0, 160, 0, 287, 0, 860, 1037, 1, 0, 0, 0, 129, 0, 0, 0, 0, 0,
+        129, 0, 0, 0, 144, 0, 0, 0, 129, 0, 0, 0, 0, 0, 0, 0, 2476, 128, 0,
+        129, 2, 4, 8, 16, 32, 32, 64, 128]}
+
+#: the JAX static analysis of dispatcher(mem_branchy(8)): its 8 joins (tag
+#: and merge-attribution pcs) and the window table (one 32-byte window per
+#: join, a row for every pc of the join block up to its first MSTORE)
+MEM_BRANCHY_JOINS = [44, 69, 94, 119, 144, 169, 194, 219]
+MEM_BRANCHY_MEM_PCS = [44, 45, 48, 49, 52, 69, 70, 73, 74, 77, 94, 95, 98, 99,
+                       102, 119, 120, 123, 124, 127, 144, 145, 148, 149, 152,
+                       169, 170, 173, 174, 177, 194, 195, 198, 199, 202, 219,
+                       220]
+
+
+def mem_branchy_tables() -> dict:
+    """DeviceFrontier's table arguments for dispatcher(mem_branchy(8))."""
+    names = [f"merge@{pc:#x}" for pc in MEM_BRANCHY_JOINS]
+    # diamond i writes bytes [32 i, 32 i + 32); a row's pc lies in the block
+    # of the last join at or before it
+    windows = [[32 * (sum(join <= pc for join in MEM_BRANCHY_JOINS) - 1)]
+               for pc in MEM_BRANCHY_MEM_PCS]
+    return {"tag_pcs": list(MEM_BRANCHY_JOINS), "tag_names": names,
+            "merge_pcs": list(MEM_BRANCHY_JOINS), "merge_names": list(names),
+            "mem_pcs": list(MEM_BRANCHY_MEM_PCS), "mem_words": windows}
+
 
 # ---- the card's published peaks (H100 SXM data sheet, dense, 700 W) -------------
 PEAK_BYTES_PER_S = 3.35e12
@@ -365,6 +447,26 @@ def mixed_specs(n_lanes: int, seed: int = 7):
     return specs
 
 
+def mem_branchy_contract(n_branches: int) -> str:
+    """bench.py's memory diamonds (bench.py:96): n diamonds whose arms both
+    MSTORE a different constant into the same 32-byte slot before they
+    reconverge; the pad JUMPDEST keeps the siblings in lockstep."""
+    lines = []
+    for i in range(n_branches):
+        lines += [
+            f"PUSH2 {hex(4 + 32 * i)}", "CALLDATALOAD",
+            f"PUSH @t{i}", "JUMPI",
+            f"PUSH1 {hex(2 * i + 1)}", f"PUSH1 {hex(32 * i)}", "MSTORE",
+            f"PUSH @j{i}", "JUMP",
+            f"t{i}:", "JUMPDEST",
+            f"PUSH1 {hex(2 * i + 2)}", f"PUSH1 {hex(32 * i)}", "MSTORE",
+            "JUMPDEST",
+            f"j{i}:", "JUMPDEST",
+        ]
+    lines.append("STOP")
+    return "\n".join(lines)
+
+
 def branchy_contract(n_branches: int) -> str:
     """bench.py's stress body: n sequential branches on distinct calldata
     words whose sides converge, so every combination is a live path."""
@@ -422,10 +524,11 @@ def event_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, names=None) -> float:
     """Mean device time of fn() in ms over `reps` calls: every CUDA function
-    it runs, as torch.profiler (CUPTI) records it, without the host's time
-    to enqueue them."""
+    it runs whose name contains one of `names` (all of them when None), as
+    torch.profiler (CUPTI) records it, without the host's time to enqueue
+    them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -437,9 +540,12 @@ def device_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
     total_us = sum(event.self_device_time_total
                    for event in prof.key_averages()
-                   if event.device_type == DeviceType.CUDA)
+                   if event.device_type == DeviceType.CUDA
+                   and (names is None
+                        or any(name in event.key for name in names)))
     if total_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
+        raise AssertionError(f"the profiler recorded no device time of "
+                             f"{names or 'any function'}")
     return total_us / reps / 1e3
 
 
@@ -853,9 +959,23 @@ def frontier_totals(fr) -> dict:
             "mirror_sha256": frontier.mirror_digest(fr.harena)}
 
 
-def stress_seed(n_branches: int):
-    code = assemble(dispatcher({"stress()": branchy_contract(n_branches)}))
+def stress_seed(n_branches: int, body=None):
+    body = body or branchy_contract(n_branches)
+    code = assemble(dispatcher({"stress()": body}))
     return [(code, {}, False, 10_000_000, 0)]
+
+
+#: DeviceFrontier with telemetry and state merging off (PR 2's runs)
+OFF = {"telemetry": False, "state_merge": False}
+
+
+def default_totals(fr) -> dict:
+    """frontier_totals plus the merge totals and the final telemetry
+    words of a default-configuration run."""
+    return {**frontier_totals(fr), "merge_passes": fr.merge_passes,
+            "merges": fr.merges, "merge_ites": fr.merge_ites,
+            "mem_blends": fr.mem_blends, "blocked_by": dict(fr.blocked_by),
+            "telemetry_words": [int(v) for v in fr.tel_words]}
 
 
 def check_same(got, ref, what: str) -> None:
@@ -867,7 +987,7 @@ def check_same(got, ref, what: str) -> None:
 def phase_frontier_programs(dev) -> list:
     """K5-K8 vs their twins at the main path's shapes, two chunks into the
     slice, each timed beside its twin and its library yardstick."""
-    fr = frontier.DeviceFrontier(LANES, device=dev)
+    fr = frontier.DeviceFrontier(LANES, device=dev, **OFF)
     state, planes = fr.seed(stress_seed(N_BRANCHES))
     sched = fr.new_sched(state, planes)
     arena = fr.arena
@@ -1083,13 +1203,17 @@ def drive_frontier(fr, seeds) -> dict:
             "peak_device_bytes": torch.cuda.max_memory_allocated()}
 
 
-#: CUDA function -> the port kernel (wrapper) that launches it
+#: CUDA function -> the port kernel (wrapper) that launches it (K9 runs
+#: inside sym_pre/sym_post: its device time is phase telemetry's)
 KERNEL_OF = {
     "keccak_rows_kernel": "keccak", "sha_prep_kernel": "evm_step",
     "evm_step_kernel": "evm_step", "arena_alloc_kernel": "arena_alloc",
     "sym_pre_kernel": "sym_step", "sym_mid1_kernel": "sym_step",
     "sym_mid2_kernel": "sym_step", "sym_post_kernel": "sym_step",
     "frontier_summary_kernel": "frontier_summary",
+    "merge_hash_kernel": "merge_pass", "merge_pair_kernel": "merge_pass",
+    "merge_check_kernel": "merge_pass", "merge_nodes_kernel": "merge_pass",
+    "merge_apply_kernel": "merge_pass", "merge_blocked_kernel": "merge_pass",
     "row_maxima_kernel": "pack_rows", "pack_rows_kernel": "pack_rows",
     "reset_esc_kernel": "pack_rows", "gather_rows_kernel": "gather_rows",
     "scatter_rows_kernel": "gather_rows",
@@ -1120,7 +1244,7 @@ def profiled_run(fr, seeds) -> dict:
             continue
         ms = event.self_device_time_total / 1e3
         owner = next((kernel for function, kernel in KERNEL_OF.items()
-                      if event.key.startswith(function)), None)
+                      if function in event.key), None)
         if owner is None:
             other_ms += ms
         else:
@@ -1145,14 +1269,14 @@ def check_totals(totals: dict, expected: dict, what: str) -> None:
 def phase_frontier(dev) -> tuple:
     # the first run of the process pays one-time costs (pinned host pages,
     # the copy stream, pool allocations); the second is the steady state
-    cold = frontier.DeviceFrontier(LANES, device=dev)
+    cold = frontier.DeviceFrontier(LANES, device=dev, **OFF)
     cold_wall = drive_frontier(cold, stress_seed(N_BRANCHES))["wall_s"]
     check_totals(frontier_totals(cold), EXPECTED_FRONTIER, "cold frontier")
-    fr = frontier.DeviceFrontier(LANES, device=dev)
+    fr = frontier.DeviceFrontier(LANES, device=dev, **OFF)
     timing = drive_frontier(fr, stress_seed(N_BRANCHES))
     totals = frontier_totals(fr)
     check_totals(totals, EXPECTED_FRONTIER, "frontier")
-    replay = frontier.DeviceFrontier(LANES, device=dev)
+    replay = frontier.DeviceFrontier(LANES, device=dev, **OFF)
     profiled = profiled_run(replay, stress_seed(N_BRANCHES))
     check_totals(frontier_totals(replay), EXPECTED_FRONTIER, "profiled frontier")
     emit({"phase": "frontier", "contract": f"dispatcher(branchy({N_BRANCHES}))",
@@ -1160,12 +1284,12 @@ def phase_frontier(dev) -> tuple:
           "drain_batch": fr.drain_batch, "arena_capacity": fr.arena.capacity,
           **totals, **timing, "cold_wall_s": cold_wall,
           "profiled": profiled})
-    return timing["launches"], profiled
+    return timing, profiled
 
 
 def phase_frontier_spill(dev) -> dict:
     fr = frontier.DeviceFrontier(SPILL_LANES, device=dev,
-                                 stack_bytes=SPILL_STACK_ROWS * 39306)
+                                 stack_bytes=SPILL_STACK_ROWS * 39306, **OFF)
     timing = drive_frontier(fr, stress_seed(SPILL_BRANCHES))
     if fr.row_bytes != 39306:
         raise AssertionError(f"row bytes {fr.row_bytes} != 39306")
@@ -1177,7 +1301,240 @@ def phase_frontier_spill(dev) -> dict:
           "contract": f"dispatcher(branchy({SPILL_BRANCHES}))",
           "lanes": SPILL_LANES, "stack_rows": SPILL_STACK_ROWS,
           **totals, **timing})
-    return timing["launches"]
+    return timing
+
+
+# ---- phases 10-13: the default configuration ---------------------------------------
+
+#: telemetry tags of phase telemetry: pcs the planes contracts' lanes pass
+#: and one no lane reaches; contexts 0..2 -> fleet slots
+TEL_TAG_PCS = [5, 13, 0x1B, 0x40, 0x7FF]
+TEL_FLEET_SLOTS = [0, 1, 0]
+
+
+def phase_telemetry(dev) -> dict:
+    """K9 (K4's TEL instantiation) and K5's tail vs the twins."""
+    codes = [assemble(dispatcher({"planes()": PLANES_SOURCE})),
+             assemble(dispatcher(KILLBILLY)),
+             assemble(dispatcher({"stress()": branchy_contract(3)}))]
+    tree = seed_frontier(dev, codes, base_sym=[1])
+    tree[3] = tree[3]._replace(telemetry=symstep.new_telemetry(
+        TEL_TAG_PCS, TEL_FLEET_SLOTS, 2, device=dev))
+    plain = [convert.clone(t) for t in tree]
+    snapshot = None
+    for chunk in range(2):
+        tree = list(symstep.run_chunk(*tree, CHUNK))
+        plain = list(symstep.run_chunk_reference(*plain, CHUNK))
+        for kind, got, ref in zip(("state", "planes", "arena", "sched"),
+                                  tree, plain):
+            assert_same(got, ref, f"telemetry chunk {chunk} {kind}")
+        check_same([frontier.summary(*tree)],
+                   [frontier.summary_reference(*plain)], "K5 telemetry tail")
+        if chunk == 0:
+            snapshot = [convert.clone(t) for t in tree]
+        drain(tree, at_stop=False)
+        drain(plain, at_stop=False, reset=frontier.reset_esc_reference)
+    words = symstep.telemetry_words(tree[3].telemetry).cpu().tolist()
+    lifecycle = dict(zip(symstep.LIFECYCLE_NAMES, tree[3].telemetry
+                         .lifecycle.cpu().tolist()))
+    if not (lifecycle["cold_sloads"] and lifecycle["esc_buffered"]
+            and lifecycle["forks_claimed"]):
+        raise AssertionError(f"the telemetry run missed a path: {lifecycle}")
+
+    # K9's device cost per step: the TEL instantiation against the plain
+    # one, a chunk of steps each from the same snapshot (the plane changes
+    # nothing else, so both walk the same states)
+    steps = CHUNK
+    on = [convert.clone(t) for t in snapshot]
+    off = [convert.clone(t) for t in snapshot]
+    off[3] = off[3]._replace(telemetry=None)
+    names = ("sym_pre_kernel", "sym_post_kernel")
+    on_ms = device_ms(lambda _: ops.sym_step(*on), steps, names)
+    off_ms = device_ms(lambda _: ops.sym_step(*off), steps, names)
+    plain_on = [convert.clone(t) for t in snapshot]
+    plain_off = [convert.clone(t) for t in snapshot]
+    plain_off[3] = plain_off[3]._replace(telemetry=None)
+    # the twin's plane costs the device time of its counting ops: the same
+    # on-off difference over every CUDA function of the twin step (its
+    # event-timed step is host-bound and spreads by more than the plane)
+    plain_on_ms = device_ms(
+        lambda _: symstep.sym_step_reference(*plain_on), 16)
+    plain_off_ms = device_ms(
+        lambda _: symstep.sym_step_reference(*plain_off), 16)
+    plain_ms = plain_on_ms - plain_off_ms
+    tel = snapshot[3].telemetry
+    # the plane's words read and written once, two scratch words per lane
+    nbytes = 2 * 8 * int(symstep.telemetry_words(tel).shape[0]) \
+        + LANES * (2 * 4 * 2 + 4) + 4 * (len(TEL_TAG_PCS)
+                                         + len(TEL_FLEET_SLOTS))
+    b_ms, b_by = bound_ms(nbytes, LANES * (4 + len(TEL_TAG_PCS)))
+    emit({"phase": "telemetry", "contracts": ["planes()", "KILLBILLY",
+                                              "branchy(3)"],
+          "chunks": 2, "tag_pcs": TEL_TAG_PCS, "fleet_slots": TEL_FLEET_SLOTS,
+          "telemetry_words": words, "max_abs_err": 0,
+          "step_device_ms": {"tel": on_ms, "plain": off_ms,
+                             "k9": on_ms - off_ms},
+          "twin_step_device_ms": {"tel": plain_on_ms, "plain": plain_off_ms,
+                                  "plane": plain_ms}})
+    return {"name": "telemetry", "route": "cuda",
+            "source": "mythril_tpu_torch/kernels/sym_step.cu",
+            "replaces": "mythril_tpu/parallel/symstep.py:822",
+            "max_abs_err": 0, "ms": on_ms - off_ms,
+            "device_ms": on_ms - off_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": "none: no PyTorch call computes the counters",
+            "held_by": "phase telemetry"}
+
+
+MERGE_RUNS = {"branchy12": (N_BRANCHES, None, {}),
+              "mem_branchy8": (0, mem_branchy_contract(MERGE_BRANCHES),
+                               mem_branchy_tables())}
+
+
+def captured_merges(dev, name) -> list:
+    """The (state, planes, arena, tables) each merge pass of a default
+    DeviceFrontier(128) run on `name` is handed, cloned before the pass."""
+    branches, body, tables = MERGE_RUNS[name]
+    captured = []
+    merge_pass = symstep.merge_pass
+
+    def capture(state, planes, arena, *args, **kwargs):
+        captured.append(([convert.clone(t) for t in (state, planes, arena)],
+                         args, kwargs))
+        return merge_pass(state, planes, arena, *args, **kwargs)
+
+    fr = frontier.DeviceFrontier(LANES, device=dev, **tables)
+    symstep.merge_pass = capture
+    try:
+        fr.run(*fr.seed(stress_seed(branches, body)))
+    finally:
+        symstep.merge_pass = merge_pass
+    return captured
+
+
+def phase_merge_kernel(dev) -> dict:
+    """K10 vs merge_pass_reference on the driver's own pre-merge states."""
+    stats = {}
+    timed = None
+    for name in MERGE_RUNS:
+        captured = captured_merges(dev, name)
+        if not captured:
+            raise AssertionError(f"{name}: the frontier ran no merge pass")
+        totals = None
+        for trees, args, kwargs in captured:
+            kern = [convert.clone(t) for t in trees]
+            plain = [convert.clone(t) for t in trees]
+            tables = symstep._merge_tables(*args, dev)
+            got = ops.merge_pass(*kern, *tables, kwargs["n_rounds"])
+            ref = symstep.merge_pass_reference(*plain, *tables,
+                                               n_rounds=kwargs["n_rounds"])
+            for kind, mine, theirs in zip(("state", "planes", "arena"),
+                                          got[:3], ref[:3]):
+                assert_same(mine, theirs, f"K10 {name} {kind}")
+            check_same([got[3]], [ref[3]], f"K10 {name} stats")
+            totals = ref[3] if totals is None else totals + ref[3]
+            if timed is None and int(ref[3][2]):
+                timed = (trees, tables, kwargs["n_rounds"])
+        stats[name] = {"passes": len(captured),
+                       "stats": totals.cpu().tolist()}
+        if not int(totals[0]):
+            raise AssertionError(f"{name}: no pair merged")
+    if timed is None:
+        raise AssertionError("no merge pass blended memory")
+
+    # K10's time per pass on the first pass that blended memory
+    trees, tables, n_rounds = timed
+
+    def fresh():
+        return [convert.clone(t) for t in trees]
+
+    ms = event_ms(lambda t: ops.merge_pass(*t, *tables, n_rounds), 5,
+                  setup=fresh)
+    plain_ms = event_ms(lambda t: symstep.merge_pass_reference(
+        *t, *tables, n_rounds=n_rounds), 3, setup=fresh)
+    # the clones' copies run inside the profiled span but match no name
+    dev_ms = device_ms(lambda _: ops.merge_pass(*fresh(), *tables, n_rounds),
+                       4, ("merge_", "arena_alloc_kernel"))
+    # the library yardstick: torch.argsort(stable=True) on the first
+    # round's sort keys, against K10's own bitonic sort
+    state, planes, arena = trees
+    static_h = symstep._merge_hash(state, planes, symstep.MERGE_WEAK_LEAVES
+                                   + symstep.MERGE_MEM_LEAVES)
+    cc, _, last, conds_abs, eligible = symstep._merge_keys(state, planes)
+    h = symstep._merge_fold(static_h, conds_abs) * symstep._H_PRIME + cc
+    keys = torch.where(eligible, ((h & symstep._H_MASK) << 1)
+                       | (last > 0).to(torch.int64), symstep._H_SENTINEL)
+    library_ms = event_ms(lambda _: torch.argsort(keys, stable=True), 50)
+    # K10's sort (merge_pair) per launch: n_rounds per phase and the
+    # blocked-by pass's
+    pair_launches = n_rounds * (2 if tables[1].shape[0] else 1) + 1
+    sort_ms = device_ms(
+        lambda _: ops.merge_pass(*fresh(), *tables, n_rounds), 4,
+        ("merge_pair_kernel",)) / pair_launches
+    # each input read once: the lanes' rows of every leaf the pass reads;
+    # each output written once: the new arena nodes and consts
+    read = sum(leaf[0].numel() * leaf.element_size()
+               for leaf in list(state) + list(planes))
+    fresh_tree = fresh()
+    after = ops.merge_pass(*fresh_tree, *tables, n_rounds)[2]
+    new_nodes = int(after.n) - int(arena.n)
+    new_consts = int(after.n_const) - int(arena.n_const)
+    b_ms, b_by = bound_ms(LANES * read + new_nodes * 7 * 4 + new_consts * 64,
+                          0)
+    emit({"phase": "merge_kernel", "runs": stats, "n_rounds": n_rounds,
+          "max_abs_err": 0, "ms_per_pass": ms, "device_ms_per_pass": dev_ms,
+          "plain_ms_per_pass": plain_ms,
+          "sort_device_ms_per_launch": sort_ms, "argsort_ms": library_ms})
+    return {"name": "merge_pass", "route": "cuda",
+            "source": "mythril_tpu_torch/kernels/merge_pass.cu",
+            "replaces": "mythril_tpu/parallel/symstep.py:1057",
+            "max_abs_err": 0, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms,
+            "library": "torch.argsort(stable=True) on the first round's keys "
+                       "(the pass's sort only)",
+            "held_by": "phase merge_kernel"}
+
+
+def phase_frontier_default(dev, off_timing, off_profiled) -> dict:
+    """The default configuration on branchy(12), beside phase frontier's
+    telemetry-and-merge-off run of the same contract."""
+    fr = frontier.DeviceFrontier(LANES, device=dev)
+    timing = drive_frontier(fr, stress_seed(N_BRANCHES))
+    totals = default_totals(fr)
+    check_totals(totals, EXPECTED_DEFAULT, "frontier_default")
+    replay = frontier.DeviceFrontier(LANES, device=dev)
+    profiled = profiled_run(replay, stress_seed(N_BRANCHES))
+    check_totals(default_totals(replay), EXPECTED_DEFAULT,
+                 "profiled frontier_default")
+    emit({"phase": "frontier_default",
+          "contract": f"dispatcher(branchy({N_BRANCHES}))", "lanes": LANES,
+          **totals, **timing, "profiled": profiled,
+          "off": {"wall_s": off_timing["wall_s"],
+                  "idle_share": off_profiled["idle_share"],
+                  "device_busy_ms": off_profiled["device_busy_ms"]},
+          "wall_ratio_on_off": timing["wall_s"] / off_timing["wall_s"]})
+    return timing, profiled
+
+
+def phase_frontier_merge(dev) -> dict:
+    """The default configuration on mem_branchy(8) with its tables: the tag
+    trigger and the widened rounds."""
+    tables = mem_branchy_tables()
+    fr = frontier.DeviceFrontier(LANES, device=dev, **tables)
+    timing = drive_frontier(fr, stress_seed(
+        0, mem_branchy_contract(MERGE_BRANCHES)))
+    totals = default_totals(fr)
+    check_totals(totals, EXPECTED_MERGE, "frontier_merge")
+    if not (fr.mem_blends and fr.merges):
+        raise AssertionError("frontier_merge blended no memory")
+    emit({"phase": "frontier_merge",
+          "contract": f"dispatcher(mem_branchy({MERGE_BRANCHES}))",
+          "lanes": LANES, "tables": {"tags": len(tables["tag_pcs"]),
+                                     "window_rows": len(tables["mem_pcs"])},
+          **totals, "tag_merges": fr.tag_merges, "ite_depth": fr.ite_depth,
+          **timing})
+    return timing
 
 
 def main() -> int:
@@ -1199,10 +1556,19 @@ def main() -> int:
     phase_planes(dev)
     records.append(phase_slice(dev))
     records += phase_frontier_programs(dev)
-    # the main path: the drain loop at full width, then the spill run
+    records.append(phase_telemetry(dev))
+    records.append(phase_merge_kernel(dev))
+    # the main path: the drain loop at full width and the spill run with
+    # telemetry and merging off, then the default configuration
     launches = {name: 0 for name in ops.LAUNCHES}
-    frontier_launches, profiled = phase_frontier(dev)
-    for counts in (frontier_launches, phase_frontier_spill(dev)):
+    off_timing, off_profiled = phase_frontier(dev)
+    driver_launches = [off_timing["launches"],
+                       phase_frontier_spill(dev)["launches"]]
+    default_timing, default_profiled = phase_frontier_default(
+        dev, off_timing, off_profiled)
+    driver_launches += [default_timing["launches"],
+                        phase_frontier_merge(dev)["launches"]]
+    for counts in driver_launches:
         for name, count in counts.items():
             launches[name] += count
     idle = sorted(name for name, count in launches.items() if count == 0)
@@ -1211,10 +1577,16 @@ def main() -> int:
     for record in records:
         name = record["name"]
         record["launches"] = launches[name]
-        # device time per wrapper call on the full-width drain loop
+        # device time per wrapper call on the full-width drain loop: the
+        # off run's, or the default run's for what only it launches (K9
+        # runs inside K4's launches and has no device time of its own)
+        run_timing, run_profiled = (
+            (off_timing, off_profiled) if off_timing["launches"][name]
+            else (default_timing, default_profiled))
+        calls = run_timing["launches"][name]
         record["main_path_device_ms"] = (
-            profiled["kernel_device_ms"][name] / frontier_launches[name]
-            if frontier_launches[name] else None)
+            run_profiled["kernel_device_ms"][name] / calls
+            if calls and name != "telemetry" else None)
     print(CARD, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,23 @@
-// Kernel K3: arena node and constant allocation, one block of one thread
-// per lane.
+// Kernel K3: arena node and constant allocation, one block.
 //
 // Replaces mythril_tpu/parallel/arena.py:105 `alloc_rows` and :146
-// `alloc_consts`. Every wanting lane appends one node: its id is the bump
-// pointer `n` plus the lane's rank among the wanting lanes, taken from a
-// block-wide exclusive scan and never from atomics, so ids and lane order
-// equal the JAX package's. Lanes past capacity get id 0 and an overflow
+// `alloc_consts`. Every wanting entry appends one node: its id is the bump
+// pointer `n` plus the entry's rank among the wanting entries, taken from a
+// block-wide exclusive scan and never from atomics, so ids and entry order
+// equal the JAX package's. Entries past capacity get id 0 and an overflow
 // flag; the pointer saturates at capacity (arena.py:136,168). A VAR node's
 // `cls` is its class bit, a CONST node's 0, any other node's the union of
 // its children's masks, read before this call writes anything. In const
 // mode (`values` given) the words first go to the const pool the same way
 // and the CONST nodes wrap them. The arena is updated in place.
 //
-// Bound: bytes (a few int32 per lane, plus one 64-byte word per const);
-// the scan makes it a single block, so B is at most 1024 lanes.
+// Each thread owns a contiguous run of entries (one entry per thread up to
+// 1024 of them; the merge pass allocates over up to half * S entries): a
+// serial count, one block scan, then a serial walk that hands out the
+// ranks. The const ids and each node's child mask wait in `out_ids` /
+// `out_ovf` between the two scans, so `out_ids` must not alias an input.
+//
+// Bound: bytes (a few int32 per entry, plus one 64-byte word per const).
 #include "common.cuh"
 
 namespace {
@@ -28,87 +32,104 @@ __device__ __forceinline__ int clampi(long long v, int hi) {
 
 __global__ void arena_alloc_kernel(Args a) {
     __shared__ int scan_buf[1024];
-    const int lane = threadIdx.x;
-    const bool active = lane < arg_int(a, K3_BATCH);
-    const uint8_t* want_p = arg_ptr<const uint8_t>(a, K3_WANT);
-    bool want = active && want_p[lane];
-    bool overflow = false;
+    const long long batch = a.v[K3_BATCH];
+    const long long per = (batch + blockDim.x - 1) / blockDim.x;
+    const long long first = static_cast<long long>(threadIdx.x) * per;
+    const long long lo = first < batch ? first : batch;
+    const long long hi = lo + per < batch ? lo + per : batch;
+    const uint8_t* want = arg_ptr<const uint8_t>(a, K3_WANT);
+    int32_t* out_ids = arg_ptr<int32_t>(a, K3_OUT_IDS);
+    uint8_t* out_ovf = arg_ptr<uint8_t>(a, K3_OUT_OVF);
 
     int* n_ptr = arg_ptr<int>(a, K3_N);
     const int cap = arg_int(a, K3_CAP);
     int32_t* cls_col = arg_ptr<int32_t>(a, K3_COL_CLS);
-
-    int op = 0, ca = 0, cb = 0, cc = 0, imm = 0, imm2 = 0;
     const int32_t* values = arg_ptr<const int32_t>(a, K3_VALUES);
     int total;
     if (values) {
-        // const pool: append the lane's word at n_const + rank
+        // const pool: the word of the k-th wanting entry goes to n_const + k;
+        // out_ids keeps its pool index, out_ovf whether the pool was full
         int* nc_ptr = arg_ptr<int>(a, K3_N_CONST);
         const int ccap = arg_int(a, K3_CCAP);
         const int nc0 = *nc_ptr;
-        const int crank = block_exclusive_scan(want ? 1 : 0, scan_buf, &total);
-        const long long cid = static_cast<long long>(nc0) + crank;
-        const bool covf = want && cid >= ccap;
-        if (want && !covf) {
-            int32_t* dst = arg_ptr<int32_t>(a, K3_CONST_VALS) + cid * 16;
-            for (int i = 0; i < 16; ++i) dst[i] = values[16LL * lane + i];
+        int count = 0;
+        for (long long i = lo; i < hi; ++i) count += want[i] != 0;
+        long long cid = static_cast<long long>(nc0)
+                        + block_exclusive_scan(count, scan_buf, &total);
+        for (long long i = lo; i < hi; ++i) {
+            const bool covf = want[i] && cid >= ccap;
+            if (want[i] && !covf) {
+                int32_t* dst = arg_ptr<int32_t>(a, K3_CONST_VALS) + cid * 16;
+                for (int k = 0; k < 16; ++k) dst[k] = values[16 * i + k];
+            }
+            out_ids[i] = want[i] ? static_cast<int>(cid) : 0;
+            out_ovf[i] = covf;
+            cid += want[i] != 0;
         }
-        __syncthreads();
-        if (lane == 0) {
+        if (threadIdx.x == 0) {
             long long nc = static_cast<long long>(nc0) + total;
             *nc_ptr = static_cast<int>(nc < ccap ? nc : ccap);
         }
-        overflow = covf;
-        want = want && !covf;
-        op = CONST_TAG;
-        imm = static_cast<int>(cid);
-    } else if (active) {
-        op = arg_ptr<const int32_t>(a, K3_OP)[lane];
-        ca = arg_ptr<const int32_t>(a, K3_A)[lane];
-        cb = arg_ptr<const int32_t>(a, K3_B)[lane];
-        cc = arg_ptr<const int32_t>(a, K3_C)[lane];
-        imm = arg_ptr<const int32_t>(a, K3_IMM)[lane];
-        imm2 = arg_ptr<const int32_t>(a, K3_IMM2)[lane];
+    } else {
+        // node rows: children's masks are read before any row is written
+        for (long long i = lo; i < hi; ++i) {
+            const int op = arg_ptr<const int32_t>(a, K3_OP)[i];
+            const int imm = arg_ptr<const int32_t>(a, K3_IMM)[i];
+            int cls = 0;
+            if (op == VAR_TAG) cls = 1 << clampi(imm, 30);
+            else if (op != CONST_TAG)
+                cls = cls_col[clampi(arg_ptr<const int32_t>(a, K3_A)[i], cap - 1)]
+                      | cls_col[clampi(arg_ptr<const int32_t>(a, K3_B)[i], cap - 1)]
+                      | cls_col[clampi(arg_ptr<const int32_t>(a, K3_C)[i], cap - 1)];
+            out_ids[i] = cls;
+            out_ovf[i] = 0;
+        }
     }
 
-    // node rows: children's masks are read before any row is written
-    int cls = 0;
-    if (active) {
-        if (op == VAR_TAG) cls = 1 << clampi(imm, 30);
-        else if (op != CONST_TAG)
-            cls = cls_col[clampi(ca, cap - 1)] | cls_col[clampi(cb, cap - 1)]
-                  | cls_col[clampi(cc, cap - 1)];
-    }
     const int n0 = *n_ptr;
-    const int rank = block_exclusive_scan(want ? 1 : 0, scan_buf, &total);
-    const long long id = static_cast<long long>(n0) + rank;
-    const bool ovf = want && id >= cap;
-    const bool ok = want && !ovf;
-    if (ok) {
-        arg_ptr<int32_t>(a, K3_COL_OP)[id] = op;
-        arg_ptr<int32_t>(a, K3_COL_A)[id] = ca;
-        arg_ptr<int32_t>(a, K3_COL_B)[id] = cb;
-        arg_ptr<int32_t>(a, K3_COL_C)[id] = cc;
-        arg_ptr<int32_t>(a, K3_COL_IMM)[id] = imm;
-        arg_ptr<int32_t>(a, K3_COL_IMM2)[id] = imm2;
-        cls_col[id] = cls;
+    int count = 0;
+    for (long long i = lo; i < hi; ++i) count += want[i] && !out_ovf[i];
+    long long id = static_cast<long long>(n0)
+                   + block_exclusive_scan(count, scan_buf, &total);
+    for (long long i = lo; i < hi; ++i) {
+        const bool covf = out_ovf[i];
+        if (!want[i] || covf) {
+            out_ids[i] = 0;
+            continue;
+        }
+        const bool ovf = id >= cap;
+        if (!ovf) {
+            if (values) {
+                arg_ptr<int32_t>(a, K3_COL_OP)[id] = CONST_TAG;
+                arg_ptr<int32_t>(a, K3_COL_A)[id] = 0;
+                arg_ptr<int32_t>(a, K3_COL_B)[id] = 0;
+                arg_ptr<int32_t>(a, K3_COL_C)[id] = 0;
+                arg_ptr<int32_t>(a, K3_COL_IMM)[id] = out_ids[i];
+                arg_ptr<int32_t>(a, K3_COL_IMM2)[id] = 0;
+                cls_col[id] = 0;
+            } else {
+                arg_ptr<int32_t>(a, K3_COL_OP)[id] = arg_ptr<const int32_t>(a, K3_OP)[i];
+                arg_ptr<int32_t>(a, K3_COL_A)[id] = arg_ptr<const int32_t>(a, K3_A)[i];
+                arg_ptr<int32_t>(a, K3_COL_B)[id] = arg_ptr<const int32_t>(a, K3_B)[i];
+                arg_ptr<int32_t>(a, K3_COL_C)[id] = arg_ptr<const int32_t>(a, K3_C)[i];
+                arg_ptr<int32_t>(a, K3_COL_IMM)[id] = arg_ptr<const int32_t>(a, K3_IMM)[i];
+                arg_ptr<int32_t>(a, K3_COL_IMM2)[id] = arg_ptr<const int32_t>(a, K3_IMM2)[i];
+                cls_col[id] = out_ids[i];
+            }
+        }
+        out_ids[i] = ovf ? 0 : static_cast<int>(id);
+        out_ovf[i] = ovf;
+        ++id;
     }
-    if (lane == 0) {
+    if (threadIdx.x == 0) {
         long long n = static_cast<long long>(n0) + total;
         *n_ptr = static_cast<int>(n < cap ? n : cap);
-    }
-    if (active) {
-        arg_ptr<int32_t>(a, K3_OUT_IDS)[lane] = ok ? static_cast<int>(id) : 0;
-        arg_ptr<uint8_t>(a, K3_OUT_OVF)[lane] = ovf || overflow;
     }
 }
 
 MTPU_EXPORT int mtpu_arena_alloc(const long long* values, int n, void* stream) {
     Args a = mtpu_pack(values, n);
-    const int batch = static_cast<int>(a.v[K3_BATCH]);
-    if (batch <= 0 || batch > 1024) return 1;  // cudaErrorInvalidValue
-    int threads = 32;
-    while (threads < batch) threads <<= 1;
-    MTPU_LAUNCH(arena_alloc_kernel, 1, threads, stream, a);
+    if (a.v[K3_BATCH] <= 0) return 1;  // cudaErrorInvalidValue
+    MTPU_LAUNCH(arena_alloc_kernel, 1, block_threads(a.v[K3_BATCH]), stream, a);
     return MTPU_LAUNCH_STATUS();
 }

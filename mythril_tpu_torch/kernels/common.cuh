@@ -51,6 +51,12 @@ enum {
     OPF_VALID = 1, OPF_ESCAPE = 2, OPF_SYM_OK = 4, OPF_PLUMBING = 8
 };
 #define OPF_ENV_CLASS(flags) (((flags) >> 8) & 0xFF)
+// telemetry op class (symstep.OP_CLASS) in bits 16..23
+#define OPF_OP_CLASS(flags) (((flags) >> 16) & 0xFF)
+
+// telemetry plane sizes (symstep.py N_OP_CLASSES, N_LIFECYCLE, N_ESC_CAUSES)
+enum { N_OP_CLASSES = 15, N_LIFECYCLE = 12, N_ESC_CAUSES = 8,
+       MAX_TEL_SLOTS = 64 };
 
 // opcode bytes the kernels test directly
 enum {

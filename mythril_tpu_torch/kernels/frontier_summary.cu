@@ -5,11 +5,13 @@
 //   [stack_top, esc_count, executed, forks, pushes, pops, arena_n,
 //    arena_n_const, esc_msize_max, esc_sp_max, esc_slots_max,
 //    esc_conds_max, B] + status[B] + fork_cond[B] + ctx_id[B]
+// and, when the telemetry plane is armed, its words at the end
+// (frontier.py:138-140): op_hist | lifecycle | esc_cause | occupancy | hwm |
+// tag_occ | fleet_occ, as symstep.telemetry_words lays them out.
 // The four maxima run over the live escape rows (row < esc_count), with a
 // non-live row counting as 0, as the JAX program's `where(live, x, 0)`
 // does; esc_slots is a row's count of used storage slots. Only the
-// single-shard scheduler without telemetry is ported (the wrapper's caller
-// refuses the others).
+// single-shard scheduler is ported (the wrapper's caller refuses others).
 //
 // Bound: bytes (the live rows' four columns, one storage_used row each,
 // and the three lane columns); one block strides over the rows and reduces
@@ -66,6 +68,17 @@ __global__ void frontier_summary_kernel(Args a) {
         out[13 + i] = status[i];
         out[13 + batch + i] = fork_cond[i];
         out[13 + 2LL * batch + i] = ctx_id[i];
+    }
+    if (!a.v[K5_TEL_OP_HIST]) return;
+    const int n_tags = arg_int(a, K5_TEL_N_TAGS), n_fleet = arg_int(a, K5_TEL_N_FLEET);
+    const int parts[7] = {K5_TEL_OP_HIST, K5_TEL_LIFECYCLE, K5_TEL_ESC_CAUSE,
+                          K5_TEL_OCCUPANCY, K5_TEL_HWM, K5_TEL_TAG_OCC, K5_TEL_FLEET_OCC};
+    const int sizes[7] = {N_OP_CLASSES, N_LIFECYCLE, N_ESC_CAUSES, 2, 2, n_tags, n_fleet};
+    long long at = 13 + 3LL * batch;
+    for (int p = 0; p < 7; ++p) {
+        const long long* src = arg_ptr<const long long>(a, parts[p]);
+        for (int i = t; i < sizes[p]; i += nt) out[at + i] = src[i];
+        at += sizes[p];
     }
 }
 

@@ -1,0 +1,544 @@
+// Kernel K10: state merging, one pass around kernel K3.
+//
+// Replaces mythril_tpu/parallel/symstep.py:1057 `merge_pass` (jitted at
+// frontier.py:462-469). Fork siblings reconverged at a join differ only in
+// the sign of their last path condition and in what their arms wrote; a
+// pass pairs them and collapses each pair into one lane. Launches, in the
+// order the wrapper (ops.merge_pass) issues them:
+//
+//   merge_hash    once: each lane's content hashes over the leaves a merge
+//                 must find equal (weak, weak + memory planes, core), one
+//                 block per lane, the leaf sums reduced in shared memory
+//   per round (n_rounds strict, then n_rounds widened with a window table):
+//   merge_pair    one block, a thread per lane: eligibility, the sort key
+//                 (hash of the sign-stripped conds, cond count, last sign),
+//                 a bitonic sort of (key, lane) in shared memory (the stable
+//                 argsort JAX takes: ties keep lane order), the round's roll,
+//                 and the (fi, ti) pairs
+//   merge_check   a block per pair: exact verification; in widened rounds
+//                 the window gather, diff containment and word blendability;
+//                 then the three blend families' allocation requests
+//   K3 + merge_nodes, per family (memory windows, stack, storage): CONST
+//                 nodes for the survivor's and the partner's concrete words,
+//                 the ITE operands, the ITE rows; node ids follow JAX's order
+//   merge_apply   a block per pair: a pair whose blend overflowed the arena
+//                 is cancelled (its nodes stay allocated); else the survivor
+//                 is rewritten, the partner retired, the stats counted
+//   merge_pair (blocked key) and merge_blocked, once: the blocked-by
+//                 accounting charges each unmerged core-equal pair to the
+//                 first gate that refused it.
+//
+// The hashes are int64 wraparound arithmetic in JAX, so here unsigned 64-bit
+// (signed overflow is undefined); uint32 leaves (held as int32) widen with
+// zeros, int32 leaves with their sign, bool and byte leaves as 0..255.
+// Bound: bytes (the hashed and compared rows, a few hundred KB per round at
+// the default geometry); the sort and the per-pair blocks are small, so the
+// pass is bound by its launches.
+#include "words.cuh"
+
+namespace {
+
+enum { MODE_STRICT = 0, MODE_WIDEN = 1, MODE_BLOCKED = 2 };
+enum { FAMILY_MEM = 0, FAMILY_STACK = 1, FAMILY_STORAGE = 2 };
+enum { ITE_OP = 0x0F, STATS_FIXED = 8, MAX_WINS = 32 };
+enum { K_U8 = 1, K_I32 = 4, K_U32 = 5 };  // how a leaf's element widens
+
+constexpr unsigned long long H_PRIME = 1099511628211ULL;
+constexpr unsigned long long H_MASK = (1ULL << 62) - 1;
+constexpr unsigned long long SENTINEL = 0x7FFFFFFFFFFFFFFFULL;
+
+// symstep.MERGE_WEAK_LEAVES, then MERGE_MEM_LEAVES, as (leaf, kind)
+constexpr int N_HASHED = 16, N_WEAK = 14, N_CORE = 8;
+__constant__ int HASHED[N_HASHED][2] = {
+    {L_PC, K_I32}, {L_SP, K_I32}, {L_MSIZE, K_I32}, {L_CODE_LEN, K_I32},
+    {L_RETDATA_LEN, K_I32}, {L_RETDATA, K_U8}, {L_STORAGE_KEYS, K_U32},
+    {L_STORAGE_USED, K_U8}, {L_TSTORE_KEYS, K_U32}, {L_TSTORE_VALS, K_U32},
+    {L_TSTORE_USED, K_U8}, {L_STORAGE_BASE_SYM, K_U8}, {L_SYMBOLIC_ENV, K_U8},
+    {L_CTX_ID, K_I32}, {L_MEMORY, K_U8}, {L_MEM_SYM, K_I32}};
+// symstep.MERGE_CORE_LEAVES as rows of HASHED
+__constant__ int CORE[N_CORE] = {0, 1, 2, 3, 4, 5, 12, 13};
+
+template <class T>
+__device__ __forceinline__ T* lane_leaf(const Args& a, int leaf) {
+    return arg_ptr<T>(a, K10_LANE + leaf);
+}
+
+__device__ __forceinline__ long long row_bytes(const Args& a, int leaf) {
+    return a.v[K10_ROW_BYTES + leaf];
+}
+
+template <class T>
+__device__ __forceinline__ T* fam(const Args& a, int family, int field) {
+    return arg_ptr<T>(a, K10_FAM + family * N_FAM_FIELDS + field);
+}
+
+__device__ __forceinline__ int32_t* info(const Args& a, int row) {
+    return arg_ptr<int32_t>(a, K10_INFO) + static_cast<long long>(row) * arg_int(a, K10_B);
+}
+
+__device__ __forceinline__ unsigned long long fold_mult(long long e) {
+    return (static_cast<unsigned long long>(e) * 2654435761ULL + 0x9E3779B9ULL) | 1ULL;
+}
+
+__device__ __forceinline__ unsigned long long leaf_elem(const Args& a, int leaf,
+                                                        int kind, long long lane,
+                                                        long long e) {
+    const char* row = lane_leaf<const char>(a, leaf) + lane * row_bytes(a, leaf);
+    if (kind == K_U8) return reinterpret_cast<const uint8_t*>(row)[e];
+    const int32_t v = reinterpret_cast<const int32_t*>(row)[e];
+    return kind == K_U32 ? static_cast<unsigned long long>(static_cast<uint32_t>(v))
+                         : static_cast<unsigned long long>(static_cast<long long>(v));
+}
+
+// this thread's share of "rows r1 and r2 of a leaf differ" (strided bytes)
+__device__ bool rows_differ(const Args& a, int leaf, long long r1, long long r2) {
+    const long long rb = row_bytes(a, leaf);
+    const char* base = lane_leaf<const char>(a, leaf);
+    bool d = false;
+    if (rb % 4 == 0) {
+        const int32_t* x = reinterpret_cast<const int32_t*>(base + r1 * rb);
+        const int32_t* y = reinterpret_cast<const int32_t*>(base + r2 * rb);
+        for (long long i = threadIdx.x; i < rb / 4; i += blockDim.x) d = d || x[i] != y[i];
+    } else {
+        for (long long i = threadIdx.x; i < rb; i += blockDim.x)
+            d = d || base[r1 * rb + i] != base[r2 * rb + i];
+    }
+    return d;
+}
+
+// block-wide sum of one int per thread (every thread calls it)
+__device__ int block_add(int v, int* cell) {
+    if (threadIdx.x == 0) *cell = 0;
+    __syncthreads();
+    if (v) atomicAdd(cell, v);
+    __syncthreads();
+    const int total = *cell;
+    __syncthreads();
+    return total;
+}
+
+__device__ __forceinline__ bool block_any(bool v, int* cell) {
+    return block_add(v ? 1 : 0, cell) != 0;
+}
+
+__device__ __forceinline__ int iabs(int v) { return v < 0 ? -v : v; }
+
+// this thread's share of "the sign-stripped conds rows of two lanes differ"
+__device__ bool conds_differ(const Args& a, int ti, int fi) {
+    const int kc = arg_int(a, K10_KC);
+    const int32_t* conds = lane_leaf<const int32_t>(a, L_CONDS);
+    const int li_t = info(a, INFO_LAST_IDX)[ti], li_f = info(a, INFO_LAST_IDX)[fi];
+    bool d = false;
+    for (int j = threadIdx.x; j < kc; j += blockDim.x) {
+        int vt = conds[static_cast<long long>(ti) * kc + j];
+        int vf = conds[static_cast<long long>(fi) * kc + j];
+        if (j == li_t) vt = iabs(vt);
+        if (j == li_f) vf = iabs(vf);
+        d = d || vt != vf;
+    }
+    return d;
+}
+
+__device__ __forceinline__ bool limbs_differ(const int32_t* x, const int32_t* y) {
+    bool d = false;
+    for (int i = 0; i < 16; ++i) d = d || x[i] != y[i];
+    return d;
+}
+
+__device__ __forceinline__ void stat_add(const Args& a, int slot, long long v) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(arg_ptr<long long>(a, K10_STATS) + slot),
+              static_cast<unsigned long long>(v));
+}
+
+}  // namespace
+
+// ---- the lane hashes ---------------------------------------------------------------
+
+__global__ void merge_hash_kernel(Args a) {
+    __shared__ unsigned long long buf[256];
+    __shared__ unsigned long long sums[N_HASHED];
+    const long long lane = blockIdx.x;
+    const int t = threadIdx.x;
+    for (int h = 0; h < N_HASHED; ++h) {
+        const int leaf = HASHED[h][0], kind = HASHED[h][1];
+        const long long n = row_bytes(a, leaf) / (kind == K_U8 ? 1 : 4);
+        unsigned long long s = 0;
+        for (long long e = t; e < n; e += blockDim.x)
+            s += leaf_elem(a, leaf, kind, lane, e) * fold_mult(e);
+        buf[t] = s;
+        __syncthreads();
+        for (int half = blockDim.x / 2; half > 0; half >>= 1) {
+            if (t < half) buf[t] += buf[t + half];
+            __syncthreads();
+        }
+        if (t == 0) sums[h] = buf[0];
+        __syncthreads();
+    }
+    if (t == 0) {
+        unsigned long long weak = 0, core = 0;
+        for (int h = 0; h < N_WEAK; ++h) weak = weak * H_PRIME + sums[h];
+        unsigned long long full = weak;
+        for (int h = N_WEAK; h < N_HASHED; ++h) full = full * H_PRIME + sums[h];
+        for (int c = 0; c < N_CORE; ++c) core = core * H_PRIME + sums[CORE[c]];
+        unsigned long long* hash = arg_ptr<unsigned long long>(a, K10_HASH);
+        const long long B = a.v[K10_B];
+        hash[lane] = weak;
+        hash[B + lane] = full;
+        hash[2 * B + lane] = core;
+    }
+}
+
+// ---- pairing: the sort ---------------------------------------------------------------
+
+__global__ void merge_pair_kernel(Args a) {
+    __shared__ unsigned long long keys[1024];
+    __shared__ int idx[1024];
+    const int t = threadIdx.x, n = blockDim.x;
+    const int B = arg_int(a, K10_B), KC = arg_int(a, K10_KC);
+    const int mode = arg_int(a, K10_MODE);
+    unsigned long long key = SENTINEL;
+    if (t < B) {
+        const int32_t* conds = lane_leaf<const int32_t>(a, L_CONDS) + static_cast<long long>(t) * KC;
+        const int cc = lane_leaf<const int32_t>(a, L_COND_COUNT)[t];
+        const int last_idx = cc - 1 < 0 ? 0 : (cc - 1 > KC - 1 ? KC - 1 : cc - 1);
+        const int last = conds[last_idx];
+        bool elig = lane_leaf<const int32_t>(a, L_STATUS)[t] == ST_RUNNING && cc > 0
+                    && last != 0 && lane_leaf<const int32_t>(a, L_FORK_COND)[t] == 0;
+        int join = 0;
+        if (mode == MODE_WIDEN) {
+            const int pc = lane_leaf<const int32_t>(a, L_PC)[t];
+            const int32_t* mem_pcs = arg_ptr<const int32_t>(a, K10_MEM_PCS);
+            bool at = false;
+            for (int j = arg_int(a, K10_J) - 1; j >= 0; --j)
+                if (mem_pcs[j] == pc) { join = j; at = true; }
+            elig = elig && at;
+        }
+        const unsigned long long* hash = arg_ptr<const unsigned long long>(a, K10_HASH);
+        unsigned long long h;
+        if (mode == MODE_BLOCKED) {
+            h = hash[2 * B + t];
+        } else {
+            unsigned long long s = 0;
+            for (int j = 0; j < KC; ++j) {
+                const int v = j == last_idx ? iabs(conds[j]) : conds[j];
+                s += static_cast<unsigned long long>(static_cast<long long>(v)) * fold_mult(j);
+            }
+            h = hash[(mode == MODE_WIDEN ? 0 : B) + t] * H_PRIME + s;
+            h = h * H_PRIME + static_cast<unsigned long long>(cc);
+        }
+        if (elig) key = ((h & H_MASK) << 1) | (last > 0 ? 1ULL : 0ULL);
+        info(a, INFO_LAST)[t] = last;
+        info(a, INFO_CC)[t] = cc;
+        info(a, INFO_LAST_IDX)[t] = last_idx;
+        info(a, INFO_JOIN)[t] = join;
+        arg_ptr<uint8_t>(a, K10_ELIG)[t] = elig;
+    }
+    keys[t] = key;
+    idx[t] = t;  // pad lanes (t >= B) sort after every real lane
+    __syncthreads();
+    for (int k = 2; k <= n; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+            const int p = t ^ j;
+            if (p > t) {
+                const bool ascending = (t & k) == 0;
+                const bool greater = keys[t] > keys[p] || (keys[t] == keys[p] && idx[t] > idx[p]);
+                if (greater == ascending) {
+                    const unsigned long long kt = keys[t];
+                    keys[t] = keys[p];
+                    keys[p] = kt;
+                    const int it = idx[t];
+                    idx[t] = idx[p];
+                    idx[p] = it;
+                }
+            }
+            __syncthreads();
+        }
+    }
+    // roll(perm, -shift), then (fi, ti) = adjacent positions
+    const int shift = arg_int(a, K10_SHIFT);
+    for (int k = t; k < B / 2; k += n) {
+        arg_ptr<int32_t>(a, K10_FI)[k] = idx[(2 * k + shift) % B];
+        arg_ptr<int32_t>(a, K10_TI)[k] = idx[(2 * k + 1 + shift) % B];
+    }
+}
+
+// ---- pairing: exact verification and the blend requests -----------------------------
+
+__global__ void merge_check_kernel(Args a) {
+    __shared__ int cell;
+    __shared__ int wdiff[MAX_WINS];
+    const int k = blockIdx.x, t = threadIdx.x;
+    const int ti = arg_ptr<const int32_t>(a, K10_TI)[k];
+    const int fi = arg_ptr<const int32_t>(a, K10_FI)[k];
+    const int mode = arg_int(a, K10_MODE);
+    const int S = arg_int(a, K10_S), M = arg_int(a, K10_M), K = arg_int(a, K10_K);
+    const uint8_t* elig = arg_ptr<const uint8_t>(a, K10_ELIG);
+    const int last_t = info(a, INFO_LAST)[ti], last_f = info(a, INFO_LAST)[fi];
+    bool ok = elig[ti] && elig[fi] && last_t > 0 && last_t == -last_f
+              && info(a, INFO_CC)[ti] == info(a, INFO_CC)[fi];
+    bool differs = conds_differ(a, ti, fi);
+    const int n_equal = mode == MODE_WIDEN ? N_WEAK : N_HASHED;
+    for (int h = 0; h < n_equal; ++h) differs = differs || rows_differ(a, HASHED[h][0], ti, fi);
+    ok = ok && !block_any(differs, &cell);
+
+    if (mode == MODE_WIDEN) {
+        // every differing byte or mark inside a valid window of the join, and
+        // each differing window one well-defined word on both sides
+        const int W = arg_int(a, K10_W);
+        const int32_t* wins = arg_ptr<const int32_t>(a, K10_MEM_WORDS)
+                              + static_cast<long long>(info(a, INFO_JOIN)[ti]) * W;
+        const uint8_t* mem = lane_leaf<const uint8_t>(a, L_MEMORY);
+        const int32_t* msym = lane_leaf<const int32_t>(a, L_MEM_SYM);
+        const long long rt = static_cast<long long>(ti) * M, rf = static_cast<long long>(fi) * M;
+        if (t < W) wdiff[t] = 0;
+        int all_diff = 0, win_diff = 0;
+        for (int e = t; e < M; e += blockDim.x)
+            all_diff += mem[rt + e] != mem[rf + e] || msym[rt + e] != msym[rf + e];
+        __syncthreads();
+        for (int c = t; c < W * 32; c += blockDim.x) {
+            const int start = wins[c / 32], e = start + c % 32;
+            if (start >= 0 && start + 32 <= M
+                && (mem[rt + e] != mem[rf + e] || msym[rt + e] != msym[rf + e])) {
+                ++win_diff;
+                atomicAdd(&wdiff[c / 32], 1);
+            }
+        }
+        const int n_all = block_add(all_diff, &cell);
+        const bool contained = n_all == block_add(win_diff, &cell);
+        // the per-window word views (cells gathered at clamped offsets)
+        bool all0_t = true, all0_f = true, clean_t = true, clean_f = true;
+        int first_t = 0, first_f = 0, start = -1;
+        bool live = false;
+        if (t < W) {
+            start = wins[t];
+            live = wdiff[t] > 0 && start >= 0 && start + 32 <= M;
+            auto cell_at = [&](long long row, int j) {
+                const long long e = start + j;
+                return msym[row + (e < 0 ? 0 : (e > M - 1 ? M - 1 : e))];
+            };
+            first_t = cell_at(rt, 0);
+            first_f = cell_at(rf, 0);
+            for (int j = 0; j < 32; ++j) {
+                const int ct = cell_at(rt, j), cf = cell_at(rf, j);
+                all0_t = all0_t && ct == 0;
+                all0_f = all0_f && cf == 0;
+                clean_t = clean_t && ct == first_t + j;
+                clean_f = clean_f && cf == first_f + j;
+            }
+            clean_t = clean_t && first_t != 0 && (first_t & 31) == 0;
+            clean_f = clean_f && first_f != 0 && (first_f & 31) == 0;
+        }
+        const bool blendable = (all0_t || clean_t) && (all0_f || clean_f);
+        ok = ok && contained && !block_any(live && !blendable, &cell);
+        if (t < W) {
+            const long long e = static_cast<long long>(k) * W + t;
+            const bool need = live && ok;
+            fam<uint8_t>(a, FAMILY_MEM, FAM_WANT_CT)[e] = need && all0_t;
+            fam<uint8_t>(a, FAMILY_MEM, FAM_WANT_CF)[e] = need && all0_f;
+            fam<uint8_t>(a, FAMILY_MEM, FAM_WANT_ITE)[e] = need;
+            fam<int32_t>(a, FAMILY_MEM, FAM_PRE_T)[e] = all0_t ? 0 : first_t >> 5;
+            fam<int32_t>(a, FAMILY_MEM, FAM_PRE_F)[e] = all0_f ? 0 : first_f >> 5;
+            fam<int32_t>(a, FAMILY_MEM, FAM_COND)[e] = last_t;
+            if (need && all0_t)
+                limbs16_from_be(mem + rt + start, fam<int32_t>(a, FAMILY_MEM, FAM_VALS_T) + 16 * e);
+            if (need && all0_f)
+                limbs16_from_be(mem + rf + start, fam<int32_t>(a, FAMILY_MEM, FAM_VALS_F) + 16 * e);
+        }
+    }
+    if (t == 0) arg_ptr<uint8_t>(a, K10_OK)[k] = ok;
+
+    // the stack and storage slots that differ: blended through ITE nodes
+    const int sp_t = lane_leaf<const int32_t>(a, L_SP)[ti];
+    for (int family = FAMILY_STACK; family <= FAMILY_STORAGE; ++family) {
+        const bool stack = family == FAMILY_STACK;
+        const int width = stack ? S : K;
+        const int32_t* sym = lane_leaf<const int32_t>(a, stack ? L_STACK_SYM : L_STORAGE_SYM);
+        const int32_t* conc = lane_leaf<const int32_t>(a, stack ? L_STACK : L_STORAGE_VALS);
+        const uint8_t* used = lane_leaf<const uint8_t>(a, L_STORAGE_USED);
+        for (int j = t; j < width; j += blockDim.x) {
+            const long long st = static_cast<long long>(ti) * width + j;
+            const long long sf = static_cast<long long>(fi) * width + j;
+            const int sym_t = sym[st], sym_f = sym[sf];
+            const bool in_use = stack ? j < sp_t : used[st] != 0;
+            const bool diff = ok && in_use
+                && (sym_t != sym_f
+                    || (sym_t == 0 && sym_f == 0 && limbs_differ(conc + 16 * st, conc + 16 * sf)));
+            const long long e = static_cast<long long>(k) * width + j;
+            fam<uint8_t>(a, family, FAM_WANT_CT)[e] = diff && sym_t == 0;
+            fam<uint8_t>(a, family, FAM_WANT_CF)[e] = diff && sym_f == 0;
+            fam<uint8_t>(a, family, FAM_WANT_ITE)[e] = diff;
+            fam<int32_t>(a, family, FAM_PRE_T)[e] = sym_t;
+            fam<int32_t>(a, family, FAM_PRE_F)[e] = sym_f;
+            fam<int32_t>(a, family, FAM_COND)[e] = last_t;
+            for (int i = 0; diff && i < 16; ++i) {
+                fam<int32_t>(a, family, FAM_VALS_T)[16 * e + i] = conc[16 * st + i];
+                fam<int32_t>(a, family, FAM_VALS_F)[16 * e + i] = conc[16 * sf + i];
+            }
+        }
+    }
+}
+
+// the ITE operands: the clean word's / the slot's node, else the new CONST
+__global__ void merge_nodes_kernel(Args a) {
+    const int family = arg_int(a, K10_FAMILY);
+    const int width = family == FAMILY_MEM ? arg_int(a, K10_W)
+                      : (family == FAMILY_STACK ? arg_int(a, K10_S) : arg_int(a, K10_K));
+    const long long n = static_cast<long long>(arg_int(a, K10_B) / 2) * width;
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int pre_t = fam<const int32_t>(a, family, FAM_PRE_T)[i];
+    const int pre_f = fam<const int32_t>(a, family, FAM_PRE_F)[i];
+    fam<int32_t>(a, family, FAM_NODE_T)[i] = pre_t != 0 ? pre_t : fam<const int32_t>(a, family, FAM_IDS_CT)[i];
+    fam<int32_t>(a, family, FAM_NODE_F)[i] = pre_f != 0 ? pre_f : fam<const int32_t>(a, family, FAM_IDS_CF)[i];
+}
+
+// ---- apply: rewrite the survivor, retire the partner -----------------------------------
+
+__global__ void merge_apply_kernel(Args a) {
+    __shared__ int cell;
+    const int k = blockIdx.x, t = threadIdx.x;
+    const int ti = arg_ptr<const int32_t>(a, K10_TI)[k];
+    const int fi = arg_ptr<const int32_t>(a, K10_FI)[k];
+    const bool widen = arg_int(a, K10_MODE) == MODE_WIDEN;
+    const int S = arg_int(a, K10_S), M = arg_int(a, K10_M), K = arg_int(a, K10_K);
+    const int W = arg_int(a, K10_W), KC = arg_int(a, K10_KC);
+    const int widths[3] = {widen ? W : 0, S, K};
+    bool ovf = false;
+    for (int family = 0; family < 3; ++family)
+        for (int j = t; j < widths[family]; j += blockDim.x) {
+            const long long e = static_cast<long long>(k) * widths[family] + j;
+            ovf = ovf || fam<const uint8_t>(a, family, FAM_OVF_CT)[e]
+                  || fam<const uint8_t>(a, family, FAM_OVF_CF)[e]
+                  || fam<const uint8_t>(a, family, FAM_OVF_ITE)[e];
+        }
+    // an arena overflow mid-blend cancels the pair (nodes stay allocated)
+    const bool merged = arg_ptr<const uint8_t>(a, K10_OK)[k] && !block_any(ovf, &cell);
+    if (!merged) return;
+
+    int depth = 0, blends = 0;
+    for (int family = FAMILY_STACK; family <= FAMILY_STORAGE; ++family) {
+        const int width = widths[family];
+        int32_t* sym = lane_leaf<int32_t>(a, family == FAMILY_STACK ? L_STACK_SYM : L_STORAGE_SYM);
+        for (int j = t; j < width; j += blockDim.x) {
+            const long long e = static_cast<long long>(k) * width + j;
+            if (fam<const uint8_t>(a, family, FAM_WANT_ITE)[e]) {
+                sym[static_cast<long long>(ti) * width + j] = fam<const int32_t>(a, family, FAM_IDS_ITE)[e];
+                ++depth;
+            }
+        }
+    }
+    uint8_t* dirty = lane_leaf<uint8_t>(a, L_STORAGE_DIRTY);
+    for (int j = t; j < K; j += blockDim.x)
+        dirty[static_cast<long long>(ti) * K + j] |= dirty[static_cast<long long>(fi) * K + j];
+    if (widen) {
+        const int32_t* wins = arg_ptr<const int32_t>(a, K10_MEM_WORDS)
+                              + static_cast<long long>(info(a, INFO_JOIN)[ti]) * W;
+        int32_t* msym = lane_leaf<int32_t>(a, L_MEM_SYM) + static_cast<long long>(ti) * M;
+        for (int c = t; c < W * 32; c += blockDim.x) {
+            const long long e = static_cast<long long>(k) * W + c / 32;
+            if (!fam<const uint8_t>(a, FAMILY_MEM, FAM_WANT_ITE)[e]) continue;
+            msym[wins[c / 32] + c % 32] = (fam<const int32_t>(a, FAMILY_MEM, FAM_IDS_ITE)[e] << 5) + c % 32;
+            if (c % 32 == 0) { ++depth; ++blends; }
+        }
+    }
+    depth = block_add(depth, &cell);
+    blends = block_add(blends, &cell);
+    if (t != 0) return;
+    int32_t* cond_count = lane_leaf<int32_t>(a, L_COND_COUNT);
+    lane_leaf<int32_t>(a, L_CONDS)[static_cast<long long>(ti) * KC + info(a, INFO_LAST_IDX)[ti]] = 0;
+    cond_count[ti] = info(a, INFO_CC)[ti] - 1;
+    int32_t* branches = lane_leaf<int32_t>(a, L_BRANCHES);
+    if (branches[fi] > branches[ti]) branches[ti] = branches[fi];
+    long long* gas = lane_leaf<long long>(a, L_GAS_USED);
+    if (gas[fi] > gas[ti]) gas[ti] = gas[fi];
+    lane_leaf<int32_t>(a, L_STATUS)[fi] = ST_DEAD;
+
+    stat_add(a, 0, 1);
+    stat_add(a, 1, depth);
+    if (blends) stat_add(a, 2, 1);
+    const int n_tags = arg_int(a, K10_N_TAGS);
+    const int pc = lane_leaf<const int32_t>(a, L_PC)[ti];
+    const int32_t* merge_pcs = arg_ptr<const int32_t>(a, K10_MERGE_PCS);
+    for (int i = 0; i < n_tags; ++i)
+        if (merge_pcs[i] == pc) stat_add(a, STATS_FIXED + i, 1);
+    stat_add(a, STATS_FIXED + n_tags + (depth >= 8 ? 5 : (depth >= 4 ? 4 : depth)), 1);
+}
+
+// ---- blocked-by accounting ----------------------------------------------------------
+
+__global__ void merge_blocked_kernel(Args a) {
+    __shared__ int cell;
+    const int k = blockIdx.x;
+    const int ti = arg_ptr<const int32_t>(a, K10_TI)[k];
+    const int fi = arg_ptr<const int32_t>(a, K10_FI)[k];
+    bool core = false;
+    for (int c = 0; c < N_CORE; ++c) core = core || rows_differ(a, HASHED[CORE[c]][0], ti, fi);
+    const bool core_diff = block_any(core, &cell);
+    const bool conds_diff = block_any(conds_differ(a, ti, fi), &cell);
+    const bool keys_diff = block_any(rows_differ(a, L_STORAGE_KEYS, ti, fi)
+                                     || rows_differ(a, L_STORAGE_USED, ti, fi)
+                                     || rows_differ(a, L_STORAGE_BASE_SYM, ti, fi), &cell);
+    const bool ts_diff = block_any(rows_differ(a, L_TSTORE_KEYS, ti, fi)
+                                   || rows_differ(a, L_TSTORE_VALS, ti, fi)
+                                   || rows_differ(a, L_TSTORE_USED, ti, fi), &cell);
+    const bool msym_diff = block_any(rows_differ(a, L_MEM_SYM, ti, fi), &cell);
+    const bool mem_diff = block_any(rows_differ(a, L_MEMORY, ti, fi), &cell);
+    if (threadIdx.x != 0) return;
+    const uint8_t* elig = arg_ptr<const uint8_t>(a, K10_ELIG);
+    const int last_t = info(a, INFO_LAST)[ti], last_f = info(a, INFO_LAST)[fi];
+    if (!(elig[ti] && elig[fi]) || core_diff) return;
+    const bool sib = last_t > 0 && last_t == -last_f
+                     && info(a, INFO_CC)[ti] == info(a, INFO_CC)[fi] && !conds_diff;
+    // gates in symstep.MERGE_BLOCKED_LABELS order at stats[3..7]
+    int slot;
+    if (!sib) slot = 7;
+    else if (keys_diff) slot = 5;
+    else if (ts_diff) slot = 6;
+    else if (msym_diff) slot = 4;
+    else if (mem_diff) slot = 3;
+    else return;
+    stat_add(a, slot, 1);
+}
+
+namespace {
+
+int launch(void (*kernel)(Args), const long long* values, int n, void* stream,
+           long long grid, int threads) {
+    Args a = mtpu_pack(values, n);
+    const long long batch = a.v[K10_B];
+    if (batch < 2 || batch > 1024 || grid <= 0) return 1;  // cudaErrorInvalidValue
+    MTPU_LAUNCH(kernel, static_cast<unsigned>(grid), threads, stream, a);
+    return MTPU_LAUNCH_STATUS();
+}
+
+long long pairs(const long long* values) { return values[K10_B] / 2; }
+
+}  // namespace
+
+MTPU_EXPORT int mtpu_merge_hash(const long long* v, int n, void* stream) {
+    return launch(merge_hash_kernel, v, n, stream, v[K10_B], 256);
+}
+
+MTPU_EXPORT int mtpu_merge_pair(const long long* v, int n, void* stream) {
+    return launch(merge_pair_kernel, v, n, stream, 1, block_threads(v[K10_B]));
+}
+
+MTPU_EXPORT int mtpu_merge_check(const long long* v, int n, void* stream) {
+    if (v[K10_W] > MAX_WINS) return 1;
+    return launch(merge_check_kernel, v, n, stream, pairs(v), 256);
+}
+
+MTPU_EXPORT int mtpu_merge_nodes(const long long* v, int n, void* stream) {
+    const long long family = v[K10_FAMILY];
+    const long long width = family == FAMILY_MEM ? v[K10_W]
+                            : (family == FAMILY_STACK ? v[K10_S] : v[K10_K]);
+    return launch(merge_nodes_kernel, v, n, stream, (pairs(v) * width + 255) / 256, 256);
+}
+
+MTPU_EXPORT int mtpu_merge_apply(const long long* v, int n, void* stream) {
+    return launch(merge_apply_kernel, v, n, stream, pairs(v), 128);
+}
+
+MTPU_EXPORT int mtpu_merge_blocked(const long long* v, int n, void* stream) {
+    return launch(merge_blocked_kernel, v, n, stream, pairs(v), 128);
+}

@@ -1,4 +1,4 @@
-"""Thin PyTorch wrappers around the hand-written CUDA kernels K1-K8.
+"""Thin PyTorch wrappers around the hand-written CUDA kernels K1-K10.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates what the
 kernel writes with `torch.empty`, fills the kernel's parameter block (slot
@@ -20,9 +20,14 @@ that its main path went through the kernels.
   K7 gather_rows kernels/gather_rows.cu  frontier._gather_rows,
                                          _scatter_rows (frontier.py:79, 88)
   K8 arena_delta kernels/arena_delta.cu  arena._fetch_delta (arena.py:185)
+  K9 telemetry   kernels/sym_step.cu     the telemetry block of sym_step
+                 (TEL instantiation)     (symstep.py:822-908, 359-360)
+  K10 merge_pass kernels/merge_pass.cu   symstep.merge_pass (symstep.py:1057)
 
 A count is per wrapper call: K4's call makes four device launches of its
-own, K6 counts its three entries together and K7 its two.
+own (K9 counts the calls that run its TEL instantiation), K6 counts its
+three entries together, K7 its two, and K10 one per pass, whatever its
+rounds launch (its K3 allocations count as K3's).
 """
 
 from __future__ import annotations
@@ -34,24 +39,33 @@ import numpy as np
 import torch
 
 from . import build, layout as Lay
+from ..parallel.symstep import (ITE_OP, MAX_TEL_SLOTS, MERGE_STATS_FIXED,
+                                N_MERGE_DEPTH)
 
 #: launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"keccak": 0, "evm_step": 0, "arena_alloc": 0,
-                            "sym_step": 0, "frontier_summary": 0,
-                            "pack_rows": 0, "gather_rows": 0,
-                            "arena_delta": 0}
+                            "sym_step": 0, "telemetry": 0,
+                            "frontier_summary": 0, "pack_rows": 0,
+                            "gather_rows": 0, "arena_delta": 0,
+                            "merge_pass": 0}
 
 #: which source each exported entry point lives in
 _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_sha_prep": "evm_step",
               "mtpu_evm_step": "evm_step", "mtpu_arena_alloc": "arena_alloc",
               "mtpu_sym_pre": "sym_step", "mtpu_sym_mid1": "sym_step",
               "mtpu_sym_mid2": "sym_step", "mtpu_sym_post": "sym_step",
+              "mtpu_sym_pre_tel": "sym_step", "mtpu_sym_post_tel": "sym_step",
               "mtpu_frontier_summary": "frontier_summary",
               "mtpu_row_maxima": "pack_rows", "mtpu_pack_rows": "pack_rows",
               "mtpu_reset_esc": "pack_rows",
               "mtpu_gather_rows": "gather_rows",
               "mtpu_scatter_rows": "gather_rows",
-              "mtpu_arena_delta": "arena_delta"}
+              "mtpu_arena_delta": "arena_delta",
+              "mtpu_merge_hash": "merge_pass", "mtpu_merge_pair": "merge_pass",
+              "mtpu_merge_check": "merge_pass",
+              "mtpu_merge_nodes": "merge_pass",
+              "mtpu_merge_apply": "merge_pass",
+              "mtpu_merge_blocked": "merge_pass"}
 _FUNCS: Dict[str, object] = {}
 _OPTABS: Dict[str, torch.Tensor] = {}
 
@@ -96,7 +110,7 @@ def _check(t: torch.Tensor, what: str, dtype, shape=None) -> int:
 def optab(device) -> torch.Tensor:
     """int32[256, 4] opcode table: pops, pushes, minimum gas, and flags
     (valid 1, host escape 2, symbolic-representable 4, plumbing 8, env var
-    class << 8)."""
+    class << 8, telemetry op class << 16)."""
     key = str(device)
     if key not in _OPTABS:
         from ..parallel import lockstep, symstep
@@ -107,7 +121,7 @@ def optab(device) -> torch.Tensor:
         table[:, 2] = lockstep.GAS_MIN
         table[:, 3] = (lockstep.VALID * 1 | lockstep.ESCAPE_OPS * 2
                        | symstep.SYM_OK * 4 | symstep.PLUMBING * 8
-                       | symstep.ENV_CLASS << 8)
+                       | symstep.ENV_CLASS << 8 | symstep.OP_CLASS << 16)
         _OPTABS[key] = torch.from_numpy(table).to(device)
     return _OPTABS[key]
 
@@ -236,11 +250,10 @@ def arena_alloc(arena, want: torch.Tensor, values: Optional[torch.Tensor] = None
                 out_ids: Optional[torch.Tensor] = None,
                 out_ovf: Optional[torch.Tensor] = None):
     """K3: node allocation (`values` None) or const allocation (`values`
-    int32[B, 16]) for the lanes of `want`, in place. Returns (arena, ids,
+    int32[B, 16]) for the entries of `want`, in place (any number of
+    entries; `out_ids` must not alias an input). Returns (arena, ids,
     overflow)."""
     batch = want.shape[0]
-    if batch > 1024:
-        raise ValueError("arena_alloc scans in one block: at most 1024 lanes")
     dev = arena.op.device
     slots = [0] * Lay.K3_NARGS
     slots[Lay.K3_WANT] = _check(want, "want", torch.bool, (batch,))
@@ -283,7 +296,9 @@ def arena_alloc(arena, want: torch.Tensor, values: Optional[torch.Tensor] = None
 
 def sym_step(state, planes, arena, sched):
     """K4 around K2 (and K1) and four K3 allocations: one symbolic step
-    for every lane, every tensor updated in place."""
+    for every lane, every tensor updated in place. With the telemetry plane
+    armed, sym_pre and sym_post are their TEL instantiations (K9), which
+    also count into the plane."""
     dims = _state_dims(state)
     batch = dims["B"]
     if batch > 1024:
@@ -340,8 +355,31 @@ def sym_step(state, planes, arena, sched):
     values[Lay.K4_ISCR] = iscr.data_ptr()
     values[Lay.K4_FSCR] = fscr.data_ptr()
     values[Lay.K4_WSCR] = wscr.data_ptr()
+    tel = sched.telemetry
+    suffix = ""
+    if tel is not None:
+        suffix = "_tel"
+        for slot, tensor, n in _tel_parts(tel, Lay.K4_TEL_OP_HIST,
+                                          Lay.K4_TEL_LIFECYCLE,
+                                          Lay.K4_TEL_ESC_CAUSE,
+                                          Lay.K4_TEL_OCCUPANCY, Lay.K4_TEL_HWM,
+                                          Lay.K4_TEL_TAG_OCC,
+                                          Lay.K4_TEL_FLEET_OCC):
+            values[slot] = _check(tensor, "telemetry", torch.int64, (n,))
+        n_tags, n_fleet = tel.tag_occ.shape[0], tel.fleet_occ.shape[0]
+        n_ctx = tel.fleet_slots.shape[0]
+        if max(n_tags, n_fleet) > MAX_TEL_SLOTS or (n_fleet and not n_ctx):
+            raise ValueError("telemetry: tag or fleet table out of range")
+        values[Lay.K4_TEL_TAG_PCS] = _check(tel.tag_pcs, "tag_pcs",
+                                            torch.int32, (n_tags,))
+        values[Lay.K4_TEL_FLEET_SLOTS] = _check(tel.fleet_slots,
+                                                "fleet_slots", torch.int32,
+                                                (n_ctx,))
+        values[Lay.K4_TEL_N_TAGS] = n_tags
+        values[Lay.K4_TEL_N_CTX] = n_ctx
+        values[Lay.K4_TEL_N_FLEET] = n_fleet
 
-    _launch("mtpu_sym_pre", values)
+    _launch("mtpu_sym_pre" + suffix, values)
     evm_step(state, fscr[Lay.F_FORCE_ESCAPE], fscr[Lay.F_FORCE_FORK])
     _launch("mtpu_sym_mid1", values)
     arena_alloc(arena, fscr[Lay.F_WANT_CA], wscr[Lay.W_A],
@@ -358,16 +396,27 @@ def sym_step(state, planes, arena, sched):
                 a=iscr[Lay.I_ZERO], b=iscr[Lay.I_ZERO], c=iscr[Lay.I_ZERO],
                 imm=iscr[Lay.I_VAR_CLASS], imm2=iscr[Lay.I_VAR_QUAL],
                 out_ids=iscr[Lay.I_IDS_E], out_ovf=fscr[Lay.F_OVF_E])
-    _launch("mtpu_sym_post", values)
+    _launch("mtpu_sym_post" + suffix, values)
     LAUNCHES["sym_step"] += 1
+    if tel is not None:
+        LAUNCHES["telemetry"] += 1
     return state, planes, arena, sched
 
 
 # ---- K5 -----------------------------------------------------------------------------
 
+def _tel_parts(tel, *slots):
+    """(slot, counter tensor, length) of the plane's int64 counters, in
+    `telemetry_words` order, for the given parameter slots."""
+    counters = (tel.op_hist, tel.lifecycle, tel.esc_cause, tel.occupancy,
+                tel.hwm, tel.tag_occ, tel.fleet_occ)
+    return [(slot, tensor, tensor.shape[0])
+            for slot, tensor in zip(slots, counters)]
+
+
 def frontier_summary(state, planes, arena, sched) -> torch.Tensor:
-    """K5: the chunk summary int64[13 + 3B] (single-shard scheduler without
-    telemetry; the caller checks)."""
+    """K5: the chunk summary int64[13 + 3B], then the telemetry words when
+    the plane is armed (single-shard scheduler; the caller checks)."""
     batch = state.status.shape[0]
     esc_rows, slots = sched.esc_state.storage_used.shape
     values = [0] * Lay.K5_NARGS
@@ -398,8 +447,20 @@ def frontier_summary(state, planes, arena, sched) -> torch.Tensor:
     values[Lay.K5_B] = batch
     values[Lay.K5_E] = esc_rows
     values[Lay.K5_K] = slots
-    out = torch.empty(13 + 3 * batch, dtype=torch.int64,
-                      device=state.status.device)
+    n_words = 13 + 3 * batch
+    tel = sched.telemetry
+    if tel is not None:
+        for slot, tensor, n in _tel_parts(tel, Lay.K5_TEL_OP_HIST,
+                                          Lay.K5_TEL_LIFECYCLE,
+                                          Lay.K5_TEL_ESC_CAUSE,
+                                          Lay.K5_TEL_OCCUPANCY, Lay.K5_TEL_HWM,
+                                          Lay.K5_TEL_TAG_OCC,
+                                          Lay.K5_TEL_FLEET_OCC):
+            values[slot] = _check(tensor, "telemetry", torch.int64, (n,))
+            n_words += n
+        values[Lay.K5_TEL_N_TAGS] = tel.tag_occ.shape[0]
+        values[Lay.K5_TEL_N_FLEET] = tel.fleet_occ.shape[0]
+    out = torch.empty(n_words, dtype=torch.int64, device=state.status.device)
     values[Lay.K5_OUT] = out.data_ptr()
     _launch("mtpu_frontier_summary", values)
     LAUNCHES["frontier_summary"] += 1
@@ -557,3 +618,119 @@ def arena_delta(arena, start: int, cstart: int, bucket: int, cbucket: int):
     _launch("mtpu_arena_delta", values)
     LAUNCHES["arena_delta"] += 1
     return rows, consts
+
+
+# ---- K10 ----------------------------------------------------------------------------
+
+#: K10's merge modes and blend families (merge_pass.cu)
+_STRICT, _WIDEN, _BLOCKED = 0, 1, 2
+_FAMILY_MEM, _FAMILY_STACK, _FAMILY_STORAGE = 0, 1, 2
+_FAMILY_FIELDS = ("WANT_CT", "WANT_CF", "WANT_ITE", "VALS_T", "VALS_F",
+                  "PRE_T", "PRE_F", "COND", "IDS_CT", "IDS_CF", "IDS_ITE",
+                  "OVF_CT", "OVF_CF", "OVF_ITE", "NODE_T", "NODE_F")
+#: window columns merge_check holds in shared memory
+MAX_MERGE_WINDOWS = 32
+
+
+def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
+               mem_pcs: torch.Tensor, mem_words: torch.Tensor,
+               n_rounds: int):
+    """K10 around K3: one merge pass, every tensor updated in place.
+    `merge_pcs` int32[K], `mem_pcs` int32[J], `mem_words` int32[J, W].
+    Returns (state, planes, arena, stats int64[8 + K + 6])."""
+    dims = _state_dims(state)
+    batch, slots, kslots = dims["B"], dims["S"], dims["K"]
+    if not 2 <= batch <= 1024:
+        raise ValueError("merge_pass pairs in one block: 2 to 1024 lanes")
+    half = batch // 2
+    dev = state.pc.device
+    n_tags, n_mem = merge_pcs.shape[0], mem_pcs.shape[0]
+    n_wins = mem_words.shape[1]
+    if n_wins > MAX_MERGE_WINDOWS or mem_words.shape[0] != n_mem:
+        raise ValueError(f"mem_words: {tuple(mem_words.shape)} for {n_mem} "
+                         f"pcs, at most {MAX_MERGE_WINDOWS} windows")
+    values = [0] * Lay.K10_NARGS
+    leaves = list(state) + list(planes)
+    values[Lay.K10_LANE:Lay.K10_LANE + Lay.N_ROW_LEAVES] = (
+        _leaf_ptrs(state, _STATE_DTYPES, batch, "state")
+        + _leaf_ptrs(planes, _PLANE_DTYPES, batch, "planes"))
+    values[Lay.K10_ROW_BYTES:Lay.K10_ROW_BYTES + Lay.N_ROW_LEAVES] = [
+        leaf[0].numel() * leaf.element_size() for leaf in leaves]
+    for slot, value in ((Lay.K10_B, batch), (Lay.K10_S, slots),
+                        (Lay.K10_M, dims["M"]), (Lay.K10_K, kslots),
+                        (Lay.K10_KC, planes.conds.shape[1]),
+                        (Lay.K10_W, n_wins), (Lay.K10_J, n_mem),
+                        (Lay.K10_N_TAGS, n_tags)):
+        values[slot] = value
+    values[Lay.K10_MERGE_PCS] = _check(merge_pcs, "merge_pcs", torch.int32,
+                                       (n_tags,))
+    values[Lay.K10_MEM_PCS] = _check(mem_pcs, "mem_pcs", torch.int32,
+                                     (n_mem,))
+    values[Lay.K10_MEM_WORDS] = _check(mem_words, "mem_words", torch.int32)
+
+    def scratch(shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    hashes = scratch((3, batch), torch.int64)
+    lane_info = scratch((Lay.N_INFO, batch))
+    eligible = scratch(batch, torch.bool)
+    fi, ti = scratch(half), scratch(half)
+    ok = scratch(half, torch.bool)
+    stats = scratch(MERGE_STATS_FIXED + n_tags + N_MERGE_DEPTH, torch.int64)
+    for slot, tensor in ((Lay.K10_HASH, hashes), (Lay.K10_INFO, lane_info),
+                         (Lay.K10_ELIG, eligible), (Lay.K10_FI, fi),
+                         (Lay.K10_TI, ti), (Lay.K10_OK, ok),
+                         (Lay.K10_STATS, stats)):
+        values[slot] = tensor.data_ptr()
+    # one table set per blend family, `half * width` entries each
+    families = {}
+    for family, width in ((_FAMILY_MEM, max(n_wins, 1)),
+                          (_FAMILY_STACK, slots), (_FAMILY_STORAGE, kslots)):
+        n = half * width
+        table = {}
+        for field in _FAMILY_FIELDS:
+            if field.startswith(("WANT", "OVF")):
+                table[field] = scratch(n, torch.bool)
+            elif field.startswith("VALS"):
+                table[field] = scratch((n, 16))
+            else:
+                table[field] = scratch(n)
+            values[Lay.K10_FAM + family * Lay.N_FAM_FIELDS
+                   + Lay.SLOTS[f"FAM_{field}"]] = table[field].data_ptr()
+        families[family] = table
+    n_max = half * max(n_wins, slots, kslots, 1)
+    ite_ops = torch.full((n_max,), ITE_OP, dtype=torch.int32, device=dev)
+    zeros = scratch(n_max)
+
+    def blend(family):
+        table = families[family]
+        n = table["COND"].shape[0]
+        arena_alloc(arena, table["WANT_CT"], table["VALS_T"],
+                    out_ids=table["IDS_CT"], out_ovf=table["OVF_CT"])
+        arena_alloc(arena, table["WANT_CF"], table["VALS_F"],
+                    out_ids=table["IDS_CF"], out_ovf=table["OVF_CF"])
+        values[Lay.K10_FAMILY] = family
+        _launch("mtpu_merge_nodes", values)
+        arena_alloc(arena, table["WANT_ITE"], None, op=ite_ops[:n],
+                    a=table["COND"], b=table["NODE_T"], c=table["NODE_F"],
+                    imm=zeros[:n], imm2=zeros[:n], out_ids=table["IDS_ITE"],
+                    out_ovf=table["OVF_ITE"])
+
+    _launch("mtpu_merge_hash", values)
+    for mode in (_STRICT, _WIDEN) if n_mem else (_STRICT,):
+        for round_ in range(n_rounds):
+            values[Lay.K10_MODE] = mode
+            values[Lay.K10_SHIFT] = round_ % 2
+            _launch("mtpu_merge_pair", values)
+            _launch("mtpu_merge_check", values)
+            if mode == _WIDEN:
+                blend(_FAMILY_MEM)
+            blend(_FAMILY_STACK)
+            blend(_FAMILY_STORAGE)
+            _launch("mtpu_merge_apply", values)
+    values[Lay.K10_MODE] = _BLOCKED
+    values[Lay.K10_SHIFT] = 0
+    _launch("mtpu_merge_pair", values)
+    _launch("mtpu_merge_blocked", values)
+    LAUNCHES["merge_pass"] += 1
+    return state, planes, arena, stats

@@ -2,9 +2,8 @@
 //
 // Replaces mythril_tpu/parallel/symstep.py:347 `sym_step` as fused by
 // `run_chunk` (961), `sym_step_many` (974) and `sym_step_many_counted`
-// (990), for the single-shard scheduler without telemetry. One step is four
-// launches of this source around the concrete step (K2) and the four arena
-// allocations (K3):
+// (990), for the single-shard scheduler. One step is four launches of this
+// source around the concrete step (K2) and the four arena allocations (K3):
 //
 //   sym_pre   free ERRORED lanes; reseed DEAD lanes from the DFS stack by
 //             rank (symstep.py:364-391); fetch and classify every lane as
@@ -24,11 +23,33 @@
 // Everything is updated in place. Bound: bytes (the moved rows and the
 // planes each lane touches); a single block leaves most of the card idle,
 // which is the simple form this slice ships.
+//
+// Kernel K9, the telemetry plane (symstep.py:822-908 with 359-360), is the
+// `TEL = true` instantiation of sym_pre and sym_post: no launch of its own,
+// and the `TEL = false` program is the plane-free step, unchanged. sym_pre
+// counts the ERRORED lanes before freeing them, the reseeds and the running
+// lanes, and leaves each escaping lane's cause (most specific wins) and each
+// running lane's fleet slot in scratch rows: both read the lane's pre-step
+// planes, which K2 and sym_post then update in place. sym_post counts op
+// classes, causes, the post-step lifecycle transitions, tag and fleet
+// occupancy into shared-memory integer counters (atomic adds: sums commute,
+// so the counts are exact and ordered as JAX's) and adds them to the plane;
+// the high-water marks read the step's final pool tops.
 #include "common.cuh"
 
 namespace {
 
 enum { VAR_TAG = 0x101, V_CALLDATA_WORD = 1 };
+
+// escape causes (symstep.ESC_CAUSE_NAMES) and lifecycle counters
+// (symstep.LIFECYCLE_NAMES) by index
+enum { EC_HALT = 0, EC_SYM_JUMP_DEST = 1, EC_DETECTOR_BRANCH = 2,
+       EC_SYM_MEM_OFF = 3, EC_DIRTY_MLOAD = 4, EC_SYM_STORAGE_KEY = 5,
+       EC_SYM_MEM_REGION = 6, EC_HOST_OP = 7 };
+enum { LC_RESEEDS = 0, LC_ERR_DEATHS = 1, LC_OVERFLOW_KILLS = 2,
+       LC_BAD_JUMP_DEATHS = 3, LC_ESC_BUFFERED = 4, LC_ESC_FROZEN = 5,
+       LC_FORK_WAITS = 6, LC_COLD_SLOADS = 7, LC_FORKS_CLAIMED = 8,
+       LC_FORKS_PUSHED = 9, LC_FORKS_SPILLED = 10, LC_FROZEN_REVIVED = 11 };
 
 __device__ __forceinline__ long long clampll(long long v, long long lo,
                                              long long hi) {
@@ -95,6 +116,7 @@ __device__ void copy_row(const Args& a, int src_base, long long src_row,
 
 }  // namespace
 
+template <bool TEL>
 __global__ void sym_pre_kernel(Args a) {
     __shared__ int buf[1024];
     __shared__ int mv_src[1024], mv_dst[1024];
@@ -111,6 +133,8 @@ __global__ void sym_pre_kernel(Args a) {
 
     // ---- free ERRORED lanes, reseed DEAD lanes from the stack -------------------
     int st = active ? status[lane] : ST_RUNNING;
+    int n_err = 0;
+    if (TEL) block_exclusive_scan(active && st == ST_ERRORED, buf, &n_err);
     if (active && st == ST_ERRORED) {
         st = ST_DEAD;
         status[lane] = ST_DEAD;
@@ -139,6 +163,14 @@ __global__ void sym_pre_kernel(Args a) {
         *stack_top = top - n_taken;
         *arg_ptr<long long>(a, K4_POPS) += n_taken;
         *arg_ptr<long long>(a, K4_EXECUTED) += n_running;
+        if (TEL) {
+            long long* lifecycle = arg_ptr<long long>(a, K4_TEL_LIFECYCLE);
+            long long* occupancy = arg_ptr<long long>(a, K4_TEL_OCCUPANCY);
+            lifecycle[LC_RESEEDS] += n_taken;
+            lifecycle[LC_ERR_DEATHS] += n_err;
+            occupancy[0] += n_running;
+            occupancy[1] += 1;
+        }
     }
     if (!active) return;  // no block barrier below
 
@@ -241,6 +273,38 @@ __global__ void sym_pre_kernel(Args a) {
     if (running && op == OP_MCOPY) esc = esc || range_has_sym(0, M);
     const bool force_escape = (esc || esc_always) && !force_fork;
 
+    if (TEL) {
+        // the where-chain of symstep.py:836-858: the last matching cause wins
+        int cause = N_ESC_CAUSES;
+        if (force_escape) {
+            bool region = false;
+            if (running && reads_mem && sym1 == 0 && sym2 == 0)
+                region = range_has_sym(off_i, clampll(low32(b_p, &junk), 0, M));
+            if (running && (op == OP_CODECOPY || op == OP_RETURNDATACOPY))
+                region = region || range_has_sym(off_i, clampll(low32(c_p, &junk), 0, M));
+            if (running && op == OP_MCOPY) region = region || range_has_sym(0, M);
+            cause = EC_HOST_OP;
+            if (region) cause = EC_SYM_MEM_REGION;
+            if ((sload_mask || sstore_mask) && sym1 != 0) cause = EC_SYM_STORAGE_KEY;
+            if (mload_dirty) cause = EC_DIRTY_MLOAD;
+            if ((running && (op == OP_MSTORE || op == OP_MLOAD) && sym1 != 0) || cdl_sym_off)
+                cause = EC_SYM_MEM_OFF;
+            if (jumpi_host) cause = EC_DETECTOR_BRANCH;
+            if (running && (op == OP_JUMP || op == OP_JUMPI) && sym1 != 0)
+                cause = EC_SYM_JUMP_DEST;
+            if (esc_always) cause = EC_HALT;
+        }
+        iscr(a, I_TEL_CAUSE)[lane] = cause;
+        // the fleet slot of a running lane's seeding context (-1: none)
+        const int n_ctx = arg_int(a, K4_TEL_N_CTX);
+        int slot = -1;
+        if (running && arg_int(a, K4_TEL_N_FLEET) > 0) {
+            const int ctx = leaf<int32_t>(a, K4_LANE, L_CTX_ID)[lane];
+            slot = arg_ptr<const int32_t>(a, K4_TEL_FLEET_SLOTS)[clampll(ctx, 0, n_ctx - 1)];
+        }
+        iscr(a, I_TEL_SLOT)[lane] = slot;
+    }
+
     iscr(a, I_OP)[lane] = op;
     iscr(a, I_SYM1)[lane] = sym1;
     iscr(a, I_SYM2)[lane] = sym2;
@@ -295,9 +359,13 @@ __global__ void sym_mid2_kernel(Args a) {
     iscr(a, I_NODE_B)[lane] = sym2 != 0 ? sym2 : iscr(a, I_IDS_CB)[lane];
 }
 
+template <bool TEL>
 __global__ void sym_post_kernel(Args a) {
     __shared__ int buf[1024];
     __shared__ int mv_src[1024], mv_dst[1024], mv_base[1024], dead_map[1024];
+    // K9's block counters: op classes, causes, lifecycle, tags, fleet slots
+    __shared__ int tel_count[N_OP_CLASSES + N_ESC_CAUSES + N_LIFECYCLE
+                             + 2 * MAX_TEL_SLOTS];
     const int lane = threadIdx.x;
     const int B = arg_int(a, K4_B), S = arg_int(a, K4_S),
               M = arg_int(a, K4_M), C = arg_int(a, K4_C),
@@ -314,8 +382,12 @@ __global__ void sym_post_kernel(Args a) {
     int32_t* esc_count = arg_ptr<int32_t>(a, K4_ESC_COUNT);
 
     int op = 0, sym1 = 0, sym2 = 0, pre_sp = 0, pre_pc = 0;
-    bool advanced = false, off_fits = false;
+    bool advanced = false, off_fits = false, overflow = false;
     long long off_i = 0;
+    if (TEL)
+        for (int i = lane; i < N_OP_CLASSES + N_ESC_CAUSES + N_LIFECYCLE
+                               + 2 * MAX_TEL_SLOTS; i += blockDim.x)
+            tel_count[i] = 0;
     if (active) {
         op = iscr(a, I_OP)[lane];
         sym1 = iscr(a, I_SYM1)[lane];
@@ -326,9 +398,9 @@ __global__ void sym_post_kernel(Args a) {
         off_i = low32(wscr(a, W_A, lane), &off_fits);
 
         // ---- arena exhaustion kills the lane ---------------------------------------
-        if (fscr(a, F_OVF_CA)[lane] || fscr(a, F_OVF_CB)[lane]
-            || fscr(a, F_OVF_R)[lane] || fscr(a, F_OVF_E)[lane])
-            status[lane] = ST_DEAD;
+        overflow = fscr(a, F_OVF_CA)[lane] || fscr(a, F_OVF_CB)[lane]
+                   || fscr(a, F_OVF_R)[lane] || fscr(a, F_OVF_E)[lane];
+        if (overflow) status[lane] = ST_DEAD;
 
         // ---- stack plane ----------------------------------------------------------
         int new_top;
@@ -429,6 +501,7 @@ __global__ void sym_post_kernel(Args a) {
     block_exclusive_scan(spill, buf, &n_spill);
 
     int count = 0;
+    bool dest_ok = true;
     if (act) {
         // the forker row becomes the post-fork template: sp -= 2, gas charged,
         // +cond appended, dead stack_sym slots cleared
@@ -461,7 +534,7 @@ __global__ void sym_post_kernel(Args a) {
         leaf<int32_t>(a, base, L_FORK_COND)[row] = 0;
         // the forker takes the jump, or dies on an invalid destination
         const int code_len = leaf<int32_t>(a, K4_LANE, L_CODE_LEN)[lane];
-        const bool dest_ok = off_fits && off_i < code_len
+        dest_ok = off_fits && off_i < code_len
             && leaf<uint8_t>(a, K4_LANE, L_JUMPDEST)[L * C + clampll(off_i, 0, C - 1)];
         pc_p[lane] = static_cast<int32_t>(static_cast<uint32_t>(off_i));
         status[lane] = dest_ok ? ST_RUNNING : ST_DEAD;
@@ -472,6 +545,66 @@ __global__ void sym_post_kernel(Args a) {
         *esc_count = esc_used + n_spill;
         *arg_ptr<long long>(a, K4_PUSHES) += n_push;
         *arg_ptr<long long>(a, K4_FORKS) += n_act;
+    }
+    if (!TEL) return;
+
+    // ---- K9: the telemetry plane ------------------------------------------------------
+    int* op_count = tel_count;
+    int* cause_count = op_count + N_OP_CLASSES;
+    int* lc_count = cause_count + N_ESC_CAUSES;
+    int* tag_count = lc_count + N_LIFECYCLE;
+    int* fleet_count = tag_count + MAX_TEL_SLOTS;
+    const int n_tags = arg_int(a, K4_TEL_N_TAGS), n_fleet = arg_int(a, K4_TEL_N_FLEET);
+    if (active) {
+        const bool running = fscr(a, F_WAS_RUNNING)[lane];
+        const bool frozen_fork = fscr(a, F_FROZEN_FORK)[lane];
+        if (running) {
+            atomicAdd(&op_count[OPF_OP_CLASS(optab[4 * op + OPT_FLAGS])], 1);
+            const int32_t* tag_pcs = arg_ptr<const int32_t>(a, K4_TEL_TAG_PCS);
+            for (int k = 0; k < n_tags; ++k)
+                if (pre_pc == tag_pcs[k]) atomicAdd(&tag_count[k], 1);
+        }
+        const int cause = iscr(a, I_TEL_CAUSE)[lane];
+        if (cause < N_ESC_CAUSES) atomicAdd(&cause_count[cause], 1);
+        const int slot = iscr(a, I_TEL_SLOT)[lane];
+        if (slot >= 0 && slot < n_fleet) atomicAdd(&fleet_count[slot], 1);
+        const bool lc[N_LIFECYCLE] = {
+            false, false, overflow, act && !dest_ok, put, esc_now && !put,
+            want && !act, static_cast<bool>(fscr(a, F_SLOAD_COLD)[lane]),
+            have_target, push, spill, frozen_fork && act};
+        for (int k = LC_OVERFLOW_KILLS; k < N_LIFECYCLE; ++k)
+            if (lc[k]) atomicAdd(&lc_count[k], 1);
+    }
+    __syncthreads();
+    const int n_counts = N_OP_CLASSES + N_ESC_CAUSES + N_LIFECYCLE;
+    for (int i = lane; i < n_counts + n_tags + n_fleet; i += blockDim.x) {
+        long long* dst;
+        int value;
+        if (i < N_OP_CLASSES) {
+            dst = arg_ptr<long long>(a, K4_TEL_OP_HIST) + i;
+            value = op_count[i];
+        } else if (i < N_OP_CLASSES + N_ESC_CAUSES) {
+            dst = arg_ptr<long long>(a, K4_TEL_ESC_CAUSE) + (i - N_OP_CLASSES);
+            value = tel_count[i];
+        } else if (i < n_counts) {
+            const int k = i - N_OP_CLASSES - N_ESC_CAUSES;
+            if (k < LC_OVERFLOW_KILLS) continue;  // sym_pre's
+            dst = arg_ptr<long long>(a, K4_TEL_LIFECYCLE) + k;
+            value = lc_count[k];
+        } else if (i < n_counts + n_tags) {
+            dst = arg_ptr<long long>(a, K4_TEL_TAG_OCC) + (i - n_counts);
+            value = tag_count[i - n_counts];
+        } else {
+            dst = arg_ptr<long long>(a, K4_TEL_FLEET_OCC) + (i - n_counts - n_tags);
+            value = fleet_count[i - n_counts - n_tags];
+        }
+        *dst += value;
+    }
+    if (lane == 0) {
+        long long* hwm = arg_ptr<long long>(a, K4_TEL_HWM);
+        const long long tops[2] = {top2 + n_push, esc_used + n_spill};
+        for (int k = 0; k < 2; ++k)
+            if (tops[k] > hwm[k]) hwm[k] = tops[k];
     }
 }
 
@@ -491,7 +624,11 @@ int launch_block(void (*kernel)(Args), const long long* values, int n,
 }  // namespace
 
 MTPU_EXPORT int mtpu_sym_pre(const long long* v, int n, void* stream) {
-    return launch_block(sym_pre_kernel, v, n, stream);
+    return launch_block(sym_pre_kernel<false>, v, n, stream);
+}
+
+MTPU_EXPORT int mtpu_sym_pre_tel(const long long* v, int n, void* stream) {
+    return launch_block(sym_pre_kernel<true>, v, n, stream);
 }
 
 MTPU_EXPORT int mtpu_sym_mid1(const long long* v, int n, void* stream) {
@@ -503,5 +640,9 @@ MTPU_EXPORT int mtpu_sym_mid2(const long long* v, int n, void* stream) {
 }
 
 MTPU_EXPORT int mtpu_sym_post(const long long* v, int n, void* stream) {
-    return launch_block(sym_post_kernel, v, n, stream);
+    return launch_block(sym_post_kernel<false>, v, n, stream);
+}
+
+MTPU_EXPORT int mtpu_sym_post_tel(const long long* v, int n, void* stream) {
+    return launch_block(sym_post_kernel<true>, v, n, stream);
 }

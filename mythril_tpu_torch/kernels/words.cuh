@@ -324,6 +324,14 @@ __device__ __forceinline__ W w_from_be(const uint8_t* bytes) {
     return r;
 }
 
+// 32 big-endian bytes -> 16 stored 16-bit limbs (words.from_bytes,
+// words.py:395)
+__device__ __forceinline__ void limbs16_from_be(const uint8_t* bytes,
+                                                int32_t* out) {
+    for (int i = 0; i < 16; ++i)
+        out[i] = bytes[31 - 2 * i] | (bytes[30 - 2 * i] << 8);
+}
+
 // big-endian byte k of 16 stored 16-bit limbs (words.to_bytes)
 __device__ __forceinline__ uint8_t limbs16_be_byte(const uint32_t* limbs,
                                                    int k) {

@@ -2,11 +2,11 @@
 
 `from_numpy(kind, tree)` takes one of the JAX package's pytrees with every
 leaf already turned into a numpy array (`np.asarray` of each leaf) and
-builds the port's StateBatch / SymPlanes / Arena / DeviceScheduler on a
-device. `to_numpy(tree)` goes back. Every leaf keeps the JAX dtype and shape
-byte for byte: uint32 limb leaves ride as int32 tensors with the same bytes
-and come back as uint32. The JAX package itself is never imported; the tree
-is read by field name."""
+builds the port's StateBatch / SymPlanes / Arena / DeviceScheduler (with
+its Telemetry) on a device. `to_numpy(tree)` goes back. Every leaf keeps
+the JAX dtype and shape byte for byte: uint32 limb leaves ride as int32
+tensors with the same bytes and come back as uint32. The JAX package
+itself is never imported; the tree is read by field name."""
 
 from __future__ import annotations
 
@@ -16,16 +16,17 @@ import torch
 from .. import device as _device
 from .arena import Arena
 from .batch import U32_FIELDS, StateBatch, to_tensor
-from .symstep import DeviceScheduler, SymPlanes
+from .symstep import DeviceScheduler, SymPlanes, Telemetry
 
 KINDS = {"state": StateBatch, "planes": SymPlanes, "arena": Arena,
-         "sched": DeviceScheduler}
+         "sched": DeviceScheduler, "telemetry": Telemetry}
 
 #: (kind, field) pairs whose JAX dtype is uint32
 _U32 = {("state", f) for f in U32_FIELDS} | {("arena", "const_vals")}
 
 _SCHED_TREES = {"stack_state": "state", "esc_state": "state",
-                "stack_planes": "planes", "esc_planes": "planes"}
+                "stack_planes": "planes", "esc_planes": "planes",
+                "telemetry": "telemetry"}
 
 
 def _kind_of(tree) -> str:
@@ -42,12 +43,12 @@ def from_numpy(kind: str, tree, device=None):
     out = {}
     for field in cls._fields:
         leaf = getattr(tree, field, None)
-        if kind == "sched" and field in _SCHED_TREES:
-            out[field] = from_numpy(_SCHED_TREES[field], leaf, dev)
-        elif leaf is None:
+        if leaf is None:
             if field not in cls._field_defaults:
                 raise ValueError(f"{kind}.{field} is missing")
             out[field] = None
+        elif kind == "sched" and field in _SCHED_TREES:
+            out[field] = from_numpy(_SCHED_TREES[field], leaf, dev)
         else:
             out[field] = to_tensor(np.asarray(leaf), dev)
     return cls(**out)

@@ -14,7 +14,10 @@ the JAX driver does with the device's output:
      frontier deadlocks with the sibling stack full;
   4. bulk-drains the escape buffer into packed host rows and mirrors the
      new arena rows, both copied to the host while the next chunk runs;
-  5. reseeds host overflow rows into DEAD lanes once the stack is empty.
+  5. reseeds host overflow rows into DEAD lanes once the stack is empty;
+  6. decodes the telemetry words at the summary's end into per-chunk
+     deltas, and runs a merge pass (`symstep.merge_pass`) when the merge
+     tags' occupancy or the chunk cadence says so.
 
 The device programs between chunks are kernels on CUDA tensors and plain
 PyTorch twins (`*_reference`) on CPU tensors:
@@ -23,13 +26,16 @@ PyTorch twins (`*_reference`) on CPU tensors:
   K6 `row_maxima`, `pack_rows`, `reset_esc`  kernels/pack_rows.cu
   K7 `gather_rows`, `scatter_rows`      kernels/gather_rows.cu
   K8 `arena.fetch_delta`                kernels/arena_delta.cu
+  K10 `symstep.merge_pass`              kernels/merge_pass.cu
 
 What the host does with the drained rows (materializing GlobalStates,
 cold-SLOAD fault-ins) needs the host engine, which is not ported: drained
 rows wait in `deferred` as [rows_state, rows_planes, count, cursor] blocks,
-and a cold-SLOAD pause goes to a caller-given `service_cold` hook. State
-merging, telemetry, work stealing, fleets and checkpoints are not ported;
-this driver runs the configuration with all of them off, on one shard."""
+and a cold-SLOAD pause goes to a caller-given `service_cold` hook. The
+static tables that tag merge points and bound the widened memory merge
+come from the caller (the CFA / absint analysis that builds them is not
+ported). Work stealing, fleets and checkpoints are not ported; the driver
+runs on one shard."""
 
 from __future__ import annotations
 
@@ -60,6 +66,15 @@ MAX_STEPS = 4_096
 DEFAULT_LANES = 128
 #: per-lane path-constraint capacity (conds plane)
 MAX_CONDS = 64
+#: telemetry tag slots (frontier.py:751)
+TAG_SLOTS = 32
+#: merge-attribution and window-table rows (frontier.py:814)
+MERGE_PC_SLOTS = 64
+#: pairing rounds per merge pass (frontier.py:403)
+MERGE_ROUNDS = 6
+#: merge-tag lane visits per chunk that trigger a pass
+#: (MYTHRIL_TPU_MERGE_MIN_LANES)
+MERGE_MIN_LANES = 2
 
 #: words of the summary before its per-lane blocks
 SUMMARY_SCALARS = 13
@@ -77,8 +92,10 @@ def summary_reference(state: StateBatch, planes: SymPlanes, arena: A.Arena,
     """Plain twin of kernel K5 (`_summary`, frontier.py:99): int64[13 + 3B]
     = [stack_top, esc_count, executed, forks, pushes, pops, arena_n,
     arena_n_const, esc_msize_max, esc_sp_max, esc_slots_max,
-    esc_conds_max, batch] + status[B] + fork_cond[B] + ctx_id[B]. Maxima
-    run over the live escape rows (row < esc_count), 0 when none is."""
+    esc_conds_max, batch] + status[B] + fork_cond[B] + ctx_id[B], then,
+    with the plane armed, `symstep.telemetry_words` (frontier.py:138).
+    Maxima run over the live escape rows (row < esc_count), 0 when none
+    is."""
     symstep._check_scheduler(sched)
     esc_rows = sched.esc_state.status.shape[0]
     live = torch.arange(esc_rows, device=state.status.device) \
@@ -96,8 +113,11 @@ def summary_reference(state: StateBatch, planes: SymPlanes, arena: A.Arena,
         live_max(sched.esc_state.storage_used.sum(1, dtype=I32)),
         live_max(sched.esc_planes.cond_count),
         torch.tensor(batch, dtype=I64, device=state.status.device)])
-    return torch.cat([scalars, state.status.to(I64),
-                      planes.fork_cond.to(I64), planes.ctx_id.to(I64)])
+    parts = [scalars, state.status.to(I64), planes.fork_cond.to(I64),
+             planes.ctx_id.to(I64)]
+    if sched.telemetry is not None:
+        parts.append(symstep.telemetry_words(sched.telemetry))
+    return torch.cat(parts)
 
 
 def _rows(index: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -370,18 +390,33 @@ ColdService = Callable[..., Tuple[StateBatch, SymPlanes]]
 
 class DeviceFrontier:
     """The device half of `_Frontier` (frontier.py:558): seeding, scheduler
-    sizing, the chunk loop with its drains, and the hand-over of what is
-    left when the budget runs out. Settings are the JAX knobs' defaults:
-    `stack_bytes`/`esc_bytes` MYTHRIL_TPU_STACK_BYTES/ESC_BYTES,
-    `drain_batch` MYTHRIL_TPU_DRAIN_BATCH (None: max(4 lanes, 1024)),
-    `chunk` and `max_steps` MYTHRIL_TPU_CHUNK/MAX_STEPS."""
+    sizing, the chunk loop with its drains, merges and telemetry, and the
+    hand-over of what is left when the budget runs out. Settings are the
+    JAX knobs' defaults: `stack_bytes`/`esc_bytes`
+    MYTHRIL_TPU_STACK_BYTES/ESC_BYTES, `drain_batch`
+    MYTHRIL_TPU_DRAIN_BATCH (None: max(4 lanes, 1024)), `chunk` and
+    `max_steps` MYTHRIL_TPU_CHUNK/MAX_STEPS, `telemetry` and `state_merge`
+    MYTHRIL_TPU_FRONTIER_TELEMETRY/STATE_MERGE (both on).
+
+    The static tables are the caller's, in the shapes the JAX frontier's
+    `_collect_tag_pcs` (frontier.py:753) and `_merge_pc_table` (816) give:
+    `tag_pcs`/`tag_names` (at most TAG_SLOTS; names "merge@0x..",
+    "loop@0x.."), `merge_pcs`/`merge_names` (at most MERGE_PC_SLOTS) and
+    the window table `mem_pcs` int32[J] / `mem_words` int32[J, W] (-1
+    padded). Without them the frontier behaves as the JAX one does without
+    the CFA: no tags, strict merging on the 4-chunk cadence."""
 
     def __init__(self, n_lanes: int = DEFAULT_LANES, device=None,
                  chunk: int = CHUNK, max_steps: int = MAX_STEPS,
                  stack_bytes: int = 3 << 30, esc_bytes: int = 1 << 30,
                  drain_batch: Optional[int] = None,
                  arena: Optional[A.Arena] = None,
-                 service_cold: Optional[ColdService] = None):
+                 service_cold: Optional[ColdService] = None,
+                 telemetry: bool = True, state_merge: bool = True,
+                 tag_pcs: Sequence[int] = (), tag_names: Sequence[str] = (),
+                 merge_pcs: Sequence[int] = (),
+                 merge_names: Sequence[str] = (),
+                 mem_pcs=None, mem_words=None):
         self.n_lanes = n_lanes
         self.device = _device.resolve(device)
         self.chunk = chunk
@@ -412,6 +447,49 @@ class DeviceFrontier:
         self.drained_rows = 0
         self.frozen_rows = 0   # lanes deferred frozen ESCAPED
         self.row_bytes = 0
+        if len(tag_pcs) != len(tag_names) or len(tag_pcs) > TAG_SLOTS:
+            raise ValueError(f"tag_pcs/tag_names: {len(tag_pcs)} pcs, "
+                             f"{len(tag_names)} names, at most {TAG_SLOTS}")
+        if len(merge_pcs) != len(merge_names) \
+                or len(merge_pcs) > MERGE_PC_SLOTS:
+            raise ValueError("merge_pcs/merge_names: lengths differ or "
+                             f"exceed {MERGE_PC_SLOTS}")
+        self.telemetry = telemetry
+        self.state_merge = state_merge
+        self.tag_pcs = [int(pc) for pc in tag_pcs]
+        self.tag_names = list(tag_names)
+        self.merge_pcs = np.asarray(merge_pcs, dtype=np.int32)
+        self.merge_names = list(merge_names)
+        if mem_pcs is None or not len(mem_pcs):
+            self.mem_pcs = np.zeros(0, dtype=np.int32)
+            self.mem_words = np.zeros((0, 1), dtype=np.int32)
+        else:
+            self.mem_pcs = np.asarray(mem_pcs, dtype=np.int32)
+            self.mem_words = np.asarray(mem_words, dtype=np.int32)
+            if self.mem_words.shape[0] != self.mem_pcs.shape[0] \
+                    or len(self.mem_pcs) > MERGE_PC_SLOTS:
+                raise ValueError("mem_pcs/mem_words: one window row per pc, "
+                                 f"at most {MERGE_PC_SLOTS}")
+        #: telemetry: this phase's last raw words (cumulative on the
+        #: device), the last chunk's merge-tag deltas (the merge trigger)
+        #: and the deltas summed over every phase
+        self.tel_words: Optional[np.ndarray] = None
+        self.last_tag_delta: Optional[np.ndarray] = None
+        self.op_hist = np.zeros(symstep.N_OP_CLASSES, dtype=np.int64)
+        self.lifecycle = np.zeros(symstep.N_LIFECYCLE, dtype=np.int64)
+        self.esc_cause = np.zeros(symstep.N_ESC_CAUSES, dtype=np.int64)
+        self.tag_occupancy = np.zeros(len(self.tag_pcs), dtype=np.int64)
+        self.stack_hwm = self.esc_hwm = 0
+        #: merging: passes run, pairs collapsed (one lane retired each),
+        #: ITE nodes blended, memory windows blended, refusals by gate,
+        #: merges by merge tag and pairs by blended-slot count
+        self.merge_passes = 0
+        self.merges = 0
+        self.merge_ites = 0
+        self.mem_blends = 0
+        self.blocked_by = dict.fromkeys(symstep.MERGE_BLOCKED_LABELS, 0)
+        self.tag_merges: Dict[str, int] = {}
+        self.ite_depth = dict.fromkeys(symstep.MERGE_DEPTH_LABELS, 0)
 
     # -- seeding ------------------------------------------------------------------------
 
@@ -451,7 +529,13 @@ class DeviceFrontier:
                            min(1 << 16, 8 * self.n_lanes,
                                self.esc_bytes // max(row_bytes, 1))))
         self.row_bytes = row_bytes
-        return symstep.new_scheduler(state, planes, stack_rows, esc_rows)
+        telemetry = None
+        if self.telemetry:
+            telemetry = symstep.new_telemetry(self.tag_pcs, device=self.device)
+            self.tel_words = None  # the device counters restart each phase
+            self.last_tag_delta = None
+        return symstep.new_scheduler(state, planes, stack_rows, esc_rows,
+                                     telemetry=telemetry)
 
     def _harena(self, used=None, used_const=None) -> A.HostArena:
         if self.harena is None:
@@ -466,8 +550,8 @@ class DeviceFrontier:
             deadline_s: Optional[float] = None) -> None:
         """Explore until the tree drains, the step budget or `deadline_s`
         (seconds of device phase) runs out, or the arena nears capacity
-        (frontier.py:1068-1363 with merge, steal, telemetry, fleet and
-        checkpoints off). What is left goes to `deferred` (`hand_over`)."""
+        (frontier.py:1068-1363 with steal, fleet and checkpoints off).
+        What is left goes to `deferred` (`hand_over`)."""
         chunk = self.chunk
         headroom = max(ARENA_HEADROOM, 4 * chunk * self.n_lanes)
         if headroom > self.arena.capacity // 2:
@@ -476,6 +560,8 @@ class DeviceFrontier:
         sched = self.new_sched(state, planes)
         stack_rows = sched.stack_state.status.shape[0]
         drain_batch = min(self.drain_batch, sched.esc_state.status.shape[0])
+        merge_by_tags = self.telemetry and any(
+            name.startswith("merge@") for name in self.tag_names)
         lane_base, fork_base = self.lane_steps, self.forks
         push_base, pop_base = self.stack_pushes, self.stack_pops
         steps = 0
@@ -504,6 +590,8 @@ class DeviceFrontier:
             base = SUMMARY_SCALARS
             status = packed[base:base + n].astype(np.int32)
             fork_cond = packed[base + n:base + 2 * n].astype(np.int32)
+            if sched.telemetry is not None:
+                self._publish_telemetry(packed[base + 3 * n:])
             self.lane_steps = lane_base + executed
             self.forks = fork_base + forks
             self.stack_pushes = push_base + pushes
@@ -556,6 +644,21 @@ class DeviceFrontier:
                 dirty = True
             if dirty:
                 state.status.copy_(torch.from_numpy(status))
+            # after the status upload, which would otherwise resurrect the
+            # partners a merge retires on the device (frontier.py:1298)
+            if self.state_merge and int(np.sum(status == RUNNING)) >= 2:
+                if merge_by_tags and self.last_tag_delta is not None:
+                    due = any(int(count) >= MERGE_MIN_LANES
+                              for name, count in zip(self.tag_names,
+                                                     self.last_tag_delta)
+                              if name.startswith("merge@"))
+                else:
+                    due = (steps // chunk) % 4 == 0
+                if due:
+                    state, planes, self.arena, mstats = symstep.merge_pass(
+                        state, planes, self.arena, self.merge_pcs,
+                        self.mem_pcs, self.mem_words, n_rounds=MERGE_ROUNDS)
+                    self._publish_merge(mstats.cpu().numpy())
             if not ((status == RUNNING) | (status == FORKING)).any() \
                     and stack_top == 0 and esc_count == 0 \
                     and not self.pending:
@@ -563,6 +666,57 @@ class DeviceFrontier:
                 return
         self._flush_backlog(backlog)
         self.hand_over(state, planes, sched)
+
+    # -- telemetry and merge decoding -------------------------------------------------
+
+    def _publish_telemetry(self, tel_words) -> None:
+        """One chunk's telemetry words (cumulative device counters) into
+        per-chunk deltas summed on the object (frontier.py:1365)."""
+        tel_words = np.asarray(tel_words, dtype=np.int64)
+        prev = self.tel_words
+        if prev is None or prev.shape != tel_words.shape:
+            prev = np.zeros_like(tel_words)
+        delta = tel_words - prev
+        self.tel_words = tel_words
+        n_op, n_lc = symstep.N_OP_CLASSES, symstep.N_LIFECYCLE
+        n_ec = symstep.N_ESC_CAUSES
+        fixed = symstep.TELEMETRY_FIXED_WORDS
+        self.op_hist += delta[:n_op]
+        self.lifecycle += delta[n_op:n_op + n_lc]
+        self.esc_cause += delta[n_op + n_lc:n_op + n_lc + n_ec]
+        self.stack_hwm, self.esc_hwm = (int(v) for v in tel_words[fixed - 2:
+                                                                  fixed])
+        self.last_tag_delta = delta[fixed:fixed + len(self.tag_names)]
+        self.tag_occupancy += self.last_tag_delta
+
+    def _publish_merge(self, mstats: np.ndarray) -> None:
+        """One merge pass's stats vector, decoded as `_publish_merge`
+        (frontier.py:868) does: [merges, ites, mem_blends, blocked_by[5],
+        tag_hits[K], depth_hist[6]]."""
+        fixed = symstep.MERGE_STATS_FIXED
+        merge_names = self.merge_names
+        n_tags = len(merge_names)
+        self.merge_passes += 1
+        for label, count in zip(symstep.MERGE_BLOCKED_LABELS, mstats[3:8]):
+            self.blocked_by[label] += int(count)
+        merges = int(mstats[0])
+        if not merges:
+            return
+        self.merges += merges
+        self.merge_ites += int(mstats[1])
+        self.mem_blends += int(mstats[2])
+        tagged = 0
+        for name, count in zip(merge_names, mstats[fixed:fixed + n_tags]):
+            if count:
+                tagged += int(count)
+                self.tag_merges[name] = self.tag_merges.get(name, 0) \
+                    + int(count)
+        if merges > tagged:
+            self.tag_merges["untagged"] = self.tag_merges.get(
+                "untagged", 0) + merges - tagged
+        for label, count in zip(symstep.MERGE_DEPTH_LABELS,
+                                mstats[fixed + n_tags:]):
+            self.ite_depth[label] += int(count)
 
     # -- row transfers ------------------------------------------------------------------
 

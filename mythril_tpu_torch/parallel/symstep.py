@@ -1,4 +1,4 @@
-"""Symbolic lockstep, core (port of mythril_tpu/parallel/symstep.py:186-1001).
+"""Symbolic lockstep, core (port of mythril_tpu/parallel/symstep.py:86-1426).
 
 Symbolic words live as int32 arena node ids in planes parallel to the
 concrete StateBatch (SymPlanes). One `sym_step` for all lanes:
@@ -20,8 +20,15 @@ and K3 (and K1 through K2); it updates every tensor in place. On CPU
 tensors it runs `sym_step_reference`, the plain twin, which rebuilds the
 lane state and updates the scheduler pools and the arena in place.
 
-Only the single-shard scheduler without telemetry is ported: anything else
-raises NotImplementedError."""
+With `DeviceScheduler.telemetry` armed, the step also accumulates the
+telemetry plane (op-class histogram, escape causes, lifecycle counters,
+occupancy, high-water marks, tag and fleet occupancy); on the card that is
+K4's `TEL` instantiation (kernel K9). `merge_pass` (state merging) runs
+kernel K10 (`kernels/merge_pass.cu`, around K3) on CUDA tensors and
+`merge_pass_reference` on CPU tensors.
+
+Only the single-shard scheduler is ported: a sharded one raises
+NotImplementedError."""
 
 from __future__ import annotations
 
@@ -33,7 +40,8 @@ import torch
 from .. import device as _device
 from . import arena as A
 from . import lockstep, words
-from .batch import DEAD, ERRORED, ESCAPED, FORKING, RUNNING, StateBatch
+from .batch import (DEAD, ERRORED, ESCAPED, FORKING, RUNNING, U32_FIELDS,
+                    StateBatch)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -65,6 +73,56 @@ for _name, _cls in [("CALLER", A.V_CALLER), ("ORIGIN", A.V_ORIGIN),
                     ("CALLDATASIZE", A.V_CALLDATASIZE)]:
     ENV_CLASS[O[_name]] = _cls
 
+# ---- telemetry plane (symstep.py:86-183) --------------------------------------------
+# Device-resident counters accumulated inside the step and appended to the
+# per-chunk summary. `DeviceScheduler.telemetry is None` selects the step
+# without them: on the card a separate instantiation of K4 (`TEL = false`).
+
+#: opcode byte -> execution-histogram class
+OP_CLASS_NAMES = ("arith", "cmp", "keccak", "env", "block", "mem",
+                  "storage", "jump", "push", "dup", "swap", "log", "call",
+                  "halt", "other")
+N_OP_CLASSES = len(OP_CLASS_NAMES)
+OP_CLASS = np.full(256, OP_CLASS_NAMES.index("other"), dtype=np.int32)
+OP_CLASS[0x01:0x0C] = OP_CLASS_NAMES.index("arith")
+OP_CLASS[0x10:0x1E] = OP_CLASS_NAMES.index("cmp")
+OP_CLASS[0x20] = OP_CLASS_NAMES.index("keccak")
+OP_CLASS[0x30:0x40] = OP_CLASS_NAMES.index("env")
+OP_CLASS[0x5A] = OP_CLASS_NAMES.index("env")        # GAS
+OP_CLASS[0x40:0x4B] = OP_CLASS_NAMES.index("block")
+for _byte in (0x50, 0x51, 0x52, 0x53, 0x59, 0x5E):  # POP, M*, MSIZE, MCOPY
+    OP_CLASS[_byte] = OP_CLASS_NAMES.index("mem")
+for _byte in (0x54, 0x55, 0x5C, 0x5D):              # SLOAD/SSTORE/TLOAD/TSTORE
+    OP_CLASS[_byte] = OP_CLASS_NAMES.index("storage")
+for _byte in (0x56, 0x57, 0x58, 0x5B):              # JUMP/JUMPI/PC/JUMPDEST
+    OP_CLASS[_byte] = OP_CLASS_NAMES.index("jump")
+OP_CLASS[0x5F:0x80] = OP_CLASS_NAMES.index("push")
+OP_CLASS[0x80:0x90] = OP_CLASS_NAMES.index("dup")
+OP_CLASS[0x90:0xA0] = OP_CLASS_NAMES.index("swap")
+OP_CLASS[0xA0:0xA5] = OP_CLASS_NAMES.index("log")
+OP_CLASS[0xF0:0xFB] = OP_CLASS_NAMES.index("call")
+for _byte in (0x00, 0xF3, 0xFD, 0xFE, 0xFF):  # STOP/RETURN/REVERT/INVALID/SD
+    OP_CLASS[_byte] = OP_CLASS_NAMES.index("halt")
+
+#: lane lifecycle transition counters
+LIFECYCLE_NAMES = ("reseeds", "err_deaths", "overflow_kills",
+                   "bad_jump_deaths", "esc_buffered", "esc_frozen",
+                   "fork_waits", "cold_sloads", "forks_claimed",
+                   "forks_pushed", "forks_spilled", "frozen_revived")
+N_LIFECYCLE = len(LIFECYCLE_NAMES)
+
+#: why lanes escaped to the host, priority-ordered most-specific-last
+ESC_CAUSE_NAMES = ("halt", "sym_jump_dest", "detector_branch",
+                   "sym_mem_off", "dirty_mload", "sym_storage_key",
+                   "sym_mem_region", "host_op")
+N_ESC_CAUSES = len(ESC_CAUSE_NAMES)
+
+#: summary words contributed before the variable-length tag_occ block
+TELEMETRY_FIXED_WORDS = N_OP_CLASSES + N_LIFECYCLE + N_ESC_CAUSES + 2 + 2
+
+#: tag and fleet slots the kernel's shared-memory counters hold
+MAX_TEL_SLOTS = 64
+
 _TABLES = {}
 
 
@@ -76,8 +134,53 @@ def _tables(device) -> dict:
             "plumbing": torch.from_numpy(PLUMBING).to(device),
             "env_class": torch.from_numpy(ENV_CLASS.astype(np.int64))
             .to(device),
+            "op_class": torch.from_numpy(OP_CLASS.astype(np.int64))
+            .to(device),
         }
     return _TABLES[key]
+
+
+class Telemetry(NamedTuple):
+    """Device-resident frontier counters (cumulative across chunks)."""
+
+    op_hist: torch.Tensor      # int64[N_OP_CLASSES] executed per class
+    lifecycle: torch.Tensor    # int64[N_LIFECYCLE]
+    esc_cause: torch.Tensor    # int64[N_ESC_CAUSES]
+    occupancy: torch.Tensor    # int64[2] (running-lane-step sum, steps)
+    hwm: torch.Tensor          # int64[2] (stack_top, esc_count high water)
+    tag_pcs: torch.Tensor      # int32[K] static merge/loop-header pcs
+    tag_occ: torch.Tensor      # int64[K] running-lane-steps at each tag
+    fleet_slots: torch.Tensor  # int32[C] seeding context -> fleet slot
+    fleet_occ: torch.Tensor    # int64[F] running-lane-steps per slot
+
+
+def new_telemetry(tag_pcs=None, fleet_slots=None, n_fleet: int = 0,
+                  device=None) -> Telemetry:
+    """Zeroed counter plane (symstep.py:152). `tag_pcs` are byte addresses
+    to count lane occupancy at; `fleet_slots` maps each seeding-context
+    index to one of `n_fleet` slots (empty: no fleet block)."""
+    dev = _device.resolve(device)
+    pcs = np.asarray([] if tag_pcs is None else list(tag_pcs), dtype=np.int32)
+    slots = np.asarray([] if fleet_slots is None else list(fleet_slots),
+                       dtype=np.int32)
+
+    def zeros(n):
+        return torch.zeros(int(n), dtype=I64, device=dev)
+
+    return Telemetry(
+        op_hist=zeros(N_OP_CLASSES), lifecycle=zeros(N_LIFECYCLE),
+        esc_cause=zeros(N_ESC_CAUSES), occupancy=zeros(2), hwm=zeros(2),
+        tag_pcs=torch.from_numpy(pcs).to(dev), tag_occ=zeros(pcs.shape[0]),
+        fleet_slots=torch.from_numpy(slots).to(dev),
+        fleet_occ=zeros(n_fleet))
+
+
+def telemetry_words(tel: Telemetry) -> torch.Tensor:
+    """The counters as the int64 vector appended to the summary (layout:
+    op_hist | lifecycle | esc_cause | occupancy | hwm | tag_occ |
+    fleet_occ; symstep.py:176)."""
+    return torch.cat([tel.op_hist, tel.lifecycle, tel.esc_cause,
+                      tel.occupancy, tel.hwm, tel.tag_occ, tel.fleet_occ])
 
 
 class SymPlanes(NamedTuple):
@@ -136,7 +239,7 @@ class DeviceScheduler(NamedTuple):
     pushes: torch.Tensor       # int64[] siblings pushed to the stack
     pops: torch.Tensor         # int64[] siblings reseeded from the stack
     enabled: torch.Tensor      # bool[] False = freeze/escape semantics
-    telemetry: Optional[object] = None
+    telemetry: Optional[Telemetry] = None  # None = counters off
     steals_sent: Optional[torch.Tensor] = None
     steals_received: Optional[torch.Tensor] = None
     steal_rows: Optional[torch.Tensor] = None
@@ -144,11 +247,10 @@ class DeviceScheduler(NamedTuple):
 
 def new_scheduler(state: StateBatch, planes: SymPlanes, stack_rows: int,
                   esc_rows: int, disabled: bool = False,
-                  telemetry=None, n_shards: int = 1) -> DeviceScheduler:
+                  telemetry: Optional[Telemetry] = None,
+                  n_shards: int = 1) -> DeviceScheduler:
     """Allocate scheduler pools shaped like (state, planes) rows on the
-    state's device."""
-    if telemetry is not None:
-        raise NotImplementedError("the telemetry plane is not ported yet")
+    state's device; `telemetry` arms the counter plane."""
     if n_shards != 1:
         raise NotImplementedError("sharded schedulers are not ported yet")
     dev = state.stack.device
@@ -172,13 +274,18 @@ def new_scheduler(state: StateBatch, planes: SymPlanes, stack_rows: int,
         pushes=scalar(0, I64),
         pops=scalar(0, I64),
         enabled=scalar(not disabled, torch.bool),
+        telemetry=telemetry,
     )
 
 
 def _check_scheduler(sched: DeviceScheduler) -> None:
-    if sched.telemetry is not None or sched.stack_top.dim() != 0:
-        raise NotImplementedError(
-            "only the single-shard scheduler without telemetry is ported")
+    if sched.stack_top.dim() != 0:
+        raise NotImplementedError("only the single-shard scheduler is ported")
+    tel = sched.telemetry
+    if tel is not None and max(tel.tag_pcs.shape[0],
+                               tel.fleet_occ.shape[0]) > MAX_TEL_SLOTS:
+        raise ValueError(f"telemetry: more than {MAX_TEL_SLOTS} tag or "
+                         "fleet slots")
 
 
 def _where_rows(mask, rows, leaf):
@@ -234,6 +341,8 @@ def sym_step_reference(state: StateBatch, planes: SymPlanes, arena: A.Arena,
     lane = torch.arange(batch, device=dev)
     enabled = sched.enabled
 
+    # counted before ERRORED lanes are freed (symstep.py:359)
+    n_err_freed = (state.status == ERRORED).sum()
     state = state._replace(status=torch.where(
         state.status == ERRORED, DEAD, state.status).to(I32))
 
@@ -340,17 +449,18 @@ def sym_step_reference(state: StateBatch, planes: SymPlanes, arena: A.Arena,
     esc = esc | ((sload_mask | sstore_mask) & (sym1 != 0))
     reads_mem = is_op("SHA3") | is_op("RETURN") | is_op("REVERT")
     size_for_read = torch.where(reads_mem, lockstep.word_to_i64(b_limbs)[0], 0)
-    esc = esc | (running & reads_mem & (sym1 == 0) & (sym2 == 0)
-                 & _range_has_sym(planes.mem_sym, off_i,
-                                  size_for_read.clamp(0, mem_cap)))
+    copy_size_i = lockstep.word_to_i64(lockstep.peek(state, 3))[0]
+    # reads or copies over symbolic memory bytes
+    mem_region = (running & reads_mem & (sym1 == 0) & (sym2 == 0)
+                  & _range_has_sym(planes.mem_sym, off_i,
+                                   size_for_read.clamp(0, mem_cap))) \
+        | (running & (is_op("CODECOPY") | is_op("RETURNDATACOPY"))
+           & _range_has_sym(planes.mem_sym, off_i,
+                            copy_size_i.clamp(0, mem_cap))) \
+        | (running & is_op("MCOPY") & torch.any(planes.mem_sym != 0, dim=1))
+    esc = esc | mem_region
     esc = esc | (running & symbolic_env & is_op("CALLDATACOPY"))
     esc = esc | (running & symbolic_env & is_op("SELFBALANCE"))
-    copy_size_i = lockstep.word_to_i64(lockstep.peek(state, 3))[0]
-    esc = esc | (running & (is_op("CODECOPY") | is_op("RETURNDATACOPY"))
-                 & _range_has_sym(planes.mem_sym, off_i,
-                                  copy_size_i.clamp(0, mem_cap)))
-    esc = esc | (running & is_op("MCOPY")
-                 & torch.any(planes.mem_sym != 0, dim=1))
     force_escape = (esc | esc_always) & ~force_fork
 
     # ---- concrete semantics (forced-out lanes untouched) ----------------------------
@@ -523,6 +633,52 @@ def sym_step_reference(state: StateBatch, planes: SymPlanes, arena: A.Arena,
                            state_b.status))
     new_planes = planes_b._replace(
         fork_cond=torch.where(act, 0, planes_b.fork_cond).to(I32))
+
+    # ---- telemetry (symstep.py:822-908) --------------------------------------------
+    tel = sched.telemetry
+    if tel is not None:
+        # the most specific matching cause wins (the where-chain's order)
+        cause = torch.full((batch,), N_ESC_CAUSES, dtype=I64, device=dev)
+        for mask, name in (
+                (force_escape, "host_op"),
+                (mem_region, "sym_mem_region"),
+                ((sload_mask | sstore_mask) & (sym1 != 0), "sym_storage_key"),
+                (mload_dirty, "dirty_mload"),
+                ((running & (is_op("MSTORE") | is_op("MLOAD")) & (sym1 != 0))
+                 | cdl_sym_off, "sym_mem_off"),
+                (jumpi_host, "detector_branch"),
+                (running & (is_op("JUMP") | is_op("JUMPI")) & (sym1 != 0),
+                 "sym_jump_dest"),
+                (esc_always, "halt")):
+            cause = torch.where(mask, ESC_CAUSE_NAMES.index(name), cause)
+
+        def hist(values, n):
+            values = values[(values >= 0) & (values < n)]
+            return torch.bincount(values, minlength=n)[:n]
+
+        lc_deltas = torch.stack([
+            n_taken, n_err_freed, overflow.sum(), (act & ~dest_ok).sum(),
+            put.sum(), (esc_now & ~put).sum(), (want & ~act).sum(),
+            sload_cold.sum(), have_target.sum(), push.sum(), spill.sum(),
+            (frozen_fork & act).sum()]).to(I64)
+        tag_occ = tel.tag_occ + (running[:, None] & (
+            state.pc[:, None] == tel.tag_pcs[None, :])).sum(0)
+        fleet_occ = tel.fleet_occ
+        if fleet_occ.shape[0]:
+            n_ctx = tel.fleet_slots.shape[0]
+            slot = tel.fleet_slots[planes.ctx_id.to(I64).clamp(0, n_ctx - 1)]
+            fleet_occ = fleet_occ + hist(slot[running].to(I64),
+                                         fleet_occ.shape[0])
+        sched = sched._replace(telemetry=tel._replace(
+            op_hist=tel.op_hist + hist(stab["op_class"][op[running]],
+                                       N_OP_CLASSES),
+            lifecycle=tel.lifecycle + lc_deltas,
+            esc_cause=tel.esc_cause + hist(cause[force_escape], N_ESC_CAUSES),
+            occupancy=tel.occupancy + torch.stack(
+                [running.sum(), torch.ones((), dtype=I64, device=dev)]),
+            hwm=torch.maximum(tel.hwm, torch.stack(
+                [sched.stack_top, sched.esc_count]).to(I64)),
+            tag_occ=tag_occ, fleet_occ=fleet_occ))
     return new_state, new_planes, arena, sched
 
 
@@ -609,3 +765,349 @@ def sym_step_many_counted(state: StateBatch, planes: SymPlanes,
     state, planes, arena, sched = run_chunk(state, planes, arena, sched,
                                             n_steps)
     return state, planes, arena, sched.executed
+
+
+# ---- on-device state merging (symstep.py:1004-1426) ---------------------------------
+# Fork siblings reconverged at a join differ only in the sign of their last
+# path condition and in what the two arms wrote. `merge_pass` pairs them by
+# a content hash (sorted, then verified exactly), drops the last condition,
+# ITE-blends every differing stack / storage slot (and, in the widened
+# rounds, every differing 32-byte memory window the absint table allows)
+# through arena op 0x0F and retires the partner DEAD.
+
+#: frontier.merge.ite_depth buckets (blended slots per pair)
+MERGE_DEPTH_LABELS = ("0", "1", "2", "3", "4-7", "8+")
+N_MERGE_DEPTH = len(MERGE_DEPTH_LABELS)
+
+#: blocked-by counters in the stats vector, in this order
+MERGE_BLOCKED_LABELS = ("memory", "mem_sym", "storage_keys", "tstore",
+                        "depth")
+
+#: stats layout: [merges, ites, mem_blends, blocked_by[5], tag_hits[K],
+#: depth_hist[6]]
+MERGE_STATS_FIXED = 3 + len(MERGE_BLOCKED_LABELS)
+
+_H_PRIME = 1099511628211
+_H_MASK = (1 << 62) - 1
+#: the sort key of every lane that cannot pair
+_H_SENTINEL = 0x7FFFFFFFFFFFFFFF
+#: arena op of an if-then-else node
+ITE_OP = 0x0F
+
+#: leaves a merge must find identical, as (tree, field): the weak set, the
+#: memory planes the widened rounds relax, and the core set of the
+#: blocked-by accounting
+MERGE_WEAK_LEAVES = (
+    ("state", "pc"), ("state", "sp"), ("state", "msize"),
+    ("state", "code_len"), ("state", "retdata_len"), ("state", "retdata"),
+    ("state", "storage_keys"), ("state", "storage_used"),
+    ("state", "tstore_keys"), ("state", "tstore_vals"),
+    ("state", "tstore_used"), ("planes", "storage_base_sym"),
+    ("planes", "symbolic_env"), ("planes", "ctx_id"))
+MERGE_MEM_LEAVES = (("state", "memory"), ("planes", "mem_sym"))
+MERGE_CORE_LEAVES = (
+    ("state", "pc"), ("state", "sp"), ("state", "msize"),
+    ("state", "code_len"), ("state", "retdata_len"), ("state", "retdata"),
+    ("planes", "symbolic_env"), ("planes", "ctx_id"))
+
+
+def _leaf(state: StateBatch, planes: SymPlanes, tree: str, field: str):
+    return getattr(state if tree == "state" else planes, field)
+
+
+def _merge_fold(acc: torch.Tensor, leaf: torch.Tensor,
+                unsigned: bool = False) -> torch.Tensor:
+    """Fold one per-lane leaf into the lane hash (symstep.py:1042): int64
+    wraparound, position-weighted. `unsigned`: the leaf's JAX dtype is
+    uint32 (held as int32 here), so it widens with zeros, not the sign."""
+    flat = leaf.reshape(leaf.shape[0], -1).to(I64)
+    if unsigned:
+        flat = flat & 0xFFFFFFFF
+    mult = (torch.arange(flat.shape[1], dtype=I64, device=flat.device)
+            * 2654435761 + 0x9E3779B9) | 1
+    return acc * _H_PRIME + (flat * mult[None, :]).sum(1)
+
+
+def _merge_hash(state, planes, leaves, acc=None) -> torch.Tensor:
+    if acc is None:
+        acc = torch.zeros(state.pc.shape[0], dtype=I64, device=state.pc.device)
+    for tree, field in leaves:
+        acc = _merge_fold(acc, _leaf(state, planes, tree, field),
+                          tree == "state" and field in U32_FIELDS)
+    return acc
+
+
+def _rows_equal(leaf: torch.Tensor, ti, fi) -> torch.Tensor:
+    a, b = leaf[ti], leaf[fi]
+    return (a == b).reshape(a.shape[0], -1).all(1)
+
+
+def _merge_keys(state, planes):
+    """Per lane: (cond_count, index of the last condition, the last
+    condition, conds with its sign stripped, eligible to pair)."""
+    lane = torch.arange(state.pc.shape[0], device=state.pc.device)
+    max_conds = planes.conds.shape[1]
+    cc = planes.cond_count.to(I64)
+    last_idx = (cc - 1).clamp(0, max_conds - 1)
+    last = planes.conds[lane, last_idx].to(I64)
+    conds_abs = planes.conds.clone()
+    conds_abs[lane, last_idx] = last.abs().to(I32)
+    eligible = (state.status == RUNNING) & (cc > 0) & (last != 0) \
+        & (planes.fork_cond == 0)
+    return cc, last_idx, last, conds_abs, eligible
+
+
+def _pairs(key: torch.Tensor, shift: int):
+    """(fi, ti): the stable sort of `key` rolled left by `shift`, cut into
+    adjacent pairs."""
+    half = key.shape[0] // 2
+    perm = torch.roll(torch.argsort(key, stable=True), -shift)
+    return perm[0:2 * half:2], perm[1:2 * half:2]
+
+
+def _blend_family(arena, ok, live, sym_t, sym_f, conc_t, conc_f, cond):
+    """Allocate one slot family's blends (symstep.py:1234-1289): CONST
+    nodes for differing concrete slots, then an ITE row per differing slot.
+    Returns (arena, diff, ite ids, overflow), all [pairs, slots]."""
+    pairs, slots = sym_t.shape
+    diff = ok[:, None] & live & ((sym_t != sym_f) | (
+        (sym_t == 0) & (sym_f == 0) & (conc_t != conc_f).any(-1)))
+    limbs = conc_t.shape[-1]
+    arena, cid_t, ovf1 = A.alloc_consts_reference(
+        arena, (diff & (sym_t == 0)).reshape(-1),
+        conc_t.reshape(pairs * slots, limbs))
+    arena, cid_f, ovf2 = A.alloc_consts_reference(
+        arena, (diff & (sym_f == 0)).reshape(-1),
+        conc_f.reshape(pairs * slots, limbs))
+    node_t = torch.where(sym_t.reshape(-1) != 0, sym_t.reshape(-1), cid_t)
+    node_f = torch.where(sym_f.reshape(-1) != 0, sym_f.reshape(-1), cid_f)
+    zero = torch.zeros_like(node_t)
+    arena, ite, ovf3 = A.alloc_rows_reference(
+        arena, diff.reshape(-1), torch.full_like(node_t, ITE_OP),
+        cond[:, None].expand(pairs, slots).reshape(-1), node_t, node_f,
+        zero, zero)
+    return (arena, diff, ite.reshape(pairs, slots),
+            (ovf1 | ovf2 | ovf3).reshape(pairs, slots))
+
+
+def _merge_round(state, planes, arena, stats, merge_pcs, mem_pcs, mem_words,
+                 base_h, shift: int, widen: bool):
+    """One pairing round of `merge_pass_reference`, in place."""
+    dev = state.pc.device
+    half = state.pc.shape[0] // 2
+    mem_cap = planes.mem_sym.shape[1]
+    n_tags = merge_pcs.shape[0]
+    j32 = torch.arange(32, device=dev)
+    cc, last_idx, last, conds_abs, eligible = _merge_keys(state, planes)
+    if widen:
+        at_join = state.pc[:, None] == mem_pcs[None, :]
+        eligible = eligible & at_join.any(1)
+        join_row = at_join.to(I32).argmax(1)
+    h = _merge_fold(base_h, conds_abs) * _H_PRIME + cc
+    key = torch.where(eligible, ((h & _H_MASK) << 1) | (last > 0).to(I64),
+                      _H_SENTINEL)
+    fi, ti = _pairs(key, shift)
+
+    last_t = last[ti]
+    ok = eligible[ti] & eligible[fi] & (last_t > 0) & (last_t == -last[fi]) \
+        & (cc[ti] == cc[fi]) & (conds_abs[ti] == conds_abs[fi]).all(1)
+    for tree, field in MERGE_WEAK_LEAVES + (() if widen else MERGE_MEM_LEAVES):
+        ok &= _rows_equal(_leaf(state, planes, tree, field), ti, fi)
+
+    if widen:
+        # every differing memory byte or mark inside a valid window of the
+        # join, and each differing window one well-defined word per side
+        n_wins = mem_words.shape[1]
+        wins = mem_words[join_row[ti].to(I64)]
+        valid_w = (wins >= 0) & (wins + 32 <= mem_cap)
+        idx = wins[:, :, None].to(I64) + j32
+        safe = idx.clamp(0, mem_cap - 1).reshape(half, -1)
+
+        def win_gather(plane, rows):
+            return torch.gather(plane[rows], 1, safe).reshape(half, n_wins, 32)
+
+        mem_tg, mem_fg = (win_gather(state.memory, ti),
+                          win_gather(state.memory, fi))
+        sym_tg, sym_fg = (win_gather(planes.mem_sym, ti),
+                          win_gather(planes.mem_sym, fi))
+        mdiff_all = (state.memory[ti] != state.memory[fi]) \
+            | (planes.mem_sym[ti] != planes.mem_sym[fi])
+        wdiff_cells = ((mem_tg != mem_fg) | (sym_tg != sym_fg)) \
+            & valid_w[:, :, None]
+        contained = mdiff_all.sum(1) == wdiff_cells.sum((1, 2))
+        wdiff = wdiff_cells.any(2)
+
+        def word_view(sym_g):
+            first = sym_g[:, :, 0]
+            clean = (first != 0) & ((first & 31) == 0) \
+                & (sym_g == first[:, :, None] + j32).all(2)
+            return (sym_g == 0).all(2), first, clean
+
+        all0_t, first_t, clean_t = word_view(sym_tg)
+        all0_f, first_f, clean_f = word_view(sym_fg)
+        blendable = (all0_t | clean_t) & (all0_f | clean_f)
+        ok &= contained & (~(wdiff & valid_w) | blendable).all(1)
+        need = wdiff & valid_w & ok[:, None]
+        flat = half * n_wins
+        arena, mcid_t, movf1 = A.alloc_consts_reference(
+            arena, (need & all0_t).reshape(-1),
+            words.from_bytes(mem_tg).reshape(flat, -1))
+        arena, mcid_f, movf2 = A.alloc_consts_reference(
+            arena, (need & all0_f).reshape(-1),
+            words.from_bytes(mem_fg).reshape(flat, -1))
+        mnode_t = torch.where(all0_t.reshape(-1), mcid_t,
+                              (first_t >> 5).reshape(-1))
+        mnode_f = torch.where(all0_f.reshape(-1), mcid_f,
+                              (first_f >> 5).reshape(-1))
+        mzero = torch.zeros_like(mnode_t)
+        arena, ite_m, movf3 = A.alloc_rows_reference(
+            arena, need.reshape(-1), torch.full_like(mnode_t, ITE_OP),
+            last_t[:, None].expand(half, n_wins).reshape(-1), mnode_t,
+            mnode_f, mzero, mzero)
+        mem_ovf = (movf1 | movf2 | movf3).reshape(half, n_wins)
+
+    slots = planes.stack_sym.shape[1]
+    live = torch.arange(slots, device=dev)[None, :] < state.sp[ti][:, None]
+    sym_t, ksym_t = planes.stack_sym[ti], planes.storage_sym[ti]
+    arena, sdiff, ite_s, stack_ovf = _blend_family(
+        arena, ok, live, sym_t, planes.stack_sym[fi], state.stack[ti],
+        state.stack[fi], last_t)
+    arena, kdiff, ite_k, storage_ovf = _blend_family(
+        arena, ok, state.storage_used[ti], ksym_t, planes.storage_sym[fi],
+        state.storage_vals[ti], state.storage_vals[fi], last_t)
+    # arena exhaustion mid-blend cancels the pair (its nodes stay allocated)
+    merged = ok & ~stack_ovf.any(1) & ~storage_ovf.any(1)
+    if widen:
+        merged &= ~mem_ovf.any(1)
+
+    # ---- apply: rewrite the survivor, retire the partner ----------------------------
+    m2 = merged[:, None]
+    rows_t, rows_f = ti[merged], fi[merged]
+    updates = [
+        (planes.stack_sym, torch.where(sdiff & m2, ite_s, sym_t)),
+        (planes.storage_sym, torch.where(kdiff & m2, ite_k, ksym_t)),
+        (planes.storage_dirty, planes.storage_dirty[ti]
+         | planes.storage_dirty[fi]),
+        (planes.cond_count, (cc[ti] - 1).to(I32)),
+        (planes.branches, torch.maximum(planes.branches[ti],
+                                        planes.branches[fi])),
+        (state.gas_used, torch.maximum(state.gas_used[ti],
+                                       state.gas_used[fi]))]
+    for leaf, rows in updates:
+        leaf[rows_t] = rows[merged]
+    planes.conds[rows_t, last_idx[ti][merged]] = 0
+    state.status[rows_f] = DEAD
+    if widen:
+        blend = (need & m2)[:, :, None].expand(idx.shape)
+        cells = ((ite_m.reshape(half, n_wins)[:, :, None] << 5) + j32) \
+            .to(I32)
+        rows3 = ti[:, None, None].expand(idx.shape)
+        planes.mem_sym[rows3[blend], idx[blend]] = cells[blend]
+
+    # ---- stats ----------------------------------------------------------------------
+    depth = (sdiff & m2).sum(1) + (kdiff & m2).sum(1)
+    if widen:
+        depth = depth + (need & m2).sum(1)
+        stats[2] += (merged & need.any(1)).sum()
+    stats[0] += merged.sum()
+    stats[1] += depth.sum()
+    if n_tags:
+        stats[MERGE_STATS_FIXED:MERGE_STATS_FIXED + n_tags] += (
+            m2 & (state.pc[ti][:, None] == merge_pcs[None, :])).sum(0)
+    bucket = torch.where(depth >= 8, 5, torch.where(depth >= 4, 4, depth))
+    stats.index_add_(0, MERGE_STATS_FIXED + n_tags + bucket[merged],
+                     torch.ones_like(bucket[merged]))
+    return arena
+
+
+def _merge_blocked(state, planes, stats) -> None:
+    """The blocked-by accounting (symstep.py:1374-1425): pair lanes whose
+    core state matches and that did not merge; charge each pair to the
+    first gate that refused it. Modifies only `stats`."""
+    cc, _last_idx, last, conds_abs, eligible = _merge_keys(state, planes)
+    core_h = _merge_hash(state, planes, MERGE_CORE_LEAVES)
+    key = torch.where(eligible, ((core_h & _H_MASK) << 1)
+                      | (last > 0).to(I64), _H_SENTINEL)
+    fi, ti = _pairs(key, 0)
+
+    def eq(tree, field):
+        return _rows_equal(_leaf(state, planes, tree, field), ti, fi)
+
+    cand = eligible[ti] & eligible[fi]
+    for tree, field in MERGE_CORE_LEAVES:
+        cand &= eq(tree, field)
+    sib = (last[ti] > 0) & (last[ti] == -last[fi]) & (cc[ti] == cc[fi]) \
+        & (conds_abs[ti] == conds_abs[fi]).all(1)
+    blocked_depth = cand & ~sib
+    rest = cand & sib
+    keys_eq = eq("state", "storage_keys") & eq("state", "storage_used") \
+        & eq("planes", "storage_base_sym")
+    blocked_storage = rest & ~keys_eq
+    rest &= keys_eq
+    ts_eq = eq("state", "tstore_keys") & eq("state", "tstore_vals") \
+        & eq("state", "tstore_used")
+    blocked_tstore = rest & ~ts_eq
+    rest &= ts_eq
+    msym_eq, mem_eq = eq("planes", "mem_sym"), eq("state", "memory")
+    for slot, blocked in ((3, rest & msym_eq & ~mem_eq), (4, rest & ~msym_eq),
+                          (5, blocked_storage), (6, blocked_tstore),
+                          (7, blocked_depth)):
+        stats[slot] += blocked.sum()
+
+
+def _merge_tables(merge_pcs, mem_pcs, mem_words, device):
+    """The three static tables as int32 tensors on `device` (no window
+    table: zero rows)."""
+    def table(values, empty_shape):
+        if values is None:
+            values = np.zeros(empty_shape, dtype=np.int32)
+        if isinstance(values, torch.Tensor):
+            return values.to(device=device, dtype=I32).contiguous()
+        return torch.as_tensor(np.asarray(values, dtype=np.int32),
+                               device=device)
+
+    if mem_pcs is None:
+        mem_words = None
+    return (table(merge_pcs, 0), table(mem_pcs, 0),
+            table(mem_words, (0, 1)))
+
+
+def merge_pass_reference(state: StateBatch, planes: SymPlanes,
+                         arena: A.Arena, merge_pcs, mem_pcs=None,
+                         mem_words=None, n_rounds: int = 6):
+    """Plain twin of `merge_pass` (symstep.py:1057): `n_rounds` strict
+    pairing rounds, then (with a window table: `mem_pcs` int32[J],
+    `mem_words` int32[J, W], -1 padded) `n_rounds` widened rounds, then
+    the blocked-by accounting. Updates state, planes and arena in place;
+    returns (state, planes, arena, stats int64[MERGE_STATS_FIXED + K +
+    N_MERGE_DEPTH])."""
+    merge_pcs, mem_pcs, mem_words = _merge_tables(merge_pcs, mem_pcs,
+                                                  mem_words, state.pc.device)
+    weak_h = _merge_hash(state, planes, MERGE_WEAK_LEAVES)
+    static_h = _merge_hash(state, planes, MERGE_MEM_LEAVES, weak_h)
+    stats = torch.zeros(MERGE_STATS_FIXED + merge_pcs.shape[0]
+                        + N_MERGE_DEPTH, dtype=I64, device=state.pc.device)
+    phases = [(static_h, False)]
+    if mem_pcs.shape[0]:
+        phases.append((weak_h, True))
+    for base_h, widen in phases:
+        for r in range(n_rounds):
+            arena = _merge_round(state, planes, arena, stats, merge_pcs,
+                                 mem_pcs, mem_words, base_h, r % 2, widen)
+    _merge_blocked(state, planes, stats)
+    return state, planes, arena, stats
+
+
+def merge_pass(state: StateBatch, planes: SymPlanes, arena: A.Arena,
+               merge_pcs, mem_pcs=None, mem_words=None, n_rounds: int = 6):
+    """Collapse reconverged fork siblings: kernel K10 (around K3) on CUDA
+    tensors, the plain twin on CPU tensors; in place either way."""
+    if state.pc.is_cuda:
+        from ..kernels import ops
+
+        merge_pcs, mem_pcs, mem_words = _merge_tables(
+            merge_pcs, mem_pcs, mem_words, state.pc.device)
+        return ops.merge_pass(state, planes, arena, merge_pcs, mem_pcs,
+                              mem_words, n_rounds)
+    return merge_pass_reference(state, planes, arena, merge_pcs, mem_pcs,
+                                mem_words, n_rounds)

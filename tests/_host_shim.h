@@ -1,6 +1,7 @@
 // Host emulation of the CUDA features the port's kernels use, so their
 // sources can be compiled by g++ and run on the CPU for rehearsal.
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <thread>
@@ -30,6 +31,10 @@ void shim_launch(F kernel, int grid, int block, const A& args) {
             });
         for (auto& th : ts) th.join();
     }
+}
+template <class T>
+inline T atomicAdd(T* address, T value) {
+    return std::atomic_ref<T>(*address).fetch_add(value);
 }
 #define MTPU_LAUNCH(kernel, grid, block, stream, args) shim_launch(kernel, grid, block, args)
 #define MTPU_LAUNCH_STATUS() 0

@@ -66,3 +66,20 @@ def seed_frontier(codes, n_lanes, base_sym=(), max_conds=8,
 
 def to_port(kind, tree):
     return convert.from_numpy(kind, np_tree(tree), device="cpu")
+
+
+def jax_static_tables(codes):
+    """The static tables the JAX frontier builds for contexts running
+    `codes` from the CFA / absint / taint analysis of `Disassembly(code)`:
+    (tag_pcs, tag_names) as `_Frontier._collect_tag_pcs` and (merge_pcs,
+    merge_names, mem_pcs, mem_words) as `_Frontier._merge_pc_table`."""
+    from types import SimpleNamespace
+
+    from mythril_tpu.frontends.disassembler import Disassembly
+    from mythril_tpu.parallel import frontier as jf
+
+    frontier = jf._Frontier(laser_evm=None, n_lanes=2)
+    frontier.contexts = [SimpleNamespace(template=SimpleNamespace(
+        environment=SimpleNamespace(code=Disassembly(code.hex()))))
+        for code in codes]
+    return frontier._collect_tag_pcs(), frontier._merge_pc_table()

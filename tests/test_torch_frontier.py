@@ -14,11 +14,15 @@ frozen-lane deferral, the deadlock spill and the host reseed each ran.
 (branchy(8) never deadlocks at these pools; branchy(9) does.) Neither
 contract has a symbolic storage base, so no lane pauses on a cold SLOAD."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_same, np_tree, seed_frontier, to_port
+from _torch_parity import (assert_same, jax_static_tables, np_tree,
+                           seed_frontier, to_port)
+from bench import _mem_branchy_contract
 from chip_smoke import PLANES_SOURCE, branchy_contract
 from mythril_tpu.frontends.asm import assemble, dispatcher
 from mythril_tpu.parallel import batch as jb
@@ -70,6 +74,7 @@ def _jax_frontier(arena, row_bytes):
 
 
 def _port_frontier(arena, row_bytes, **kwargs):
+    kwargs = {"telemetry": False, "state_merge": False, **kwargs}
     return tf.DeviceFrontier(N_LANES, device="cpu",
                              stack_bytes=POOL_ROWS * row_bytes,
                              esc_bytes=POOL_ROWS * row_bytes,
@@ -357,27 +362,150 @@ def test_driver_defaults_follow_the_jax_knobs():
     assert (tf.ARENA_HEADROOM, tf.MAX_CONDS) == (jf.ARENA_HEADROOM,
                                                  jf.MAX_CONDS)
     assert tf._DRAIN_I32_FIELDS == jf._DRAIN_I32_FIELDS
+    # telemetry and state merging are on by default, as the JAX knobs are
+    frontier = jf._Frontier(laser_evm=None, n_lanes=jf.DEFAULT_LANES)
+    assert (port.telemetry, port.state_merge) == (
+        frontier.telemetry_enabled, frontier.state_merge) == (True, True)
+    assert tf.MERGE_MIN_LANES == frontier.merge_min_lanes
+    assert (tf.TAG_SLOTS, tf.MERGE_PC_SLOTS, tf.MERGE_ROUNDS) == (
+        jf._Frontier.TAG_SLOTS, jf._Frontier.MERGE_PC_SLOTS,
+        jf._MERGE_ROUNDS)
+
+
+# ---- the default configuration: telemetry and state merging on -------------------
+
+DEFAULT_BODIES = {"branchy9": branchy_contract(9),
+                  "mem_branchy8": _mem_branchy_contract(8)}
+
+
+#: chunk of the default-configuration runs: at 16 lanes and 64-step chunks
+#: fork siblings rarely share lanes at a chunk's end, so nothing merges
+DEFAULT_CHUNK = 8
+
+
+@pytest.fixture(scope="module", params=sorted(DEFAULT_BODIES))
+def default_run(request):
+    """Both drivers with telemetry and merging on, 8-step chunks, the JAX
+    one handed the tables its static analysis builds for the contract, the
+    port the same arrays. Returns (name, JAX frontier, its merge stats
+    vectors, port)."""
+    code = assemble(dispatcher({"stress()": DEFAULT_BODIES[request.param]}))
+    state, planes, arena = _seed([code])
+    row_bytes = _row_bytes(state, planes)
+    tags, merge_table = jax_static_tables([code])
+    frontier = jf._Frontier(laser_evm=None, n_lanes=N_LANES)
+    assert frontier.telemetry_enabled and frontier.state_merge
+    frontier.arena = arena
+    frontier.stack_bytes = frontier.esc_bytes = POOL_ROWS * row_bytes
+    frontier._collect_tag_pcs = lambda: tags
+    frontier._merge_pc_table = lambda: merge_table
+    mstats = []
+    publish = frontier._publish_merge
+
+    def recording(stats, names):
+        mstats.append(np.asarray(stats))
+        return publish(stats, names)
+
+    frontier._publish_merge = recording
+    merge_pcs, merge_names, mem_pcs, mem_words = merge_table
+    port = _port_frontier(arena, row_bytes, telemetry=True, state_merge=True,
+                          chunk=DEFAULT_CHUNK, tag_pcs=tags[0],
+                          tag_names=tags[1], merge_pcs=merge_pcs,
+                          merge_names=merge_names, mem_pcs=mem_pcs,
+                          mem_words=mem_words)
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setenv("MYTHRIL_TPU_CHUNK", str(DEFAULT_CHUNK))
+        frontier.run(state, planes)
+    port.run(to_port("state", state), to_port("planes", planes))
+    return request.param, frontier, mstats, port
+
+
+def test_default_configuration_matches_jax(default_run):
+    """Deferred rows, mirror, counters, every merge pass's totals and the
+    final telemetry words equal the JAX frontier's."""
+    name, frontier, mstats, port = default_run
+    _same_blocks(frontier.deferred, port.deferred)
+    _same_mirror(frontier.harena, port.harena)
+    for counter in ("lane_steps", "forks", "stack_pushes", "stack_pops",
+                    "spilled", "reseeded", "merges"):
+        assert getattr(port, counter) == getattr(frontier, counter), counter
+    assert port.merge_passes == len(mstats)
+    total = np.sum(mstats, axis=0) if mstats else np.zeros(8, np.int64)
+    assert (port.merges, port.merge_ites, port.mem_blends) == tuple(
+        int(v) for v in total[:3])
+    assert list(port.blocked_by.values()) == [int(v) for v in total[3:8]]
+    assert np.array_equal(port.tel_words, frontier._tel_prev)
+    assert port.tag_names == frontier.tag_names
+
+
+def test_default_configuration_takes_its_paths(default_run):
+    """branchy(9) has no merge points: passes run on the 4-chunk cadence
+    and merge strictly. mem_branchy(8) has 8 tagged joins: the tag deltas
+    trigger the passes and the widened rounds blend memory."""
+    name, frontier, mstats, port = default_run
+    assert port.merge_passes > 0 and port.merges > 0
+    if name == "branchy9":
+        assert not port.tag_names and port.mem_blends == 0
+        assert port.merge_passes <= port.chunks // 4
+    else:
+        assert len(port.tag_names) == 8 and port.mem_blends > 0
+        assert sum(port.tag_merges.values()) == port.merges
+    assert port.op_hist.sum() == port.lane_steps
+    assert port.lifecycle[jsym.LIFECYCLE_NAMES.index("reseeds")] \
+        == port.stack_pops
+
+
+def test_telemetry_off_null():
+    """With merging off, the plane changes no result and no read: the same
+    number of summaries, the same deferred rows and mirror, on and off."""
+    state, planes, arena = _seed()
+    row_bytes = _row_bytes(state, planes)
+    runs = {}
+    for telemetry in (False, True):
+        reads = [0]
+        port = _port_frontier(arena, row_bytes, telemetry=telemetry)
+        summary = tf.summary
+
+        def counting(*args):
+            reads[0] += 1
+            return summary(*args)
+
+        tf.summary = counting
+        try:
+            port.run(to_port("state", state), to_port("planes", planes))
+        finally:
+            tf.summary = summary
+        runs[telemetry] = (reads[0], tf.deferred_digest(port.deferred),
+                           tf.mirror_digest(port.harena), port.lane_steps)
+    assert runs[True] == runs[False] and runs[True][0] > 0
 
 
 # ---- chip_smoke.py's reference constants ----------------------------------------------
 
-@pytest.mark.parametrize("which", ["frontier", "spill"])
+@pytest.mark.parametrize("which", ["frontier", "spill", "default", "merge"])
 def test_chip_smoke_constants_are_the_jax_drain(which, monkeypatch):
     """chip_smoke.py holds the port's drain loop on the card to constants:
     the JAX `_Frontier`'s drain of dispatcher(branchy(n)) from one seed at
-    the default geometry and budgets (128 lanes, branchy(12)), and of the
-    reduced-pool run (16 lanes, 32 stack rows, branchy(10)). Recompute
-    both here with JAX."""
+    the default geometry and budgets (128 lanes, branchy(12)), of the
+    reduced-pool run (16 lanes, 32 stack rows, branchy(10)), both with
+    telemetry and merging off, and of the default configuration (both on)
+    on branchy(12) and on mem_branchy(8) with the tables the JAX static
+    analysis builds for it. Recompute all four here with JAX."""
     import chip_smoke
 
-    if which == "frontier":
-        n_lanes, branches, expected = (chip_smoke.LANES, chip_smoke.N_BRANCHES,
-                                       chip_smoke.EXPECTED_FRONTIER)
-    else:
-        n_lanes, branches, expected = (chip_smoke.SPILL_LANES,
-                                       chip_smoke.SPILL_BRANCHES,
-                                       chip_smoke.EXPECTED_SPILL)
-    code = assemble(dispatcher({"stress()": branchy_contract(branches)}))
+    runs = {
+        "frontier": (chip_smoke.LANES, branchy_contract(chip_smoke.N_BRANCHES),
+                     chip_smoke.EXPECTED_FRONTIER, False),
+        "spill": (chip_smoke.SPILL_LANES,
+                  branchy_contract(chip_smoke.SPILL_BRANCHES),
+                  chip_smoke.EXPECTED_SPILL, False),
+        "default": (chip_smoke.LANES, branchy_contract(chip_smoke.N_BRANCHES),
+                    chip_smoke.EXPECTED_DEFAULT, True),
+        "merge": (chip_smoke.LANES,
+                  _mem_branchy_contract(chip_smoke.MERGE_BRANCHES),
+                  chip_smoke.EXPECTED_MERGE, True)}
+    n_lanes, body, expected, default = runs[which]
+    code = assemble(dispatcher({"stress()": body}))
     specs = [jb.LaneSpec(code=code, gas_limit=10_000_000)]
     specs += [jb.LaneSpec(code=b"\x00")] * (n_lanes - 1)
     state = jb.build_batch(specs)
@@ -392,11 +520,23 @@ def test_chip_smoke_constants_are_the_jax_drain(which, monkeypatch):
     planes = planes._replace(ctx_id=ctx)
 
     frontier = jf._Frontier(laser_evm=None, n_lanes=n_lanes)
-    frontier.telemetry_enabled = False
-    frontier.state_merge = False
+    assert frontier.telemetry_enabled and frontier.state_merge
+    frontier.telemetry_enabled = frontier.state_merge = default
     if which == "spill":
         frontier.stack_bytes = chip_smoke.SPILL_STACK_ROWS \
             * _row_bytes(state, planes)
+    mstats = []
+    if default:
+        tags, merge_table = jax_static_tables([code])
+        frontier._collect_tag_pcs = lambda: tags
+        frontier._merge_pc_table = lambda: merge_table
+        publish = frontier._publish_merge
+
+        def recording(stats, names):
+            mstats.append(np.asarray(stats))
+            return publish(stats, names)
+
+        frontier._publish_merge = recording
     frozen = _count_frozen(frontier)
     counts = {"chunks": 0, "drains": 0, "drained_rows": 0}
     run_chunk, fetch = jsym.run_chunk, frontier._fetch_escapes
@@ -424,4 +564,32 @@ def test_chip_smoke_constants_are_the_jax_drain(which, monkeypatch):
            "mirror_n_const": frontier.harena.n_const,
            "deferred_sha256": tf.deferred_digest(frontier.deferred),
            "mirror_sha256": tf.mirror_digest(frontier.harena)}
-    assert got == expected
+    if default:
+        total = np.sum(mstats, axis=0) if mstats else np.zeros(8, np.int64)
+        got.update({"merge_passes": len(mstats), "merges": frontier.merges,
+                    "merge_ites": int(total[1]), "mem_blends": int(total[2]),
+                    "blocked_by": dict(zip(jsym.MERGE_BLOCKED_LABELS,
+                                           (int(v) for v in total[3:8]))),
+                    "telemetry_words": [int(v) for v in frontier._tel_prev]})
+    assert got == expected, json.dumps(got, sort_keys=True)
+
+
+def test_chip_smoke_tables_are_the_jax_analysis():
+    """chip_smoke.py's copy of bench.py's memory diamonds, and the tag and
+    window tables it hard-codes for them, are what bench.py and the JAX
+    static analysis give."""
+    import chip_smoke
+
+    for n in (1, 4, chip_smoke.MERGE_BRANCHES):
+        assert chip_smoke.mem_branchy_contract(n) == _mem_branchy_contract(n)
+    code = assemble(dispatcher({"stress()": _mem_branchy_contract(
+        chip_smoke.MERGE_BRANCHES)}))
+    (tag_pcs, tag_names), (merge_pcs, merge_names, mem_pcs, mem_words) = \
+        jax_static_tables([code])
+    tables = chip_smoke.mem_branchy_tables()
+    assert tables["tag_pcs"] == list(tag_pcs)
+    assert tables["tag_names"] == list(tag_names)
+    assert tables["merge_pcs"] == [int(pc) for pc in merge_pcs]
+    assert tables["merge_names"] == list(merge_names)
+    assert tables["mem_pcs"] == mem_pcs.tolist()
+    assert tables["mem_words"] == mem_words.tolist()

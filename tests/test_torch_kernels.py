@@ -38,7 +38,7 @@ def test_layout_matches_pytree_fields():
     assert layout.N_STATE_LEAVES == len(tb.StateBatch._fields)
     for index, name in enumerate(fields):
         assert layout.SLOTS[f"L_{name.upper()}"] == index
-    for prefix in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"):
+    for prefix in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10"):
         assert layout.SLOTS[f"{prefix}_NARGS"] <= layout.MTPU_MAX_ARGS
     assert layout.K4_ROW_BYTES + layout.N_ROW_LEAVES == layout.K4_B
     assert layout.K6_LEAF + layout.N_ROW_LEAVES == layout.K6_INDEX
@@ -51,7 +51,8 @@ def test_optab_matches_twin_tables():
     assert (table[:, 2] == tl.GAS_MIN).all()
     assert ((table[:, 3] & 1) == tl.VALID).all()
     assert (((table[:, 3] >> 2) & 1) == ts.SYM_OK).all()
-    assert ((table[:, 3] >> 8) == ts.ENV_CLASS).all()
+    assert (((table[:, 3] >> 8) & 0xFF) == ts.ENV_CLASS).all()
+    assert ((table[:, 3] >> 16) == ts.OP_CLASS).all()
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -89,8 +90,9 @@ def test_library_names_follow_sources(name):
     assert os.path.basename(a).startswith(f"lib{name}-")
     assert os.path.exists(os.path.join(build.KERNEL_DIR, f"{name}.cu"))
     # every exported entry lives in a built source, and every kernel counts
+    # (K9, the telemetry plane, is an instantiation inside sym_step.cu)
     assert set(ops._ENTRY_LIB.values()) == set(build.SOURCES)
-    assert set(ops.LAUNCHES) == set(build.SOURCES)
+    assert set(ops.LAUNCHES) == set(build.SOURCES) | {"telemetry"}
 
 
 # ---- the kernel sources, compiled for the host -------------------------------------
@@ -204,6 +206,35 @@ def test_host_arena_alloc_matches_twin(on_host):
     assert int(plain.n) == 64
 
 
+@pytest.mark.parametrize("n", [1000, 6144])
+def test_host_arena_alloc_runs_match_twin(on_host, n):
+    """K3 over more entries than threads (the merge pass's flattened
+    masks): each thread walks a run, ranks and ids stay the twin's, and
+    the const pool and the node table both overflow on the way."""
+    rng = np.random.default_rng(n)
+    plain = ta.new_arena(n, n // 2, device="cpu")
+    kernel = ta.Arena(*[t.clone() for t in plain])
+    for round_ in range(4):
+        want = torch.from_numpy(rng.random(n) < 0.4)
+        if round_ % 2 == 0:
+            words = torch.from_numpy(rng.integers(0, 1 << 16, (n, 16))
+                                     .astype(np.int32))
+            plain, ids_p, ovf_p = ta.alloc_consts_reference(plain, want, words)
+            kernel, ids_k, ovf_k = ops.arena_alloc(kernel, want, words)
+        else:
+            top = int(plain.n)
+            args = [torch.from_numpy(v.astype(np.int32)) for v in (
+                rng.choice([0x01, 0x0F, ta.VAR, ta.CONST], n),
+                rng.integers(0, top, n), rng.integers(0, top, n),
+                rng.integers(0, top, n), rng.integers(0, 40, n),
+                rng.integers(-5, 1 << 20, n))]
+            plain, ids_p, ovf_p = ta.alloc_rows_reference(plain, want, *args)
+            kernel, ids_k, ovf_k = ops.arena_alloc(kernel, want, None, *args)
+        assert torch.equal(ids_p, ids_k) and torch.equal(ovf_p, ovf_k)
+        _same(kernel, plain, f"round {round_}")
+    assert int(plain.n) == n and int(plain.n_const) == n // 2
+
+
 def test_host_sym_step_matches_twin(on_host):
     from test_torch_symstep import CODES as codes
 
@@ -222,6 +253,35 @@ def test_host_sym_step_matches_twin(on_host):
             plain[3].esc_count.zero_()
             kernel[3].esc_count.zero_()
     assert int(plain[3].pushes) > 0 and int(plain[3].pops) > 0
+
+
+def test_host_telemetry_matches_twin(on_host):
+    """K9 (K4's TEL instantiation) and K5's telemetry tail against the
+    twins on the telemetry tests' contracts: every counter of the plane
+    after every chunk, tags and fleet slots armed."""
+    from mythril_tpu_torch.parallel import frontier as tf
+    from test_torch_telemetry import CODES as codes, FLEET_SLOTS, TAG_PCS
+
+    state, planes, arena = seed_frontier(codes, 8, base_sym=[2],
+                                         arena_capacity=64)
+    sched = jsym.new_scheduler(state, planes, 4, 3, telemetry=jsym.new_telemetry(
+        TAG_PCS, FLEET_SLOTS, 3))
+    plain = [to_port(k, t) for k, t in zip(("state", "planes", "arena", "sched"),
+                                           (state, planes, arena, sched))]
+    kernel = [convert.clone(t) for t in plain]
+    for chunk in range(6):
+        plain = list(ts.run_chunk_reference(*plain, 12))
+        for _ in range(12):
+            kernel = list(ops.sym_step(*kernel))
+        for kind, got, ref in zip(("state", "planes", "arena", "sched"),
+                                  kernel, plain):
+            _same(got, ref, f"chunk {chunk} {kind}")
+        assert torch.equal(ops.frontier_summary(*kernel),
+                           tf.summary_reference(*plain))
+        plain[3].esc_count.zero_()
+        kernel[3].esc_count.zero_()
+    lifecycle = plain[3].telemetry.lifecycle
+    assert int((lifecycle > 0).sum()) >= 8
 
 
 def test_host_frontier_programs_match_twins(on_host):
@@ -279,3 +339,41 @@ def test_host_frontier_programs_match_twins(on_host):
             assert torch.equal(mine, theirs)
     ops.reset_esc(sched)
     assert int(sched.esc_count) == 0
+
+
+@pytest.mark.parametrize("case", ["diamond", "bothwrite", "bothwrite_windows",
+                                  "overflow", "mem_branchy"])
+def test_host_merge_pass_matches_twin(on_host, case):
+    """K10 (around K3) against `merge_pass_reference` on the merge tests'
+    inputs: every leaf, the arena and the stats vector."""
+    import test_torch_merge as tm
+    from bench import _mem_branchy_contract
+    from _torch_parity import jax_static_tables
+    from mythril_tpu.frontends.asm import assemble, dispatcher
+
+    if case == "mem_branchy":
+        code = assemble(dispatcher({"stress()": _mem_branchy_contract(8)}))
+        state, planes, arena = seed_frontier([code], 16, max_conds=16,
+                                             arena_capacity=1 << 14,
+                                             const_capacity=1 << 12)
+        sched = jsym.new_scheduler(state, planes, 32, 32)
+        state, planes, arena, _ = jsym.run_chunk(state, planes, arena, sched,
+                                                 40)
+        _, (merge_pcs, _, mem_pcs, mem_words) = jax_static_tables([code])
+    else:
+        name = "diamond" if case == "overflow" else case
+        code, steps, merge_pcs, mem_pcs, mem_words = tm.DIAMONDS[name]
+        state, planes, arena = tm._pair_run(code, steps)
+        if case == "overflow":
+            arena = tm._shrink(arena, 2)
+    plain = [to_port(k, t) for k, t in zip(("state", "planes", "arena"),
+                                           (state, planes, arena))]
+    kernel = [convert.clone(t) for t in plain]
+    tables = ts._merge_tables(merge_pcs, mem_pcs, mem_words, "cpu")
+    ref = ts.merge_pass_reference(*plain, *tables, n_rounds=6)
+    got = ops.merge_pass(*kernel, *tables, n_rounds=6)
+    for kind, mine, theirs in zip(("state", "planes", "arena"), got, ref):
+        _same(mine, theirs, kind)
+    assert torch.equal(got[3], ref[3])
+    if case in ("diamond", "bothwrite_windows", "mem_branchy"):
+        assert int(ref[3][0]) > 0

@@ -132,12 +132,19 @@ def test_convert_round_trip(chunk_trace, kind):
 
 
 def test_unported_scheduler_options_raise():
+    """Sharded schedulers are not ported; the telemetry plane is, up to
+    the tag and fleet slots the kernel holds."""
     state, planes, arena = seed_frontier(CODES[1:], N_LANES)
     p_state, p_planes = to_port("state", state), to_port("planes", planes)
     with pytest.raises(NotImplementedError):
         tsym.new_scheduler(p_state, p_planes, 8, 8, n_shards=2)
-    with pytest.raises(NotImplementedError):
-        tsym.new_scheduler(p_state, p_planes, 8, 8, telemetry=object())
+    tel = tsym.new_telemetry([1, 2], device="cpu")
+    assert tsym.new_scheduler(p_state, p_planes, 8, 8,
+                              telemetry=tel).telemetry is tel
+    wide = tsym.new_telemetry(range(tsym.MAX_TEL_SLOTS + 1), device="cpu")
+    sched = tsym.new_scheduler(p_state, p_planes, 8, 8, telemetry=wide)
+    with pytest.raises(ValueError):
+        tsym.sym_step(p_state, p_planes, to_port("arena", arena), sched)
 
 
 def _drain_totals(run, state, planes, arena, sched, zero_escapes, chunk=32):
