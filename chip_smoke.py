@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one CUDA card
 
-It builds the hand-written kernels (K1-K10, nine sources) from the
+It builds the hand-written kernels (K1-K11, ten sources) from the
 checkout's sources, holds each against its plain PyTorch version on the
 card, then drives the port's main device path, the frontier's drain loop
 (`DeviceFrontier.run` around `symstep.run_chunk`), at the frontier's
 default geometry until the tree is drained: with telemetry and state
-merging off (phases 10-11) and in the default configuration with both on
-(phases 12-13). Every phase prints one JSON line; any mismatch raises, and
-the run exits non-zero. Phases:
+merging off (phases 8-9) and in the default configuration with both on
+(phases 12-13); then the device SAT lane (`device_solver.solve_cnf_device`
+and `solve_cnf_device_batch` on K11) on captured analysis queries at full
+width (phases 15-16). Every phase prints one JSON line; any mismatch
+raises, and the run exits non-zero. Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. K1 keccak vs `keccak256_reference`: 4096 random messages of 0..512
@@ -59,18 +61,42 @@ the run exits non-zero. Phases:
      phase 8's;
  13. frontier_merge: the same on mem_branchy(8) with the tag and window
      tables the JAX static analysis builds for it (constants here);
- 14. the kernels line: each kernel's launches on the driver phases (8, 9,
-     12, 13), its time, its plain version's time, the least time the card
-     could take and the library call's time.
+ 14. sat_kernel: K11 vs `run_chunk_reference`, every leaf after each
+     chunk, on fixtures (opposite-phase races in one tile and across two,
+     the no-flip backtrack, 32 forced probes, the batch runner's freeze)
+     and at full width (32 probes, V1 65,536) on a captured query of each
+     tile bucket (64 and 256): 64 steps compared, then K11's time per step
+     beside the twin's and the bound;
+ 15. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
+     each bucket) through the port's from_smt2 -> lower_constraints ->
+     Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
+     the CNF does not depend on the process, its digest) and the state
+     after the first two chunks held to the JAX lane (or, for a
+     process-dependent CNF, to the twin on the card), decided verdicts to
+     CDCL, SAT models to every clause and lowered constraint, 1689-24's
+     verdict, chunk count and model to the JAX lane's; steps, verdict,
+     wall and host ms per chunk; one solve again under the profiler for
+     the card's idle share;
+ 16. sat_batch: `solve_cnf_device_batch` on four captured queries of one
+     bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
+     state after the first chunk, verdicts and models as in phase 15;
+ 17. the kernels line: each kernel's launches on the main-path phases (8, 9,
+     12, 13, 15, 16), its time, its plain version's time, the least time
+     the card could take and the library call's time (K11's per step).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result."""
 
 from __future__ import annotations
 
+import hashlib
+import itertools
 import json
+import os
+import random
 import subprocess
 import sys
+import tarfile
 import time
 
 import numpy as np
@@ -80,8 +106,12 @@ from mythril_tpu_torch.frontends.asm import assemble, dispatcher
 from mythril_tpu_torch.kernels import build, ops
 from mythril_tpu_torch.parallel import arena as A
 from mythril_tpu_torch.parallel import batch as B
-from mythril_tpu_torch.parallel import (convert, frontier, keccak, lockstep,
-                                        symstep)
+from mythril_tpu_torch.parallel import (convert, device_solver, frontier,
+                                        keccak, lockstep, symstep)
+from mythril_tpu_torch.smt import terms
+from mythril_tpu_torch.smt.smtlib import from_smt2
+from mythril_tpu_torch.smt.solver import preprocess
+from mythril_tpu_torch.smt.solver.bitblast import Blaster
 
 # ---- the frontier's default geometry (mythril_tpu/parallel/frontier.py) ---------
 LANES = 128          # DEFAULT_LANES (MYTHRIL_TPU_LANES)
@@ -524,11 +554,10 @@ def event_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
-def device_ms(fn, reps: int, names=None) -> float:
-    """Mean device time of fn() in ms over `reps` calls: every CUDA function
-    it runs whose name contains one of `names` (all of them when None), as
-    torch.profiler (CUPTI) records it, without the host's time to enqueue
-    them."""
+def device_times(fn, reps: int) -> dict:
+    """Mean device time in ms per fn() call over `reps` calls of every CUDA
+    function it runs, by name, as torch.profiler (CUPTI) records it,
+    without the host's time to enqueue them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -538,15 +567,26 @@ def device_ms(fn, reps: int, names=None) -> float:
         for _ in range(reps):
             fn(None)
         torch.cuda.synchronize()
-    total_us = sum(event.self_device_time_total
-                   for event in prof.key_averages()
-                   if event.device_type == DeviceType.CUDA
-                   and (names is None
-                        or any(name in event.key for name in names)))
-    if total_us <= 0:
+    return {event.key: event.self_device_time_total / reps / 1e3
+            for event in prof.key_averages()
+            if event.device_type == DeviceType.CUDA}
+
+
+def named_ms(times: dict, names=None) -> float:
+    """The device_times() of every function whose name contains one of
+    `names` (all of them when None), summed."""
+    total = sum(ms for key, ms in times.items()
+                if names is None or any(name in key for name in names))
+    if total <= 0:
         raise AssertionError(f"the profiler recorded no device time of "
                              f"{names or 'any function'}")
-    return total_us / reps / 1e3
+    return total
+
+
+def device_ms(fn, reps: int, names=None) -> float:
+    """Mean device time of fn() in ms over `reps` calls: every CUDA function
+    it runs whose name contains one of `names` (all of them when None)."""
+    return named_ms(device_times(fn, reps), names)
 
 
 def bound_ms(nbytes: float, nops: float):
@@ -1537,6 +1577,445 @@ def phase_frontier_merge(dev) -> dict:
     return timing
 
 
+# ---- phases 14-16: the device SAT lane (K11) --------------------------------------
+
+#: captured analysis queries (tests/data/smt2_corpus.tar.gz) the lane runs
+#: at full width: two of the 64-tile bucket, two of the 256-tile one (V1 =
+#: 65,536 for all; 32 probes)
+SAT_CORPUS = "tests/data/smt2_corpus.tar.gz"
+SAT_LANE_QUERIES = ("1689-24.smt2", "1540-2.smt2", "1689-28.smt2",
+                    "1674-23.smt2")
+#: the query the JAX lane decides in a few chunks: held to its verdict,
+#: chunk count and model too
+SAT_FULL_QUERY = "1689-24.smt2"
+#: one dispatch flush: four queries of the 64-tile bucket, solved as one
+#: batch at a short chunk
+SAT_BATCH_QUERIES = ("1689-24.smt2", "1540-2.smt2", "1536-1.smt2",
+                     "1689-10.smt2")
+SAT_BATCH_CHUNK = 32
+#: the queries above whose CNF came out the same in every process we ran
+#: (24 with random hash seeds). The JAX pipeline, and the port's copy of
+#: it, orders commutative operands by a hash of their children's ids
+#: (terms.py), so most captured queries, the 256-tile ones among them,
+#: blast to a CNF that depends on the process: those are held to their
+#: sizes, the CDCL verdict and the twin on the card instead of a digest
+#: (`tests/_torch_sat_constants.py stability` lists the stable ones)
+STABLE_CNFS = frozenset({"1689-24.smt2", "1540-2.smt2", "1536-1.smt2",
+                         "1689-10.smt2"})
+
+#: the JAX lane's numbers for these queries, printed by
+#: tests/_torch_sat_constants.py (mythril_tpu's from_smt2 ->
+#: lower_constraints -> Blaster, the native CDCL core, then
+#: jax_solver.solve_cnf_device with its defaults on the CPU): clause and
+#: variable counts, the tile bucket, the CDCL verdict (1 SAT, 0 UNSAT); for
+#: a stable CNF its sha256 (`cnf_digest`) and, on the lane, the state after
+#: the first two chunks (`state_digest`); for SAT_FULL_QUERY the JAX lane's
+#: verdict, chunk count and model (`model_digest`)
+EXPECTED_SAT = {
+    "1689-24.smt2": {
+        "clauses": 57463, "n_vars": 16468, "tiles": 64, "cdcl": 1,
+        "cnf": "5a0d28076df926aa5eb38cdf22bad05c1a2251da12cf66112b70460b2865d3db",
+        "chunks": ["0d6f97568a404a705374e28733fb44c6d00c2fd5adc7f84ecd3cd5227da54bc5",
+                   "e8a18ed68055cb63ee8552eaef0061fa74a453aa118413d206736707fec2a996"],
+        "jax": {"status": 1, "chunks": 10,
+                "model": "8172ea319f6368a8cc9a470ba86ca61b70fc73a21d12106a0d03bfd635ffe983"}},
+    "1540-2.smt2": {
+        "clauses": 58488, "n_vars": 16980, "tiles": 64, "cdcl": 1,
+        "cnf": "36aecd682216cbfaa0515fc67e41e169adaa4112f26ac31eeda9dffb632a5a24",
+        "chunks": ["eb76ebde3f35370980b253640a1d7b29c9d146e26a97e0eaf9c94d93b14a71d7",
+                   "1e5af8eafb8c8a4c4efafebbed505e078639491af5265e08e08d9a9a0813307d"]},
+    "1689-28.smt2": {
+        "clauses": 143559, "n_vars": 42114, "tiles": 256, "cdcl": 1},
+    "1674-23.smt2": {
+        "clauses": 134237, "n_vars": 39288, "tiles": 256, "cdcl": 0},
+    "1536-1.smt2": {
+        "clauses": 63601, "n_vars": 17946, "tiles": 64, "cdcl": 1,
+        "cnf": "3d15f7436559b31318af61f8a28668c28594d47ee357dfc33d5c0fd8b26cc3c8"},
+    "1689-10.smt2": {
+        "clauses": 58488, "n_vars": 16980, "tiles": 64, "cdcl": 1,
+        "cnf": "f3dde26bfc2a494a6a2160a721e5e84d9bf9694d4f0d99d638d5a20ffa996907"},
+}
+#: the JAX batch runner's state after the first chunk of SAT_BATCH_QUERIES
+#: (jax_solver.solve_cnf_device_batch, chunk SAT_BATCH_CHUNK)
+EXPECTED_SAT_BATCH = \
+    "5118d7baf4d0e1f264d333ecb4e6b5b975196d9ae37051337f9013580e71b13f"
+
+
+def sha256_of(*arrays) -> str:
+    sha = hashlib.sha256()
+    for array in arrays:
+        sha.update(np.ascontiguousarray(array).tobytes())
+    return sha.hexdigest()
+
+
+def cnf_digest(clauses, n_vars: int) -> str:
+    """sha256 of int32 LE [n_vars, n_clauses, clause 0's literals, 0, ...]."""
+    flat = [n_vars, len(clauses)]
+    for clause in clauses:
+        flat.extend(clause)
+        flat.append(0)
+    return sha256_of(np.asarray(flat, dtype="<i4"))
+
+
+def state_digest(leaves) -> str:
+    """sha256 of a SolverState's five leaves (assign, trail, tag,
+    trail_len, status), C order, as numpy arrays or tensors."""
+    return sha256_of(*[leaf.cpu().numpy() if isinstance(leaf, torch.Tensor)
+                       else leaf for leaf in leaves])
+
+
+def model_digest(model) -> str:
+    return sha256_of(np.asarray(model, dtype=np.uint8))
+
+
+def corpus_query(name: str):
+    """(clauses, n_vars, lowered constraints, blaster) of one captured
+    query through the port's from_smt2 -> lower_constraints -> Blaster."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        SAT_CORPUS)
+    # fresh names from 0, as if the query were the first of its process
+    preprocess._fresh_counter = itertools.count()
+    with tarfile.open(path) as tar:
+        text = tar.extractfile(name).read().decode("utf-8")
+    lowered, _ = preprocess.lower_constraints(list(from_smt2(text)))
+    blaster = Blaster()
+    for node in lowered:
+        blaster.assert_true(node)
+    return blaster.clauses, blaster.n_vars, lowered, blaster
+
+
+def check_model(clauses, lowered, blaster, model, what: str) -> None:
+    """A SAT model holds every clause and every lowered constraint."""
+    values = np.concatenate([[False], np.asarray(model, dtype=bool)])
+    lits = np.zeros((len(clauses), 3), dtype=np.int64)
+    for i, clause in enumerate(clauses):
+        lits[i, :len(clause)] = clause
+    hit = np.where(lits > 0, values[np.abs(lits)], ~values[np.abs(lits)])
+    if not (hit & (lits != 0)).any(axis=1).all():
+        raise AssertionError(f"{what}: the model falsifies a clause")
+
+    def bit(lit):
+        return bool(values[abs(lit)]) != (lit < 0)
+
+    assignment = {var: bit(lit) for var, lit in blaster.var_lits.items()}
+    for var, bits in blaster.var_bits.items():
+        assignment[var] = sum(int(bit(lit)) << i for i, lit in enumerate(bits))
+    for node in lowered:
+        if terms.evaluate(node, assignment) is not True:
+            raise AssertionError(f"{what}: the model falsifies a constraint")
+
+
+#: the K11 fixtures: opposite-phase races inside one tile and across two
+#: (the higher clause index lands), the no-flip backtrack, 32 probes on a
+#: 3-SAT instance deep enough for their forced prefixes; pad variables in
+#: all. (name, clauses, n_vars, probes)
+def sat_fixtures() -> list:
+    return [("race_tile", [[-1, 2], [-1, -2], [3, 4]], 4, 2),
+            ("race_tiles", [[-1, -2]] * 2100 + [[-1, 2]], 2, 2),
+            ("no_flip", [[1, 2], [1, -2], [-1, 3], [-1, -3]], 3, 2),
+            ("prefix32", three_sat(9), 60, 32)]
+
+
+def three_sat(seed: int, n_vars: int = 60, n_clauses: int = 250) -> list:
+    """Random 3-SAT without unit clauses: deep enough to search."""
+    rng = random.Random(seed)
+    return [[rng.choice([-1, 1]) * v
+             for v in rng.sample(range(1, n_vars + 1), 3)]
+            for _ in range(n_clauses)]
+
+
+def sat_batch_fixture() -> list:
+    """A bucket of 4 queries for the batch runner; the second decides in
+    its first steps, so the freeze holds it while the others step."""
+    return [(three_sat(10), 60), ([[1, 2], [-1, 2], [-2, 3], [-3]], 3),
+            (three_sat(11), 60), (three_sat(12), 60)]
+
+
+def sat_compare(state, tensors, chunk, n_chunks, n_probes, freeze, what):
+    """K11 against run_chunk_reference from one state, every leaf after
+    each chunk; returns the kernel's final state."""
+    depth = device_solver.forced_depth_of(n_probes)
+    plain = convert.clone(state)
+    kern = convert.clone(state)
+    for index in range(n_chunks):
+        ops.sat_run(kern, tensors, chunk, depth, freeze)
+        device_solver.run_chunk_reference(plain, tensors, chunk, depth, freeze)
+        assert_same(kern, plain, f"K11 {what} chunk {index}")
+    return kern
+
+
+def sat_step_bytes(before, after, tensors) -> int:
+    """The least bytes one step of one query moved, from the state before
+    and after it: `valid` read once and the literals of each real clause;
+    every probe's status, and each searching probe's assignment row, its
+    tags inside the trail and its trail length; `order` at the free vars of
+    the probes that decided; the trail entries a backtrack read; each leaf
+    element the step changed, written once."""
+    searching = before.status == device_solver.SEARCHING
+    v1 = before.assign.shape[-1]
+    length, new_length = before.trail_len.long(), after.trail_len.long()
+    # a decision appends one entry tagged 1 or 2; a backtrack shortens the
+    # trail, or keeps its length with a flip at its end, or refutes the cube
+    appended = after.tag.gather(-1, length.clamp(max=v1 - 1)[..., None])[..., 0]
+    decided = searching & (new_length == length + 1) & (appended >= 1)
+    refuted = searching & (after.status == device_solver.S_UNSAT)
+    flipped = searching & (after.status == device_solver.SEARCHING) \
+        & (new_length <= length)
+    free = (before.assign == 0) & decided[..., None]  # unassigned
+    trail_read = (torch.where(refuted, length, 0)
+                  + torch.where(flipped, length - new_length + 1, 0))
+    reads = (tensors.valid.numel() + 12 * int(tensors.valid.sum())
+             + before.status.numel()
+             + int(searching.sum()) * (v1 + 4)
+             + int(torch.where(searching, length, 0).sum())
+             + 4 * int(free.any(dim=-2).sum()) + 4 * int(trail_read.sum()))
+    writes = sum(int((old != new).sum()) * old.element_size()
+                 for old, new in zip(before, after))
+    return reads + writes
+
+
+def sat_bound_ms_per_step(state, tensors, steps: int, depth: int) -> tuple:
+    """bound_ms of one step, averaged over the `steps` steps from `state`
+    (stepped by the twin on a copy)."""
+    total = 0
+    before = convert.clone(state)
+    for _ in range(steps):
+        after = device_solver.run_chunk_reference(convert.clone(before),
+                                                  tensors, 1, depth)
+        total += sat_step_bytes(before, after, tensors)
+        before = after
+    return bound_ms(total / steps, 0)
+
+
+def phase_sat_kernel(dev) -> dict:
+    """K11 vs its twin on the fixtures and at full width on a query of
+    each bucket; its time per step there."""
+    for name, clauses, n_vars, n_probes in sat_fixtures():
+        problem = device_solver.build_problem(clauses, n_vars)
+        tensors = device_solver.device_problem(problem, dev)
+        state = device_solver.initial_state(problem.init_assign, n_probes,
+                                            dev)
+        sat_compare(state, tensors, 2, 6, n_probes, False, name)
+    problems = [device_solver.build_problem(c, n)
+                for c, n in sat_batch_fixture()]
+    tensors = device_solver.device_problem(problems, dev)
+    state = device_solver.initial_state(
+        np.stack([p.init_assign for p in problems]), 8, dev)
+    sat_compare(state, tensors, 4, 5, 8, True, "batch")
+
+    # full width, both buckets: 64 compared steps, then the time per step
+    depth = device_solver.forced_depth_of(32)
+    steps = 64
+    timings = {}
+    for name in ("1689-24.smt2", "1689-28.smt2"):
+        clauses, n_vars, _, _ = corpus_query(name)
+        problem = device_solver.build_problem(clauses, n_vars)
+        tensors = device_solver.device_problem(problem, dev)
+        state = device_solver.initial_state(problem.init_assign, 32, dev)
+        state = sat_compare(state, tensors, 32, 2, 32, False, name)
+
+        def fresh():
+            return convert.clone(state)
+
+        b_ms, b_by = sat_bound_ms_per_step(state, tensors, steps, depth)
+        times = device_times(lambda _: ops.sat_run(
+            fresh(), tensors, steps, depth, False), 2)
+        timings[name] = {
+            "tiles": problem.lits.shape[0], "v1": problem.order.shape[0],
+            "ms_per_step": event_ms(lambda s: ops.sat_run(
+                s, tensors, steps, depth, False), 3, setup=fresh) / steps,
+            "device_ms_per_step": named_ms(times, ("sat_",)) / steps,
+            "propagate_device_ms_per_step":
+                named_ms(times, ("sat_propagate",)) / steps,
+            "resolve_device_ms_per_step":
+                named_ms(times, ("sat_resolve",)) / steps,
+            "plain_ms_per_step": event_ms(
+                lambda s: device_solver.run_chunk_reference(
+                    s, tensors, 4, depth), 2, setup=fresh) / 4,
+            "bound_ms_per_step": b_ms, "bound_by": b_by}
+    emit({"phase": "sat_kernel",
+          "fixtures": [f[0] for f in sat_fixtures()] + ["batch"],
+          "probes": 32, "compared_steps": 64, "max_abs_err": 0,
+          "full_width": timings})
+    main = timings["1689-24.smt2"]
+    return {"name": "sat_step", "route": "cuda",
+            "source": "mythril_tpu_torch/kernels/sat_step.cu",
+            "replaces": "mythril_tpu/parallel/jax_solver.py:247",
+            "max_abs_err": 0, "per": "step (32 probes, 64 tiles, V1 65536)",
+            "ms": main["ms_per_step"], "device_ms": main["device_ms_per_step"],
+            "plain_ms": main["plain_ms_per_step"],
+            "bound_ms": main["bound_ms_per_step"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "library": "none: no PyTorch call computes a DPLL step",
+            "held_by": "phase sat_kernel"}
+
+
+def sat_solve(solve, *args, **kwargs) -> dict:
+    """One entry-point call with the launch counts zeroed just before and
+    read just after, each chunk's stream time (CUDA events around
+    run_chunk) and a device copy of the state after each of the first two
+    chunks."""
+    events, states = [], []
+    run_chunk = device_solver.run_chunk
+
+    def timed_chunk(state, *chunk_args, **chunk_kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run_chunk(state, *chunk_args, **chunk_kwargs)
+        end.record()
+        events.append((start, end))
+        if len(states) < 2:
+            states.append(convert.clone(state))
+        return out
+
+    torch.cuda.synchronize()
+    device_solver.run_chunk = timed_chunk
+    ops.reset_launches()
+    start = time.perf_counter()
+    try:
+        result = solve(*args, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        device_solver.run_chunk = run_chunk
+    wall = time.perf_counter() - start
+    stream_ms = sum(s.elapsed_time(e) for s, e in events)
+    chunks = max(len(events), 1)
+    return {"result": result, "launches": dict(ops.LAUNCHES),
+            "states": states, "chunks": len(events),
+            "steps": len(events) * kwargs.get("chunk", 256),
+            "wall_s": wall, "chunk_stream_ms": stream_ms / chunks,
+            "host_ms_per_chunk": (wall * 1e3 - stream_ms) / chunks}
+
+
+def sat_verdict(name, status, model, clauses, lowered, blaster) -> str:
+    if status == device_solver.SAT:
+        check_model(clauses, lowered, blaster, model, name)
+    if status != device_solver.UNKNOWN and status != EXPECTED_SAT[name]["cdcl"]:
+        raise AssertionError(f"{name}: verdict {status}, CDCL says "
+                             f"{EXPECTED_SAT[name]['cdcl']}")
+    return {device_solver.SAT: "sat", device_solver.UNSAT: "unsat",
+            device_solver.UNKNOWN: "unknown"}[status]
+
+
+def check_cnf(name, clauses, n_vars) -> None:
+    want = EXPECTED_SAT[name]
+    if (len(clauses), n_vars) != (want["clauses"], want["n_vars"]) \
+            or ("cnf" in want and cnf_digest(clauses, n_vars) != want["cnf"]):
+        raise AssertionError(f"{name}: the CNF differs from the JAX one")
+
+
+def phase_sat_lane(dev) -> tuple:
+    """The slice at full width: captured queries through the port's CNF
+    pipeline and `solve_cnf_device` with its defaults."""
+    launches = {name: 0 for name in ops.LAUNCHES}
+    runs = {}
+    for name in SAT_LANE_QUERIES:
+        start = time.perf_counter()
+        clauses, n_vars, lowered, blaster = corpus_query(name)
+        cnf_s = time.perf_counter() - start
+        check_cnf(name, clauses, n_vars)
+        want = EXPECTED_SAT[name]
+        run = sat_solve(device_solver.solve_cnf_device, clauses, n_vars,
+                        device=dev)
+        status, model = run.pop("result")
+        states = run.pop("states")
+        if "chunks" in want:
+            held = "JAX digests"
+            for index, state in enumerate(states):
+                if state_digest(state) != want["chunks"][index]:
+                    raise AssertionError(f"{name}: state after chunk "
+                                         f"{index + 1} differs from the JAX "
+                                         f"lane's")
+        else:
+            # a process-dependent CNF: the same chunks through the twin
+            held = "the twin on the card"
+            problem = device_solver.build_problem(clauses, n_vars)
+            if problem.lits.shape[0] != want["tiles"]:
+                raise AssertionError(f"{name}: {problem.lits.shape[0]} tiles")
+            tensors = device_solver.device_problem(problem, dev)
+            plain = device_solver.initial_state(problem.init_assign, 32, dev)
+            for index, state in enumerate(states):
+                device_solver.run_chunk_reference(plain, tensors, 256, 5)
+                assert_same(state, plain, f"{name} chunk {index + 1}")
+        verdict = sat_verdict(name, status, model, clauses, lowered, blaster)
+        if "jax" in want:
+            jax_run = want["jax"]
+            if (status, run["chunks"]) != (jax_run["status"],
+                                           jax_run["chunks"]) \
+                    or model_digest(model) != jax_run["model"]:
+                raise AssertionError(f"{name}: verdict, chunk count or model "
+                                     f"differs from the JAX lane's")
+        for kernel, count in run.pop("launches").items():
+            launches[kernel] += count
+        # the solve's host set-up: the bucketed arrays, built in Python
+        start = time.perf_counter()
+        device_solver.build_problem(clauses, n_vars)
+        build_s = time.perf_counter() - start
+        runs[name] = {"clauses": len(clauses), "n_vars": n_vars,
+                      "tiles": want["tiles"], "verdict": verdict,
+                      "chunks_held_to": held, "cnf_s": cnf_s,
+                      "build_problem_s": build_s, **run}
+    # the device's share of the lane: 1689-24 again under the profiler
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    clauses, n_vars, _, _ = corpus_query(SAT_FULL_QUERY)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        device_solver.solve_cnf_device(clauses, n_vars, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    k11_ms = other_ms = 0.0
+    for event in prof.key_averages():
+        if event.device_type == DeviceType.CUDA:
+            if "sat_" in event.key:
+                k11_ms += event.self_device_time_total / 1e3
+            else:
+                other_ms += event.self_device_time_total / 1e3
+    steps = ops.LAUNCHES["sat_step"] * 256
+    if k11_ms <= 0 or not steps:
+        raise AssertionError("the profiler recorded no device time of K11")
+    idle_share = 1.0 - (k11_ms + other_ms) / wall_ms
+    if idle_share < 0:
+        raise AssertionError(f"the profiled solve's device time exceeds its "
+                             f"wall time (idle share {idle_share})")
+    profiled = {"query": SAT_FULL_QUERY, "wall_ms": wall_ms, "steps": steps,
+                "k11_device_ms": k11_ms, "other_device_ms": other_ms,
+                "idle_share": idle_share,
+                "k11_device_ms_per_step": k11_ms / steps}
+    emit({"phase": "sat_lane", "defaults": {"n_probes": 32, "chunk": 256,
+                                            "max_steps": 20_000},
+          "queries": runs, "profiled": profiled})
+    return launches, profiled
+
+
+def phase_sat_batch(dev) -> dict:
+    """One dispatch flush: four captured queries of one bucket through
+    `solve_cnf_device_batch`, held to the JAX batch runner's first chunk."""
+    queries, parts = [], []
+    for name in SAT_BATCH_QUERIES:
+        clauses, n_vars, lowered, blaster = corpus_query(name)
+        check_cnf(name, clauses, n_vars)
+        queries.append((clauses, n_vars))
+        parts.append((clauses, lowered, blaster))
+    run = sat_solve(device_solver.solve_cnf_device_batch, queries,
+                    chunk=SAT_BATCH_CHUNK, device=dev)
+    results = run.pop("result")
+    if state_digest(run.pop("states")[0]) != EXPECTED_SAT_BATCH:
+        raise AssertionError("sat_batch: the state after the first chunk "
+                             "differs from the JAX batch runner's")
+    verdicts = {name: sat_verdict(name, status, model, *part)
+                for name, (status, model), part
+                in zip(SAT_BATCH_QUERIES, results, parts)}
+    launches = run.pop("launches")
+    emit({"phase": "sat_batch", "chunk": SAT_BATCH_CHUNK,
+          "queries": list(SAT_BATCH_QUERIES), "verdicts": verdicts, **run})
+    return launches
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -1558,25 +2037,34 @@ def main() -> int:
     records += phase_frontier_programs(dev)
     records.append(phase_telemetry(dev))
     records.append(phase_merge_kernel(dev))
+    records.append(phase_sat_kernel(dev))
     # the main path: the drain loop at full width and the spill run with
     # telemetry and merging off, then the default configuration
     launches = {name: 0 for name in ops.LAUNCHES}
     off_timing, off_profiled = phase_frontier(dev)
-    driver_launches = [off_timing["launches"],
+    main_path_launches = [off_timing["launches"],
                        phase_frontier_spill(dev)["launches"]]
     default_timing, default_profiled = phase_frontier_default(
         dev, off_timing, off_profiled)
-    driver_launches += [default_timing["launches"],
+    main_path_launches += [default_timing["launches"],
                         phase_frontier_merge(dev)["launches"]]
-    for counts in driver_launches:
+    # the device SAT lane: captured queries at full width, one flush
+    sat_launches, sat_profiled = phase_sat_lane(dev)
+    main_path_launches += [sat_launches, phase_sat_batch(dev)]
+    for counts in main_path_launches:
         for name, count in counts.items():
             launches[name] += count
     idle = sorted(name for name, count in launches.items() if count == 0)
     if idle:
-        raise AssertionError(f"kernels the driver phases never ran: {idle}")
+        raise AssertionError(f"kernels the main-path phases never ran: {idle}")
     for record in records:
         name = record["name"]
         record["launches"] = launches[name]
+        if name == "sat_step":
+            # K11's device time per step on the lane's profiled solve
+            record["main_path_device_ms"] = \
+                sat_profiled["k11_device_ms_per_step"]
+            continue
         # device time per wrapper call on the full-width drain loop: the
         # off run's, or the default run's for what only it launches (K9
         # runs inside K4's launches and has no device time of its own)

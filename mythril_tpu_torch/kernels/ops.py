@@ -1,4 +1,4 @@
-"""Thin PyTorch wrappers around the hand-written CUDA kernels K1-K10.
+"""Thin PyTorch wrappers around the hand-written CUDA kernels K1-K11.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates what the
 kernel writes with `torch.empty`, fills the kernel's parameter block (slot
@@ -23,11 +23,16 @@ that its main path went through the kernels.
   K9 telemetry   kernels/sym_step.cu     the telemetry block of sym_step
                  (TEL instantiation)     (symstep.py:822-908, 359-360)
   K10 merge_pass kernels/merge_pass.cu   symstep.merge_pass (symstep.py:1057)
+  K11 sat_step   kernels/sat_step.cu     jax_solver._step (jax_solver.py:247)
+                                         under _get_runner (384) and
+                                         _get_batch_runner (509)
 
 A count is per wrapper call: K4's call makes four device launches of its
 own (K9 counts the calls that run its TEL instantiation), K6 counts its
 three entries together, K7 its two, and K10 one per pass, whatever its
-rounds launch (its K3 allocations count as K3's).
+rounds launch (its K3 allocations count as K3's). K11 counts one per
+chunk: its call runs every step of the chunk (two launches a step, three
+with the batch runner's freeze).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from . import build, layout as Lay
+from ..parallel.device_solver import TILE
 from ..parallel.symstep import (ITE_OP, MAX_TEL_SLOTS, MERGE_STATS_FIXED,
                                 N_MERGE_DEPTH)
 
@@ -47,7 +53,7 @@ LAUNCHES: Dict[str, int] = {"keccak": 0, "evm_step": 0, "arena_alloc": 0,
                             "sym_step": 0, "telemetry": 0,
                             "frontier_summary": 0, "pack_rows": 0,
                             "gather_rows": 0, "arena_delta": 0,
-                            "merge_pass": 0}
+                            "merge_pass": 0, "sat_step": 0}
 
 #: which source each exported entry point lives in
 _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_sha_prep": "evm_step",
@@ -65,7 +71,8 @@ _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_sha_prep": "evm_step",
               "mtpu_merge_check": "merge_pass",
               "mtpu_merge_nodes": "merge_pass",
               "mtpu_merge_apply": "merge_pass",
-              "mtpu_merge_blocked": "merge_pass"}
+              "mtpu_merge_blocked": "merge_pass",
+              "mtpu_sat_run": "sat_step"}
 _FUNCS: Dict[str, object] = {}
 _OPTABS: Dict[str, torch.Tensor] = {}
 
@@ -734,3 +741,58 @@ def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
     _launch("mtpu_merge_blocked", values)
     LAUNCHES["merge_pass"] += 1
     return state, planes, arena, stats
+
+
+# ---- K11 ----------------------------------------------------------------------------
+
+def sat_run(state, problem, steps: int, forced_depth: int, freeze: bool):
+    """K11: `steps` DPLL steps of every probe, in place, from one host call.
+    `state` is a device_solver.SolverState of one query ([P, V1], [P]) or
+    of a batch ([Q, P, V1], [Q, P]); `problem` the matching DeviceProblem.
+    With `freeze`, a query whose probes are decided keeps its state (the
+    batch runner). Returns the state."""
+    if steps < 0:
+        raise ValueError(f"steps = {steps}")
+    queries = state.assign.shape[:-2]       # () for one query, (Q,) batched
+    lead = queries[0] if queries else 1
+    n_probes, v1 = state.assign.shape[-2:]
+    if n_probes > 1024:
+        raise ValueError(f"{n_probes} probes: the kernel takes at most 1024")
+    if problem.valid.dim() != state.assign.dim():
+        raise ValueError(f"valid: shape {tuple(problem.valid.shape)} does not "
+                         f"match the state's queries")
+    tiles = queries + (problem.valid.shape[-2], TILE)
+    values = [0] * Lay.K11_NARGS
+    for slot, leaf, what, dtype, shape in (
+            (Lay.K11_ASSIGN, state.assign, "assign", torch.int8,
+             state.assign.shape),
+            (Lay.K11_TRAIL, state.trail, "trail", torch.int32,
+             state.assign.shape),
+            (Lay.K11_TAG, state.tag, "tag", torch.int8, state.assign.shape),
+            (Lay.K11_TRAIL_LEN, state.trail_len, "trail_len", torch.int32,
+             state.assign.shape[:-1]),
+            (Lay.K11_STATUS, state.status, "status", torch.int8,
+             state.assign.shape[:-1]),
+            (Lay.K11_LITS, problem.lits, "lits", torch.int32, tiles + (3,)),
+            (Lay.K11_VALID, problem.valid, "valid", torch.bool, tiles),
+            (Lay.K11_ORDER, problem.order, "order", torch.int32,
+             queries + (v1,))):
+        values[slot] = _check(leaf, what, dtype, shape)
+    n_clauses = problem.valid.numel() // lead
+    dev = state.assign.device
+    key = torch.zeros((lead, n_probes, v1), dtype=torch.int32, device=dev)
+    conflict = torch.zeros((lead, n_probes), dtype=torch.int32, device=dev)
+    decided = torch.zeros(lead, dtype=torch.int32, device=dev) if freeze \
+        else None
+    for slot, value in ((Lay.K11_Q, lead), (Lay.K11_P, n_probes),
+                        (Lay.K11_V1, v1), (Lay.K11_C, n_clauses),
+                        (Lay.K11_FORCED_DEPTH, forced_depth),
+                        (Lay.K11_STEPS, steps),
+                        (Lay.K11_KEY, key.data_ptr()),
+                        (Lay.K11_CONFLICT, conflict.data_ptr()),
+                        (Lay.K11_DECIDED,
+                         0 if decided is None else decided.data_ptr())):
+        values[slot] = value
+    _launch("mtpu_sat_run", values)
+    LAUNCHES["sat_step"] += 1
+    return state

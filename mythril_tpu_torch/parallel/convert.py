@@ -3,7 +3,9 @@
 `from_numpy(kind, tree)` takes one of the JAX package's pytrees with every
 leaf already turned into a numpy array (`np.asarray` of each leaf) and
 builds the port's StateBatch / SymPlanes / Arena / DeviceScheduler (with
-its Telemetry) on a device. `to_numpy(tree)` goes back. Every leaf keeps
+its Telemetry), or the SAT lane's SolverState / DeviceProblem (from JAX
+`_SolverState` / `_Problem`, whose host-only fields are not carried), on
+a device. `to_numpy(tree)` goes back. Every leaf keeps
 the JAX dtype and shape byte for byte: uint32 limb leaves ride as int32
 tensors with the same bytes and come back as uint32. The JAX package
 itself is never imported; the tree is read by field name."""
@@ -16,10 +18,12 @@ import torch
 from .. import device as _device
 from .arena import Arena
 from .batch import U32_FIELDS, StateBatch, to_tensor
+from .device_solver import DeviceProblem, SolverState
 from .symstep import DeviceScheduler, SymPlanes, Telemetry
 
 KINDS = {"state": StateBatch, "planes": SymPlanes, "arena": Arena,
-         "sched": DeviceScheduler, "telemetry": Telemetry}
+         "sched": DeviceScheduler, "telemetry": Telemetry,
+         "sat_state": SolverState, "sat_problem": DeviceProblem}
 
 #: (kind, field) pairs whose JAX dtype is uint32
 _U32 = {("state", f) for f in U32_FIELDS} | {("arena", "const_vals")}

@@ -25,6 +25,12 @@ bad = sorted(m for m in sys.modules
 print("LOADED", len([m for m in sys.modules
                      if m.startswith("mythril_tpu_torch")]))
 print("FRONTIER", "mythril_tpu_torch.parallel.frontier" in sys.modules)
+print("SAT", all(m in sys.modules for m in (
+    "mythril_tpu_torch.parallel.device_solver", "mythril_tpu_torch.smt.terms",
+    "mythril_tpu_torch.smt.smtlib", "mythril_tpu_torch.smt.solver.simplify",
+    "mythril_tpu_torch.smt.solver.preprocess",
+    "mythril_tpu_torch.smt.solver.bitblast",
+    "mythril_tpu_torch.smt.solver.solver_statistics")))
 print("BAD", bad)
 """
 
@@ -37,11 +43,13 @@ def test_port_and_smoke_import_no_jax():
     assert "BAD []" in proc.stdout, proc.stdout
     loaded = int(proc.stdout.split("LOADED")[1].split()[0])
     assert loaded >= 16 and "FRONTIER True" in proc.stdout
+    assert "SAT True" in proc.stdout
 
 
 def test_entry_points_default_to_cuda():
     from mythril_tpu_torch import device
-    from mythril_tpu_torch.parallel import arena, batch, frontier, symstep
+    from mythril_tpu_torch.parallel import (arena, batch, device_solver,
+                                            frontier, symstep)
 
     assert device.resolve("cpu").type == "cpu"
     if torch.cuda.is_available():
@@ -55,4 +63,10 @@ def test_entry_points_default_to_cuda():
         symstep.SymPlanes.empty(1, 4, 32, 2)
     with pytest.raises(RuntimeError):
         frontier.DeviceFrontier(4)
+    with pytest.raises(RuntimeError):
+        device_solver.solve_cnf_device([[1, 2], [-1]], 2)
+    with pytest.raises(RuntimeError):
+        device_solver.solve_cnf_device_batch([([[1, 2], [-1]], 2)])
+    assert device_solver.solve_cnf_device([[1, 2], [-1]], 2,
+                                          device="cpu")[0] == device_solver.SAT
     assert batch.build_batch([spec], device="cpu").stack.device.type == "cpu"

@@ -19,13 +19,15 @@ import pytest
 import torch
 
 from _torch_parity import seed_frontier, to_port
-from chip_smoke import BENCH_LOOP, mixed_specs
+from chip_smoke import (BENCH_LOOP, mixed_specs, sat_batch_fixture,
+                        sat_compare, sat_fixtures)
 from mythril_tpu.frontends.asm import assemble
 from mythril_tpu.parallel import symstep as jsym
 from mythril_tpu_torch.kernels import build, layout, ops
 from mythril_tpu_torch.parallel import arena as ta
 from mythril_tpu_torch.parallel import batch as tb
-from mythril_tpu_torch.parallel import convert, keccak as tk
+from mythril_tpu_torch.parallel import convert, device_solver as tds
+from mythril_tpu_torch.parallel import keccak as tk
 from mythril_tpu_torch.parallel import lockstep as tl
 from mythril_tpu_torch.parallel import symstep as ts
 
@@ -38,11 +40,14 @@ def test_layout_matches_pytree_fields():
     assert layout.N_STATE_LEAVES == len(tb.StateBatch._fields)
     for index, name in enumerate(fields):
         assert layout.SLOTS[f"L_{name.upper()}"] == index
-    for prefix in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10"):
+    for prefix in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10",
+                   "K11"):
         assert layout.SLOTS[f"{prefix}_NARGS"] <= layout.MTPU_MAX_ARGS
     assert layout.K4_ROW_BYTES + layout.N_ROW_LEAVES == layout.K4_B
     assert layout.K6_LEAF + layout.N_ROW_LEAVES == layout.K6_INDEX
     assert layout.K7_ROW_BYTES + layout.N_ROW_LEAVES == layout.K7_INDEX
+    assert [layout.SLOTS[f"K11_{name.upper()}"]
+            for name in tds.SolverState._fields] == list(range(5))
 
 
 def test_optab_matches_twin_tables():
@@ -79,6 +84,10 @@ def test_wrappers_refuse_cpu_tensors():
                  lambda: ops.arena_delta(arena, 0, 0, 16, 16)):
         with pytest.raises(ValueError):
             call()
+    problem = tds.build_problem([[1, 2]], 2)
+    sat_state = tds.initial_state(problem.init_assign, 2, "cpu")
+    with pytest.raises(ValueError):
+        ops.sat_run(sat_state, tds.device_problem(problem, "cpu"), 1, 1, False)
 
 
 @pytest.mark.parametrize("name", build.SOURCES)
@@ -377,3 +386,25 @@ def test_host_merge_pass_matches_twin(on_host, case):
     assert torch.equal(got[3], ref[3])
     if case in ("diamond", "bothwrite_windows", "mem_branchy"):
         assert int(ref[3][0]) > 0
+
+
+@pytest.mark.parametrize("case", [f[0] for f in sat_fixtures()] + ["batch"])
+def test_host_sat_step_matches_twin(on_host, case):
+    """K11 against `run_chunk_reference` on chip_smoke's fixtures (the
+    phase-race, no-flip and 32-probe ones, and the batch runner's freeze),
+    every leaf after each chunk."""
+    if case == "batch":
+        problems = [tds.build_problem(c, n) for c, n in sat_batch_fixture()]
+        tensors = tds.device_problem(problems, "cpu")
+        state = tds.initial_state(np.stack([p.init_assign for p in problems]),
+                                  8, "cpu")
+        kernel = sat_compare(state, tensors, 2, 3, 8, True, case)
+        assert (kernel.status[1] != tds.SEARCHING).all()
+        return
+    _, clauses, n_vars, n_probes = next(f for f in sat_fixtures()
+                                        if f[0] == case)
+    problem = tds.build_problem(clauses, n_vars)
+    tensors = tds.device_problem(problem, "cpu")
+    state = tds.initial_state(problem.init_assign, n_probes, "cpu")
+    kernel = sat_compare(state, tensors, 2, 3, n_probes, False, case)
+    assert int(kernel.trail_len.max()) > 1
