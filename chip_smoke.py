@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one CUDA card
 
-It builds the hand-written kernels (K1-K11, ten sources) from the
+It builds the hand-written kernels (K1-K12, eleven sources) from the
 checkout's sources, holds each against its plain PyTorch version on the
 card, then drives the port's main device path, the frontier's drain loop
 (`DeviceFrontier.run` around `symstep.run_chunk`), at the frontier's
 default geometry until the tree is drained: with telemetry and state
-merging off (phases 8-9) and in the default configuration with both on
-(phases 12-13); then the device SAT lane (`device_solver.solve_cnf_device`
+merging off (phases 8-9), in the default configuration with both on
+(phases 12-13) and sharded into 4 logical shards with work stealing
+(phase 16); then the device SAT lane (`device_solver.solve_cnf_device`
 and `solve_cnf_device_batch` on K11) on captured analysis queries at full
-width (phases 15-16). Every phase prints one JSON line; any mismatch
+width (phases 18-19). Every phase prints one JSON line; any mismatch
 raises, and the run exits non-zero. Phases:
 
   1. the card's name and power limit (nvidia-smi);
@@ -61,13 +62,30 @@ raises, and the run exits non-zero. Phases:
      phase 8's;
  13. frontier_merge: the same on mem_branchy(8) with the tag and window
      tables the JAX static analysis builds for it (constants here);
- 14. sat_kernel: K11 vs `run_chunk_reference`, every leaf after each
+ 14. shard_step: K4 and K5 with a 4-shard scheduler (vector tops,
+     segment-local ranks; 768 stack and 256 escape rows a segment) vs the
+     twins, the planes contracts and branchy(12) one per lane block,
+     telemetry armed, 2 chunks, every leaf and the summary's shard block;
+ 15. steal_kernel: K12 vs `steal_pass_reference` at the same geometry
+     (random pool rows, max_rows 32): a forced imbalance, gaps below the
+     threshold, tied loads, receivers with less room than half the gap,
+     and the sharded frontier's first pass; every pool leaf and counter;
+     one pass under `torch.cuda.set_sync_debug_mode("error")`; its time
+     beside the twin, the bound and index_select + index_copy_ per leaf;
+ 16. frontier_shard: `DeviceFrontier(128, n_shards=4)` in the default
+     configuration with the default steal knobs on branchy(12) from one
+     seed (every path starts in shard 0), held to the JAX `_Frontier`'s
+     counters, steal counters, digests and telemetry words; wall, idle
+     share, K12 launches and K4's device time per step beside phase 12's;
+     then a fleet of branchy(12) and mem_branchy(8) owned by shards 0 and
+     2 with fleet slots and both codes' tables, held the same way;
+ 17. sat_kernel: K11 vs `run_chunk_reference`, every leaf after each
      chunk, on fixtures (opposite-phase races in one tile and across two,
      the no-flip backtrack, 32 forced probes, the batch runner's freeze)
      and at full width (32 probes, V1 65,536) on a captured query of each
      tile bucket (64 and 256): 64 steps compared, then K11's time per step
      beside the twin's and the bound;
- 15. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
+ 18. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
      the CNF does not depend on the process, its digest) and the state
@@ -77,11 +95,11 @@ raises, and the run exits non-zero. Phases:
      verdict, chunk count and model to the JAX lane's; steps, verdict,
      wall and host ms per chunk; one solve again under the profiler for
      the card's idle share;
- 16. sat_batch: `solve_cnf_device_batch` on four captured queries of one
+ 19. sat_batch: `solve_cnf_device_batch` on four captured queries of one
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
-     state after the first chunk, verdicts and models as in phase 15;
- 17. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 15, 16), its time, its plain version's time, the least time
+     state after the first chunk, verdicts and models as in phase 18;
+ 20. the kernels line: each kernel's launches on the main-path phases (8, 9,
+     12, 13, 16, 18, 19), its time, its plain version's time, the least time
      the card could take and the library call's time (K11's per step).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -216,6 +234,63 @@ MEM_BRANCHY_MEM_PCS = [44, 45, 48, 49, 52, 69, 70, 73, 74, 77, 94, 95, 98, 99,
                        102, 119, 120, 123, 124, 127, 144, 145, 148, 149, 152,
                        169, 170, 173, 174, 177, 194, 195, 198, 199, 202, 219,
                        220]
+
+
+#: the sharded frontier (phases shard_step, steal_kernel, frontier_shard):
+#: 4 logical shards of 32 lanes, the default steal knobs (a pass every 4
+#: chunks, a load gap of 8 at least)
+SHARDS = 4
+#: the JAX reference of DeviceFrontier(128, n_shards=4) in the default
+#: configuration on dispatcher(branchy(12)) from one seed (shard 0's block):
+#: `_Frontier(laser_evm=None, n_lanes=128)` with `n_shards = 4` set on the
+#: instance, counted as EXPECTED_DEFAULT, plus its steal passes and the
+#: shard block's final steal counters. tests/test_torch_frontier.py
+#: recomputes it. The run never drains and ends at the step budget (64
+#: chunks): the drain trigger compares the global escape count with the
+#: 1024-row drain batch while the escapes fill shard 0's 256-row segment,
+#: whose overflow freezes lanes that the host defers a chunk at a time
+#: (the JAX frontier does the same).
+EXPECTED_SHARD = {
+    "chunks": 64, "drains": 0, "drained_rows": 0, "frozen_rows": 2965,
+    "spilled": 0, "reseeded": 0, "lane_steps": 34432, "forks": 3844,
+    "stack_pushes": 3710, "stack_pops": 3626, "deferred_blocks": 64,
+    "deferred_rows": 3845, "mirror_n": 11535, "mirror_n_const": 3845,
+    "merge_passes": 0, "merges": 0, "merge_ites": 0, "mem_blends": 0,
+    "steal_passes": 16, "steal_rows": 536, "steals_sent": [508, 28, 0, 0],
+    "steals_received": [0, 380, 128, 28],
+    "deferred_sha256":
+        "293e5289e0856ec85479ca919c0a472977687d6b2dd5e43f26654210c5988268",
+    "mirror_sha256":
+        "b7b3da3f314a2e7ec9fb7ffeb61d13689eb347a50f9b3eb434bcf59ba2419185",
+    "blocked_by": {"depth": 0, "mem_sym": 0, "memory": 0,
+                   "storage_keys": 0, "tstore": 0},
+    "telemetry_words": [
+        0, 3845, 0, 3844, 0, 1, 0, 11447, 11533, 1, 0, 0, 0, 3761, 0, 3626, 0, 0,
+        0, 796, 163228, 0, 0, 134, 3710, 0, 0, 3761, 0, 0, 0, 0, 0, 0, 0, 34432,
+        4096, 271, 796]}
+#: the two-member fleet: branchy(12) owned by shard 0 and mem_branchy(8) by
+#: shard 2 (`seed_owner_index`), fleet slots [0, 1] named as FLEET_RUN's
+#: keys, the tables of the JAX static analysis of both codes
+#: (`fleet_tables`), the rest as EXPECTED_SHARD
+FLEET_OWNERS = [0, 2]
+EXPECTED_FLEET = {
+    "chunks": 64, "drains": 0, "drained_rows": 0, "frozen_rows": 3090,
+    "spilled": 0, "reseeded": 0, "lane_steps": 36908, "forks": 3988,
+    "stack_pushes": 3818, "stack_pops": 3734, "deferred_blocks": 64,
+    "deferred_rows": 3974, "mirror_n": 11763, "mirror_n_const": 3879,
+    "merge_passes": 3, "merges": 16, "merge_ites": 32, "mem_blends": 16,
+    "steal_passes": 16, "steal_rows": 540, "steals_sent": [508, 28, 4, 0],
+    "steals_received": [0, 380, 128, 32],
+    "deferred_sha256":
+        "b4b5a49ff382f294ea2e5344a64e246acd008ee860bdec8605a1553b1b411aec",
+    "mirror_sha256":
+        "65e6d62c18527f5e1f590aee9df5f36f308124d68063f86626b0b226c872f425",
+    "blocked_by": {"depth": 47, "mem_sym": 0, "memory": 0,
+                   "storage_keys": 0, "tstore": 0},
+    "telemetry_words": [
+        0, 3847, 0, 4004, 0, 288, 0, 12307, 12570, 2, 0, 0, 0, 3890, 0, 3734, 0,
+        0, 0, 800, 170437, 0, 0, 170, 3818, 0, 0, 3890, 0, 0, 0, 0, 0, 0, 0,
+        36908, 4096, 271, 800, 4, 12, 40, 80, 280, 988, 1960, 128, 34432, 2476]}
 
 
 def mem_branchy_tables() -> dict:
@@ -506,6 +581,17 @@ def branchy_contract(n_branches: int) -> str:
                   f"PUSH4 {hex(0x10000 + i)}", "LT", f"PUSH @l{i}", "JUMPI",
                   f"l{i}:", "JUMPDEST"]
     return "\n".join(lines + ["STOP"])
+
+
+#: the fleet run's members, in seed and fleet-slot order
+FLEET_RUN = {"branchy12": branchy_contract(N_BRANCHES),
+             "mem_branchy8": mem_branchy_contract(MERGE_BRANCHES)}
+
+
+def fleet_tables() -> dict:
+    """The JAX static analysis's tables for the fleet's two codes: those of
+    mem_branchy(8) (branchy(12) has no joins)."""
+    return mem_branchy_tables()
 
 
 # ---- helpers ---------------------------------------------------------------------
@@ -1018,6 +1104,15 @@ def default_totals(fr) -> dict:
             "telemetry_words": [int(v) for v in fr.tel_words]}
 
 
+def shard_totals(fr) -> dict:
+    """default_totals plus the steal passes and the steal counters of a
+    sharded run."""
+    return {**default_totals(fr), "steal_passes": fr.steal_passes,
+            "steal_rows": int(fr.steal_rows),
+            "steals_sent": [int(v) for v in fr.steals_sent],
+            "steals_received": [int(v) for v in fr.steals_received]}
+
+
 def check_same(got, ref, what: str) -> None:
     for mine, theirs in zip(got, ref):
         if mine.dtype != theirs.dtype or not torch.equal(mine, theirs):
@@ -1254,6 +1349,7 @@ KERNEL_OF = {
     "merge_hash_kernel": "merge_pass", "merge_pair_kernel": "merge_pass",
     "merge_check_kernel": "merge_pass", "merge_nodes_kernel": "merge_pass",
     "merge_apply_kernel": "merge_pass", "merge_blocked_kernel": "merge_pass",
+    "steal_plan_kernel": "steal_pass", "steal_move_kernel": "steal_pass",
     "row_maxima_kernel": "pack_rows", "pack_rows_kernel": "pack_rows",
     "reset_esc_kernel": "pack_rows", "gather_rows_kernel": "gather_rows",
     "scatter_rows_kernel": "gather_rows",
@@ -1577,7 +1673,307 @@ def phase_frontier_merge(dev) -> dict:
     return timing
 
 
-# ---- phases 14-16: the device SAT lane (K11) --------------------------------------
+# ---- phases 14-16: the sharded frontier (K4/K5 segmented, K12) -----------------------
+
+SHARD_STACK_ROWS = STACK_ROWS   # 768 rows a segment
+SHARD_ESC_ROWS = ESC_ROWS       # 256 rows a segment
+#: steal width of the full-width frontier: min(P / D, max(16, B / D))
+STEAL_MAX_ROWS = min(SHARD_STACK_ROWS // SHARDS, max(16, LANES // SHARDS))
+
+
+def sharded_tree(dev, placed, base_sym=(), telemetry=None, n_shards=SHARDS):
+    """[state, planes, arena, sched] at the default geometry with
+    `placed` = {lane: code} RUNNING (ctx_id in order), the rest DEAD, and
+    a scheduler of 3072 stack and 1024 escape rows in `n_shards` shards."""
+    specs = [B.LaneSpec(code=b"\x00")] * LANES
+    for lane, code in placed.items():
+        specs[lane] = B.LaneSpec(code=code, gas_limit=10_000_000)
+    state = B.build_batch(specs, device=dev)
+    planes = symstep.SymPlanes.empty(LANES, state.stack.shape[1],
+                                     state.memory.shape[1],
+                                     state.storage_keys.shape[1], MAX_CONDS,
+                                     device=dev)
+    state.status.fill_(B.DEAD)
+    for index, lane in enumerate(placed):
+        state.status[lane] = B.RUNNING
+        planes.ctx_id[lane] = index
+    for lane in base_sym:
+        planes.storage_base_sym[lane] = True
+    sched = symstep.new_scheduler(state, planes, SHARD_STACK_ROWS,
+                                  SHARD_ESC_ROWS, telemetry=telemetry,
+                                  n_shards=n_shards)
+    return [state, planes, A.new_arena(device=dev), sched]
+
+
+def phase_shard_step(dev) -> dict:
+    """K4 and K5 with 4 shards (vector tops, segment-local ranks) vs the
+    twins: the planes contracts and branchy(12), one per lane block,
+    telemetry armed, 2 chunks, every leaf and the summary with its shard
+    block compared."""
+    placed = {0: assemble(dispatcher({"planes()": PLANES_SOURCE})),
+              32: assemble(dispatcher(KILLBILLY)),
+              64: assemble(dispatcher({"stress()": branchy_contract(3)})),
+              96: assemble(dispatcher({"stress()": branchy_contract(
+                  N_BRANCHES)}))}
+    tree = sharded_tree(dev, placed, base_sym=[32],
+                        telemetry=symstep.new_telemetry(
+                            TEL_TAG_PCS, [0, 1, 0, 1], 2, device=dev))
+    plain = [convert.clone(t) for t in tree]
+    escapes = 0
+    for chunk in range(2):
+        tree = list(symstep.run_chunk(*tree, CHUNK))
+        plain = list(symstep.run_chunk_reference(*plain, CHUNK))
+        for kind, got, ref in zip(("state", "planes", "arena", "sched"),
+                                  tree, plain):
+            assert_same(got, ref, f"shard_step chunk {chunk} {kind}")
+        check_same([frontier.summary(*tree)],
+                   [frontier.summary_reference(*plain)], "K5 shard block")
+        escapes += int(tree[3].esc_count.sum())
+        frontier.reset_esc(tree[3])
+        frontier.reset_esc_reference(plain[3])
+    tops = tree[3].stack_top.tolist()
+    if not (escapes and int(tree[3].pushes) and max(tops) > 0
+            and min(tops) == 0):
+        raise AssertionError(f"shard_step missed a path: tops {tops}, "
+                             f"{escapes} escapes")
+
+    # K4's device time per step, one chunk from the same seeds with one
+    # and with four shards (the same work but for the lanes the segments
+    # place), and the rows each step moved (reseeds, escapes, forks)
+    def k4_chunk(n_shards):
+        def chunk(_):
+            fresh = sharded_tree(dev, placed, base_sym=[32], n_shards=n_shards)
+            for _ in range(CHUNK):
+                fresh = list(ops.sym_step(*fresh))
+            moved[n_shards] = int(fresh[3].pops) + int(fresh[3].forks) \
+                + int(fresh[3].esc_count.sum())
+        moved = {}
+        ms = device_ms(chunk, 2, ("sym_pre_kernel", "sym_mid1_kernel",
+                                  "sym_mid2_kernel", "sym_post_kernel"))
+        return ms / CHUNK, moved[n_shards] / CHUNK
+
+    k4_d1, moved_d1 = k4_chunk(1)
+    k4_d4, moved_d4 = k4_chunk(SHARDS)
+    emit({"phase": "shard_step", "shards": SHARDS,
+          "contracts": ["planes()", "KILLBILLY", "branchy(3)",
+                        f"branchy({N_BRANCHES})"],
+          "chunks": 2, "escapes": escapes, "stack_tops": tops,
+          "forks": int(tree[3].forks), "pushes": int(tree[3].pushes),
+          "max_abs_err": 0,
+          "k4_device_ms_per_step": {"d1": k4_d1, "d4": k4_d4},
+          "rows_moved_per_step": {"d1": moved_d1, "d4": moved_d4}})
+    return k4_d1, k4_d4
+
+
+def fill_pool(sched, seed: int) -> None:
+    """Every pool leaf of the stack filled with random bytes, so that a
+    misplaced or partial row copy shows."""
+    gen = torch.Generator(device=sched.stack_top.device)
+    gen.manual_seed(seed)
+    for leaf in list(sched.stack_state) + list(sched.stack_planes):
+        if leaf.dtype == torch.bool:
+            leaf.copy_(torch.randint(0, 2, leaf.shape, generator=gen,
+                                     device=leaf.device).bool())
+        else:
+            info = torch.iinfo(leaf.dtype)
+            low, high = max(info.min, -(1 << 31)), min(info.max, (1 << 31) - 1)
+            leaf.copy_(torch.randint(low, high, leaf.shape, generator=gen,
+                                     device=leaf.device, dtype=torch.int64)
+                       .to(leaf.dtype))
+
+
+def steal_case(dev, tops, running, seed: int):
+    """(state, sched): 128 lanes at the default geometry, `running[d]` of
+    block d's lanes RUNNING, a 4-shard pool of random rows with `tops`."""
+    state = B.build_batch([B.LaneSpec(code=b"\x00")] * LANES, device=dev)
+    planes = symstep.SymPlanes.empty(LANES, state.stack.shape[1],
+                                     state.memory.shape[1],
+                                     state.storage_keys.shape[1], MAX_CONDS,
+                                     device=dev)
+    state.status.fill_(B.DEAD)
+    block = LANES // SHARDS
+    for d, count in enumerate(running):
+        state.status[d * block:d * block + count] = B.RUNNING
+    sched = symstep.new_scheduler(state, planes, SHARD_STACK_ROWS,
+                                  SHARD_ESC_ROWS, n_shards=SHARDS)
+    fill_pool(sched, seed)
+    sched.stack_top.copy_(torch.tensor(tops, dtype=torch.int32))
+    return state, sched
+
+
+def captured_steal(dev):
+    """(state, sched) the sharded frontier hands its first steal pass
+    (chunk 4 of the frontier_shard run), cloned before the pass."""
+    captured = []
+    steal_pass = frontier.steal_pass
+
+    def capture(state, sched, *args):
+        if not captured:
+            captured.append((convert.clone(state), convert.clone(sched)))
+        return steal_pass(state, sched, *args)
+
+    fr = frontier.DeviceFrontier(LANES, device=dev, n_shards=SHARDS,
+                                 max_steps=4 * CHUNK)
+    frontier.steal_pass = capture
+    try:
+        fr.run(*fr.seed(stress_seed(N_BRANCHES)))
+    finally:
+        frontier.steal_pass = steal_pass
+    return captured[0]
+
+
+#: (tops, RUNNING lanes per block, min_imbalance) of phase steal_kernel
+STEAL_CASES = {
+    # shards 1 and 3 rich: both pairs move STEAL_MAX_ROWS rows
+    "forced": ([0, 700, 0, 500], [0, 32, 0, 0], 8),
+    # every gap below the threshold: nothing moves
+    "below_threshold": ([3, 5, 4, 6], [0, 0, 0, 0], 8),
+    # loads 40, 40, 0, 0: the stable order pairs (2, 1) and (3, 0)
+    "tied": ([40, 40, 0, 0], [0, 0, 0, 0], 8),
+    # loads 760, 800, 766, 788: half the gaps (20, 11) exceed the
+    # receivers' room (8, 2)
+    "short_room": ([760, 768, 766, 768], [0, 32, 0, 20], 8),
+}
+
+
+def phase_steal_kernel(dev) -> dict:
+    """K12 vs steal_pass_reference at the full geometry, every pool leaf
+    and counter; its time beside the twin's, the bound and one
+    index_select + index_copy_ per leaf; one pass under the sync check."""
+    cases = {name: steal_case(dev, tops, running, seed)
+             for seed, (name, (tops, running, _)) in enumerate(
+                 STEAL_CASES.items())}
+    cases["mid_run"] = captured_steal(dev)
+    thresholds = {name: case[2] for name, case in STEAL_CASES.items()}
+    thresholds["mid_run"] = frontier.STEAL_MIN_IMBALANCE
+    moved = {}
+    for name, (state, sched) in cases.items():
+        kernel, plain = convert.clone(sched), convert.clone(sched)
+        frontier.steal_pass(state, kernel, thresholds[name], STEAL_MAX_ROWS)
+        frontier.steal_pass_reference(state, plain, thresholds[name],
+                                      STEAL_MAX_ROWS)
+        assert_same(kernel, plain, f"K12 {name}")
+        moved[name] = int(plain.steal_rows) - int(sched.steal_rows)
+    expected = {"forced": 2 * STEAL_MAX_ROWS, "below_threshold": 0,
+                "tied": 40, "short_room": 10}
+    if any(moved[name] != count for name, count in expected.items()) \
+            or not moved["mid_run"]:
+        raise AssertionError(f"K12 moved {moved}")
+
+    # no host synchronization in the pass (the sizes stay on the card)
+    state, sched = cases["forced"]
+    quiet = convert.clone(sched)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frontier.steal_pass(state, quiet, thresholds["forced"], STEAL_MAX_ROWS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    # time on the forced case (64 rows moved), each rep from a fresh pool
+    def fresh():
+        return convert.clone(sched)
+
+    ms = event_ms(lambda t: ops.steal_pass(state, t, 8, STEAL_MAX_ROWS), 20,
+                  setup=fresh)
+    dev_ms = device_ms(lambda _: ops.steal_pass(state, fresh(), 8,
+                                                STEAL_MAX_ROWS), 10,
+                       ("steal_plan_kernel", "steal_move_kernel"))
+    plain_ms = event_ms(lambda t: frontier.steal_pass_reference(
+        state, t, 8, STEAL_MAX_ROWS), 5, setup=fresh)
+    seg_pool = SHARD_STACK_ROWS // SHARDS
+    src, dst = [], []
+    for poor, rich, n in frontier.steal_plan(state.status, sched.stack_top,
+                                             seg_pool, 8, STEAL_MAX_ROWS):
+        top_r, top_p = int(sched.stack_top[rich]), int(sched.stack_top[poor])
+        src += [rich * seg_pool + top_r - 1 - r for r in range(n)]
+        dst += [poor * seg_pool + top_p + r for r in range(n)]
+    src_t = torch.tensor(src, dtype=torch.int64, device=dev)
+    dst_t = torch.tensor(dst, dtype=torch.int64, device=dev)
+    pool = fresh()
+    leaves = list(pool.stack_state) + list(pool.stack_planes)
+
+    def library(_):
+        for leaf in leaves:
+            leaf.index_copy_(0, dst_t, leaf.index_select(0, src_t))
+
+    library_ms = event_ms(library, 20)
+    row_bytes = sum(leaf[0].numel() * leaf.element_size() for leaf in leaves)
+    nbytes = 2 * len(src) * row_bytes + LANES * 4 + SHARDS * (2 * 4 + 2 * 8) + 8
+    b_ms, b_by = bound_ms(nbytes, 0)
+    emit({"phase": "steal_kernel", "shards": SHARDS,
+          "stack_rows": SHARD_STACK_ROWS, "max_rows": STEAL_MAX_ROWS,
+          "row_bytes": row_bytes, "rows_moved": moved, "max_abs_err": 0,
+          "no_host_sync": True, "ms": ms, "device_ms": dev_ms,
+          "plain_ms": plain_ms, "library_ms": library_ms,
+          "bound_bytes": nbytes})
+    return {"name": "steal_pass", "route": "cuda",
+            "source": "mythril_tpu_torch/kernels/steal_pass.cu",
+            "replaces": "mythril_tpu/parallel/frontier.py:319",
+            "max_abs_err": 0, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms,
+            "library": "index_select + index_copy_ per leaf (46 pairs)",
+            "held_by": "phase steal_kernel"}
+
+
+def phase_frontier_shard(dev, default_timing, default_profiled) -> tuple:
+    """DeviceFrontier(128, n_shards=4) in the default configuration on
+    branchy(12) from one seed in shard 0, held to the JAX constants; its
+    wall, idle share and K4's device time per step beside the unsharded
+    default run's; then the two-member fleet."""
+    fr = frontier.DeviceFrontier(LANES, device=dev, n_shards=SHARDS)
+    timing = drive_frontier(fr, stress_seed(N_BRANCHES))
+    totals = shard_totals(fr)
+    check_totals(totals, EXPECTED_SHARD, "frontier_shard")
+    replay = frontier.DeviceFrontier(LANES, device=dev, n_shards=SHARDS)
+    profiled = profiled_run(replay, stress_seed(N_BRANCHES))
+    check_totals(shard_totals(replay), EXPECTED_SHARD,
+                 "profiled frontier_shard")
+
+    def k4_step_ms(run_timing, run_profiled):
+        return run_profiled["kernel_device_ms"]["sym_step"] \
+            / run_timing["launches"]["sym_step"]
+
+    emit({"phase": "frontier_shard",
+          "contract": f"dispatcher(branchy({N_BRANCHES}))", "lanes": LANES,
+          "shards": SHARDS, "steal_cadence": fr.steal_cadence,
+          "steal_min_imbalance": fr.steal_min_imbalance,
+          "steal_max_rows": STEAL_MAX_ROWS, **totals, **timing,
+          "profiled": profiled, "shard_tops": fr.shard_tops.tolist(),
+          "shard_fairness": fr.shard_fairness,
+          "shard_imbalance": fr.shard_imbalance,
+          "k12_launches": timing["launches"]["steal_pass"],
+          "k4_device_ms_per_step": {
+              "d4": k4_step_ms(timing, profiled),
+              "d1_frontier_default": k4_step_ms(default_timing,
+                                                default_profiled)},
+          "unsharded": {"wall_s": default_timing["wall_s"],
+                        "idle_share": default_profiled["idle_share"]}})
+
+    names = list(FLEET_RUN)
+    fleet = frontier.DeviceFrontier(LANES, device=dev, n_shards=SHARDS,
+                                    seed_owner_index=FLEET_OWNERS,
+                                    fleet_slots=list(range(len(names))),
+                                    fleet_names=names, **fleet_tables())
+    seeds = [seed for body in FLEET_RUN.values()
+             for seed in stress_seed(0, body)]
+    fleet_timing = drive_frontier(fleet, seeds)
+    fleet_totals = shard_totals(fleet)
+    check_totals(fleet_totals, EXPECTED_FLEET, "frontier_shard fleet")
+    if not (fleet.mem_blends and fleet.steal_rows):
+        raise AssertionError("the fleet run blended no memory or stole "
+                             "no rows")
+    emit({"phase": "frontier_shard_fleet", "members": names,
+          "owners": FLEET_OWNERS, "lanes": LANES, "shards": SHARDS,
+          **fleet_totals,
+          "fleet_occupancy": dict(zip(names, fleet.fleet_occupancy.tolist())),
+          **fleet_timing})
+    return timing, profiled, fleet_timing
+
+
+# ---- phases 17-19: the device SAT lane (K11) --------------------------------------
 
 #: captured analysis queries (tests/data/smt2_corpus.tar.gz) the lane runs
 #: at full width: two of the 64-tile bucket, two of the 256-tile one (V1 =
@@ -2037,6 +2433,8 @@ def main() -> int:
     records += phase_frontier_programs(dev)
     records.append(phase_telemetry(dev))
     records.append(phase_merge_kernel(dev))
+    k4_same_work = phase_shard_step(dev)
+    records.append(phase_steal_kernel(dev))
     records.append(phase_sat_kernel(dev))
     # the main path: the drain loop at full width and the spill run with
     # telemetry and merging off, then the default configuration
@@ -2048,6 +2446,10 @@ def main() -> int:
         dev, off_timing, off_profiled)
     main_path_launches += [default_timing["launches"],
                         phase_frontier_merge(dev)["launches"]]
+    # the sharded frontier: 4 logical shards with stealing, then a fleet
+    shard_timing, shard_profiled, fleet_timing = phase_frontier_shard(
+        dev, default_timing, default_profiled)
+    main_path_launches += [shard_timing["launches"], fleet_timing["launches"]]
     # the device SAT lane: captured queries at full width, one flush
     sat_launches, sat_profiled = phase_sat_lane(dev)
     main_path_launches += [sat_launches, phase_sat_batch(dev)]
@@ -2066,15 +2468,26 @@ def main() -> int:
                 sat_profiled["k11_device_ms_per_step"]
             continue
         # device time per wrapper call on the full-width drain loop: the
-        # off run's, or the default run's for what only it launches (K9
-        # runs inside K4's launches and has no device time of its own)
-        run_timing, run_profiled = (
-            (off_timing, off_profiled) if off_timing["launches"][name]
-            else (default_timing, default_profiled))
+        # off run's, or the default run's or the sharded run's for what only
+        # they launch (K9 runs inside K4's launches and has no device time
+        # of its own)
+        run_timing, run_profiled = next(
+            (run for run in ((off_timing, off_profiled),
+                             (default_timing, default_profiled),
+                             (shard_timing, shard_profiled))
+             if run[0]["launches"][name]), (shard_timing, shard_profiled))
         calls = run_timing["launches"][name]
         record["main_path_device_ms"] = (
             run_profiled["kernel_device_ms"][name] / calls
             if calls and name != "telemetry" else None)
+        if name == "sym_step":
+            # the sharded run's steps, and one chunk of the same work at
+            # D = 1 and D = 4 (phase shard_step)
+            record["main_path_device_ms_d4"] = \
+                shard_profiled["kernel_device_ms"][name] \
+                / shard_timing["launches"][name]
+            record["shard_step_device_ms"] = dict(zip(("d1", "d4"),
+                                                      k4_same_work))
     print(CARD, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,8 @@ from typing import Dict, List, Optional
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "build")
 SOURCES = ("keccak", "evm_step", "arena_alloc", "sym_step", "frontier_summary",
-           "pack_rows", "gather_rows", "arena_delta", "merge_pass", "sat_step")
+           "pack_rows", "gather_rows", "arena_delta", "merge_pass", "sat_step",
+           "steal_pass")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

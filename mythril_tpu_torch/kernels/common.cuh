@@ -101,6 +101,42 @@ __device__ __forceinline__ int block_exclusive_scan(int value, int* buf,
     return inclusive - value;
 }
 
+// Block-wide exclusive scan of one int per thread over the whole block
+// and, at once, within contiguous segments of `seg_len` threads (the lane
+// blocks of a sharded frontier; seg_len = the block's width gives the
+// plain scan). Ranks come from the one Hillis-Steele pass, never from
+// atomics, so they are deterministic. Every thread of the block must call
+// it.
+struct SegScan {
+    int rank;       // exclusive rank in the block
+    int seg_rank;   // exclusive rank in the thread's segment
+    int seg_total;  // sum over the thread's segment
+    int total;      // sum over the block
+};
+
+__device__ __forceinline__ SegScan block_seg_scan(int value, int* buf,
+                                                  int seg_len) {
+    const int t = threadIdx.x, n = blockDim.x;
+    buf[t] = value;
+    __syncthreads();
+    for (int offset = 1; offset < n; offset <<= 1) {
+        int add = t >= offset ? buf[t - offset] : 0;
+        __syncthreads();
+        buf[t] += add;
+        __syncthreads();
+    }
+    const int start = (t / seg_len) * seg_len;
+    const int end = start + seg_len < n ? start + seg_len : n;
+    const int before = start > 0 ? buf[start - 1] : 0;
+    SegScan out;
+    out.rank = buf[t] - value;
+    out.seg_rank = out.rank - before;
+    out.seg_total = buf[end - 1] - before;
+    out.total = buf[n - 1];
+    __syncthreads();
+    return out;
+}
+
 // Block-wide maximum of one int64 per thread (tree over shared memory;
 // blockDim.x a power of two <= 1024). Every thread of the block must call
 // it and gets the maximum back.

@@ -1,4 +1,4 @@
-"""Thin PyTorch wrappers around the hand-written CUDA kernels K1-K11.
+"""Thin PyTorch wrappers around the hand-written CUDA kernels K1-K12.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates what the
 kernel writes with `torch.empty`, fills the kernel's parameter block (slot
@@ -26,13 +26,16 @@ that its main path went through the kernels.
   K11 sat_step   kernels/sat_step.cu     jax_solver._step (jax_solver.py:247)
                                          under _get_runner (384) and
                                          _get_batch_runner (509)
+  K12 steal_pass kernels/steal_pass.cu   frontier._steal_pass (frontier.py:319)
+                                         with its codec (252, 267)
 
 A count is per wrapper call: K4's call makes four device launches of its
 own (K9 counts the calls that run its TEL instantiation), K6 counts its
 three entries together, K7 its two, and K10 one per pass, whatever its
 rounds launch (its K3 allocations count as K3's). K11 counts one per
 chunk: its call runs every step of the chunk (two launches a step, three
-with the batch runner's freeze).
+with the batch runner's freeze). K12 counts one per pass (a plan launch
+and a move launch).
 """
 
 from __future__ import annotations
@@ -46,14 +49,14 @@ import torch
 from . import build, layout as Lay
 from ..parallel.device_solver import TILE
 from ..parallel.symstep import (ITE_OP, MAX_TEL_SLOTS, MERGE_STATS_FIXED,
-                                N_MERGE_DEPTH)
+                                N_MERGE_DEPTH, n_segments)
 
 #: launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"keccak": 0, "evm_step": 0, "arena_alloc": 0,
                             "sym_step": 0, "telemetry": 0,
                             "frontier_summary": 0, "pack_rows": 0,
                             "gather_rows": 0, "arena_delta": 0,
-                            "merge_pass": 0, "sat_step": 0}
+                            "merge_pass": 0, "sat_step": 0, "steal_pass": 0}
 
 #: which source each exported entry point lives in
 _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_sha_prep": "evm_step",
@@ -72,7 +75,8 @@ _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_sha_prep": "evm_step",
               "mtpu_merge_nodes": "merge_pass",
               "mtpu_merge_apply": "merge_pass",
               "mtpu_merge_blocked": "merge_pass",
-              "mtpu_sat_run": "sat_step"}
+              "mtpu_sat_run": "sat_step",
+              "mtpu_steal_plan": "steal_pass", "mtpu_steal_move": "steal_pass"}
 _FUNCS: Dict[str, object] = {}
 _OPTABS: Dict[str, torch.Tensor] = {}
 
@@ -319,6 +323,10 @@ def sym_step(state, planes, arena, sched):
                  + _leaf_ptrs(sched.stack_planes, _PLANE_DTYPES, pool_rows, "pool"))
     esc_ptrs = (_leaf_ptrs(sched.esc_state, _STATE_DTYPES, esc_rows, "esc")
                 + _leaf_ptrs(sched.esc_planes, _PLANE_DTYPES, esc_rows, "esc"))
+    n_seg = n_segments(sched)
+    if batch % n_seg or pool_rows % n_seg or esc_rows % n_seg:
+        raise ValueError(f"{n_seg} shards do not divide {batch} lanes, "
+                         f"{pool_rows} stack or {esc_rows} escape rows")
     row_bytes = []
     for lane_leaf, pool_leaf, esc_leaf in zip(
             list(state) + list(planes),
@@ -346,12 +354,15 @@ def sym_step(state, planes, arena, sched):
                         (Lay.K4_KC, planes.conds.shape[1]),
                         (Lay.K4_P, pool_rows), (Lay.K4_E, esc_rows),
                         (Lay.K4_CAP, arena.op.shape[0]),
-                        (Lay.K4_PRED_MASK, PREDICTABLE_MASK)):
+                        (Lay.K4_PRED_MASK, PREDICTABLE_MASK),
+                        (Lay.K4_D, n_seg)):
         values[slot] = value
     values[Lay.K4_CLS] = _check(arena.cls, "arena.cls", torch.int32)
+    for slot, tensor, what in ((Lay.K4_STACK_TOP, sched.stack_top, "stack_top"),
+                               (Lay.K4_ESC_COUNT, sched.esc_count, "esc_count")):
+        values[slot] = _check(tensor, what, torch.int32,
+                              tuple(sched.stack_top.shape))
     for slot, tensor, dtype in (
-            (Lay.K4_STACK_TOP, sched.stack_top, torch.int32),
-            (Lay.K4_ESC_COUNT, sched.esc_count, torch.int32),
             (Lay.K4_EXECUTED, sched.executed, torch.int64),
             (Lay.K4_FORKS, sched.forks, torch.int64),
             (Lay.K4_PUSHES, sched.pushes, torch.int64),
@@ -423,7 +434,8 @@ def _tel_parts(tel, *slots):
 
 def frontier_summary(state, planes, arena, sched) -> torch.Tensor:
     """K5: the chunk summary int64[13 + 3B], then the telemetry words when
-    the plane is armed (single-shard scheduler; the caller checks)."""
+    the plane is armed, then a sharded scheduler's shard block (4D + 1
+    words)."""
     batch = state.status.shape[0]
     esc_rows, slots = sched.esc_state.storage_used.shape
     values = [0] * Lay.K5_NARGS
@@ -431,9 +443,14 @@ def frontier_summary(state, planes, arena, sched) -> torch.Tensor:
                                (Lay.K5_FORK_COND, planes.fork_cond, "fork_cond"),
                                (Lay.K5_CTX_ID, planes.ctx_id, "ctx_id")):
         values[slot] = _check(tensor, what, torch.int32, (batch,))
+    n_seg = n_segments(sched)
+    if esc_rows % n_seg:
+        raise ValueError(f"{n_seg} shards do not divide {esc_rows} escape rows")
+    for slot, tensor, what in ((Lay.K5_STACK_TOP, sched.stack_top, "stack_top"),
+                               (Lay.K5_ESC_COUNT, sched.esc_count, "esc_count")):
+        values[slot] = _check(tensor, what, torch.int32,
+                              tuple(sched.stack_top.shape))
     for slot, tensor, dtype in (
-            (Lay.K5_STACK_TOP, sched.stack_top, torch.int32),
-            (Lay.K5_ESC_COUNT, sched.esc_count, torch.int32),
             (Lay.K5_EXECUTED, sched.executed, torch.int64),
             (Lay.K5_FORKS, sched.forks, torch.int64),
             (Lay.K5_PUSHES, sched.pushes, torch.int64),
@@ -467,6 +484,14 @@ def frontier_summary(state, planes, arena, sched) -> torch.Tensor:
             n_words += n
         values[Lay.K5_TEL_N_TAGS] = tel.tag_occ.shape[0]
         values[Lay.K5_TEL_N_FLEET] = tel.fleet_occ.shape[0]
+    values[Lay.K5_D] = n_seg
+    if n_seg > 1:
+        for slot, tensor, shape in (
+                (Lay.K5_STEALS_SENT, sched.steals_sent, (n_seg,)),
+                (Lay.K5_STEALS_RECEIVED, sched.steals_received, (n_seg,)),
+                (Lay.K5_STEAL_ROWS, sched.steal_rows, ())):
+            values[slot] = _check(tensor, "steal counter", torch.int64, shape)
+        n_words += 4 * n_seg + 1
     out = torch.empty(n_words, dtype=torch.int64, device=state.status.device)
     values[Lay.K5_OUT] = out.data_ptr()
     _launch("mtpu_frontier_summary", values)
@@ -537,10 +562,13 @@ def pack_rows(state_like, planes_like, index: torch.Tensor, mem_b: int,
 
 
 def reset_esc(sched):
-    """K6 `reset_esc`: the scheduler's escape count to 0, in place."""
+    """K6 `reset_esc`: the scheduler's escape count (every segment's) to 0,
+    in place."""
     values = [0] * Lay.K6_NARGS
     values[Lay.K6_ESC_COUNT] = _check(sched.esc_count, "esc_count",
-                                      torch.int32, ())
+                                      torch.int32,
+                                      tuple(sched.esc_count.shape))
+    values[Lay.K6_ESC_SEGMENTS] = sched.esc_count.numel()
     _launch("mtpu_reset_esc", values)
     LAUNCHES["pack_rows"] += 1
     return sched
@@ -796,3 +824,51 @@ def sat_run(state, problem, steps: int, forced_depth: int, freeze: bool):
     _launch("mtpu_sat_run", values)
     LAUNCHES["sat_step"] += 1
     return state
+
+
+# ---- K12 ----------------------------------------------------------------------------
+
+def steal_pass(state, sched, min_imbalance: int, max_rows: int):
+    """K12: one steal pass of a sharded scheduler, in place: the plan launch
+    (loads, pairing, move list, tops and counters) and the move launch (the
+    listed pool rows). Only the two static ints come from the host; nothing
+    is read back. Returns the scheduler."""
+    n_seg = n_segments(sched)
+    batch = state.status.shape[0]
+    pool_rows = sched.stack_state.status.shape[0]
+    if not 2 <= n_seg <= 1024 or batch % n_seg or pool_rows % n_seg:
+        raise ValueError(f"steal_pass: {n_seg} shards for {batch} lanes and "
+                         f"{pool_rows} stack rows")
+    if max_rows < 1:
+        raise ValueError(f"steal_pass: max_rows = {max_rows}")
+    values = [0] * Lay.K12_NARGS
+    leaves = list(sched.stack_state) + list(sched.stack_planes)
+    values[Lay.K12_POOL:Lay.K12_POOL + Lay.N_ROW_LEAVES] = (
+        _leaf_ptrs(sched.stack_state, _STATE_DTYPES, pool_rows, "pool")
+        + _leaf_ptrs(sched.stack_planes, _PLANE_DTYPES, pool_rows, "pool"))
+    values[Lay.K12_ROW_BYTES:Lay.K12_ROW_BYTES + Lay.N_ROW_LEAVES] = [
+        int(np.prod(leaf.shape[1:])) * leaf.element_size() for leaf in leaves]
+    values[Lay.K12_STATUS] = _check(state.status, "status", torch.int32,
+                                    (batch,))
+    values[Lay.K12_STACK_TOP] = _check(sched.stack_top, "stack_top",
+                                       torch.int32, (n_seg,))
+    values[Lay.K12_STEALS_SENT] = _check(sched.steals_sent, "steals_sent",
+                                         torch.int64, (n_seg,))
+    values[Lay.K12_STEALS_RECEIVED] = _check(
+        sched.steals_received, "steals_received", torch.int64, (n_seg,))
+    values[Lay.K12_STEAL_ROWS] = _check(sched.steal_rows, "steal_rows",
+                                        torch.int64, ())
+    slots = n_seg // 2 * max_rows
+    moves = torch.empty((2, slots), dtype=torch.int32,
+                        device=state.status.device)
+    for slot, value in ((Lay.K12_B, batch), (Lay.K12_D, n_seg),
+                        (Lay.K12_P, pool_rows),
+                        (Lay.K12_MIN_IMBALANCE, min_imbalance),
+                        (Lay.K12_MAX_ROWS, max_rows),
+                        (Lay.K12_MOVE_SRC, moves[0].data_ptr()),
+                        (Lay.K12_MOVE_DST, moves[1].data_ptr())):
+        values[slot] = value
+    _launch("mtpu_steal_plan", values)
+    _launch("mtpu_steal_move", values)
+    LAUNCHES["steal_pass"] += 1
+    return sched

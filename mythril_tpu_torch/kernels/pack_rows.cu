@@ -18,7 +18,8 @@
 //                             storage_dirty[:st_b]
 //                      int64: gas_used
 //   mtpu_reset_esc   replaces frontier.py:248 `_reset_esc`: one thread
-//                    zeroes the escape count.
+//                    zeroes the escape count, each segment's of a sharded
+//                    scheduler (K6_ESC_SEGMENTS of them).
 //
 // The index may repeat index[0] (power-of-two padding) or hold zeros
 // (padding of an escape drain): gathers only read, so duplicates are
@@ -126,7 +127,8 @@ __global__ void pack_rows_kernel(Args a) {
 }
 
 __global__ void reset_esc_kernel(Args a) {
-    *arg_ptr<int32_t>(a, K6_ESC_COUNT) = 0;
+    int32_t* count = arg_ptr<int32_t>(a, K6_ESC_COUNT);
+    for (long long d = 0; d < a.v[K6_ESC_SEGMENTS]; ++d) count[d] = 0;
 }
 
 MTPU_EXPORT int mtpu_row_maxima(const long long* values, int n, void* stream) {

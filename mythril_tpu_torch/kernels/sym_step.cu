@@ -2,8 +2,9 @@
 //
 // Replaces mythril_tpu/parallel/symstep.py:347 `sym_step` as fused by
 // `run_chunk` (961), `sym_step_many` (974) and `sym_step_many_counted`
-// (990), for the single-shard scheduler. One step is four launches of this
-// source around the concrete step (K2) and the four arena allocations (K3):
+// (990), for the scalar and the sharded (segmented) scheduler. One step is
+// four launches of this source around the concrete step (K2) and the four
+// arena allocations (K3):
 //
 //   sym_pre   free ERRORED lanes; reseed DEAD lanes from the DFS stack by
 //             rank (symstep.py:364-391); fetch and classify every lane as
@@ -18,7 +19,14 @@
 //
 // Each launch is one block with a thread per lane (B <= 1024): every rank is
 // a block-wide exclusive scan, never an atomic, so lane placement and pool
-// rows equal the JAX package's. Row moves copy all 46 leaves of a lane row
+// rows equal the JAX package's. A sharded scheduler (K4_D = D > 1 shards)
+// splits the lanes into D contiguous blocks of B/D and both pools into D
+// segments with a top each (stack_top/esc_count int32[D]); one scan then
+// gives every lane its rank within its block and its block's total
+// (`block_seg_scan`, symstep.py:315-330), each block reads its own top and
+// segment base, and the first lane of a block writes the block's new top.
+// With D = 1 the segment is the whole block and the program is the scalar
+// one. The move lists are compacted by the block-wide rank. Row moves copy all 46 leaves of a lane row
 // (about 39 KB at the frontier's default geometry) with the whole block.
 // Everything is updated in place. Bound: bytes (the moved rows and the
 // planes each lane touches); a single block leaves most of the card idle,
@@ -130,6 +138,8 @@ __global__ void sym_pre_kernel(Args a) {
     int32_t* status = leaf<int32_t>(a, K4_LANE, L_STATUS);
     int32_t* stack_top = arg_ptr<int32_t>(a, K4_STACK_TOP);
     const bool enabled = *arg_ptr<uint8_t>(a, K4_ENABLED);
+    const int D = arg_int(a, K4_D), seg_len = B / D;
+    const int seg = active ? lane / seg_len : 0;
 
     // ---- free ERRORED lanes, reseed DEAD lanes from the stack -------------------
     int st = active ? status[lane] : ST_RUNNING;
@@ -139,17 +149,18 @@ __global__ void sym_pre_kernel(Args a) {
         st = ST_DEAD;
         status[lane] = ST_DEAD;
     }
-    const int top = *stack_top;
+    // block `seg` reseeds from the top of pool segment `seg`
+    const int top = active ? stack_top[seg] : 0;
     const bool dead0 = active && st == ST_DEAD;
-    int total;
-    const int rrank = block_exclusive_scan(dead0, buf, &total);
+    const int rrank = block_seg_scan(dead0, buf, seg_len).seg_rank;
     const bool take = dead0 && rrank < top && enabled;
-    const int src = static_cast<int>(clampll(top - 1 - rrank, 0, P > 0 ? P - 1 : 0));
-    int n_taken;
-    const int trank = block_exclusive_scan(take, buf, &n_taken);
+    const int src = static_cast<int>(clampll(static_cast<long long>(seg) * (P / D)
+                                             + top - 1 - rrank, 0, P > 0 ? P - 1 : 0));
+    const SegScan took = block_seg_scan(take, buf, seg_len);
+    const int n_taken = took.total;
     if (take) {
-        mv_src[trank] = src;
-        mv_dst[trank] = lane;
+        mv_src[took.rank] = src;
+        mv_dst[took.rank] = lane;
     }
     __syncthreads();
     for (int m = 0; m < n_taken; ++m)
@@ -159,8 +170,8 @@ __global__ void sym_pre_kernel(Args a) {
     const bool running = active && st == ST_RUNNING;
     int n_running;
     block_exclusive_scan(running, buf, &n_running);
+    if (active && lane % seg_len == 0) stack_top[seg] = top - took.seg_total;
     if (lane == 0) {
-        *stack_top = top - n_taken;
         *arg_ptr<long long>(a, K4_POPS) += n_taken;
         *arg_ptr<long long>(a, K4_EXECUTED) += n_running;
         if (TEL) {
@@ -380,6 +391,10 @@ __global__ void sym_post_kernel(Args a) {
     int32_t* pc_p = leaf<int32_t>(a, K4_LANE, L_PC);
     int32_t* stack_top = arg_ptr<int32_t>(a, K4_STACK_TOP);
     int32_t* esc_count = arg_ptr<int32_t>(a, K4_ESC_COUNT);
+    const int D = arg_int(a, K4_D), seg_len = B / D;
+    const int seg = active ? lane / seg_len : 0;
+    const int seg_pool = P / D, seg_esc = E / D;
+    const bool leader = active && lane % seg_len == 0;  // writes seg's tops
 
     int op = 0, sym1 = 0, sym2 = 0, pre_sp = 0, pre_pc = 0;
     bool advanced = false, off_fits = false, overflow = false;
@@ -458,47 +473,47 @@ __global__ void sym_post_kernel(Args a) {
     __syncthreads();
 
     // ---- escape buffering: halted / host-owned lanes move to the buffer ---------------
-    const int ecount = *esc_count;
+    // (into the lane block's own escape segment)
+    const int ecount = active ? esc_count[seg] : 0;
     const bool esc_now = active && enabled && status[lane] == ST_ESCAPED;
-    int n_esc;
-    const int erank = block_exclusive_scan(esc_now, buf, &n_esc);
-    const bool put = esc_now && erank < E - ecount;
+    const int erank = block_seg_scan(esc_now, buf, seg_len).seg_rank;
+    const bool put = esc_now && erank < seg_esc - ecount;
+    const SegScan puts = block_seg_scan(put, buf, seg_len);
     if (put) {
-        mv_src[erank] = lane;
-        mv_dst[erank] = ecount + erank;
+        mv_src[puts.rank] = lane;
+        mv_dst[puts.rank] = seg * seg_esc + ecount + erank;
     }
-    int room = E - ecount;
-    const int n_put = n_esc < room ? n_esc : (room > 0 ? room : 0);
+    const int n_put = puts.total;
     __syncthreads();
     for (int m = 0; m < n_put; ++m) copy_row(a, K4_LANE, mv_src[m], K4_ESC, mv_dst[m]);
     __syncthreads();
     if (put) status[lane] = ST_DEAD;
-    const int esc_used = ecount + n_put;
+    const int esc_used = ecount + puts.seg_total;
     __syncthreads();
 
     // ---- on-device JUMPI forking --------------------------------------------------------
+    // a sibling claims a DEAD lane of its own block, or goes to its own
+    // stack segment, or to its own escape segment
     const bool want = active && (fscr(a, F_JUMPI_FORK)[lane] || fscr(a, F_FROZEN_FORK)[lane]);
     const bool is_dead = active && status[lane] == ST_DEAD;
-    int n_dead;
-    const int dead_rank = block_exclusive_scan(is_dead, buf, &n_dead);
-    if (is_dead) dead_map[dead_rank] = lane;
-    int n_want;
-    const int fork_rank = block_exclusive_scan(want, buf, &n_want);
-    const bool have_target = want && fork_rank < n_dead;
-    const int top2 = *stack_top;
+    const SegScan dead = block_seg_scan(is_dead, buf, seg_len);
+    const int block_base = seg * seg_len;
+    if (is_dead) dead_map[block_base + dead.seg_rank] = lane;
+    const int fork_rank = block_seg_scan(want, buf, seg_len).seg_rank;
+    const bool have_target = want && fork_rank < dead.seg_total;
+    const int top2 = active ? stack_top[seg] : 0;
     const bool push_want = want && !have_target && enabled;
-    int n_push_want;
-    const int push_rank = block_exclusive_scan(push_want, buf, &n_push_want);
-    const bool push = push_want && push_rank < P - top2;
+    const int push_rank = block_seg_scan(push_want, buf, seg_len).seg_rank;
+    const bool push = push_want && push_rank < seg_pool - top2;
     const bool spill_want = push_want && !push;
-    int n_spill_want;
-    const int spill_rank = block_exclusive_scan(spill_want, buf, &n_spill_want);
-    const bool spill = spill_want && spill_rank < E - esc_used;
+    const int spill_rank = block_seg_scan(spill_want, buf, seg_len).seg_rank;
+    const bool spill = spill_want && spill_rank < seg_esc - esc_used;
     const bool act = have_target || push || spill;
-    int n_act, n_push, n_spill;
-    const int act_rank = block_exclusive_scan(act, buf, &n_act);
-    block_exclusive_scan(push, buf, &n_push);
-    block_exclusive_scan(spill, buf, &n_spill);
+    const SegScan acts = block_seg_scan(act, buf, seg_len);
+    const int act_rank = acts.rank, n_act = acts.total;
+    const SegScan pushes = block_seg_scan(push, buf, seg_len);
+    const int n_push = pushes.total;
+    const int n_spill_seg = block_seg_scan(spill, buf, seg_len).seg_total;
 
     int count = 0;
     bool dest_ok = true;
@@ -517,9 +532,16 @@ __global__ void sym_post_kernel(Args a) {
         int32_t* ss = leaf<int32_t>(a, K4_LANE, L_STACK_SYM) + L * S;
         for (int j = sp_fork < 0 ? 0 : sp_fork; j < S; ++j) ss[j] = 0;
         mv_src[act_rank] = lane;
-        if (have_target) { mv_base[act_rank] = K4_LANE; mv_dst[act_rank] = dead_map[fork_rank]; }
-        else if (push) { mv_base[act_rank] = K4_POOL; mv_dst[act_rank] = top2 + push_rank; }
-        else { mv_base[act_rank] = K4_ESC; mv_dst[act_rank] = esc_used + spill_rank; }
+        if (have_target) {
+            mv_base[act_rank] = K4_LANE;
+            mv_dst[act_rank] = dead_map[block_base + fork_rank];
+        } else if (push) {
+            mv_base[act_rank] = K4_POOL;
+            mv_dst[act_rank] = seg * seg_pool + top2 + push_rank;
+        } else {
+            mv_base[act_rank] = K4_ESC;
+            mv_dst[act_rank] = seg * seg_esc + esc_used + spill_rank;
+        }
     }
     __syncthreads();
     for (int m = 0; m < n_act; ++m) copy_row(a, K4_LANE, mv_src[m], mv_base[m], mv_dst[m]);
@@ -540,9 +562,11 @@ __global__ void sym_post_kernel(Args a) {
         status[lane] = dest_ok ? ST_RUNNING : ST_DEAD;
         leaf<int32_t>(a, K4_LANE, L_FORK_COND)[lane] = 0;
     }
+    if (leader) {
+        stack_top[seg] = top2 + pushes.seg_total;
+        esc_count[seg] = esc_used + n_spill_seg;
+    }
     if (lane == 0) {
-        *stack_top = top2 + n_push;
-        *esc_count = esc_used + n_spill;
         *arg_ptr<long long>(a, K4_PUSHES) += n_push;
         *arg_ptr<long long>(a, K4_FORKS) += n_act;
     }
@@ -601,8 +625,14 @@ __global__ void sym_post_kernel(Args a) {
         *dst += value;
     }
     if (lane == 0) {
+        // the global rows in use: the sum of the tops the leaders wrote
+        // before the barrier above (symstep.py:878-882)
         long long* hwm = arg_ptr<long long>(a, K4_TEL_HWM);
-        const long long tops[2] = {top2 + n_push, esc_used + n_spill};
+        long long tops[2] = {0, 0};
+        for (int d = 0; d < D; ++d) {
+            tops[0] += stack_top[d];
+            tops[1] += esc_count[d];
+        }
         for (int k = 0; k < 2; ++k)
             if (tops[k] > hwm[k]) hwm[k] = tops[k];
     }

@@ -3,7 +3,7 @@
 `from_numpy(kind, tree)` takes one of the JAX package's pytrees with every
 leaf already turned into a numpy array (`np.asarray` of each leaf) and
 builds the port's StateBatch / SymPlanes / Arena / DeviceScheduler (with
-its Telemetry), or the SAT lane's SolverState / DeviceProblem (from JAX
+its Telemetry, and a sharded one's vector tops and steal counters), or the SAT lane's SolverState / DeviceProblem (from JAX
 `_SolverState` / `_Problem`, whose host-only fields are not carried), on
 a device. `to_numpy(tree)` goes back. Every leaf keeps
 the JAX dtype and shape byte for byte: uint32 limb leaves ride as int32

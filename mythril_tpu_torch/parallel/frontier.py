@@ -1,6 +1,6 @@
 """The frontier's drain loop, device half (port of
-mythril_tpu/parallel/frontier.py:66-248, 706-747, 914-989, 1068-1363,
-1616-1848, 2378-2435).
+mythril_tpu/parallel/frontier.py:66-390, 706-747, 914-1014, 1068-1363,
+1481-1531, 1616-1848, 2378-2435).
 
 `DeviceFrontier.run` loops `symstep.run_chunk` and, between chunks, does what
 the JAX driver does with the device's output:
@@ -19,6 +19,14 @@ the JAX driver does with the device's output:
      deltas, and runs a merge pass (`symstep.merge_pass`) when the merge
      tags' occupancy or the chunk cadence says so.
 
+With `n_shards` D > 1 the lane axis and both scheduler pools split into D
+logical shards (`symstep.new_scheduler(n_shards=D)`): seeds land in the
+block of their owner (`assign_seed_lanes`), a steal pass (`steal_pass`)
+moves pending rows from the richest segments to the poorest every
+`steal_cadence` chunks without a host read, the summary carries a shard
+block (per-shard tops, escape counts and steal counters) that the host
+peels off first, and drains read the segments' used prefixes.
+
 The device programs between chunks are kernels on CUDA tensors and plain
 PyTorch twins (`*_reference`) on CPU tensors:
 
@@ -27,6 +35,7 @@ PyTorch twins (`*_reference`) on CPU tensors:
   K7 `gather_rows`, `scatter_rows`      kernels/gather_rows.cu
   K8 `arena.fetch_delta`                kernels/arena_delta.cu
   K10 `symstep.merge_pass`              kernels/merge_pass.cu
+  K12 `steal_pass`                      kernels/steal_pass.cu
 
 What the host does with the drained rows (materializing GlobalStates,
 cold-SLOAD fault-ins) needs the host engine, which is not ported: drained
@@ -34,8 +43,9 @@ rows wait in `deferred` as [rows_state, rows_planes, count, cursor] blocks,
 and a cold-SLOAD pause goes to a caller-given `service_cold` hook. The
 static tables that tag merge points and bound the widened memory merge
 come from the caller (the CFA / absint analysis that builds them is not
-ported). Work stealing, fleets and checkpoints are not ported; the driver
-runs on one shard."""
+ported). The fleet driver (per-member budgets, deadline drains) and
+checkpoints need the host engine and are not ported: a caller hands in
+the seeds' owners and the fleet slots."""
 
 from __future__ import annotations
 
@@ -50,7 +60,8 @@ from .. import device as _device
 from . import arena as A
 from . import symstep, words
 from .batch import (DEAD, ESCAPED, FORKING, RUNNING, U32_FIELDS, LaneSpec,
-                    StateBatch, build_batch, next_pow2, to_tensor)
+                    StateBatch, build_batch, next_pow2, shard_count,
+                    to_tensor)
 from .symstep import SymPlanes
 
 I32 = torch.int32
@@ -75,6 +86,12 @@ MERGE_ROUNDS = 6
 #: merge-tag lane visits per chunk that trigger a pass
 #: (MYTHRIL_TPU_MERGE_MIN_LANES)
 MERGE_MIN_LANES = 2
+#: chunks between steal passes of a sharded frontier, 0 = never
+#: (MYTHRIL_TPU_STEAL_CADENCE)
+STEAL_CADENCE = 4
+#: the least load gap at which a shard pair exchanges rows
+#: (MYTHRIL_TPU_STEAL_MIN_IMBALANCE)
+STEAL_MIN_IMBALANCE = 8
 
 #: words of the summary before its per-lane blocks
 SUMMARY_SCALARS = 13
@@ -94,29 +111,38 @@ def summary_reference(state: StateBatch, planes: SymPlanes, arena: A.Arena,
     arena_n_const, esc_msize_max, esc_sp_max, esc_slots_max,
     esc_conds_max, batch] + status[B] + fork_cond[B] + ctx_id[B], then,
     with the plane armed, `symstep.telemetry_words` (frontier.py:138).
-    Maxima run over the live escape rows (row < esc_count), 0 when none
-    is."""
+    Maxima run over the live escape rows (row < its segment's count), 0
+    when none is. A sharded scheduler reports the global sums in slots 0/1
+    and appends the shard block [stack_top[D], esc_count[D],
+    steals_sent[D], steals_received[D], steal_rows] after the telemetry
+    words (frontier.py:146-153)."""
     symstep._check_scheduler(sched)
+    dev = state.status.device
     esc_rows = sched.esc_state.status.shape[0]
-    live = torch.arange(esc_rows, device=state.status.device) \
-        < sched.esc_count.to(I64)
+    ecount_vec = sched.esc_count.reshape(-1).to(I64)
+    seg_esc = esc_rows // ecount_vec.shape[0]
+    live = (torch.arange(esc_rows, device=dev) % seg_esc) \
+        < torch.repeat_interleave(ecount_vec, seg_esc)
 
     def live_max(column):
         return torch.where(live, column.to(I64), 0).max()
 
     batch = state.status.shape[0]
     scalars = torch.stack([
-        sched.stack_top.to(I64), sched.esc_count.to(I64),
+        sched.stack_top.to(I64).sum(), ecount_vec.sum(),
         sched.executed, sched.forks, sched.pushes, sched.pops,
         arena.n.to(I64), arena.n_const.to(I64),
         live_max(sched.esc_state.msize), live_max(sched.esc_state.sp),
         live_max(sched.esc_state.storage_used.sum(1, dtype=I32)),
         live_max(sched.esc_planes.cond_count),
-        torch.tensor(batch, dtype=I64, device=state.status.device)])
+        torch.tensor(batch, dtype=I64, device=dev)])
     parts = [scalars, state.status.to(I64), planes.fork_cond.to(I64),
              planes.ctx_id.to(I64)]
     if sched.telemetry is not None:
         parts.append(symstep.telemetry_words(sched.telemetry))
+    if sched.stack_top.dim() == 1:
+        parts += [sched.stack_top.to(I64), ecount_vec, sched.steals_sent,
+                  sched.steals_received, sched.steal_rows.reshape(1)]
     return torch.cat(parts)
 
 
@@ -166,7 +192,7 @@ def pack_rows_reference(state_like: StateBatch, planes_like: SymPlanes,
 
 def reset_esc_reference(sched: symstep.DeviceScheduler):
     """Plain twin of K6's `reset_esc` (`_reset_esc`, frontier.py:248): the
-    escape count goes to 0, in place."""
+    escape count (every segment's) goes to 0, in place."""
     sched.esc_count.zero_()
     return sched
 
@@ -193,6 +219,122 @@ def scatter_rows_reference(state: StateBatch, planes: SymPlanes,
                           list(rows_state) + list(rows_planes)):
         leaf[dst] = rows[keep].to(leaf.dtype)
     return state, planes
+
+
+def pack_steal_rows_reference(state_like: StateBatch, planes_like: SymPlanes,
+                              index: torch.Tensor, mem_b: int, sp_b: int,
+                              st_b: int, conds_w: int):
+    """Plain twin of `_pack_steal_rows` (frontier.py:252): the escape-row
+    codec (`pack_rows_reference`) with the rows' `status` and `fork_cond`
+    appended to the int32 block."""
+    i32, u8, gas = pack_rows_reference(state_like, planes_like, index, mem_b,
+                                       sp_b, st_b, conds_w)
+    idx = _rows(index, state_like.status.shape[0])
+    return (torch.cat([i32, state_like.status[idx].to(I32),
+                       planes_like.fork_cond[idx].to(I32)]), u8, gas)
+
+
+def unpack_steal_rows_reference(i32: torch.Tensor, u8: torch.Tensor,
+                                gas: torch.Tensor, bucket: int, mem_b: int,
+                                sp_b: int, st_b: int, conds_w: int):
+    """Plain twin of `_unpack_steal_rows` (frontier.py:267), the device-side
+    inverse of `pack_steal_rows_reference`: two dicts of row tensors keyed
+    like StateBatch / SymPlanes fields (limbs as int32 bit patterns)."""
+    limbs = words.NLIMBS
+    offset = [0]
+
+    def cut(count, shape=None):
+        part = i32[offset[0]:offset[0] + count]
+        offset[0] += count
+        return part.reshape(shape) if shape else part
+
+    rows_state: Dict[str, torch.Tensor] = {}
+    rows_planes: Dict[str, torch.Tensor] = {}
+    for field in _DRAIN_I32_FIELDS:
+        target = rows_planes if field in _PLANE_FIELDS else rows_state
+        target[field] = cut(bucket)
+    rows_state["stack"] = cut(bucket * sp_b * limbs, (bucket, sp_b, limbs))
+    rows_state["storage_keys"] = cut(bucket * st_b * limbs,
+                                     (bucket, st_b, limbs))
+    rows_state["storage_vals"] = cut(bucket * st_b * limbs,
+                                     (bucket, st_b, limbs))
+    rows_planes["stack_sym"] = cut(bucket * sp_b, (bucket, sp_b))
+    rows_planes["mem_sym"] = cut(bucket * mem_b, (bucket, mem_b))
+    rows_planes["storage_sym"] = cut(bucket * st_b, (bucket, st_b))
+    rows_planes["conds"] = cut(bucket * conds_w, (bucket, conds_w))
+    rows_state["status"] = cut(bucket)
+    rows_planes["fork_cond"] = cut(bucket)
+    rows_state["memory"] = u8[:bucket * mem_b].reshape(bucket, mem_b)
+    rows_state["storage_used"] = u8[
+        bucket * mem_b:bucket * (mem_b + st_b)].reshape(
+            bucket, st_b).to(torch.bool)
+    rows_planes["storage_dirty"] = u8[
+        bucket * (mem_b + st_b):bucket * (mem_b + 2 * st_b)].reshape(
+            bucket, st_b).to(torch.bool)
+    rows_state["gas_used"] = gas
+    return rows_state, rows_planes
+
+
+def steal_plan(status: torch.Tensor, stack_top: torch.Tensor, seg_pool: int,
+               min_imbalance: int, max_rows: int):
+    """The steal pass's decision (frontier.py:337-363) as host numbers:
+    [(poor, rich, n)] for each disjoint pair. Load is a block's RUNNING
+    lanes plus its segment's pending rows; shards are ordered by a stable
+    ascending sort of the load (ties to the lower shard), order[i] pairs
+    with order[D-1-i], and a pair moves min(diff // 2, max_rows,
+    top[rich], seg_pool - top[poor]) rows, none below `min_imbalance`."""
+    n_seg = stack_top.shape[0]
+    load = (status == RUNNING).reshape(n_seg, -1).sum(1).to(I64) \
+        + stack_top.to(I64)
+    order = torch.argsort(load, stable=True).tolist()
+    load, top = load.tolist(), stack_top.tolist()
+    pairs = []
+    for i in range(n_seg // 2):
+        poor, rich = order[i], order[n_seg - 1 - i]
+        diff = load[rich] - load[poor]
+        n = min(diff // 2, max_rows, top[rich], seg_pool - top[poor])
+        pairs.append((poor, rich, max(n, 0) if diff >= min_imbalance else 0))
+    return pairs
+
+
+def steal_pass_reference(state: StateBatch, sched: symstep.DeviceScheduler,
+                         min_imbalance: int, max_rows: int):
+    """Plain twin of K12 (`_steal_pass`, frontier.py:319): for each pair of
+    `steal_plan`, the donor's top n pending rows (from its top downward)
+    go through the steal-row codec, composed with the full rows for the
+    leaves it does not carry, and land at the receiver's top upward. Donor
+    rows above its new top are left as they are. Tops and steal counters
+    are updated; everything in place. Returns the scheduler."""
+    pool_state, pool_planes = sched.stack_state, sched.stack_planes
+    pool_rows = pool_state.status.shape[0]
+    seg_pool = pool_rows // symstep.n_segments(sched)
+    widths = (pool_state.memory.shape[1], pool_state.stack.shape[1],
+              pool_state.storage_keys.shape[1], pool_planes.conds.shape[1])
+    dev = state.status.device
+    r = torch.arange(max_rows, dtype=I64, device=dev)
+    for poor, rich, n in steal_plan(state.status, sched.stack_top, seg_pool,
+                                    min_imbalance, max_rows):
+        top_rich = int(sched.stack_top[rich])
+        top_poor = int(sched.stack_top[poor])
+        src = (rich * seg_pool + top_rich - 1 - r).clamp(0, pool_rows - 1)
+        rows_state, rows_planes = gather_rows_reference(pool_state,
+                                                        pool_planes, src)
+        unp_state, unp_planes = unpack_steal_rows_reference(
+            *pack_steal_rows_reference(pool_state, pool_planes, src,
+                                       *widths), max_rows, *widths)
+        rows_state = rows_state._replace(**unp_state)
+        rows_planes = rows_planes._replace(**unp_planes)
+        dst = torch.where(r < n, poor * seg_pool + top_poor + r, pool_rows)
+        keep = dst < pool_rows
+        for leaf, rows in zip(list(pool_state) + list(pool_planes),
+                              list(rows_state) + list(rows_planes)):
+            leaf[dst[keep]] = rows[keep]
+        sched.stack_top[rich] -= n
+        sched.stack_top[poor] += n
+        sched.steals_sent[rich] += n
+        sched.steals_received[poor] += n
+        sched.steal_rows.add_(n)
+    return sched
 
 
 # ---- dispatch: the kernel on CUDA tensors, the twin on the CPU ----------------------
@@ -235,6 +377,19 @@ def reset_esc(sched):
 
         return ops.reset_esc(sched)
     return reset_esc_reference(sched)
+
+
+def steal_pass(state, sched, min_imbalance: int, max_rows: int):
+    """The work-stealing pass of a sharded scheduler, in place: kernel K12
+    on CUDA tensors (no host read: the plan and the sizes stay on the
+    card), the twin on the CPU."""
+    if symstep.n_segments(sched) < 2:
+        raise ValueError("steal_pass needs a sharded scheduler")
+    if state.status.is_cuda:
+        from ..kernels import ops
+
+        return ops.steal_pass(state, sched, min_imbalance, max_rows)
+    return steal_pass_reference(state, sched, min_imbalance, max_rows)
 
 
 def gather_rows(state, planes, index):
@@ -396,7 +551,11 @@ class DeviceFrontier:
     MYTHRIL_TPU_STACK_BYTES/ESC_BYTES, `drain_batch`
     MYTHRIL_TPU_DRAIN_BATCH (None: max(4 lanes, 1024)), `chunk` and
     `max_steps` MYTHRIL_TPU_CHUNK/MAX_STEPS, `telemetry` and `state_merge`
-    MYTHRIL_TPU_FRONTIER_TELEMETRY/STATE_MERGE (both on).
+    MYTHRIL_TPU_FRONTIER_TELEMETRY/STATE_MERGE (both on), `n_shards`
+    MYTHRIL_TPU_FLEET_SHARD (1 on one card; validated by
+    `batch.shard_count`, so one that does not divide the lanes falls back
+    to 1), `steal_cadence`/`steal_min_imbalance`
+    MYTHRIL_TPU_STEAL_CADENCE/STEAL_MIN_IMBALANCE.
 
     The static tables are the caller's, in the shapes the JAX frontier's
     `_collect_tag_pcs` (frontier.py:753) and `_merge_pc_table` (816) give:
@@ -404,7 +563,13 @@ class DeviceFrontier:
     "loop@0x.."), `merge_pcs`/`merge_names` (at most MERGE_PC_SLOTS) and
     the window table `mem_pcs` int32[J] / `mem_words` int32[J, W] (-1
     padded). Without them the frontier behaves as the JAX one does without
-    the CFA: no tags, strict merging on the 4-chunk cadence."""
+    the CFA: no tags, strict merging on the 4-chunk cadence.
+
+    A fleet caller also hands in what `FleetDriver` sets on the JAX
+    frontier: `seed_owner_index` (each seed's owner shard, round robin
+    without it) and the telemetry's fleet block, `fleet_slots` (seed
+    index -> slot) and `fleet_names` (one per slot), the shape of
+    `_collect_fleet_slots` (frontier.py:787)."""
 
     def __init__(self, n_lanes: int = DEFAULT_LANES, device=None,
                  chunk: int = CHUNK, max_steps: int = MAX_STEPS,
@@ -416,7 +581,12 @@ class DeviceFrontier:
                  tag_pcs: Sequence[int] = (), tag_names: Sequence[str] = (),
                  merge_pcs: Sequence[int] = (),
                  merge_names: Sequence[str] = (),
-                 mem_pcs=None, mem_words=None):
+                 mem_pcs=None, mem_words=None, n_shards: int = 1,
+                 steal_cadence: int = STEAL_CADENCE,
+                 steal_min_imbalance: int = STEAL_MIN_IMBALANCE,
+                 seed_owner_index: Optional[Sequence[int]] = None,
+                 fleet_slots: Sequence[int] = (),
+                 fleet_names: Sequence[str] = ()):
         self.n_lanes = n_lanes
         self.device = _device.resolve(device)
         self.chunk = chunk
@@ -490,31 +660,84 @@ class DeviceFrontier:
         self.blocked_by = dict.fromkeys(symstep.MERGE_BLOCKED_LABELS, 0)
         self.tag_merges: Dict[str, int] = {}
         self.ite_depth = dict.fromkeys(symstep.MERGE_DEPTH_LABELS, 0)
+        #: fleet: seed owners and the telemetry's per-member slots
+        if len(fleet_names) > TAG_SLOTS or any(
+                not 0 <= slot < len(fleet_names) for slot in fleet_slots):
+            raise ValueError(f"fleet_slots/fleet_names: slots must index "
+                             f"at most {TAG_SLOTS} names")
+        self.seed_owner_index = (None if seed_owner_index is None
+                                 else [int(v) for v in seed_owner_index])
+        self.fleet_slots = [int(slot) for slot in fleet_slots]
+        self.fleet_names = list(fleet_names)
+        self.fleet_occupancy = np.zeros(len(self.fleet_names), dtype=np.int64)
+        #: logical shards and stealing; the last summary's shard block
+        #: (per-shard tops and escape counts feed the drains) and the steal
+        #: counters' deltas summed over every phase
+        self.n_shards = shard_count(n_lanes, int(n_shards))
+        self.steal_cadence = steal_cadence
+        self.steal_min_imbalance = steal_min_imbalance
+        self.steal_passes = 0
+        self.shard_tops: Optional[np.ndarray] = None
+        self.shard_esc: Optional[np.ndarray] = None
+        self.shard_steals: Optional[tuple] = None
+        self.steals_sent = np.zeros(self.n_shards, dtype=np.int64)
+        self.steals_received = np.zeros(self.n_shards, dtype=np.int64)
+        self.steal_rows = 0
+        self.shard_imbalance = 0
+        self.shard_fairness = 1.0
 
     # -- seeding ------------------------------------------------------------------------
 
     def seed(self, seeds: Sequence[Seed]) -> Tuple[StateBatch, SymPlanes]:
-        """One RUNNING lane per seed (identity placement, symbolic env),
-        DEAD fillers elsewhere; `ctx_id` is the seed's index
-        (frontier.py:914-989 without host terms)."""
+        """One RUNNING lane per seed at `assign_seed_lanes`'s lane
+        (symbolic env), DEAD fillers elsewhere; `ctx_id` is the seed's
+        index (frontier.py:914-989 without host terms)."""
         if len(seeds) > self.n_lanes:
             raise ValueError(f"{len(seeds)} seeds for {self.n_lanes} lanes")
-        specs = [LaneSpec(code=code, storage=storage, gas_limit=gas_limit,
-                          address=address)
-                 for code, storage, _base, gas_limit, address in seeds]
-        specs += [LaneSpec(code=b"\x00")] * (self.n_lanes - len(seeds))
+        lanes = self.assign_seed_lanes(len(seeds))
+        specs = [LaneSpec(code=b"\x00")] * self.n_lanes
+        for lane, (code, storage, _base, gas_limit, address) in zip(lanes,
+                                                                   seeds):
+            specs[lane] = LaneSpec(code=code, storage=storage,
+                                   gas_limit=gas_limit, address=address)
         state = build_batch(specs, device=self.device)
         planes = SymPlanes.empty(self.n_lanes, state.stack.shape[1],
                                  state.memory.shape[1],
                                  state.storage_keys.shape[1], MAX_CONDS,
                                  device=self.device)
-        n = len(seeds)
         state.status.fill_(DEAD)
-        state.status[:n] = RUNNING
-        planes.storage_base_sym[:n] = torch.tensor(
-            [bool(seed[2]) for seed in seeds], dtype=torch.bool)
-        planes.ctx_id[:n] = torch.arange(n, dtype=I32)
+        if seeds:
+            index = torch.tensor(lanes, dtype=I64, device=self.device)
+            state.status[index] = RUNNING
+            planes.storage_base_sym[index] = torch.tensor(
+                [bool(seed[2]) for seed in seeds], dtype=torch.bool,
+                device=self.device)
+            planes.ctx_id[index] = torch.arange(len(seeds), dtype=I32,
+                                                device=self.device)
         return state, planes
+
+    def assign_seed_lanes(self, n_seeds: int) -> List[int]:
+        """Lane of each seed (frontier.py:991): identity on one shard;
+        sharded, seed i goes to the block of `seed_owner_index[i]` (round
+        robin without it), filling each block in order and overflowing a
+        full block into the next with room."""
+        if self.n_shards <= 1:
+            return list(range(n_seeds))
+        per_block = self.n_lanes // self.n_shards
+        owners = self.seed_owner_index
+        cursor = [0] * self.n_shards
+        lanes: List[int] = []
+        for i in range(n_seeds):
+            want = (owners[i] if owners and i < len(owners)
+                    else i) % self.n_shards
+            block = want
+            for probe in range(self.n_shards):
+                block = (want + probe) % self.n_shards
+                if cursor[block] < per_block:
+                    break
+            lanes.append(block * per_block + cursor[block])
+            cursor[block] += 1
+        return lanes
 
     def new_sched(self, state: StateBatch, planes: SymPlanes
                   ) -> symstep.DeviceScheduler:
@@ -528,14 +751,22 @@ class DeviceFrontier:
         esc_rows = int(max(2 * self.n_lanes,
                            min(1 << 16, 8 * self.n_lanes,
                                self.esc_bytes // max(row_bytes, 1))))
+        if self.n_shards > 1:  # equal segments: round up to D rows
+            stack_rows += (-stack_rows) % self.n_shards
+            esc_rows += (-esc_rows) % self.n_shards
         self.row_bytes = row_bytes
         telemetry = None
         if self.telemetry:
-            telemetry = symstep.new_telemetry(self.tag_pcs, device=self.device)
+            telemetry = symstep.new_telemetry(
+                self.tag_pcs, fleet_slots=self.fleet_slots,
+                n_fleet=len(self.fleet_names), device=self.device)
             self.tel_words = None  # the device counters restart each phase
             self.last_tag_delta = None
+        # so does the shard block
+        self.shard_tops = self.shard_esc = self.shard_steals = None
         return symstep.new_scheduler(state, planes, stack_rows, esc_rows,
-                                     telemetry=telemetry)
+                                     telemetry=telemetry,
+                                     n_shards=self.n_shards)
 
     def _harena(self, used=None, used_const=None) -> A.HostArena:
         if self.harena is None:
@@ -550,22 +781,26 @@ class DeviceFrontier:
             deadline_s: Optional[float] = None) -> None:
         """Explore until the tree drains, the step budget or `deadline_s`
         (seconds of device phase) runs out, or the arena nears capacity
-        (frontier.py:1068-1363 with steal, fleet and checkpoints off).
-        What is left goes to `deferred` (`hand_over`)."""
+        (frontier.py:1068-1363 without the fleet's deadline drain and
+        checkpoints). What is left goes to `deferred` (`hand_over`)."""
         chunk = self.chunk
-        headroom = max(ARENA_HEADROOM, 4 * chunk * self.n_lanes)
+        n = self.n_lanes
+        headroom = max(ARENA_HEADROOM, 4 * chunk * n)
         if headroom > self.arena.capacity // 2:
             self.hand_over(state, planes)
             return
         sched = self.new_sched(state, planes)
         stack_rows = sched.stack_state.status.shape[0]
+        n_shards = self.n_shards
+        # up to a block's worth of rows per pair and pass (frontier.py:1127)
+        steal_max_rows = min(max(stack_rows // n_shards, 1),
+                             max(16, n // n_shards))
         drain_batch = min(self.drain_batch, sched.esc_state.status.shape[0])
         merge_by_tags = self.telemetry and any(
             name.startswith("merge@") for name in self.tag_names)
         lane_base, fork_base = self.lane_steps, self.forks
         push_base, pop_base = self.stack_pushes, self.stack_pops
         steps = 0
-        n = self.n_lanes
         arena_n = int(self.arena.n)
         backlog = None
         phase_start = time.monotonic()
@@ -579,17 +814,30 @@ class DeviceFrontier:
                 state, planes, self.arena, sched, chunk)
             self.chunks += 1
             steps += chunk
+            # the cadenced steal pass: plan and moves stay on the device
+            if n_shards > 1 and self.steal_cadence > 0 \
+                    and (steps // chunk) % self.steal_cadence == 0:
+                sched = steal_pass(state, sched, self.steal_min_imbalance,
+                                   steal_max_rows)
+                self.steal_passes += 1
             # the chunk is queued: land the previous drain while it runs
             if backlog is not None:
                 self._flush_backlog(backlog)
                 backlog = None
             packed = summary(state, planes, self.arena, sched).cpu().numpy()
+            # a sharded summary ends in the shard block: peel it off first
+            shard_words = None
+            if n_shards > 1:
+                shard_words = packed[-(4 * n_shards + 1):]
+                packed = packed[:-(4 * n_shards + 1)]
             (stack_top, esc_count, executed, forks, pushes, pops, arena_n,
              arena_nc, esc_msize, esc_sp, esc_slots, esc_conds, _batch) = (
                  int(v) for v in packed[:SUMMARY_SCALARS])
             base = SUMMARY_SCALARS
             status = packed[base:base + n].astype(np.int32)
             fork_cond = packed[base + n:base + 2 * n].astype(np.int32)
+            if shard_words is not None:
+                self._publish_shard(shard_words, status)
             if sched.telemetry is not None:
                 self._publish_telemetry(packed[base + 3 * n:])
             self.lane_steps = lane_base + executed
@@ -619,9 +867,15 @@ class DeviceFrontier:
             # total deadlock with the sibling stack full: spill half the
             # waiting forkers to the host overflow tier
             waiting = (status == FORKING) & (fork_cond != 0)
+            # sharded: one full segment wedges its block's forkers while
+            # others have room, so the fullest segment triggers
+            if n_shards > 1 and self.shard_tops is not None:
+                stack_full = int(np.max(self.shard_tops)) \
+                    >= stack_rows // n_shards
+            else:
+                stack_full = stack_top >= stack_rows
             if waiting.any() and not (status == RUNNING).any() \
-                    and not (status == DEAD).any() \
-                    and stack_top >= stack_rows:
+                    and not (status == DEAD).any() and stack_full:
                 lanes = np.nonzero(waiting)[0]
                 self._spill_host(state, planes, status,
                                  [int(l) for l in lanes[:max(1, len(lanes)
@@ -688,6 +942,34 @@ class DeviceFrontier:
                                                                   fixed])
         self.last_tag_delta = delta[fixed:fixed + len(self.tag_names)]
         self.tag_occupancy += self.last_tag_delta
+        self.fleet_occupancy += delta[fixed + len(self.tag_names):]
+
+    def _publish_shard(self, shard_words, status) -> None:
+        """The summary's shard block (frontier.py:1481): per-shard tops and
+        escape counts (read by the drains and the spill trigger), the
+        steal counters as deltas against the last summary, and the load
+        balance (imbalance, Jain fairness of running lanes plus pending
+        rows per shard)."""
+        block = np.asarray(shard_words, dtype=np.int64)
+        d = self.n_shards
+        tops, esc = block[:d], block[d:2 * d]
+        sent, recv, moved = block[2 * d:3 * d], block[3 * d:4 * d], \
+            int(block[4 * d])
+        self.shard_tops, self.shard_esc = tops, esc
+        prev = self.shard_steals
+        self.shard_steals = (sent, recv, moved)
+        if prev is None:
+            prev = (np.zeros(d, dtype=np.int64), np.zeros(d, dtype=np.int64),
+                    0)
+        self.steals_sent += sent - prev[0]
+        self.steals_received += recv - prev[1]
+        self.steal_rows += moved - prev[2]
+        running = (np.asarray(status) == RUNNING).reshape(d, -1).sum(1)
+        load = running.astype(np.float64) + tops.astype(np.float64)
+        square_sum = float(np.sum(load * load))
+        self.shard_imbalance = int(load.max() - load.min())
+        self.shard_fairness = (float(np.sum(load)) ** 2 / (d * square_sum)
+                               if square_sum > 0 else 1.0)
 
     def _publish_merge(self, mstats: np.ndarray) -> None:
         """One merge pass's stats vector, decoded as `_publish_merge`
@@ -822,7 +1104,12 @@ class DeviceFrontier:
         delta_handle = self.harena.refresh_async(self.arena, arena_n,
                                                  arena_nc)
         esc_cap = sched.esc_state.status.shape[0]
-        pool_used = np.arange(min(esc_count, esc_cap))
+        # sharded: the used rows are each segment's prefix, counted by this
+        # chunk's shard block
+        if self.n_shards > 1 and self.shard_esc is not None:
+            pool_used = pool_used_indices(self.shard_esc, esc_cap)
+        else:
+            pool_used = np.arange(min(esc_count, esc_cap))
         count = len(pool_used)
         bucket = min(next_pow2(max(count, 1)), esc_cap)
         index = np.zeros(bucket, dtype=np.int32)
@@ -856,11 +1143,11 @@ class DeviceFrontier:
         pools = []
         if sched is not None:
             pools = [(sched.stack_state, sched.stack_planes,
-                      int(sched.stack_top)),
+                      sched.stack_top.cpu().numpy()),
                      (sched.esc_state, sched.esc_planes,
-                      int(sched.esc_count))]
+                      sched.esc_count.cpu().numpy())]
         if not len(live) and not self.pending \
-                and not any(used for _, _, used in pools):
+                and not any(np.sum(used) for _, _, used in pools):
             return
         self._harena()
         if len(live):

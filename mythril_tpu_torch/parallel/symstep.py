@@ -20,15 +20,19 @@ and K3 (and K1 through K2); it updates every tensor in place. On CPU
 tensors it runs `sym_step_reference`, the plain twin, which rebuilds the
 lane state and updates the scheduler pools and the arena in place.
 
+A sharded scheduler (`new_scheduler(..., n_shards=D)`, D > 1) splits the
+lane axis into D equal contiguous blocks and both pools into D segments,
+each with its own top (`stack_top`/`esc_count` are int32[D]): reseeds,
+escape buffering, claims, pushes and spills rank segment-locally, so a
+block's lanes only ever touch their own segment (symstep.py:315-330). With
+D = 1 the step is the scalar one, bit for bit.
+
 With `DeviceScheduler.telemetry` armed, the step also accumulates the
 telemetry plane (op-class histogram, escape causes, lifecycle counters,
 occupancy, high-water marks, tag and fleet occupancy); on the card that is
 K4's `TEL` instantiation (kernel K9). `merge_pass` (state merging) runs
 kernel K10 (`kernels/merge_pass.cu`, around K3) on CUDA tensors and
-`merge_pass_reference` on CPU tensors.
-
-Only the single-shard scheduler is ported: a sharded one raises
-NotImplementedError."""
+`merge_pass_reference` on CPU tensors."""
 
 from __future__ import annotations
 
@@ -230,19 +234,20 @@ class DeviceScheduler(NamedTuple):
 
     stack_state: StateBatch    # [P] sibling rows
     stack_planes: SymPlanes
-    stack_top: torch.Tensor    # int32[] rows used
+    stack_top: torch.Tensor    # int32[] rows used, or int32[D] per segment
     esc_state: StateBatch      # [E] escaped rows
     esc_planes: SymPlanes
-    esc_count: torch.Tensor    # int32[] rows used
+    esc_count: torch.Tensor    # int32[] rows used, or int32[D] per segment
     executed: torch.Tensor     # int64[] instruction-states stepped
     forks: torch.Tensor        # int64[] fork events (claims + pushes + spills)
     pushes: torch.Tensor       # int64[] siblings pushed to the stack
     pops: torch.Tensor         # int64[] siblings reseeded from the stack
     enabled: torch.Tensor      # bool[] False = freeze/escape semantics
     telemetry: Optional[Telemetry] = None  # None = counters off
-    steals_sent: Optional[torch.Tensor] = None
-    steals_received: Optional[torch.Tensor] = None
-    steal_rows: Optional[torch.Tensor] = None
+    # work stealing (sharded schedulers only, None with one shard)
+    steals_sent: Optional[torch.Tensor] = None      # int64[D] rows donated
+    steals_received: Optional[torch.Tensor] = None  # int64[D] rows adopted
+    steal_rows: Optional[torch.Tensor] = None       # int64[] rows moved
 
 
 def new_scheduler(state: StateBatch, planes: SymPlanes, stack_rows: int,
@@ -250,10 +255,15 @@ def new_scheduler(state: StateBatch, planes: SymPlanes, stack_rows: int,
                   telemetry: Optional[Telemetry] = None,
                   n_shards: int = 1) -> DeviceScheduler:
     """Allocate scheduler pools shaped like (state, planes) rows on the
-    state's device; `telemetry` arms the counter plane."""
-    if n_shards != 1:
-        raise NotImplementedError("sharded schedulers are not ported yet")
+    state's device; `telemetry` arms the counter plane. With `n_shards`
+    D > 1 the pools split into D equal segments (shard d owns rows
+    [d*P/D, (d+1)*P/D)), the tops become int32[D] and the steal counters
+    exist; both pool sizes must divide by D (symstep.py:261)."""
+    if n_shards > 1 and (stack_rows % n_shards or esc_rows % n_shards):
+        raise ValueError(f"pool rows ({stack_rows}, {esc_rows}) must divide "
+                         f"n_shards={n_shards}")
     dev = state.stack.device
+    sharded = n_shards > 1
 
     def rows(leaf, n):
         return torch.zeros((n,) + tuple(leaf.shape[1:]), dtype=leaf.dtype,
@@ -262,25 +272,39 @@ def new_scheduler(state: StateBatch, planes: SymPlanes, stack_rows: int,
     def scalar(value, dtype):
         return torch.tensor(value, dtype=dtype, device=dev)
 
+    def top():
+        return (torch.zeros(n_shards, dtype=I32, device=dev) if sharded
+                else scalar(0, I32))
+
+    def steals():
+        return torch.zeros(n_shards, dtype=I64, device=dev) if sharded \
+            else None
+
     return DeviceScheduler(
         stack_state=StateBatch(*[rows(leaf, stack_rows) for leaf in state]),
         stack_planes=SymPlanes(*[rows(leaf, stack_rows) for leaf in planes]),
-        stack_top=scalar(0, I32),
+        stack_top=top(),
         esc_state=StateBatch(*[rows(leaf, esc_rows) for leaf in state]),
         esc_planes=SymPlanes(*[rows(leaf, esc_rows) for leaf in planes]),
-        esc_count=scalar(0, I32),
+        esc_count=top(),
         executed=scalar(0, I64),
         forks=scalar(0, I64),
         pushes=scalar(0, I64),
         pops=scalar(0, I64),
         enabled=scalar(not disabled, torch.bool),
         telemetry=telemetry,
+        steals_sent=steals(),
+        steals_received=steals(),
+        steal_rows=scalar(0, I64) if sharded else None,
     )
 
 
+def n_segments(sched: DeviceScheduler) -> int:
+    """D of a scheduler: 1 for scalar tops, else the tops' length."""
+    return 1 if sched.stack_top.dim() == 0 else int(sched.stack_top.shape[0])
+
+
 def _check_scheduler(sched: DeviceScheduler) -> None:
-    if sched.stack_top.dim() != 0:
-        raise NotImplementedError("only the single-shard scheduler is ported")
     tel = sched.telemetry
     if tel is not None and max(tel.tag_pcs.shape[0],
                                tel.fleet_occ.shape[0]) > MAX_TEL_SLOTS:
@@ -296,6 +320,24 @@ def _where_rows(mask, rows, leaf):
 def _rank(mask: torch.Tensor) -> torch.Tensor:
     """0-based rank of each True lane among the True lanes."""
     return torch.cumsum(mask.to(I64), 0) - 1
+
+
+def _seg_rank(mask: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Segment-local 0-based rank of each True lane: the lane axis is n_seg
+    equal contiguous blocks and ranks restart at each (symstep.py:315);
+    n_seg = 1 is the global rank."""
+    return torch.cumsum(mask.to(I64).reshape(n_seg, -1), 1).reshape(-1) - 1
+
+
+def _seg_sum(mask: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """int64[n_seg]: True lanes per contiguous lane block (symstep.py:323)."""
+    return mask.to(I64).reshape(n_seg, -1).sum(1)
+
+
+def _per_lane(vec: torch.Tensor, batch: int) -> torch.Tensor:
+    """A per-segment value broadcast to every lane of its block
+    (symstep.py:328)."""
+    return torch.repeat_interleave(vec, batch // vec.shape[0])
 
 
 def _put_rows(pool_leaf: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
@@ -347,21 +389,34 @@ def sym_step_reference(state: StateBatch, planes: SymPlanes, arena: A.Arena,
         state.status == ERRORED, DEAD, state.status).to(I32))
 
     # ---- reseed DEAD lanes from the sibling stack (deepest first) -------------------
+    # segment-local when sharded: block d's DEAD lanes take from the top of
+    # pool segment d (symstep.py:364-391); one segment is the scalar math
     pool_rows = sched.stack_state.status.shape[0]
-    top = sched.stack_top.to(I64)
+    sharded = sched.stack_top.dim() == 1
+    top_vec = sched.stack_top.reshape(-1).to(I64)
+    n_seg = top_vec.shape[0]
+    seg_pool = pool_rows // n_seg
+    seg_ids = torch.arange(n_seg, dtype=I64, device=dev)
+    top_l = _per_lane(top_vec, batch)
+    base_l = _per_lane(seg_ids * seg_pool, batch)
     dead0 = state.status == DEAD
-    rrank = _rank(dead0)
-    take = dead0 & (rrank < top) & enabled
-    src = (top - 1 - rrank).clamp(0, max(pool_rows - 1, 0))
+    rrank = _seg_rank(dead0, n_seg)
+    take = dead0 & (rrank < top_l) & enabled
+    src = (base_l + top_l - 1 - rrank).clamp(0, max(pool_rows - 1, 0))
     if bool(take.any()):
         state = StateBatch(*[_where_rows(take, pool[src], leaf)
                              for leaf, pool in zip(state, sched.stack_state)])
         planes = SymPlanes(*[_where_rows(take, pool[src], leaf)
                              for leaf, pool in zip(planes,
                                                    sched.stack_planes)])
-    n_taken = take.sum()
+    n_taken_vec = _seg_sum(take, n_seg)
+    n_taken = n_taken_vec.sum()
     running = state.status == RUNNING
-    sched = sched._replace(stack_top=(top - n_taken).to(I32),
+
+    def tops(vec):
+        return vec.to(I32) if sharded else vec[0].to(I32)
+
+    sched = sched._replace(stack_top=tops(top_vec - n_taken_vec),
                            pops=sched.pops + n_taken,
                            executed=sched.executed + running.sum())
 
@@ -541,34 +596,43 @@ def sym_step_reference(state: StateBatch, planes: SymPlanes, arena: A.Arena,
 
     # ---- escape buffering (before forking: freed lanes are claimable) ---------------
     esc_rows = sched.esc_state.status.shape[0]
-    ecount = sched.esc_count.to(I64)
+    ecount_vec = sched.esc_count.reshape(-1).to(I64)
+    seg_esc = esc_rows // n_seg
+    ecount_l = _per_lane(ecount_vec, batch)
+    ebase_l = _per_lane(seg_ids * seg_esc, batch)
     esc_now = (new_state.status == ESCAPED) & enabled
-    erank = _rank(esc_now)
-    put = esc_now & (erank < esc_rows - ecount)
-    eslot = ecount + erank
+    erank = _seg_rank(esc_now, n_seg)
+    put = esc_now & (erank < seg_esc - ecount_l)
+    eslot = ebase_l + ecount_l + erank
     for pool, leaf in zip(list(sched.esc_state) + list(sched.esc_planes),
                           list(new_state) + list(new_planes)):
         _put_rows(pool, eslot, put, leaf)
-    esc_used = ecount + put.sum()
+    esc_used_vec = ecount_vec + _seg_sum(put, n_seg)
     new_state = new_state._replace(
         status=torch.where(put, DEAD, new_state.status).to(I32))
 
     # ---- on-device JUMPI forking ----------------------------------------------------
+    # claims, pushes and spills stay in the forker's own block and segments
     max_conds = planes.conds.shape[1]
     want = jumpi_fork | frozen_fork
+    lane_base_l = _per_lane(seg_ids * (batch // n_seg), batch)
     is_dead = new_state.status == DEAD
     dead_map = torch.zeros(batch + 1, dtype=I64, device=dev)
-    dead_map[torch.where(is_dead, _rank(is_dead), batch)] = lane
-    fork_rank = _rank(want)
-    have_target = want & (fork_rank < is_dead.sum())
-    target = dead_map[fork_rank.clamp(0, batch - 1)]
-    top2 = sched.stack_top.to(I64)
+    dead_map[torch.where(is_dead, lane_base_l + _seg_rank(is_dead, n_seg),
+                         batch)] = lane
+    fork_rank = _seg_rank(want, n_seg)
+    have_target = want & (fork_rank < _per_lane(_seg_sum(is_dead, n_seg),
+                                                 batch))
+    target = dead_map[(lane_base_l + fork_rank).clamp(0, batch - 1)]
+    top2_vec = sched.stack_top.reshape(-1).to(I64)
+    top2_l = _per_lane(top2_vec, batch)
     push_want = want & ~have_target & enabled
-    push_rank = _rank(push_want)
-    push = push_want & (push_rank < pool_rows - top2)
+    push_rank = _seg_rank(push_want, n_seg)
+    push = push_want & (push_rank < seg_pool - top2_l)
+    eused_l = _per_lane(esc_used_vec, batch)
     spill_want = push_want & ~push
-    spill_rank = _rank(spill_want)
-    spill = spill_want & (spill_rank < esc_rows - esc_used)
+    spill_rank = _seg_rank(spill_want, n_seg)
+    spill = spill_want & (spill_rank < seg_esc - eused_l)
     act = have_target | push | spill
 
     code_cap = state.code.shape[1]
@@ -615,15 +679,14 @@ def sym_step_reference(state: StateBatch, planes: SymPlanes, arena: A.Arena,
     sib_leaves = list(sib_state) + list(sib_planes)
     for pool, sib in zip(list(sched.stack_state) + list(sched.stack_planes),
                          sib_leaves):
-        _put_rows(pool, top2 + push_rank, push, sib)
+        _put_rows(pool, base_l + top2_l + push_rank, push, sib)
     for pool, sib in zip(list(sched.esc_state) + list(sched.esc_planes),
                          sib_leaves):
-        _put_rows(pool, esc_used + spill_rank, spill, sib)
-    n_push = push.sum()
+        _put_rows(pool, ebase_l + eused_l + spill_rank, spill, sib)
     sched = sched._replace(
-        stack_top=(top2 + n_push).to(I32),
-        esc_count=(esc_used + spill.sum()).to(I32),
-        pushes=sched.pushes + n_push,
+        stack_top=tops(top2_vec + _seg_sum(push, n_seg)),
+        esc_count=tops(esc_used_vec + _seg_sum(spill, n_seg)),
+        pushes=sched.pushes + push.sum(),
         forks=sched.forks + act.sum())
 
     # 4. forker divergence: take the jump (or die on an invalid dest)
@@ -676,8 +739,10 @@ def sym_step_reference(state: StateBatch, planes: SymPlanes, arena: A.Arena,
             esc_cause=tel.esc_cause + hist(cause[force_escape], N_ESC_CAUSES),
             occupancy=tel.occupancy + torch.stack(
                 [running.sum(), torch.ones((), dtype=I64, device=dev)]),
+            # vector tops report the global rows in use (symstep.py:878)
             hwm=torch.maximum(tel.hwm, torch.stack(
-                [sched.stack_top, sched.esc_count]).to(I64)),
+                [sched.stack_top.to(I64).sum(),
+                 sched.esc_count.to(I64).sum()])),
             tag_occ=tag_occ, fleet_occ=fleet_occ))
     return new_state, new_planes, arena, sched
 

@@ -482,7 +482,8 @@ def test_telemetry_off_null():
 
 # ---- chip_smoke.py's reference constants ----------------------------------------------
 
-@pytest.mark.parametrize("which", ["frontier", "spill", "default", "merge"])
+@pytest.mark.parametrize("which", ["frontier", "spill", "default", "merge",
+                                   "shard", "fleet"])
 def test_chip_smoke_constants_are_the_jax_drain(which, monkeypatch):
     """chip_smoke.py holds the port's drain loop on the card to constants:
     the JAX `_Frontier`'s drain of dispatcher(branchy(n)) from one seed at
@@ -490,9 +491,26 @@ def test_chip_smoke_constants_are_the_jax_drain(which, monkeypatch):
     reduced-pool run (16 lanes, 32 stack rows, branchy(10)), both with
     telemetry and merging off, and of the default configuration (both on)
     on branchy(12) and on mem_branchy(8) with the tables the JAX static
-    analysis builds for it. Recompute all four here with JAX."""
+    analysis builds for it; and of the sharded frontier (4 shards, the
+    default steal knobs, `n_shards` set on the instance): branchy(12) from
+    one seed in shard 0, and the two-member fleet of branchy(12) and
+    mem_branchy(8) seeded in shards 0 and 2 with fleet slots [0, 1] and
+    the tables of both codes. Recompute all six here with JAX."""
     import chip_smoke
 
+    if which == "fleet":
+        names = list(chip_smoke.FLEET_RUN)
+        bodies = [chip_smoke.FLEET_RUN[name] for name in names]
+        codes = [assemble(dispatcher({"stress()": body})) for body in bodies]
+        _check_sharded_constants(chip_smoke, codes, chip_smoke.EXPECTED_FLEET,
+                                 chip_smoke.FLEET_OWNERS, names, monkeypatch)
+        return
+    if which == "shard":
+        code = assemble(dispatcher({"stress()": branchy_contract(
+            chip_smoke.N_BRANCHES)}))
+        _check_sharded_constants(chip_smoke, [code], chip_smoke.EXPECTED_SHARD,
+                                 None, None, monkeypatch)
+        return
     runs = {
         "frontier": (chip_smoke.LANES, branchy_contract(chip_smoke.N_BRANCHES),
                      chip_smoke.EXPECTED_FRONTIER, False),
@@ -593,3 +611,97 @@ def test_chip_smoke_tables_are_the_jax_analysis():
     assert tables["merge_names"] == list(merge_names)
     assert tables["mem_pcs"] == mem_pcs.tolist()
     assert tables["mem_words"] == mem_words.tolist()
+
+
+def _counting_drain(frontier, monkeypatch):
+    """Wrap run_chunk and _fetch_escapes to count chunks and drains; wrap
+    the merge publication to keep each pass's stats vector."""
+    counts = {"chunks": 0, "drains": 0, "drained_rows": 0}
+    run_chunk, fetch = jsym.run_chunk, frontier._fetch_escapes
+
+    def counting_chunk(*args):
+        counts["chunks"] += 1
+        return run_chunk(*args)
+
+    def counting_fetch(*args):
+        backlog = fetch(*args)
+        counts["drains"] += 1
+        counts["drained_rows"] += backlog[2]
+        return backlog
+
+    monkeypatch.setattr(jsym, "run_chunk", counting_chunk)
+    frontier._fetch_escapes = counting_fetch
+    mstats = []
+    publish = frontier._publish_merge
+
+    def recording(stats, names):
+        mstats.append(np.asarray(stats))
+        return publish(stats, names)
+
+    frontier._publish_merge = recording
+    return counts, mstats
+
+
+def _check_sharded_constants(chip_smoke, codes, expected, owners, fleet_names,
+                             monkeypatch):
+    """The sharded default-configuration drain of `codes` (seed i owned by
+    shard owners[i], round robin without owners) with JAX, against
+    chip_smoke's constants."""
+    n_lanes = chip_smoke.LANES
+    frontier = jf._Frontier(laser_evm=None, n_lanes=n_lanes)
+    assert frontier.telemetry_enabled and frontier.state_merge
+    assert (frontier.steal_cadence, frontier.steal_min_imbalance) == (
+        tf.STEAL_CADENCE, tf.STEAL_MIN_IMBALANCE)
+    frontier.n_shards = chip_smoke.SHARDS
+    frontier._seed_owner_index = owners
+    lanes = frontier._assign_seed_lanes(len(codes))
+    specs = [jb.LaneSpec(code=b"\x00")] * n_lanes
+    for lane, code in zip(lanes, codes):
+        specs[lane] = jb.LaneSpec(code=code, gas_limit=10_000_000)
+    state = jb.build_batch(specs)
+    status = np.full(n_lanes, jb.DEAD, dtype=np.int32)
+    status[lanes] = jb.RUNNING
+    state = state._replace(status=status)
+    planes = jsym.SymPlanes.empty(n_lanes, state.stack.shape[1],
+                                  state.memory.shape[1],
+                                  state.storage_keys.shape[1], jf.MAX_CONDS)
+    ctx = np.full(n_lanes, -1, dtype=np.int32)
+    ctx[lanes] = np.arange(len(codes))
+    planes = planes._replace(ctx_id=ctx)
+    tags, merge_table = jax_static_tables(codes)
+    frontier._collect_tag_pcs = lambda: tags
+    frontier._merge_pc_table = lambda: merge_table
+    if fleet_names is not None:
+        frontier._collect_fleet_slots = lambda: (list(range(len(codes))),
+                                                 list(fleet_names))
+        tables = chip_smoke.fleet_tables()
+        assert tables["tag_pcs"] == list(tags[0])
+        assert tables["tag_names"] == list(tags[1])
+        assert tables["merge_pcs"] == [int(pc) for pc in merge_table[0]]
+        assert tables["merge_names"] == list(merge_table[1])
+        assert tables["mem_pcs"] == merge_table[2].tolist()
+        assert tables["mem_words"] == merge_table[3].tolist()
+    frozen = _count_frozen(frontier)
+    counts, mstats = _counting_drain(frontier, monkeypatch)
+    frontier.run(state, planes)
+    total = np.sum(mstats, axis=0) if mstats else np.zeros(8, np.int64)
+    sent, recv, moved = frontier._shard_steals
+    got = {**counts, "frozen_rows": frozen[0], "spilled": frontier.spilled,
+           "reseeded": frontier.reseeded, "lane_steps": frontier.lane_steps,
+           "forks": frontier.forks, "stack_pushes": frontier.stack_pushes,
+           "stack_pops": frontier.stack_pops,
+           "deferred_blocks": len(frontier.deferred),
+           "deferred_rows": sum(block[2] for block in frontier.deferred),
+           "mirror_n": frontier.harena.n,
+           "mirror_n_const": frontier.harena.n_const,
+           "deferred_sha256": tf.deferred_digest(frontier.deferred),
+           "mirror_sha256": tf.mirror_digest(frontier.harena),
+           "merge_passes": len(mstats), "merges": frontier.merges,
+           "merge_ites": int(total[1]), "mem_blends": int(total[2]),
+           "blocked_by": dict(zip(jsym.MERGE_BLOCKED_LABELS,
+                                  (int(v) for v in total[3:8]))),
+           "telemetry_words": [int(v) for v in frontier._tel_prev],
+           "steal_passes": frontier._steal_passes,
+           "steals_sent": [int(v) for v in sent],
+           "steals_received": [int(v) for v in recv], "steal_rows": int(moved)}
+    assert got == expected, json.dumps(got, sort_keys=True)

@@ -64,9 +64,17 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError):
         frontier.DeviceFrontier(4)
     with pytest.raises(RuntimeError):
+        frontier.DeviceFrontier(4, n_shards=2)
+    with pytest.raises(RuntimeError):
         device_solver.solve_cnf_device([[1, 2], [-1]], 2)
     with pytest.raises(RuntimeError):
         device_solver.solve_cnf_device_batch([([[1, 2], [-1]], 2)])
     assert device_solver.solve_cnf_device([[1, 2], [-1]], 2,
                                           device="cpu")[0] == device_solver.SAT
     assert batch.build_batch([spec], device="cpu").stack.device.type == "cpu"
+    # the steal pass takes the twin for CPU tensors (K12 for CUDA ones)
+    pair = batch.build_batch([spec] * 2, device="cpu")
+    sched = symstep.new_scheduler(
+        pair, symstep.SymPlanes.empty(2, 96, 4096, 64, device="cpu"), 2, 2,
+        n_shards=2)
+    assert frontier.steal_pass(pair, sched, 1, 4) is sched

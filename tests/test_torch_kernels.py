@@ -41,11 +41,12 @@ def test_layout_matches_pytree_fields():
     for index, name in enumerate(fields):
         assert layout.SLOTS[f"L_{name.upper()}"] == index
     for prefix in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10",
-                   "K11"):
+                   "K11", "K12"):
         assert layout.SLOTS[f"{prefix}_NARGS"] <= layout.MTPU_MAX_ARGS
     assert layout.K4_ROW_BYTES + layout.N_ROW_LEAVES == layout.K4_B
     assert layout.K6_LEAF + layout.N_ROW_LEAVES == layout.K6_INDEX
     assert layout.K7_ROW_BYTES + layout.N_ROW_LEAVES == layout.K7_INDEX
+    assert layout.K12_ROW_BYTES + layout.N_ROW_LEAVES == layout.K12_STATUS
     assert [layout.SLOTS[f"K11_{name.upper()}"]
             for name in tds.SolverState._fields] == list(range(5))
 
@@ -75,13 +76,18 @@ def test_wrappers_refuse_cpu_tensors():
     index = torch.zeros(1, dtype=torch.int32)
     arena = ta.new_arena(64, 16, device="cpu")
     sched = ts.new_scheduler(state, planes, 2, 2)
+    pair = tb.build_batch([tb.LaneSpec(code=b"\x00")] * 2, device="cpu")
+    sharded = ts.new_scheduler(pair, ts.SymPlanes.empty(2, 96, 4096, 64,
+                                                        device="cpu"),
+                               2, 2, n_shards=2)
     for call in (lambda: ops.frontier_summary(state, planes, arena, sched),
                  lambda: ops.row_maxima(state, planes, index),
                  lambda: ops.pack_rows(state, planes, index, 1, 4, 1, 16),
                  lambda: ops.reset_esc(sched),
                  lambda: ops.gather_rows(state, planes, index),
                  lambda: ops.scatter_rows(state, planes, index, state, planes),
-                 lambda: ops.arena_delta(arena, 0, 0, 16, 16)):
+                 lambda: ops.arena_delta(arena, 0, 0, 16, 16),
+                 lambda: ops.steal_pass(state, sharded, 1, 4)):
         with pytest.raises(ValueError):
             call()
     problem = tds.build_problem([[1, 2]], 2)
@@ -408,3 +414,59 @@ def test_host_sat_step_matches_twin(on_host, case):
     state = tds.initial_state(problem.init_assign, n_probes, "cpu")
     kernel = sat_compare(state, tensors, 2, 3, n_probes, False, case)
     assert int(kernel.trail_len.max()) > 1
+
+
+# ---- the sharded scheduler: segmented K4/K5, K6's vector reset, K12 --------------------
+
+@pytest.mark.parametrize("n_shards, telemetry", [(2, False), (4, True)],
+                         ids=["d2", "d4-tel"])
+def test_host_sharded_step_matches_twin(on_host, n_shards, telemetry):
+    """K4 and K5 with vector tops, K6's reset of every segment and K12's
+    steal pass against the twins, chunk after chunk, on the sharded
+    tests' seeding: one block's stack segment fills while others have
+    room, and the pass moves its rows."""
+    from mythril_tpu_torch.parallel import frontier as tf
+    from test_torch_shard import SEEDINGS, seed_lanes
+
+    state, planes, arena = seed_lanes(SEEDINGS[n_shards],
+                                      base_sym=[13 if n_shards == 4 else 12])
+    tel = jsym.new_telemetry([5, 13, 0x1B], fleet_slots=[0, 0, 1, 1],
+                             n_fleet=2) if telemetry else None
+    sched = jsym.new_scheduler(state, planes, 4 * n_shards, 6 * n_shards,
+                               telemetry=tel, n_shards=n_shards)
+    plain = [to_port(k, t) for k, t in zip(("state", "planes", "arena", "sched"),
+                                           (state, planes, arena, sched))]
+    kernel = [convert.clone(t) for t in plain]
+    for chunk in range(6):
+        plain = list(ts.run_chunk_reference(*plain, 12))
+        for _ in range(12):
+            kernel = list(ops.sym_step(*kernel))
+        for kind, got, ref in zip(("state", "planes", "arena", "sched"),
+                                  kernel, plain):
+            _same(got, ref, f"chunk {chunk} {kind}")
+        assert torch.equal(ops.frontier_summary(*kernel),
+                           tf.summary_reference(*plain))
+        tf.steal_pass_reference(plain[0], plain[3], 1, 4)
+        ops.steal_pass(kernel[0], kernel[3], 1, 4)
+        _same(kernel[3], plain[3], f"chunk {chunk} steal")
+        tf.reset_esc_reference(plain[3])
+        ops.reset_esc(kernel[3])
+        assert not kernel[3].esc_count.any()
+    assert int(plain[3].pushes) > 0 and int(plain[3].steal_rows) > 0
+
+
+def test_host_steal_pass_matches_twin(on_host):
+    """K12 against the twin on the JAX comparison's fixtures: forced
+    imbalance, below the threshold, D = 3, tied loads, short room."""
+    from mythril_tpu_torch.parallel import frontier as tf
+    from test_torch_shard import STEAL_CASES
+
+    for case, (make, min_imbalance, max_rows) in sorted(STEAL_CASES.items()):
+        state, sched = make()
+        plain = to_port("sched", sched)
+        kernel = convert.clone(plain)
+        tf.steal_pass_reference(to_port("state", state), plain,
+                                min_imbalance, max_rows)
+        ops.steal_pass(to_port("state", state), kernel, min_imbalance,
+                       max_rows)
+        _same(kernel, plain, case)

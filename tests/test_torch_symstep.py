@@ -132,12 +132,18 @@ def test_convert_round_trip(chunk_trace, kind):
 
 
 def test_unported_scheduler_options_raise():
-    """Sharded schedulers are not ported; the telemetry plane is, up to
-    the tag and fleet slots the kernel holds."""
+    """Sharded schedulers are ported: vector tops and steal counters
+    shaped as JAX's, and pools that do not divide into the shards are
+    refused. The telemetry plane is ported up to the tag and fleet slots
+    the kernel holds; more raise."""
     state, planes, arena = seed_frontier(CODES[1:], N_LANES)
     p_state, p_planes = to_port("state", state), to_port("planes", planes)
-    with pytest.raises(NotImplementedError):
-        tsym.new_scheduler(p_state, p_planes, 8, 8, n_shards=2)
+    sched = tsym.new_scheduler(p_state, p_planes, 8, 8, n_shards=2)
+    ref = jsym.new_scheduler(state, planes, 8, 8, n_shards=2)
+    assert_same(ref, sched)
+    assert tuple(sched.stack_top.shape) == (2,) and tsym.n_segments(sched) == 2
+    with pytest.raises(ValueError):
+        tsym.new_scheduler(p_state, p_planes, 9, 8, n_shards=2)
     tel = tsym.new_telemetry([1, 2], device="cpu")
     assert tsym.new_scheduler(p_state, p_planes, 8, 8,
                               telemetry=tel).telemetry is tel
