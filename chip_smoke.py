@@ -6,13 +6,14 @@
 It builds the hand-written kernels (K1-K12, eleven sources) from the
 checkout's sources, holds each against its plain PyTorch version on the
 card, then drives the port's main device path, the frontier's drain loop
-(`DeviceFrontier.run` around `symstep.run_chunk`), at the frontier's
-default geometry until the tree is drained: with telemetry and state
-merging off (phases 8-9), in the default configuration with both on
-(phases 12-13) and sharded into 4 logical shards with work stealing
-(phase 16); then the device SAT lane (`device_solver.solve_cnf_device`
-and `solve_cnf_device_batch` on K11) on captured analysis queries at full
-width (phases 18-19). Every phase prints one JSON line; any mismatch
+(`DeviceFrontier.run` around `symstep.run_chunk`, one CUDA graph a
+chunk), at the frontier's default geometry until the tree is drained:
+with telemetry and state merging off (phases 8-9), in the default
+configuration with both on (phases 12-13), sharded into 4 logical shards
+with work stealing (phase 18) and at 2048 lanes (phase 19); then the
+device SAT lane (`device_solver.solve_cnf_device` and
+`solve_cnf_device_batch` on K11) on captured analysis queries at full
+width (phases 21-22). Every phase prints one JSON line; any mismatch
 raises, and the run exits non-zero. Phases:
 
   1. the card's name and power limit (nvidia-smi);
@@ -24,7 +25,8 @@ raises, and the run exits non-zero. Phases:
      lanes, every leaf compared after each chunk of 32 steps;
   4. K3 arena_alloc vs its twins: a random want-mask sequence up to and
      past capacity;
-  5. K4 with K1-K3 vs the twins on contracts that walk the symbolic planes
+  5. K4 (K3's step allocations folded in) with K1-K2 vs the twins on
+     contracts that walk the symbolic planes
      (memory round trips, symbolic SSTORE, a cold SLOAD pause, a concrete
      SHA3, escapes on dirty memory) for 2 chunks at the default geometry;
   6. the slice: `assemble(dispatcher({"stress()": branchy(12)}))` at 128
@@ -62,30 +64,40 @@ raises, and the run exits non-zero. Phases:
      phase 8's;
  13. frontier_merge: the same on mem_branchy(8) with the tag and window
      tables the JAX static analysis builds for it (constants here);
- 14. shard_step: K4 and K5 with a 4-shard scheduler (vector tops,
+ 14. graph_chunk: `run_chunk`'s CUDA graph vs eager `sym_step` calls from
+     the same state (branchy(12), 3 chunks): telemetry and merging off, on
+     (a merge pass between chunks), and on with 4 shards; every leaf after
+     each chunk; a state rebound to copies must recapture;
+ 15. wide_lanes: K4 and K10 at 2048 lanes vs the twins: one graphed chunk
+     from 256 branchy(12) seeds at D = 1 and D = 2, then one merge pass
+     (the pairing sort above 1024 lanes); K4's device time a step there;
+ 16. shard_step: K4 and K5 with a 4-shard scheduler (vector tops,
      segment-local ranks; 768 stack and 256 escape rows a segment) vs the
      twins, the planes contracts and branchy(12) one per lane block,
      telemetry armed, 2 chunks, every leaf and the summary's shard block;
- 15. steal_kernel: K12 vs `steal_pass_reference` at the same geometry
+ 17. steal_kernel: K12 vs `steal_pass_reference` at the same geometry
      (random pool rows, max_rows 32): a forced imbalance, gaps below the
      threshold, tied loads, receivers with less room than half the gap,
      and the sharded frontier's first pass; every pool leaf and counter;
      one pass under `torch.cuda.set_sync_debug_mode("error")`; its time
      beside the twin, the bound and index_select + index_copy_ per leaf;
- 16. frontier_shard: `DeviceFrontier(128, n_shards=4)` in the default
+ 18. frontier_shard: `DeviceFrontier(128, n_shards=4)` in the default
      configuration with the default steal knobs on branchy(12) from one
      seed (every path starts in shard 0), held to the JAX `_Frontier`'s
      counters, steal counters, digests and telemetry words; wall, idle
      share, K12 launches and K4's device time per step beside phase 12's;
      then a fleet of branchy(12) and mem_branchy(8) owned by shards 0 and
      2 with fleet slots and both codes' tables, held the same way;
- 17. sat_kernel: K11 vs `run_chunk_reference`, every leaf after each
+ 19. frontier_wide: `DeviceFrontier(2048)` in the default configuration on
+     branchy(12) until the tree drains, held to the JAX
+     `_Frontier(n_lanes=2048)`'s counters, digests and telemetry words;
+ 20. sat_kernel: K11 vs `run_chunk_reference`, every leaf after each
      chunk, on fixtures (opposite-phase races in one tile and across two,
      the no-flip backtrack, 32 forced probes, the batch runner's freeze)
      and at full width (32 probes, V1 65,536) on a captured query of each
      tile bucket (64 and 256): 64 steps compared, then K11's time per step
      beside the twin's and the bound;
- 18. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
+ 21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
      the CNF does not depend on the process, its digest) and the state
@@ -95,12 +107,13 @@ raises, and the run exits non-zero. Phases:
      verdict, chunk count and model to the JAX lane's; steps, verdict,
      wall and host ms per chunk; one solve again under the profiler for
      the card's idle share;
- 19. sat_batch: `solve_cnf_device_batch` on four captured queries of one
+ 22. sat_batch: `solve_cnf_device_batch` on four captured queries of one
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
-     state after the first chunk, verdicts and models as in phase 18;
- 20. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 16, 18, 19), its time, its plain version's time, the least time
-     the card could take and the library call's time (K11's per step).
+     state after the first chunk, verdicts and models as in phase 21;
+ 23. the kernels line: each kernel's launches on the main-path phases (8, 9,
+     12, 13, 18, 19, 21, 22; K3 also its allocations folded into K4's
+     steps), its time, its plain version's time, the least time the card
+     could take and the library call's time (K11's per step).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result."""
@@ -208,6 +221,27 @@ EXPECTED_DEFAULT = {
         0, 4089, 0, 4088, 0, 1, 0, 12263, 12265, 1, 0, 0, 0, 4081, 0, 3503, 0,
         0, 0, 3697, 18744, 0, 0, 585, 3503, 0, 0, 4081, 0, 0, 0, 0, 0, 0, 0,
         36788, 512, 640, 1024]}
+#: the default configuration at 2048 lanes (phase frontier_wide), past the
+#: 1024 lanes K4 and K10 once scanned in one block: `_Frontier(laser_evm=
+#: None, n_lanes=2048)` as EXPECTED_DEFAULT, at the default geometry and
+#: budgets (49,152 stack and 16,384 escape rows, an 8192-row drain batch)
+WIDE_LANES = 2048
+EXPECTED_WIDE = {
+    "chunks": 2, "drains": 1, "drained_rows": 4097, "frozen_rows": 0,
+    "spilled": 0, "reseeded": 0, "lane_steps": 36868, "forks": 4096,
+    "stack_pushes": 2048, "stack_pops": 2048, "deferred_blocks": 1,
+    "deferred_rows": 4097, "mirror_n": 12291, "mirror_n_const": 4097,
+    "merge_passes": 0, "merges": 0, "merge_ites": 0, "mem_blends": 0,
+    "deferred_sha256":
+        "7d4aa16e85ad19debee485f26744513e1fbfd8d4fbe3328f0e83f3ef04a9e6e6",
+    "mirror_sha256":
+        "225b6740a3833f06b1f5a2df8fed26b1a5b968de757fa9235226bc6c74861f24",
+    "blocked_by": {"depth": 0, "mem_sym": 0, "memory": 0,
+                   "storage_keys": 0, "tstore": 0},
+    "telemetry_words": [
+        0, 4097, 0, 4096, 0, 1, 0, 12287, 12289, 1, 0, 0, 0, 4097, 0, 2048, 0,
+        0, 0, 4097, 0, 0, 0, 2048, 2048, 0, 0, 4097, 0, 0, 0, 0, 0, 0, 0,
+        36868, 128, 2048, 4097]}
 MERGE_BRANCHES = 8
 EXPECTED_MERGE = {
     "chunks": 2, "drains": 1, "drained_rows": 129, "frozen_rows": 0,
@@ -902,8 +936,9 @@ def seed_frontier(dev, codes, base_sym=()):
 
 
 def phase_planes(dev) -> None:
-    """K4 (with K1-K3) vs the twins on contracts that walk the symbolic
-    planes, a cold SLOAD pause and a concrete SHA3 on the device."""
+    """K4 (K3 folded in; K1-K2 through it) vs the twins on contracts that
+    walk the symbolic planes, a cold SLOAD pause and a concrete SHA3 on the
+    device."""
     codes = [assemble(dispatcher({"planes()": PLANES_SOURCE})),
              assemble(dispatcher(KILLBILLY)),
              assemble(dispatcher({"stress()": branchy_contract(3)}))]
@@ -995,49 +1030,55 @@ def phase_slice(dev) -> dict:
               "n_const": int(arena.n_const)}
     if totals != EXPECTED:
         raise AssertionError(f"slice totals {totals} != JAX reference {EXPECTED}")
-    if any(launches[name] == 0 for name in ("keccak", "evm_step", "arena_alloc",
-                                             "sym_step", "pack_rows")):
+    if any(launches[name] == 0 for name in ("keccak", "evm_step",
+                                             "arena_alloc_step", "sym_step",
+                                             "pack_rows")):
         raise AssertionError(f"a kernel of the slice never ran: {launches}")
+    replays = dict(ops.REPLAYS)
+    if replays["run_chunk"] != chunks:
+        raise AssertionError(f"the slice's chunks were not graphed: {replays}")
     if snapshot is None:
         raise AssertionError("the frontier drained before the timing snapshot")
 
-    # per-kernel device time on the main path: one chunk from the snapshot
-    # with CUDA events around each wrapper (K4 = the step less its K2/K3)
-    spans = {"keccak": [], "evm_step": [], "arena_alloc": [], "step": []}
-    wrapped = {}
+    # per-kernel times on the main path: one chunk of eager steps from the
+    # snapshot, CUDA events around each host call (K4 = its pre and post
+    # calls; K2 = sha_prep and evm_step; K1 = keccak_rows), then the same
+    # chunk under the profiler for the kernels' device time per step
+    spans = {"keccak": [], "evm_step": [], "sym_step": []}
+    owner = {"mtpu_keccak_rows": "keccak", "mtpu_sha_prep": "evm_step",
+             "mtpu_evm_step": "evm_step"}
+    call = ops._call
 
-    def timed(name, fn):
-        def run(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            spans[name].append((start, end))
-            return out
-        return run
+    def timed_call(name, block):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call(name, block)
+        end.record()
+        spans[owner.get(name, "sym_step")].append((start, end))
 
-    for name in ("keccak_rows", "evm_step", "arena_alloc"):
-        wrapped[name] = getattr(ops, name)
-        setattr(ops, name, timed("keccak" if name == "keccak_rows" else name,
-                                 wrapped[name]))
     timing = [convert.clone(t) for t in snapshot]
     before = {k: int(getattr(timing[3], k)) for k in ("pops", "forks", "executed")}
     frontier.reset_esc_reference(timing[3])
+    ops.step_plan(*timing)  # built before the timed span
+    ops._call = timed_call
     try:
         for _ in range(CHUNK):
-            timing = list(timed("step", ops.sym_step)(*timing))
+            timing = list(ops.sym_step(*timing))
         torch.cuda.synchronize()
     finally:
-        for name, fn in wrapped.items():
-            setattr(ops, name, fn)
-    total = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
-    per = {k: total[k] / max(len(spans[k]), 1) for k in total}
-    k2_only = (total["evm_step"] - total["keccak"]) / len(spans["evm_step"])
-    k4_only = (total["step"] - total["evm_step"] - total["arena_alloc"]) / CHUNK
+        ops._call = call
+    per = {k: sum(s.elapsed_time(e) for s, e in v) / CHUNK
+           for k, v in spans.items()}
+    k2_only = per["evm_step"]
+    k4_only = per["sym_step"]
     moved = (int(timing[3].pops) - before["pops"] + int(timing[3].esc_count)
              + int(timing[3].forks) - before["forks"])
     lane_steps = int(timing[3].executed) - before["executed"]
+    eager = [convert.clone(t) for t in snapshot]
+    frontier.reset_esc_reference(eager[3])
+    step_times = device_times(lambda _: ops.sym_step(*eager), CHUNK)
+    k4_device = named_ms(step_times, K4_KERNELS)
     # K4 moves whole rows (read + write) and touches ~600 bytes of planes
     # and scratch per lane per step; the bound is per step, like `ms`
     b_ms, b_by = bound_ms((2 * moved * row_bytes + CHUNK * LANES * 600)
@@ -1055,15 +1096,21 @@ def phase_slice(dev) -> dict:
           "lane_steps_per_s": totals["executed"] / kernel_s,
           "steps_per_s": chunks * CHUNK / kernel_s,
           "launch_ms": {"keccak": per["keccak"], "evm_step": k2_only,
-                        "arena_alloc": per["arena_alloc"], "sym_step": k4_only,
-                        "whole_step": per["step"]},
+                        "sym_step": k4_only,
+                        "whole_step": sum(per.values())},
+          "eager_device_ms_per_step": {
+              "sym_step": k4_device,
+              "by_kernel": {name: named_ms(step_times, (name,))
+                            for name in K4_KERNELS}},
+          "replays": replays,
           "timed_chunk": {"lane_steps": lane_steps, "rows_moved": moved},
           "peak_device_bytes": peak_bytes,
           "launches": launches})
     record = {"name": "sym_step", "route": "cuda",
               "source": "mythril_tpu_torch/kernels/sym_step.cu",
               "replaces": "mythril_tpu/parallel/symstep.py:347",
-              "max_abs_err": 0, "ms": k4_only, "plain_ms": plain_ms,
+              "max_abs_err": 0, "ms": k4_only, "device_ms": k4_device,
+              "plain_ms": plain_ms,
               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
               "held_by": "phase slice"}
     return record
@@ -1338,15 +1385,25 @@ def drive_frontier(fr, seeds) -> dict:
             "peak_device_bytes": torch.cuda.max_memory_allocated()}
 
 
+#: K4's CUDA functions (K9 is the TEL instantiation of the counting ones)
+K4_KERNELS = ("sym_seed_count_kernel", "sym_seed_seg_kernel",
+              "sym_seed_apply_kernel", "sym_move_kernel",
+              "sym_classify_kernel", "sym_alloc_count_kernel",
+              "sym_alloc_seg_kernel", "sym_planes_kernel",
+              "sym_esc_seg_kernel", "sym_esc_apply_kernel",
+              "sym_fork_seg_kernel", "sym_fork_apply_kernel")
+
 #: CUDA function -> the port kernel (wrapper) that launches it (K9 runs
-#: inside sym_pre/sym_post: its device time is phase telemetry's)
+#: inside K4's launches: its device time is phase telemetry's; the step's
+#: folded K3 allocations run inside K4's sym_alloc_*/sym_planes launches)
 KERNEL_OF = {
     "keccak_rows_kernel": "keccak", "sha_prep_kernel": "evm_step",
     "evm_step_kernel": "evm_step", "arena_alloc_kernel": "arena_alloc",
-    "sym_pre_kernel": "sym_step", "sym_mid1_kernel": "sym_step",
-    "sym_mid2_kernel": "sym_step", "sym_post_kernel": "sym_step",
+    **{name: "sym_step" for name in K4_KERNELS},
     "frontier_summary_kernel": "frontier_summary",
     "merge_hash_kernel": "merge_pass", "merge_pair_kernel": "merge_pass",
+    "merge_keys_kernel": "merge_pass", "merge_sort_stage_kernel": "merge_pass",
+    "merge_pairs_kernel": "merge_pass",
     "merge_check_kernel": "merge_pass", "merge_nodes_kernel": "merge_pass",
     "merge_apply_kernel": "merge_pass", "merge_blocked_kernel": "merge_pass",
     "steal_plan_kernel": "steal_pass", "steal_move_kernel": "steal_pass",
@@ -1484,9 +1541,8 @@ def phase_telemetry(dev) -> dict:
     on = [convert.clone(t) for t in snapshot]
     off = [convert.clone(t) for t in snapshot]
     off[3] = off[3]._replace(telemetry=None)
-    names = ("sym_pre_kernel", "sym_post_kernel")
-    on_ms = device_ms(lambda _: ops.sym_step(*on), steps, names)
-    off_ms = device_ms(lambda _: ops.sym_step(*off), steps, names)
+    on_ms = device_ms(lambda _: ops.sym_step(*on), steps, K4_KERNELS)
+    off_ms = device_ms(lambda _: ops.sym_step(*off), steps, K4_KERNELS)
     plain_on = [convert.clone(t) for t in snapshot]
     plain_off = [convert.clone(t) for t in snapshot]
     plain_off[3] = plain_off[3]._replace(telemetry=None)
@@ -1673,6 +1729,134 @@ def phase_frontier_merge(dev) -> dict:
     return timing
 
 
+# ---- phases 14-15: the chunk graph and 2048 lanes ---------------------------------
+
+def phase_graph_chunk(dev) -> dict:
+    """`run_chunk`'s CUDA graph against eager `sym_step` calls from the
+    same state at the default geometry, branchy(12): telemetry and merging
+    off, on (a merge pass between chunks, in place), and on with 4 shards
+    (a seed in each block); every leaf, the arena and the scheduler after
+    each chunk. After the first chunk the graphed side's tensors are
+    rebound to copies, which must recapture."""
+    code = assemble(dispatcher({"stress()": branchy_contract(N_BRANCHES)}))
+    empty = symstep._merge_tables(np.zeros(0, np.int32), None, None, dev)
+    cases = {}
+    for name, armed, n_shards in (("off", False, 1), ("on", True, 1),
+                                  ("d4", True, SHARDS)):
+        placed = {lane: code for lane in range(0, LANES, LANES // n_shards)}
+        tel = symstep.new_telemetry(TEL_TAG_PCS, device=dev) if armed else None
+        graphed = sharded_tree(dev, placed, telemetry=tel, n_shards=n_shards)
+        eager = [convert.clone(t) for t in graphed]
+        ops.reset_launches()
+        ops._GRAPHS.clear()  # every case captures its own
+        for chunk in range(3):
+            graphed = list(symstep.run_chunk(*graphed, CHUNK))
+            eager = list(symstep.run_chunk(*eager, CHUNK, graph=False))
+            for kind, got, ref in zip(("state", "planes", "arena", "sched"),
+                                      graphed, eager):
+                assert_same(got, ref, f"graph_chunk {name} chunk {chunk} {kind}")
+            for tree in (graphed, eager):
+                frontier.reset_esc(tree[3])
+                if armed:
+                    symstep.merge_pass(*tree[:3], *empty, n_rounds=frontier.MERGE_ROUNDS)
+            if chunk == 0:
+                graphed = [convert.clone(t) for t in graphed]
+        replays = dict(ops.REPLAYS)
+        if replays != {"run_chunk": 3, "captures": 2}:
+            raise AssertionError(f"graph_chunk {name}: {replays}")
+        cases[name] = {"forks": int(eager[3].forks),
+                       "pushes": int(eager[3].pushes),
+                       "executed": int(eager[3].executed), **replays}
+    emit({"phase": "graph_chunk", "contract": f"dispatcher(branchy({N_BRANCHES}))",
+          "lanes": LANES, "chunk": CHUNK, "chunks": 3, "cases": cases,
+          "max_abs_err": 0})
+    return cases
+
+
+#: phase wide_lanes: a branchy(12) seed every 8 lanes, pools of two rows
+#: a lane
+WIDE_STACK_ROWS = 2 * WIDE_LANES
+WIDE_ESC_ROWS = 2 * WIDE_LANES
+
+
+def wide_tree(dev, n_shards: int):
+    """[state, planes, arena, sched] at 2048 lanes and the default row
+    geometry: a branchy(12) seed on every 8th lane, the rest DEAD."""
+    code = assemble(dispatcher({"stress()": branchy_contract(N_BRANCHES)}))
+    state = B.build_batch([B.LaneSpec(code=code, gas_limit=10_000_000)]
+                          * WIDE_LANES, device=dev)
+    planes = symstep.SymPlanes.empty(WIDE_LANES, state.stack.shape[1],
+                                     state.memory.shape[1],
+                                     state.storage_keys.shape[1], MAX_CONDS,
+                                     device=dev)
+    seeds = torch.arange(0, WIDE_LANES, 8, device=dev)
+    state.status.fill_(B.DEAD)
+    state.status[seeds] = B.RUNNING
+    planes.ctx_id[seeds] = torch.arange(len(seeds), dtype=torch.int32,
+                                        device=dev)
+    sched = symstep.new_scheduler(state, planes, WIDE_STACK_ROWS,
+                                  WIDE_ESC_ROWS, n_shards=n_shards)
+    return [state, planes, A.new_arena(device=dev), sched]
+
+
+def phase_wide_lanes(dev) -> dict:
+    """K4 (K3 folded in) and K10 at 2048 lanes against their twins on the
+    card: one graphed chunk from 256 branchy(12) seeds at D = 1 and D = 2,
+    every leaf; then one merge pass (strict rounds, the sort above 1024
+    lanes) on the D = 1 chunk's state. K4's device time per step there."""
+    record = {}
+    end = None
+    for n_shards in (1, 2):
+        tree = wide_tree(dev, n_shards)
+        plain = [convert.clone(t) for t in tree]
+        tree = list(symstep.run_chunk(*tree, CHUNK))
+        plain = list(symstep.run_chunk_reference(*plain, CHUNK))
+        for kind, got, ref in zip(("state", "planes", "arena", "sched"),
+                                  tree, plain):
+            assert_same(got, ref, f"wide_lanes d{n_shards} {kind}")
+        record[f"d{n_shards}"] = {"forks": int(plain[3].forks),
+                                  "pushes": int(plain[3].pushes),
+                                  "escapes": int(plain[3].esc_count.sum()),
+                                  "executed": int(plain[3].executed)}
+        if n_shards == 1:
+            end = tree
+    if not record["d1"]["pushes"]:
+        raise AssertionError(f"wide_lanes pushed nothing: {record}")
+    tables = symstep._merge_tables(np.zeros(0, np.int32), None, None, dev)
+    kern = [convert.clone(t) for t in end[:3]]
+    plain = [convert.clone(t) for t in end[:3]]
+    got = ops.merge_pass(*kern, *tables, frontier.MERGE_ROUNDS)
+    ref = symstep.merge_pass_reference(*plain, *tables, n_rounds=frontier.MERGE_ROUNDS)
+    for kind, mine, theirs in zip(("state", "planes", "arena"), got[:3],
+                                  ref[:3]):
+        assert_same(mine, theirs, f"wide_lanes merge {kind}")
+    check_same([got[3]], [ref[3]], "wide_lanes merge stats")
+    step = [convert.clone(t) for t in end]
+    frontier.reset_esc_reference(step[3])
+    k4_ms = device_ms(lambda _: ops.sym_step(*step), 16, K4_KERNELS)
+    emit({"phase": "wide_lanes", "lanes": WIDE_LANES, "chunk": CHUNK,
+          "seeds": WIDE_LANES // 8, "stack_rows": WIDE_STACK_ROWS,
+          "esc_rows": WIDE_ESC_ROWS, **record,
+          "merge_stats": ref[3].cpu().tolist(),
+          "k4_device_ms_per_step": k4_ms, "max_abs_err": 0})
+    return record
+
+
+def phase_frontier_wide(dev) -> dict:
+    """DeviceFrontier(2048) in the default configuration on branchy(12)
+    until the tree drains, held to the JAX `_Frontier(n_lanes=2048)`'s
+    counters, digests and telemetry words; its wall and lane-steps/s."""
+    fr = frontier.DeviceFrontier(WIDE_LANES, device=dev)
+    timing = drive_frontier(fr, stress_seed(N_BRANCHES))
+    totals = default_totals(fr)
+    check_totals(totals, EXPECTED_WIDE, "frontier_wide")
+    emit({"phase": "frontier_wide",
+          "contract": f"dispatcher(branchy({N_BRANCHES}))",
+          "lanes": WIDE_LANES, "chunk": fr.chunk, "drain_batch": fr.drain_batch,
+          **totals, **timing, "replays": dict(ops.REPLAYS)})
+    return timing
+
+
 # ---- phases 14-16: the sharded frontier (K4/K5 segmented, K12) -----------------------
 
 SHARD_STACK_ROWS = STACK_ROWS   # 768 rows a segment
@@ -1748,8 +1932,7 @@ def phase_shard_step(dev) -> dict:
             moved[n_shards] = int(fresh[3].pops) + int(fresh[3].forks) \
                 + int(fresh[3].esc_count.sum())
         moved = {}
-        ms = device_ms(chunk, 2, ("sym_pre_kernel", "sym_mid1_kernel",
-                                  "sym_mid2_kernel", "sym_post_kernel"))
+        ms = device_ms(chunk, 2, K4_KERNELS)
         return ms / CHUNK, moved[n_shards] / CHUNK
 
     k4_d1, moved_d1 = k4_chunk(1)
@@ -2433,6 +2616,8 @@ def main() -> int:
     records += phase_frontier_programs(dev)
     records.append(phase_telemetry(dev))
     records.append(phase_merge_kernel(dev))
+    phase_graph_chunk(dev)
+    phase_wide_lanes(dev)
     k4_same_work = phase_shard_step(dev)
     records.append(phase_steal_kernel(dev))
     records.append(phase_sat_kernel(dev))
@@ -2450,6 +2635,8 @@ def main() -> int:
     shard_timing, shard_profiled, fleet_timing = phase_frontier_shard(
         dev, default_timing, default_profiled)
     main_path_launches += [shard_timing["launches"], fleet_timing["launches"]]
+    # 2048 lanes: past the 1024 that K4 and K10 once scanned in one block
+    main_path_launches.append(phase_frontier_wide(dev)["launches"])
     # the device SAT lane: captured queries at full width, one flush
     sat_launches, sat_profiled = phase_sat_lane(dev)
     main_path_launches += [sat_launches, phase_sat_batch(dev)]
@@ -2462,6 +2649,10 @@ def main() -> int:
     for record in records:
         name = record["name"]
         record["launches"] = launches[name]
+        if name == "arena_alloc":
+            # the standalone calls above; the step's four allocations run
+            # folded into K4's launches, one count a step
+            record["launches_folded"] = launches["arena_alloc_step"]
         if name == "sat_step":
             # K11's device time per step on the lane's profiled solve
             record["main_path_device_ms"] = \

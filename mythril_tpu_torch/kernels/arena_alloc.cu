@@ -18,17 +18,9 @@
 // `out_ovf` between the two scans, so `out_ids` must not alias an input.
 //
 // Bound: bytes (a few int32 per entry, plus one 64-byte word per const).
-#include "common.cuh"
-
-namespace {
-
-enum { VAR_TAG = 0x101, CONST_TAG = 0x100 };
-
-__device__ __forceinline__ int clampi(long long v, int hi) {
-    return static_cast<int>(v < 0 ? 0 : (v > hi ? hi : v));
-}
-
-}  // namespace
+// The allocation rules (class masks, node rows) are arena.cuh's, which
+// sym_step.cu shares for the four allocations it folds into its step.
+#include "arena.cuh"
 
 __global__ void arena_alloc_kernel(Args a) {
     __shared__ int scan_buf[1024];
@@ -43,7 +35,11 @@ __global__ void arena_alloc_kernel(Args a) {
 
     int* n_ptr = arg_ptr<int>(a, K3_N);
     const int cap = arg_int(a, K3_CAP);
-    int32_t* cls_col = arg_ptr<int32_t>(a, K3_COL_CLS);
+    const ArenaRef ar = {arg_ptr<int32_t>(a, K3_COL_OP), arg_ptr<int32_t>(a, K3_COL_A),
+                         arg_ptr<int32_t>(a, K3_COL_B), arg_ptr<int32_t>(a, K3_COL_C),
+                         arg_ptr<int32_t>(a, K3_COL_IMM), arg_ptr<int32_t>(a, K3_COL_IMM2),
+                         arg_ptr<int32_t>(a, K3_COL_CLS), arg_ptr<int32_t>(a, K3_CONST_VALS),
+                         cap, a.v[K3_CCAP]};
     const int32_t* values = arg_ptr<const int32_t>(a, K3_VALUES);
     int total;
     if (values) {
@@ -59,7 +55,7 @@ __global__ void arena_alloc_kernel(Args a) {
         for (long long i = lo; i < hi; ++i) {
             const bool covf = want[i] && cid >= ccap;
             if (want[i] && !covf) {
-                int32_t* dst = arg_ptr<int32_t>(a, K3_CONST_VALS) + cid * 16;
+                int32_t* dst = ar.const_vals + cid * 16;
                 for (int k = 0; k < 16; ++k) dst[k] = values[16 * i + k];
             }
             out_ids[i] = want[i] ? static_cast<int>(cid) : 0;
@@ -73,15 +69,11 @@ __global__ void arena_alloc_kernel(Args a) {
     } else {
         // node rows: children's masks are read before any row is written
         for (long long i = lo; i < hi; ++i) {
-            const int op = arg_ptr<const int32_t>(a, K3_OP)[i];
-            const int imm = arg_ptr<const int32_t>(a, K3_IMM)[i];
-            int cls = 0;
-            if (op == VAR_TAG) cls = 1 << clampi(imm, 30);
-            else if (op != CONST_TAG)
-                cls = cls_col[clampi(arg_ptr<const int32_t>(a, K3_A)[i], cap - 1)]
-                      | cls_col[clampi(arg_ptr<const int32_t>(a, K3_B)[i], cap - 1)]
-                      | cls_col[clampi(arg_ptr<const int32_t>(a, K3_C)[i], cap - 1)];
-            out_ids[i] = cls;
+            out_ids[i] = arena_node_cls(ar, arg_ptr<const int32_t>(a, K3_OP)[i],
+                                        arg_ptr<const int32_t>(a, K3_A)[i],
+                                        arg_ptr<const int32_t>(a, K3_B)[i],
+                                        arg_ptr<const int32_t>(a, K3_C)[i],
+                                        arg_ptr<const int32_t>(a, K3_IMM)[i]);
             out_ovf[i] = 0;
         }
     }
@@ -99,23 +91,15 @@ __global__ void arena_alloc_kernel(Args a) {
         }
         const bool ovf = id >= cap;
         if (!ovf) {
-            if (values) {
-                arg_ptr<int32_t>(a, K3_COL_OP)[id] = CONST_TAG;
-                arg_ptr<int32_t>(a, K3_COL_A)[id] = 0;
-                arg_ptr<int32_t>(a, K3_COL_B)[id] = 0;
-                arg_ptr<int32_t>(a, K3_COL_C)[id] = 0;
-                arg_ptr<int32_t>(a, K3_COL_IMM)[id] = out_ids[i];
-                arg_ptr<int32_t>(a, K3_COL_IMM2)[id] = 0;
-                cls_col[id] = 0;
-            } else {
-                arg_ptr<int32_t>(a, K3_COL_OP)[id] = arg_ptr<const int32_t>(a, K3_OP)[i];
-                arg_ptr<int32_t>(a, K3_COL_A)[id] = arg_ptr<const int32_t>(a, K3_A)[i];
-                arg_ptr<int32_t>(a, K3_COL_B)[id] = arg_ptr<const int32_t>(a, K3_B)[i];
-                arg_ptr<int32_t>(a, K3_COL_C)[id] = arg_ptr<const int32_t>(a, K3_C)[i];
-                arg_ptr<int32_t>(a, K3_COL_IMM)[id] = arg_ptr<const int32_t>(a, K3_IMM)[i];
-                arg_ptr<int32_t>(a, K3_COL_IMM2)[id] = arg_ptr<const int32_t>(a, K3_IMM2)[i];
-                cls_col[id] = out_ids[i];
-            }
+            if (values)
+                arena_put_node(ar, id, ARENA_CONST_TAG, 0, 0, 0, out_ids[i], 0, 0);
+            else
+                arena_put_node(ar, id, arg_ptr<const int32_t>(a, K3_OP)[i],
+                               arg_ptr<const int32_t>(a, K3_A)[i],
+                               arg_ptr<const int32_t>(a, K3_B)[i],
+                               arg_ptr<const int32_t>(a, K3_C)[i],
+                               arg_ptr<const int32_t>(a, K3_IMM)[i],
+                               arg_ptr<const int32_t>(a, K3_IMM2)[i], out_ids[i]);
         }
         out_ids[i] = ovf ? 0 : static_cast<int>(id);
         out_ovf[i] = ovf;

@@ -14,6 +14,14 @@
 #define MTPU_LAUNCH(kernel, grid, block, stream, args) \
     kernel<<<(grid), (block), 0, (cudaStream_t)(stream)>>>(args)
 #define MTPU_LAUNCH_STATUS() ((int)cudaGetLastError())
+// load a kernel's code now (the runtime loads lazily, at the first launch,
+// which should not fall inside a CUDA graph capture); 0 = loaded
+template <class F>
+static inline int mtpu_preload(F* kernel) {
+    cudaFuncAttributes attr;
+    return (int)cudaFuncGetAttributes(&attr, kernel);
+}
+#define MTPU_PRELOAD(kernel) mtpu_preload(kernel)
 #endif
 
 #define MTPU_EXPORT extern "C" __attribute__((visibility("default")))
@@ -81,60 +89,26 @@ enum {
     OP_REVERT = 0xFD, OP_INVALID = 0xFE
 };
 
-// Block-wide exclusive prefix sum of one int per thread (Hillis-Steele over
-// shared memory; blockDim.x <= 1024). Returns the thread's exclusive rank;
-// *total receives the block sum. Every thread of the block must call it.
-__device__ __forceinline__ int block_exclusive_scan(int value, int* buf,
-                                                    int* total) {
+// Block-wide exclusive prefix sum of one value per thread (Hillis-Steele
+// over shared memory; blockDim.x <= 1024, `buf` one slot per thread).
+// Returns the thread's exclusive rank; *total receives the block sum. Every
+// thread of the block must call it. Ranks come from the scan, never from
+// atomics, so they are deterministic.
+template <class T>
+__device__ __forceinline__ T block_exclusive_scan(T value, T* buf, T* total) {
     const int t = threadIdx.x, n = blockDim.x;
     buf[t] = value;
     __syncthreads();
     for (int offset = 1; offset < n; offset <<= 1) {
-        int add = t >= offset ? buf[t - offset] : 0;
+        T add = t >= offset ? buf[t - offset] : 0;
         __syncthreads();
         buf[t] += add;
         __syncthreads();
     }
-    int inclusive = buf[t];
+    T inclusive = buf[t];
     *total = buf[n - 1];
     __syncthreads();
     return inclusive - value;
-}
-
-// Block-wide exclusive scan of one int per thread over the whole block
-// and, at once, within contiguous segments of `seg_len` threads (the lane
-// blocks of a sharded frontier; seg_len = the block's width gives the
-// plain scan). Ranks come from the one Hillis-Steele pass, never from
-// atomics, so they are deterministic. Every thread of the block must call
-// it.
-struct SegScan {
-    int rank;       // exclusive rank in the block
-    int seg_rank;   // exclusive rank in the thread's segment
-    int seg_total;  // sum over the thread's segment
-    int total;      // sum over the block
-};
-
-__device__ __forceinline__ SegScan block_seg_scan(int value, int* buf,
-                                                  int seg_len) {
-    const int t = threadIdx.x, n = blockDim.x;
-    buf[t] = value;
-    __syncthreads();
-    for (int offset = 1; offset < n; offset <<= 1) {
-        int add = t >= offset ? buf[t - offset] : 0;
-        __syncthreads();
-        buf[t] += add;
-        __syncthreads();
-    }
-    const int start = (t / seg_len) * seg_len;
-    const int end = start + seg_len < n ? start + seg_len : n;
-    const int before = start > 0 ? buf[start - 1] : 0;
-    SegScan out;
-    out.rank = buf[t] - value;
-    out.seg_rank = out.rank - before;
-    out.seg_total = buf[end - 1] - before;
-    out.total = buf[n - 1];
-    __syncthreads();
-    return out;
 }
 
 // Block-wide maximum of one int64 per thread (tree over shared memory;

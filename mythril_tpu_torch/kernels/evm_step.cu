@@ -444,3 +444,8 @@ MTPU_EXPORT int mtpu_evm_step(const long long* values, int n, void* stream) {
     MTPU_LAUNCH(evm_step_kernel, (batch + 127) / 128, 128, stream, a);
     return MTPU_LAUNCH_STATUS();
 }
+
+// load this source's kernels (before a CUDA graph captures them)
+MTPU_EXPORT int mtpu_evm_preload(const long long*, int, void*) {
+    return MTPU_PRELOAD(sha_prep_kernel) | MTPU_PRELOAD(evm_step_kernel);
+}

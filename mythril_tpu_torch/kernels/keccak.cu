@@ -39,3 +39,8 @@ MTPU_EXPORT int mtpu_keccak_rows(const long long* values, int n,
                 stream, a);
     return MTPU_LAUNCH_STATUS();
 }
+
+// load this source's kernel (before a CUDA graph captures it)
+MTPU_EXPORT int mtpu_keccak_preload(const long long*, int, void*) {
+    return MTPU_PRELOAD(keccak_rows_kernel);
+}

@@ -10,11 +10,13 @@
 //                 must find equal (weak, weak + memory planes, core), one
 //                 block per lane, the leaf sums reduced in shared memory
 //   per round (n_rounds strict, then n_rounds widened with a window table):
-//   merge_pair    one block, a thread per lane: eligibility, the sort key
-//                 (hash of the sign-stripped conds, cond count, last sign),
-//                 a bitonic sort of (key, lane) in shared memory (the stable
-//                 argsort JAX takes: ties keep lane order), the round's roll,
-//                 and the (fi, ti) pairs
+//   merge_pair    eligibility, the sort key (hash of the sign-stripped
+//                 conds, cond count, last sign), a bitonic sort of (key,
+//                 lane) (the stable argsort JAX takes: ties keep lane
+//                 order), the round's roll, and the (fi, ti) pairs: up to
+//                 1024 lanes one block sorting in shared memory; above, a
+//                 key launch, a launch per stage of the network over the
+//                 next power of two in global memory, and a pairs launch
 //   merge_check   a block per pair: exact verification; in widened rounds
 //                 the window gather, diff containment and word blendability;
 //                 then the three blend families' allocation requests
@@ -190,50 +192,71 @@ __global__ void merge_hash_kernel(Args a) {
 
 // ---- pairing: the sort ---------------------------------------------------------------
 
+namespace {
+
+// lane t's eligibility, per-lane info and sort key (hash of the
+// sign-stripped conds, cond count, last sign; SENTINEL if not eligible)
+__device__ unsigned long long lane_key(const Args& a, int t) {
+    const int B = arg_int(a, K10_B), KC = arg_int(a, K10_KC);
+    const int mode = arg_int(a, K10_MODE);
+    const int32_t* conds = lane_leaf<const int32_t>(a, L_CONDS) + static_cast<long long>(t) * KC;
+    const int cc = lane_leaf<const int32_t>(a, L_COND_COUNT)[t];
+    const int last_idx = cc - 1 < 0 ? 0 : (cc - 1 > KC - 1 ? KC - 1 : cc - 1);
+    const int last = conds[last_idx];
+    bool elig = lane_leaf<const int32_t>(a, L_STATUS)[t] == ST_RUNNING && cc > 0
+                && last != 0 && lane_leaf<const int32_t>(a, L_FORK_COND)[t] == 0;
+    int join = 0;
+    if (mode == MODE_WIDEN) {
+        const int pc = lane_leaf<const int32_t>(a, L_PC)[t];
+        const int32_t* mem_pcs = arg_ptr<const int32_t>(a, K10_MEM_PCS);
+        bool at = false;
+        for (int j = arg_int(a, K10_J) - 1; j >= 0; --j)
+            if (mem_pcs[j] == pc) { join = j; at = true; }
+        elig = elig && at;
+    }
+    const unsigned long long* hash = arg_ptr<const unsigned long long>(a, K10_HASH);
+    unsigned long long h;
+    if (mode == MODE_BLOCKED) {
+        h = hash[2 * B + t];
+    } else {
+        unsigned long long s = 0;
+        for (int j = 0; j < KC; ++j) {
+            const int v = j == last_idx ? iabs(conds[j]) : conds[j];
+            s += static_cast<unsigned long long>(static_cast<long long>(v)) * fold_mult(j);
+        }
+        h = hash[(mode == MODE_WIDEN ? 0 : B) + t] * H_PRIME + s;
+        h = h * H_PRIME + static_cast<unsigned long long>(cc);
+    }
+    info(a, INFO_LAST)[t] = last;
+    info(a, INFO_CC)[t] = cc;
+    info(a, INFO_LAST_IDX)[t] = last_idx;
+    info(a, INFO_JOIN)[t] = join;
+    arg_ptr<uint8_t>(a, K10_ELIG)[t] = elig;
+    return elig ? ((h & H_MASK) << 1) | (last > 0 ? 1ULL : 0ULL) : SENTINEL;
+}
+
+// (key, lane) of p sorts after that of q: the stable order JAX's argsort gives
+__device__ __forceinline__ bool after(unsigned long long kp, int ip, unsigned long long kq, int iq) {
+    return kp > kq || (kp == kq && ip > iq);
+}
+
+// roll(perm, -shift), then (fi, ti) = adjacent positions
+__device__ __forceinline__ void write_pair(const Args& a, const int* order, long long k) {
+    const int B = arg_int(a, K10_B), shift = arg_int(a, K10_SHIFT);
+    arg_ptr<int32_t>(a, K10_FI)[k] = order[(2 * k + shift) % B];
+    arg_ptr<int32_t>(a, K10_TI)[k] = order[(2 * k + 1 + shift) % B];
+}
+
+}  // namespace
+
+// up to 1024 lanes: one block, a thread per lane, a bitonic sort of
+// (key, lane) in shared memory
 __global__ void merge_pair_kernel(Args a) {
     __shared__ unsigned long long keys[1024];
     __shared__ int idx[1024];
     const int t = threadIdx.x, n = blockDim.x;
-    const int B = arg_int(a, K10_B), KC = arg_int(a, K10_KC);
-    const int mode = arg_int(a, K10_MODE);
-    unsigned long long key = SENTINEL;
-    if (t < B) {
-        const int32_t* conds = lane_leaf<const int32_t>(a, L_CONDS) + static_cast<long long>(t) * KC;
-        const int cc = lane_leaf<const int32_t>(a, L_COND_COUNT)[t];
-        const int last_idx = cc - 1 < 0 ? 0 : (cc - 1 > KC - 1 ? KC - 1 : cc - 1);
-        const int last = conds[last_idx];
-        bool elig = lane_leaf<const int32_t>(a, L_STATUS)[t] == ST_RUNNING && cc > 0
-                    && last != 0 && lane_leaf<const int32_t>(a, L_FORK_COND)[t] == 0;
-        int join = 0;
-        if (mode == MODE_WIDEN) {
-            const int pc = lane_leaf<const int32_t>(a, L_PC)[t];
-            const int32_t* mem_pcs = arg_ptr<const int32_t>(a, K10_MEM_PCS);
-            bool at = false;
-            for (int j = arg_int(a, K10_J) - 1; j >= 0; --j)
-                if (mem_pcs[j] == pc) { join = j; at = true; }
-            elig = elig && at;
-        }
-        const unsigned long long* hash = arg_ptr<const unsigned long long>(a, K10_HASH);
-        unsigned long long h;
-        if (mode == MODE_BLOCKED) {
-            h = hash[2 * B + t];
-        } else {
-            unsigned long long s = 0;
-            for (int j = 0; j < KC; ++j) {
-                const int v = j == last_idx ? iabs(conds[j]) : conds[j];
-                s += static_cast<unsigned long long>(static_cast<long long>(v)) * fold_mult(j);
-            }
-            h = hash[(mode == MODE_WIDEN ? 0 : B) + t] * H_PRIME + s;
-            h = h * H_PRIME + static_cast<unsigned long long>(cc);
-        }
-        if (elig) key = ((h & H_MASK) << 1) | (last > 0 ? 1ULL : 0ULL);
-        info(a, INFO_LAST)[t] = last;
-        info(a, INFO_CC)[t] = cc;
-        info(a, INFO_LAST_IDX)[t] = last_idx;
-        info(a, INFO_JOIN)[t] = join;
-        arg_ptr<uint8_t>(a, K10_ELIG)[t] = elig;
-    }
-    keys[t] = key;
+    const int B = arg_int(a, K10_B);
+    keys[t] = t < B ? lane_key(a, t) : SENTINEL;
     idx[t] = t;  // pad lanes (t >= B) sort after every real lane
     __syncthreads();
     for (int k = 2; k <= n; k <<= 1) {
@@ -241,8 +264,7 @@ __global__ void merge_pair_kernel(Args a) {
             const int p = t ^ j;
             if (p > t) {
                 const bool ascending = (t & k) == 0;
-                const bool greater = keys[t] > keys[p] || (keys[t] == keys[p] && idx[t] > idx[p]);
-                if (greater == ascending) {
+                if (after(keys[t], idx[t], keys[p], idx[p]) == ascending) {
                     const unsigned long long kt = keys[t];
                     keys[t] = keys[p];
                     keys[p] = kt;
@@ -254,12 +276,40 @@ __global__ void merge_pair_kernel(Args a) {
             __syncthreads();
         }
     }
-    // roll(perm, -shift), then (fi, ti) = adjacent positions
-    const int shift = arg_int(a, K10_SHIFT);
-    for (int k = t; k < B / 2; k += n) {
-        arg_ptr<int32_t>(a, K10_FI)[k] = idx[(2 * k + shift) % B];
-        arg_ptr<int32_t>(a, K10_TI)[k] = idx[(2 * k + 1 + shift) % B];
+    for (int k = t; k < B / 2; k += n) write_pair(a, idx, k);
+}
+
+// more lanes: the same network over K10_SORT_N (a power of two) entries in
+// global memory, a launch per stage; first the keys
+__global__ void merge_keys_kernel(Args a) {
+    const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (t >= a.v[K10_SORT_N]) return;
+    arg_ptr<unsigned long long>(a, K10_SORT_KEYS)[t] =
+        t < arg_int(a, K10_B) ? lane_key(a, static_cast<int>(t)) : SENTINEL;
+    arg_ptr<int>(a, K10_SORT_IDX)[t] = static_cast<int>(t);
+}
+
+// one stage (k, j) of the bitonic network: a thread per compared pair
+__global__ void merge_sort_stage_kernel(Args a) {
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= a.v[K10_SORT_N] / 2) return;
+    const long long k = a.v[K10_SORT_K], j = a.v[K10_SORT_J];
+    const long long lo = (i / j) * 2 * j + i % j, hi = lo + j;
+    unsigned long long* keys = arg_ptr<unsigned long long>(a, K10_SORT_KEYS);
+    int* idx = arg_ptr<int>(a, K10_SORT_IDX);
+    if (after(keys[lo], idx[lo], keys[hi], idx[hi]) == ((lo & k) == 0)) {
+        const unsigned long long kt = keys[lo];
+        keys[lo] = keys[hi];
+        keys[hi] = kt;
+        const int it = idx[lo];
+        idx[lo] = idx[hi];
+        idx[hi] = it;
     }
+}
+
+__global__ void merge_pairs_kernel(Args a) {
+    const long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (k < arg_int(a, K10_B) / 2) write_pair(a, arg_ptr<const int>(a, K10_SORT_IDX), k);
 }
 
 // ---- pairing: exact verification and the blend requests -----------------------------
@@ -502,13 +552,15 @@ __global__ void merge_blocked_kernel(Args a) {
 
 namespace {
 
-int launch(void (*kernel)(Args), const long long* values, int n, void* stream,
-           long long grid, int threads) {
-    Args a = mtpu_pack(values, n);
-    const long long batch = a.v[K10_B];
-    if (batch < 2 || batch > 1024 || grid <= 0) return 1;  // cudaErrorInvalidValue
+int launch(void (*kernel)(Args), Args a, void* stream, long long grid, int threads) {
+    if (a.v[K10_B] < 2 || grid <= 0) return 1;  // cudaErrorInvalidValue
     MTPU_LAUNCH(kernel, static_cast<unsigned>(grid), threads, stream, a);
     return MTPU_LAUNCH_STATUS();
+}
+
+int launch(void (*kernel)(Args), const long long* values, int n, void* stream,
+           long long grid, int threads) {
+    return launch(kernel, mtpu_pack(values, n), stream, grid, threads);
 }
 
 long long pairs(const long long* values) { return values[K10_B] / 2; }
@@ -520,7 +572,19 @@ MTPU_EXPORT int mtpu_merge_hash(const long long* v, int n, void* stream) {
 }
 
 MTPU_EXPORT int mtpu_merge_pair(const long long* v, int n, void* stream) {
-    return launch(merge_pair_kernel, v, n, stream, 1, block_threads(v[K10_B]));
+    if (v[K10_B] <= 1024)
+        return launch(merge_pair_kernel, v, n, stream, 1, block_threads(v[K10_B]));
+    Args a = mtpu_pack(v, n);
+    const long long size = a.v[K10_SORT_N];
+    if (size < a.v[K10_B] || (size & (size - 1))) return 1;  // cudaErrorInvalidValue
+    int rc = launch(merge_keys_kernel, a, stream, (size + 255) / 256, 256);
+    for (long long k = 2; k <= size && !rc; k <<= 1)
+        for (long long j = k >> 1; j > 0 && !rc; j >>= 1) {
+            a.v[K10_SORT_K] = k;
+            a.v[K10_SORT_J] = j;
+            rc = launch(merge_sort_stage_kernel, a, stream, (size / 2 + 127) / 128, 128);
+        }
+    return rc ? rc : launch(merge_pairs_kernel, a, stream, (pairs(v) + 255) / 256, 256);
 }
 
 MTPU_EXPORT int mtpu_merge_check(const long long* v, int n, void* stream) {

@@ -29,18 +29,29 @@ that its main path went through the kernels.
   K12 steal_pass kernels/steal_pass.cu   frontier._steal_pass (frontier.py:319)
                                          with its codec (252, 267)
 
-A count is per wrapper call: K4's call makes four device launches of its
-own (K9 counts the calls that run its TEL instantiation), K6 counts its
-three entries together, K7 its two, and K10 one per pass, whatever its
-rounds launch (its K3 allocations count as K3's). K11 counts one per
-chunk: its call runs every step of the chunk (two launches a step, three
-with the batch runner's freeze). K12 counts one per pass (a plan launch
-and a move launch).
+A count is per wrapper call: K4's call makes its launches of its own (K9
+counts the calls that run its TEL instantiation) and runs the step's four
+arena allocations inside them (`arena_alloc_step`, one a step), so
+`arena_alloc` counts standalone K3 calls only (the merge pass's, the
+tests'); K6 counts its three entries together, K7 its two, and K10 one per
+pass, whatever its rounds launch (its K3 allocations count as K3's). K11
+counts one per chunk: its call runs every step of the chunk (two launches a
+step, three with the batch runner's freeze). K12 counts one per pass (a
+plan launch and a move launch).
+
+K4's, K2's and K1's parameter blocks and step scratch are built once for a
+set of tensors (keyed on their data pointers, shapes and dtypes, the
+telemetry plane and the launch geometry) and reused while the key holds.
+`run_chunk_graph` captures a chunk of steps as one CUDA graph per key and
+replays it, adding the steps' launches to `LAUNCHES` on every replay;
+`REPLAYS` counts the replays and the captures.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from collections import OrderedDict
 from typing import Dict, Optional
 
 import numpy as np
@@ -53,17 +64,23 @@ from ..parallel.symstep import (ITE_OP, MAX_TEL_SLOTS, MERGE_STATS_FIXED,
 
 #: launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"keccak": 0, "evm_step": 0, "arena_alloc": 0,
-                            "sym_step": 0, "telemetry": 0,
+                            "arena_alloc_step": 0, "sym_step": 0,
+                            "telemetry": 0,
                             "frontier_summary": 0, "pack_rows": 0,
                             "gather_rows": 0, "arena_delta": 0,
                             "merge_pass": 0, "sat_step": 0, "steal_pass": 0}
 
+#: CUDA graph replays of `run_chunk_graph` and captures, since the last
+#: reset_launches()
+REPLAYS: Dict[str, int] = {"run_chunk": 0, "captures": 0}
+
 #: which source each exported entry point lives in
-_ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_sha_prep": "evm_step",
-              "mtpu_evm_step": "evm_step", "mtpu_arena_alloc": "arena_alloc",
-              "mtpu_sym_pre": "sym_step", "mtpu_sym_mid1": "sym_step",
-              "mtpu_sym_mid2": "sym_step", "mtpu_sym_post": "sym_step",
+_ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_keccak_preload": "keccak",
+              "mtpu_sha_prep": "evm_step", "mtpu_evm_step": "evm_step",
+              "mtpu_evm_preload": "evm_step", "mtpu_arena_alloc": "arena_alloc",
+              "mtpu_sym_pre": "sym_step", "mtpu_sym_post": "sym_step",
               "mtpu_sym_pre_tel": "sym_step", "mtpu_sym_post_tel": "sym_step",
+              "mtpu_sym_preload": "sym_step",
               "mtpu_frontier_summary": "frontier_summary",
               "mtpu_row_maxima": "pack_rows", "mtpu_pack_rows": "pack_rows",
               "mtpu_reset_esc": "pack_rows",
@@ -82,8 +99,9 @@ _OPTABS: Dict[str, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, REPLAYS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _entry(name: str):
@@ -95,15 +113,23 @@ def _entry(name: str):
     return _FUNCS[name]
 
 
-def _launch(name: str, values) -> None:
+def _block(name: str, values):
+    """The ctypes parameter block of `values`."""
     if len(values) > Lay.MTPU_MAX_ARGS:
         raise ValueError(f"{name}: {len(values)} argument slots")
-    block = (ctypes.c_longlong * len(values))(*[int(v) for v in values])
+    return (ctypes.c_longlong * len(values))(*[int(v) for v in values])
+
+
+def _call(name: str, block) -> None:
     stream = torch.cuda.current_stream().cuda_stream
-    rc = _entry(name)(ctypes.cast(block, ctypes.c_void_p), len(values),
+    rc = _entry(name)(ctypes.cast(block, ctypes.c_void_p), len(block),
                       ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+
+
+def _launch(name: str, values) -> None:
+    _call(name, _block(name, values))
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape=None) -> int:
@@ -211,10 +237,9 @@ def _leaf_ptrs(tree, dtypes, batch, what) -> list:
     return ptrs
 
 
-def evm_step(state, force_escape: Optional[torch.Tensor] = None,
-             force_fork: Optional[torch.Tensor] = None):
-    """K2 (with K1 for SHA3 lanes): one instruction for every lane, in
-    place. Returns the same StateBatch."""
+def _k2_blocks(state, force_escape, force_fork):
+    """K2's and its K1's parameter blocks for `state` (and the forced-lane
+    masks, or none), with the SHA3 scratch and digests they own."""
     dims = _state_dims(state)
     batch = dims["B"]
     values = [0] * Lay.K2_NARGS
@@ -232,18 +257,41 @@ def evm_step(state, force_escape: Optional[torch.Tensor] = None,
                                            torch.bool, (batch,))
     dev = state.stack.device
     values[Lay.K2_OPTAB] = optab(dev).data_ptr()
-    sha_off = torch.empty(batch, dtype=torch.int64, device=dev)
-    sha_len = torch.empty(batch, dtype=torch.int32, device=dev)
-    sha_mask = torch.empty(batch, dtype=torch.bool, device=dev)
-    values[Lay.K2_SHA_OFF] = sha_off.data_ptr()
-    values[Lay.K2_SHA_LEN] = sha_len.data_ptr()
-    values[Lay.K2_SHA_MASK] = sha_mask.data_ptr()
-    _launch("mtpu_sha_prep", values)
-    digest = keccak_rows(state.memory, sha_len, offset=sha_off,
-                         limit=state.msize, mask=sha_mask)
-    values[Lay.K2_DIGEST] = digest.data_ptr()
-    _launch("mtpu_evm_step", values)
+    keep = [torch.empty(batch, dtype=torch.int64, device=dev),   # offsets
+            torch.empty(batch, dtype=torch.int32, device=dev),   # lengths
+            torch.empty(batch, dtype=torch.bool, device=dev),    # SHA3 lanes
+            torch.empty((batch, 32), dtype=torch.uint8, device=dev)]
+    sha_off, sha_len, sha_mask, digest = keep
+    for slot, tensor in ((Lay.K2_SHA_OFF, sha_off), (Lay.K2_SHA_LEN, sha_len),
+                         (Lay.K2_SHA_MASK, sha_mask), (Lay.K2_DIGEST, digest)):
+        values[slot] = tensor.data_ptr()
+    k1 = [0] * Lay.K1_NARGS
+    k1[Lay.K1_DATA] = _check(state.memory, "data", torch.uint8)
+    k1[Lay.K1_STRIDE] = state.memory.stride(0)
+    k1[Lay.K1_NCOLS] = state.memory.shape[1]
+    k1[Lay.K1_LEN] = sha_len.data_ptr()
+    k1[Lay.K1_OFFSET] = sha_off.data_ptr()
+    k1[Lay.K1_LIMIT] = _check(state.msize, "limit", torch.int32, (batch,))
+    k1[Lay.K1_MASK] = sha_mask.data_ptr()
+    k1[Lay.K1_OUT] = digest.data_ptr()
+    k1[Lay.K1_BATCH] = batch
+    return _block("mtpu_evm_step", values), _block("mtpu_keccak_rows", k1), keep
+
+
+def _k2_launch(k2, k1) -> None:
+    _call("mtpu_sha_prep", k2)
+    _call("mtpu_keccak_rows", k1)
+    LAUNCHES["keccak"] += 1
+    _call("mtpu_evm_step", k2)
     LAUNCHES["evm_step"] += 1
+
+
+def evm_step(state, force_escape: Optional[torch.Tensor] = None,
+             force_fork: Optional[torch.Tensor] = None):
+    """K2 (with K1 for SHA3 lanes): one instruction for every lane, in
+    place. Returns the same StateBatch."""
+    k2, k1, _ = _k2_blocks(state, force_escape, force_fork)
+    _k2_launch(k2, k1)
     return state
 
 
@@ -305,119 +353,267 @@ def arena_alloc(arena, want: torch.Tensor, values: Optional[torch.Tensor] = None
 
 # ---- K4 -----------------------------------------------------------------------------
 
-def sym_step(state, planes, arena, sched):
-    """K4 around K2 (and K1) and four K3 allocations: one symbolic step
-    for every lane, every tensor updated in place. With the telemetry plane
-    armed, sym_pre and sym_post are their TEL instantiations (K9), which
-    also count into the plane."""
-    dims = _state_dims(state)
-    batch = dims["B"]
-    if batch > 1024:
-        raise ValueError("sym_step scans in one block: at most 1024 lanes")
-    dev = state.stack.device
-    lane_ptrs = (_leaf_ptrs(state, _STATE_DTYPES, batch, "state")
-                 + _leaf_ptrs(planes, _PLANE_DTYPES, batch, "planes"))
-    pool_rows = sched.stack_state.stack.shape[0]
-    esc_rows = sched.esc_state.stack.shape[0]
-    pool_ptrs = (_leaf_ptrs(sched.stack_state, _STATE_DTYPES, pool_rows, "pool")
-                 + _leaf_ptrs(sched.stack_planes, _PLANE_DTYPES, pool_rows, "pool"))
-    esc_ptrs = (_leaf_ptrs(sched.esc_state, _STATE_DTYPES, esc_rows, "esc")
-                + _leaf_ptrs(sched.esc_planes, _PLANE_DTYPES, esc_rows, "esc"))
-    n_seg = n_segments(sched)
-    if batch % n_seg or pool_rows % n_seg or esc_rows % n_seg:
-        raise ValueError(f"{n_seg} shards do not divide {batch} lanes, "
-                         f"{pool_rows} stack or {esc_rows} escape rows")
-    row_bytes = []
-    for lane_leaf, pool_leaf, esc_leaf in zip(
-            list(state) + list(planes),
-            list(sched.stack_state) + list(sched.stack_planes),
-            list(sched.esc_state) + list(sched.esc_planes)):
-        if lane_leaf.shape[1:] != pool_leaf.shape[1:] \
-                or lane_leaf.shape[1:] != esc_leaf.shape[1:]:
-            raise ValueError("scheduler rows do not match the lane rows")
-        row_bytes.append(lane_leaf[0].numel() * lane_leaf.element_size())
+#: K4's launch geometry on the card: lanes per block (the scan tile) and
+#: threads per lane of its wide launches (a warp)
+LANES_PER_BLOCK = 4
+LANE_GROUP = 32
+#: bytes of a row slice one block of the move launch copies
+_MOVE_SLICE = 4096
 
-    iscr = torch.empty((Lay.N_ISCR, batch), dtype=torch.int32, device=dev)
-    fscr = torch.zeros((Lay.N_FSCR, batch), dtype=torch.bool, device=dev)
-    wscr = torch.empty((Lay.N_WSCR, batch, 16), dtype=torch.int32, device=dev)
 
-    from ..parallel.arena import PREDICTABLE_MASK
+def _copy_plan(row_bytes, device):
+    """A row's copy plan: (leaf, byte offset, bytes) entries of at most one
+    slice, grouped in order into items of at most one slice each."""
+    entries = []
+    for position, nbytes in enumerate(row_bytes):
+        for off in range(0, nbytes, _MOVE_SLICE):
+            entries.append((position, off, min(_MOVE_SLICE, nbytes - off)))
+    items, size = [0], 0
+    for index, (_, _, nbytes) in enumerate(entries):
+        if size and size + nbytes > _MOVE_SLICE:
+            items.append(index)
+            size = 0
+        size += nbytes
+    items.append(len(entries))
+    return (torch.tensor(entries, dtype=torch.int32, device=device).reshape(-1, 3),
+            torch.tensor(items, dtype=torch.int32, device=device))
 
-    values = [0] * Lay.K4_NARGS
-    values[Lay.K4_LANE:Lay.K4_LANE + Lay.N_ROW_LEAVES] = lane_ptrs
-    values[Lay.K4_POOL:Lay.K4_POOL + Lay.N_ROW_LEAVES] = pool_ptrs
-    values[Lay.K4_ESC:Lay.K4_ESC + Lay.N_ROW_LEAVES] = esc_ptrs
-    values[Lay.K4_ROW_BYTES:Lay.K4_ROW_BYTES + Lay.N_ROW_LEAVES] = row_bytes
-    for slot, value in ((Lay.K4_B, batch), (Lay.K4_S, dims["S"]),
-                        (Lay.K4_M, dims["M"]), (Lay.K4_C, dims["C"]),
-                        (Lay.K4_K, dims["K"]),
-                        (Lay.K4_KC, planes.conds.shape[1]),
-                        (Lay.K4_P, pool_rows), (Lay.K4_E, esc_rows),
-                        (Lay.K4_CAP, arena.op.shape[0]),
-                        (Lay.K4_PRED_MASK, PREDICTABLE_MASK),
-                        (Lay.K4_D, n_seg)):
-        values[slot] = value
-    values[Lay.K4_CLS] = _check(arena.cls, "arena.cls", torch.int32)
-    for slot, tensor, what in ((Lay.K4_STACK_TOP, sched.stack_top, "stack_top"),
-                               (Lay.K4_ESC_COUNT, sched.esc_count, "esc_count")):
-        values[slot] = _check(tensor, what, torch.int32,
-                              tuple(sched.stack_top.shape))
-    for slot, tensor, dtype in (
-            (Lay.K4_EXECUTED, sched.executed, torch.int64),
-            (Lay.K4_FORKS, sched.forks, torch.int64),
-            (Lay.K4_PUSHES, sched.pushes, torch.int64),
-            (Lay.K4_POPS, sched.pops, torch.int64),
-            (Lay.K4_ENABLED, sched.enabled, torch.bool)):
-        values[slot] = _check(tensor, "scheduler scalar", dtype, ())
-    values[Lay.K4_OPTAB] = optab(dev).data_ptr()
-    values[Lay.K4_ISCR] = iscr.data_ptr()
-    values[Lay.K4_FSCR] = fscr.data_ptr()
-    values[Lay.K4_WSCR] = wscr.data_ptr()
-    tel = sched.telemetry
-    suffix = ""
-    if tel is not None:
-        suffix = "_tel"
-        for slot, tensor, n in _tel_parts(tel, Lay.K4_TEL_OP_HIST,
-                                          Lay.K4_TEL_LIFECYCLE,
-                                          Lay.K4_TEL_ESC_CAUSE,
-                                          Lay.K4_TEL_OCCUPANCY, Lay.K4_TEL_HWM,
-                                          Lay.K4_TEL_TAG_OCC,
-                                          Lay.K4_TEL_FLEET_OCC):
-            values[slot] = _check(tensor, "telemetry", torch.int64, (n,))
-        n_tags, n_fleet = tel.tag_occ.shape[0], tel.fleet_occ.shape[0]
-        n_ctx = tel.fleet_slots.shape[0]
-        if max(n_tags, n_fleet) > MAX_TEL_SLOTS or (n_fleet and not n_ctx):
-            raise ValueError("telemetry: tag or fleet table out of range")
-        values[Lay.K4_TEL_TAG_PCS] = _check(tel.tag_pcs, "tag_pcs",
-                                            torch.int32, (n_tags,))
-        values[Lay.K4_TEL_FLEET_SLOTS] = _check(tel.fleet_slots,
-                                                "fleet_slots", torch.int32,
-                                                (n_ctx,))
-        values[Lay.K4_TEL_N_TAGS] = n_tags
-        values[Lay.K4_TEL_N_CTX] = n_ctx
-        values[Lay.K4_TEL_N_FLEET] = n_fleet
 
-    _launch("mtpu_sym_pre" + suffix, values)
-    evm_step(state, fscr[Lay.F_FORCE_ESCAPE], fscr[Lay.F_FORCE_FORK])
-    _launch("mtpu_sym_mid1", values)
-    arena_alloc(arena, fscr[Lay.F_WANT_CA], wscr[Lay.W_A],
-                out_ids=iscr[Lay.I_IDS_CA], out_ovf=fscr[Lay.F_OVF_CA])
-    arena_alloc(arena, fscr[Lay.F_WANT_CB], wscr[Lay.W_B],
-                out_ids=iscr[Lay.I_IDS_CB], out_ovf=fscr[Lay.F_OVF_CB])
-    _launch("mtpu_sym_mid2", values)
-    arena_alloc(arena, fscr[Lay.F_WANT_R], op=iscr[Lay.I_OP],
-                a=iscr[Lay.I_NODE_A], b=iscr[Lay.I_NODE_B],
-                c=iscr[Lay.I_ZERO], imm=iscr[Lay.I_ZERO],
-                imm2=iscr[Lay.I_PRE_PC],
-                out_ids=iscr[Lay.I_IDS_R], out_ovf=fscr[Lay.F_OVF_R])
-    arena_alloc(arena, fscr[Lay.F_WANT_E], op=iscr[Lay.I_VAR_OP],
-                a=iscr[Lay.I_ZERO], b=iscr[Lay.I_ZERO], c=iscr[Lay.I_ZERO],
-                imm=iscr[Lay.I_VAR_CLASS], imm2=iscr[Lay.I_VAR_QUAL],
-                out_ids=iscr[Lay.I_IDS_E], out_ovf=fscr[Lay.F_OVF_E])
-    _launch("mtpu_sym_post" + suffix, values)
-    LAUNCHES["sym_step"] += 1
-    if tel is not None:
-        LAUNCHES["telemetry"] += 1
+class _StepPlan:
+    """One symbolic step's parameter blocks (K4, K2, K1) and scratch for
+    one set of tensors and launch geometry."""
+
+    def __init__(self, state, planes, arena, sched, lanes_per_block, group):
+        dims = _state_dims(state)
+        batch = dims["B"]
+        dev = state.stack.device
+        if not 1 <= lanes_per_block <= 64 or group < 1 \
+                or lanes_per_block * group > 1024:
+            raise ValueError(f"sym_step: {lanes_per_block} lanes of {group} "
+                             "threads a block")
+        lane_ptrs = (_leaf_ptrs(state, _STATE_DTYPES, batch, "state")
+                     + _leaf_ptrs(planes, _PLANE_DTYPES, batch, "planes"))
+        pool_rows = sched.stack_state.stack.shape[0]
+        esc_rows = sched.esc_state.stack.shape[0]
+        pool_ptrs = (_leaf_ptrs(sched.stack_state, _STATE_DTYPES, pool_rows, "pool")
+                     + _leaf_ptrs(sched.stack_planes, _PLANE_DTYPES, pool_rows,
+                                  "pool"))
+        esc_ptrs = (_leaf_ptrs(sched.esc_state, _STATE_DTYPES, esc_rows, "esc")
+                    + _leaf_ptrs(sched.esc_planes, _PLANE_DTYPES, esc_rows, "esc"))
+        n_seg = n_segments(sched)
+        if batch % n_seg or pool_rows % n_seg or esc_rows % n_seg:
+            raise ValueError(f"{n_seg} shards do not divide {batch} lanes, "
+                             f"{pool_rows} stack or {esc_rows} escape rows")
+        row_bytes = []
+        for lane_leaf, pool_leaf, esc_leaf in zip(
+                list(state) + list(planes),
+                list(sched.stack_state) + list(sched.stack_planes),
+                list(sched.esc_state) + list(sched.esc_planes)):
+            if lane_leaf.shape[1:] != pool_leaf.shape[1:] \
+                    or lane_leaf.shape[1:] != esc_leaf.shape[1:]:
+                raise ValueError("scheduler rows do not match the lane rows")
+            row_bytes.append(lane_leaf[0].numel() * lane_leaf.element_size())
+        n_tiles = -(-batch // lanes_per_block)
+
+        def scratch(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.iscr = scratch(Lay.N_ISCR, batch)
+        self.fscr = scratch(Lay.N_FSCR, batch, dtype=torch.bool)
+        self.wscr = scratch(Lay.N_WSCR, batch, 16)
+        self.entries, self.items = _copy_plan(row_bytes, dev)
+        work = {Lay.K4_SCAN: scratch(Lay.N_SC, batch),
+                Lay.K4_BTOT: scratch(Lay.N_SC, n_tiles),
+                Lay.K4_BPRE: scratch(Lay.N_SC, n_tiles + 1),
+                Lay.K4_SEG: scratch(Lay.N_SEGF, n_seg),
+                Lay.K4_MOVES: scratch(Lay.N_MVF, batch),
+                Lay.K4_NMOVES: scratch(Lay.N_PHASES),
+                Lay.K4_ALLOC: scratch(Lay.N_ALLOC),
+                Lay.K4_DEAD_MAP: scratch(batch)}
+        self.work = list(work.values())
+
+        from ..parallel.arena import PREDICTABLE_MASK
+
+        values = [0] * Lay.K4_NARGS
+        values[Lay.K4_LANE:Lay.K4_LANE + Lay.N_ROW_LEAVES] = lane_ptrs
+        values[Lay.K4_POOL:Lay.K4_POOL + Lay.N_ROW_LEAVES] = pool_ptrs
+        values[Lay.K4_ESC:Lay.K4_ESC + Lay.N_ROW_LEAVES] = esc_ptrs
+        values[Lay.K4_ROW_BYTES:Lay.K4_ROW_BYTES + Lay.N_ROW_LEAVES] = row_bytes
+        for slot, value in ((Lay.K4_B, batch), (Lay.K4_S, dims["S"]),
+                            (Lay.K4_M, dims["M"]), (Lay.K4_C, dims["C"]),
+                            (Lay.K4_K, dims["K"]),
+                            (Lay.K4_KC, planes.conds.shape[1]),
+                            (Lay.K4_P, pool_rows), (Lay.K4_E, esc_rows),
+                            (Lay.K4_CAP, arena.op.shape[0]),
+                            (Lay.K4_PRED_MASK, PREDICTABLE_MASK),
+                            (Lay.K4_D, n_seg),
+                            (Lay.K4_LPB, lanes_per_block),
+                            (Lay.K4_GROUP, group), (Lay.K4_NB, n_tiles),
+                            (Lay.K4_N_ITEMS, self.items.shape[0] - 1),
+                            (Lay.K4_AR_CCAP, arena.const_vals.shape[0])):
+            values[slot] = value
+        for slot, col, what in ((Lay.K4_CLS, arena.cls, "arena.cls"),
+                                (Lay.K4_AR_OP, arena.op, "arena.op"),
+                                (Lay.K4_AR_A, arena.a, "arena.a"),
+                                (Lay.K4_AR_B, arena.b, "arena.b"),
+                                (Lay.K4_AR_C, arena.c, "arena.c"),
+                                (Lay.K4_AR_IMM, arena.imm, "arena.imm"),
+                                (Lay.K4_AR_IMM2, arena.imm2, "arena.imm2")):
+            values[slot] = _check(col, what, torch.int32, (arena.op.shape[0],))
+        values[Lay.K4_AR_CONST] = _check(arena.const_vals, "arena.const_vals",
+                                         torch.int32)
+        values[Lay.K4_AR_N] = _check(arena.n, "arena.n", torch.int32, ())
+        values[Lay.K4_AR_N_CONST] = _check(arena.n_const, "arena.n_const",
+                                           torch.int32, ())
+        for slot, tensor, what in ((Lay.K4_STACK_TOP, sched.stack_top, "stack_top"),
+                                   (Lay.K4_ESC_COUNT, sched.esc_count, "esc_count")):
+            values[slot] = _check(tensor, what, torch.int32,
+                                  tuple(sched.stack_top.shape))
+        for slot, tensor, dtype in (
+                (Lay.K4_EXECUTED, sched.executed, torch.int64),
+                (Lay.K4_FORKS, sched.forks, torch.int64),
+                (Lay.K4_PUSHES, sched.pushes, torch.int64),
+                (Lay.K4_POPS, sched.pops, torch.int64),
+                (Lay.K4_ENABLED, sched.enabled, torch.bool)):
+            values[slot] = _check(tensor, "scheduler scalar", dtype, ())
+        values[Lay.K4_OPTAB] = optab(dev).data_ptr()
+        values[Lay.K4_ISCR] = self.iscr.data_ptr()
+        values[Lay.K4_FSCR] = self.fscr.data_ptr()
+        values[Lay.K4_WSCR] = self.wscr.data_ptr()
+        values[Lay.K4_ENTRIES] = self.entries.data_ptr()
+        values[Lay.K4_ITEMS] = self.items.data_ptr()
+        for slot, tensor in work.items():
+            values[slot] = tensor.data_ptr()
+        tel = sched.telemetry
+        self.telemetry = tel is not None
+        if tel is not None:
+            for slot, tensor, n in _tel_parts(tel, Lay.K4_TEL_OP_HIST,
+                                              Lay.K4_TEL_LIFECYCLE,
+                                              Lay.K4_TEL_ESC_CAUSE,
+                                              Lay.K4_TEL_OCCUPANCY, Lay.K4_TEL_HWM,
+                                              Lay.K4_TEL_TAG_OCC,
+                                              Lay.K4_TEL_FLEET_OCC):
+                values[slot] = _check(tensor, "telemetry", torch.int64, (n,))
+            n_tags, n_fleet = tel.tag_occ.shape[0], tel.fleet_occ.shape[0]
+            n_ctx = tel.fleet_slots.shape[0]
+            if max(n_tags, n_fleet) > MAX_TEL_SLOTS or (n_fleet and not n_ctx):
+                raise ValueError("telemetry: tag or fleet table out of range")
+            values[Lay.K4_TEL_TAG_PCS] = _check(tel.tag_pcs, "tag_pcs",
+                                                torch.int32, (n_tags,))
+            values[Lay.K4_TEL_FLEET_SLOTS] = _check(tel.fleet_slots,
+                                                    "fleet_slots", torch.int32,
+                                                    (n_ctx,))
+            values[Lay.K4_TEL_N_TAGS] = n_tags
+            values[Lay.K4_TEL_N_CTX] = n_ctx
+            values[Lay.K4_TEL_N_FLEET] = n_fleet
+        suffix = "_tel" if self.telemetry else ""
+        self.pre, self.post = "mtpu_sym_pre" + suffix, "mtpu_sym_post" + suffix
+        self.k4 = _block(self.pre, values)
+        self.k2, self.k1, self.k2_scratch = _k2_blocks(
+            state, self.fscr[Lay.F_FORCE_ESCAPE], self.fscr[Lay.F_FORCE_FORK])
+
+    def launch(self) -> None:
+        """One step: K4's pre launches, K2 (and K1), K4's post launches."""
+        _call(self.pre, self.k4)
+        _k2_launch(self.k2, self.k1)
+        _call(self.post, self.k4)
+        LAUNCHES["sym_step"] += 1
+        LAUNCHES["arena_alloc_step"] += 1
+        if self.telemetry:
+            LAUNCHES["telemetry"] += 1
+
+
+def _remember(cache: OrderedDict, key, build, limit: int):
+    """cache[key], built on a miss; the least recently used entries past
+    `limit` are dropped."""
+    value = cache.pop(key, None)
+    if value is None:
+        value = build()
+    cache[key] = value
+    while len(cache) > limit:
+        cache.popitem(last=False)
+    return value
+
+
+def step_key(state, planes, arena, sched, lanes_per_block: int = LANES_PER_BLOCK,
+             group: int = LANE_GROUP) -> tuple:
+    """What K4's cached parameter block depends on: every tensor's data
+    pointer, shape and dtype, the telemetry plane and the launch geometry."""
+    tensors = (list(state) + list(planes) + list(arena)
+               + list(sched.stack_state) + list(sched.stack_planes)
+               + list(sched.esc_state) + list(sched.esc_planes)
+               + [sched.stack_top, sched.esc_count, sched.executed,
+                  sched.forks, sched.pushes, sched.pops, sched.enabled])
+    if sched.telemetry is not None:
+        tensors += list(sched.telemetry)
+    return tuple((t.data_ptr(), t.shape, t.dtype) for t in tensors) + (
+        sched.telemetry is not None, lanes_per_block, group)
+
+
+_PLANS: "OrderedDict[tuple, _StepPlan]" = OrderedDict()
+
+
+def step_plan(state, planes, arena, sched, lanes_per_block: int = LANES_PER_BLOCK,
+              group: int = LANE_GROUP) -> _StepPlan:
+    """The cached step plan of these tensors (built on a miss)."""
+    key = step_key(state, planes, arena, sched, lanes_per_block, group)
+    return _remember(_PLANS, key, lambda: _StepPlan(
+        state, planes, arena, sched, lanes_per_block, group), limit=8)
+
+
+def sym_step(state, planes, arena, sched, lanes_per_block: int = LANES_PER_BLOCK,
+             group: int = LANE_GROUP):
+    """K4 around K2 (and K1), K3's four allocations folded in: one symbolic
+    step for every lane, every tensor updated in place, any lane count. With
+    the telemetry plane armed, the counting launches are their TEL
+    instantiations (K9). `lanes_per_block` lanes share a block (the scan
+    tile); the wide launches run `group` threads a lane."""
+    step_plan(state, planes, arena, sched, lanes_per_block, group).launch()
+    return state, planes, arena, sched
+
+
+_GRAPHS: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+@functools.cache
+def _preload() -> None:
+    """Load the step's kernels before a first capture (the runtime would
+    load each at its first launch)."""
+    for name in ("mtpu_sym_preload", "mtpu_evm_preload", "mtpu_keccak_preload"):
+        rc = _entry(name)(None, 0, None)
+        if rc != 0:
+            raise RuntimeError(f"{name}: failed (cudaError {rc})")
+
+
+def run_chunk_graph(state, planes, arena, sched, n_steps: int):
+    """`n_steps` symbolic steps as one CUDA graph: captured once for a key
+    (`step_key` and the step count; tensors rebound to new storage make a
+    new key and a new capture) and replayed on the current stream. A
+    failed capture or replay raises."""
+    if n_steps < 1:
+        raise ValueError(f"run_chunk_graph: {n_steps} steps")
+    key = step_key(state, planes, arena, sched)
+
+    def capture():
+        plan = step_plan(state, planes, arena, sched)
+        _preload()
+        before = dict(LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(n_steps):
+                    plan.launch()
+            counts = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
+        finally:
+            LAUNCHES.update(before)  # a capture launches nothing
+        REPLAYS["captures"] += 1
+        return graph, plan, counts
+
+    graph, _, counts = _remember(_GRAPHS, key + (n_steps,), capture, limit=4)
+    graph.replay()
+    for name, count in counts.items():
+        LAUNCHES[name] += count
+    REPLAYS["run_chunk"] += 1
     return state, planes, arena, sched
 
 
@@ -667,16 +863,16 @@ _FAMILY_FIELDS = ("WANT_CT", "WANT_CF", "WANT_ITE", "VALS_T", "VALS_F",
 MAX_MERGE_WINDOWS = 32
 
 
-def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
-               mem_pcs: torch.Tensor, mem_words: torch.Tensor,
-               n_rounds: int):
-    """K10 around K3: one merge pass, every tensor updated in place.
-    `merge_pcs` int32[K], `mem_pcs` int32[J], `mem_words` int32[J, W].
-    Returns (state, planes, arena, stats int64[8 + K + 6])."""
+def merge_block(state, planes, merge_pcs: torch.Tensor, mem_pcs: torch.Tensor,
+                mem_words: torch.Tensor):
+    """K10's parameter block for one pass over these lanes and the scratch
+    it points at: (values, scratch) with scratch["hashes"] int64[3, B]
+    (weak, weak + memory planes, core), "fi"/"ti" int32[B/2] (a round's
+    pairs), "stats" and one table dict per blend family."""
     dims = _state_dims(state)
     batch, slots, kslots = dims["B"], dims["S"], dims["K"]
-    if not 2 <= batch <= 1024:
-        raise ValueError("merge_pass pairs in one block: 2 to 1024 lanes")
+    if batch < 2:
+        raise ValueError(f"merge_pass: {batch} lanes, at least 2")
     half = batch // 2
     dev = state.pc.device
     n_tags, n_mem = merge_pcs.shape[0], mem_pcs.shape[0]
@@ -706,19 +902,25 @@ def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
     def scratch(shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    hashes = scratch((3, batch), torch.int64)
-    lane_info = scratch((Lay.N_INFO, batch))
-    eligible = scratch(batch, torch.bool)
-    fi, ti = scratch(half), scratch(half)
-    ok = scratch(half, torch.bool)
-    stats = scratch(MERGE_STATS_FIXED + n_tags + N_MERGE_DEPTH, torch.int64)
-    for slot, tensor in ((Lay.K10_HASH, hashes), (Lay.K10_INFO, lane_info),
-                         (Lay.K10_ELIG, eligible), (Lay.K10_FI, fi),
-                         (Lay.K10_TI, ti), (Lay.K10_OK, ok),
-                         (Lay.K10_STATS, stats)):
-        values[slot] = tensor.data_ptr()
+    # the sort above 1024 lanes runs over the next power of two in memory
+    sort_n = 1 << (batch - 1).bit_length() if batch > 1024 else 0
+    values[Lay.K10_SORT_N] = sort_n
+    tensors = {"hashes": scratch((3, batch), torch.int64),
+               "info": scratch((Lay.N_INFO, batch)),
+               "eligible": scratch(batch, torch.bool),
+               "fi": scratch(half), "ti": scratch(half),
+               "ok": scratch(half, torch.bool),
+               "stats": scratch(MERGE_STATS_FIXED + n_tags + N_MERGE_DEPTH,
+                                torch.int64),
+               "sort_keys": scratch(sort_n, torch.int64),
+               "sort_idx": scratch(sort_n)}
+    for slot, name in ((Lay.K10_HASH, "hashes"), (Lay.K10_INFO, "info"),
+                       (Lay.K10_ELIG, "eligible"), (Lay.K10_FI, "fi"),
+                       (Lay.K10_TI, "ti"), (Lay.K10_OK, "ok"),
+                       (Lay.K10_STATS, "stats"), (Lay.K10_SORT_KEYS, "sort_keys"),
+                       (Lay.K10_SORT_IDX, "sort_idx")):
+        values[slot] = tensors[name].data_ptr()
     # one table set per blend family, `half * width` entries each
-    families = {}
     for family, width in ((_FAMILY_MEM, max(n_wins, 1)),
                           (_FAMILY_STACK, slots), (_FAMILY_STORAGE, kslots)):
         n = half * width
@@ -732,13 +934,26 @@ def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
                 table[field] = scratch(n)
             values[Lay.K10_FAM + family * Lay.N_FAM_FIELDS
                    + Lay.SLOTS[f"FAM_{field}"]] = table[field].data_ptr()
-        families[family] = table
-    n_max = half * max(n_wins, slots, kslots, 1)
+        tensors[family] = table
+    return values, tensors
+
+
+def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
+               mem_pcs: torch.Tensor, mem_words: torch.Tensor,
+               n_rounds: int):
+    """K10 around K3: one merge pass, every tensor updated in place, any
+    lane count. `merge_pcs` int32[K], `mem_pcs` int32[J], `mem_words`
+    int32[J, W]. Returns (state, planes, arena, stats int64[8 + K + 6])."""
+    values, tensors = merge_block(state, planes, merge_pcs, mem_pcs, mem_words)
+    dev = state.pc.device
+    half = state.pc.shape[0] // 2
+    n_max = half * max(mem_words.shape[1], state.stack.shape[1],
+                       state.storage_keys.shape[1], 1)
     ite_ops = torch.full((n_max,), ITE_OP, dtype=torch.int32, device=dev)
-    zeros = scratch(n_max)
+    zeros = torch.zeros(n_max, dtype=torch.int32, device=dev)
 
     def blend(family):
-        table = families[family]
+        table = tensors[family]
         n = table["COND"].shape[0]
         arena_alloc(arena, table["WANT_CT"], table["VALS_T"],
                     out_ids=table["IDS_CT"], out_ovf=table["OVF_CT"])
@@ -752,7 +967,7 @@ def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
                     out_ovf=table["OVF_ITE"])
 
     _launch("mtpu_merge_hash", values)
-    for mode in (_STRICT, _WIDEN) if n_mem else (_STRICT,):
+    for mode in (_STRICT, _WIDEN) if mem_pcs.shape[0] else (_STRICT,):
         for round_ in range(n_rounds):
             values[Lay.K10_MODE] = mode
             values[Lay.K10_SHIFT] = round_ % 2
@@ -768,7 +983,7 @@ def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
     _launch("mtpu_merge_pair", values)
     _launch("mtpu_merge_blocked", values)
     LAUNCHES["merge_pass"] += 1
-    return state, planes, arena, stats
+    return state, planes, arena, tensors["stats"]
 
 
 # ---- K11 ----------------------------------------------------------------------------

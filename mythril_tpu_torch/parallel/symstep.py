@@ -13,12 +13,14 @@ concrete StateBatch (SymPlanes). One `sym_step` for all lanes:
      symbolic JUMPIs: the sibling claims a DEAD lane, or is pushed to the
      stack, or spills to the escape buffer.
 
-On CUDA tensors `sym_step` runs kernel K4 (`kernels/sym_step.cu`: a pre-pass
-launch, two small glue launches and a post-pass launch, each one block with
-a thread per lane and block-wide scans for every rank) around kernels K2
-and K3 (and K1 through K2); it updates every tensor in place. On CPU
-tensors it runs `sym_step_reference`, the plain twin, which rebuilds the
-lane state and updates the scheduler pools and the arena in place.
+On CUDA tensors `sym_step` runs kernel K4 (`kernels/sym_step.cu`: plan,
+move and per-lane launches over a grid of lane blocks, every rank a global
+scan, K3's four allocations folded in) around kernel K2 (and K1 through
+K2); it updates every tensor in place, at any lane count. `run_chunk`
+replays a chunk of those steps as one CUDA graph (captured once per set of
+tensors). On CPU tensors both run the plain twin, `sym_step_reference`,
+which rebuilds the lane state and updates the scheduler pools and the
+arena in place.
 
 A sharded scheduler (`new_scheduler(..., n_shards=D)`, D > 1) splits the
 lane axis into D equal contiguous blocks and both pools into D segments,
@@ -798,8 +800,15 @@ def sym_step(state: StateBatch, planes: SymPlanes, arena: A.Arena,
 
 
 def run_chunk(state: StateBatch, planes: SymPlanes, arena: A.Arena,
-              sched: DeviceScheduler, n_steps: int):
-    """n_steps symbolic steps with the on-device scheduler engaged."""
+              sched: DeviceScheduler, n_steps: int, graph: bool = True):
+    """n_steps symbolic steps with the on-device scheduler engaged. On CUDA
+    tensors the chunk is one CUDA graph, captured once for these tensors
+    and replayed (`graph=False`: eager `sym_step` calls); in place."""
+    if graph and n_steps > 0 and state.stack.is_cuda:
+        _check_scheduler(sched)
+        from ..kernels import ops
+
+        return ops.run_chunk_graph(state, planes, arena, sched, n_steps)
     for _ in range(n_steps):
         state, planes, arena, sched = sym_step(state, planes, arena, sched)
     return state, planes, arena, sched

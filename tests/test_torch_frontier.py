@@ -483,7 +483,7 @@ def test_telemetry_off_null():
 # ---- chip_smoke.py's reference constants ----------------------------------------------
 
 @pytest.mark.parametrize("which", ["frontier", "spill", "default", "merge",
-                                   "shard", "fleet"])
+                                   "shard", "fleet", "wide"])
 def test_chip_smoke_constants_are_the_jax_drain(which, monkeypatch):
     """chip_smoke.py holds the port's drain loop on the card to constants:
     the JAX `_Frontier`'s drain of dispatcher(branchy(n)) from one seed at
@@ -491,11 +491,12 @@ def test_chip_smoke_constants_are_the_jax_drain(which, monkeypatch):
     reduced-pool run (16 lanes, 32 stack rows, branchy(10)), both with
     telemetry and merging off, and of the default configuration (both on)
     on branchy(12) and on mem_branchy(8) with the tables the JAX static
-    analysis builds for it; and of the sharded frontier (4 shards, the
-    default steal knobs, `n_shards` set on the instance): branchy(12) from
-    one seed in shard 0, and the two-member fleet of branchy(12) and
+    analysis builds for it, and on branchy(12) at 2048 lanes (phase
+    frontier_wide); and of the sharded frontier (4 shards, the default
+    steal knobs, `n_shards` set on the instance): branchy(12) from one
+    seed in shard 0, and the two-member fleet of branchy(12) and
     mem_branchy(8) seeded in shards 0 and 2 with fleet slots [0, 1] and
-    the tables of both codes. Recompute all six here with JAX."""
+    the tables of both codes. Recompute all seven here with JAX."""
     import chip_smoke
 
     if which == "fleet":
@@ -521,7 +522,9 @@ def test_chip_smoke_constants_are_the_jax_drain(which, monkeypatch):
                     chip_smoke.EXPECTED_DEFAULT, True),
         "merge": (chip_smoke.LANES,
                   _mem_branchy_contract(chip_smoke.MERGE_BRANCHES),
-                  chip_smoke.EXPECTED_MERGE, True)}
+                  chip_smoke.EXPECTED_MERGE, True),
+        "wide": (chip_smoke.WIDE_LANES, branchy_contract(chip_smoke.N_BRANCHES),
+                 chip_smoke.EXPECTED_WIDE, True)}
     n_lanes, body, expected, default = runs[which]
     code = assemble(dispatcher({"stress()": body}))
     specs = [jb.LaneSpec(code=code, gas_limit=10_000_000)]
