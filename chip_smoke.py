@@ -54,10 +54,12 @@ raises, and the run exits non-zero. Phases:
      slots) vs the twins on the planes contracts for 2 chunks, every leaf
      and counter, and K5's telemetry tail; K9's device cost per step (the
      TEL instantiation against the plain one);
- 11. merge_kernel: K10 (around K3) vs `merge_pass_reference` on the states
-     the default-configuration frontier hands its merge passes: branchy(12)
+ 11. merge_kernel: K10 (K3's allocations folded in), one host call a
+     pass, vs `merge_pass_reference` on the states the
+     default-configuration frontier hands its merge passes: branchy(12)
      (strict rounds) and mem_branchy(8) with its window table (widened
-     rounds); every leaf, the arena and the stats; K10's time per pass;
+     rounds); every leaf, the arena and the stats; K10's time per strict
+     and per widened pass, by launch, and its standalone K3 calls (none);
  12. frontier_default: `DeviceFrontier(128)` on branchy(12) with telemetry
      and merging on, held to the JAX `_Frontier`'s counters, merges,
      digests and final telemetry words; its wall time and idle share beside
@@ -91,12 +93,14 @@ raises, and the run exits non-zero. Phases:
  19. frontier_wide: `DeviceFrontier(2048)` in the default configuration on
      branchy(12) until the tree drains, held to the JAX
      `_Frontier(n_lanes=2048)`'s counters, digests and telemetry words;
- 20. sat_kernel: K11 vs `run_chunk_reference`, every leaf after each
-     chunk, on fixtures (opposite-phase races in one tile and across two,
-     the no-flip backtrack, 32 forced probes, the batch runner's freeze)
-     and at full width (32 probes, V1 65,536) on a captured query of each
-     tile bucket (64 and 256): 64 steps compared, then K11's time per step
-     beside the twin's and the bound;
+ 20. sat_kernel: K11, one CUDA graph a chunk and eager, vs
+     `run_chunk_reference`, every leaf after each chunk, on fixtures
+     (opposite-phase races in one tile and across two, the no-flip
+     backtrack, 32 forced probes, the batch runner's freeze; at the card's
+     variable tile and at 64 vars a block) and at full width (32 probes,
+     V1 65,536) on a captured query of each tile bucket (64 and 256): 64
+     steps compared, then K11's time per step by launch (device time,
+     launches, blocks) beside the twin's and the bound;
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -111,9 +115,10 @@ raises, and the run exits non-zero. Phases:
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
      state after the first chunk, verdicts and models as in phase 21;
  23. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 18, 19, 21, 22; K3 also its allocations folded into K4's
-     steps), its time, its plain version's time, the least time the card
-     could take and the library call's time (K11's per step).
+     12, 13, 18, 19, 21, 22; K3's are its allocations folded into K4's
+     steps and K10's passes), its time, its plain version's time, the least
+     time the card could take and the library call's time (K11's per
+     step).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result."""
@@ -674,10 +679,11 @@ def event_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
-def device_times(fn, reps: int) -> dict:
+def device_times(fn, reps: int, counts: bool = False) -> dict:
     """Mean device time in ms per fn() call over `reps` calls of every CUDA
     function it runs, by name, as torch.profiler (CUPTI) records it,
-    without the host's time to enqueue them."""
+    without the host's time to enqueue them; with `counts`, (ms, launches)
+    per fn() call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -687,9 +693,31 @@ def device_times(fn, reps: int) -> dict:
         for _ in range(reps):
             fn(None)
         torch.cuda.synchronize()
-    return {event.key: event.self_device_time_total / reps / 1e3
+    return {event.key: ((event.self_device_time_total / reps / 1e3,
+                         event.count / reps) if counts
+                        else event.self_device_time_total / reps / 1e3)
             for event in prof.key_averages()
             if event.device_type == DeviceType.CUDA}
+
+
+def refill(dst_trees, src_trees) -> None:
+    """Copy every leaf of `src_trees` into `dst_trees`' storage: a cached
+    plan and graph stay keyed on the same tensors between timed calls."""
+    for dst, src in zip(dst_trees, src_trees):
+        for dst_leaf, src_leaf in zip(dst, src):
+            dst_leaf.copy_(src_leaf)
+
+
+def launch_table(times: dict, prefix: str, per: int, grids: dict) -> dict:
+    """{kernel: {device ms, launches, blocks}} per `per` of the functions
+    named `prefix`... in `device_times(..., counts=True)`."""
+    table = {}
+    for key, (ms, calls) in times.items():
+        name = key.split("(")[0].split()[-1].split("<")[0]
+        if name.startswith(prefix):
+            table[name] = {"device_ms": ms / per, "launches": calls / per,
+                           "blocks": grids.get(name)}
+    return table
 
 
 def named_ms(times: dict, names=None) -> float:
@@ -1376,7 +1404,7 @@ def drive_frontier(fr, seeds) -> dict:
     launches = dict(ops.LAUNCHES)
     chunk_ms = sum(s.elapsed_time(e) for s, e in chunk_events)
     chunks = max(fr.chunks, 1)
-    return {"launches": launches, "wall_s": wall,
+    return {"launches": launches, "replays": dict(ops.REPLAYS), "wall_s": wall,
             "setup_ms": setup_s[0] * 1e3,
             "chunk_stream_ms": chunk_ms / chunks,
             "host_ms_per_chunk": (wall * 1e3 - chunk_ms) / chunks,
@@ -1394,8 +1422,9 @@ K4_KERNELS = ("sym_seed_count_kernel", "sym_seed_seg_kernel",
               "sym_fork_seg_kernel", "sym_fork_apply_kernel")
 
 #: CUDA function -> the port kernel (wrapper) that launches it (K9 runs
-#: inside K4's launches: its device time is phase telemetry's; the step's
-#: folded K3 allocations run inside K4's sym_alloc_*/sym_planes launches)
+#: inside K4's launches: its device time is phase telemetry's; the folded
+#: K3 allocations run inside K4's sym_alloc_*/sym_planes launches and
+#: K10's merge_alloc_seg/merge_nodes launches)
 KERNEL_OF = {
     "keccak_rows_kernel": "keccak", "sha_prep_kernel": "evm_step",
     "evm_step_kernel": "evm_step", "arena_alloc_kernel": "arena_alloc",
@@ -1405,6 +1434,7 @@ KERNEL_OF = {
     "merge_keys_kernel": "merge_pass", "merge_sort_stage_kernel": "merge_pass",
     "merge_pairs_kernel": "merge_pass",
     "merge_check_kernel": "merge_pass", "merge_nodes_kernel": "merge_pass",
+    "merge_alloc_seg_kernel": "merge_pass",
     "merge_apply_kernel": "merge_pass", "merge_blocked_kernel": "merge_pass",
     "steal_plan_kernel": "steal_pass", "steal_move_kernel": "steal_pass",
     "row_maxima_kernel": "pack_rows", "pack_rows_kernel": "pack_rows",
@@ -1604,10 +1634,49 @@ def captured_merges(dev, name) -> list:
     return captured
 
 
+def merge_grids(trees, tables) -> dict:
+    """Blocks of each K10 launch of a pass over these lanes (up to 1024)."""
+    lanes = trees[0].pc.shape[0]
+    return {"merge_hash_kernel": lanes, "merge_pair_kernel": 1,
+            "merge_check_kernel": lanes // 2, "merge_alloc_seg_kernel": 1,
+            "merge_nodes_kernel": lanes // 2, "merge_apply_kernel": lanes // 2,
+            "merge_blocked_kernel": lanes // 2}
+
+
+def merge_times(trees, tables, n_rounds) -> dict:
+    """One pass's event time, device time and launches by kernel, and its
+    standalone K3 calls, from `trees` copied into the same tensors before
+    each call."""
+    work = [convert.clone(t) for t in trees]
+
+    def fresh():
+        refill(work, trees)
+
+    def run(_):
+        return ops.merge_pass(*work, *tables, n_rounds)
+
+    def timed(_):
+        fresh()
+        return run(None)
+
+    times = device_times(timed, 4, counts=True)
+    launches = launch_table(times, "merge_", 1, merge_grids(trees, tables))
+    ops.reset_launches()
+    timed(None)
+    standalone = ops.LAUNCHES["arena_alloc"]
+    if standalone or ops.LAUNCHES["arena_alloc_merge"] != 1:
+        raise AssertionError(f"K10 made standalone K3 calls: {ops.LAUNCHES}")
+    return {"ms": event_ms(run, 5, setup=fresh),
+            "device_ms": sum(row["device_ms"] for row in launches.values()),
+            "launches": sum(row["launches"] for row in launches.values()),
+            "by_launch": launches, "standalone_k3_calls": standalone}
+
+
 def phase_merge_kernel(dev) -> dict:
-    """K10 vs merge_pass_reference on the driver's own pre-merge states."""
+    """K10 (K3's allocations folded in) vs merge_pass_reference on the
+    states a default frontier hands its merge passes."""
     stats = {}
-    timed = None
+    timed = {}
     for name in MERGE_RUNS:
         captured = captured_merges(dev, name)
         if not captured:
@@ -1617,36 +1686,36 @@ def phase_merge_kernel(dev) -> dict:
             kern = [convert.clone(t) for t in trees]
             plain = [convert.clone(t) for t in trees]
             tables = symstep._merge_tables(*args, dev)
-            got = ops.merge_pass(*kern, *tables, kwargs["n_rounds"])
+            n_rounds = kwargs["n_rounds"]
             ref = symstep.merge_pass_reference(*plain, *tables,
-                                               n_rounds=kwargs["n_rounds"])
+                                               n_rounds=n_rounds)
+            got = ops.merge_pass(*kern, *tables, n_rounds)
             for kind, mine, theirs in zip(("state", "planes", "arena"),
                                           got[:3], ref[:3]):
                 assert_same(mine, theirs, f"K10 {name} {kind}")
             check_same([got[3]], [ref[3]], f"K10 {name} stats")
             totals = ref[3] if totals is None else totals + ref[3]
-            if timed is None and int(ref[3][2]):
-                timed = (trees, tables, kwargs["n_rounds"])
+            widened = bool(tables[1].shape[0])
+            kind = "widened" if widened else "strict"
+            if kind not in timed and (int(ref[3][2]) or not widened):
+                timed[kind] = (trees, tables, n_rounds)
         stats[name] = {"passes": len(captured),
                        "stats": totals.cpu().tolist()}
         if not int(totals[0]):
             raise AssertionError(f"{name}: no pair merged")
-    if timed is None:
+    if "widened" not in timed:
         raise AssertionError("no merge pass blended memory")
 
-    # K10's time per pass on the first pass that blended memory
-    trees, tables, n_rounds = timed
+    # K10's time per pass: the first strict pass of branchy(12), the first
+    # widened pass that blended memory
+    passes = {kind: merge_times(*timed[kind]) for kind in ("strict", "widened")}
+    trees, tables, n_rounds = timed["widened"]
 
     def fresh():
         return [convert.clone(t) for t in trees]
 
-    ms = event_ms(lambda t: ops.merge_pass(*t, *tables, n_rounds), 5,
-                  setup=fresh)
     plain_ms = event_ms(lambda t: symstep.merge_pass_reference(
         *t, *tables, n_rounds=n_rounds), 3, setup=fresh)
-    # the clones' copies run inside the profiled span but match no name
-    dev_ms = device_ms(lambda _: ops.merge_pass(*fresh(), *tables, n_rounds),
-                       4, ("merge_", "arena_alloc_kernel"))
     # the library yardstick: torch.argsort(stable=True) on the first
     # round's sort keys, against K10's own bitonic sort
     state, planes, arena = trees
@@ -1657,30 +1726,30 @@ def phase_merge_kernel(dev) -> dict:
     keys = torch.where(eligible, ((h & symstep._H_MASK) << 1)
                        | (last > 0).to(torch.int64), symstep._H_SENTINEL)
     library_ms = event_ms(lambda _: torch.argsort(keys, stable=True), 50)
-    # K10's sort (merge_pair) per launch: n_rounds per phase and the
-    # blocked-by pass's
-    pair_launches = n_rounds * (2 if tables[1].shape[0] else 1) + 1
-    sort_ms = device_ms(
-        lambda _: ops.merge_pass(*fresh(), *tables, n_rounds), 4,
-        ("merge_pair_kernel",)) / pair_launches
     # each input read once: the lanes' rows of every leaf the pass reads;
     # each output written once: the new arena nodes and consts
     read = sum(leaf[0].numel() * leaf.element_size()
                for leaf in list(state) + list(planes))
-    fresh_tree = fresh()
-    after = ops.merge_pass(*fresh_tree, *tables, n_rounds)[2]
+    after = ops.merge_pass(*fresh(), *tables, n_rounds)[2]
     new_nodes = int(after.n) - int(arena.n)
     new_consts = int(after.n_const) - int(arena.n_const)
     b_ms, b_by = bound_ms(LANES * read + new_nodes * 7 * 4 + new_consts * 64,
                           0)
+    widened = passes["widened"]
     emit({"phase": "merge_kernel", "runs": stats, "n_rounds": n_rounds,
-          "max_abs_err": 0, "ms_per_pass": ms, "device_ms_per_pass": dev_ms,
-          "plain_ms_per_pass": plain_ms,
-          "sort_device_ms_per_launch": sort_ms, "argsort_ms": library_ms})
+          "max_abs_err": 0, "passes": passes,
+          "plain_ms_per_pass": plain_ms, "argsort_ms": library_ms})
     return {"name": "merge_pass", "route": "cuda",
             "source": "mythril_tpu_torch/kernels/merge_pass.cu",
             "replaces": "mythril_tpu/parallel/symstep.py:1057",
-            "max_abs_err": 0, "ms": ms, "device_ms": dev_ms,
+            "max_abs_err": 0, "per": "widened pass (mem_branchy(8), 128 lanes)",
+            "ms": widened["ms"], "device_ms": widened["device_ms"],
+            "strict_ms": passes["strict"]["ms"],
+            "strict_device_ms": passes["strict"]["device_ms"],
+            "launches_per_pass": {kind: p["launches"]
+                                  for kind, p in passes.items()},
+            "standalone_k3_calls_per_pass": {
+                kind: p["standalone_k3_calls"] for kind, p in passes.items()},
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms,
             "library": "torch.argsort(stable=True) on the first round's keys "
@@ -1761,9 +1830,9 @@ def phase_graph_chunk(dev) -> dict:
                     symstep.merge_pass(*tree[:3], *empty, n_rounds=frontier.MERGE_ROUNDS)
             if chunk == 0:
                 graphed = [convert.clone(t) for t in graphed]
-        replays = dict(ops.REPLAYS)
+        replays = {kind: ops.REPLAYS[kind] for kind in ("run_chunk", "captures")}
         if replays != {"run_chunk": 3, "captures": 2}:
-            raise AssertionError(f"graph_chunk {name}: {replays}")
+            raise AssertionError(f"graph_chunk {name}: {dict(ops.REPLAYS)}")
         cases[name] = {"forks": int(eager[3].forks),
                        "pushes": int(eager[3].pushes),
                        "executed": int(eager[3].executed), **replays}
@@ -2286,13 +2355,27 @@ def check_model(clauses, lowered, blaster, model, what: str) -> None:
 
 #: the K11 fixtures: opposite-phase races inside one tile and across two
 #: (the higher clause index lands), the no-flip backtrack, 32 probes on a
-#: 3-SAT instance deep enough for their forced prefixes; pad variables in
+#: 3-SAT instance deep enough for their forced prefixes, implications and
+#: a backtrack spread over the whole variable range; pad variables in
 #: all. (name, clauses, n_vars, probes)
 def sat_fixtures() -> list:
     return [("race_tile", [[-1, 2], [-1, -2], [3, 4]], 4, 2),
             ("race_tiles", [[-1, -2]] * 2100 + [[-1, 2]], 2, 2),
             ("no_flip", [[1, 2], [1, -2], [-1, 3], [-1, -3]], 3, 2),
-            ("prefix32", three_sat(9), 60, 32)]
+            ("prefix32", three_sat(9), 60, 32),
+            ("spread", spread_cnf(), 900, 2)]
+
+
+def spread_cnf() -> list:
+    """Var 1 is decided first (in the forced prefix), var 2 next (FALSE,
+    flippable); that implies vars 3..402 at once, they imply 403..802, a
+    phase race on 802 and then a conflict follow, and the backtrack to var
+    2 clears 800 trail entries: appends and clears across every tile of a
+    small variable tile."""
+    spread = range(3, 403)
+    return ([[1, s, s + 400] for s in spread] + [[1, 803, 804]]
+            + [[2, s] for s in spread] + [[-s, s + 400] for s in spread]
+            + [[-402, -802]])
 
 
 def three_sat(seed: int, n_vars: int = 60, n_clauses: int = 250) -> list:
@@ -2310,17 +2393,21 @@ def sat_batch_fixture() -> list:
             (three_sat(11), 60), (three_sat(12), 60)]
 
 
-def sat_compare(state, tensors, chunk, n_chunks, n_probes, freeze, what):
+def sat_compare(state, tensors, chunk, n_chunks, n_probes, freeze, what,
+                graphs=(True, False), var_tile=ops.SAT_VAR_TILE):
     """K11 against run_chunk_reference from one state, every leaf after
-    each chunk; returns the kernel's final state."""
+    each chunk, once for each of `graphs` (the chunk's CUDA graph, eager
+    launches); returns the kernel's final state."""
     depth = device_solver.forced_depth_of(n_probes)
     plain = convert.clone(state)
-    kern = convert.clone(state)
+    kerns = [convert.clone(state) for _ in graphs]
     for index in range(n_chunks):
-        ops.sat_run(kern, tensors, chunk, depth, freeze)
         device_solver.run_chunk_reference(plain, tensors, chunk, depth, freeze)
-        assert_same(kern, plain, f"K11 {what} chunk {index}")
-    return kern
+        for kern, graph in zip(kerns, graphs):
+            ops.sat_run(kern, tensors, chunk, depth, freeze, graph, var_tile)
+            mode = "graphed" if graph else "eager"
+            assert_same(kern, plain, f"K11 {what} {mode} chunk {index}")
+    return kerns[0]
 
 
 def sat_step_bytes(before, after, tensors) -> int:
@@ -2366,23 +2453,31 @@ def sat_bound_ms_per_step(state, tensors, steps: int, depth: int) -> tuple:
     return bound_ms(total / steps, 0)
 
 
-def phase_sat_kernel(dev) -> dict:
-    """K11 vs its twin on the fixtures and at full width on a query of
-    each bucket; its time per step there."""
-    for name, clauses, n_vars, n_probes in sat_fixtures():
-        problem = device_solver.build_problem(clauses, n_vars)
-        tensors = device_solver.device_problem(problem, dev)
-        state = device_solver.initial_state(problem.init_assign, n_probes,
-                                            dev)
-        sat_compare(state, tensors, 2, 6, n_probes, False, name)
-    problems = [device_solver.build_problem(c, n)
-                for c, n in sat_batch_fixture()]
-    tensors = device_solver.device_problem(problems, dev)
-    state = device_solver.initial_state(
-        np.stack([p.init_assign for p in problems]), 8, dev)
-    sat_compare(state, tensors, 4, 5, 8, True, "batch")
+#: K11's variable tile in the fixtures' second pass: V1 1,024 over 16 blocks
+SAT_SMALL_TILE = 64
 
-    # full width, both buckets: 64 compared steps, then the time per step
+
+def phase_sat_kernel(dev) -> dict:
+    """K11, graphed and eager, vs its twin on the fixtures (at the card's
+    variable tile and at a small one) and at full width on a query of each
+    bucket; its time per step there, by launch."""
+    for var_tile in (ops.SAT_VAR_TILE, SAT_SMALL_TILE):
+        for name, clauses, n_vars, n_probes in sat_fixtures():
+            problem = device_solver.build_problem(clauses, n_vars)
+            tensors = device_solver.device_problem(problem, dev)
+            state = device_solver.initial_state(problem.init_assign, n_probes,
+                                                dev)
+            sat_compare(state, tensors, 2, 6, n_probes, False, name,
+                        var_tile=var_tile)
+        problems = [device_solver.build_problem(c, n)
+                    for c, n in sat_batch_fixture()]
+        tensors = device_solver.device_problem(problems, dev)
+        state = device_solver.initial_state(
+            np.stack([p.init_assign for p in problems]), 8, dev)
+        sat_compare(state, tensors, 4, 5, 8, True, "batch", var_tile=var_tile)
+
+    # full width, both buckets: 64 compared steps, graphed and eager, then
+    # the time per step
     depth = device_solver.forced_depth_of(32)
     steps = 64
     timings = {}
@@ -2392,30 +2487,47 @@ def phase_sat_kernel(dev) -> dict:
         tensors = device_solver.device_problem(problem, dev)
         state = device_solver.initial_state(problem.init_assign, 32, dev)
         state = sat_compare(state, tensors, 32, 2, 32, False, name)
+        v1 = problem.order.shape[0]
+        n_clauses = problem.valid.size
+        tiles = 32 * -(-v1 // ops.SAT_VAR_TILE)
+        # propagate: a thread per clause and group of four probes
+        grids = {"sat_mirror_kernel": -(-v1 * 32 // 256),
+                 "sat_propagate_kernel": -(-n_clauses * 8 // 256),
+                 "sat_count_kernel": tiles, "sat_apply_kernel": tiles}
+        if tiles < 132:
+            raise AssertionError(f"{name}: resolve launches {tiles} blocks")
+        work = convert.clone(state)
 
-        def fresh():
-            return convert.clone(state)
+        def fresh(graph=True):
+            refill([work], [state])
+            return graph
+
+        def run(graph):
+            return ops.sat_run(work, tensors, steps, depth, False, graph)
 
         b_ms, b_by = sat_bound_ms_per_step(state, tensors, steps, depth)
-        times = device_times(lambda _: ops.sat_run(
-            fresh(), tensors, steps, depth, False), 2)
+        times = device_times(lambda _: run(fresh()), 2, counts=True)
+        launches = launch_table(times, "sat_", steps, grids)
+        ops.reset_launches()
         timings[name] = {
-            "tiles": problem.lits.shape[0], "v1": problem.order.shape[0],
-            "ms_per_step": event_ms(lambda s: ops.sat_run(
-                s, tensors, steps, depth, False), 3, setup=fresh) / steps,
-            "device_ms_per_step": named_ms(times, ("sat_",)) / steps,
-            "propagate_device_ms_per_step":
-                named_ms(times, ("sat_propagate",)) / steps,
-            "resolve_device_ms_per_step":
-                named_ms(times, ("sat_resolve",)) / steps,
+            "tiles": problem.lits.shape[0], "v1": v1,
+            "ms_per_step": event_ms(run, 3, setup=fresh) / steps,
+            "eager_ms_per_step": event_ms(
+                run, 3, setup=lambda: fresh(False)) / steps,
+            "device_ms_per_step": sum(
+                row["device_ms"] for row in launches.values()),
+            "launches_per_step": launches,
+            "replays": dict(ops.REPLAYS),
             "plain_ms_per_step": event_ms(
                 lambda s: device_solver.run_chunk_reference(
-                    s, tensors, 4, depth), 2, setup=fresh) / 4,
+                    s, tensors, 4, depth), 2,
+                setup=lambda: convert.clone(state)) / 4,
             "bound_ms_per_step": b_ms, "bound_by": b_by}
     emit({"phase": "sat_kernel",
           "fixtures": [f[0] for f in sat_fixtures()] + ["batch"],
-          "probes": 32, "compared_steps": 64, "max_abs_err": 0,
-          "full_width": timings})
+          "var_tiles": [ops.SAT_VAR_TILE, SAT_SMALL_TILE],
+          "probes": 32, "compared_steps": 64, "compared": "graphed, eager",
+          "max_abs_err": 0, "full_width": timings})
     main = timings["1689-24.smt2"]
     return {"name": "sat_step", "route": "cuda",
             "source": "mythril_tpu_torch/kernels/sat_step.cu",
@@ -2461,6 +2573,7 @@ def sat_solve(solve, *args, **kwargs) -> dict:
     stream_ms = sum(s.elapsed_time(e) for s, e in events)
     chunks = max(len(events), 1)
     return {"result": result, "launches": dict(ops.LAUNCHES),
+            "replays": dict(ops.REPLAYS),
             "states": states, "chunks": len(events),
             "steps": len(events) * kwargs.get("chunk", 256),
             "wall_s": wall, "chunk_stream_ms": stream_ms / chunks,
@@ -2582,6 +2695,11 @@ def phase_sat_batch(dev) -> dict:
         parts.append((clauses, lowered, blaster))
     run = sat_solve(device_solver.solve_cnf_device_batch, queries,
                     chunk=SAT_BATCH_CHUNK, device=dev)
+    # the flush's host set-up: the four bucketed arrays, built in Python
+    start = time.perf_counter()
+    for clauses, n_vars in queries:
+        device_solver.build_problem(clauses, n_vars)
+    run["build_problem_s"] = time.perf_counter() - start
     results = run.pop("result")
     if state_digest(run.pop("states")[0]) != EXPECTED_SAT_BATCH:
         raise AssertionError("sat_batch: the state after the first chunk "
@@ -2643,16 +2761,23 @@ def main() -> int:
     for counts in main_path_launches:
         for name, count in counts.items():
             launches[name] += count
-    idle = sorted(name for name, count in launches.items() if count == 0)
-    if idle:
-        raise AssertionError(f"kernels the main-path phases never ran: {idle}")
+    # K3 runs on the main path folded into K4's steps and K10's passes
+    # (one count a step and a pass); no standalone call is left there
+    folded = launches["arena_alloc_step"] + launches["arena_alloc_merge"]
+    idle = sorted(name for name, count in launches.items()
+                  if count == 0 and name != "arena_alloc")
+    if idle or not folded:
+        raise AssertionError(f"kernels the main-path phases never ran: {idle}"
+                             f" (K3 folded: {folded})")
     for record in records:
         name = record["name"]
         record["launches"] = launches[name]
         if name == "arena_alloc":
-            # the standalone calls above; the step's four allocations run
-            # folded into K4's launches, one count a step
-            record["launches_folded"] = launches["arena_alloc_step"]
+            record["launches"] = launches[name] + folded
+            record["launches_standalone"] = launches[name]
+            record["launches_folded"] = {
+                "sym_step": launches["arena_alloc_step"],
+                "merge_pass": launches["arena_alloc_merge"]}
         if name == "sat_step":
             # K11's device time per step on the lane's profiled solve
             record["main_path_device_ms"] = \

@@ -111,6 +111,27 @@ __device__ __forceinline__ T block_exclusive_scan(T value, T* buf, T* total) {
     return inclusive - value;
 }
 
+// One block: an exclusive scan over n items, each thread a contiguous run.
+// value(i) must not depend on what emit writes for other items; emit(i,
+// excl, value) runs after every value of the count pass was read.
+template <class V, class E>
+__device__ __forceinline__ int runs_scan(long long n, V value, E emit, int* buf) {
+    const long long per = (n + blockDim.x - 1) / blockDim.x;
+    const long long first = static_cast<long long>(threadIdx.x) * per;
+    const long long lo = first < n ? first : n;
+    const long long hi = lo + per < n ? lo + per : n;
+    int count = 0;
+    for (long long i = lo; i < hi; ++i) count += value(i);
+    int total;
+    int excl = block_exclusive_scan(count, buf, &total);
+    for (long long i = lo; i < hi; ++i) {
+        const int v = value(i);
+        emit(i, excl, v);
+        excl += v;
+    }
+    return total;
+}
+
 // Block-wide maximum of one int64 per thread (tree over shared memory;
 // blockDim.x a power of two <= 1024). Every thread of the block must call
 // it and gets the maximum back.

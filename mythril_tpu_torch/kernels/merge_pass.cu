@@ -1,14 +1,16 @@
-// Kernel K10: state merging, one pass around kernel K3.
+// Kernel K10: state merging, one pass, kernel K3's allocations folded in.
 //
 // Replaces mythril_tpu/parallel/symstep.py:1057 `merge_pass` (jitted at
 // frontier.py:462-469). Fork siblings reconverged at a join differ only in
 // the sign of their last path condition and in what their arms wrote; a
-// pass pairs them and collapses each pair into one lane. Launches, in the
-// order the wrapper (ops.merge_pass) issues them:
+// pass pairs them and collapses each pair into one lane. One host call
+// (`mtpu_merge_run`) launches the whole pass; nothing in it reads back to
+// the host. Its launches:
 //
 //   merge_hash    once: each lane's content hashes over the leaves a merge
 //                 must find equal (weak, weak + memory planes, core), one
-//                 block per lane, the leaf sums reduced in shared memory
+//                 block per lane, the leaf sums reduced in shared memory;
+//                 block 0 zeroes the stats
 //   per round (n_rounds strict, then n_rounds widened with a window table):
 //   merge_pair    eligibility, the sort key (hash of the sign-stripped
 //                 conds, cond count, last sign), a bitonic sort of (key,
@@ -19,10 +21,17 @@
 //                 next power of two in global memory, and a pairs launch
 //   merge_check   a block per pair: exact verification; in widened rounds
 //                 the window gather, diff containment and word blendability;
-//                 then the three blend families' allocation requests
-//   K3 + merge_nodes, per family (memory windows, stack, storage): CONST
-//                 nodes for the survivor's and the partner's concrete words,
-//                 the ITE operands, the ITE rows; node ids follow JAX's order
+//                 then the blend families' allocation requests and, per
+//                 pair, how many entries each of the nine allocations wants
+//   merge_alloc_seg  one block: the nine allocations' exclusive prefixes
+//                 over the pairs, side by side, and their bump pointers in
+//                 JAX's order (families memory windows, stack, storage; in
+//                 each the true side's CONSTs, the false side's, the ITEs)
+//   merge_nodes   a block per pair: its entries' ranks (the pair's prefix
+//                 plus a block scan over its slots), the const words, CONST
+//                 and ITE rows by arena.cuh's rules, ids and overflow flags;
+//                 an ITE's child made this round is a CONST (class mask 0),
+//                 so no block reads a row another block writes
 //   merge_apply   a block per pair: a pair whose blend overflowed the arena
 //                 is cancelled (its nodes stay allocated); else the survivor
 //                 is rewritten, the partner retired, the stats counted
@@ -35,14 +44,19 @@
 // zeros, int32 leaves with their sign, bool and byte leaves as 0..255.
 // Bound: bytes (the hashed and compared rows, a few hundred KB per round at
 // the default geometry); the sort and the per-pair blocks are small, so the
-// pass is bound by its launches.
+// pass is bound by its launches: 5 a round and 3 more, from one host call.
+#include "arena.cuh"
 #include "words.cuh"
 
 namespace {
 
 enum { MODE_STRICT = 0, MODE_WIDEN = 1, MODE_BLOCKED = 2 };
 enum { FAMILY_MEM = 0, FAMILY_STACK = 1, FAMILY_STORAGE = 2 };
-enum { ITE_OP = 0x0F, STATS_FIXED = 8, MAX_WINS = 32 };
+enum { ITE_OP = 0x0F, STATS_FIXED = 8, N_DEPTH = 6, MAX_WINS = 32 };
+enum { N_ALLOCS = 9, KIND_CT = 0, KIND_CF = 1, KIND_ITE = 2, SEG_GROUP = 64 };
+// merge_check's and merge_blocked's threads a pair: their row compares
+// are their time
+enum { CHECK_THREADS = 512 };
 enum { K_U8 = 1, K_I32 = 4, K_U32 = 5 };  // how a leaf's element widens
 
 constexpr unsigned long long H_PRIME = 1099511628211ULL;
@@ -161,6 +175,9 @@ __global__ void merge_hash_kernel(Args a) {
     __shared__ unsigned long long sums[N_HASHED];
     const long long lane = blockIdx.x;
     const int t = threadIdx.x;
+    if (lane == 0)
+        for (int i = t; i < STATS_FIXED + arg_int(a, K10_N_TAGS) + N_DEPTH; i += blockDim.x)
+            arg_ptr<long long>(a, K10_STATS)[i] = 0;
     for (int h = 0; h < N_HASHED; ++h) {
         const int leaf = HASHED[h][0], kind = HASHED[h][1];
         const long long n = row_bytes(a, leaf) / (kind == K_U8 ? 1 : 4);
@@ -317,7 +334,10 @@ __global__ void merge_pairs_kernel(Args a) {
 __global__ void merge_check_kernel(Args a) {
     __shared__ int cell;
     __shared__ int wdiff[MAX_WINS];
+    __shared__ int wants[N_ALLOCS];  // the pair's entries per allocation
     const int k = blockIdx.x, t = threadIdx.x;
+    if (t < N_ALLOCS) wants[t] = 0;
+    __syncthreads();
     const int ti = arg_ptr<const int32_t>(a, K10_TI)[k];
     const int fi = arg_ptr<const int32_t>(a, K10_FI)[k];
     const int mode = arg_int(a, K10_MODE);
@@ -389,6 +409,11 @@ __global__ void merge_check_kernel(Args a) {
             fam<int32_t>(a, FAMILY_MEM, FAM_PRE_T)[e] = all0_t ? 0 : first_t >> 5;
             fam<int32_t>(a, FAMILY_MEM, FAM_PRE_F)[e] = all0_f ? 0 : first_f >> 5;
             fam<int32_t>(a, FAMILY_MEM, FAM_COND)[e] = last_t;
+            if (need) {
+                if (all0_t) atomicAdd(&wants[KIND_CT], 1);
+                if (all0_f) atomicAdd(&wants[KIND_CF], 1);
+                atomicAdd(&wants[KIND_ITE], 1);
+            }
             if (need && all0_t)
                 limbs16_from_be(mem + rt + start, fam<int32_t>(a, FAMILY_MEM, FAM_VALS_T) + 16 * e);
             if (need && all0_f)
@@ -420,26 +445,174 @@ __global__ void merge_check_kernel(Args a) {
             fam<int32_t>(a, family, FAM_PRE_T)[e] = sym_t;
             fam<int32_t>(a, family, FAM_PRE_F)[e] = sym_f;
             fam<int32_t>(a, family, FAM_COND)[e] = last_t;
+            if (diff) {
+                if (sym_t == 0) atomicAdd(&wants[family * 3 + KIND_CT], 1);
+                if (sym_f == 0) atomicAdd(&wants[family * 3 + KIND_CF], 1);
+                atomicAdd(&wants[family * 3 + KIND_ITE], 1);
+            }
             for (int i = 0; diff && i < 16; ++i) {
                 fam<int32_t>(a, family, FAM_VALS_T)[16 * e + i] = conc[16 * st + i];
                 fam<int32_t>(a, family, FAM_VALS_F)[16 * e + i] = conc[16 * sf + i];
             }
         }
     }
+    __syncthreads();
+    if (t < N_ALLOCS) arg_ptr<int32_t>(a, K10_ACNT)[static_cast<long long>(t) * (arg_int(a, K10_B) / 2) + k] = wants[t];
 }
 
-// the ITE operands: the clean word's / the slot's node, else the new CONST
+// ---- the blends' allocations (K3 folded in) ---------------------------------------------
+
+namespace {
+
+__device__ __forceinline__ ArenaRef merge_arena(const Args& a) {
+    return {arg_ptr<int32_t>(a, K10_AR_OP), arg_ptr<int32_t>(a, K10_AR_A),
+            arg_ptr<int32_t>(a, K10_AR_B), arg_ptr<int32_t>(a, K10_AR_C),
+            arg_ptr<int32_t>(a, K10_AR_IMM), arg_ptr<int32_t>(a, K10_AR_IMM2),
+            arg_ptr<int32_t>(a, K10_AR_CLS), arg_ptr<int32_t>(a, K10_AR_CONST),
+            a.v[K10_AR_CAP], a.v[K10_AR_CCAP]};
+}
+
+__device__ __forceinline__ int family_width(const Args& a, int family) {
+    return family == FAMILY_MEM ? arg_int(a, K10_W)
+                                : (family == FAMILY_STACK ? arg_int(a, K10_S) : arg_int(a, K10_K));
+}
+
+// the const allocation's entry of rank r (bump pointers base[0] nodes,
+// base[1] consts): its word into the pool, its CONST node; returns the node
+// id, 0 with *ovf set when the pool or the arena is full
+__device__ int blend_const(const ArenaRef& ar, const int32_t* base, long long r,
+                           const int32_t* word, bool* ovf) {
+    const long long cid = base[1] + r;
+    if (cid >= ar.ccap) {
+        *ovf = true;
+        return 0;
+    }
+    for (int i = 0; i < 16; ++i) ar.const_vals[cid * 16 + i] = word[i];
+    const int id = arena_node_id(base[0], r, ar.cap, ovf);
+    if (!*ovf) arena_put_node(ar, id, ARENA_CONST_TAG, 0, 0, 0, static_cast<int>(cid), 0, 0);
+    return id;
+}
+
+}  // namespace
+
+// one block of N_ALLOCS * SEG_GROUP threads: the nine allocations'
+// exclusive prefixes over the pairs side by side (SEG_GROUP threads each,
+// a contiguous run of pairs a thread), then the bump pointers in K3's call
+// order
+__global__ void merge_alloc_seg_kernel(Args a) {
+    __shared__ int buf[N_ALLOCS * SEG_GROUP];
+    __shared__ int totals[N_ALLOCS];
+    const int t = threadIdx.x, al = t / SEG_GROUP, g = t % SEG_GROUP;
+    const long long half = arg_int(a, K10_B) / 2;
+    const int32_t* cnt = arg_ptr<const int32_t>(a, K10_ACNT) + al * half;
+    int32_t* pre = arg_ptr<int32_t>(a, K10_APRE) + al * half;
+    const long long per = (half + SEG_GROUP - 1) / SEG_GROUP;
+    const long long lo = g * per < half ? g * per : half;
+    const long long hi = lo + per < half ? lo + per : half;
+    int count = 0;
+    for (long long i = lo; i < hi; ++i) count += cnt[i];
+    buf[t] = count;
+    __syncthreads();
+    for (int offset = 1; offset < SEG_GROUP; offset <<= 1) {
+        const int add = g >= offset ? buf[t - offset] : 0;
+        __syncthreads();
+        buf[t] += add;
+        __syncthreads();
+    }
+    int excl = buf[t] - count;
+    for (long long i = lo; i < hi; ++i) {
+        pre[i] = excl;
+        excl += cnt[i];
+    }
+    if (g == SEG_GROUP - 1) totals[al] = buf[t];
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    const long long cap = a.v[K10_AR_CAP], ccap = a.v[K10_AR_CCAP];
+    int* n_ptr = arg_ptr<int>(a, K10_AR_N);
+    int* nc_ptr = arg_ptr<int>(a, K10_AR_N_CONST);
+    int32_t* base = arg_ptr<int32_t>(a, K10_ABASE);
+    long long n = *n_ptr, nc = *nc_ptr;
+    for (int family = FAMILY_MEM; family <= FAMILY_STORAGE; ++family) {
+        for (int kind = KIND_CT; kind <= KIND_CF; ++kind) {
+            base[2 * (family * 3 + kind)] = static_cast<int>(n);
+            base[2 * (family * 3 + kind) + 1] = static_cast<int>(nc);
+            arena_const_advance(&nc, &n, totals[family * 3 + kind], cap, ccap);
+        }
+        base[2 * (family * 3 + KIND_ITE)] = static_cast<int>(n);
+        n = n + totals[family * 3 + KIND_ITE] < cap ? n + totals[family * 3 + KIND_ITE] : cap;
+    }
+    *n_ptr = static_cast<int>(n);
+    *nc_ptr = static_cast<int>(nc);
+}
+
+// a block per pair: the CONST nodes for the survivor's and the partner's
+// concrete words, the ITE operands (the clean word's / the slot's node,
+// else the new CONST), the ITE rows; ids in JAX's order
 __global__ void merge_nodes_kernel(Args a) {
-    const int family = arg_int(a, K10_FAMILY);
-    const int width = family == FAMILY_MEM ? arg_int(a, K10_W)
-                      : (family == FAMILY_STACK ? arg_int(a, K10_S) : arg_int(a, K10_K));
-    const long long n = static_cast<long long>(arg_int(a, K10_B) / 2) * width;
-    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int pre_t = fam<const int32_t>(a, family, FAM_PRE_T)[i];
-    const int pre_f = fam<const int32_t>(a, family, FAM_PRE_F)[i];
-    fam<int32_t>(a, family, FAM_NODE_T)[i] = pre_t != 0 ? pre_t : fam<const int32_t>(a, family, FAM_IDS_CT)[i];
-    fam<int32_t>(a, family, FAM_NODE_F)[i] = pre_f != 0 ? pre_f : fam<const int32_t>(a, family, FAM_IDS_CF)[i];
+    __shared__ unsigned long long buf[1024];
+    const int k = blockIdx.x;
+    const long long half = arg_int(a, K10_B) / 2;
+    const ArenaRef ar = merge_arena(a);
+    const int32_t* pre = arg_ptr<const int32_t>(a, K10_APRE);
+    const int32_t* base = arg_ptr<const int32_t>(a, K10_ABASE);
+    const bool widen = arg_int(a, K10_MODE) == MODE_WIDEN;
+    for (int family = widen ? FAMILY_MEM : FAMILY_STACK; family <= FAMILY_STORAGE; ++family) {
+        const long long width = family_width(a, family);
+        const long long per = (width + blockDim.x - 1) / blockDim.x;
+        const long long lo = threadIdx.x * per < width ? threadIdx.x * per : width;
+        const long long hi = lo + per < width ? lo + per : width;
+        const long long e0 = k * width;
+        const uint8_t* want_ct = fam<const uint8_t>(a, family, FAM_WANT_CT) + e0;
+        const uint8_t* want_cf = fam<const uint8_t>(a, family, FAM_WANT_CF) + e0;
+        const uint8_t* want_ite = fam<const uint8_t>(a, family, FAM_WANT_ITE) + e0;
+        // this thread's ranks: three 16-bit counts in one scan (a pair has
+        // far fewer than 65,536 slots)
+        unsigned long long mine = 0, total;
+        for (long long j = lo; j < hi; ++j)
+            mine += want_ct[j] | static_cast<unsigned long long>(want_cf[j]) << 16
+                    | static_cast<unsigned long long>(want_ite[j]) << 32;
+        const unsigned long long excl = block_exclusive_scan(mine, buf, &total);
+        const int32_t* fpre = pre + family * 3 * half + k;
+        long long r_ct = (excl & 0xFFFF) + fpre[KIND_CT * half];
+        long long r_cf = ((excl >> 16) & 0xFFFF) + fpre[KIND_CF * half];
+        long long r_ite = ((excl >> 32) & 0xFFFF) + fpre[KIND_ITE * half];
+        const int32_t* fbase = base + 2 * family * 3;
+        for (long long j = lo; j < hi; ++j) {
+            const long long e = e0 + j;
+            bool ovf_ct = false, ovf_cf = false, ovf_ite = false;
+            const int id_ct = want_ct[j] ? blend_const(ar, fbase + 2 * KIND_CT, r_ct++,
+                                                       fam<const int32_t>(a, family, FAM_VALS_T) + 16 * e,
+                                                       &ovf_ct) : 0;
+            const int id_cf = want_cf[j] ? blend_const(ar, fbase + 2 * KIND_CF, r_cf++,
+                                                       fam<const int32_t>(a, family, FAM_VALS_F) + 16 * e,
+                                                       &ovf_cf) : 0;
+            const int pre_t = fam<const int32_t>(a, family, FAM_PRE_T)[e];
+            const int pre_f = fam<const int32_t>(a, family, FAM_PRE_F)[e];
+            const int node_t = pre_t != 0 ? pre_t : id_ct;
+            const int node_f = pre_f != 0 ? pre_f : id_cf;
+            int id_ite = 0;
+            if (want_ite[j]) {
+                id_ite = arena_node_id(fbase[2 * KIND_ITE], r_ite++, ar.cap, &ovf_ite);
+                if (!ovf_ite) {
+                    // the children's masks as K3 reads them: a CONST made
+                    // this round has mask 0, any other child is older
+                    const int cond = fam<const int32_t>(a, family, FAM_COND)[e];
+                    const int cls_t = pre_t == 0 && id_ct != 0 ? 0 : ar.cls[arena_clamp(node_t, ar.cap - 1)];
+                    const int cls_f = pre_f == 0 && id_cf != 0 ? 0 : ar.cls[arena_clamp(node_f, ar.cap - 1)];
+                    arena_put_node(ar, id_ite, ITE_OP, cond, node_t, node_f, 0, 0,
+                                   ar.cls[arena_clamp(cond, ar.cap - 1)] | cls_t | cls_f);
+                }
+            }
+            fam<int32_t>(a, family, FAM_IDS_CT)[e] = id_ct;
+            fam<int32_t>(a, family, FAM_IDS_CF)[e] = id_cf;
+            fam<int32_t>(a, family, FAM_IDS_ITE)[e] = id_ite;
+            fam<uint8_t>(a, family, FAM_OVF_CT)[e] = ovf_ct;
+            fam<uint8_t>(a, family, FAM_OVF_CF)[e] = ovf_cf;
+            fam<uint8_t>(a, family, FAM_OVF_ITE)[e] = ovf_ite;
+            fam<int32_t>(a, family, FAM_NODE_T)[e] = node_t;
+            fam<int32_t>(a, family, FAM_NODE_F)[e] = node_f;
+        }
+    }
 }
 
 // ---- apply: rewrite the survivor, retire the partner -----------------------------------
@@ -552,31 +725,19 @@ __global__ void merge_blocked_kernel(Args a) {
 
 namespace {
 
-int launch(void (*kernel)(Args), Args a, void* stream, long long grid, int threads) {
+int launch(void (*kernel)(Args), const Args& a, void* stream, long long grid, int threads) {
     if (a.v[K10_B] < 2 || grid <= 0) return 1;  // cudaErrorInvalidValue
     MTPU_LAUNCH(kernel, static_cast<unsigned>(grid), threads, stream, a);
     return MTPU_LAUNCH_STATUS();
 }
 
-int launch(void (*kernel)(Args), const long long* values, int n, void* stream,
-           long long grid, int threads) {
-    return launch(kernel, mtpu_pack(values, n), stream, grid, threads);
-}
-
-long long pairs(const long long* values) { return values[K10_B] / 2; }
-
-}  // namespace
-
-MTPU_EXPORT int mtpu_merge_hash(const long long* v, int n, void* stream) {
-    return launch(merge_hash_kernel, v, n, stream, v[K10_B], 256);
-}
-
-MTPU_EXPORT int mtpu_merge_pair(const long long* v, int n, void* stream) {
-    if (v[K10_B] <= 1024)
-        return launch(merge_pair_kernel, v, n, stream, 1, block_threads(v[K10_B]));
-    Args a = mtpu_pack(v, n);
+// the round's pairs: one block up to 1024 lanes, else the sort over global
+// memory, a launch per stage
+int pair(Args a, void* stream) {
+    const long long B = a.v[K10_B];
+    if (B <= 1024) return launch(merge_pair_kernel, a, stream, 1, block_threads(B));
     const long long size = a.v[K10_SORT_N];
-    if (size < a.v[K10_B] || (size & (size - 1))) return 1;  // cudaErrorInvalidValue
+    if (size < B || (size & (size - 1))) return 1;  // cudaErrorInvalidValue
     int rc = launch(merge_keys_kernel, a, stream, (size + 255) / 256, 256);
     for (long long k = 2; k <= size && !rc; k <<= 1)
         for (long long j = k >> 1; j > 0 && !rc; j >>= 1) {
@@ -584,25 +745,35 @@ MTPU_EXPORT int mtpu_merge_pair(const long long* v, int n, void* stream) {
             a.v[K10_SORT_J] = j;
             rc = launch(merge_sort_stage_kernel, a, stream, (size / 2 + 127) / 128, 128);
         }
-    return rc ? rc : launch(merge_pairs_kernel, a, stream, (pairs(v) + 255) / 256, 256);
+    return rc ? rc : launch(merge_pairs_kernel, a, stream, (B / 2 + 255) / 256, 256);
 }
 
-MTPU_EXPORT int mtpu_merge_check(const long long* v, int n, void* stream) {
-    if (v[K10_W] > MAX_WINS) return 1;
-    return launch(merge_check_kernel, v, n, stream, pairs(v), 256);
+}  // namespace
+
+// one round's pairing alone (its tests drive the sort)
+MTPU_EXPORT int mtpu_merge_pair(const long long* v, int n, void* stream) {
+    return pair(mtpu_pack(v, n), stream);
 }
 
-MTPU_EXPORT int mtpu_merge_nodes(const long long* v, int n, void* stream) {
-    const long long family = v[K10_FAMILY];
-    const long long width = family == FAMILY_MEM ? v[K10_W]
-                            : (family == FAMILY_STACK ? v[K10_S] : v[K10_K]);
-    return launch(merge_nodes_kernel, v, n, stream, (pairs(v) * width + 255) / 256, 256);
-}
-
-MTPU_EXPORT int mtpu_merge_apply(const long long* v, int n, void* stream) {
-    return launch(merge_apply_kernel, v, n, stream, pairs(v), 128);
-}
-
-MTPU_EXPORT int mtpu_merge_blocked(const long long* v, int n, void* stream) {
-    return launch(merge_blocked_kernel, v, n, stream, pairs(v), 128);
+// the whole pass: K10_ROUNDS strict rounds, as many widened ones with a
+// window table (K10_J > 0), then the blocked-by accounting
+MTPU_EXPORT int mtpu_merge_run(const long long* v, int n, void* stream) {
+    Args a = mtpu_pack(v, n);
+    const long long pairs = a.v[K10_B] / 2;
+    if (a.v[K10_W] > MAX_WINS || a.v[K10_ROUNDS] < 0) return 1;  // cudaErrorInvalidValue
+    int rc = launch(merge_hash_kernel, a, stream, a.v[K10_B], 256);
+    for (int mode = MODE_STRICT; mode <= (a.v[K10_J] > 0 ? MODE_WIDEN : MODE_STRICT); ++mode)
+        for (long long round = 0; round < a.v[K10_ROUNDS] && !rc; ++round) {
+            a.v[K10_MODE] = mode;
+            a.v[K10_SHIFT] = round % 2;
+            rc = pair(a, stream);
+            if (!rc) rc = launch(merge_check_kernel, a, stream, pairs, CHECK_THREADS);
+            if (!rc) rc = launch(merge_alloc_seg_kernel, a, stream, 1, N_ALLOCS * SEG_GROUP);
+            if (!rc) rc = launch(merge_nodes_kernel, a, stream, pairs, 256);
+            if (!rc) rc = launch(merge_apply_kernel, a, stream, pairs, 128);
+        }
+    a.v[K10_MODE] = MODE_BLOCKED;
+    a.v[K10_SHIFT] = 0;
+    if (!rc) rc = pair(a, stream);
+    return rc ? rc : launch(merge_blocked_kernel, a, stream, pairs, CHECK_THREADS);
 }

@@ -31,20 +31,22 @@ that its main path went through the kernels.
 
 A count is per wrapper call: K4's call makes its launches of its own (K9
 counts the calls that run its TEL instantiation) and runs the step's four
-arena allocations inside them (`arena_alloc_step`, one a step), so
-`arena_alloc` counts standalone K3 calls only (the merge pass's, the
-tests'); K6 counts its three entries together, K7 its two, and K10 one per
-pass, whatever its rounds launch (its K3 allocations count as K3's). K11
-counts one per chunk: its call runs every step of the chunk (two launches a
-step, three with the batch runner's freeze). K12 counts one per pass (a
-plan launch and a move launch).
+arena allocations inside them (`arena_alloc_step`, one a step); K10 counts
+one per pass, whatever its rounds launch, and runs its blends' allocations
+inside them (`arena_alloc_merge`, one a pass), so `arena_alloc` counts
+standalone K3 calls only (the tests'); K6 counts its three entries
+together, K7 its two. K11 counts one per chunk: its call runs every step of
+the chunk (three launches a step, four with the batch runner's freeze
+gate, after the chunk's mirror). K12 counts one per pass (a plan launch
+and a move launch).
 
-K4's, K2's and K1's parameter blocks and step scratch are built once for a
-set of tensors (keyed on their data pointers, shapes and dtypes, the
-telemetry plane and the launch geometry) and reused while the key holds.
-`run_chunk_graph` captures a chunk of steps as one CUDA graph per key and
-replays it, adding the steps' launches to `LAUNCHES` on every replay;
-`REPLAYS` counts the replays and the captures.
+K4's (with K2's and K1's), K10's and K11's parameter blocks and scratch are
+built once for a set of tensors (keyed on their data pointers, shapes and
+dtypes, and the few static arguments) and reused while the key holds. A
+chunk of K4 steps (`run_chunk_graph`) and a chunk of K11 steps are each
+captured as one CUDA graph per key and replayed, adding the captured
+launches to `LAUNCHES` on every replay; `REPLAYS` counts the replays and
+the captures of each. A K10 pass is one eager host call.
 """
 
 from __future__ import annotations
@@ -59,20 +61,22 @@ import torch
 
 from . import build, layout as Lay
 from ..parallel.device_solver import TILE
-from ..parallel.symstep import (ITE_OP, MAX_TEL_SLOTS, MERGE_STATS_FIXED,
+from ..parallel.symstep import (MAX_TEL_SLOTS, MERGE_STATS_FIXED,
                                 N_MERGE_DEPTH, n_segments)
 
 #: launches per kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"keccak": 0, "evm_step": 0, "arena_alloc": 0,
-                            "arena_alloc_step": 0, "sym_step": 0,
+                            "arena_alloc_step": 0, "arena_alloc_merge": 0,
+                            "sym_step": 0,
                             "telemetry": 0,
                             "frontier_summary": 0, "pack_rows": 0,
                             "gather_rows": 0, "arena_delta": 0,
                             "merge_pass": 0, "sat_step": 0, "steal_pass": 0}
 
-#: CUDA graph replays of `run_chunk_graph` and captures, since the last
-#: reset_launches()
-REPLAYS: Dict[str, int] = {"run_chunk": 0, "captures": 0}
+#: CUDA graph replays and captures since the last reset_launches(): of
+#: `run_chunk_graph` (K4's chunks) and of K11's chunks
+REPLAYS: Dict[str, int] = {"run_chunk": 0, "captures": 0, "sat_chunk": 0,
+                           "sat_captures": 0}
 
 #: which source each exported entry point lives in
 _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_keccak_preload": "keccak",
@@ -87,12 +91,8 @@ _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_keccak_preload": "keccak",
               "mtpu_gather_rows": "gather_rows",
               "mtpu_scatter_rows": "gather_rows",
               "mtpu_arena_delta": "arena_delta",
-              "mtpu_merge_hash": "merge_pass", "mtpu_merge_pair": "merge_pass",
-              "mtpu_merge_check": "merge_pass",
-              "mtpu_merge_nodes": "merge_pass",
-              "mtpu_merge_apply": "merge_pass",
-              "mtpu_merge_blocked": "merge_pass",
-              "mtpu_sat_run": "sat_step",
+              "mtpu_merge_pair": "merge_pass", "mtpu_merge_run": "merge_pass",
+              "mtpu_sat_run": "sat_step", "mtpu_sat_preload": "sat_step",
               "mtpu_steal_plan": "steal_pass", "mtpu_steal_move": "steal_pass"}
 _FUNCS: Dict[str, object] = {}
 _OPTABS: Dict[str, torch.Tensor] = {}
@@ -574,15 +574,47 @@ def sym_step(state, planes, arena, sched, lanes_per_block: int = LANES_PER_BLOCK
 
 _GRAPHS: "OrderedDict[tuple, tuple]" = OrderedDict()
 
+#: the REPLAYS entry counting each kind's captures
+_CAPTURES = {"run_chunk": "captures", "sat_chunk": "sat_captures"}
+
 
 @functools.cache
-def _preload() -> None:
-    """Load the step's kernels before a first capture (the runtime would
+def _preload(entries: tuple) -> None:
+    """Load a graph's kernels before its first capture (the runtime would
     load each at its first launch)."""
-    for name in ("mtpu_sym_preload", "mtpu_evm_preload", "mtpu_keccak_preload"):
+    for name in entries:
         rc = _entry(name)(None, 0, None)
         if rc != 0:
             raise RuntimeError(f"{name}: failed (cudaError {rc})")
+
+
+def _replay(cache: OrderedDict, key: tuple, prepare, entries: tuple,
+            kind: str) -> None:
+    """Replay the CUDA graph cached under `key`, capturing it on a miss:
+    `prepare()` builds what the launches need (outside the capture) and
+    returns the function that launches them, which the graph keeps, and with
+    it the scratch the captured kernels point at. A replay adds the
+    captured launches to `LAUNCHES` and counts in `REPLAYS[kind]`; a
+    capture launches nothing. A failed capture or replay raises."""
+    def capture():
+        launch = prepare()
+        _preload(entries)
+        before = dict(LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                launch()
+            counts = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
+        finally:
+            LAUNCHES.update(before)
+        REPLAYS[_CAPTURES[kind]] += 1
+        return graph, launch, counts
+
+    graph, _, counts = _remember(cache, key, capture, limit=4)
+    graph.replay()
+    for name, count in counts.items():
+        LAUNCHES[name] += count
+    REPLAYS[kind] += 1
 
 
 def run_chunk_graph(state, planes, arena, sched, n_steps: int):
@@ -592,28 +624,18 @@ def run_chunk_graph(state, planes, arena, sched, n_steps: int):
     failed capture or replay raises."""
     if n_steps < 1:
         raise ValueError(f"run_chunk_graph: {n_steps} steps")
-    key = step_key(state, planes, arena, sched)
 
-    def capture():
+    def prepare():
         plan = step_plan(state, planes, arena, sched)
-        _preload()
-        before = dict(LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                for _ in range(n_steps):
-                    plan.launch()
-            counts = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
-        finally:
-            LAUNCHES.update(before)  # a capture launches nothing
-        REPLAYS["captures"] += 1
-        return graph, plan, counts
 
-    graph, _, counts = _remember(_GRAPHS, key + (n_steps,), capture, limit=4)
-    graph.replay()
-    for name, count in counts.items():
-        LAUNCHES[name] += count
-    REPLAYS["run_chunk"] += 1
+        def launch():
+            for _ in range(n_steps):
+                plan.launch()
+        return launch
+
+    _replay(_GRAPHS, step_key(state, planes, arena, sched) + (n_steps,),
+            prepare, ("mtpu_sym_preload", "mtpu_evm_preload",
+                      "mtpu_keccak_preload"), "run_chunk")
     return state, planes, arena, sched
 
 
@@ -853,8 +875,7 @@ def arena_delta(arena, start: int, cstart: int, bucket: int, cbucket: int):
 
 # ---- K10 ----------------------------------------------------------------------------
 
-#: K10's merge modes and blend families (merge_pass.cu)
-_STRICT, _WIDEN, _BLOCKED = 0, 1, 2
+#: K10's blend families (merge_pass.cu)
 _FAMILY_MEM, _FAMILY_STACK, _FAMILY_STORAGE = 0, 1, 2
 _FAMILY_FIELDS = ("WANT_CT", "WANT_CF", "WANT_ITE", "VALS_T", "VALS_F",
                   "PRE_T", "PRE_F", "COND", "IDS_CT", "IDS_CF", "IDS_ITE",
@@ -938,106 +959,190 @@ def merge_block(state, planes, merge_pcs: torch.Tensor, mem_pcs: torch.Tensor,
     return values, tensors
 
 
+def merge_key(state, planes, arena, merge_pcs, mem_pcs, mem_words,
+              n_rounds: int) -> tuple:
+    """What K10's cached plan depends on: every tensor's data pointer, shape
+    and dtype, and the round count."""
+    tensors = (list(state) + list(planes) + list(arena)
+               + [merge_pcs, mem_pcs, mem_words])
+    return tuple((t.data_ptr(), t.shape, t.dtype) for t in tensors) + (n_rounds,)
+
+
+class _MergePlan:
+    """One merge pass's parameter block and scratch for one set of lanes,
+    arena and tables: `merge_block`'s, the arena's columns and the folded
+    allocations' counts, prefixes and bump pointers."""
+
+    def __init__(self, state, planes, arena, merge_pcs, mem_pcs, mem_words,
+                 n_rounds: int):
+        if n_rounds < 0:
+            raise ValueError(f"merge_pass: {n_rounds} rounds")
+        values, self.tensors = merge_block(state, planes, merge_pcs, mem_pcs,
+                                           mem_words)
+        half = state.pc.shape[0] // 2
+        dev = state.pc.device
+        self.tensors["alloc"] = [torch.zeros((9, half), dtype=torch.int32,
+                                             device=dev) for _ in range(2)] \
+            + [torch.zeros((9, 2), dtype=torch.int32, device=dev)]
+        for slot, tensor in zip((Lay.K10_ACNT, Lay.K10_APRE, Lay.K10_ABASE),
+                                self.tensors["alloc"]):
+            values[slot] = tensor.data_ptr()
+        cap = arena.op.shape[0]
+        for slot, col, what in ((Lay.K10_AR_OP, arena.op, "arena.op"),
+                                (Lay.K10_AR_A, arena.a, "arena.a"),
+                                (Lay.K10_AR_B, arena.b, "arena.b"),
+                                (Lay.K10_AR_C, arena.c, "arena.c"),
+                                (Lay.K10_AR_IMM, arena.imm, "arena.imm"),
+                                (Lay.K10_AR_IMM2, arena.imm2, "arena.imm2"),
+                                (Lay.K10_AR_CLS, arena.cls, "arena.cls")):
+            values[slot] = _check(col, what, torch.int32, (cap,))
+        values[Lay.K10_AR_CONST] = _check(arena.const_vals, "arena.const_vals",
+                                          torch.int32)
+        values[Lay.K10_AR_N] = _check(arena.n, "arena.n", torch.int32, ())
+        values[Lay.K10_AR_N_CONST] = _check(arena.n_const, "arena.n_const",
+                                            torch.int32, ())
+        values[Lay.K10_AR_CAP] = cap
+        values[Lay.K10_AR_CCAP] = arena.const_vals.shape[0]
+        values[Lay.K10_ROUNDS] = n_rounds
+        self.block = _block("mtpu_merge_run", values)
+
+    def launch(self) -> None:
+        """The whole pass from one host call, its allocations folded in."""
+        _call("mtpu_merge_run", self.block)
+        LAUNCHES["merge_pass"] += 1
+        LAUNCHES["arena_alloc_merge"] += 1
+
+
+_MERGE_PLANS: "OrderedDict[tuple, _MergePlan]" = OrderedDict()
+
+
 def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
                mem_pcs: torch.Tensor, mem_words: torch.Tensor,
                n_rounds: int):
-    """K10 around K3: one merge pass, every tensor updated in place, any
-    lane count. `merge_pcs` int32[K], `mem_pcs` int32[J], `mem_words`
+    """K10, K3's allocations folded in: one merge pass, every tensor updated
+    in place, any lane count, from one host call that makes every launch
+    (its plan built once for `merge_key`). `merge_pcs` int32[K], `mem_pcs` int32[J], `mem_words`
     int32[J, W]. Returns (state, planes, arena, stats int64[8 + K + 6])."""
-    values, tensors = merge_block(state, planes, merge_pcs, mem_pcs, mem_words)
-    dev = state.pc.device
-    half = state.pc.shape[0] // 2
-    n_max = half * max(mem_words.shape[1], state.stack.shape[1],
-                       state.storage_keys.shape[1], 1)
-    ite_ops = torch.full((n_max,), ITE_OP, dtype=torch.int32, device=dev)
-    zeros = torch.zeros(n_max, dtype=torch.int32, device=dev)
-
-    def blend(family):
-        table = tensors[family]
-        n = table["COND"].shape[0]
-        arena_alloc(arena, table["WANT_CT"], table["VALS_T"],
-                    out_ids=table["IDS_CT"], out_ovf=table["OVF_CT"])
-        arena_alloc(arena, table["WANT_CF"], table["VALS_F"],
-                    out_ids=table["IDS_CF"], out_ovf=table["OVF_CF"])
-        values[Lay.K10_FAMILY] = family
-        _launch("mtpu_merge_nodes", values)
-        arena_alloc(arena, table["WANT_ITE"], None, op=ite_ops[:n],
-                    a=table["COND"], b=table["NODE_T"], c=table["NODE_F"],
-                    imm=zeros[:n], imm2=zeros[:n], out_ids=table["IDS_ITE"],
-                    out_ovf=table["OVF_ITE"])
-
-    _launch("mtpu_merge_hash", values)
-    for mode in (_STRICT, _WIDEN) if mem_pcs.shape[0] else (_STRICT,):
-        for round_ in range(n_rounds):
-            values[Lay.K10_MODE] = mode
-            values[Lay.K10_SHIFT] = round_ % 2
-            _launch("mtpu_merge_pair", values)
-            _launch("mtpu_merge_check", values)
-            if mode == _WIDEN:
-                blend(_FAMILY_MEM)
-            blend(_FAMILY_STACK)
-            blend(_FAMILY_STORAGE)
-            _launch("mtpu_merge_apply", values)
-    values[Lay.K10_MODE] = _BLOCKED
-    values[Lay.K10_SHIFT] = 0
-    _launch("mtpu_merge_pair", values)
-    _launch("mtpu_merge_blocked", values)
-    LAUNCHES["merge_pass"] += 1
-    return state, planes, arena, tensors["stats"]
+    key = merge_key(state, planes, arena, merge_pcs, mem_pcs, mem_words,
+                    n_rounds)
+    plan = _remember(_MERGE_PLANS, key, lambda: _MergePlan(
+        state, planes, arena, merge_pcs, mem_pcs, mem_words, n_rounds),
+        limit=4)
+    plan.launch()
+    return state, planes, arena, plan.tensors["stats"].clone()
 
 
 # ---- K11 ----------------------------------------------------------------------------
 
-def sat_run(state, problem, steps: int, forced_depth: int, freeze: bool):
-    """K11: `steps` DPLL steps of every probe, in place, from one host call.
-    `state` is a device_solver.SolverState of one query ([P, V1], [P]) or
-    of a batch ([Q, P, V1], [Q, P]); `problem` the matching DeviceProblem.
-    With `freeze`, a query whose probes are decided keeps its state (the
-    batch runner). Returns the state."""
+#: variables per tile of K11's resolve launches on the card: 16 tiles, so
+#: 512 blocks for 32 probes at V1 65,536
+SAT_VAR_TILE = 4096
+
+
+def sat_key(state, problem, forced_depth: int, freeze: bool,
+            var_tile: int = SAT_VAR_TILE) -> tuple:
+    """What K11's cached plan depends on: every tensor's data pointer, shape
+    and dtype, the forced depth, the freeze and the variable tile."""
+    return tuple((t.data_ptr(), t.shape, t.dtype)
+                 for t in list(state) + list(problem)) + (
+        forced_depth, freeze, var_tile)
+
+
+class _SatPlan:
+    """K11's parameter block and scratch for one state and problem: the
+    implied keys, flags and bitmaps (zero, and left zero by every step),
+    the assignment's mirror, the tile partials and the branch records."""
+
+    def __init__(self, state, problem, forced_depth: int, freeze: bool,
+                 var_tile: int):
+        queries = state.assign.shape[:-2]       # () for one query, (Q,) batched
+        lead = queries[0] if queries else 1
+        n_probes, v1 = state.assign.shape[-2:]
+        if n_probes > 1024:
+            raise ValueError(f"{n_probes} probes: the kernel takes at most 1024")
+        if var_tile < 32 or var_tile & (var_tile - 1):
+            raise ValueError(f"var_tile = {var_tile}: a power of two >= 32")
+        if problem.valid.dim() != state.assign.dim():
+            raise ValueError(f"valid: shape {tuple(problem.valid.shape)} does "
+                             f"not match the state's queries")
+        tiles = queries + (problem.valid.shape[-2], TILE)
+        values = [0] * Lay.K11_NARGS
+        for slot, leaf, what, dtype, shape in (
+                (Lay.K11_ASSIGN, state.assign, "assign", torch.int8,
+                 state.assign.shape),
+                (Lay.K11_TRAIL, state.trail, "trail", torch.int32,
+                 state.assign.shape),
+                (Lay.K11_TAG, state.tag, "tag", torch.int8, state.assign.shape),
+                (Lay.K11_TRAIL_LEN, state.trail_len, "trail_len", torch.int32,
+                 state.assign.shape[:-1]),
+                (Lay.K11_STATUS, state.status, "status", torch.int8,
+                 state.assign.shape[:-1]),
+                (Lay.K11_LITS, problem.lits, "lits", torch.int32, tiles + (3,)),
+                (Lay.K11_VALID, problem.valid, "valid", torch.bool, tiles),
+                (Lay.K11_ORDER, problem.order, "order", torch.int32,
+                 queries + (v1,))):
+            values[slot] = _check(leaf, what, dtype, shape)
+        rows = lead * n_probes
+        n_tiles = -(-v1 // var_tile)
+        dev = state.assign.device
+
+        def scratch(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.scratch = {
+            Lay.K11_KEY: scratch(rows, v1),
+            Lay.K11_CONFLICT: scratch(rows),
+            Lay.K11_UNIT: scratch(rows),
+            Lay.K11_BITS: scratch(rows, -(-v1 // 32)),
+            Lay.K11_MIRROR: scratch(lead, v1, n_probes, dtype=torch.int8),
+            Lay.K11_PART64: scratch(rows, n_tiles, dtype=torch.int64),
+            Lay.K11_PART32: scratch(rows, n_tiles, 2),
+            Lay.K11_RES: scratch(rows, Lay.N_SAT_RES)}
+        if freeze:
+            self.scratch[Lay.K11_DECIDED] = scratch(lead)
+        for slot, tensor in self.scratch.items():
+            values[slot] = tensor.data_ptr()
+        for slot, value in ((Lay.K11_Q, lead), (Lay.K11_P, n_probes),
+                            (Lay.K11_V1, v1),
+                            (Lay.K11_C, problem.valid.numel() // lead),
+                            (Lay.K11_FORCED_DEPTH, forced_depth),
+                            (Lay.K11_VT, var_tile)):
+            values[slot] = value
+        self.block = _block("mtpu_sat_run", values)
+
+    def launch(self, steps: int) -> None:
+        """One chunk: the mirror, then `steps` steps."""
+        self.block[Lay.K11_STEPS] = steps
+        _call("mtpu_sat_run", self.block)
+        LAUNCHES["sat_step"] += 1
+
+
+_SAT_PLANS: "OrderedDict[tuple, _SatPlan]" = OrderedDict()
+_SAT_GRAPHS: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def sat_run(state, problem, steps: int, forced_depth: int, freeze: bool,
+            graph: bool = True, var_tile: int = SAT_VAR_TILE):
+    """K11: `steps` DPLL steps of every probe, in place: one host call, or
+    with `graph` one replay of the chunk's CUDA graph (captured once for
+    `sat_key` and the step count). `state` is a device_solver.SolverState
+    of one query ([P, V1], [P]) or of a batch ([Q, P, V1], [Q, P]);
+    `problem` the matching DeviceProblem. With `freeze`, a query whose
+    probes are decided keeps its state (the batch runner). `var_tile`
+    variables share a block of the resolve launches. Returns the state."""
     if steps < 0:
         raise ValueError(f"steps = {steps}")
-    queries = state.assign.shape[:-2]       # () for one query, (Q,) batched
-    lead = queries[0] if queries else 1
-    n_probes, v1 = state.assign.shape[-2:]
-    if n_probes > 1024:
-        raise ValueError(f"{n_probes} probes: the kernel takes at most 1024")
-    if problem.valid.dim() != state.assign.dim():
-        raise ValueError(f"valid: shape {tuple(problem.valid.shape)} does not "
-                         f"match the state's queries")
-    tiles = queries + (problem.valid.shape[-2], TILE)
-    values = [0] * Lay.K11_NARGS
-    for slot, leaf, what, dtype, shape in (
-            (Lay.K11_ASSIGN, state.assign, "assign", torch.int8,
-             state.assign.shape),
-            (Lay.K11_TRAIL, state.trail, "trail", torch.int32,
-             state.assign.shape),
-            (Lay.K11_TAG, state.tag, "tag", torch.int8, state.assign.shape),
-            (Lay.K11_TRAIL_LEN, state.trail_len, "trail_len", torch.int32,
-             state.assign.shape[:-1]),
-            (Lay.K11_STATUS, state.status, "status", torch.int8,
-             state.assign.shape[:-1]),
-            (Lay.K11_LITS, problem.lits, "lits", torch.int32, tiles + (3,)),
-            (Lay.K11_VALID, problem.valid, "valid", torch.bool, tiles),
-            (Lay.K11_ORDER, problem.order, "order", torch.int32,
-             queries + (v1,))):
-        values[slot] = _check(leaf, what, dtype, shape)
-    n_clauses = problem.valid.numel() // lead
-    dev = state.assign.device
-    key = torch.zeros((lead, n_probes, v1), dtype=torch.int32, device=dev)
-    conflict = torch.zeros((lead, n_probes), dtype=torch.int32, device=dev)
-    decided = torch.zeros(lead, dtype=torch.int32, device=dev) if freeze \
-        else None
-    for slot, value in ((Lay.K11_Q, lead), (Lay.K11_P, n_probes),
-                        (Lay.K11_V1, v1), (Lay.K11_C, n_clauses),
-                        (Lay.K11_FORCED_DEPTH, forced_depth),
-                        (Lay.K11_STEPS, steps),
-                        (Lay.K11_KEY, key.data_ptr()),
-                        (Lay.K11_CONFLICT, conflict.data_ptr()),
-                        (Lay.K11_DECIDED,
-                         0 if decided is None else decided.data_ptr())):
-        values[slot] = value
-    _launch("mtpu_sat_run", values)
-    LAUNCHES["sat_step"] += 1
+    key = sat_key(state, problem, forced_depth, freeze, var_tile)
+    plan = _remember(_SAT_PLANS, key, lambda: _SatPlan(
+        state, problem, forced_depth, freeze, var_tile), limit=4)
+    if steps == 0:
+        return state
+    if graph:
+        _replay(_SAT_GRAPHS, key + (steps,),
+                lambda: (lambda: plan.launch(steps)), ("mtpu_sat_preload",),
+                "sat_chunk")
+    else:
+        plan.launch(steps)
     return state
 
 

@@ -195,27 +195,6 @@ __device__ __forceinline__ int seg_count(const Args& a, int c, long long s) {
     return grank(a, c, (s + 1) * seg_len) - grank(a, c, s * seg_len);
 }
 
-// One block: an exclusive scan over n items, each thread a contiguous run.
-// value(i) must not depend on what emit writes for other items; emit(i,
-// excl, value) runs after every value of the count pass was read.
-template <class V, class E>
-__device__ int runs_scan(long long n, V value, E emit, int* buf) {
-    const long long per = (n + blockDim.x - 1) / blockDim.x;
-    const long long first = static_cast<long long>(threadIdx.x) * per;
-    const long long lo = first < n ? first : n;
-    const long long hi = lo + per < n ? lo + per : n;
-    int count = 0;
-    for (long long i = lo; i < hi; ++i) count += value(i);
-    int total;
-    int excl = block_exclusive_scan(count, buf, &total);
-    for (long long i = lo; i < hi; ++i) {
-        const int v = value(i);
-        emit(i, excl, v);
-        excl += v;
-    }
-    return total;
-}
-
 // one block: the tile prefixes of component c (read after a barrier)
 __device__ void prefix_tiles(const Args& a, int c, int* buf) {
     const int nb = arg_int(a, K4_NB);

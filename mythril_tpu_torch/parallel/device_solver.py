@@ -14,8 +14,8 @@ forced prefixes form a perfect binary tree of subspaces: UNSAT iff every
 lane proves its cube UNSAT, SAT as soon as one lane completes an assignment.
 
 One transition of every probe is kernel K11 (`kernels/sat_step.cu`, through
-`kernels.ops.sat_run`), which runs a whole chunk of steps from one host
-call; `step_reference` / `run_chunk_reference` are its plain PyTorch twins,
+`kernels.ops.sat_run`), which runs a whole chunk of steps as one CUDA
+graph; `step_reference` / `run_chunk_reference` are its plain PyTorch twins,
 which the wrappers take only for CPU tensors. The state and the problem
 arrays keep the JAX package's dtypes and shapes, so `parallel/convert.py`
 carries them across leaf for leaf, and every step is bit-identical to JAX
@@ -397,14 +397,17 @@ def run_chunk_reference(state: SolverState, problem: DeviceProblem,
 # ---- the kernel path ------------------------------------------------------------
 
 def run_chunk(state: SolverState, problem: DeviceProblem, chunk: int,
-              forced_depth: int, freeze: bool = False) -> SolverState:
+              forced_depth: int, freeze: bool = False,
+              graph: bool = True) -> SolverState:
     """`chunk` DPLL steps of every probe, in place: K11 on CUDA tensors
-    (one host call for the whole chunk), the twin on CPU tensors."""
+    (the chunk's CUDA graph, captured once for these tensors and replayed;
+    `graph=False`: one host call that launches every step), the twin on
+    CPU tensors."""
     if not state.assign.is_cuda:
         return run_chunk_reference(state, problem, chunk, forced_depth, freeze)
     from ..kernels import ops
 
-    return ops.sat_run(state, problem, chunk, forced_depth, freeze)
+    return ops.sat_run(state, problem, chunk, forced_depth, freeze, graph)
 
 
 def step(state: SolverState, problem: DeviceProblem,

@@ -640,6 +640,10 @@ class DeviceFrontier:
                     or len(self.mem_pcs) > MERGE_PC_SLOTS:
                 raise ValueError("mem_pcs/mem_words: one window row per pc, "
                                  f"at most {MERGE_PC_SLOTS}")
+        # the tables on the device once: every merge pass of the run gets the
+        # same tensors, so K10's plan (keyed on them) serves all
+        self.merge_tables = symstep._merge_tables(
+            self.merge_pcs, self.mem_pcs, self.mem_words, self.device)
         #: telemetry: this phase's last raw words (cumulative on the
         #: device), the last chunk's merge-tag deltas (the merge trigger)
         #: and the deltas summed over every phase
@@ -910,8 +914,8 @@ class DeviceFrontier:
                     due = (steps // chunk) % 4 == 0
                 if due:
                     state, planes, self.arena, mstats = symstep.merge_pass(
-                        state, planes, self.arena, self.merge_pcs,
-                        self.mem_pcs, self.mem_words, n_rounds=MERGE_ROUNDS)
+                        state, planes, self.arena, *self.merge_tables,
+                        n_rounds=MERGE_ROUNDS)
                     self._publish_merge(mstats.cpu().numpy())
             if not ((status == RUNNING) | (status == FORKING)).any() \
                     and stack_top == 0 and esc_count == 0 \

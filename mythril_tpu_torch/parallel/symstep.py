@@ -1174,8 +1174,9 @@ def merge_pass_reference(state: StateBatch, planes: SymPlanes,
 
 def merge_pass(state: StateBatch, planes: SymPlanes, arena: A.Arena,
                merge_pcs, mem_pcs=None, mem_words=None, n_rounds: int = 6):
-    """Collapse reconverged fork siblings: kernel K10 (around K3) on CUDA
-    tensors, the plain twin on CPU tensors; in place either way."""
+    """Collapse reconverged fork siblings: kernel K10 (K3's allocations
+    folded in) on CUDA tensors, one host call making its launches, the
+    plain twin on CPU tensors; in place either way."""
     if state.pc.is_cuda:
         from ..kernels import ops
 

@@ -109,6 +109,12 @@ inline T atomicMin(T* address, T value) {
     }
     return old;
 }
+template <class T>
+inline T atomicOr(T* address, T value) {
+    return std::atomic_ref<T>(*address).fetch_or(value);
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 #define MTPU_LAUNCH(kernel, grid, block, stream, args) shim_launch(kernel, grid, block, args)
 #define MTPU_LAUNCH_STATUS() 0
 #define MTPU_PRELOAD(kernel) 0

@@ -10,6 +10,7 @@
   same twins."""
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -106,10 +107,11 @@ def test_library_names_follow_sources(name):
     assert os.path.exists(os.path.join(build.KERNEL_DIR, f"{name}.cu"))
     # every exported entry lives in a built source, and every kernel counts
     # (K9, the telemetry plane, is an instantiation inside sym_step.cu; K3's
-    # allocations folded into K4's step count apart from standalone K3)
+    # allocations folded into K4's step and K10's pass count apart from
+    # standalone K3)
     assert set(ops._ENTRY_LIB.values()) == set(build.SOURCES)
-    assert set(ops.LAUNCHES) == set(build.SOURCES) | {"telemetry",
-                                                      "arena_alloc_step"}
+    assert set(ops.LAUNCHES) == set(build.SOURCES) | {
+        "telemetry", "arena_alloc_step", "arena_alloc_merge"}
 
 
 # ---- the kernel sources, compiled for the host -------------------------------------
@@ -135,6 +137,17 @@ def host_kernels(tmp_path_factory):
         assert proc.returncode == 0, err
         libs[name] = ctypes.CDLL(lib)
     return libs
+
+
+@pytest.fixture
+def one_thread():
+    """Run the test's PyTorch ops on one thread: the SAT twins are many
+    small ops, and beside other test processes a pool of threads per op
+    costs them more than it gives."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -358,17 +371,29 @@ def test_host_frontier_programs_match_twins(on_host):
     assert int(sched.esc_count) == 0
 
 
-@pytest.mark.parametrize("case", ["diamond", "bothwrite", "bothwrite_windows",
-                                  "overflow", "mem_branchy"])
-def test_host_merge_pass_matches_twin(on_host, case):
-    """K10 (around K3) against `merge_pass_reference` on the merge tests'
-    inputs: every leaf, the arena and the stats vector."""
+#: K10's host cases: (inputs, free arena nodes, passes); "overflow*" cut
+#: the arena so that it runs out inside the pair's blend
+MERGE_CASES = {"diamond": ("diamond", None, 1),
+               "bothwrite": ("bothwrite", None, 1),
+               "bothwrite_windows": ("bothwrite_windows", None, 1),
+               "overflow": ("diamond", 2, 1),
+               "overflow_spare1": ("diamond", 1, 1),
+               "overflow_windows_spare1": ("bothwrite_windows", 1, 1),
+               "overflow_windows_spare2": ("bothwrite_windows", 2, 1),
+               "mem_branchy": ("mem_branchy", None, 1),
+               "mem_branchy_twice": ("mem_branchy", None, 2)}
+
+
+@functools.cache
+def _merge_inputs(name):
+    """The JAX lanes, arena and tables a merge case starts from, run once
+    for every case that shares them (JAX arrays are immutable)."""
     import test_torch_merge as tm
     from bench import _mem_branchy_contract
     from _torch_parity import jax_static_tables
-    from mythril_tpu.frontends.asm import assemble, dispatcher
+    from mythril_tpu.frontends.asm import dispatcher
 
-    if case == "mem_branchy":
+    if name == "mem_branchy":
         code = assemble(dispatcher({"stress()": _mem_branchy_contract(8)}))
         state, planes, arena = seed_frontier([code], 16, max_conds=16,
                                              arena_capacity=1 << 14,
@@ -377,27 +402,45 @@ def test_host_merge_pass_matches_twin(on_host, case):
         state, planes, arena, _ = jsym.run_chunk(state, planes, arena, sched,
                                                  40)
         _, (merge_pcs, _, mem_pcs, mem_words) = jax_static_tables([code])
-    else:
-        name = "diamond" if case == "overflow" else case
-        code, steps, merge_pcs, mem_pcs, mem_words = tm.DIAMONDS[name]
-        state, planes, arena = tm._pair_run(code, steps)
-        if case == "overflow":
-            arena = tm._shrink(arena, 2)
+        return state, planes, arena, merge_pcs, mem_pcs, mem_words
+    code, steps, merge_pcs, mem_pcs, mem_words = tm.DIAMONDS[name]
+    return (*tm._pair_run(code, steps), merge_pcs, mem_pcs, mem_words)
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+def test_host_merge_pass_matches_twin(on_host, case):
+    """K10, K3's allocations folded into its launches, against
+    `merge_pass_reference` on the merge tests' inputs: every leaf, the arena
+    and the stats vector after each pass ("twice": a second pass through
+    the same cached plan and scratch)."""
+    import test_torch_merge as tm
+
+    name, spare, passes = MERGE_CASES[case]
+    state, planes, arena, merge_pcs, mem_pcs, mem_words = _merge_inputs(name)
+    if spare is not None:
+        arena = tm._shrink(arena, spare)
     plain = [to_port(k, t) for k, t in zip(("state", "planes", "arena"),
                                            (state, planes, arena))]
     kernel = [convert.clone(t) for t in plain]
+    n_before = int(plain[2].n)
     tables = ts._merge_tables(merge_pcs, mem_pcs, mem_words, "cpu")
-    ref = ts.merge_pass_reference(*plain, *tables, n_rounds=6)
-    got = ops.merge_pass(*kernel, *tables, n_rounds=6)
-    for kind, mine, theirs in zip(("state", "planes", "arena"), got, ref):
-        _same(mine, theirs, kind)
-    assert torch.equal(got[3], ref[3])
-    if case in ("diamond", "bothwrite_windows", "mem_branchy"):
-        assert int(ref[3][0]) > 0
+    for index in range(passes):
+        ref = ts.merge_pass_reference(*plain, *tables, n_rounds=6)
+        got = ops.merge_pass(*kernel, *tables, n_rounds=6)
+        for kind, mine, theirs in zip(("state", "planes", "arena"), got, ref):
+            _same(mine, theirs, f"pass {index} {kind}")
+        assert torch.equal(got[3], ref[3])
+        merged = int(ref[3][0]) if index == 0 else merged
+    if name in ("diamond", "bothwrite_windows", "mem_branchy") and spare is None:
+        assert merged > 0
+    if spare is not None:
+        # the pair stays unmerged; the nodes made before the arena ran out
+        # stay allocated
+        assert int(ref[3][0]) == 0 and int(ref[2].n) > n_before
 
 
 @pytest.mark.parametrize("case", [f[0] for f in sat_fixtures()] + ["batch"])
-def test_host_sat_step_matches_twin(on_host, case):
+def test_host_sat_step_matches_twin(on_host, one_thread, case):
     """K11 against `run_chunk_reference` on chip_smoke's fixtures (the
     phase-race, no-flip and 32-probe ones, and the batch runner's freeze),
     every leaf after each chunk."""
@@ -406,7 +449,8 @@ def test_host_sat_step_matches_twin(on_host, case):
         tensors = tds.device_problem(problems, "cpu")
         state = tds.initial_state(np.stack([p.init_assign for p in problems]),
                                   8, "cpu")
-        kernel = sat_compare(state, tensors, 2, 3, 8, True, case)
+        kernel = sat_compare(state, tensors, 2, 3, 8, True, case,
+                             graphs=(False,))
         assert (kernel.status[1] != tds.SEARCHING).all()
         return
     _, clauses, n_vars, n_probes = next(f for f in sat_fixtures()
@@ -414,8 +458,75 @@ def test_host_sat_step_matches_twin(on_host, case):
     problem = tds.build_problem(clauses, n_vars)
     tensors = tds.device_problem(problem, "cpu")
     state = tds.initial_state(problem.init_assign, n_probes, "cpu")
-    kernel = sat_compare(state, tensors, 2, 3, n_probes, False, case)
+    kernel = sat_compare(state, tensors, 2, 3, n_probes, False, case,
+                         graphs=(False,))
     assert int(kernel.trail_len.max()) > 1
+
+
+def _sat_case(case):
+    """(state, problem tensors, probes, freeze) of a chip_smoke K11 fixture
+    ("batch": the batch runner's four queries, 8 probes each)."""
+    if case == "batch":
+        problems = [tds.build_problem(c, n) for c, n in sat_batch_fixture()]
+        state = tds.initial_state(np.stack([p.init_assign for p in problems]),
+                                  8, "cpu")
+        return state, tds.device_problem(problems, "cpu"), 8, True
+    _, clauses, n_vars, n_probes = next(f for f in sat_fixtures()
+                                        if f[0] == case)
+    problem = tds.build_problem(clauses, n_vars)
+    state = tds.initial_state(problem.init_assign, n_probes, "cpu")
+    return state, tds.device_problem(problem, "cpu"), n_probes, False
+
+
+SAT_CASES = [f[0] for f in sat_fixtures()] + ["batch"]
+
+
+@pytest.mark.parametrize("case", SAT_CASES)
+def test_host_sat_tiles_match_twin(on_host, one_thread, case):
+    """K11 with each probe's 1,024 vars split over 16 blocks (a variable
+    tile of 64): the count blocks' tile partials, each apply block
+    combining the earlier tiles' partials itself in tile order, the ranked
+    append and the clears across blocks, against
+    `run_chunk_reference` after each of three 4-step chunks from one plan."""
+    state, tensors, n_probes, freeze = _sat_case(case)
+    assert state.assign.shape[-1] == 1024
+    sat_compare(state, tensors, 4, 3, n_probes, freeze, case, graphs=(False,),
+                var_tile=64)
+
+
+def test_sat_fixtures_take_every_branch(one_thread):
+    """The 12 steps the test above runs from the fixtures take every branch
+    of a step: a conflict with a flip and one without (the cube refuted),
+    units, SAT, and decisions inside and past the forced prefix."""
+    seen = set()
+    for case in SAT_CASES:
+        current, tensors, n_probes, freeze = _sat_case(case)
+        depth = tds.forced_depth_of(n_probes)
+        for _ in range(12):
+            after = tds.run_chunk_reference(convert.clone(current), tensors, 1,
+                                            depth, freeze)
+            length, new_length = (current.trail_len.long(),
+                                  after.trail_len.long())
+            appended = after.tag.gather(-1, length.clamp(
+                max=current.assign.shape[-1] - 1)[..., None])[..., 0]
+            moved = (current.status == tds.SEARCHING) & (
+                (after.status != current.status) | (new_length != length)
+                | (after.assign != current.assign).any(-1))
+            going = moved & (after.status == tds.SEARCHING)
+            for name, mask in (
+                    ("refuted", moved & (after.status == tds.S_UNSAT)),
+                    ("sat", moved & (after.status == tds.S_SAT)),
+                    ("flip", going & (new_length <= length)),
+                    ("units", going & (new_length > length) & (appended == 0)),
+                    ("decide_forced", going & (new_length == length + 1)
+                     & (appended == 2)),
+                    ("decide", going & (new_length == length + 1)
+                     & (appended == 1))):
+                if bool(mask.any()):
+                    seen.add(name)
+            current = after
+    assert seen == {"refuted", "sat", "flip", "units", "decide_forced",
+                    "decide"}
 
 
 # ---- the sharded scheduler: segmented K4/K5, K6's vector reset, K12 --------------------
