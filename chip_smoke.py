@@ -20,9 +20,11 @@ raises, and the run exits non-zero. Phases:
   2. K1 keccak vs `keccak256_reference`: 4096 random messages of 0..512
      bytes, and the SHA3 shape of the main path (128 rows of a 4096-byte
      memory, ranges clipped at msize);
-  3. K2 evm_step vs `step_reference`: bench.py's concrete loop at 512 lanes
-     for 256 steps and a program reaching every expensive family at 128
-     lanes, every leaf compared after each chunk of 32 steps;
+  3. K2 evm_step (a warp a lane) vs `step_reference`: bench.py's concrete
+     loop at 512 lanes for 256 steps and a program reaching every expensive
+     family at 128 lanes, every leaf compared after each chunk of 32 steps,
+     and its first chunk at 2048 lanes; K2's device time a step by launch
+     at 128 and 2048 lanes and ptxas's registers and spills;
   4. K3 arena_alloc vs its twins: a random want-mask sequence up to and
      past capacity;
   5. K4 (K3's step allocations folded in) with K1-K2 vs the twins on
@@ -39,7 +41,8 @@ raises, and the run exits non-zero. Phases:
   7. frontier_programs: K5-K8 vs their twins on the same contract two
      chunks in (1024 escape rows, 680+ of them live): the summary, the
      drain's maxima and pack at its real index and quantized widths, the
-     escape reset, a gather and a scatter of 32 lanes, and the arena delta
+     escape reset, a gather and a scatter of 32 lanes (and with clamped
+     indices and dropped pads; K7's grid of row copy items), the arena delta
      of the first drain; each timed beside its twin and, where one exists,
      the PyTorch call that computes the same function;
   8. frontier: `DeviceFrontier(128).run` on the same contract at the
@@ -92,7 +95,8 @@ raises, and the run exits non-zero. Phases:
      2 with fleet slots and both codes' tables, held the same way;
  19. frontier_wide: `DeviceFrontier(2048)` in the default configuration on
      branchy(12) until the tree drains, held to the JAX
-     `_Frontier(n_lanes=2048)`'s counters, digests and telemetry words;
+     `_Frontier(n_lanes=2048)`'s counters, digests and telemetry words,
+     and once more profiled (K2's device time a step);
  20. sat_kernel: K11, one CUDA graph a chunk and eager, vs
      `run_chunk_reference`, every leaf after each chunk, on fixtures
      (opposite-phase races in one tile and across two, the no-flip
@@ -679,25 +683,42 @@ def event_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
+def profile_cuda(run, what: str, prepare=None):
+    """run() under torch.profiler (CUPTI), after prepare() outside it:
+    (prepare's result, run's result, the trace's CUDA events). Now and then
+    CUPTI hands back a trace without any device time; prepare() and run()
+    then run again, three times in all (a kernel missing from a trace that
+    has device time still fails its caller's check)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):
+        prepared = prepare() if prepare else None
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            result = run(prepared)
+            torch.cuda.synchronize()
+        events = [event for event in prof.key_averages()
+                  if event.device_type == DeviceType.CUDA]
+        if sum(event.self_device_time_total for event in events) > 0:
+            break
+        print(f"{what}: the profiler recorded no device time "
+              f"(attempt {attempt + 1})", file=sys.stderr, flush=True)
+    return prepared, result, events
+
+
 def device_times(fn, reps: int, counts: bool = False) -> dict:
     """Mean device time in ms per fn() call over `reps` calls of every CUDA
     function it runs, by name, as torch.profiler (CUPTI) records it,
     without the host's time to enqueue them; with `counts`, (ms, launches)
     per fn() call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn(None)  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(None)
-        torch.cuda.synchronize()
+    _, _, events = profile_cuda(
+        lambda _: [fn(None) for _ in range(reps)], "device_times")
     return {event.key: ((event.self_device_time_total / reps / 1e3,
                          event.count / reps) if counts
                         else event.self_device_time_total / reps / 1e3)
-            for event in prof.key_averages()
-            if event.device_type == DeviceType.CUDA}
+            for event in events}
 
 
 def refill(dst_trees, src_trees) -> None:
@@ -869,23 +890,58 @@ def phase_step(dev) -> dict:
     status = state.status.cpu().numpy()
     if not np.all(status == B.RETURNED):
         raise AssertionError(f"mixed program did not return: {np.bincount(status)}")
+
+    # the same program at frontier_wide's 2048 lanes: one chunk held to the
+    # twin, then K2's device time a step there
+    wide = B.build_batch(mixed_specs(WIDE_LANES), device=dev)
+    wide_plain = convert.clone(wide)
+    for _ in range(32):
+        wide = lockstep.step(wide)
+        wide_plain = lockstep.step_reference(wide_plain)
+    assert_same(wide, wide_plain, f"K2 mixed chunk 0 at {WIDE_LANES} lanes")
     emit({"phase": "evm_step", "bench_loop": [512, 256], "mixed": [LANES, 256],
-          "max_abs_err": 0})
+          "mixed_wide": [WIDE_LANES, 32], "max_abs_err": 0})
 
     # time one step from the mixed program's first chunk (divisions, EXP,
-    # MULMOD and SHA3 still ahead of most lanes)
+    # MULMOD and SHA3 still ahead of most lanes), each call on the same
+    # tensors refilled from the snapshot (the cached plan holds)
     nbytes, nops = step_work(snapshot)
     b_ms, b_by = bound_ms(nbytes, nops)
+    timed = convert.clone(snapshot)
+
+    def split_ms(source, tree):
+        """K2's device ms a step by launch (sha_prep, the K1 call between,
+        evm_step), from the profiler."""
+        times = device_times(lambda _: (refill([tree], [source]),
+                                        ops.evm_step(tree)), 20)
+        return {name: named_ms(times, [f"{name}_kernel"])
+                for name in ("sha_prep", "keccak_rows", "evm_step")}
+
+    wide_timed = convert.clone(wide)
+    device, grid = {}, {}
+    for lanes, source, tree in ((LANES, snapshot, timed),
+                                (WIDE_LANES, wide, wide_timed)):
+        device[lanes] = split_ms(source, tree)
+        grid[lanes] = ops.evm_step_grid()   # as the last launch recorded it
+        if grid[lanes][0] != lanes:
+            raise AssertionError(f"K2 at {lanes} lanes launched {grid[lanes]}")
+    report = build.ptxas_report("evm_step")
+    ptxas = {name: next((props for fn, props in report.items() if name in fn),
+                        None) for name in ("evm_step_kernel", "sha_prep_kernel",
+                                           "heavy_word")}
     return {"name": "evm_step", "route": "cuda",
             "source": "mythril_tpu_torch/kernels/evm_step.cu",
             "replaces": "mythril_tpu/parallel/lockstep.py:159",
             "max_abs_err": 0,
-            "ms": event_ms(lambda s: ops.evm_step(s), 20,
-                           setup=lambda: convert.clone(snapshot)),
+            "ms": event_ms(lambda _: ops.evm_step(timed), 20,
+                           setup=lambda: refill([timed], [snapshot])),
             "plain_ms": event_ms(lambda s: lockstep.step_reference(s), 5,
                                  setup=lambda: convert.clone(snapshot)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "held_by": "phase evm_step"}
+            "device_ms": device[LANES], "device_ms_wide": device[WIDE_LANES],
+            "wide_lanes": WIDE_LANES, "grid": grid[LANES],
+            "grid_wide": grid[WIDE_LANES],
+            "ptxas": ptxas, "held_by": "phase evm_step"}
 
 
 # ---- phase 4: K3 ------------------------------------------------------------------
@@ -1282,6 +1338,21 @@ def phase_frontier_programs(dev) -> list:
     frontier.scatter_rows_reference(*scat_p, targets, *gathered)
     assert_same(scat_k[0], scat_p[0], "K7 scatter state")
     assert_same(scat_k[1], scat_p[1], "K7 scatter planes")
+    # clamped gather indices, dropped scatter pads, separate source leaves
+    odd = torch.tensor([-5, 3, LANES + 7, LANES - 1, 0, 2 ** 31 - 1, -2 ** 31, 9],
+                       dtype=torch.int32, device=dev)
+    odd_rows = frontier.gather_rows(state, planes, odd)
+    odd_ref = frontier.gather_rows_reference(state, planes, odd)
+    for got, ref in zip(odd_rows, odd_ref):
+        assert_same(got, ref, "K7 gather, clamped indices")
+    pads = torch.tensor([7, -1, LANES, 40, 2 ** 31 - 1, 11, -2 ** 31, 100],
+                        dtype=torch.int32, device=dev)
+    drop_k = [convert.clone(t) for t in (state, planes)]
+    drop_p = [convert.clone(t) for t in (state, planes)]
+    frontier.scatter_rows(*drop_k, pads, *odd_ref)
+    frontier.scatter_rows_reference(*drop_p, pads, *odd_ref)
+    assert_same(drop_k[0], drop_p[0], "K7 scatter state, dropped pads")
+    assert_same(drop_k[1], drop_p[1], "K7 scatter planes, dropped pads")
     row_bytes = fr.row_bytes
     leaves = list(state) + list(planes)
     lanes64 = lanes.to(torch.int64)
@@ -1311,6 +1382,7 @@ def phase_frontier_programs(dev) -> list:
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": event_ms(library_gather, 20),
         "library": "torch.index_select per leaf (46 calls)",
+        "blocks": ops.rows_plan(state, planes, lanes).blocks,
         "scatter_ms": event_ms(lambda _: frontier.scatter_rows(
             *scat_k, targets, *gathered), 50),
         "scatter_device_ms": device_ms(lambda _: frontier.scatter_rows(
@@ -1443,29 +1515,36 @@ KERNEL_OF = {
     "arena_delta_kernel": "arena_delta"}
 
 
-def profiled_run(fr, seeds) -> dict:
-    """Run the drain loop again under torch.profiler (CUPTI): device time
-    per port kernel and for everything else on the card (copies, fills,
+def profiled_run(make, seeds) -> tuple:
+    """Run the drain loop again, on a DeviceFrontier from make(), under
+    torch.profiler (CUPTI): (the frontier, its record of device time per
+    port kernel and for everything else on the card (copies, fills,
     PyTorch's own kernels), and the share of the run's wall time the card
-    was idle. Profiling slows the host, so the wall here is longer than
+    was idle). Profiling slows the host, so the wall here is longer than
     the unprofiled run's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    def prepare():
+        fr = make()
+        return fr, fr.seed(seeds), ops.LAUNCHES["evm_step"]
 
-    state, planes = fr.seed(seeds)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def run(prepared):
+        fr, (state, planes), _ = prepared
         start = time.perf_counter()
         fr.run(state, planes)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
+        return (time.perf_counter() - start) * 1e3
+
+    (fr, _, steps), wall_ms, events = profile_cuda(run, "profiled_run",
+                                                   prepare)
+    steps = max(ops.LAUNCHES["evm_step"] - steps, 1)
     by_kernel = {name: 0.0 for name in ops.LAUNCHES}
     device_calls = {name: 0 for name in ops.LAUNCHES}
+    k2_split = {"sha_prep": 0.0, "evm_step": 0.0}
     other_ms = 0.0
-    for event in prof.key_averages():
-        if event.device_type != DeviceType.CUDA:
-            continue
+    for event in events:
         ms = event.self_device_time_total / 1e3
+        for name in k2_split:
+            if f"{name}_kernel" in event.key:
+                k2_split[name] += ms
         owner = next((kernel for function, kernel in KERNEL_OF.items()
                       if function in event.key), None)
         if owner is None:
@@ -1476,10 +1555,12 @@ def profiled_run(fr, seeds) -> dict:
     busy_ms = sum(by_kernel.values()) + other_ms
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "kernel_device_ms": by_kernel, "device_calls": device_calls,
-            "other_device_ms": other_ms}
+    return fr, {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "k2_device_ms_per_step": {name: ms / steps
+                                          for name, ms in k2_split.items()},
+                "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+                "kernel_device_ms": by_kernel, "device_calls": device_calls,
+                "other_device_ms": other_ms}
 
 
 def check_totals(totals: dict, expected: dict, what: str) -> None:
@@ -1499,8 +1580,9 @@ def phase_frontier(dev) -> tuple:
     timing = drive_frontier(fr, stress_seed(N_BRANCHES))
     totals = frontier_totals(fr)
     check_totals(totals, EXPECTED_FRONTIER, "frontier")
-    replay = frontier.DeviceFrontier(LANES, device=dev, **OFF)
-    profiled = profiled_run(replay, stress_seed(N_BRANCHES))
+    replay, profiled = profiled_run(
+        lambda: frontier.DeviceFrontier(LANES, device=dev, **OFF),
+        stress_seed(N_BRANCHES))
     check_totals(frontier_totals(replay), EXPECTED_FRONTIER, "profiled frontier")
     emit({"phase": "frontier", "contract": f"dispatcher(branchy({N_BRANCHES}))",
           "lanes": LANES, "chunk": fr.chunk, "row_bytes": fr.row_bytes,
@@ -1764,8 +1846,9 @@ def phase_frontier_default(dev, off_timing, off_profiled) -> dict:
     timing = drive_frontier(fr, stress_seed(N_BRANCHES))
     totals = default_totals(fr)
     check_totals(totals, EXPECTED_DEFAULT, "frontier_default")
-    replay = frontier.DeviceFrontier(LANES, device=dev)
-    profiled = profiled_run(replay, stress_seed(N_BRANCHES))
+    replay, profiled = profiled_run(
+        lambda: frontier.DeviceFrontier(LANES, device=dev),
+        stress_seed(N_BRANCHES))
     check_totals(default_totals(replay), EXPECTED_DEFAULT,
                  "profiled frontier_default")
     emit({"phase": "frontier_default",
@@ -1914,15 +1997,26 @@ def phase_wide_lanes(dev) -> dict:
 def phase_frontier_wide(dev) -> dict:
     """DeviceFrontier(2048) in the default configuration on branchy(12)
     until the tree drains, held to the JAX `_Frontier(n_lanes=2048)`'s
-    counters, digests and telemetry words; its wall and lane-steps/s."""
+    counters, digests and telemetry words; its wall and lane-steps/s. As in
+    phase frontier, a cold run first takes the process's one-time costs at
+    this width."""
+    cold = frontier.DeviceFrontier(WIDE_LANES, device=dev)
+    cold_wall = drive_frontier(cold, stress_seed(N_BRANCHES))["wall_s"]
+    check_totals(default_totals(cold), EXPECTED_WIDE, "cold frontier_wide")
     fr = frontier.DeviceFrontier(WIDE_LANES, device=dev)
     timing = drive_frontier(fr, stress_seed(N_BRANCHES))
     totals = default_totals(fr)
     check_totals(totals, EXPECTED_WIDE, "frontier_wide")
+    replays = dict(ops.REPLAYS)
+    replay, profiled = profiled_run(
+        lambda: frontier.DeviceFrontier(WIDE_LANES, device=dev),
+        stress_seed(N_BRANCHES))
+    check_totals(default_totals(replay), EXPECTED_WIDE, "profiled frontier_wide")
     emit({"phase": "frontier_wide",
           "contract": f"dispatcher(branchy({N_BRANCHES}))",
           "lanes": WIDE_LANES, "chunk": fr.chunk, "drain_batch": fr.drain_batch,
-          **totals, **timing, "replays": dict(ops.REPLAYS)})
+          **totals, **timing, "cold_wall_s": cold_wall, "replays": replays,
+          "profiled": profiled})
     return timing
 
 
@@ -2179,8 +2273,9 @@ def phase_frontier_shard(dev, default_timing, default_profiled) -> tuple:
     timing = drive_frontier(fr, stress_seed(N_BRANCHES))
     totals = shard_totals(fr)
     check_totals(totals, EXPECTED_SHARD, "frontier_shard")
-    replay = frontier.DeviceFrontier(LANES, device=dev, n_shards=SHARDS)
-    profiled = profiled_run(replay, stress_seed(N_BRANCHES))
+    replay, profiled = profiled_run(
+        lambda: frontier.DeviceFrontier(LANES, device=dev, n_shards=SHARDS),
+        stress_seed(N_BRANCHES))
     check_totals(shard_totals(replay), EXPECTED_SHARD,
                  "profiled frontier_shard")
 
@@ -2649,24 +2744,21 @@ def phase_sat_lane(dev) -> tuple:
                       "chunks_held_to": held, "cnf_s": cnf_s,
                       "build_problem_s": build_s, **run}
     # the device's share of the lane: 1689-24 again under the profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     clauses, n_vars, _, _ = corpus_query(SAT_FULL_QUERY)
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def solve(_):
         start = time.perf_counter()
         device_solver.solve_cnf_device(clauses, n_vars, device=dev)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
+        return (time.perf_counter() - start) * 1e3
+
+    _, wall_ms, events = profile_cuda(solve, "sat_lane", ops.reset_launches)
     k11_ms = other_ms = 0.0
-    for event in prof.key_averages():
-        if event.device_type == DeviceType.CUDA:
-            if "sat_" in event.key:
-                k11_ms += event.self_device_time_total / 1e3
-            else:
-                other_ms += event.self_device_time_total / 1e3
+    for event in events:
+        if "sat_" in event.key:
+            k11_ms += event.self_device_time_total / 1e3
+        else:
+            other_ms += event.self_device_time_total / 1e3
     steps = ops.LAUNCHES["sat_step"] * 256
     if k11_ms <= 0 or not steps:
         raise AssertionError("the profiler recorded no device time of K11")

@@ -17,6 +17,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, List, Optional
@@ -84,6 +85,40 @@ def build_all(extra_flags: Optional[List[str]] = None) -> Dict[str, str]:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return paths
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Compile one source to a cubin with `-Xptxas -v` and return, per
+    function (mangled name), its registers, stack frame and spill bytes as
+    ptxas reports them."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"{name}.{os.getpid()}.cubin")
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run([nvcc_path(), *flags, "-cubin", "-Xptxas", "-v",
+                           "-o", out, os.path.join(KERNEL_DIR, f"{name}.cu")],
+                          capture_output=True, text=True, check=False)
+    if os.path.exists(out):
+        os.remove(out)
+    if proc.returncode != 0:
+        raise RuntimeError(f"ptxas report of {name}.cu failed:\n{proc.stderr}")
+    report: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?",
+                          line)
+        if found:
+            current = report.setdefault(found.group(1), {})
+            continue
+        if current is None:
+            continue
+        for key, pattern in (("stack_frame", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers")):
+            value = re.search(pattern, line)
+            if value:
+                current[key] = int(value.group(1))
+    return report
 
 
 def load(name: str) -> ctypes.CDLL:

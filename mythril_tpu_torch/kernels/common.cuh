@@ -26,6 +26,14 @@ static inline int mtpu_preload(F* kernel) {
 
 #define MTPU_EXPORT extern "C" __attribute__((visibility("default")))
 
+// a device function kept out of line, so that its registers do not set
+// those of the code around its call (the host build inlines as it likes)
+#ifdef __CUDACC__
+#define MTPU_NOINLINE __noinline__
+#else
+#define MTPU_NOINLINE
+#endif
+
 #include "layout.cuh"
 
 struct Args {
@@ -155,4 +163,65 @@ static inline int block_threads(long long n) {
     int threads = 32;
     while (threads < n && threads < 1024) threads <<= 1;
     return threads;
+}
+
+// ---- row copies (K4's row moves, K7's gather and scatter, K12's steals) ---------------
+
+struct alignas(16) Vec16 {
+    uint32_t x, y, z, w;
+};
+
+// Threads t of nt copy `count` elements of T, each thread loading up to
+// four before it stores them, so that a thread keeps several loads in
+// flight.
+template <class T>
+__device__ __forceinline__ void copy_as(uint8_t* dst, const uint8_t* src, long long bytes,
+                                        int t, int nt) {
+    T* d = reinterpret_cast<T*>(dst);
+    const T* s = reinterpret_cast<const T*>(src);
+    const long long count = bytes / static_cast<long long>(sizeof(T));
+    for (long long j = t; j < count; j += 4LL * nt) {
+        T v[4];
+        for (int k = 0; k < 4; ++k)
+            if (j + k * nt < count) v[k] = s[j + k * nt];
+        for (int k = 0; k < 4; ++k)
+            if (j + k * nt < count) d[j + k * nt] = v[k];
+    }
+}
+
+// threads t of nt copy `bytes` with the widest access both ends and the
+// length allow
+__device__ __forceinline__ void copy_span(uint8_t* dst, const uint8_t* src, long long bytes,
+                                          int t, int nt) {
+    const uintptr_t bits = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)
+                           | static_cast<uintptr_t>(bytes);
+    if ((bits & 15) == 0) copy_as<Vec16>(dst, src, bytes, t, nt);
+    else if ((bits & 7) == 0) copy_as<unsigned long long>(dst, src, bytes, t, nt);
+    else if ((bits & 3) == 0) copy_as<uint32_t>(dst, src, bytes, t, nt);
+    else copy_as<uint8_t>(dst, src, bytes, t, nt);
+}
+
+// the block copies `bytes`
+__device__ __forceinline__ void copy_bytes(uint8_t* dst, const uint8_t* src, long long bytes) {
+    copy_span(dst, src, bytes, threadIdx.x, blockDim.x);
+}
+
+// Item `item` of a row copy plan (kernels/ops.py `_copy_plan`): the entries
+// [items[item], items[item + 1]) of (leaf, byte offset, bytes), each at most
+// 4 KB of one leaf's row. The block copies every entry from src(leaf) +
+// offset to dst(leaf) + offset, where src and dst give the row's first byte
+// in that leaf. An item of one entry takes the whole block; the entries of
+// an item of several (a row's small leaves) go to the block's warps in
+// turn, so that they copy side by side.
+template <class Dst, class Src>
+__device__ __forceinline__ void copy_item(const int* entries, const int* items, int item,
+                                          Dst dst, Src src) {
+    const int first = items[item], last = items[item + 1];
+    const bool split = last - first > 1 && blockDim.x >= 64;
+    const int group = split ? 32 : blockDim.x;
+    const int groups = blockDim.x / group, g = threadIdx.x / group;
+    for (int e = first + g; e < last; e += groups) {
+        const int f = entries[3 * e], off = entries[3 * e + 1];
+        copy_span(dst(f) + off, src(f) + off, entries[3 * e + 2], threadIdx.x % group, group);
+    }
 }

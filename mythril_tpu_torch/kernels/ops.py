@@ -40,9 +40,11 @@ the chunk (three launches a step, four with the batch runner's freeze
 gate, after the chunk's mirror). K12 counts one per pass (a plan launch
 and a move launch).
 
-K4's (with K2's and K1's), K10's and K11's parameter blocks and scratch are
-built once for a set of tensors (keyed on their data pointers, shapes and
-dtypes, and the few static arguments) and reused while the key holds. A
+K2's (with K1's, eager or inside K4's step), K4's, K7's, K10's and K11's
+parameter blocks and scratch are built once for a set of tensors (keyed
+on their data pointers, shapes and dtypes, and the few static arguments)
+and reused while the key holds; a K7 gather allocates one flat buffer a
+call and returns its leaf views. A
 chunk of K4 steps (`run_chunk_graph`) and a chunk of K11 steps are each
 captured as one CUDA graph per key and replayed, adding the captured
 launches to `LAUNCHES` on every replay; `REPLAYS` counts the replays and
@@ -53,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from collections import OrderedDict
 from typing import Dict, Optional
 
@@ -60,6 +63,7 @@ import numpy as np
 import torch
 
 from . import build, layout as Lay
+from ..parallel.batch import row_layout, row_views
 from ..parallel.device_solver import TILE
 from ..parallel.symstep import (MAX_TEL_SLOTS, MERGE_STATS_FIXED,
                                 N_MERGE_DEPTH, n_segments)
@@ -81,7 +85,7 @@ REPLAYS: Dict[str, int] = {"run_chunk": 0, "captures": 0, "sat_chunk": 0,
 #: which source each exported entry point lives in
 _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_keccak_preload": "keccak",
               "mtpu_sha_prep": "evm_step", "mtpu_evm_step": "evm_step",
-              "mtpu_evm_preload": "evm_step", "mtpu_arena_alloc": "arena_alloc",
+              "mtpu_evm_step_grid": "evm_step", "mtpu_evm_preload": "evm_step", "mtpu_arena_alloc": "arena_alloc",
               "mtpu_sym_pre": "sym_step", "mtpu_sym_post": "sym_step",
               "mtpu_sym_pre_tel": "sym_step", "mtpu_sym_post_tel": "sym_step",
               "mtpu_sym_preload": "sym_step",
@@ -286,13 +290,31 @@ def _k2_launch(k2, k1) -> None:
     LAUNCHES["evm_step"] += 1
 
 
+_K2_PLANS: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
 def evm_step(state, force_escape: Optional[torch.Tensor] = None,
              force_fork: Optional[torch.Tensor] = None):
     """K2 (with K1 for SHA3 lanes): one instruction for every lane, in
-    place. Returns the same StateBatch."""
-    k2, k1, _ = _k2_blocks(state, force_escape, force_fork)
+    place. Its parameter blocks and SHA3 scratch are built once for a set
+    of tensors (keyed on their data pointers, shapes and dtypes) and reused
+    while the key holds. Returns the same StateBatch."""
+    _check(state.stack, "state.stack", torch.int32)
+    key = tuple((t.data_ptr(), t.shape, t.dtype) for t in state) + tuple(
+        None if m is None else (m.data_ptr(), m.shape, m.dtype)
+        for m in (force_escape, force_fork))
+    k2, k1, _ = _remember(_K2_PLANS, key, lambda: _k2_blocks(
+        state, force_escape, force_fork), limit=8)
     _k2_launch(k2, k1)
     return state
+
+
+def evm_step_grid() -> tuple:
+    """(blocks, threads) of the last `evm_step_kernel` launch, as that
+    launch recorded them."""
+    out = (ctypes.c_longlong * 2)()
+    _call("mtpu_evm_step_grid", out)
+    return int(out[0]), int(out[1])
 
 
 # ---- K3 -----------------------------------------------------------------------------
@@ -794,52 +816,95 @@ def reset_esc(sched):
 
 # ---- K7 -----------------------------------------------------------------------------
 
-def _rows_call(entry: str, src_trees, dst_trees, index, src_rows, dst_rows):
-    leaves_src = [leaf for tree in src_trees for leaf in tree]
-    leaves_dst = [leaf for tree in dst_trees for leaf in tree]
+class _RowsPlan:
+    """K7's parameter blocks for one set of lane rows and a gather or
+    scatter of `n` rows: the checked lane leaves, the flat block's layout
+    (`batch.row_layout`), the row copy plan and its grid."""
+
+    def __init__(self, state, planes, n: int):
+        rows = state.status.shape[0]
+        leaves = list(state) + list(planes)
+        values = [0] * Lay.K7_NARGS
+        values[Lay.K7_LANE:Lay.K7_LANE + Lay.N_ROW_LEAVES] = (
+            _leaf_ptrs(state, _STATE_DTYPES, rows, "rows")
+            + _leaf_ptrs(planes, _PLANE_DTYPES, rows, "rows"))
+        row_bytes = [math.prod(leaf.shape[1:]) * leaf.element_size()
+                     for leaf in leaves]
+        self.slabs, self.total = row_layout(leaves, n)
+        values[Lay.K7_SLAB:Lay.K7_SLAB + Lay.N_ROW_LEAVES] = [
+            offset * leaf.element_size()
+            for (_, _, _, offset), leaf in zip(self.slabs, leaves)]
+        values[Lay.K7_ROW_BYTES:Lay.K7_ROW_BYTES + Lay.N_ROW_LEAVES] = row_bytes
+        dev = state.status.device
+        self.entries, self.items = _copy_plan(row_bytes, dev)
+        n_items = self.items.shape[0] - 1
+        for slot, value in ((Lay.K7_N, n), (Lay.K7_ROWS, rows),
+                            (Lay.K7_ENTRIES, self.entries.data_ptr()),
+                            (Lay.K7_ITEMS, self.items.data_ptr()),
+                            (Lay.K7_N_ITEMS, n_items)):
+            values[slot] = value
+        self.n_state = len(state)
+        #: (dtype, shape, device) a scatter's source leaves must have
+        self.row_sig = [(dtype, shape, dev) for dtype, shape, _, _ in self.slabs]
+        self.blocks = n * n_items
+        self.gather = _block("mtpu_gather_rows", values)
+        self.scatter = _block("mtpu_scatter_rows", values)
+        self.device = dev
+
+
+_ROWS_PLANS: "OrderedDict[tuple, _RowsPlan]" = OrderedDict()
+
+
+def rows_plan(state, planes, index: torch.Tensor) -> _RowsPlan:
+    """K7's cached plan for these lane rows and `index` (built on a miss)."""
     n = index.shape[0]
-    values = [0] * Lay.K7_NARGS
-    values[Lay.K7_SRC:Lay.K7_SRC + Lay.N_ROW_LEAVES] = (
-        _leaf_ptrs(src_trees[0], _STATE_DTYPES, src_rows, "src")
-        + _leaf_ptrs(src_trees[1], _PLANE_DTYPES, src_rows, "src"))
-    values[Lay.K7_DST:Lay.K7_DST + Lay.N_ROW_LEAVES] = (
-        _leaf_ptrs(dst_trees[0], _STATE_DTYPES, dst_rows, "dst")
-        + _leaf_ptrs(dst_trees[1], _PLANE_DTYPES, dst_rows, "dst"))
-    for position, (src, dst) in enumerate(zip(leaves_src, leaves_dst)):
-        if src.shape[1:] != dst.shape[1:] or src.dtype != dst.dtype:
-            raise ValueError("source and destination rows differ")
-        values[Lay.K7_ROW_BYTES + position] = \
-            int(np.prod(src.shape[1:])) * src.element_size()
-    values[Lay.K7_INDEX] = _check(index, "index", torch.int32, (n,))
-    values[Lay.K7_N] = n
-    values[Lay.K7_SRC_ROWS] = src_rows
-    values[Lay.K7_DST_ROWS] = dst_rows
-    _launch(entry, values)
+    if n == 0:
+        raise ValueError("index: no rows selected")
+    _check(index, "index", torch.int32, (n,))
+    key = tuple((t.data_ptr(), t.shape, t.dtype)
+                for t in list(state) + list(planes)) + (n,)
+    return _remember(_ROWS_PLANS, key, lambda: _RowsPlan(state, planes, n),
+                     limit=8)
+
+
+def gather_rows_flat(state, planes, index: torch.Tensor):
+    """K7 gather into one new flat uint8 buffer: the rows of `index` of
+    every leaf, leaf-major as `batch.row_layout` lays them out (an
+    out-of-range index clamps). Returns (buffer, plan); `plan.slabs` gives
+    the leaf views (`batch.row_views`)."""
+    plan = rows_plan(state, planes, index)
+    flat = torch.empty(plan.total, dtype=torch.uint8, device=plan.device)
+    plan.gather[Lay.K7_INDEX] = index.data_ptr()
+    plan.gather[Lay.K7_BASE] = flat.data_ptr()
+    _call("mtpu_gather_rows", plan.gather)
     LAUNCHES["gather_rows"] += 1
+    return flat, plan
 
 
 def gather_rows(state, planes, index: torch.Tensor):
     """K7 gather: the rows of `index` of every leaf, as new (StateBatch,
-    SymPlanes)."""
-    n = index.shape[0]
-    if n == 0:
-        raise ValueError("index: no rows selected")
-    rows = [type(tree)(*[torch.empty((n,) + tuple(leaf.shape[1:]),
-                                     dtype=leaf.dtype, device=leaf.device)
-                         for leaf in tree]) for tree in (state, planes)]
-    _rows_call("mtpu_gather_rows", (state, planes), rows, index,
-               state.status.shape[0], n)
-    return rows[0], rows[1]
+    SymPlanes) whose leaves are contiguous views of one flat buffer."""
+    flat, plan = gather_rows_flat(state, planes, index)
+    views = row_views(flat, plan.slabs)
+    return (type(state)(*views[:plan.n_state]),
+            type(planes)(*views[plan.n_state:]))
 
 
 def scatter_rows(state, planes, index: torch.Tensor, rows_state, rows_planes):
     """K7 scatter: row i of (rows_state, rows_planes) to lane index[i] of
-    every leaf, in place; indices outside [0, lanes) are dropped."""
-    n = index.shape[0]
-    if n == 0:
-        raise ValueError("index: no rows selected")
-    _rows_call("mtpu_scatter_rows", (rows_state, rows_planes), (state, planes),
-               index, n, state.status.shape[0])
+    every leaf, in place; indices outside [0, lanes) are dropped. The rows
+    may be any contiguous tensors of the lanes' row shapes and dtypes (a
+    gather's views, or separate leaves)."""
+    plan = rows_plan(state, planes, index)
+    leaves = list(rows_state) + list(rows_planes)
+    if [(leaf.dtype, tuple(leaf.shape), leaf.device) for leaf in leaves] \
+            != plan.row_sig or not all(leaf.is_contiguous() for leaf in leaves):
+        raise ValueError("scatter_rows: the rows do not match the lane rows")
+    plan.scatter[Lay.K7_INDEX] = index.data_ptr()
+    plan.scatter[Lay.K7_SLAB:Lay.K7_SLAB + Lay.N_ROW_LEAVES] = [
+        leaf.data_ptr() for leaf in leaves]
+    _call("mtpu_scatter_rows", plan.scatter)
+    LAUNCHES["gather_rows"] += 1
     return state, planes
 
 

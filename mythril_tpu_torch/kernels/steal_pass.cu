@@ -21,8 +21,9 @@
 //               updates the tops, steals_sent, steals_received and
 //               steal_rows in place.
 //   steal_move  one block per move-list slot: a listed row's 46 leaves
-//               from the donor's row to the receiver's, 16-byte copies
-//               where both ends allow, as K7's rows. The JAX pass round
+//               from the donor's row to the receiver's with common.cuh's
+//               `copy_bytes` (16-byte accesses where both ends allow, as
+//               K4's and K7's rows). The JAX pass round
 //               trips the rows through the steal-row codec, which is the
 //               identity on every field it carries (its own codec test),
 //               so the kernel moves the bytes; the plain twin keeps the
@@ -34,33 +35,6 @@
 // slot with no move exits at once; the moves of one pass are at most
 // D/2 * max_rows blocks, each copying a whole row.
 #include "common.cuh"
-
-namespace {
-
-struct alignas(16) Vec16 {
-    uint32_t x, y, z, w;
-};
-
-template <class T>
-__device__ __forceinline__ void copy_as(uint8_t* dst, const uint8_t* src,
-                                        long long bytes) {
-    T* d = reinterpret_cast<T*>(dst);
-    const T* s = reinterpret_cast<const T*>(src);
-    const long long count = bytes / static_cast<long long>(sizeof(T));
-    for (long long j = threadIdx.x; j < count; j += blockDim.x) d[j] = s[j];
-}
-
-__device__ __forceinline__ void copy_bytes(uint8_t* dst, const uint8_t* src,
-                                           long long bytes) {
-    const uintptr_t bits = reinterpret_cast<uintptr_t>(dst)
-                           | reinterpret_cast<uintptr_t>(src)
-                           | static_cast<uintptr_t>(bytes);
-    if ((bits & 15) == 0) copy_as<Vec16>(dst, src, bytes);
-    else if ((bits & 3) == 0) copy_as<uint32_t>(dst, src, bytes);
-    else copy_as<uint8_t>(dst, src, bytes);
-}
-
-}  // namespace
 
 __global__ void steal_plan_kernel(Args a) {
     __shared__ int load[1024], top[1024], order[1024], moved[512];

@@ -228,28 +228,6 @@ __device__ __forceinline__ int table_share(const int32_t* keys, const uint8_t* u
     return NO_SLOT;
 }
 
-struct alignas(16) Vec16 {
-    uint32_t x, y, z, w;
-};
-
-template <class T>
-__device__ __forceinline__ void copy_as(uint8_t* dst, const uint8_t* src, long long bytes) {
-    T* d = reinterpret_cast<T*>(dst);
-    const T* s = reinterpret_cast<const T*>(src);
-    const long long count = bytes / static_cast<long long>(sizeof(T));
-    for (long long j = threadIdx.x; j < count; j += blockDim.x) d[j] = s[j];
-}
-
-// the block copies `bytes` with the widest access both ends and the length allow
-__device__ __forceinline__ void copy_bytes(uint8_t* dst, const uint8_t* src, long long bytes) {
-    const uintptr_t bits = reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)
-                           | static_cast<uintptr_t>(bytes);
-    if ((bits & 15) == 0) copy_as<Vec16>(dst, src, bytes);
-    else if ((bits & 7) == 0) copy_as<unsigned long long>(dst, src, bytes);
-    else if ((bits & 3) == 0) copy_as<uint32_t>(dst, src, bytes);
-    else copy_as<uint8_t>(dst, src, bytes);
-}
-
 __device__ __forceinline__ ArenaRef arena_of(const Args& a) {
     return {arg_ptr<int32_t>(a, K4_AR_OP), arg_ptr<int32_t>(a, K4_AR_A),
             arg_ptr<int32_t>(a, K4_AR_B), arg_ptr<int32_t>(a, K4_AR_C),
@@ -363,13 +341,12 @@ __global__ void sym_move_kernel(Args a) {
         const long long src_row = move_row(a, MV_SRC_ROW)[m];
         long long dst_row = move_row(a, MV_DST_ROW)[m];
         if (move_row(a, MV_DST_MAPPED)[m]) dst_row = arg_ptr<const int>(a, K4_DEAD_MAP)[dst_row];
-        for (int e = items[item]; e < items[item + 1]; ++e) {
-            const int f = entries[3 * e];
-            const long long rb = a.v[K4_ROW_BYTES + f], off = entries[3 * e + 1];
-            copy_bytes(arg_ptr<uint8_t>(a, dst_base + f) + dst_row * rb + off,
-                       arg_ptr<const uint8_t>(a, src_base + f) + src_row * rb + off,
-                       entries[3 * e + 2]);
-        }
+        copy_item(
+            entries, items, item,
+            [&](int f) { return arg_ptr<uint8_t>(a, dst_base + f) + dst_row * a.v[K4_ROW_BYTES + f]; },
+            [&](int f) {
+                return arg_ptr<const uint8_t>(a, src_base + f) + src_row * a.v[K4_ROW_BYTES + f];
+            });
         if (phase == PH_SEED) continue;
         __syncthreads();
         if (threadIdx.x != 0) continue;

@@ -1,5 +1,5 @@
 // 256-bit EVM word arithmetic as __device__ functions (port of
-// mythril_tpu/parallel/words.py:31-400, inlined into kernel K2).
+// mythril_tpu/parallel/words.py:31-400, used by kernels K2 and K10).
 //
 // Inside a thread a word is 8 little-endian 32-bit limbs (`W`) with native
 // carries through 64-bit products; at every memory boundary it is the JAX
@@ -338,4 +338,18 @@ __device__ __forceinline__ uint8_t limbs16_be_byte(const uint32_t* limbs,
     int from_lsb = 31 - k;
     uint32_t limb = limbs[from_lsb / 2];
     return static_cast<uint8_t>((from_lsb & 1) ? (limb >> 8) : limb);
+}
+
+// stored 16-bit limb i of a word (limb i of w_to16); i may differ between
+// threads, so the limb is selected, not indexed (the word stays in
+// registers)
+__device__ __forceinline__ uint32_t w_limb16(const W& w, int i) {
+    uint32_t limb = 0;
+    for (int k = 0; k < 8; ++k) limb = k == i / 2 ? w.l[k] : limb;
+    return (limb >> (16 * (i & 1))) & 0xFFFFu;
+}
+
+// stored 16-bit limb i of 32 big-endian bytes (limb i of limbs16_from_be)
+__device__ __forceinline__ uint32_t be_limb16(const uint8_t* bytes, int i) {
+    return bytes[31 - 2 * i] | (static_cast<uint32_t>(bytes[30 - 2 * i]) << 8);
 }

@@ -9,6 +9,7 @@ pytrees between the two packages."""
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -134,6 +135,40 @@ def to_tensor(array: np.ndarray, device) -> torch.Tensor:
     if array.dtype == np.uint32:
         array = array.view(np.int32)
     return torch.from_numpy(array).to(device)
+
+
+#: alignment of each leaf's slab in a flat row block
+ROW_SLAB_ALIGN = 16
+
+
+def row_layout(leaves, n: int):
+    """The flat block of `n` full rows of `leaves` (tensors with the lane
+    axis first), leaf-major, each leaf's slab 16-byte aligned: ([(dtype,
+    shape, strides, element offset)] per leaf, total bytes)."""
+    slabs, offset = [], 0
+    for leaf in leaves:
+        shape = (n,) + tuple(leaf.shape[1:])
+        strides = [1]
+        for dim in reversed(shape[1:]):
+            strides.insert(0, strides[0] * dim)
+        size = leaf.element_size()
+        slabs.append((leaf.dtype, shape, tuple(strides), offset // size))
+        nbytes = math.prod(shape) * size
+        offset += -(-nbytes // ROW_SLAB_ALIGN) * ROW_SLAB_ALIGN
+    return slabs, offset
+
+
+def row_views(flat: torch.Tensor, slabs) -> list:
+    """The contiguous leaf views of a flat uint8 row block laid out by
+    `row_layout`."""
+    typed = {}
+    views = []
+    for dtype, shape, strides, offset in slabs:
+        view = typed.get(dtype)
+        if view is None:
+            view = typed[dtype] = flat.view(dtype).as_strided
+        views.append(view(shape, strides, offset))
+    return views
 
 
 def _jumpdest_bitmap(code: bytes, capacity: int) -> np.ndarray:

@@ -32,7 +32,7 @@ PyTorch twins (`*_reference`) on CPU tensors:
 
   K5 `summary`                          kernels/frontier_summary.cu
   K6 `row_maxima`, `pack_rows`, `reset_esc`  kernels/pack_rows.cu
-  K7 `gather_rows`, `scatter_rows`      kernels/gather_rows.cu
+  K7 `gather_rows(_flat)`, `scatter_rows`  kernels/gather_rows.cu
   K8 `arena.fetch_delta`                kernels/arena_delta.cu
   K10 `symstep.merge_pass`              kernels/merge_pass.cu
   K12 `steal_pass`                      kernels/steal_pass.cu
@@ -60,8 +60,8 @@ from .. import device as _device
 from . import arena as A
 from . import symstep, words
 from .batch import (DEAD, ESCAPED, FORKING, RUNNING, U32_FIELDS, LaneSpec,
-                    StateBatch, build_batch, next_pow2, shard_count,
-                    to_tensor)
+                    StateBatch, build_batch, next_pow2, row_layout,
+                    row_views, shard_count)
 from .symstep import SymPlanes
 
 I32 = torch.int32
@@ -401,6 +401,24 @@ def gather_rows(state, planes, index):
     return gather_rows_reference(state, planes, index)
 
 
+def gather_rows_flat(state, planes, index):
+    """Row gather into one flat uint8 buffer laid out by
+    `batch.row_layout`: kernel K7 on CUDA tensors, the twin's rows copied
+    into such a buffer on the CPU. Returns (buffer, slabs)."""
+    if state.status.is_cuda:
+        from ..kernels import ops
+
+        flat, plan = ops.gather_rows_flat(state, planes, index)
+        return flat, plan.slabs
+    leaves = list(state) + list(planes)
+    slabs, total = row_layout(leaves, index.shape[0])
+    flat = torch.zeros(total, dtype=torch.uint8)
+    rows = gather_rows_reference(state, planes, index)
+    for view, block in zip(row_views(flat, slabs), list(rows[0]) + list(rows[1])):
+        view.copy_(block)
+    return flat, slabs
+
+
 def scatter_rows(state, planes, index, rows_state, rows_planes):
     """Row scatter, in place: kernel K7 on CUDA tensors, the twin on the
     CPU."""
@@ -487,21 +505,6 @@ def pack_widths(state_like, planes_like, msize_m: int, sp_m: int, st_m: int,
             quantize(sp_m, (4, 16), state_like.stack.shape[1]),
             quantize(st_m, (1, 8), state_like.storage_keys.shape[1]),
             quantize(conds_m, (16,), planes_like.conds.shape[1]))
-
-
-def _rows_to_numpy(rows_state: StateBatch, rows_planes: SymPlanes):
-    """Full row blocks -> ({field: numpy}, {field: numpy}) in the JAX
-    package's dtypes, with one wait for all the copies."""
-    hosts, event = _device.start_host_copy(list(rows_state)
-                                           + list(rows_planes))
-    _device.wait_host_copy(event)
-    arrays = [host.numpy() for host in hosts]
-    n_state = len(StateBatch._fields)
-    state_np = {field: (array.view(np.uint32) if field in U32_FIELDS
-                        else array)
-                for field, array in zip(StateBatch._fields, arrays)}
-    planes_np = dict(zip(SymPlanes._fields, arrays[n_state:]))
-    return state_np, planes_np
 
 
 def deferred_digest(deferred) -> str:
@@ -1050,13 +1053,21 @@ class DeviceFrontier:
             self.deferred.append([rows_state, rows_planes, count, 0])
 
     def _spill_host(self, state, planes, status, lanes: List[int]) -> None:
-        """Full rows of `lanes` to the host overflow tier (frontier.py:1726);
-        the lanes go DEAD on the host."""
+        """Full rows of `lanes` to the host overflow tier (frontier.py:1726):
+        one gather into a flat buffer and one copy of it to the host; the
+        lanes go DEAD on the host."""
         index = np.asarray(lanes, dtype=np.int64)
         padded = np.full(next_pow2(len(index)), index[0], dtype=np.int64)
         padded[:len(index)] = index
-        rows_state, rows_planes = _rows_to_numpy(
-            *gather_rows(state, planes, self._index(padded)))
+        flat, slabs = gather_rows_flat(state, planes, self._index(padded))
+        hosts, event = _device.start_host_copy([flat])
+        _device.wait_host_copy(event)
+        arrays = [view.numpy() for view in row_views(hosts[0], slabs)]
+        n_state = len(StateBatch._fields)
+        rows_state = {field: (array.view(np.uint32) if field in U32_FIELDS
+                              else array)
+                      for field, array in zip(StateBatch._fields, arrays)}
+        rows_planes = dict(zip(SymPlanes._fields, arrays[n_state:]))
         for row in range(len(index)):
             self.pending.append((
                 {field: rows_state[field][row] for field in rows_state},
@@ -1067,7 +1078,9 @@ class DeviceFrontier:
     def _reseed_host(self, state, planes, status):
         """Pending rows into DEAD lanes, deepest first (fewest conditions
         last in a stable sort, popped from the end); each lane resumes with
-        its row's own status (frontier.py:1750)."""
+        its row's own status (frontier.py:1750). The rows are laid out in
+        one flat host buffer (pinned on the card), copied to the device at
+        once and scattered from its leaf views."""
         count = min(int(np.sum(status == DEAD)), len(self.pending))
         if not count:
             return state, planes
@@ -1077,21 +1090,19 @@ class DeviceFrontier:
         bucket = next_pow2(count)
         index = np.full(bucket, self.n_lanes, dtype=np.int32)  # pad: drop
         index[:count] = lanes
-
-        def block(fields, part):
-            out = []
-            for field in fields:
-                rows = np.stack([entry[part][field] for entry in take])
-                if bucket != count:
-                    rows = np.concatenate([rows, np.zeros(
-                        (bucket - count,) + rows.shape[1:], dtype=rows.dtype)])
-                out.append(to_tensor(rows, self.device))
-            return out
-
+        slabs, total = row_layout(list(state) + list(planes), bucket)
+        host = torch.zeros(total, dtype=torch.uint8,
+                           pin_memory=state.status.is_cuda)
+        fields = [(0, field) for field in StateBatch._fields] \
+            + [(1, field) for field in SymPlanes._fields]
+        for (part, field), view in zip(fields, row_views(host, slabs)):
+            rows = np.stack([entry[part][field] for entry in take])
+            view.numpy().view(rows.dtype)[:count] = rows
+        views = row_views(host.to(self.device, non_blocking=True), slabs)
+        n_state = len(StateBatch._fields)
         state, planes = scatter_rows(
             state, planes, self._index(index),
-            StateBatch(*block(StateBatch._fields, 0)),
-            SymPlanes(*block(SymPlanes._fields, 1)))
+            StateBatch(*views[:n_state]), SymPlanes(*views[n_state:]))
         for position, lane in enumerate(lanes):
             status[lane] = int(take[position][0]["status"])
         self.reseeded += count

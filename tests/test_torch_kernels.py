@@ -31,6 +31,7 @@ from mythril_tpu_torch.parallel import convert, device_solver as tds
 from mythril_tpu_torch.parallel import keccak as tk
 from mythril_tpu_torch.parallel import lockstep as tl
 from mythril_tpu_torch.parallel import symstep as ts
+from mythril_tpu_torch.parallel import words as tw
 
 SHIM = os.path.join(os.path.dirname(__file__), "_host_shim.h")
 
@@ -583,3 +584,245 @@ def test_host_steal_pass_matches_twin(on_host):
         ops.steal_pass(to_port("state", state), kernel, min_imbalance,
                        max_rows)
         _same(kernel, plain, case)
+
+
+# ---- K2's parity hazards: one block (a warp on the card) per lane ---------------------
+
+def _word(value: int) -> str:
+    return f"PUSH32 0x{value % (1 << 256):064x}"
+
+
+def _pattern(n_words: int, seed: int) -> list:
+    """MSTOREs of n_words random words at 0, 32, ..."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for k in range(n_words):
+        lines += [_word(int.from_bytes(rng.bytes(32), "big")),
+                  f"PUSH2 0x{32 * k:04x}", "MSTORE"]
+    return lines
+
+
+def _op3(op: str, a: int, b: int = 0, c: int = 0) -> list:
+    """Push c, b, a (a on top) and run `op`."""
+    return [_word(c), _word(b), _word(a), op]
+
+
+def _lane(lines, **kw) -> tb.LaneSpec:
+    return tb.LaneSpec(assemble("\n".join(lines)), gas_limit=10_000_000, **kw)
+
+
+def _set_slot(state, field: str, lane: int, slot: int, key: int,
+              value: int) -> None:
+    keys = getattr(state, f"{field}_keys")
+    vals = getattr(state, f"{field}_vals")
+    keys[lane, slot] = torch.from_numpy(
+        tw.from_int(key).view(np.int32).copy())
+    vals[lane, slot] = torch.from_numpy(
+        tw.from_int(value).view(np.int32).copy())
+    getattr(state, f"{field}_used")[lane, slot] = True
+
+
+def _k2_mcopy():
+    base = _pattern(3, 1)  # msize 96
+    specs = [_lane(base + _op3("MCOPY", 0x10, 0x00, 0x80) + ["STOP"]),
+             _lane(base + _op3("MCOPY", 0x00, 0x28, 0x64) + ["STOP"]),
+             _lane(base + _op3("MCOPY", 0x30, 0x08, 0x200)
+                   + _op3("MCOPY", 0x00, 0x02, 0x201)),
+             _lane(base + _op3("MCOPY", 0x40, 0x40, 0x40)
+                   + _op3("MCOPY", 0x41, 0x21, 0x1ff) + ["STOP"])]
+    return tb.build_batch(specs, device="cpu"), None, 20
+
+
+def _k2_copies():
+    calldata = bytes(range(130))
+    specs = [_lane(_op3("CALLDATACOPY", 0x00, 100, 512) + ["STOP"],
+                   calldata=calldata),
+             _lane(_op3("CODECOPY", 0x100, 3, 512) + ["STOP"]),
+             _lane(_op3("CALLDATACOPY", 0x08, (1 << 256) - 1, 512) + ["STOP"],
+                   calldata=calldata),
+             _lane(_op3("CODECOPY", 3800, 0, 512) + ["STOP"]),
+             _lane(_op3("RETURNDATACOPY", 0x00, 0, 64) + ["STOP"]),
+             _lane(_op3("CALLDATACOPY", 0x00, 0, 513) + ["STOP"],
+                   calldata=calldata)]
+    return tb.build_batch(specs, device="cpu"), None, 8
+
+
+def _k2_return():
+    base = _pattern(4, 2)
+    specs = [_lane(base + [_word(512), _word(0), "RETURN"]),
+             _lane(base + [_word(513), _word(0), "RETURN"]),
+             _lane(base + [_word(300), _word(100), "REVERT"]),
+             _lane(base + [_word(200), _word(4000), "RETURN"]),
+             _lane(base + [_word(0), _word(1 << 40), "RETURN"])]
+    return tb.build_batch(specs, device="cpu"), None, 20
+
+
+def _k2_sload_two():
+    specs = [_lane(["PUSH1 0x05", "SLOAD", "PUSH1 0x09", "SLOAD",
+                    "PUSH1 0x0b", "SLOAD", "PUSH1 0x07", "TLOAD", "STOP"],
+                   storage={5: (1 << 256) - 1, 9: 0xBEEF})] * 2
+    state = tb.build_batch(specs, device="cpu")
+    _set_slot(state, "storage", 0, 40, 5, 0xFFFF_0001 << 200 | 0xFFFF)
+    _set_slot(state, "storage", 1, 32, 5, 12345)  # slot 0's thread
+    for lane, slots in ((0, (1, 6)), (1, (0, 7))):
+        for slot in slots:
+            _set_slot(state, "tstore", lane, slot, 7, 0xFFFF << 16 * slot)
+    return state, None, 9
+
+
+def _k2_sstore_free():
+    table = {100 + k: k for k in range(64)}
+    specs = [_lane(_op3("SSTORE", 7, 0xAB) + ["STOP"], storage=table),
+             _lane(_op3("SSTORE", 8, 0xCD) + ["STOP"], storage=table),
+             _lane(_op3("SSTORE", 9, 0xEF) + ["STOP"], storage=table),
+             _lane(_op3("TSTORE", 3, 0x11) + _op3("TSTORE", 4, 0x22)
+                   + ["STOP"])]
+    state = tb.build_batch(specs, device="cpu")
+    for lane in (0, 1):
+        state.storage_used[lane, 3] = False
+        state.storage_used[lane, 37] = False
+        _set_slot(state, "storage", lane, 45, 7, 1)
+    state.storage_used[2, 33:35] = False  # free slots on threads 1 and 2
+    for slot in (0, 1, 2, 3, 4, 6, 7):
+        _set_slot(state, "tstore", 3, slot, 50 + slot, slot)
+    _set_slot(state, "tstore", 3, 6, 3, 0x99)
+    return state, None, 8
+
+
+def _k2_full():
+    table = {100 + k: k for k in range(64)}
+    specs = [_lane(_op3("SSTORE", 7, 1) + ["STOP"], storage=table),
+             _lane(_op3("SSTORE", 163, 1) + ["STOP"], storage=table),
+             _lane(_op3("TSTORE", 9, 1) + ["STOP"])]
+    state = tb.build_batch(specs, device="cpu")
+    for slot in range(8):
+        _set_slot(state, "tstore", 2, slot, 20 + slot, slot)
+    return state, None, 6
+
+
+def _k2_arith():
+    rng = np.random.default_rng(11)
+    loop = ["PUSH1 0x00", "JUMPDEST", "PUSH1 0x01", "ADD", "DUP1",
+            "PUSH1 0x0c", "GT", "PUSH1 0x02", "JUMPI", "STOP"]
+    specs = []
+    for position, op in enumerate(("DIV", "SDIV", "MOD", "SMOD", "ADDMOD",
+                                   "MULMOD", "EXP", "SIGNEXTEND", "DIV",
+                                   "MULMOD")):
+        a, b, c = (int.from_bytes(rng.bytes(32), "big") >> int(rng.integers(0, 250))
+                   for _ in range(3))
+        if position >= 8:
+            b = c = 0  # by zero
+        specs.append(_lane(_op3(op, a, b, c) + ["PUSH1 0x00", "MSTORE",
+                                                "STOP"]))
+        specs.append(_lane(loop))
+    return tb.build_batch(specs, device="cpu"), None, 48
+
+
+def _k2_forced():
+    specs = mixed_specs(6) + [tb.LaneSpec(BENCH_LOOP, gas_limit=2 ** 60)] * 3
+    n = len(specs)
+    rng = np.random.default_rng(5)
+    masks = [(torch.from_numpy(rng.random(n) < 0.3),
+              torch.from_numpy(rng.random(n) < 0.2)) for _ in range(6)]
+    return tb.build_batch(specs, device="cpu"), masks, 6
+
+
+#: the twin's final statuses: each fixture reaches its escapes and halts
+K2_FINAL = {"mcopy": [1, 1, 5, 1], "copies": [1, 1, 1, 5, 1, 5],
+            "return": [2, 5, 3, 5, 2], "sload_two": [1, 1],
+            "sstore_free": [1, 1, 1, 0], "full": [5, 1, 5],
+            "arith": [1, 0] * 10, "forced": [6, 5, 6, 5, 5, 5, 5, 5, 5]}
+
+K2_HAZARDS = {"mcopy": _k2_mcopy, "copies": _k2_copies, "return": _k2_return,
+              "sload_two": _k2_sload_two, "sstore_free": _k2_sstore_free,
+              "full": _k2_full, "arith": _k2_arith, "forced": _k2_forced}
+
+
+@pytest.mark.parametrize("case", sorted(K2_HAZARDS))
+def test_host_evm_step_hazards_match_twin(on_host, case):
+    """K2 (a block a lane) against `step_reference` after every step on
+    one fixture per parity hazard: MCOPY overlapping both ways across the
+    old msize, 512-byte copies past the buffer and past M, RETURN of R and
+    R + 1 bytes, SLOAD/TLOAD over two matching slots, SSTORE/TSTORE with a
+    free slot before the match, full tables, the heavy families beside
+    PUSH/JUMPI lanes, forced escape and fork lanes."""
+    plain, masks, steps = K2_HAZARDS[case]()
+    kernel = convert.clone(plain)
+    for step in range(steps):
+        forced = masks[step] if masks else (None, None)
+        plain = tl.step_reference(plain, *forced)
+        ops.evm_step(kernel, *forced)
+        _same(kernel, plain, f"{case} step {step}")
+    assert plain.status.tolist() == K2_FINAL[case]
+    assert ops.evm_step_grid() == (len(K2_FINAL[case]), 32)  # a block a lane
+    if case == "sstore_free":  # match over an earlier free slot, else the free
+        assert [int(np.nonzero(plain.storage_vals[lane, :, 0] == v)[0][0])
+                for lane, v in ((0, 0xAB), (1, 0xCD), (2, 0xEF))] == [45, 3, 33]
+        assert [int(plain.tstore_vals[3, slot, 0]) for slot in (5, 6)] \
+            == [0x22, 0x11]
+
+
+# ---- K7: one copy plan, one flat buffer a gather ------------------------------------
+
+def _k7_lanes():
+    from test_torch_symstep import CODES as codes
+
+    state, planes, arena = seed_frontier(codes, 8, base_sym=[0])
+    sched = jsym.new_scheduler(state, planes, 4, 6)
+    tree = [to_port(k, t) for k, t in zip(("state", "planes", "arena", "sched"),
+                                          (state, planes, arena, sched))]
+    state, planes = ts.run_chunk_reference(*tree, 12)[:2]
+    state.pc.copy_(torch.arange(8, dtype=torch.int32) * 7)  # distinct rows
+    return state, planes
+
+
+@pytest.mark.parametrize("case", ["clamped", "dropped", "no_alias", "views"])
+def test_host_gather_scatter_rows(on_host, case):
+    """K7 against its twins: a gather with negative and past-the-end
+    indices (clamped), a scatter with dropped pads, two gathers whose
+    results do not alias, and leaf views that are contiguous, carry the
+    twin's dtypes and shapes and lie in one buffer."""
+    from mythril_tpu_torch.parallel import frontier as tf
+
+    state, planes = _k7_lanes()
+    index = torch.tensor([-3, 0, 7, 100, 5, 2], dtype=torch.int32)
+    got = ops.gather_rows(state, planes, index)
+    ref = tf.gather_rows_reference(state, planes, index)
+    _same(got[0], ref[0], "gather state")
+    _same(got[1], ref[1], "gather planes")
+    leaves = list(got[0]) + list(got[1])
+    if case == "clamped":
+        flat, plan = ops.gather_rows_flat(state, planes, index)
+        assert flat.dtype == torch.uint8 and flat.numel() == plan.total
+        assert plan.blocks == index.shape[0] * (plan.items.shape[0] - 1)
+    elif case == "dropped":
+        target = torch.tensor([2, 8, -1, 5, 1000, 0], dtype=torch.int32)
+        plain = [convert.clone(t) for t in (state, planes)]
+        kernel = [convert.clone(t) for t in (state, planes)]
+        tf.scatter_rows_reference(*plain, target, *ref)
+        ops.scatter_rows(*kernel, target, *got)
+        _same(kernel[0], plain[0], "scatter state")
+        _same(kernel[1], plain[1], "scatter planes")
+        kernel = [convert.clone(t) for t in (state, planes)]
+        ops.scatter_rows(*kernel, target, *ref)  # separate leaves
+        _same(kernel[0], plain[0], "scatter separate leaves")
+    elif case == "no_alias":
+        again = ops.gather_rows(state, planes, index)
+        spans = [(leaf.data_ptr(), leaf.data_ptr() + leaf.numel()
+                  * leaf.element_size()) for leaf in leaves]
+        for leaf in list(again[0]) + list(again[1]):
+            start = leaf.data_ptr()
+            assert all(not lo <= start < hi for lo, hi in spans)
+        for leaf in leaves:
+            leaf.zero_()
+        _same(again[0], ref[0], "second gather state")
+        _same(again[1], ref[1], "second gather planes")
+    else:
+        base = leaves[0].untyped_storage().data_ptr()
+        for leaf, twin in zip(leaves, list(ref[0]) + list(ref[1])):
+            assert leaf.is_contiguous() and leaf.dtype == twin.dtype
+            assert leaf.shape == twin.shape
+            assert leaf.untyped_storage().data_ptr() == base
+            assert leaf.data_ptr() % 16 == 0
+        with pytest.raises(ValueError):
+            ops.scatter_rows(state, planes, index, *ref[::-1])
