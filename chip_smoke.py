@@ -14,7 +14,10 @@ with work stealing (phase 18) and at 2048 lanes (phase 19); then the
 device SAT lane (`device_solver.solve_cnf_device` and
 `solve_cnf_device_batch` on K11) on captured analysis queries at full
 width (phases 21-22). Every phase prints one JSON line; any mismatch
-raises, and the run exits non-zero. Phases:
+raises, and the run exits non-zero. Each frontier* phase drives its
+configuration once more with every summary the loop reads (K5 and its
+copy to the host) held word for word to the twin on the same tensors
+(`summaries_checked`). Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. K1 keccak vs `keccak256_reference`: 4096 random messages of 0..512
@@ -44,11 +47,19 @@ raises, and the run exits non-zero. Phases:
      escape reset, a gather and a scatter of 32 lanes (and with clamped
      indices and dropped pads; K7's grid of row copy items), the arena delta
      of the first drain; each timed beside its twin and, where one exists,
-     the PyTorch call that computes the same function;
+     the PyTorch call that computes the same function; K5's grid as its
+     launch recorded it (more than one block at 1024 escape rows, or the
+     phase fails) and its device time by launch (the grid, the one-block
+     combine); the drain loop's read of the summary (a pageable .cpu())
+     timed in turn with a copy into a pinned buffer waited on by an event;
+     the plan lookups of K5 and of the chunk graph (key against last call);
   8. frontier: `DeviceFrontier(128).run` on the same contract at the
      default budgets until the tree drains (K1-K6 and K8 on the main path);
      its counters and the sha256 digests of its deferred row blocks and of
-     its arena mirror must equal the JAX `_Frontier`'s;
+     its arena mirror must equal the JAX `_Frontier`'s; each chunk's host
+     time split by call (the chunk's enqueue, the steal pass, the summary
+     with its read, the decode, the drain, the rest; every frontier* phase
+     prints the means);
   9. frontier_spill: 16 lanes, 32 stack rows, branchy(10): the deadlock
      spill and the host reseed (K7) run on the card, checked the same way;
      phases 7-9 run with telemetry and merging off, as the JAX references
@@ -86,6 +97,8 @@ raises, and the run exits non-zero. Phases:
      and the sharded frontier's first pass; every pool leaf and counter;
      one pass under `torch.cuda.set_sync_debug_mode("error")`; its time
      beside the twin, the bound and index_select + index_copy_ per leaf;
+     the plan's and the move's grids as the launches recorded them (the
+     moves on a (row slot, copy item) grid);
  18. frontier_shard: `DeviceFrontier(128, n_shards=4)` in the default
      configuration with the default steal knobs on branchy(12) from one
      seed (every path starts in shard 0), held to the JAX `_Frontier`'s
@@ -683,6 +696,42 @@ def event_ms(fn, reps: int, setup=None) -> float:
     return total / reps
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """Median host time of fn() in microseconds over `reps` calls."""
+    spent = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fn()
+        spent.append(time.perf_counter() - start)
+    return float(np.median(spent)) * 1e6
+
+
+def lookup_us(cache, tensors_of, static: tuple) -> dict:
+    """A cached plan's lookup on the host, in microseconds: building its
+    key from the tensors (`key_us`) against the last-call check that
+    `ops._Plans.get` makes first (`last_call_us`), the tensor list built in
+    both. The cache's last call must have had these tensors."""
+    hit = cache.get(tensors_of(), static, lambda: None)
+    if hit is None:
+        raise AssertionError("the plan looked up was not the last call's")
+    return {"tensors": len(tensors_of()),
+            "key_us": host_us(lambda: ops._key(tensors_of(), static)),
+            "last_call_us": host_us(lambda: cache.get(tensors_of(), static,
+                                                      None))}
+
+
+def paired_ms(fns: dict, reps: int, rounds: int = 6) -> dict:
+    """Event time of each of `fns` in ms (as event_ms), taken in turn
+    `rounds` times, the order reversed every other round: each one's
+    median over the rounds and its spread (least and most)."""
+    times = {name: [] for name in fns}
+    for turn in range(rounds):
+        for name in (list(fns) if turn % 2 == 0 else list(fns)[::-1]):
+            times[name].append(event_ms(fns[name], reps))
+    return {name: {"ms": float(np.median(v)), "min_ms": min(v),
+                   "max_ms": max(v)} for name, v in times.items()}
+
+
 def profile_cuda(run, what: str, prepare=None):
     """run() under torch.profiler (CUPTI), after prepare() outside it:
     (prepare's result, run's result, the trace's CUDA events). Now and then
@@ -1264,11 +1313,45 @@ def phase_frontier_programs(dev) -> list:
     if not esc_count:
         raise AssertionError("no escape rows buffered after two chunks")
     records = []
+    # the chunk graph's lookup in run_chunk (the last call's tensors)
+    _, step_static = ops._step_parts(
+        state, planes, arena, sched, ops.LANES_PER_BLOCK, ops.LANE_GROUP)
+    chunk_lookup = lookup_us(
+        ops._GRAPHS, lambda: ops._step_parts(
+            state, planes, arena, sched, ops.LANES_PER_BLOCK,
+            ops.LANE_GROUP)[0], step_static + (CHUNK,))
 
-    # K5: the summary
-    packed = frontier.summary(state, planes, arena, sched)
-    check_same([packed], [frontier.summary_reference(state, planes, arena,
-                                                     sched)], "K5")
+    # K5: the summary, its grid as the launch recorded it, its device time
+    # by launch, and the drain loop's read beside a pinned copy, timed in
+    # turn on one plan
+    ref = frontier.summary_reference(state, planes, arena, sched)
+    packed = frontier.summary(state, planes, arena, sched).clone()
+    check_same([packed], [ref], "K5")
+    grid = ops.frontier_summary_grid()
+    esc_rows = sched.esc_state.status.shape[0]
+    if grid[0] < 2:
+        raise AssertionError(f"K5 at {esc_rows} escape rows launched {grid}")
+    read = frontier.summary_read(state, planes, arena, sched)
+    if not np.array_equal(read, ref.cpu().numpy()):
+        raise AssertionError("K5's read disagrees with its twin")
+    out = frontier.summary(state, planes, arena, sched)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    copied = torch.cuda.Event()
+
+    def pinned_read(_):
+        host.copy_(frontier.summary(state, planes, arena, sched),
+                   non_blocking=True)
+        copied.record()
+        copied.synchronize()
+        return host.numpy()
+
+    if not np.array_equal(pinned_read(None), read):
+        raise AssertionError("K5's pinned read disagrees with its twin")
+    k5_times = device_times(lambda _: frontier.summary(state, planes, arena,
+                                                       sched), 20)
+    k5_split = {name: named_ms(k5_times, (name,))
+                for name in ("frontier_summary_kernel",
+                             "frontier_summary_combine_kernel")}
     live_rows = esc_count
     b_ms, b_by = bound_ms(live_rows * (4 + 4 + 64 + 4) + LANES * 12
                           + (13 + 3 * LANES) * 8 + 6 * 8 + 2 * 4, 0)
@@ -1278,12 +1361,20 @@ def phase_frontier_programs(dev) -> list:
         "replaces": "mythril_tpu/parallel/frontier.py:99", "max_abs_err": 0,
         "ms": event_ms(lambda _: frontier.summary(state, planes, arena,
                                                   sched), 50),
-        "device_ms": device_ms(lambda _: frontier.summary(
-            state, planes, arena, sched), 20),
+        "device_ms": sum(k5_split.values()),
+        "device_ms_by_kernel": k5_split,
         "plain_ms": event_ms(lambda _: frontier.summary_reference(
             state, planes, arena, sched), 20),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "library": "none: no single PyTorch call packs the summary",
+        "escape_rows": esc_rows, "live_rows": live_rows,
+        "grid": {"blocks": grid[0], "threads": grid[1]},
+        "lookup": lookup_us(ops._SUMMARY_PLANS, lambda: ops._summary_tensors(
+            state, planes, arena, sched), ()),
+        "read": paired_ms({
+            "pageable": lambda _: frontier.summary_read(state, planes, arena,
+                                                        sched),
+            "pinned": pinned_read}, 50),
         "held_by": "phase frontier_programs"})
 
     # K6: the drain's maxima, pack and reset at its real index and widths
@@ -1427,44 +1518,69 @@ def phase_frontier_programs(dev) -> list:
           "esc_rows": esc_cap, "drain_bucket": bucket,
           "pack_widths": list(widths), "pack_bytes": pack_bytes,
           "gather_lanes": 32, "delta": [d_bucket, d_cbucket],
-          "max_abs_err": 0,
+          "max_abs_err": 0, "chunk_graph_lookup": chunk_lookup,
           "ms": {r["name"]: r["ms"] for r in records}})
     return records
 
 
-def drive_frontier(fr, seeds) -> dict:
+#: the drain loop's calls a chunk's host time is split by (HOST_CALLS[:-1])
+#: and the rest of the chunk's host time ("other")
+HOST_CALLS = ("run_chunk", "steal_pass", "summary_read", "decode", "drain",
+              "other")
+
+
+def drive_frontier(fr, seeds, by_chunk: bool = False) -> dict:
     """Seed and run one DeviceFrontier with the launch counts zeroed just
-    before and read just after; returns the run's timing record."""
+    before and read just after; returns the run's timing record. Each
+    chunk's host time (from one `run_chunk` call to the next, or to the
+    run's end) is split by call: the chunk's enqueue, the steal pass, the
+    summary with its read (which waits for the chunk's device work), the
+    decode, the drain (escape fetch and flush, deferral, spill, reseed) and
+    the rest; the record holds the mean per chunk and, with `by_chunk`,
+    every chunk's."""
     state, planes = fr.seed(seeds)
     chunk_events = []
     drain_s, setup_s = [0.0], [0.0]
+    chunk_host = []   # per chunk: {call: seconds}, and its start
     run_chunk = symstep.run_chunk
+    steal_pass, summary_read = frontier.steal_pass, frontier.summary_read
+
+    def host_timed(fn, total=None, call=None):
+        def run(*args, **kwargs):
+            start = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent = time.perf_counter() - start
+                if total is not None:
+                    total[0] += spent
+                if call and chunk_host:
+                    chunk_host[-1][call] += spent
+        return run
 
     def timed_chunk(*args):
+        chunk_host.append({**{call: 0.0 for call in HOST_CALLS},
+                           "start": time.perf_counter()})
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         out = run_chunk(*args)
         end.record()
         chunk_events.append((start, end))
+        chunk_host[-1]["run_chunk"] = time.perf_counter() \
+            - chunk_host[-1]["start"]
         return out
-
-    def host_timed(fn, total):
-        def run(*args, **kwargs):
-            start = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                total[0] += time.perf_counter() - start
-        return run
 
     for name in ("_fetch_escapes", "_flush_backlog", "_defer_lanes",
                  "_spill_host", "_reseed_host"):
-        setattr(fr, name, host_timed(getattr(fr, name), drain_s))
+        setattr(fr, name, host_timed(getattr(fr, name), drain_s, "drain"))
+    fr._decode_summary = host_timed(fr._decode_summary, call="decode")
     fr.new_sched = host_timed(fr.new_sched, setup_s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     symstep.run_chunk = timed_chunk
+    frontier.steal_pass = host_timed(steal_pass, call="steal_pass")
+    frontier.summary_read = host_timed(summary_read, call="summary_read")
     ops.reset_launches()
     start = time.perf_counter()
     try:
@@ -1472,17 +1588,31 @@ def drive_frontier(fr, seeds) -> dict:
         torch.cuda.synchronize()
     finally:
         symstep.run_chunk = run_chunk
-    wall = time.perf_counter() - start
+        frontier.steal_pass, frontier.summary_read = steal_pass, summary_read
+    end = time.perf_counter()
+    wall = end - start
     launches = dict(ops.LAUNCHES)
     chunk_ms = sum(s.elapsed_time(e) for s, e in chunk_events)
     chunks = max(fr.chunks, 1)
-    return {"launches": launches, "replays": dict(ops.REPLAYS), "wall_s": wall,
-            "setup_ms": setup_s[0] * 1e3,
-            "chunk_stream_ms": chunk_ms / chunks,
-            "host_ms_per_chunk": (wall * 1e3 - chunk_ms) / chunks,
-            "drain_host_ms_per_chunk": drain_s[0] * 1e3 / chunks,
-            "lane_steps_per_s": fr.lane_steps / wall,
-            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    for index, record in enumerate(chunk_host):
+        until = chunk_host[index + 1]["start"] if index + 1 < len(chunk_host) \
+            else end
+        record["other"] = until - record.pop("start") - sum(
+            record[call] for call in HOST_CALLS[:-1])
+    host = {call: [record[call] * 1e3 for record in chunk_host]
+            for call in HOST_CALLS}
+    timing = {"launches": launches, "replays": dict(ops.REPLAYS),
+              "wall_s": wall, "setup_ms": setup_s[0] * 1e3,
+              "chunk_stream_ms": chunk_ms / chunks,
+              "host_ms_per_chunk": (wall * 1e3 - chunk_ms) / chunks,
+              "drain_host_ms_per_chunk": drain_s[0] * 1e3 / chunks,
+              "host_ms_by_call": {call: sum(values) / chunks
+                                  for call, values in host.items()},
+              "lane_steps_per_s": fr.lane_steps / wall,
+              "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    if by_chunk:
+        timing["host_ms_by_chunk"] = host
+    return timing
 
 
 #: K4's CUDA functions (K9 is the TEL instantiation of the counting ones)
@@ -1502,6 +1632,7 @@ KERNEL_OF = {
     "evm_step_kernel": "evm_step", "arena_alloc_kernel": "arena_alloc",
     **{name: "sym_step" for name in K4_KERNELS},
     "frontier_summary_kernel": "frontier_summary",
+    "frontier_summary_combine_kernel": "frontier_summary",
     "merge_hash_kernel": "merge_pass", "merge_pair_kernel": "merge_pass",
     "merge_keys_kernel": "merge_pass", "merge_sort_stage_kernel": "merge_pass",
     "merge_pairs_kernel": "merge_pass",
@@ -1563,6 +1694,32 @@ def profiled_run(make, seeds) -> tuple:
                 "other_device_ms": other_ms}
 
 
+def checked_run(make, seeds, totals, expected: dict, what: str) -> int:
+    """One more drive of a DeviceFrontier from make() with every summary it
+    reads (K5 and its copy to the host) held word for word to the twin on the
+    same tensors, and its totals(fr) to `expected`; returns the summaries
+    checked."""
+    read, checked = frontier.summary_read, [0]
+
+    def check(state, planes, arena, sched):
+        got = read(state, planes, arena, sched)
+        ref = frontier.summary_reference(state, planes, arena, sched)
+        if not np.array_equal(got, ref.cpu().numpy()):
+            raise AssertionError(f"{what}: K5 disagrees with its twin at "
+                                 f"summary {checked[0]}")
+        checked[0] += 1
+        return got
+
+    fr = make()
+    frontier.summary_read = check
+    try:
+        fr.run(*fr.seed(seeds))
+    finally:
+        frontier.summary_read = read
+    check_totals(totals(fr), expected, f"{what} (summaries checked)")
+    return checked[0]
+
+
 def check_totals(totals: dict, expected: dict, what: str) -> None:
     if totals != expected:
         diff = {k: (totals.get(k), v) for k, v in expected.items()
@@ -1577,24 +1734,31 @@ def phase_frontier(dev) -> tuple:
     cold_wall = drive_frontier(cold, stress_seed(N_BRANCHES))["wall_s"]
     check_totals(frontier_totals(cold), EXPECTED_FRONTIER, "cold frontier")
     fr = frontier.DeviceFrontier(LANES, device=dev, **OFF)
-    timing = drive_frontier(fr, stress_seed(N_BRANCHES))
+    timing = drive_frontier(fr, stress_seed(N_BRANCHES), by_chunk=True)
     totals = frontier_totals(fr)
     check_totals(totals, EXPECTED_FRONTIER, "frontier")
     replay, profiled = profiled_run(
         lambda: frontier.DeviceFrontier(LANES, device=dev, **OFF),
         stress_seed(N_BRANCHES))
     check_totals(frontier_totals(replay), EXPECTED_FRONTIER, "profiled frontier")
+    checked = checked_run(lambda: frontier.DeviceFrontier(LANES, device=dev, **OFF),
+                          stress_seed(N_BRANCHES), frontier_totals,
+                          EXPECTED_FRONTIER, "frontier")
     emit({"phase": "frontier", "contract": f"dispatcher(branchy({N_BRANCHES}))",
           "lanes": LANES, "chunk": fr.chunk, "row_bytes": fr.row_bytes,
           "drain_batch": fr.drain_batch, "arena_capacity": fr.arena.capacity,
           **totals, **timing, "cold_wall_s": cold_wall,
-          "profiled": profiled})
+          "profiled": profiled, "summaries_checked": checked})
     return timing, profiled
 
 
 def phase_frontier_spill(dev) -> dict:
-    fr = frontier.DeviceFrontier(SPILL_LANES, device=dev,
-                                 stack_bytes=SPILL_STACK_ROWS * 39306, **OFF)
+    def make():
+        return frontier.DeviceFrontier(SPILL_LANES, device=dev,
+                                       stack_bytes=SPILL_STACK_ROWS * 39306,
+                                       **OFF)
+
+    fr = make()
     timing = drive_frontier(fr, stress_seed(SPILL_BRANCHES))
     if fr.row_bytes != 39306:
         raise AssertionError(f"row bytes {fr.row_bytes} != 39306")
@@ -1602,10 +1766,12 @@ def phase_frontier_spill(dev) -> dict:
     check_totals(totals, EXPECTED_SPILL, "frontier_spill")
     if not (fr.spilled and fr.reseeded and fr.frozen_rows):
         raise AssertionError("the spill run missed a path")
+    checked = checked_run(make, stress_seed(SPILL_BRANCHES), frontier_totals,
+                          EXPECTED_SPILL, "frontier_spill")
     emit({"phase": "frontier_spill",
           "contract": f"dispatcher(branchy({SPILL_BRANCHES}))",
           "lanes": SPILL_LANES, "stack_rows": SPILL_STACK_ROWS,
-          **totals, **timing})
+          **totals, **timing, "summaries_checked": checked})
     return timing
 
 
@@ -1851,9 +2017,13 @@ def phase_frontier_default(dev, off_timing, off_profiled) -> dict:
         stress_seed(N_BRANCHES))
     check_totals(default_totals(replay), EXPECTED_DEFAULT,
                  "profiled frontier_default")
+    checked = checked_run(lambda: frontier.DeviceFrontier(LANES, device=dev),
+                          stress_seed(N_BRANCHES), default_totals,
+                          EXPECTED_DEFAULT, "frontier_default")
     emit({"phase": "frontier_default",
           "contract": f"dispatcher(branchy({N_BRANCHES}))", "lanes": LANES,
           **totals, **timing, "profiled": profiled,
+          "summaries_checked": checked,
           "off": {"wall_s": off_timing["wall_s"],
                   "idle_share": off_profiled["idle_share"],
                   "device_busy_ms": off_profiled["device_busy_ms"]},
@@ -1872,12 +2042,16 @@ def phase_frontier_merge(dev) -> dict:
     check_totals(totals, EXPECTED_MERGE, "frontier_merge")
     if not (fr.mem_blends and fr.merges):
         raise AssertionError("frontier_merge blended no memory")
+    checked = checked_run(
+        lambda: frontier.DeviceFrontier(LANES, device=dev, **tables),
+        stress_seed(0, mem_branchy_contract(MERGE_BRANCHES)), default_totals,
+        EXPECTED_MERGE, "frontier_merge")
     emit({"phase": "frontier_merge",
           "contract": f"dispatcher(mem_branchy({MERGE_BRANCHES}))",
           "lanes": LANES, "tables": {"tags": len(tables["tag_pcs"]),
                                      "window_rows": len(tables["mem_pcs"])},
           **totals, "tag_merges": fr.tag_merges, "ite_depth": fr.ite_depth,
-          **timing})
+          **timing, "summaries_checked": checked})
     return timing
 
 
@@ -2012,11 +2186,14 @@ def phase_frontier_wide(dev) -> dict:
         lambda: frontier.DeviceFrontier(WIDE_LANES, device=dev),
         stress_seed(N_BRANCHES))
     check_totals(default_totals(replay), EXPECTED_WIDE, "profiled frontier_wide")
+    checked = checked_run(
+        lambda: frontier.DeviceFrontier(WIDE_LANES, device=dev),
+        stress_seed(N_BRANCHES), default_totals, EXPECTED_WIDE, "frontier_wide")
     emit({"phase": "frontier_wide",
           "contract": f"dispatcher(branchy({N_BRANCHES}))",
           "lanes": WIDE_LANES, "chunk": fr.chunk, "drain_batch": fr.drain_batch,
           **totals, **timing, "cold_wall_s": cold_wall, "replays": replays,
-          "profiled": profiled})
+          "profiled": profiled, "summaries_checked": checked})
     return timing
 
 
@@ -2192,10 +2369,11 @@ def phase_steal_kernel(dev) -> dict:
     cases["mid_run"] = captured_steal(dev)
     thresholds = {name: case[2] for name, case in STEAL_CASES.items()}
     thresholds["mid_run"] = frontier.STEAL_MIN_IMBALANCE
-    moved = {}
+    moved, grids = {}, {}
     for name, (state, sched) in cases.items():
         kernel, plain = convert.clone(sched), convert.clone(sched)
         frontier.steal_pass(state, kernel, thresholds[name], STEAL_MAX_ROWS)
+        grids[name] = ops.steal_pass_grid()  # as the pass's launches recorded it
         frontier.steal_pass_reference(state, plain, thresholds[name],
                                       STEAL_MAX_ROWS)
         assert_same(kernel, plain, f"K12 {name}")
@@ -2205,6 +2383,12 @@ def phase_steal_kernel(dev) -> dict:
     if any(moved[name] != count for name, count in expected.items()) \
             or not moved["mid_run"]:
         raise AssertionError(f"K12 moved {moved}")
+    # the moves run on a (slot, item) grid: several copy items a row slot
+    plan_blocks, plan_threads, move_blocks, move_threads = grids["forced"]
+    slots = SHARDS // 2 * STEAL_MAX_ROWS
+    if plan_blocks != 1 or move_blocks % slots or move_blocks // slots < 2 \
+            or len(set(grids.values())) != 1:
+        raise AssertionError(f"K12 launched {grids}")
 
     # no host synchronization in the pass (the sizes stay on the card)
     state, sched = cases["forced"]
@@ -2217,15 +2401,26 @@ def phase_steal_kernel(dev) -> dict:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
 
-    # time on the forced case (64 rows moved), each rep from a fresh pool
+    # time on the forced case (64 rows moved), each rep from the same pool
+    # tensors refilled from the case (outside the timed span), as the drain
+    # loop passes the same tensors pass after pass (its plan cached)
+    timed = convert.clone(sched)
+
     def fresh():
-        return convert.clone(sched)
+        for (_, mine), (_, theirs) in zip(convert.leaves(timed),
+                                          convert.leaves(sched)):
+            mine.copy_(theirs)
+        return timed
 
     ms = event_ms(lambda t: ops.steal_pass(state, t, 8, STEAL_MAX_ROWS), 20,
                   setup=fresh)
-    dev_ms = device_ms(lambda _: ops.steal_pass(state, fresh(), 8,
-                                                STEAL_MAX_ROWS), 10,
-                       ("steal_plan_kernel", "steal_move_kernel"))
+    lookup = lookup_us(ops._STEAL_PLANS, lambda: ops._steal_tensors(state, timed),
+                       (STEAL_MAX_ROWS,))
+    by_kernel = device_times(lambda _: ops.steal_pass(state, fresh(), 8,
+                                                      STEAL_MAX_ROWS), 10)
+    dev_split = {name: named_ms(by_kernel, (name,))
+                 for name in ("steal_plan_kernel", "steal_move_kernel")}
+    dev_ms = sum(dev_split.values())
     plain_ms = event_ms(lambda t: frontier.steal_pass_reference(
         state, t, 8, STEAL_MAX_ROWS), 5, setup=fresh)
     seg_pool = SHARD_STACK_ROWS // SHARDS
@@ -2251,7 +2446,12 @@ def phase_steal_kernel(dev) -> dict:
     emit({"phase": "steal_kernel", "shards": SHARDS,
           "stack_rows": SHARD_STACK_ROWS, "max_rows": STEAL_MAX_ROWS,
           "row_bytes": row_bytes, "rows_moved": moved, "max_abs_err": 0,
+          "grid": {"plan": [plan_blocks, plan_threads],
+                   "move": [move_blocks, move_threads],
+                   "items_per_row": move_blocks // slots},
           "no_host_sync": True, "ms": ms, "device_ms": dev_ms,
+          "lookup": lookup,
+          "device_ms_by_kernel": dev_split,
           "plain_ms": plain_ms, "library_ms": library_ms,
           "bound_bytes": nbytes})
     return {"name": "steal_pass", "route": "cuda",
@@ -2261,6 +2461,8 @@ def phase_steal_kernel(dev) -> dict:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms,
             "library": "index_select + index_copy_ per leaf (46 pairs)",
+            "grid": {"plan": [plan_blocks, plan_threads],
+                     "move": [move_blocks, move_threads]},
             "held_by": "phase steal_kernel"}
 
 
@@ -2278,6 +2480,9 @@ def phase_frontier_shard(dev, default_timing, default_profiled) -> tuple:
         stress_seed(N_BRANCHES))
     check_totals(shard_totals(replay), EXPECTED_SHARD,
                  "profiled frontier_shard")
+    checked = checked_run(
+        lambda: frontier.DeviceFrontier(LANES, device=dev, n_shards=SHARDS),
+        stress_seed(N_BRANCHES), shard_totals, EXPECTED_SHARD, "frontier_shard")
 
     def k4_step_ms(run_timing, run_profiled):
         return run_profiled["kernel_device_ms"]["sym_step"] \
@@ -2297,13 +2502,18 @@ def phase_frontier_shard(dev, default_timing, default_profiled) -> tuple:
               "d1_frontier_default": k4_step_ms(default_timing,
                                                 default_profiled)},
           "unsharded": {"wall_s": default_timing["wall_s"],
-                        "idle_share": default_profiled["idle_share"]}})
+                        "idle_share": default_profiled["idle_share"]},
+          "summaries_checked": checked})
 
     names = list(FLEET_RUN)
-    fleet = frontier.DeviceFrontier(LANES, device=dev, n_shards=SHARDS,
-                                    seed_owner_index=FLEET_OWNERS,
-                                    fleet_slots=list(range(len(names))),
-                                    fleet_names=names, **fleet_tables())
+
+    def make_fleet():
+        return frontier.DeviceFrontier(LANES, device=dev, n_shards=SHARDS,
+                                       seed_owner_index=FLEET_OWNERS,
+                                       fleet_slots=list(range(len(names))),
+                                       fleet_names=names, **fleet_tables())
+
+    fleet = make_fleet()
     seeds = [seed for body in FLEET_RUN.values()
              for seed in stress_seed(0, body)]
     fleet_timing = drive_frontier(fleet, seeds)
@@ -2312,11 +2522,13 @@ def phase_frontier_shard(dev, default_timing, default_profiled) -> tuple:
     if not (fleet.mem_blends and fleet.steal_rows):
         raise AssertionError("the fleet run blended no memory or stole "
                              "no rows")
+    fleet_checked = checked_run(make_fleet, seeds, shard_totals, EXPECTED_FLEET,
+                                "frontier_shard fleet")
     emit({"phase": "frontier_shard_fleet", "members": names,
           "owners": FLEET_OWNERS, "lanes": LANES, "shards": SHARDS,
           **fleet_totals,
           "fleet_occupancy": dict(zip(names, fleet.fleet_occupancy.tolist())),
-          **fleet_timing})
+          **fleet_timing, "summaries_checked": fleet_checked})
     return timing, profiled, fleet_timing
 
 

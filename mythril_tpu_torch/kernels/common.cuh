@@ -201,11 +201,6 @@ __device__ __forceinline__ void copy_span(uint8_t* dst, const uint8_t* src, long
     else copy_as<uint8_t>(dst, src, bytes, t, nt);
 }
 
-// the block copies `bytes`
-__device__ __forceinline__ void copy_bytes(uint8_t* dst, const uint8_t* src, long long bytes) {
-    copy_span(dst, src, bytes, threadIdx.x, blockDim.x);
-}
-
 // Item `item` of a row copy plan (kernels/ops.py `_copy_plan`): the entries
 // [items[item], items[item + 1]) of (leaf, byte offset, bytes), each at most
 // 4 KB of one leaf's row. The block copies every entry from src(leaf) +

@@ -2,7 +2,7 @@
 
 Each wrapper checks device, dtype, shape and contiguity, allocates what the
 kernel writes with `torch.empty`, fills the kernel's parameter block (slot
-indices from layout.cuh), launches on `torch.cuda.current_stream()` and
+indices from layout.cuh), launches on the current device's current stream and
 raises if the launch returned a CUDA error. Each adds one to its entry of
 `LAUNCHES` where it launches its kernel and nowhere else, so a run can show
 that its main path went through the kernels.
@@ -37,14 +37,16 @@ inside them (`arena_alloc_merge`, one a pass), so `arena_alloc` counts
 standalone K3 calls only (the tests'); K6 counts its three entries
 together, K7 its two. K11 counts one per chunk: its call runs every step of
 the chunk (three launches a step, four with the batch runner's freeze
-gate, after the chunk's mirror). K12 counts one per pass (a plan launch
-and a move launch).
+gate, after the chunk's mirror). K5 counts one per summary (the grid and
+its combining launch). K12 counts one per pass (a plan launch and a move
+launch).
 
-K2's (with K1's, eager or inside K4's step), K4's, K7's, K10's and K11's
-parameter blocks and scratch are built once for a set of tensors (keyed
-on their data pointers, shapes and dtypes, and the few static arguments)
-and reused while the key holds; a K7 gather allocates one flat buffer a
-call and returns its leaf views. A
+K2's (with K1's, eager or inside K4's step), K4's, K5's, K7's, K10's,
+K11's and K12's parameter blocks and scratch are built once for a set of
+tensors (keyed on their data pointers, shapes and dtypes, and the few
+static arguments) and reused while the key holds; a call with the very
+tensor objects of its cache's last call skips the key (`_Plans`). A K7
+gather allocates one flat buffer a call and returns its leaf views. A
 chunk of K4 steps (`run_chunk_graph`) and a chunk of K11 steps are each
 captured as one CUDA graph per key and replayed, adding the captured
 launches to `LAUNCHES` on every replay; `REPLAYS` counts the replays and
@@ -56,6 +58,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import weakref
 from collections import OrderedDict
 from typing import Dict, Optional
 
@@ -90,6 +93,7 @@ _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_keccak_preload": "keccak",
               "mtpu_sym_pre_tel": "sym_step", "mtpu_sym_post_tel": "sym_step",
               "mtpu_sym_preload": "sym_step",
               "mtpu_frontier_summary": "frontier_summary",
+              "mtpu_frontier_summary_grid": "frontier_summary",
               "mtpu_row_maxima": "pack_rows", "mtpu_pack_rows": "pack_rows",
               "mtpu_reset_esc": "pack_rows",
               "mtpu_gather_rows": "gather_rows",
@@ -97,7 +101,7 @@ _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_keccak_preload": "keccak",
               "mtpu_arena_delta": "arena_delta",
               "mtpu_merge_pair": "merge_pass", "mtpu_merge_run": "merge_pass",
               "mtpu_sat_run": "sat_step", "mtpu_sat_preload": "sat_step",
-              "mtpu_steal_plan": "steal_pass", "mtpu_steal_move": "steal_pass"}
+              "mtpu_steal_pass": "steal_pass", "mtpu_steal_grid": "steal_pass"}
 _FUNCS: Dict[str, object] = {}
 _OPTABS: Dict[str, torch.Tensor] = {}
 
@@ -124,16 +128,66 @@ def _block(name: str, values):
     return (ctypes.c_longlong * len(values))(*[int(v) for v in values])
 
 
+def _raw_stream() -> int:
+    """The current device's current stream, as a handle: without the Stream
+    object that `torch.cuda.current_stream()` builds (several microseconds
+    a call on the card's host, the most of a small kernel's wrapper)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def _call(name: str, block) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
     rc = _entry(name)(ctypes.cast(block, ctypes.c_void_p), len(block),
-                      ctypes.c_void_p(stream))
+                      ctypes.c_void_p(_raw_stream()))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
 
 
 def _launch(name: str, values) -> None:
     _call(name, _block(name, values))
+
+
+def _key(tensors, static: tuple) -> tuple:
+    """A plan's key: every tensor's data pointer, shape and dtype, then the
+    static arguments."""
+    return tuple((t.data_ptr(), t.shape, t.dtype) for t in tensors) + static
+
+
+class _Plans:
+    """Plans (parameter blocks, scratch, captured graphs) built for sets of
+    tensors and static arguments, filed under their `_key`: at most
+    `limit`, the least recently used dropped. A call with the very tensor
+    objects and static arguments of the last call takes that call's plan
+    without building the key; the last call's tensors are held by weak
+    reference, so that no tensor is kept alive (the port never points a
+    tensor at other storage in place)."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.plans: OrderedDict = OrderedDict()
+        self.last = None
+
+    def get(self, tensors: list, static: tuple, build):
+        """The plan of `tensors` and `static`, built on a miss."""
+        last = self.last
+        if last is not None and last[1] == static and len(last[0]) == len(tensors) \
+                and all(ref() is t for ref, t in zip(last[0], tensors)):
+            return last[2]
+        key = _key(tensors, static)
+        plan = self.plans.pop(key, None)
+        if plan is None:
+            plan = build()
+        self.plans[key] = plan
+        while len(self.plans) > self.limit:
+            self.plans.popitem(last=False)
+        self.last = ([weakref.ref(t) for t in tensors], static, plan)
+        return plan
+
+    def values(self):
+        return self.plans.values()
+
+    def clear(self) -> None:
+        self.plans.clear()
+        self.last = None
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape=None) -> int:
@@ -290,7 +344,7 @@ def _k2_launch(k2, k1) -> None:
     LAUNCHES["evm_step"] += 1
 
 
-_K2_PLANS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_K2_PLANS = _Plans(limit=8)
 
 
 def evm_step(state, force_escape: Optional[torch.Tensor] = None,
@@ -300,11 +354,11 @@ def evm_step(state, force_escape: Optional[torch.Tensor] = None,
     of tensors (keyed on their data pointers, shapes and dtypes) and reused
     while the key holds. Returns the same StateBatch."""
     _check(state.stack, "state.stack", torch.int32)
-    key = tuple((t.data_ptr(), t.shape, t.dtype) for t in state) + tuple(
-        None if m is None else (m.data_ptr(), m.shape, m.dtype)
-        for m in (force_escape, force_fork))
-    k2, k1, _ = _remember(_K2_PLANS, key, lambda: _k2_blocks(
-        state, force_escape, force_fork), limit=8)
+    masks = (force_escape, force_fork)
+    k2, k1, _ = _K2_PLANS.get(
+        list(state) + [m for m in masks if m is not None],
+        tuple(m is None for m in masks),
+        lambda: _k2_blocks(state, force_escape, force_fork))
     _k2_launch(k2, k1)
     return state
 
@@ -545,22 +599,10 @@ class _StepPlan:
             LAUNCHES["telemetry"] += 1
 
 
-def _remember(cache: OrderedDict, key, build, limit: int):
-    """cache[key], built on a miss; the least recently used entries past
-    `limit` are dropped."""
-    value = cache.pop(key, None)
-    if value is None:
-        value = build()
-    cache[key] = value
-    while len(cache) > limit:
-        cache.popitem(last=False)
-    return value
-
-
-def step_key(state, planes, arena, sched, lanes_per_block: int = LANES_PER_BLOCK,
-             group: int = LANE_GROUP) -> tuple:
-    """What K4's cached parameter block depends on: every tensor's data
-    pointer, shape and dtype, the telemetry plane and the launch geometry."""
+def _step_parts(state, planes, arena, sched, lanes_per_block: int,
+                group: int) -> tuple:
+    """What K4's cached parameter block depends on: every tensor, then the
+    telemetry plane and the launch geometry."""
     tensors = (list(state) + list(planes) + list(arena)
                + list(sched.stack_state) + list(sched.stack_planes)
                + list(sched.esc_state) + list(sched.esc_planes)
@@ -568,19 +610,26 @@ def step_key(state, planes, arena, sched, lanes_per_block: int = LANES_PER_BLOCK
                   sched.forks, sched.pushes, sched.pops, sched.enabled])
     if sched.telemetry is not None:
         tensors += list(sched.telemetry)
-    return tuple((t.data_ptr(), t.shape, t.dtype) for t in tensors) + (
-        sched.telemetry is not None, lanes_per_block, group)
+    return tensors, (sched.telemetry is not None, lanes_per_block, group)
 
 
-_PLANS: "OrderedDict[tuple, _StepPlan]" = OrderedDict()
+def step_key(state, planes, arena, sched, lanes_per_block: int = LANES_PER_BLOCK,
+             group: int = LANE_GROUP) -> tuple:
+    """K4's plan key: every tensor's data pointer, shape and dtype, the
+    telemetry plane and the launch geometry."""
+    return _key(*_step_parts(state, planes, arena, sched, lanes_per_block, group))
+
+
+_PLANS = _Plans(limit=8)
 
 
 def step_plan(state, planes, arena, sched, lanes_per_block: int = LANES_PER_BLOCK,
               group: int = LANE_GROUP) -> _StepPlan:
     """The cached step plan of these tensors (built on a miss)."""
-    key = step_key(state, planes, arena, sched, lanes_per_block, group)
-    return _remember(_PLANS, key, lambda: _StepPlan(
-        state, planes, arena, sched, lanes_per_block, group), limit=8)
+    return _PLANS.get(*_step_parts(state, planes, arena, sched, lanes_per_block,
+                                   group),
+                      lambda: _StepPlan(state, planes, arena, sched,
+                                        lanes_per_block, group))
 
 
 def sym_step(state, planes, arena, sched, lanes_per_block: int = LANES_PER_BLOCK,
@@ -594,7 +643,7 @@ def sym_step(state, planes, arena, sched, lanes_per_block: int = LANES_PER_BLOCK
     return state, planes, arena, sched
 
 
-_GRAPHS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_GRAPHS = _Plans(limit=4)
 
 #: the REPLAYS entry counting each kind's captures
 _CAPTURES = {"run_chunk": "captures", "sat_chunk": "sat_captures"}
@@ -610,9 +659,10 @@ def _preload(entries: tuple) -> None:
             raise RuntimeError(f"{name}: failed (cudaError {rc})")
 
 
-def _replay(cache: OrderedDict, key: tuple, prepare, entries: tuple,
-            kind: str) -> None:
-    """Replay the CUDA graph cached under `key`, capturing it on a miss:
+def _replay(cache: _Plans, tensors: list, static: tuple, prepare,
+            entries: tuple, kind: str) -> None:
+    """Replay the CUDA graph cached for `tensors` and `static`, capturing it
+    on a miss:
     `prepare()` builds what the launches need (outside the capture) and
     returns the function that launches them, which the graph keeps, and with
     it the scratch the captured kernels point at. A replay adds the
@@ -632,7 +682,7 @@ def _replay(cache: OrderedDict, key: tuple, prepare, entries: tuple,
         REPLAYS[_CAPTURES[kind]] += 1
         return graph, launch, counts
 
-    graph, _, counts = _remember(cache, key, capture, limit=4)
+    graph, _, counts = cache.get(tensors, static, capture)
     graph.replay()
     for name, count in counts.items():
         LAUNCHES[name] += count
@@ -655,8 +705,9 @@ def run_chunk_graph(state, planes, arena, sched, n_steps: int):
                 plan.launch()
         return launch
 
-    _replay(_GRAPHS, step_key(state, planes, arena, sched) + (n_steps,),
-            prepare, ("mtpu_sym_preload", "mtpu_evm_preload",
+    tensors, static = _step_parts(state, planes, arena, sched, LANES_PER_BLOCK,
+                                  LANE_GROUP)
+    _replay(_GRAPHS, tensors, static + (n_steps,), prepare, ("mtpu_sym_preload", "mtpu_evm_preload",
                       "mtpu_keccak_preload"), "run_chunk")
     return state, planes, arena, sched
 
@@ -672,71 +723,124 @@ def _tel_parts(tel, *slots):
             for slot, tensor in zip(slots, counters)]
 
 
+def _summary_tensors(state, planes, arena, sched) -> list:
+    """Every tensor K5's cached plan reads."""
+    tensors = [state.status, planes.fork_cond, planes.ctx_id, sched.stack_top,
+               sched.esc_count, sched.executed, sched.forks, sched.pushes,
+               sched.pops, arena.n, arena.n_const, sched.esc_state.msize,
+               sched.esc_state.sp, sched.esc_state.storage_used,
+               sched.esc_planes.cond_count]
+    if sched.telemetry is not None:
+        tensors += list(sched.telemetry)
+    if sched.stack_top.dim():
+        tensors += [sched.steals_sent, sched.steals_received, sched.steal_rows]
+    return tensors
+
+
+class _SummaryPlan:
+    """K5's parameter block for one set of tensors, with the persistent
+    device output (int64[13 + 3B], then the telemetry words when the plane
+    is armed, then a sharded scheduler's shard block of 4D + 1 words) and
+    the blocks' maxima (int64[4 x escape rows]: a block takes one row at
+    least)."""
+
+    def __init__(self, state, planes, arena, sched):
+        batch = state.status.shape[0]
+        esc_rows, slots = sched.esc_state.storage_used.shape
+        values = [0] * Lay.K5_NARGS
+        for slot, tensor, what in ((Lay.K5_STATUS, state.status, "status"),
+                                   (Lay.K5_FORK_COND, planes.fork_cond, "fork_cond"),
+                                   (Lay.K5_CTX_ID, planes.ctx_id, "ctx_id")):
+            values[slot] = _check(tensor, what, torch.int32, (batch,))
+        n_seg = n_segments(sched)
+        if esc_rows % n_seg:
+            raise ValueError(f"{n_seg} shards do not divide {esc_rows} escape rows")
+        for slot, tensor, what in ((Lay.K5_STACK_TOP, sched.stack_top, "stack_top"),
+                                   (Lay.K5_ESC_COUNT, sched.esc_count, "esc_count")):
+            values[slot] = _check(tensor, what, torch.int32,
+                                  tuple(sched.stack_top.shape))
+        for slot, tensor, dtype in (
+                (Lay.K5_EXECUTED, sched.executed, torch.int64),
+                (Lay.K5_FORKS, sched.forks, torch.int64),
+                (Lay.K5_PUSHES, sched.pushes, torch.int64),
+                (Lay.K5_POPS, sched.pops, torch.int64),
+                (Lay.K5_ARENA_N, arena.n, torch.int32),
+                (Lay.K5_ARENA_N_CONST, arena.n_const, torch.int32)):
+            values[slot] = _check(tensor, "summary scalar", dtype, ())
+        for slot, tensor, what, dtype, shape in (
+                (Lay.K5_ESC_MSIZE, sched.esc_state.msize, "esc.msize",
+                 torch.int32, (esc_rows,)),
+                (Lay.K5_ESC_SP, sched.esc_state.sp, "esc.sp", torch.int32,
+                 (esc_rows,)),
+                (Lay.K5_ESC_STORAGE_USED, sched.esc_state.storage_used,
+                 "esc.storage_used", torch.bool, (esc_rows, slots)),
+                (Lay.K5_ESC_COND_COUNT, sched.esc_planes.cond_count,
+                 "esc.cond_count", torch.int32, (esc_rows,))):
+            values[slot] = _check(tensor, what, dtype, shape)
+        values[Lay.K5_B] = batch
+        values[Lay.K5_E] = esc_rows
+        values[Lay.K5_K] = slots
+        n_words = 13 + 3 * batch
+        tel = sched.telemetry
+        if tel is not None:
+            for slot, tensor, n in _tel_parts(tel, Lay.K5_TEL_OP_HIST,
+                                              Lay.K5_TEL_LIFECYCLE,
+                                              Lay.K5_TEL_ESC_CAUSE,
+                                              Lay.K5_TEL_OCCUPANCY, Lay.K5_TEL_HWM,
+                                              Lay.K5_TEL_TAG_OCC,
+                                              Lay.K5_TEL_FLEET_OCC):
+                values[slot] = _check(tensor, "telemetry", torch.int64, (n,))
+                n_words += n
+            values[Lay.K5_TEL_N_TAGS] = tel.tag_occ.shape[0]
+            values[Lay.K5_TEL_N_FLEET] = tel.fleet_occ.shape[0]
+        values[Lay.K5_D] = n_seg
+        if n_seg > 1:
+            for slot, tensor, shape in (
+                    (Lay.K5_STEALS_SENT, sched.steals_sent, (n_seg,)),
+                    (Lay.K5_STEALS_RECEIVED, sched.steals_received, (n_seg,)),
+                    (Lay.K5_STEAL_ROWS, sched.steal_rows, ())):
+                values[slot] = _check(tensor, "steal counter", torch.int64, shape)
+            n_words += 4 * n_seg + 1
+        dev = state.status.device
+        self.out = torch.empty(n_words, dtype=torch.int64, device=dev)
+        self.partial = torch.empty(4 * esc_rows, dtype=torch.int64, device=dev)
+        values[Lay.K5_OUT] = self.out.data_ptr()
+        values[Lay.K5_PARTIAL] = self.partial.data_ptr()
+        self.block = _block("mtpu_frontier_summary", values)
+
+    def launch(self) -> torch.Tensor:
+        """One summary into the plan's output, which the next launch of
+        this plan overwrites."""
+        _call("mtpu_frontier_summary", self.block)
+        LAUNCHES["frontier_summary"] += 1
+        return self.out
+
+
+_SUMMARY_PLANS = _Plans(limit=8)
+
+
+def summary_plan(state, planes, arena, sched) -> _SummaryPlan:
+    """K5's plan for these tensors, built on a miss."""
+    return _SUMMARY_PLANS.get(_summary_tensors(state, planes, arena, sched), (),
+                              lambda: _SummaryPlan(state, planes, arena, sched))
+
+
 def frontier_summary(state, planes, arena, sched) -> torch.Tensor:
-    """K5: the chunk summary int64[13 + 3B], then the telemetry words when
+    """K5: the chunk summary, int64[13 + 3B], then the telemetry words when
     the plane is armed, then a sharded scheduler's shard block (4D + 1
-    words)."""
-    batch = state.status.shape[0]
-    esc_rows, slots = sched.esc_state.storage_used.shape
-    values = [0] * Lay.K5_NARGS
-    for slot, tensor, what in ((Lay.K5_STATUS, state.status, "status"),
-                               (Lay.K5_FORK_COND, planes.fork_cond, "fork_cond"),
-                               (Lay.K5_CTX_ID, planes.ctx_id, "ctx_id")):
-        values[slot] = _check(tensor, what, torch.int32, (batch,))
-    n_seg = n_segments(sched)
-    if esc_rows % n_seg:
-        raise ValueError(f"{n_seg} shards do not divide {esc_rows} escape rows")
-    for slot, tensor, what in ((Lay.K5_STACK_TOP, sched.stack_top, "stack_top"),
-                               (Lay.K5_ESC_COUNT, sched.esc_count, "esc_count")):
-        values[slot] = _check(tensor, what, torch.int32,
-                              tuple(sched.stack_top.shape))
-    for slot, tensor, dtype in (
-            (Lay.K5_EXECUTED, sched.executed, torch.int64),
-            (Lay.K5_FORKS, sched.forks, torch.int64),
-            (Lay.K5_PUSHES, sched.pushes, torch.int64),
-            (Lay.K5_POPS, sched.pops, torch.int64),
-            (Lay.K5_ARENA_N, arena.n, torch.int32),
-            (Lay.K5_ARENA_N_CONST, arena.n_const, torch.int32)):
-        values[slot] = _check(tensor, "summary scalar", dtype, ())
-    for slot, tensor, what, dtype, shape in (
-            (Lay.K5_ESC_MSIZE, sched.esc_state.msize, "esc.msize",
-             torch.int32, (esc_rows,)),
-            (Lay.K5_ESC_SP, sched.esc_state.sp, "esc.sp", torch.int32,
-             (esc_rows,)),
-            (Lay.K5_ESC_STORAGE_USED, sched.esc_state.storage_used,
-             "esc.storage_used", torch.bool, (esc_rows, slots)),
-            (Lay.K5_ESC_COND_COUNT, sched.esc_planes.cond_count,
-             "esc.cond_count", torch.int32, (esc_rows,))):
-        values[slot] = _check(tensor, what, dtype, shape)
-    values[Lay.K5_B] = batch
-    values[Lay.K5_E] = esc_rows
-    values[Lay.K5_K] = slots
-    n_words = 13 + 3 * batch
-    tel = sched.telemetry
-    if tel is not None:
-        for slot, tensor, n in _tel_parts(tel, Lay.K5_TEL_OP_HIST,
-                                          Lay.K5_TEL_LIFECYCLE,
-                                          Lay.K5_TEL_ESC_CAUSE,
-                                          Lay.K5_TEL_OCCUPANCY, Lay.K5_TEL_HWM,
-                                          Lay.K5_TEL_TAG_OCC,
-                                          Lay.K5_TEL_FLEET_OCC):
-            values[slot] = _check(tensor, "telemetry", torch.int64, (n,))
-            n_words += n
-        values[Lay.K5_TEL_N_TAGS] = tel.tag_occ.shape[0]
-        values[Lay.K5_TEL_N_FLEET] = tel.fleet_occ.shape[0]
-    values[Lay.K5_D] = n_seg
-    if n_seg > 1:
-        for slot, tensor, shape in (
-                (Lay.K5_STEALS_SENT, sched.steals_sent, (n_seg,)),
-                (Lay.K5_STEALS_RECEIVED, sched.steals_received, (n_seg,)),
-                (Lay.K5_STEAL_ROWS, sched.steal_rows, ())):
-            values[slot] = _check(tensor, "steal counter", torch.int64, shape)
-        n_words += 4 * n_seg + 1
-    out = torch.empty(n_words, dtype=torch.int64, device=state.status.device)
-    values[Lay.K5_OUT] = out.data_ptr()
-    _launch("mtpu_frontier_summary", values)
-    LAUNCHES["frontier_summary"] += 1
-    return out
+    words): a grid over the escape rows, then one block that combines the
+    blocks' maxima. Returns the plan's device output: the next summary of
+    the same tensors overwrites it."""
+    _check(state.status, "status", torch.int32)
+    return summary_plan(state, planes, arena, sched).launch()
+
+
+def frontier_summary_grid() -> tuple:
+    """(blocks, threads) of the last `frontier_summary_kernel` launch, as
+    that launch recorded them."""
+    out = (ctypes.c_longlong * 2)()
+    _call("mtpu_frontier_summary_grid", out)
+    return tuple(int(v) for v in out)
 
 
 # ---- K6 -----------------------------------------------------------------------------
@@ -852,7 +956,7 @@ class _RowsPlan:
         self.device = dev
 
 
-_ROWS_PLANS: "OrderedDict[tuple, _RowsPlan]" = OrderedDict()
+_ROWS_PLANS = _Plans(limit=8)
 
 
 def rows_plan(state, planes, index: torch.Tensor) -> _RowsPlan:
@@ -861,10 +965,8 @@ def rows_plan(state, planes, index: torch.Tensor) -> _RowsPlan:
     if n == 0:
         raise ValueError("index: no rows selected")
     _check(index, "index", torch.int32, (n,))
-    key = tuple((t.data_ptr(), t.shape, t.dtype)
-                for t in list(state) + list(planes)) + (n,)
-    return _remember(_ROWS_PLANS, key, lambda: _RowsPlan(state, planes, n),
-                     limit=8)
+    return _ROWS_PLANS.get(list(state) + list(planes), (n,),
+                           lambda: _RowsPlan(state, planes, n))
 
 
 def gather_rows_flat(state, planes, index: torch.Tensor):
@@ -1024,15 +1126,6 @@ def merge_block(state, planes, merge_pcs: torch.Tensor, mem_pcs: torch.Tensor,
     return values, tensors
 
 
-def merge_key(state, planes, arena, merge_pcs, mem_pcs, mem_words,
-              n_rounds: int) -> tuple:
-    """What K10's cached plan depends on: every tensor's data pointer, shape
-    and dtype, and the round count."""
-    tensors = (list(state) + list(planes) + list(arena)
-               + [merge_pcs, mem_pcs, mem_words])
-    return tuple((t.data_ptr(), t.shape, t.dtype) for t in tensors) + (n_rounds,)
-
-
 class _MergePlan:
     """One merge pass's parameter block and scratch for one set of lanes,
     arena and tables: `merge_block`'s, the arena's columns and the folded
@@ -1078,7 +1171,7 @@ class _MergePlan:
         LAUNCHES["arena_alloc_merge"] += 1
 
 
-_MERGE_PLANS: "OrderedDict[tuple, _MergePlan]" = OrderedDict()
+_MERGE_PLANS = _Plans(limit=4)
 
 
 def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
@@ -1086,13 +1179,13 @@ def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
                n_rounds: int):
     """K10, K3's allocations folded in: one merge pass, every tensor updated
     in place, any lane count, from one host call that makes every launch
-    (its plan built once for `merge_key`). `merge_pcs` int32[K], `mem_pcs` int32[J], `mem_words`
+    (its plan built once for these tensors and `n_rounds`). `merge_pcs` int32[K], `mem_pcs` int32[J], `mem_words`
     int32[J, W]. Returns (state, planes, arena, stats int64[8 + K + 6])."""
-    key = merge_key(state, planes, arena, merge_pcs, mem_pcs, mem_words,
-                    n_rounds)
-    plan = _remember(_MERGE_PLANS, key, lambda: _MergePlan(
-        state, planes, arena, merge_pcs, mem_pcs, mem_words, n_rounds),
-        limit=4)
+    plan = _MERGE_PLANS.get(
+        list(state) + list(planes) + list(arena)
+        + [merge_pcs, mem_pcs, mem_words], (n_rounds,),
+        lambda: _MergePlan(state, planes, arena, merge_pcs, mem_pcs,
+                           mem_words, n_rounds))
     plan.launch()
     return state, planes, arena, plan.tensors["stats"].clone()
 
@@ -1102,15 +1195,6 @@ def merge_pass(state, planes, arena, merge_pcs: torch.Tensor,
 #: variables per tile of K11's resolve launches on the card: 16 tiles, so
 #: 512 blocks for 32 probes at V1 65,536
 SAT_VAR_TILE = 4096
-
-
-def sat_key(state, problem, forced_depth: int, freeze: bool,
-            var_tile: int = SAT_VAR_TILE) -> tuple:
-    """What K11's cached plan depends on: every tensor's data pointer, shape
-    and dtype, the forced depth, the freeze and the variable tile."""
-    return tuple((t.data_ptr(), t.shape, t.dtype)
-                 for t in list(state) + list(problem)) + (
-        forced_depth, freeze, var_tile)
 
 
 class _SatPlan:
@@ -1182,28 +1266,30 @@ class _SatPlan:
         LAUNCHES["sat_step"] += 1
 
 
-_SAT_PLANS: "OrderedDict[tuple, _SatPlan]" = OrderedDict()
-_SAT_GRAPHS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_SAT_PLANS = _Plans(limit=4)
+_SAT_GRAPHS = _Plans(limit=4)
 
 
 def sat_run(state, problem, steps: int, forced_depth: int, freeze: bool,
             graph: bool = True, var_tile: int = SAT_VAR_TILE):
     """K11: `steps` DPLL steps of every probe, in place: one host call, or
     with `graph` one replay of the chunk's CUDA graph (captured once for
-    `sat_key` and the step count). `state` is a device_solver.SolverState
+    the state's and the problem's tensors, the static arguments and the
+    step count). `state` is a device_solver.SolverState
     of one query ([P, V1], [P]) or of a batch ([Q, P, V1], [Q, P]);
     `problem` the matching DeviceProblem. With `freeze`, a query whose
     probes are decided keeps its state (the batch runner). `var_tile`
     variables share a block of the resolve launches. Returns the state."""
     if steps < 0:
         raise ValueError(f"steps = {steps}")
-    key = sat_key(state, problem, forced_depth, freeze, var_tile)
-    plan = _remember(_SAT_PLANS, key, lambda: _SatPlan(
-        state, problem, forced_depth, freeze, var_tile), limit=4)
+    tensors = list(state) + list(problem)
+    static = (forced_depth, freeze, var_tile)
+    plan = _SAT_PLANS.get(tensors, static, lambda: _SatPlan(
+        state, problem, forced_depth, freeze, var_tile))
     if steps == 0:
         return state
     if graph:
-        _replay(_SAT_GRAPHS, key + (steps,),
+        _replay(_SAT_GRAPHS, tensors, static + (steps,),
                 lambda: (lambda: plan.launch(steps)), ("mtpu_sat_preload",),
                 "sat_chunk")
     else:
@@ -1213,47 +1299,91 @@ def sat_run(state, problem, steps: int, forced_depth: int, freeze: bool,
 
 # ---- K12 ----------------------------------------------------------------------------
 
+def _steal_tensors(state, sched) -> list:
+    """Every tensor K12's cached plan reads or writes: the pool's leaves,
+    the lane status, the tops and the steal counters."""
+    return (list(sched.stack_state) + list(sched.stack_planes)
+            + [state.status, sched.stack_top, sched.steals_sent,
+               sched.steals_received, sched.steal_rows])
+
+
+class _StealPlan:
+    """K12's parameter block for one pool, lane status and `max_rows`: the
+    pool's leaves and row bytes, K4's row copy plan (`_copy_plan`) and the
+    move list (int32[D/2, 3], written by the plan launch)."""
+
+    def __init__(self, state, sched, max_rows: int):
+        n_seg = n_segments(sched)
+        batch = state.status.shape[0]
+        pool_rows = sched.stack_state.status.shape[0]
+        if not 2 <= n_seg <= 1024 or batch < n_seg or batch % n_seg \
+                or pool_rows % n_seg:
+            raise ValueError(f"steal_pass: {n_seg} shards for {batch} lanes and "
+                             f"{pool_rows} stack rows")
+        if max_rows < 1:
+            raise ValueError(f"steal_pass: max_rows = {max_rows}")
+        values = [0] * Lay.K12_NARGS
+        leaves = list(sched.stack_state) + list(sched.stack_planes)
+        values[Lay.K12_POOL:Lay.K12_POOL + Lay.N_ROW_LEAVES] = (
+            _leaf_ptrs(sched.stack_state, _STATE_DTYPES, pool_rows, "pool")
+            + _leaf_ptrs(sched.stack_planes, _PLANE_DTYPES, pool_rows, "pool"))
+        row_bytes = [math.prod(leaf.shape[1:]) * leaf.element_size()
+                     for leaf in leaves]
+        values[Lay.K12_ROW_BYTES:Lay.K12_ROW_BYTES + Lay.N_ROW_LEAVES] = row_bytes
+        values[Lay.K12_STATUS] = _check(state.status, "status", torch.int32,
+                                        (batch,))
+        values[Lay.K12_STACK_TOP] = _check(sched.stack_top, "stack_top",
+                                           torch.int32, (n_seg,))
+        values[Lay.K12_STEALS_SENT] = _check(sched.steals_sent, "steals_sent",
+                                             torch.int64, (n_seg,))
+        values[Lay.K12_STEALS_RECEIVED] = _check(
+            sched.steals_received, "steals_received", torch.int64, (n_seg,))
+        values[Lay.K12_STEAL_ROWS] = _check(sched.steal_rows, "steal_rows",
+                                            torch.int64, ())
+        dev = state.status.device
+        # the copy plan goes up from pinned pages without a host wait, so
+        # that even a plan's first pass reads nothing back
+        entries, items = _copy_plan(row_bytes, "cpu")
+        self.entries, self.items = (
+            t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+            for t in (entries, items))
+        self.moves = torch.zeros((n_seg // 2, 3), dtype=torch.int32, device=dev)
+        for slot, value in ((Lay.K12_B, batch), (Lay.K12_D, n_seg),
+                            (Lay.K12_P, pool_rows), (Lay.K12_MAX_ROWS, max_rows),
+                            (Lay.K12_MOVES, self.moves.data_ptr()),
+                            (Lay.K12_ENTRIES, self.entries.data_ptr()),
+                            (Lay.K12_ITEMS, self.items.data_ptr()),
+                            (Lay.K12_N_ITEMS, self.items.shape[0] - 1)):
+            values[slot] = value
+        self.block = _block("mtpu_steal_pass", values)
+
+    def launch(self, min_imbalance: int) -> None:
+        """One pass: the plan launch and the move launch, from one host
+        call."""
+        self.block[Lay.K12_MIN_IMBALANCE] = min_imbalance
+        _call("mtpu_steal_pass", self.block)
+        LAUNCHES["steal_pass"] += 1
+
+
+_STEAL_PLANS = _Plans(limit=4)
+
+
 def steal_pass(state, sched, min_imbalance: int, max_rows: int):
     """K12: one steal pass of a sharded scheduler, in place: the plan launch
     (loads, pairing, move list, tops and counters) and the move launch (the
-    listed pool rows). Only the two static ints come from the host; nothing
-    is read back. Returns the scheduler."""
-    n_seg = n_segments(sched)
-    batch = state.status.shape[0]
-    pool_rows = sched.stack_state.status.shape[0]
-    if not 2 <= n_seg <= 1024 or batch % n_seg or pool_rows % n_seg:
-        raise ValueError(f"steal_pass: {n_seg} shards for {batch} lanes and "
-                         f"{pool_rows} stack rows")
-    if max_rows < 1:
-        raise ValueError(f"steal_pass: max_rows = {max_rows}")
-    values = [0] * Lay.K12_NARGS
-    leaves = list(sched.stack_state) + list(sched.stack_planes)
-    values[Lay.K12_POOL:Lay.K12_POOL + Lay.N_ROW_LEAVES] = (
-        _leaf_ptrs(sched.stack_state, _STATE_DTYPES, pool_rows, "pool")
-        + _leaf_ptrs(sched.stack_planes, _PLANE_DTYPES, pool_rows, "pool"))
-    values[Lay.K12_ROW_BYTES:Lay.K12_ROW_BYTES + Lay.N_ROW_LEAVES] = [
-        int(np.prod(leaf.shape[1:])) * leaf.element_size() for leaf in leaves]
-    values[Lay.K12_STATUS] = _check(state.status, "status", torch.int32,
-                                    (batch,))
-    values[Lay.K12_STACK_TOP] = _check(sched.stack_top, "stack_top",
-                                       torch.int32, (n_seg,))
-    values[Lay.K12_STEALS_SENT] = _check(sched.steals_sent, "steals_sent",
-                                         torch.int64, (n_seg,))
-    values[Lay.K12_STEALS_RECEIVED] = _check(
-        sched.steals_received, "steals_received", torch.int64, (n_seg,))
-    values[Lay.K12_STEAL_ROWS] = _check(sched.steal_rows, "steal_rows",
-                                        torch.int64, ())
-    slots = n_seg // 2 * max_rows
-    moves = torch.empty((2, slots), dtype=torch.int32,
-                        device=state.status.device)
-    for slot, value in ((Lay.K12_B, batch), (Lay.K12_D, n_seg),
-                        (Lay.K12_P, pool_rows),
-                        (Lay.K12_MIN_IMBALANCE, min_imbalance),
-                        (Lay.K12_MAX_ROWS, max_rows),
-                        (Lay.K12_MOVE_SRC, moves[0].data_ptr()),
-                        (Lay.K12_MOVE_DST, moves[1].data_ptr())):
-        values[slot] = value
-    _launch("mtpu_steal_plan", values)
-    _launch("mtpu_steal_move", values)
-    LAUNCHES["steal_pass"] += 1
+    listed pool rows over K4's row copy plan), from a plan cached for
+    these tensors and `max_rows`. Only `min_imbalance` comes from the host; nothing is read
+    back. Returns the scheduler."""
+    _check(state.status, "status", torch.int32)
+    plan = _STEAL_PLANS.get(_steal_tensors(state, sched), (max_rows,),
+                            lambda: _StealPlan(state, sched, max_rows))
+    plan.launch(min_imbalance)
     return sched
+
+
+def steal_pass_grid() -> tuple:
+    """(plan blocks, plan threads, move blocks, move threads) of the last
+    steal pass, as its launches recorded them."""
+    out = (ctypes.c_longlong * 4)()
+    _call("mtpu_steal_grid", out)
+    return tuple(int(v) for v in out)

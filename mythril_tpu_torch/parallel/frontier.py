@@ -30,7 +30,7 @@ peels off first, and drains read the segments' used prefixes.
 The device programs between chunks are kernels on CUDA tensors and plain
 PyTorch twins (`*_reference`) on CPU tensors:
 
-  K5 `summary`                          kernels/frontier_summary.cu
+  K5 `summary`, `summary_read`          kernels/frontier_summary.cu
   K6 `row_maxima`, `pack_rows`, `reset_esc`  kernels/pack_rows.cu
   K7 `gather_rows(_flat)`, `scatter_rows`  kernels/gather_rows.cu
   K8 `arena.fetch_delta`                kernels/arena_delta.cu
@@ -347,6 +347,12 @@ def summary(state, planes, arena, sched) -> torch.Tensor:
 
         return ops.frontier_summary(state, planes, arena, sched)
     return summary_reference(state, planes, arena, sched)
+
+
+def summary_read(state, planes, arena, sched) -> np.ndarray:
+    """The chunk summary on the host: the drain loop's one blocking read
+    (K5's output copied back on CUDA tensors, the twin's on the CPU)."""
+    return summary(state, planes, arena, sched).cpu().numpy()
 
 
 def row_maxima(state_like, planes_like, index) -> torch.Tensor:
@@ -831,22 +837,11 @@ class DeviceFrontier:
             if backlog is not None:
                 self._flush_backlog(backlog)
                 backlog = None
-            packed = summary(state, planes, self.arena, sched).cpu().numpy()
-            # a sharded summary ends in the shard block: peel it off first
-            shard_words = None
-            if n_shards > 1:
-                shard_words = packed[-(4 * n_shards + 1):]
-                packed = packed[:-(4 * n_shards + 1)]
+            packed = summary_read(state, planes, self.arena, sched)
             (stack_top, esc_count, executed, forks, pushes, pops, arena_n,
-             arena_nc, esc_msize, esc_sp, esc_slots, esc_conds, _batch) = (
-                 int(v) for v in packed[:SUMMARY_SCALARS])
-            base = SUMMARY_SCALARS
-            status = packed[base:base + n].astype(np.int32)
-            fork_cond = packed[base + n:base + 2 * n].astype(np.int32)
-            if shard_words is not None:
-                self._publish_shard(shard_words, status)
-            if sched.telemetry is not None:
-                self._publish_telemetry(packed[base + 3 * n:])
+             arena_nc, esc_msize, esc_sp, esc_slots, esc_conds, status,
+             fork_cond) = self._decode_summary(packed,
+                                               sched.telemetry is not None)
             self.lane_steps = lane_base + executed
             self.forks = fork_base + forks
             self.stack_pushes = push_base + pushes
@@ -928,12 +923,33 @@ class DeviceFrontier:
         self._flush_backlog(backlog)
         self.hand_over(state, planes, sched)
 
-    # -- telemetry and merge decoding -------------------------------------------------
+    # -- summary, telemetry and merge decoding ----------------------------------------
+
+    def _decode_summary(self, packed: np.ndarray, telemetry: bool) -> tuple:
+        """One chunk's summary vector: its shard block and its telemetry
+        words published (copied, so that the caller may reuse `packed`);
+        returns the twelve scalars the loop reads, then status and
+        fork_cond as new int32 arrays."""
+        n = self.n_lanes
+        # a sharded summary ends in the shard block: peel it off first
+        shard_words = None
+        if self.n_shards > 1:
+            shard_words = packed[-(4 * self.n_shards + 1):]
+            packed = packed[:-(4 * self.n_shards + 1)]
+        scalars = [int(v) for v in packed[:SUMMARY_SCALARS - 1]]
+        base = SUMMARY_SCALARS
+        status = packed[base:base + n].astype(np.int32)
+        fork_cond = packed[base + n:base + 2 * n].astype(np.int32)
+        if shard_words is not None:
+            self._publish_shard(shard_words, status)
+        if telemetry:
+            self._publish_telemetry(packed[base + 3 * n:])
+        return (*scalars, status, fork_cond)
 
     def _publish_telemetry(self, tel_words) -> None:
         """One chunk's telemetry words (cumulative device counters) into
         per-chunk deltas summed on the object (frontier.py:1365)."""
-        tel_words = np.asarray(tel_words, dtype=np.int64)
+        tel_words = np.array(tel_words, dtype=np.int64)
         prev = self.tel_words
         if prev is None or prev.shape != tel_words.shape:
             prev = np.zeros_like(tel_words)
@@ -957,7 +973,7 @@ class DeviceFrontier:
         steal counters as deltas against the last summary, and the load
         balance (imbalance, Jain fairness of running lanes plus pending
         rows per shard)."""
-        block = np.asarray(shard_words, dtype=np.int64)
+        block = np.array(shard_words, dtype=np.int64)
         d = self.n_shards
         tops, esc = block[:d], block[d:2 * d]
         sent, recv, moved = block[2 * d:3 * d], block[3 * d:4 * d], \

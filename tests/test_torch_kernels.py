@@ -155,9 +155,6 @@ def one_thread():
 def on_host(host_kernels, monkeypatch):
     """Route the wrappers to the host-built kernels and CPU tensors."""
 
-    class _Stream:
-        cuda_stream = 0
-
     def check(t, what, dtype, shape=None):
         assert t.dtype == dtype, what
         assert shape is None or tuple(t.shape) == tuple(shape), what
@@ -167,7 +164,7 @@ def on_host(host_kernels, monkeypatch):
     monkeypatch.setattr(build, "load", lambda name: host_kernels[name])
     monkeypatch.setattr(ops, "_FUNCS", {})
     monkeypatch.setattr(ops, "_check", check)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda: _Stream())
+    monkeypatch.setattr(ops, "_raw_stream", lambda: 0)
 
 
 def _same(kernel_tree, plain_tree, what):
@@ -569,21 +566,224 @@ def test_host_sharded_step_matches_twin(on_host, n_shards, telemetry):
     assert int(plain[3].pushes) > 0 and int(plain[3].steal_rows) > 0
 
 
-def test_host_steal_pass_matches_twin(on_host):
-    """K12 against the twin on the JAX comparison's fixtures: forced
-    imbalance, below the threshold, D = 3, tied loads, short room."""
-    from mythril_tpu_torch.parallel import frontier as tf
-    from test_torch_shard import STEAL_CASES
+def _steal_cases() -> dict:
+    """K12's host cases: the JAX comparison's fixtures (forced imbalance,
+    below the threshold, D = 3, tied loads, short room), a max_rows past
+    the rows the pair moves, and 64-lane blocks (each warp's lanes in one
+    shard, counted by one ballot)."""
+    from test_torch_shard import STEAL_CASES, _pool_fixture
 
-    for case, (make, min_imbalance, max_rows) in sorted(STEAL_CASES.items()):
-        state, sched = make()
-        plain = to_port("sched", sched)
-        kernel = convert.clone(plain)
-        tf.steal_pass_reference(to_port("state", state), plain,
-                                min_imbalance, max_rows)
-        ops.steal_pass(to_port("state", state), kernel, min_imbalance,
-                       max_rows)
-        _same(kernel, plain, case)
+    return {**STEAL_CASES,
+            "max_rows_spare": (lambda: _pool_fixture(8, 2, 8, [0, 4]), 1, 16),
+            "warp_ballot": (lambda: _pool_fixture(128, 2, 8, [0, 4],
+                                                  running=[10, 50]), 1, 4)}
+
+
+@pytest.mark.parametrize("case", sorted(_steal_cases()))
+def test_host_steal_pass_matches_twin(on_host, monkeypatch, case):
+    """K12 against the twin with rows cut into 256-byte copy items (nine
+    or more blocks a row, as the default geometry's 4 KB slices cut its
+    39 KB rows), every pool leaf and counter; the move grid as the launch
+    recorded it."""
+    from mythril_tpu_torch.parallel import frontier as tf
+
+    monkeypatch.setattr(ops, "_MOVE_SLICE", 256)
+    monkeypatch.setattr(ops, "_STEAL_PLANS", ops._Plans(limit=4))
+    make, min_imbalance, max_rows = _steal_cases()[case]
+    state, sched = make()
+    plain = to_port("sched", sched)
+    kernel = convert.clone(plain)
+    tf.steal_pass_reference(to_port("state", state), plain, min_imbalance,
+                            max_rows)
+    ops.steal_pass(to_port("state", state), kernel, min_imbalance, max_rows)
+    _same(kernel, plain, case)
+    plan = next(iter(ops._STEAL_PLANS.values()))
+    n_items = plan.items.shape[0] - 1
+    n_seg = int(plain.stack_top.shape[0])
+    assert n_items >= 9
+    assert ops.steal_pass_grid()[2:] == (n_seg // 2 * max_rows * n_items, 256)
+
+
+#: K5's host cases: (shards, storage slots, live rows a segment or None for
+#: all, telemetry armed)
+SUMMARY_CASES = {"d1_partial": (1, 64, [700], False),
+                 "d4_partial": (4, 64, [100, 0, 256, 37], False),
+                 "all_live": (4, 64, None, False),
+                 "telemetry": (4, 64, [200, 31, 0, 255], True),
+                 "odd_slots": (2, 20, [300, 41], True)}
+
+
+def _summary_tree(n_shards, slots, live, telemetry, seed=5):
+    """[state, planes, arena, sched] on the CPU: 1024 escape rows of
+    `slots` storage slots (512 at 20 slots), random columns spread over
+    every row (an all-live fixture's sp negative, so that no 0 enters its
+    maxima), `live` rows of each segment live (the others' columns larger
+    than any live row's), random scheduler scalars, telemetry counters and
+    steal counters."""
+    rng = np.random.default_rng(seed)
+    n_lanes = 8 * n_shards
+    specs = [tb.LaneSpec(b"\x60\x01\x00")] * n_lanes
+    state = tb.build_batch(specs, stack_slots=8, memory_bytes=64,
+                           calldata_bytes=32, retdata_bytes=16,
+                           storage_slots=slots, tstore_slots=2, device="cpu")
+    planes = ts.SymPlanes.empty(n_lanes, 8, 64, slots, max_conds=4,
+                                device="cpu")
+    tel = ts.new_telemetry([5, 13, 0x1B], fleet_slots=[0, 1], n_fleet=2,
+                           device="cpu") if telemetry else None
+    esc_rows = 1024 if slots % 16 == 0 else 512
+    sched = ts.new_scheduler(state, planes, 4 * n_shards, esc_rows,
+                             telemetry=tel, n_shards=n_shards)
+    esc, esc_planes = sched.esc_state, sched.esc_planes
+
+    def fill(tensor, low, high):
+        tensor.copy_(torch.from_numpy(rng.integers(
+            low, high, tuple(tensor.shape)).astype(np.int64)).to(tensor.dtype))
+
+    fill(esc.msize, 0, 5000)
+    fill(esc.sp, -90 if live is None else 0, 9 if live is not None else -3)
+    fill(esc_planes.cond_count, 0, 5)
+    density = torch.from_numpy(rng.random((esc_rows, 1)) / 2)
+    esc.storage_used.copy_(torch.from_numpy(rng.random((esc_rows, slots)))
+                           < density)
+    seg = esc_rows // n_shards
+    counts = [seg] * n_shards if live is None else live
+    sched.esc_count.copy_(torch.tensor(counts if n_shards > 1 else counts[0],
+                                       dtype=torch.int32))
+    # a non-live row holds the largest values and every slot used: counted,
+    # it would set the maxima
+    rows = torch.arange(esc_rows)
+    dead = rows % seg >= torch.tensor(counts).repeat_interleave(seg)
+    for column in (esc.msize, esc.sp, esc_planes.cond_count):
+        column[dead] = 1 << 20
+    esc.storage_used[dead] = True
+    fill(sched.stack_top, 0, 5)
+    for scalar in (sched.executed, sched.forks, sched.pushes, sched.pops):
+        fill(scalar, 0, 1 << 40)
+    if tel is not None:
+        for counter in (tel.op_hist, tel.lifecycle, tel.esc_cause,
+                        tel.occupancy, tel.hwm, tel.tag_occ, tel.fleet_occ):
+            fill(counter, 0, 1 << 40)
+    if n_shards > 1:
+        for counter in (sched.steals_sent, sched.steals_received,
+                        sched.steal_rows):
+            fill(counter, 0, 1000)
+    state.status.copy_(torch.from_numpy(rng.integers(0, 8, n_lanes)
+                                        .astype(np.int32)))
+    planes.fork_cond.copy_(torch.from_numpy(rng.integers(
+        -5, 1 << 20, n_lanes).astype(np.int32)))
+    planes.ctx_id.copy_(torch.from_numpy(rng.integers(0, 9, n_lanes)
+                                         .astype(np.int32)))
+    arena = ta.new_arena(64, 16, device="cpu")
+    arena.n.fill_(17)
+    arena.n_const.fill_(3)
+    return [state, planes, arena, sched]
+
+
+@pytest.mark.parametrize("case", sorted(SUMMARY_CASES))
+def test_host_summary_matches_twin(on_host, case):
+    """K5 against the twin over several blocks' worth of escape rows (16
+    blocks of 64 rows at 64 slots, 4 of 128 at 20), then again on the same
+    plan after the rows changed (the highest live row, in the last block
+    when every row is live, taking msize's maximum); the grid is the one
+    the launch recorded."""
+    from mythril_tpu_torch.parallel import frontier as tf
+
+    tree = _summary_tree(*SUMMARY_CASES[case])
+    state, planes, arena, sched = tree
+    rows_per_block = 64 if sched.esc_state.storage_used.shape[1] == 64 else 128
+    maxima = []
+    for attempt in range(2):
+        got = ops.frontier_summary(*tree).clone()
+        ref = tf.summary_reference(*tree)
+        assert got.dtype == ref.dtype and torch.equal(got, ref), attempt
+        assert ops.frontier_summary_grid() == (
+            sched.esc_state.status.shape[0] // rows_per_block, 256)
+        maxima.append(got[8:12].tolist())
+        # the second launch sees other maxima in other blocks: msize's in
+        # the highest live row (the last block when every row is live)
+        sched.esc_count.copy_(torch.maximum(sched.esc_count - 1,
+                                            torch.zeros_like(sched.esc_count)))
+        counts = sched.esc_count.reshape(-1).tolist()
+        seg = sched.esc_state.sp.shape[0] // len(counts)
+        top = max(d * seg + n - 1 for d, n in enumerate(counts) if n)
+        sched.esc_state.msize[top] = 9999 + attempt
+        sched.esc_state.sp.add_(1)
+        sched.esc_planes.cond_count[sched.esc_state.sp.shape[0] // 2] = 77
+        sched.esc_state.storage_used[3].fill_(True)
+    assert maxima[0] != maxima[1]
+    if SUMMARY_CASES[case][2] is None:
+        assert max(maxima[0]) > 0 > maxima[0][1]
+
+
+def test_plans_last_call_and_key():
+    """ops._Plans: the very tensors of the last call take its plan without
+    building the key; other tensor objects over the same storage find it by
+    key; other static arguments or storage build anew; the least recently
+    used plan goes past the limit; no tensor is kept alive."""
+    import gc
+    import weakref
+
+    plans, built = ops._Plans(limit=2), []
+
+    def build():
+        built.append(object())
+        return built[-1]
+
+    a, b = torch.zeros(4), torch.ones(4)
+    first = plans.get([a, b], (1,), build)
+    assert plans.get([a, b], (1,), build) is first
+    assert plans.get([a.view(4), b], (1,), build) is first
+    assert len(built) == 1
+    second = plans.get([a, b], (2,), build)
+    third = plans.get([a, torch.ones(4)], (1,), build)
+    assert len({id(first), id(second), id(third)}) == 3 and len(built) == 3
+    assert plans.get([a, b], (2,), build) is second
+    assert plans.get([a, b], (1,), build) is not first   # dropped at the limit
+    plans.clear()
+    assert plans.get([a, b], (2,), build) is not second
+    dead = torch.zeros(3)
+    plans.get([dead], (), build)
+    ref = weakref.ref(dead)
+    del dead
+    gc.collect()
+    assert ref() is None
+
+
+def test_summary_decode_copies_what_it_keeps():
+    """The drain loop's decode keeps no view of the summary it is given:
+    after that buffer is overwritten, the telemetry words and the shard
+    block it kept are unchanged, and the next summary's steal and
+    telemetry deltas are its own."""
+    from mythril_tpu_torch.parallel import frontier as tf
+
+    fr = tf.DeviceFrontier(16, device="cpu", n_shards=2)
+    state, planes = fr.seed([(BENCH_LOOP, {}, False, 10_000, 0)])
+    sched = fr.new_sched(state, planes)
+    sched.telemetry.op_hist.fill_(3)
+    sched.steals_sent.copy_(torch.tensor([5, 0]))
+    sched.steal_rows.fill_(5)
+    buffer = tf.summary_reference(state, planes, fr.arena, sched).numpy().copy()
+    first = buffer.copy()
+    fr._decode_summary(buffer, True)
+    kept = (fr.tel_words.copy(), fr.shard_tops.copy(), fr.shard_esc.copy(),
+            [np.copy(part) for part in fr.shard_steals])
+    buffer[:] = -7
+    assert np.array_equal(fr.tel_words, kept[0])
+    assert np.array_equal(fr.shard_tops, kept[1])
+    assert np.array_equal(fr.shard_esc, kept[2])
+    assert all(np.array_equal(mine, theirs)
+               for mine, theirs in zip(fr.shard_steals, kept[3]))
+    # the next chunk: two more steals and one more op of each class
+    buffer[:] = first
+    n_tel = fr.tel_words.shape[0]
+    tail = 4 * 2 + 1
+    tel_at = len(buffer) - tail - n_tel
+    buffer[tel_at:tel_at + ts.N_OP_CLASSES] += 1
+    buffer[-tail + 4] += 2     # steals_sent[0]
+    buffer[-1] += 2            # steal_rows
+    fr._decode_summary(buffer, True)
+    assert fr.steals_sent.tolist() == [7, 0] and int(fr.steal_rows) == 7
+    assert fr.op_hist.tolist() == [4] * ts.N_OP_CLASSES
 
 
 # ---- K2's parity hazards: one block (a warp on the card) per lane ---------------------
