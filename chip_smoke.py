@@ -20,14 +20,19 @@ copy to the host) held word for word to the twin on the same tensors
 (`summaries_checked`). Phases:
 
   1. the card's name and power limit (nvidia-smi);
-  2. K1 keccak vs `keccak256_reference`: 4096 random messages of 0..512
-     bytes, and the SHA3 shape of the main path (128 rows of a 4096-byte
-     memory, ranges clipped at msize);
-  3. K2 evm_step (a warp a lane) vs `step_reference`: bench.py's concrete
-     loop at 512 lanes for 256 steps and a program reaching every expensive
-     family at 128 lanes, every leaf compared after each chunk of 32 steps,
-     and its first chunk at 2048 lanes; K2's device time a step by launch
-     at 128 and 2048 lanes and ptxas's registers and spills;
+  2. K1 keccak (its standalone form) vs `keccak256_reference`: 4096
+     random messages of 0..512 bytes, and the SHA3 shape of the main path
+     (128 rows of a 4096-byte memory, ranges clipped at msize); at both,
+     the wrapper's messages a warp timed in turn with one and 32;
+  3. K2 evm_step after K1's step form (a warp a lane each) vs
+     `step_reference`: bench.py's concrete loop at 512 lanes for 256 steps
+     and a program reaching every expensive family at 128 lanes, every leaf
+     compared after each chunk of 32 steps, and its first chunk at 2048
+     lanes; the device time a step of K1's step form and of K2 at 128 and
+     2048 lanes (on that program, and K1's on bench.py's loop, where no
+     lane hashes), each launched once a step and sha_prep never, their
+     grids as the launches recorded them and ptxas's registers and spills
+     (K1's numbers go to its kernels record);
   4. K3 arena_alloc vs its twins: a random want-mask sequence up to and
      past capacity;
   5. K4 (K3's step allocations folded in) with K1-K2 vs the twins on
@@ -44,7 +49,9 @@ copy to the host) held word for word to the twin on the same tensors
   7. frontier_programs: K5-K8 vs their twins on the same contract two
      chunks in (1024 escape rows, 680+ of them live): the summary, the
      drain's maxima and pack at its real index and quantized widths, the
-     escape reset, a gather and a scatter of 32 lanes (and with clamped
+     escape reset (K6's grids as the launches recorded them, the maxima
+     over more than one block, its device time by launch and its plan
+     lookup), a gather and a scatter of 32 lanes (and with clamped
      indices and dropped pads; K7's grid of row copy items), the arena delta
      of the first drain; each timed beside its twin and, where one exists,
      the PyTorch call that computes the same function; K5's grid as its
@@ -109,7 +116,7 @@ copy to the host) held word for word to the twin on the same tensors
  19. frontier_wide: `DeviceFrontier(2048)` in the default configuration on
      branchy(12) until the tree drains, held to the JAX
      `_Frontier(n_lanes=2048)`'s counters, digests and telemetry words,
-     and once more profiled (K2's device time a step);
+     and once more profiled (K1's and K2's device time a step);
  20. sat_kernel: K11, one CUDA graph a chunk and eager, vs
      `run_chunk_reference`, every leaf after each chunk, on fixtures
      (opposite-phase races in one tile and across two, the no-flip
@@ -859,6 +866,28 @@ def phase_keccak(dev, rng) -> dict:
     err = max_abs_err(kernel(None), plain(None))
     if err:
         raise AssertionError("K1 (memory ranges) disagrees with its plain version")
+    # the messages a warp takes: the wrapper's choice against one and 32,
+    # timed in turn at both shapes
+    choose = ops.messages_a_warp
+
+    def forced(per: int, call):
+        def run(_):
+            ops.messages_a_warp = lambda batch, device: per
+            try:
+                return call()
+            finally:
+                ops.messages_a_warp = choose
+        return run
+
+    def per_warp_ms(call, shape: int, reps: int) -> dict:
+        chosen = choose(shape, dev)
+        return {"chosen": chosen, **paired_ms(
+            {per: forced(per, call) for per in sorted({1, chosen, 32})}, reps)}
+
+    per_warp = {
+        "messages": per_warp_ms(lambda: ops.keccak_rows(data, length), n, 20),
+        "main_shape": per_warp_ms(lambda: ops.keccak_rows(
+            memory, mlen, offset=offset, limit=msize, mask=mask), LANES, 50)}
     lens = mlen[mask].to(torch.int64)
     blocks = int(((lens + 1 + 135) // 136).sum())
     nbytes = int(lens.sum()) + LANES * (8 + 4 + 4 + 1 + 32)
@@ -866,7 +895,8 @@ def phase_keccak(dev, rng) -> dict:
     record = {"phase": "keccak", "messages": n, "max_abs_err": err_msgs,
               "messages_ms": msgs_ms,
               "messages_per_s": n / (msgs_ms / 1e3),
-              "main_shape": [LANES, 4096], "main_max_abs_err": err}
+              "main_shape": [LANES, 4096], "main_max_abs_err": err,
+              "per_warp_ms": per_warp}
     emit(record)
     return {"name": "keccak", "route": "cuda",
             "source": "mythril_tpu_torch/kernels/keccak.cu",
@@ -959,38 +989,65 @@ def phase_step(dev) -> dict:
     timed = convert.clone(snapshot)
 
     def split_ms(source, tree):
-        """K2's device ms a step by launch (sha_prep, the K1 call between,
-        evm_step), from the profiler."""
+        """K1's step form's and K2's device ms a step, from the profiler;
+        each must launch once a step, and sha_prep (folded into K1) not at
+        all."""
         times = device_times(lambda _: (refill([tree], [source]),
-                                        ops.evm_step(tree)), 20)
-        return {name: named_ms(times, [f"{name}_kernel"])
-                for name in ("sha_prep", "keccak_rows", "evm_step")}
+                                        ops.evm_step(tree)), 20, counts=True)
+        if any("sha_prep" in key for key in times):
+            raise AssertionError(f"sha_prep launched: {sorted(times)}")
+        split = {}
+        for name in ("keccak_step", "evm_step"):
+            launches = sum(count for key, (_, count) in times.items()
+                           if f"{name}_kernel" in key)
+            if launches != 1:
+                raise AssertionError(f"{name}: {launches} launches a step")
+            split[name] = named_ms({key: ms for key, (ms, _) in times.items()},
+                                   [f"{name}_kernel"])
+        return split
 
     wide_timed = convert.clone(wide)
-    device, grid = {}, {}
+    device, grid, k1_grid, no_sha3 = {}, {}, {}, {}
     for lanes, source, tree in ((LANES, snapshot, timed),
                                 (WIDE_LANES, wide, wide_timed)):
         device[lanes] = split_ms(source, tree)
-        grid[lanes] = ops.evm_step_grid()   # as the last launch recorded it
-        if grid[lanes][0] != lanes:
-            raise AssertionError(f"K2 at {lanes} lanes launched {grid[lanes]}")
-    report = build.ptxas_report("evm_step")
-    ptxas = {name: next((props for fn, props in report.items() if name in fn),
-                        None) for name in ("evm_step_kernel", "sha_prep_kernel",
-                                           "heavy_word")}
-    return {"name": "evm_step", "route": "cuda",
-            "source": "mythril_tpu_torch/kernels/evm_step.cu",
-            "replaces": "mythril_tpu/parallel/lockstep.py:159",
-            "max_abs_err": 0,
-            "ms": event_ms(lambda _: ops.evm_step(timed), 20,
-                           setup=lambda: refill([timed], [snapshot])),
-            "plain_ms": event_ms(lambda s: lockstep.step_reference(s), 5,
-                                 setup=lambda: convert.clone(snapshot)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "device_ms": device[LANES], "device_ms_wide": device[WIDE_LANES],
-            "wide_lanes": WIDE_LANES, "grid": grid[LANES],
-            "grid_wide": grid[WIDE_LANES],
-            "ptxas": ptxas, "held_by": "phase evm_step"}
+        # as the last launches recorded them: a block of a warp a lane
+        grid[lanes] = ops.evm_step_grid()
+        k1_grid[lanes] = ops.keccak_step_grid()
+        if grid[lanes] != (lanes, 32) or k1_grid[lanes] != (lanes, 32):
+            raise AssertionError(f"K1/K2 at {lanes} lanes launched "
+                                 f"{k1_grid[lanes]}, {grid[lanes]}")
+        # K1's step form where no lane hashes: bench.py's loop
+        loop = B.build_batch([B.LaneSpec(BENCH_LOOP, gas_limit=2 ** 60)] * lanes,
+                             device=dev)
+        no_sha3[lanes] = split_ms(loop, convert.clone(loop))["keccak_step"]
+
+    def ptxas(source, names):
+        report = build.ptxas_report(source)
+        return {name: next((props for fn, props in report.items() if name in fn), None)
+                for name in names}
+
+    k2 = {"name": "evm_step", "route": "cuda",
+          "source": "mythril_tpu_torch/kernels/evm_step.cu",
+          "replaces": "mythril_tpu/parallel/lockstep.py:159",
+          "max_abs_err": 0,
+          "ms": event_ms(lambda _: ops.evm_step(timed), 20,
+                         setup=lambda: refill([timed], [snapshot])),
+          "plain_ms": event_ms(lambda s: lockstep.step_reference(s), 5,
+                               setup=lambda: convert.clone(snapshot)),
+          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+          "device_ms": device[LANES], "device_ms_wide": device[WIDE_LANES],
+          "wide_lanes": WIDE_LANES, "grid": grid[LANES],
+          "grid_wide": grid[WIDE_LANES],
+          "ptxas": ptxas("evm_step", ("evm_step_kernel", "heavy_word")),
+          "held_by": "phase evm_step"}
+    k1_step = {"step_device_ms": {"mixed": device[LANES]["keccak_step"],
+                                  "mixed_wide": device[WIDE_LANES]["keccak_step"],
+                                  "no_sha3": no_sha3[LANES],
+                                  "no_sha3_wide": no_sha3[WIDE_LANES]},
+               "step_grid": k1_grid[LANES], "step_grid_wide": k1_grid[WIDE_LANES],
+               "ptxas": ptxas("keccak", ("keccak_step_kernel", "keccak_rows_kernel"))}
+    return k2, k1_step
 
 
 # ---- phase 4: K3 ------------------------------------------------------------------
@@ -1175,11 +1232,10 @@ def phase_slice(dev) -> dict:
 
     # per-kernel times on the main path: one chunk of eager steps from the
     # snapshot, CUDA events around each host call (K4 = its pre and post
-    # calls; K2 = sha_prep and evm_step; K1 = keccak_rows), then the same
+    # calls; K2 = evm_step; K1 = its step form), then the same
     # chunk under the profiler for the kernels' device time per step
     spans = {"keccak": [], "evm_step": [], "sym_step": []}
-    owner = {"mtpu_keccak_rows": "keccak", "mtpu_sha_prep": "evm_step",
-             "mtpu_evm_step": "evm_step"}
+    owner = {"mtpu_keccak_step": "keccak", "mtpu_evm_step": "evm_step"}
     call = ops._call
 
     def timed_call(name, block):
@@ -1399,21 +1455,39 @@ def phase_frontier_programs(dev) -> list:
     b_ms, b_by = bound_ms(2 * pack_bytes + bucket * 4, 0)
     maxima_ms = event_ms(lambda _: frontier.row_maxima(*rows, index), 50)
     reset_ms = event_ms(lambda _: frontier.reset_esc(reset_k), 50)
+    # each entry's grid as its last launch recorded it (the maxima over
+    # more than one block at the drain's rows), its device time by launch,
+    # and the plan lookup of the pool's rows (key against last call)
+    k6_grid = ops.pack_rows_grid()
+    if k6_grid["row_maxima"][0] < 2:
+        raise AssertionError(f"K6 row_maxima over {bucket} rows launched {k6_grid}")
+
+    def by_launch(fn, names):
+        times = device_times(fn, 20)
+        return {name: named_ms(times, (name,)) for name in names}
+
+    k6_device = {
+        **by_launch(lambda _: frontier.row_maxima(*rows, index),
+                    ("row_maxima_kernel", "row_maxima_combine_kernel")),
+        **by_launch(lambda _: frontier.pack_rows(*rows, index, *widths),
+                    ("pack_rows_kernel",)),
+        **by_launch(lambda _: frontier.reset_esc(reset_k), ("reset_esc_kernel",))}
+    frontier.pack_rows(*rows, index, *widths)
+    k6_lookup = lookup_us(ops._ROW_PLANS, lambda: list(rows[0]) + list(rows[1]), ())
     records.append({
         "name": "pack_rows", "route": "cuda",
         "source": "mythril_tpu_torch/kernels/pack_rows.cu",
         "replaces": "mythril_tpu/parallel/frontier.py:156", "max_abs_err": 0,
         "ms": event_ms(lambda _: frontier.pack_rows(*rows, index, *widths),
                        50),
-        "device_ms": device_ms(lambda _: frontier.pack_rows(
-            *rows, index, *widths), 20),
+        "device_ms": k6_device["pack_rows_kernel"],
         "plain_ms": event_ms(lambda _: frontier.pack_rows_reference(
             *rows, index, *widths), 20),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "library": "none: no single PyTorch call packs the row fields",
         "row_maxima_ms": maxima_ms, "reset_esc_ms": reset_ms,
-        "row_maxima_device_ms": device_ms(
-            lambda _: frontier.row_maxima(*rows, index), 20),
+        "device_ms_by_kernel": k6_device, "grid": k6_grid,
+        "lookup": k6_lookup, "rows": bucket,
         "held_by": "phase frontier_programs"})
 
     # K7: a gather and a scatter of 32 lanes
@@ -1628,7 +1702,7 @@ K4_KERNELS = ("sym_seed_count_kernel", "sym_seed_seg_kernel",
 #: K3 allocations run inside K4's sym_alloc_*/sym_planes launches and
 #: K10's merge_alloc_seg/merge_nodes launches)
 KERNEL_OF = {
-    "keccak_rows_kernel": "keccak", "sha_prep_kernel": "evm_step",
+    "keccak_rows_kernel": "keccak", "keccak_step_kernel": "keccak",
     "evm_step_kernel": "evm_step", "arena_alloc_kernel": "arena_alloc",
     **{name: "sym_step" for name in K4_KERNELS},
     "frontier_summary_kernel": "frontier_summary",
@@ -1640,7 +1714,8 @@ KERNEL_OF = {
     "merge_alloc_seg_kernel": "merge_pass",
     "merge_apply_kernel": "merge_pass", "merge_blocked_kernel": "merge_pass",
     "steal_plan_kernel": "steal_pass", "steal_move_kernel": "steal_pass",
-    "row_maxima_kernel": "pack_rows", "pack_rows_kernel": "pack_rows",
+    "row_maxima_kernel": "pack_rows", "row_maxima_combine_kernel": "pack_rows",
+    "pack_rows_kernel": "pack_rows",
     "reset_esc_kernel": "pack_rows", "gather_rows_kernel": "gather_rows",
     "scatter_rows_kernel": "gather_rows",
     "arena_delta_kernel": "arena_delta"}
@@ -1669,13 +1744,17 @@ def profiled_run(make, seeds) -> tuple:
     steps = max(ops.LAUNCHES["evm_step"] - steps, 1)
     by_kernel = {name: 0.0 for name in ops.LAUNCHES}
     device_calls = {name: 0 for name in ops.LAUNCHES}
-    k2_split = {"sha_prep": 0.0, "evm_step": 0.0}
+    step_split = {"keccak_step": 0.0, "evm_step": 0.0}
+    step_calls = {name: 0 for name in step_split}
     other_ms = 0.0
     for event in events:
         ms = event.self_device_time_total / 1e3
-        for name in k2_split:
+        if "sha_prep" in event.key:
+            raise AssertionError(f"sha_prep launched: {event.key}")
+        for name in step_split:
             if f"{name}_kernel" in event.key:
-                k2_split[name] += ms
+                step_split[name] += ms
+                step_calls[name] += event.count
         owner = next((kernel for function, kernel in KERNEL_OF.items()
                       if function in event.key), None)
         if owner is None:
@@ -1686,9 +1765,11 @@ def profiled_run(make, seeds) -> tuple:
     busy_ms = sum(by_kernel.values()) + other_ms
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
+    if step_calls["keccak_step"] != step_calls["evm_step"]:
+        raise AssertionError(f"a step launched K1 other than once: {step_calls}")
     return fr, {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                "k2_device_ms_per_step": {name: ms / steps
-                                          for name, ms in k2_split.items()},
+                "step_device_ms_per_step": {name: ms / steps
+                                            for name, ms in step_split.items()},
                 "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
                 "kernel_device_ms": by_kernel, "device_calls": device_calls,
                 "other_device_ms": other_ms}
@@ -3032,7 +3113,10 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - start,
           "libraries": sorted(p.rsplit("/", 1)[-1] for p in paths.values())})
     rng = np.random.default_rng(2024)
-    records = [phase_keccak(dev, rng), phase_step(dev), phase_arena(dev, rng)]
+    keccak_record = phase_keccak(dev, rng)
+    step_record, keccak_step = phase_step(dev)
+    keccak_record.update(keccak_step)
+    records = [keccak_record, step_record, phase_arena(dev, rng)]
     phase_planes(dev)
     records.append(phase_slice(dev))
     records += phase_frontier_programs(dev)

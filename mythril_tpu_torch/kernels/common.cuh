@@ -34,6 +34,14 @@ static inline int mtpu_preload(F* kernel) {
 #define MTPU_NOINLINE
 #endif
 
+// unroll the loop that follows, so that its indices are compile-time
+// constants (the host build leaves the loop to g++)
+#ifdef __CUDACC__
+#define MTPU_UNROLL _Pragma("unroll")
+#else
+#define MTPU_UNROLL
+#endif
+
 #include "layout.cuh"
 
 struct Args {

@@ -11,9 +11,10 @@
 // and lanes forced out by the symbolic pre-pass frozen. The state is
 // updated in place: a lane commits only when it neither errs nor escapes.
 //
-// Two launches per step: `sha_prep` (a thread per lane) finds the SHA3
-// lanes and their memory ranges for kernel K1 (keccak.cu), which hashes
-// them before `evm_step` runs.
+// K1's step form (keccak.cu `keccak_step_kernel`) runs just before it on the
+// same parameter block: it finds the SHA3 lanes with this file's lane
+// helpers (evm_lane.cuh) and leaves their digests in K2_DIGEST, which
+// `evm_step` reads only on the lanes that commit a SHA3.
 //
 // `evm_step` runs one block of 32 threads (a warp) per lane, so the lanes
 // spread over the SMs (128 blocks at the frontier's 128 lanes). Control
@@ -41,39 +42,11 @@
 //
 // Bound: operations for the lanes that divide, multiply or hash; otherwise
 // the bytes of the few rows a lane touches.
-#include "words.cuh"
+#include "evm_lane.cuh"
 
 namespace {
 
 enum { STEP_THREADS = 32, COPY_LIMIT = 512, NO_SLOT = 0x7fffffff };
-
-__device__ __forceinline__ int op_at(const Args& a, int lane, int pc) {
-    const int C = arg_int(a, K2_C);
-    if (pc >= arg_ptr<int32_t>(a, L_CODE_LEN)[lane]) return OP_STOP;
-    int idx = pc < 0 ? 0 : (pc > C - 1 ? C - 1 : pc);
-    return arg_ptr<uint8_t>(a, L_CODE)[static_cast<long long>(lane) * C + idx];
-}
-
-__device__ __forceinline__ bool running_of(const Args& a, int lane) {
-    bool running = arg_ptr<int32_t>(a, L_STATUS)[lane] == ST_RUNNING;
-    const uint8_t* fe = arg_ptr<const uint8_t>(a, K2_FORCE_ESCAPE);
-    const uint8_t* ff = arg_ptr<const uint8_t>(a, K2_FORCE_FORK);
-    if (fe) running = running && !fe[lane] && !ff[lane];
-    return running;
-}
-
-__device__ __forceinline__ const int32_t* slot_ptr(const Args& a, int lane,
-                                                   long long sp, int n) {
-    const int S = arg_int(a, K2_S);
-    long long idx = sp - n;
-    idx = idx < 0 ? 0 : (idx > S - 1 ? S - 1 : idx);
-    return arg_ptr<int32_t>(a, L_STACK) + (static_cast<long long>(lane) * S + idx) * 16;
-}
-
-__device__ __forceinline__ long long clampll(long long v, long long lo,
-                                             long long hi) {
-    return v < lo ? lo : (v > hi ? hi : v);
-}
 
 __device__ __forceinline__ bool is_heavy(int op) {
     return op >= OP_DIV && op <= OP_SIGNEXTEND;
@@ -104,29 +77,6 @@ struct StepShared {
 };
 
 }  // namespace
-
-// SHA3 lanes: memory offset, clipped length and whether to hash
-__global__ void sha_prep_kernel(Args a) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= arg_int(a, K2_B)) return;
-    bool hash = false;
-    long long off = 0;
-    int len = 0;
-    if (running_of(a, lane)) {
-        const int sp = arg_ptr<int32_t>(a, L_SP)[lane];
-        const int op = op_at(a, lane, arg_ptr<int32_t>(a, L_PC)[lane]);
-        if (op == OP_SHA3) {
-            bool off_fits, len_fits;
-            off = w_low32(w_load16(slot_ptr(a, lane, sp, 1)), &off_fits);
-            long long n = w_low32(w_load16(slot_ptr(a, lane, sp, 2)), &len_fits);
-            hash = len_fits && n <= 512;
-            len = static_cast<int>(clampll(n, 0, 512));
-        }
-    }
-    arg_ptr<long long>(a, K2_SHA_OFF)[lane] = off;
-    arg_ptr<int32_t>(a, K2_SHA_LEN)[lane] = len;
-    arg_ptr<uint8_t>(a, K2_SHA_MASK)[lane] = hash;
-}
 
 __global__ void evm_step_kernel(Args a) {
     __shared__ StepShared sh;
@@ -480,14 +430,6 @@ __global__ void evm_step_kernel(Args a) {
     }
 }
 
-MTPU_EXPORT int mtpu_sha_prep(const long long* values, int n, void* stream) {
-    Args a = mtpu_pack(values, n);
-    const int batch = static_cast<int>(a.v[K2_B]);
-    if (batch <= 0) return 0;
-    MTPU_LAUNCH(sha_prep_kernel, (batch + 127) / 128, 128, stream, a);
-    return MTPU_LAUNCH_STATUS();
-}
-
 // blocks and threads of the last evm_step launch (mtpu_evm_step_grid)
 static int g_step_grid[2];
 
@@ -509,5 +451,5 @@ MTPU_EXPORT int mtpu_evm_step_grid(long long* out, int n, void*) {
 
 // load this source's kernels (before a CUDA graph captures them)
 MTPU_EXPORT int mtpu_evm_preload(const long long*, int, void*) {
-    return MTPU_PRELOAD(sha_prep_kernel) | MTPU_PRELOAD(evm_step_kernel);
+    return MTPU_PRELOAD(evm_step_kernel);
 }

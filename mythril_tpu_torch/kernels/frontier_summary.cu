@@ -20,44 +20,19 @@
 //
 // Bound: bytes (the escape rows' four columns, one storage_used row each,
 // and the three lane columns), but at the main path's 1024 rows the work
-// is a few microseconds of latency. The grid spreads it: each block takes
-// 64 rows at K = 64 storage slots (a group of ceil(K / 16) lanes, a power
-// of two up to 32, a row, so eight rows a warp; each lane counts the
-// nonzero bytes of 16-byte loads), reduces the four maxima with warp
-// shuffles and then over its warps, and writes them to its four words of
-// an int64 scratch, which a second launch of one block combines (a fold
-// in the last block to arrive saved a launch but no clear time on the
-// card, and needs an arrival counter: PERF.md). Block 0 writes the
-// header, which needs no row; the lane columns, the telemetry words and
-// the shard block go to every thread of the grid.
-#include "common.cuh"
+// is a few microseconds of latency. The grid spreads it: the maxima are
+// maxima.cuh's, shared with K6 (64 rows a block at K = 64 storage slots,
+// four words a block of an int64 scratch, which a second launch of one
+// block combines; a fold in the last block to arrive saved a launch but no
+// clear time on the card, and needs an arrival counter: PERF.md). Block 0
+// writes the header, which needs no row; the lane columns, the telemetry
+// words and the shard block go to every thread of the grid.
+#include "maxima.cuh"
 
 namespace {
 
-enum { SUMMARY_THREADS = 256, WARP = 32, N_MAXIMA = 4 };
-constexpr long long NO_ROW = -0x7fffffffffffffffLL - 1;
-
-__device__ __forceinline__ long long max64(long long x, long long y) { return x > y ? x : y; }
-
-// nonzero bytes of a 32-bit word
-__device__ __forceinline__ int nonzero_bytes(uint32_t w) {
-    return __popc((((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u);
-}
-
-// the lanes of a row's group: ceil(K / 16) rounded up to a power of two,
-// at most a warp
-__host__ __device__ __forceinline__ int group_lanes(long long slots) {
-    int lanes = 1;
-    while (lanes < WARP && 16LL * lanes < slots) lanes <<= 1;
-    return lanes;
-}
-
-// the blocks of a summary launch over `rows` escape rows of `slots` slots
-__host__ __device__ __forceinline__ long long summary_blocks(long long rows, long long slots) {
-    const long long rows_per_block = SUMMARY_THREADS / WARP * (WARP / group_lanes(slots));
-    return (rows + rows_per_block - 1) / rows_per_block;
-}
-
+using maxima::WARP;
+enum { SUMMARY_THREADS = maxima::THREADS };
 
 // the lane columns, the telemetry words and the shard block: one word per
 // thread of the grid
@@ -140,72 +115,33 @@ __device__ __forceinline__ void header(const Args& a, long long* out, long long*
 }  // namespace
 
 __global__ void frontier_summary_kernel(Args a) {
-    __shared__ long long buf[SUMMARY_THREADS / WARP * N_MAXIMA];
     __shared__ long long sums[2 * SUMMARY_THREADS / WARP];
-    const int t = threadIdx.x, lane = t % WARP, warp = t / WARP;
     const long long rows = a.v[K5_E], slots = a.v[K5_K];
     const long long seg_rows = rows / a.v[K5_D];
     long long* out = arg_ptr<long long>(a, K5_OUT);
     copy_words(a, out, 13 + 3 * a.v[K5_B]);
     if (blockIdx.x == 0) header(a, out, sums);
 
-    // a group of `lanes` threads a row; a warp's groups take neighbouring rows
-    const int lanes = group_lanes(slots), per_warp = WARP / lanes;
-    const long long row = (static_cast<long long>(blockIdx.x) * (blockDim.x / WARP) + warp)
-                          * per_warp + lane / lanes;
-    const int k = lane % lanes;
+    // a non-live row gives 0, one past the end none
+    const long long row = maxima::group_row(slots);
     const bool in = row < rows;
     const bool live = in && row % seg_rows < arg_ptr<const int32_t>(a, K5_ESC_COUNT)[row / seg_rows];
-    int count = 0;
-    if (in) {
-        const uint8_t* used = arg_ptr<const uint8_t>(a, K5_ESC_STORAGE_USED) + row * slots;
-        if (((reinterpret_cast<uintptr_t>(used) | static_cast<uintptr_t>(slots)) & 15) == 0) {
-            for (long long off = 16LL * k; off < slots; off += 16LL * lanes) {
-                const Vec16 v = *reinterpret_cast<const Vec16*>(used + off);
-                count += nonzero_bytes(v.x) + nonzero_bytes(v.y) + nonzero_bytes(v.z)
-                         + nonzero_bytes(v.w);
-            }
-        } else {
-            for (long long off = k; off < slots; off += lanes) count += used[off] != 0;
-        }
-    }
-    // the group's count, then the warp's maxima (a row past the end gives none)
-    for (int offset = lanes / 2; offset > 0; offset >>= 1)
-        count += __shfl_xor_sync(0xffffffffu, count, offset);
-    long long m[N_MAXIMA] = {NO_ROW, NO_ROW, NO_ROW, NO_ROW};
+    const int count = maxima::used_slots(
+        in ? arg_ptr<const uint8_t>(a, K5_ESC_STORAGE_USED) + row * slots : nullptr, slots);
+    long long m[maxima::N] = {maxima::NONE, maxima::NONE, maxima::NONE, maxima::NONE};
     if (in) {
         m[0] = live ? arg_ptr<const int32_t>(a, K5_ESC_MSIZE)[row] : 0;
         m[1] = live ? arg_ptr<const int32_t>(a, K5_ESC_SP)[row] : 0;
         m[2] = live ? count : 0;
         m[3] = live ? arg_ptr<const int32_t>(a, K5_ESC_COND_COUNT)[row] : 0;
     }
-    for (int q = 0; q < N_MAXIMA; ++q)
-        for (int offset = WARP / 2; offset > 0; offset >>= 1)
-            m[q] = max64(m[q], __shfl_xor_sync(0xffffffffu, m[q], offset));
-    if (lane == 0)
-        for (int q = 0; q < N_MAXIMA; ++q) buf[warp * N_MAXIMA + q] = m[q];
-    __syncthreads();
-    // the block's maxima (every block has a row in range)
-    if (t < N_MAXIMA) {
-        long long best = NO_ROW;
-        for (int w = 0; w < static_cast<int>(blockDim.x) / WARP; ++w)
-            best = max64(best, buf[w * N_MAXIMA + t]);
-        arg_ptr<long long>(a, K5_PARTIAL)[blockIdx.x * N_MAXIMA + t] = best;
-    }
+    maxima::block_partials(m, arg_ptr<long long>(a, K5_PARTIAL));
 }
 
-// the second launch, one block: warp q < 4 takes maximum q over every
-// block's words of the scratch, into out[8 + q]
+// the second launch, one block: the four maxima into out[8..11]
 __global__ void frontier_summary_combine_kernel(Args a) {
-    const int lane = threadIdx.x % WARP, q = threadIdx.x / WARP;
-    if (q >= N_MAXIMA) return;
-    const long long* partial = arg_ptr<const long long>(a, K5_PARTIAL);
-    const long long blocks = summary_blocks(a.v[K5_E], a.v[K5_K]);
-    long long best = NO_ROW;
-    for (long long b = lane; b < blocks; b += WARP) best = max64(best, partial[b * N_MAXIMA + q]);
-    for (int offset = WARP / 2; offset > 0; offset >>= 1)
-        best = max64(best, __shfl_xor_sync(0xffffffffu, best, offset));
-    if (lane == 0) arg_ptr<long long>(a, K5_OUT)[8 + q] = best;
+    maxima::combine(arg_ptr<const long long>(a, K5_PARTIAL),
+                    maxima::blocks(a.v[K5_E], a.v[K5_K]), arg_ptr<long long>(a, K5_OUT) + 8);
 }
 
 namespace {
@@ -220,14 +156,14 @@ MTPU_EXPORT int mtpu_frontier_summary(const long long* values, int n, void* stre
     if (a.v[K5_E] <= 0 || a.v[K5_B] <= 0 || a.v[K5_D] <= 0 || a.v[K5_E] % a.v[K5_D]
         || a.v[K5_K] < 0 || !a.v[K5_PARTIAL])
         return 1;  // cudaErrorInvalidValue
-    const long long blocks = summary_blocks(a.v[K5_E], a.v[K5_K]);
+    const long long blocks = maxima::blocks(a.v[K5_E], a.v[K5_K]);
     if (blocks > 0x7fffffffLL) return 1;
     g_summary_grid[0] = static_cast<int>(blocks);
     g_summary_grid[1] = SUMMARY_THREADS;
     MTPU_LAUNCH(frontier_summary_kernel, g_summary_grid[0], SUMMARY_THREADS, stream, a);
     const int rc = MTPU_LAUNCH_STATUS();
     if (rc) return rc;
-    MTPU_LAUNCH(frontier_summary_combine_kernel, 1, N_MAXIMA * WARP, stream, a);
+    MTPU_LAUNCH(frontier_summary_combine_kernel, 1, maxima::N * WARP, stream, a);
     return MTPU_LAUNCH_STATUS();
 }
 

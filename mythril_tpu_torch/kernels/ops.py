@@ -34,19 +34,22 @@ counts the calls that run its TEL instantiation) and runs the step's four
 arena allocations inside them (`arena_alloc_step`, one a step); K10 counts
 one per pass, whatever its rounds launch, and runs its blends' allocations
 inside them (`arena_alloc_merge`, one a pass), so `arena_alloc` counts
-standalone K3 calls only (the tests'); K6 counts its three entries
-together, K7 its two. K11 counts one per chunk: its call runs every step of
-the chunk (three launches a step, four with the batch runner's freeze
-gate, after the chunk's mirror). K5 counts one per summary (the grid and
-its combining launch). K12 counts one per pass (a plan launch and a move
+standalone K3 calls only (the tests'); K1 counts its step form's launches
+and its standalone calls; K6 counts its three entries together, K7 its
+two. K11 counts one per chunk: its call runs every step of the chunk
+(three launches a step, four with the batch runner's freeze gate, after
+the chunk's mirror). K5 counts one per summary (the grid and its
+combining launch), K6's `row_maxima` one per call (its grid and its
+combining launch). K12 counts one per pass (a plan launch and a move
 launch).
 
-K2's (with K1's, eager or inside K4's step), K4's, K5's, K7's, K10's,
-K11's and K12's parameter blocks and scratch are built once for a set of
-tensors (keyed on their data pointers, shapes and dtypes, and the few
-static arguments) and reused while the key holds; a call with the very
-tensor objects of its cache's last call skips the key (`_Plans`). A K7
-gather allocates one flat buffer a call and returns its leaf views. A
+K2's (with K1's step form, eager or inside K4's step), K4's, K5's, K6's,
+K7's, K10's, K11's and K12's parameter blocks and scratch are built once
+for a set of tensors (keyed on their data pointers, shapes and dtypes,
+and the few static arguments) and reused while the key holds; a call
+with the very tensor objects of its cache's last call skips the key
+(`_Plans`). K6's and K7's outputs are allocated a call (a K7 gather's
+one flat buffer, whose leaf views it returns). A
 chunk of K4 steps (`run_chunk_graph`) and a chunk of K11 steps are each
 captured as one CUDA graph per key and replayed, adding the captured
 launches to `LAUNCHES` on every replay; `REPLAYS` counts the replays and
@@ -87,7 +90,8 @@ REPLAYS: Dict[str, int] = {"run_chunk": 0, "captures": 0, "sat_chunk": 0,
 
 #: which source each exported entry point lives in
 _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_keccak_preload": "keccak",
-              "mtpu_sha_prep": "evm_step", "mtpu_evm_step": "evm_step",
+              "mtpu_keccak_step": "keccak", "mtpu_keccak_step_grid": "keccak",
+              "mtpu_evm_step": "evm_step",
               "mtpu_evm_step_grid": "evm_step", "mtpu_evm_preload": "evm_step", "mtpu_arena_alloc": "arena_alloc",
               "mtpu_sym_pre": "sym_step", "mtpu_sym_post": "sym_step",
               "mtpu_sym_pre_tel": "sym_step", "mtpu_sym_post_tel": "sym_step",
@@ -95,7 +99,7 @@ _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_keccak_preload": "keccak",
               "mtpu_frontier_summary": "frontier_summary",
               "mtpu_frontier_summary_grid": "frontier_summary",
               "mtpu_row_maxima": "pack_rows", "mtpu_pack_rows": "pack_rows",
-              "mtpu_reset_esc": "pack_rows",
+              "mtpu_reset_esc": "pack_rows", "mtpu_pack_rows_grid": "pack_rows",
               "mtpu_gather_rows": "gather_rows",
               "mtpu_scatter_rows": "gather_rows",
               "mtpu_arena_delta": "arena_delta",
@@ -223,13 +227,30 @@ def optab(device) -> torch.Tensor:
 
 # ---- K1 -----------------------------------------------------------------------------
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def messages_a_warp(batch: int, device) -> int:
+    """Messages a warp of the standalone K1 takes: one while the warps are
+    fewer than the card's SMs, then doubled up to 32 as long as each SM
+    keeps a warp (the host shim's CPU tensors count as 132 SMs)."""
+    sms = _sm_count(device.index or 0) if device.type == "cuda" else 132
+    per = 1
+    while per < 32 and batch >= 2 * per * sms:
+        per *= 2
+    return per
+
+
 def keccak_rows(data: torch.Tensor, length: torch.Tensor,
                 offset: Optional[torch.Tensor] = None,
                 limit: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: digest of row i of data[B, n] read from offset[i] (0 if absent)
     for length[i] bytes, bytes at or past limit[i] (n if absent) reading 0;
-    rows whose mask is False get a zero digest."""
+    rows whose mask is False get a zero digest. A warp hashes
+    `messages_a_warp` of them."""
     batch, ncols = data.shape
     values = [0] * Lay.K1_NARGS
     values[Lay.K1_DATA] = _check(data, "data", torch.uint8)
@@ -245,6 +266,7 @@ def keccak_rows(data: torch.Tensor, length: torch.Tensor,
     out = torch.empty((batch, 32), dtype=torch.uint8, device=data.device)
     values[Lay.K1_OUT] = out.data_ptr()
     values[Lay.K1_BATCH] = batch
+    values[Lay.K1_PER_WARP] = messages_a_warp(batch, data.device)
     _launch("mtpu_keccak_rows", values)
     LAUNCHES["keccak"] += 1
     return out
@@ -296,8 +318,8 @@ def _leaf_ptrs(tree, dtypes, batch, what) -> list:
 
 
 def _k2_blocks(state, force_escape, force_fork):
-    """K2's and its K1's parameter blocks for `state` (and the forced-lane
-    masks, or none), with the SHA3 scratch and digests they own."""
+    """The parameter block of K2 and of K1's step form for `state` (and the
+    forced-lane masks, or none), with the digests it owns."""
     dims = _state_dims(state)
     batch = dims["B"]
     values = [0] * Lay.K2_NARGS
@@ -315,30 +337,14 @@ def _k2_blocks(state, force_escape, force_fork):
                                            torch.bool, (batch,))
     dev = state.stack.device
     values[Lay.K2_OPTAB] = optab(dev).data_ptr()
-    keep = [torch.empty(batch, dtype=torch.int64, device=dev),   # offsets
-            torch.empty(batch, dtype=torch.int32, device=dev),   # lengths
-            torch.empty(batch, dtype=torch.bool, device=dev),    # SHA3 lanes
-            torch.empty((batch, 32), dtype=torch.uint8, device=dev)]
-    sha_off, sha_len, sha_mask, digest = keep
-    for slot, tensor in ((Lay.K2_SHA_OFF, sha_off), (Lay.K2_SHA_LEN, sha_len),
-                         (Lay.K2_SHA_MASK, sha_mask), (Lay.K2_DIGEST, digest)):
-        values[slot] = tensor.data_ptr()
-    k1 = [0] * Lay.K1_NARGS
-    k1[Lay.K1_DATA] = _check(state.memory, "data", torch.uint8)
-    k1[Lay.K1_STRIDE] = state.memory.stride(0)
-    k1[Lay.K1_NCOLS] = state.memory.shape[1]
-    k1[Lay.K1_LEN] = sha_len.data_ptr()
-    k1[Lay.K1_OFFSET] = sha_off.data_ptr()
-    k1[Lay.K1_LIMIT] = _check(state.msize, "limit", torch.int32, (batch,))
-    k1[Lay.K1_MASK] = sha_mask.data_ptr()
-    k1[Lay.K1_OUT] = digest.data_ptr()
-    k1[Lay.K1_BATCH] = batch
-    return _block("mtpu_evm_step", values), _block("mtpu_keccak_rows", k1), keep
+    digest = torch.zeros((batch, 32), dtype=torch.uint8, device=dev)
+    values[Lay.K2_DIGEST] = digest.data_ptr()
+    return _block("mtpu_evm_step", values), digest
 
 
-def _k2_launch(k2, k1) -> None:
-    _call("mtpu_sha_prep", k2)
-    _call("mtpu_keccak_rows", k1)
+def _k2_launch(k2) -> None:
+    """K1's step form (it hashes the SHA3 lanes it finds), then K2."""
+    _call("mtpu_keccak_step", k2)
     LAUNCHES["keccak"] += 1
     _call("mtpu_evm_step", k2)
     LAUNCHES["evm_step"] += 1
@@ -349,26 +355,38 @@ _K2_PLANS = _Plans(limit=8)
 
 def evm_step(state, force_escape: Optional[torch.Tensor] = None,
              force_fork: Optional[torch.Tensor] = None):
-    """K2 (with K1 for SHA3 lanes): one instruction for every lane, in
-    place. Its parameter blocks and SHA3 scratch are built once for a set
-    of tensors (keyed on their data pointers, shapes and dtypes) and reused
-    while the key holds. Returns the same StateBatch."""
+    """K2 (after K1's step form, which hashes the SHA3 lanes): one
+    instruction for every lane, in place. Their parameter block and digests
+    are built once for a set of tensors (keyed on their data pointers,
+    shapes and dtypes) and reused while the key holds. Returns the same
+    StateBatch."""
     _check(state.stack, "state.stack", torch.int32)
     masks = (force_escape, force_fork)
-    k2, k1, _ = _K2_PLANS.get(
+    k2, _ = _K2_PLANS.get(
         list(state) + [m for m in masks if m is not None],
         tuple(m is None for m in masks),
         lambda: _k2_blocks(state, force_escape, force_fork))
-    _k2_launch(k2, k1)
+    _k2_launch(k2)
     return state
+
+
+def _grid(entry: str, n: int = 2) -> tuple:
+    """The grid and block sizes a source's last launches recorded."""
+    out = (ctypes.c_longlong * n)()
+    _call(entry, out)
+    return tuple(int(v) for v in out)
 
 
 def evm_step_grid() -> tuple:
     """(blocks, threads) of the last `evm_step_kernel` launch, as that
     launch recorded them."""
-    out = (ctypes.c_longlong * 2)()
-    _call("mtpu_evm_step_grid", out)
-    return int(out[0]), int(out[1])
+    return _grid("mtpu_evm_step_grid")
+
+
+def keccak_step_grid() -> tuple:
+    """(blocks, threads) of the last launch of K1's step form
+    (`keccak_step_kernel`), as that launch recorded them."""
+    return _grid("mtpu_keccak_step_grid")
 
 
 # ---- K3 -----------------------------------------------------------------------------
@@ -585,13 +603,14 @@ class _StepPlan:
         suffix = "_tel" if self.telemetry else ""
         self.pre, self.post = "mtpu_sym_pre" + suffix, "mtpu_sym_post" + suffix
         self.k4 = _block(self.pre, values)
-        self.k2, self.k1, self.k2_scratch = _k2_blocks(
+        self.k2, self.digest = _k2_blocks(
             state, self.fscr[Lay.F_FORCE_ESCAPE], self.fscr[Lay.F_FORCE_FORK])
 
     def launch(self) -> None:
-        """One step: K4's pre launches, K2 (and K1), K4's post launches."""
+        """One step: K4's pre launches, K1's step form, K2, K4's post
+        launches."""
         _call(self.pre, self.k4)
-        _k2_launch(self.k2, self.k1)
+        _k2_launch(self.k2)
         _call(self.post, self.k4)
         LAUNCHES["sym_step"] += 1
         LAUNCHES["arena_alloc_step"] += 1
@@ -838,40 +857,64 @@ def frontier_summary(state, planes, arena, sched) -> torch.Tensor:
 def frontier_summary_grid() -> tuple:
     """(blocks, threads) of the last `frontier_summary_kernel` launch, as
     that launch recorded them."""
-    out = (ctypes.c_longlong * 2)()
-    _call("mtpu_frontier_summary_grid", out)
-    return tuple(int(v) for v in out)
+    return _grid("mtpu_frontier_summary_grid")
 
 
 # ---- K6 -----------------------------------------------------------------------------
 
-def _row_source(state_like, planes_like, index) -> list:
-    """K6's parameter block with the source rows and the index filled."""
-    rows = state_like.status.shape[0]
-    n = index.shape[0]
-    if n == 0:
-        raise ValueError("index: no rows selected")
-    values = [0] * Lay.K6_NARGS
-    values[Lay.K6_LEAF:Lay.K6_LEAF + Lay.N_ROW_LEAVES] = (
-        _leaf_ptrs(state_like, _STATE_DTYPES, rows, "rows")
-        + _leaf_ptrs(planes_like, _PLANE_DTYPES, rows, "rows"))
-    values[Lay.K6_INDEX] = _check(index, "index", torch.int32, (n,))
-    values[Lay.K6_N] = n
-    values[Lay.K6_ROWS] = rows
-    values[Lay.K6_S] = state_like.stack.shape[1]
-    values[Lay.K6_M] = state_like.memory.shape[1]
-    values[Lay.K6_K] = state_like.storage_keys.shape[1]
-    values[Lay.K6_KC] = planes_like.conds.shape[1]
-    return values
+class _RowSourcePlan:
+    """K6's parameter block for one source tree (the escape pool's rows, or
+    the lanes'): the checked leaves and the row sizes, and `row_maxima`'s
+    scratch of four words a block (a block takes one row at least), grown
+    to the longest index yet. A call fills the index, its length, the
+    widths and the outputs."""
+
+    def __init__(self, state_like, planes_like):
+        self.rows = state_like.status.shape[0]
+        values = [0] * Lay.K6_NARGS
+        values[Lay.K6_LEAF:Lay.K6_LEAF + Lay.N_ROW_LEAVES] = (
+            _leaf_ptrs(state_like, _STATE_DTYPES, self.rows, "rows")
+            + _leaf_ptrs(planes_like, _PLANE_DTYPES, self.rows, "rows"))
+        values[Lay.K6_ROWS] = self.rows
+        values[Lay.K6_S] = state_like.stack.shape[1]
+        values[Lay.K6_M] = state_like.memory.shape[1]
+        values[Lay.K6_K] = state_like.storage_keys.shape[1]
+        values[Lay.K6_KC] = planes_like.conds.shape[1]
+        self.block = _block("mtpu_pack_rows", values)
+        self.device = state_like.status.device
+        self.partial = None
+
+    def select(self, index: torch.Tensor) -> int:
+        """Point the block at `index`; returns its length."""
+        n = index.shape[0]
+        if n == 0:
+            raise ValueError("index: no rows selected")
+        self.block[Lay.K6_INDEX] = _check(index, "index", torch.int32, (n,))
+        self.block[Lay.K6_N] = n
+        return n
+
+
+_ROW_PLANS = _Plans(limit=8)
+
+
+def row_plan(state_like, planes_like) -> _RowSourcePlan:
+    """K6's cached plan for these source rows (built on a miss)."""
+    return _ROW_PLANS.get(list(state_like) + list(planes_like), (),
+                          lambda: _RowSourcePlan(state_like, planes_like))
 
 
 def row_maxima(state_like, planes_like, index: torch.Tensor) -> torch.Tensor:
     """K6 `row_maxima`: int64[4] maxima of msize, sp, used storage slots
-    and cond_count over the rows of `index`."""
-    values = _row_source(state_like, planes_like, index)
-    out = torch.empty(4, dtype=torch.int64, device=index.device)
-    values[Lay.K6_OUT_MAXIMA] = out.data_ptr()
-    _launch("mtpu_row_maxima", values)
+    and cond_count over the rows of `index`: a grid over the rows, then
+    one block that combines the blocks' maxima."""
+    plan = row_plan(state_like, planes_like)
+    n = plan.select(index)
+    if plan.partial is None or plan.partial.shape[0] < 4 * n:
+        plan.partial = torch.empty(4 * n, dtype=torch.int64, device=plan.device)
+        plan.block[Lay.K6_PARTIAL] = plan.partial.data_ptr()
+    out = torch.empty(4, dtype=torch.int64, device=plan.device)
+    plan.block[Lay.K6_OUT_MAXIMA] = out.data_ptr()
+    _call("mtpu_row_maxima", plan.block)
     LAUNCHES["pack_rows"] += 1
     return out
 
@@ -880,42 +923,56 @@ def pack_rows(state_like, planes_like, index: torch.Tensor, mem_b: int,
               sp_b: int, st_b: int, conds_w: int):
     """K6 `pack_rows`: the rows of `index` packed into (int32, uint8, int64)
     flat blocks at the widths given."""
-    values = _row_source(state_like, planes_like, index)
-    for name, width, cap in (("mem_b", mem_b, values[Lay.K6_M]),
-                             ("sp_b", sp_b, values[Lay.K6_S]),
-                             ("st_b", st_b, values[Lay.K6_K]),
-                             ("conds_w", conds_w, values[Lay.K6_KC])):
+    plan = row_plan(state_like, planes_like)
+    block = plan.block
+    for name, width, cap in (("mem_b", mem_b, block[Lay.K6_M]),
+                             ("sp_b", sp_b, block[Lay.K6_S]),
+                             ("st_b", st_b, block[Lay.K6_K]),
+                             ("conds_w", conds_w, block[Lay.K6_KC])):
         if not 0 <= width <= cap:
             raise ValueError(f"{name} = {width} outside [0, {cap}]")
-    n = index.shape[0]
-    dev = index.device
+    n = plan.select(index)
     i32 = torch.empty(n * (8 + 16 * sp_b + 32 * st_b + sp_b + mem_b + st_b
-                           + conds_w), dtype=torch.int32, device=dev)
-    u8 = torch.empty(n * (mem_b + 2 * st_b), dtype=torch.uint8, device=dev)
-    gas = torch.empty(n, dtype=torch.int64, device=dev)
-    values[Lay.K6_MEM_B] = mem_b
-    values[Lay.K6_SP_B] = sp_b
-    values[Lay.K6_ST_B] = st_b
-    values[Lay.K6_CONDS_W] = conds_w
-    values[Lay.K6_OUT_I32] = i32.data_ptr()
-    values[Lay.K6_OUT_U8] = u8.data_ptr()
-    values[Lay.K6_OUT_GAS] = gas.data_ptr()
-    _launch("mtpu_pack_rows", values)
+                           + conds_w), dtype=torch.int32, device=plan.device)
+    u8 = torch.empty(n * (mem_b + 2 * st_b), dtype=torch.uint8, device=plan.device)
+    gas = torch.empty(n, dtype=torch.int64, device=plan.device)
+    for slot, value in ((Lay.K6_MEM_B, mem_b), (Lay.K6_SP_B, sp_b),
+                        (Lay.K6_ST_B, st_b), (Lay.K6_CONDS_W, conds_w),
+                        (Lay.K6_OUT_I32, i32.data_ptr()),
+                        (Lay.K6_OUT_U8, u8.data_ptr()),
+                        (Lay.K6_OUT_GAS, gas.data_ptr())):
+        block[slot] = value
+    _call("mtpu_pack_rows", block)
     LAUNCHES["pack_rows"] += 1
     return i32, u8, gas
 
 
+_RESET_PLANS = _Plans(limit=8)
+
+
 def reset_esc(sched):
     """K6 `reset_esc`: the scheduler's escape count (every segment's) to 0,
-    in place."""
-    values = [0] * Lay.K6_NARGS
-    values[Lay.K6_ESC_COUNT] = _check(sched.esc_count, "esc_count",
-                                      torch.int32,
-                                      tuple(sched.esc_count.shape))
-    values[Lay.K6_ESC_SEGMENTS] = sched.esc_count.numel()
-    _launch("mtpu_reset_esc", values)
+    in place, from a block cached for its escape-count tensor."""
+    def build():
+        values = [0] * Lay.K6_NARGS
+        values[Lay.K6_ESC_COUNT] = _check(sched.esc_count, "esc_count",
+                                          torch.int32,
+                                          tuple(sched.esc_count.shape))
+        values[Lay.K6_ESC_SEGMENTS] = sched.esc_count.numel()
+        return _block("mtpu_reset_esc", values)
+
+    _call("mtpu_reset_esc", _RESET_PLANS.get([sched.esc_count], (), build))
     LAUNCHES["pack_rows"] += 1
     return sched
+
+
+def pack_rows_grid() -> dict:
+    """{entry: (blocks, threads)} of the last launch of each K6 entry, as
+    the launches recorded them (`row_maxima`'s grid; its combining launch
+    is one block of 128)."""
+    grid = _grid("mtpu_pack_rows_grid", 6)
+    return {"row_maxima": grid[0:2], "pack_rows": grid[2:4],
+            "reset_esc": grid[4:6]}
 
 
 # ---- K7 -----------------------------------------------------------------------------
@@ -1384,6 +1441,4 @@ def steal_pass(state, sched, min_imbalance: int, max_rows: int):
 def steal_pass_grid() -> tuple:
     """(plan blocks, plan threads, move blocks, move threads) of the last
     steal pass, as its launches recorded them."""
-    out = (ctypes.c_longlong * 4)()
-    _call("mtpu_steal_grid", out)
-    return tuple(int(v) for v in out)
+    return _grid("mtpu_steal_grid", 4)

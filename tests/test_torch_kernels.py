@@ -174,14 +174,58 @@ def _same(kernel_tree, plain_tree, what):
             f"{what}: {name}"
 
 
-def test_host_keccak_matches_twin(on_host):
+def _keccak_ranges_twin(data, length, offset, limit, mask):
+    """The standalone K1's function, plainly: row i read from offset[i],
+    bytes outside [0, min(limit[i], width)) as 0, masked rows a zero
+    digest."""
+    rows, width = data.shape
+    top = int(length.max())
+    idx = offset[:, None] + torch.arange(top)[None, :]
+    ok = (idx >= 0) & (idx < torch.clamp(limit.to(torch.int64), max=width)[:, None])
+    buf = torch.where(ok, torch.gather(data, 1, idx.clamp(0, width - 1)),
+                      torch.zeros((), dtype=torch.uint8))
+    out = tk.keccak256_reference(buf, length)
+    return torch.where(mask[:, None], out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("case, per_warp", [("whole", 32), ("whole", 1),
+                                            ("odd_width", 4), ("ranges", 32),
+                                            ("ranges", None)])
+def test_host_keccak_matches_twin(on_host, monkeypatch, case, per_warp):
+    """The standalone K1 (a warp of `per_warp` messages, one a thread;
+    None: the wrapper's choice, one at this batch and the host shim's 132
+    SMs, 32 at 4224) against the twin at the padding boundaries, the
+    longest message last: whole messages (16-byte loads), rows of an odd
+    width (the byte path; 1100 bytes, past one staging window of four rate
+    blocks), and ranges of a row with offsets (negative and past the row),
+    limits (past the width) and masked rows."""
+    if per_warp is not None:
+        monkeypatch.setattr(ops, "messages_a_warp", lambda batch, device: per_warp)
     rng = np.random.default_rng(3)
-    lengths = [0, 1, 135, 136, 137, 271, 272, 511, 512]
-    data = torch.from_numpy(rng.integers(0, 256, (len(lengths), 512),
-                                         dtype=np.uint8))
+    lengths = [0, 1, 135, 136, 137, 271, 272, 511] * 10 + [512]
+    if case == "odd_width":
+        lengths[-1] = 1100
+    n = len(lengths)
     length = torch.tensor(lengths, dtype=torch.int32)
-    assert torch.equal(ops.keccak256(data, length),
-                       tk.keccak256_reference(data, length))
+    width = 1201 if case == "odd_width" else 512
+    if case != "ranges":
+        data = torch.from_numpy(rng.integers(0, 256, (n, width), dtype=np.uint8))
+        assert torch.equal(ops.keccak256(data, length),
+                           tk.keccak256_reference(data, length))
+        return
+    data = torch.from_numpy(rng.integers(0, 256, (n, 1024), dtype=np.uint8))
+    offset = torch.from_numpy(rng.integers(-40, 1000, n))
+    offset[-1] = 7
+    limit = torch.from_numpy(rng.integers(0, 1300, n).astype(np.int32))
+    limit[-1] = 1000
+    mask = torch.from_numpy(rng.random(n) < 0.8)
+    mask[-1] = True
+    if per_warp is None:
+        assert [ops.messages_a_warp(b, data.device) for b in (n, 263, 264, 4224)] \
+            == [1, 1, 2, 32]
+    assert torch.equal(ops.keccak_rows(data, length, offset=offset, limit=limit,
+                                       mask=mask),
+                       _keccak_ranges_twin(data, length, offset, limit, mask))
 
 
 def test_host_evm_step_matches_twin(on_host):
@@ -312,13 +356,78 @@ def test_host_telemetry_matches_twin(on_host):
     assert int((lifecycle > 0).sum()) >= 8
 
 
-def test_host_frontier_programs_match_twins(on_host):
+def _k6_pool(seed: int, rows: int = 1024):
+    """A pool of `rows` random rows (8 stack slots, 256 memory bytes, 64
+    storage slots, 16 conds), every leaf filled from the seed."""
+    rng = np.random.default_rng(seed)
+    one = tb.build_batch([tb.LaneSpec(b"\x00")], stack_slots=8, memory_bytes=256,
+                         calldata_bytes=32, retdata_bytes=16, storage_slots=64,
+                         tstore_slots=2, device="cpu")
+    one_planes = ts.SymPlanes.empty(1, 8, 256, 64, max_conds=16, device="cpu")
+
+    def fill(leaf):
+        shape = (rows,) + tuple(leaf.shape[1:])
+        if leaf.dtype == torch.bool:
+            return torch.from_numpy(rng.random(shape) < rng.random())
+        info = np.iinfo(torch.empty(0, dtype=leaf.dtype).numpy().dtype)
+        return torch.from_numpy(rng.integers(info.min, info.max, shape,
+                                             endpoint=True)).to(leaf.dtype)
+
+    state = type(one)(*[fill(leaf) for leaf in one])
+    planes = type(one_planes)(*[fill(leaf) for leaf in one_planes])
+    return state, planes
+
+
+#: K6's host cases over a 1024-row pool (16 maxima blocks of 64 rows):
+#: (index, widths); "mid_run" is K5-K8 on a mid-run state
+K6_CASES = {
+    # a drain of 700 rows padded to 1024 by repeating index[0]
+    "repeated": (lambda: np.concatenate([np.arange(700), np.zeros(324, int)]),
+                 (200, 5, 17, 9)),
+    # out-of-range entries clamp, as JAX's gather does
+    "clamped": (lambda: np.array([-7, 1023, 1024, 2 ** 31 - 1, -2 ** 31, 5] * 50),
+                (256, 8, 64, 16)),
+    # widths of 0 give empty runs
+    "zero_widths": (lambda: np.arange(1024)[::-1].copy(), (0, 0, 0, 0)),
+    # the largest maxima in the last block: row 1000, selected last
+    "last_block": (lambda: np.arange(1001), (1, 4, 1, 16)),
+}
+
+
+@pytest.mark.parametrize("case", ["mid_run"] + sorted(K6_CASES))
+def test_host_frontier_programs_match_twins(on_host, case):
     """K5-K8 against their twins on a mid-run state: escape rows buffered,
     lanes forking; the escape drain's zero-padded index and a lane index
     padded by repetition; a scatter with a dropped pad; a delta whose
-    start must clamp."""
+    start must clamp. K6 alone on a 1024-row pool: a padded drain, clamped
+    indices, widths of 0, full and the drain's, the largest maxima in the
+    last block; twice a plan, its grids as the launches recorded them."""
     from mythril_tpu_torch.parallel import frontier as tf
     from test_torch_symstep import CODES as codes
+
+    if case != "mid_run":
+        rows = _k6_pool(11)
+        make_index, widths = K6_CASES[case]
+        index = torch.from_numpy(make_index().astype(np.int32))
+        n = index.shape[0]
+        if case == "last_block":
+            for column in (rows[0].msize, rows[0].sp, rows[1].cond_count):
+                column[1000] = 2 ** 31 - 1
+            rows[0].storage_used[1000] = True
+        full = (256, 8, 64, 16)
+        for attempt, pack_widths in enumerate((widths, full)):
+            maxima = ops.row_maxima(*rows, index)
+            assert torch.equal(maxima, tf.row_maxima_reference(*rows, index)), attempt
+            if case == "last_block":
+                assert maxima.tolist() == [2 ** 31 - 1] * 2 + [64, 2 ** 31 - 1]
+            got = ops.pack_rows(*rows, index, *pack_widths)
+            ref = tf.pack_rows_reference(*rows, index, *pack_widths)
+            for mine, theirs in zip(got, ref):
+                assert mine.dtype == theirs.dtype and torch.equal(mine, theirs), attempt
+            assert ops.pack_rows_grid()["row_maxima"] == (-(-n // 64), 256)
+            assert ops.pack_rows_grid()["pack_rows"] == (-(-n * 11 // 32), 256)
+            index = index.flip(0).contiguous()
+        return
 
     state, planes, arena = seed_frontier(codes, 8, base_sym=[0])
     sched = jsym.new_scheduler(state, planes, 4, 6)
@@ -749,6 +858,44 @@ def test_plans_last_call_and_key():
     assert ref() is None
 
 
+def test_k6_plan_per_source_tree(on_host, monkeypatch):
+    """K6's wrappers take their block from one `ops._Plans` entry per
+    source tree: the maxima and the pack of one pool share it; a second
+    drive's pool takes a new plan, and the first pool's is found again by
+    its key; the escape reset has a plan of its own; no plan keeps a pool
+    alive."""
+    import gc
+    import weakref
+
+    from mythril_tpu_torch.parallel import frontier as tf
+
+    monkeypatch.setattr(ops, "_ROW_PLANS", ops._Plans(limit=8))
+    monkeypatch.setattr(ops, "_RESET_PLANS", ops._Plans(limit=8))
+    first, second = _k6_pool(1, rows=128), _k6_pool(2, rows=128)
+    index = torch.arange(100, dtype=torch.int32)
+    ops.row_maxima(*first, index)
+    ops.pack_rows(*first, index, 1, 4, 1, 16)
+    plan = ops.row_plan(*first)
+    assert len(ops._ROW_PLANS.plans) == 1
+    got = ops.row_maxima(*second, index)
+    assert torch.equal(got, tf.row_maxima_reference(*second, index))
+    assert len(ops._ROW_PLANS.plans) == 2 and ops.row_plan(*second) is not plan
+    again = [type(tree)(*[leaf.view(leaf.shape) for leaf in tree]) for tree in first]
+    assert ops.row_plan(*again) is plan   # other tensor objects, same storage
+    for mine, theirs in zip(ops.pack_rows(*first, index, 1, 4, 1, 16),
+                            tf.pack_rows_reference(*first, index, 1, 4, 1, 16)):
+        assert torch.equal(mine, theirs)
+    counts = torch.full((4,), 9, dtype=torch.int32)
+    sched = type("Sched", (), {"esc_count": counts})()
+    ops.reset_esc(sched)
+    assert counts.tolist() == [0] * 4 and len(ops._RESET_PLANS.plans) == 1
+    assert ops.pack_rows_grid()["reset_esc"] == (1, 32)
+    dead = weakref.ref(second[0].msize)
+    del second, got
+    gc.collect()
+    assert dead() is None
+
+
 def test_summary_decode_copies_what_it_keeps():
     """The drain loop's decode keeps no view of the summary it is given:
     after that buffer is overwritten, the telemetry words and the shard
@@ -927,25 +1074,60 @@ def _k2_forced():
     return tb.build_batch(specs, device="cpu"), masks, 6
 
 
+#: K1's SHA3 lanes: (offset, length, msize), the length words at keccak's
+#: padding boundaries, misaligned offsets, a range straddling msize (the
+#: memory past it is not zero), ranges past the row, 513 bytes and
+#: lengths and offsets past 32 bits; the two lanes before the last are
+#: forced to escape and to fork at the SHA3, the last (512 bytes across
+#: msize) decides in the last block
+SHA3_LANES = [(0, 0, 544), (0, 135, 544), (3, 136, 544), (17, 137, 544),
+              (64, 271, 544), (5, 272, 544), (0, 512, 4096), (4000, 200, 4096),
+              (4100, 32, 4096), (0, 513, 4096), (0, 1 << 40, 4096),
+              (1 << 40, 0, 96), ((1 << 32) + 5, 10, 96), (9, 100, 544),
+              (9, 100, 544), (77, 512, 300)]
+
+
+def _k2_sha3():
+    rng = np.random.default_rng(12)
+    specs = [_lane(_op3("SHA3", off, length) + ["PUSH1 0x00", "MSTORE", "STOP"])
+             for off, length, _ in SHA3_LANES]
+    state = tb.build_batch(specs, device="cpu")
+    state.memory.copy_(torch.from_numpy(rng.integers(0, 256, tuple(state.memory.shape),
+                                                     dtype=np.uint8)))
+    state.msize.copy_(torch.tensor([msize for _, _, msize in SHA3_LANES],
+                                   dtype=torch.int32))
+    n = len(SHA3_LANES)
+    masks = [(torch.zeros(n, dtype=torch.bool), torch.zeros(n, dtype=torch.bool))
+             for _ in range(7)]
+    masks[3][0][n - 3] = True   # the SHA3 step: escape, fork
+    masks[3][1][n - 2] = True
+    return state, masks, 7
+
+
 #: the twin's final statuses: each fixture reaches its escapes and halts
 K2_FINAL = {"mcopy": [1, 1, 5, 1], "copies": [1, 1, 1, 5, 1, 5],
             "return": [2, 5, 3, 5, 2], "sload_two": [1, 1],
             "sstore_free": [1, 1, 1, 0], "full": [5, 1, 5],
-            "arith": [1, 0] * 10, "forced": [6, 5, 6, 5, 5, 5, 5, 5, 5]}
+            "arith": [1, 0] * 10, "forced": [6, 5, 6, 5, 5, 5, 5, 5, 5],
+            "sha3": [1, 1, 1, 1, 1, 1, 1, 5, 5, 5, 5, 1, 4, 5, 6, 1]}
 
 K2_HAZARDS = {"mcopy": _k2_mcopy, "copies": _k2_copies, "return": _k2_return,
               "sload_two": _k2_sload_two, "sstore_free": _k2_sstore_free,
-              "full": _k2_full, "arith": _k2_arith, "forced": _k2_forced}
+              "full": _k2_full, "arith": _k2_arith, "forced": _k2_forced,
+              "sha3": _k2_sha3}
 
 
 @pytest.mark.parametrize("case", sorted(K2_HAZARDS))
-def test_host_evm_step_hazards_match_twin(on_host, case):
+def test_host_evm_step_hazards_match_twin(on_host, monkeypatch, case):
     """K2 (a block a lane) against `step_reference` after every step on
     one fixture per parity hazard: MCOPY overlapping both ways across the
     old msize, 512-byte copies past the buffer and past M, RETURN of R and
     R + 1 bytes, SLOAD/TLOAD over two matching slots, SSTORE/TSTORE with a
     free slot before the match, full tables, the heavy families beside
-    PUSH/JUMPI lanes, forced escape and fork lanes."""
+    PUSH/JUMPI lanes, forced escape and fork lanes, and K1's step form
+    (a block of a warp a lane, as its launch records it) on SHA3 lanes at
+    the padding boundaries, across msize and past the row."""
+    monkeypatch.setattr(ops, "_K2_PLANS", ops._Plans(limit=16))
     plain, masks, steps = K2_HAZARDS[case]()
     kernel = convert.clone(plain)
     for step in range(steps):
@@ -955,6 +1137,13 @@ def test_host_evm_step_hazards_match_twin(on_host, case):
         _same(kernel, plain, f"{case} step {step}")
     assert plain.status.tolist() == K2_FINAL[case]
     assert ops.evm_step_grid() == (len(K2_FINAL[case]), 32)  # a block a lane
+    assert ops.keccak_step_grid() == (len(K2_FINAL[case]), 32)
+    if case == "sha3":  # K1 hashed exactly the lanes that may commit a SHA3
+        digest = ops._K2_PLANS.get(list(kernel) + list(masks[3]), (False, False),
+                                   lambda: None)[1]
+        skipped = [9, 10, len(SHA3_LANES) - 3, len(SHA3_LANES) - 2]
+        assert [bool(row.any()) for row in digest] == [
+            lane not in skipped for lane in range(len(SHA3_LANES))]
     if case == "sstore_free":  # match over an earlier free slot, else the free
         assert [int(np.nonzero(plain.storage_vals[lane, :, 0] == v)[0][0])
                 for lane, v in ((0, 0xAB), (1, 0xCD), (2, 0xEF))] == [45, 3, 33]
