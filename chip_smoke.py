@@ -53,8 +53,13 @@ copy to the host) held word for word to the twin on the same tensors
      over more than one block, its device time by launch and its plan
      lookup), a gather and a scatter of 32 lanes (and with clamped
      indices and dropped pads; K7's grid of row copy items), the arena delta
-     of the first drain; each timed beside its twin and, where one exists,
-     the PyTorch call that computes the same function; K5's grid as its
+     of the first drain (K8 into the pinned staging: the whole refresh
+     into an emptied mirror timed from the launch to the mirror landed,
+     beside seven narrow + copy_ into pinned memory and the card's
+     device-to-pinned copy rate, its bound; one refresh profiled: one
+     launch, no memcpy, no device allocation); each timed beside its twin
+     and, where one exists, the PyTorch call that computes the same
+     function; K5's grid as its
      launch recorded it (more than one block at 1024 escape rows, or the
      phase fails) and its device time by launch (the grid, the one-block
      combine); the drain loop's read of the summary (a pageable .cpu())
@@ -63,8 +68,9 @@ copy to the host) held word for word to the twin on the same tensors
   8. frontier: `DeviceFrontier(128).run` on the same contract at the
      default budgets until the tree drains (K1-K6 and K8 on the main path);
      its counters and the sha256 digests of its deferred row blocks and of
-     its arena mirror must equal the JAX `_Frontier`'s; each chunk's host
-     time split by call (the chunk's enqueue, the steal pass, the summary
+     its arena mirror must equal the JAX `_Frontier`'s (and one K8 plan
+     must serve every refresh of its mirror); each chunk's host time split
+     by call (the chunk's enqueue, the steal pass, the summary
      with its read, the decode, the drain, the rest; every frontier* phase
      prints the means);
   9. frontier_spill: 16 lanes, 32 stack rows, branchy(10): the deadlock
@@ -73,8 +79,14 @@ copy to the host) held word for word to the twin on the same tensors
      they are held to;
  10. telemetry: K4 with the telemetry plane armed (K9: tag pcs, fleet
      slots) vs the twins on the planes contracts for 2 chunks, every leaf
-     and counter, and K5's telemetry tail; K9's device cost per step (the
-     TEL instantiation against the plain one);
+     and counter, and K5's telemetry tail; K9's device cost per step and
+     by launch (each of K4's functions, its TEL instantiation against its
+     plain one) at 128 lanes and at 2048 (a chunk into 256 branchy(12)
+     seeds), eager; ptxas's registers and spills of both instantiations
+     side by side; no global atomic in the TEL instantiation of a launch
+     over lanes (cuobjdump's SASS); phases 12 and 19 add K9 by launch in
+     their graphed drives (against phase 8's and a telemetry-off drive at
+     2048 lanes);
  11. merge_kernel: K10 (K3's allocations folded in), one host call a
      pass, vs `merge_pass_reference` on the states the
      default-configuration frontier hands its merge passes: branchy(12)
@@ -739,12 +751,14 @@ def paired_ms(fns: dict, reps: int, rounds: int = 6) -> dict:
                    "max_ms": max(v)} for name, v in times.items()}
 
 
-def profile_cuda(run, what: str, prepare=None):
+def profile_cuda(run, what: str, prepare=None, complete=None):
     """run() under torch.profiler (CUPTI), after prepare() outside it:
     (prepare's result, run's result, the trace's CUDA events). Now and then
-    CUPTI hands back a trace without any device time; prepare() and run()
-    then run again, three times in all (a kernel missing from a trace that
-    has device time still fails its caller's check)."""
+    CUPTI hands back a trace without any device time, or drops a few
+    kernel records; prepare() and run() then run again, three times in all,
+    when the trace has no device time or `complete(events)` (the caller's
+    count of the launches it knows ran) is false. A trace still short
+    after that fails its caller's check."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -757,20 +771,25 @@ def profile_cuda(run, what: str, prepare=None):
         events = [event for event in prof.key_averages()
                   if event.device_type == DeviceType.CUDA]
         if sum(event.self_device_time_total for event in events) > 0:
-            break
+            if complete is None or complete(events):
+                break
+            print(f"{what}: the profiler dropped kernel records "
+                  f"(attempt {attempt + 1})", file=sys.stderr, flush=True)
+            continue
         print(f"{what}: the profiler recorded no device time "
               f"(attempt {attempt + 1})", file=sys.stderr, flush=True)
     return prepared, result, events
 
 
-def device_times(fn, reps: int, counts: bool = False) -> dict:
+def device_times(fn, reps: int, counts: bool = False, complete=None) -> dict:
     """Mean device time in ms per fn() call over `reps` calls of every CUDA
     function it runs, by name, as torch.profiler (CUPTI) records it,
     without the host's time to enqueue them; with `counts`, (ms, launches)
-    per fn() call."""
+    per fn() call. `complete` as in profile_cuda."""
     fn(None)  # warm
     _, _, events = profile_cuda(
-        lambda _: [fn(None) for _ in range(reps)], "device_times")
+        lambda _: [fn(None) for _ in range(reps)], "device_times",
+        complete=complete)
     return {event.key: ((event.self_device_time_total / reps / 1e3,
                          event.count / reps) if counts
                         else event.self_device_time_total / reps / 1e3)
@@ -806,6 +825,18 @@ def named_ms(times: dict, names=None) -> float:
         raise AssertionError(f"the profiler recorded no device time of "
                              f"{names or 'any function'}")
     return total
+
+
+def launch_ms(fn, reps: int, name: str) -> float:
+    """Device ms a launch of the CUDA functions whose name contains `name`
+    over `reps` calls of fn(), over the launches the profiler recorded (it
+    drops a few of a side stream's records)."""
+    times = device_times(fn, reps, counts=True)
+    ms = sum(t for key, (t, _) in times.items() if name in key)
+    calls = sum(c for key, (_, c) in times.items() if name in key)
+    if ms <= 0 or not calls:
+        raise AssertionError(f"the profiler recorded no launch of {name}")
+    return ms / calls
 
 
 def device_ms(fn, reps: int, names=None) -> float:
@@ -992,8 +1023,11 @@ def phase_step(dev) -> dict:
         """K1's step form's and K2's device ms a step, from the profiler;
         each must launch once a step, and sha_prep (folded into K1) not at
         all."""
-        times = device_times(lambda _: (refill([tree], [source]),
-                                        ops.evm_step(tree)), 20, counts=True)
+        times = device_times(
+            lambda _: (refill([tree], [source]), ops.evm_step(tree)), 20,
+            counts=True, complete=lambda events: all(
+                sum(e.count for e in events if f"{name}_kernel" in e.key) == 20
+                for name in ("keccak_step", "evm_step")))
         if any("sha_prep" in key for key in times):
             raise AssertionError(f"sha_prep launched: {sorted(times)}")
         split = {}
@@ -1563,30 +1597,85 @@ def phase_frontier_programs(dev) -> list:
     d_bucket = min(max(B.next_pow2(arena_n - 1), 16), arena.capacity)
     d_cbucket = min(max(B.next_pow2(arena_nc), 16), arena.const_vals.shape[0])
     check_same(A.fetch_delta(arena, 1, 0, d_bucket, d_cbucket),
-               A.fetch_delta_reference(arena, 1, 0, d_bucket, d_cbucket), "K8")
+               [t.cpu() for t in A.fetch_delta_reference(
+                   arena, 1, 0, d_bucket, d_cbucket)], "K8")
+    # the whole refresh, from the launch to the mirror landed (HostArena's
+    # delta fetch, its landing in host memory and the mirror's copy), of
+    # that delta into an emptied mirror, host clock
+    mirror = A.HostArena(arena, 1, 0)
+
+    def refresh():
+        mirror.n, mirror.n_const = 1, 0
+        mirror.refresh(arena, arena_n, arena_nc)
+
+    refresh()
+    for col in A.ROW_COLS:
+        if not np.array_equal(getattr(mirror, col)[1:arena_n],
+                              getattr(arena, col)[1:arena_n].cpu().numpy()):
+            raise AssertionError(f"K8's refresh: mirror column {col} differs")
+    if not np.array_equal(mirror.const_vals[:arena_nc], arena.const_vals[
+            :arena_nc].cpu().numpy().view(np.uint32)):
+        raise AssertionError("K8's refresh: mirror consts differ")
+    # a refresh is one launch on its plan: 20 refreshes launch K8 20 times
+    # and allocate no device memory, and their profile holds K8 and no
+    # copy (CUPTI drops a few of the copy stream's kernel records)
+    def twenty(_):
+        before = ops.LAUNCHES["arena_delta"]
+        for _ in range(20):
+            refresh()
+        return ops.LAUNCHES["arena_delta"] - before
+
+    allocations = torch.cuda.memory_stats()["allocation.all.allocated"]
+    _, launched, events = profile_cuda(twenty, "K8 refresh")
+    k8_profile = {event.key: event.count for event in events}
+    if torch.cuda.memory_stats()["allocation.all.allocated"] != allocations \
+            or launched != 20 or any("emcpy" in key for key in k8_profile) \
+            or not any("arena_delta_kernel" in key for key in k8_profile):
+        raise AssertionError(f"K8's refresh is not one launch: {launched} "
+                             f"launches, profile {k8_profile}")
     cols = [getattr(arena, col) for col in A.ROW_COLS]
-    out_rows = torch.empty((6, d_bucket), dtype=torch.int32, device=dev)
-    out_consts = torch.empty((d_cbucket, 16), dtype=torch.int32, device=dev)
+    host_rows = torch.empty((6, d_bucket), dtype=torch.int32, pin_memory=True)
+    host_consts = torch.empty((d_cbucket, 16), dtype=torch.int32,
+                              pin_memory=True)
 
-    def library_delta(_):
+    def library_delta():
         for position, col in enumerate(cols):
-            out_rows[position].copy_(col.narrow(0, 1, d_bucket))
-        out_consts.copy_(arena.const_vals.narrow(0, 0, d_cbucket))
+            host_rows[position].copy_(col.narrow(0, 1, d_bucket),
+                                      non_blocking=True)
+        host_consts.copy_(arena.const_vals.narrow(0, 0, d_cbucket),
+                          non_blocking=True)
+        torch.cuda.current_stream().synchronize()
 
-    b_ms, b_by = bound_ms(2 * (6 * d_bucket * 4 + d_cbucket * 64), 0)
+    # the device-to-pinned copy rate of this card (64 MiB)
+    big = torch.empty(1 << 26, dtype=torch.uint8, device=dev)
+    big_host = torch.empty(1 << 26, dtype=torch.uint8, pin_memory=True)
+    pinned_rate = (1 << 26) / (event_ms(lambda _: big_host.copy_(
+        big, non_blocking=True), 5) * 1e-3)
+    del big, big_host
+    delta_bytes = 6 * d_bucket * 4 + d_cbucket * 64
+    b_ms = max(bound_ms(delta_bytes, 0)[0],
+               delta_bytes / pinned_rate * 1e3)
     records.append({
         "name": "arena_delta", "route": "cuda",
         "source": "mythril_tpu_torch/kernels/arena_delta.cu",
         "replaces": "mythril_tpu/parallel/arena.py:185", "max_abs_err": 0,
-        "ms": event_ms(lambda _: A.fetch_delta(arena, 1, 0, d_bucket,
-                                               d_cbucket), 50),
-        "device_ms": device_ms(lambda _: A.fetch_delta(
-            arena, 1, 0, d_bucket, d_cbucket), 20),
-        "plain_ms": event_ms(lambda _: A.fetch_delta_reference(
-            arena, 1, 0, d_bucket, d_cbucket), 20),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": event_ms(library_delta, 20),
-        "library": "narrow + copy_ per column (7 calls)",
+        "ms": host_us(refresh) / 1e3,
+        "ms_is": "host clock, launch to mirror landed (HostArena.refresh)",
+        "fetch_ms": host_us(lambda: [t.cpu() for t in A.fetch_delta(
+            arena, 1, 0, d_bucket, d_cbucket)]) / 1e3,
+        "device_ms": launch_ms(lambda _: A.fetch_delta(
+            arena, 1, 0, d_bucket, d_cbucket), 20, "arena_delta_kernel"),
+        "plain_ms": host_us(lambda: [t.cpu() for t in A.fetch_delta_reference(
+            arena, 1, 0, d_bucket, d_cbucket)], 50) / 1e3,
+        "plain_is": "host clock, the twin on the card, landed by .cpu()",
+        "bound_ms": b_ms, "bound_by": "bytes",
+        "bound_is": "the delta read once at 3.35 TB/s, or written to the "
+                    "host once at the measured pinned rate (the larger)",
+        "pinned_bytes_per_s": pinned_rate, "delta_bytes": delta_bytes,
+        "library_ms": host_us(library_delta) / 1e3,
+        "library": "narrow + copy_ into pinned host tensors (7 calls) and "
+                   "a wait, host clock",
+        "refresh_profile": k8_profile,
         "held_by": "phase frontier_programs"})
     emit({"phase": "frontier_programs", "esc_count": esc_count,
           "esc_rows": esc_cap, "drain_bucket": bucket,
@@ -1721,6 +1810,106 @@ KERNEL_OF = {
     "arena_delta_kernel": "arena_delta"}
 
 
+def k4_table(times: dict, steps: float = 1.0) -> dict:
+    """K4's CUDA functions as instantiated ("sym_classify_kernel<true>")
+    from `{profiler key: (device ms, launches)}` over `steps` steps: each
+    one's device ms a launch and launches a step."""
+    table = {}
+    for key, (ms, calls) in times.items():
+        name = key.split("(")[0].split()[-1]
+        if name.split("<")[0] in K4_KERNELS and calls:
+            table[name] = {"ms_per_launch": ms / calls,
+                           "launches_per_step": calls / steps}
+    return table
+
+
+def k9_increments(tel: dict, plain: dict) -> dict:
+    """K9's device time by launch: for each of K4's functions, its device
+    ms a launch in the telemetry run (the TEL instantiation, or the
+    untemplated function) minus that in the plain run (the TEL = false
+    instantiation), and that difference a step; `total` sums the steps'."""
+    out, total = {}, 0.0
+    for name in K4_KERNELS:
+        on = tel.get(f"{name}<true>") or tel.get(name)
+        off = plain.get(f"{name}<false>") or plain.get(name)
+        if on is None or off is None:
+            continue
+        k9 = on["ms_per_launch"] - off["ms_per_launch"]
+        out[name] = {"tel_ms": on["ms_per_launch"],
+                     "plain_ms": off["ms_per_launch"], "k9_ms": k9,
+                     "launches_per_step": on["launches_per_step"],
+                     "k9_ms_per_step": k9 * on["launches_per_step"]}
+        total += k9 * on["launches_per_step"]
+    out["total"] = {"k9_ms_per_step": total}
+    return out
+
+
+def k9_eager(snapshot, steps: int) -> tuple:
+    """K9 by launch over `steps` eager steps from `snapshot` (a tree with
+    the plane armed), with the plane and without it: both walk the same
+    states, since the plane changes nothing else. Returns (increments,
+    K4's device ms a step with the plane, without it)."""
+    on = [convert.clone(t) for t in snapshot]
+    off = [convert.clone(t) for t in snapshot]
+    off[3] = off[3]._replace(telemetry=None)
+    tables = [k4_table(device_times(lambda _, tree=tree: ops.sym_step(*tree),
+                                    steps, counts=True))
+              for tree in (on, off)]
+    step_ms = [sum(f["ms_per_launch"] * f["launches_per_step"]
+                   for f in table.values()) for table in tables]
+    return k9_increments(*tables), step_ms[0], step_ms[1]
+
+
+def ptxas_side_by_side(source: str, names) -> dict:
+    """ptxas's registers, stack frame and spills of each function's TEL
+    (`<true>`) and plain (`<false>`) instantiations, side by side
+    (`untemplated` for a function with one)."""
+    out = {}
+    for mangled, info in build.ptxas_report(source).items():
+        name = next((n for n in names if n in mangled), None)
+        if name is None:
+            continue
+        kind = ("tel" if "ILb1E" in mangled else
+                "plain" if "ILb0E" in mangled else "untemplated")
+        out.setdefault(name, {})[kind] = info
+    return out
+
+
+#: K4's launches over lanes (many blocks a launch); the rest run one block
+K4_MANY_BLOCKS = ("sym_seed_count_kernel", "sym_seed_apply_kernel",
+                  "sym_move_kernel", "sym_classify_kernel",
+                  "sym_alloc_count_kernel", "sym_planes_kernel",
+                  "sym_esc_apply_kernel", "sym_fork_apply_kernel")
+
+
+def global_atomics(source: str, names) -> dict:
+    """Global-memory atomic instructions (RED, ATOM; not the shared ATOMS)
+    in the SASS of each instantiation of `names` in the built `source`,
+    as cuobjdump lists it: {function: {"tel" | "plain" | "untemplated": n}}."""
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build.library_path(source)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            mangled = found.group(1)
+            name = next((n for n in names if n in mangled), None)
+            current = None
+            if name is not None:
+                kind = ("tel" if "ILb1E" in mangled else
+                        "plain" if "ILb0E" in mangled else "untemplated")
+                current = counts.setdefault(name, {}).setdefault(kind, [0])
+            continue
+        if current is not None and re.search(r"\b(RED|REDG|ATOM|ATOMG)\.", line):
+            current[0] += 1
+    return {name: {kind: n[0] for kind, n in kinds.items()}
+            for name, kinds in counts.items()}
+
+
 def profiled_run(make, seeds) -> tuple:
     """Run the drain loop again, on a DeviceFrontier from make(), under
     torch.profiler (CUPTI): (the frontier, its record of device time per
@@ -1739,8 +1928,13 @@ def profiled_run(make, seeds) -> tuple:
         torch.cuda.synchronize()
         return (time.perf_counter() - start) * 1e3
 
+    def complete(events):
+        counts = [sum(e.count for e in events if f"{name}_kernel" in e.key)
+                  for name in ("keccak_step", "evm_step")]
+        return counts[0] == counts[1]
+
     (fr, _, steps), wall_ms, events = profile_cuda(run, "profiled_run",
-                                                   prepare)
+                                                   prepare, complete)
     steps = max(ops.LAUNCHES["evm_step"] - steps, 1)
     by_kernel = {name: 0.0 for name in ops.LAUNCHES}
     device_calls = {name: 0 for name in ops.LAUNCHES}
@@ -1772,7 +1966,10 @@ def profiled_run(make, seeds) -> tuple:
                                             for name, ms in step_split.items()},
                 "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
                 "kernel_device_ms": by_kernel, "device_calls": device_calls,
-                "other_device_ms": other_ms}
+                "other_device_ms": other_ms,
+                "k4_functions": k4_table(
+                    {event.key: (event.self_device_time_total / 1e3,
+                                 event.count) for event in events}, steps)}
 
 
 def checked_run(make, seeds, totals, expected: dict, what: str) -> int:
@@ -1818,6 +2015,12 @@ def phase_frontier(dev) -> tuple:
     timing = drive_frontier(fr, stress_seed(N_BRANCHES), by_chunk=True)
     totals = frontier_totals(fr)
     check_totals(totals, EXPECTED_FRONTIER, "frontier")
+    # one K8 plan (and pinned staging) served every refresh of the drive
+    delta_plan = ops.delta_plan(fr.arena, fr.harena._key)
+    if delta_plan.launches != timing["launches"]["arena_delta"]:
+        raise AssertionError(f"K8: {delta_plan.launches} of the drive's "
+                             f"{timing['launches']['arena_delta']} refreshes "
+                             "on its mirror's plan")
     replay, profiled = profiled_run(
         lambda: frontier.DeviceFrontier(LANES, device=dev, **OFF),
         stress_seed(N_BRANCHES))
@@ -1829,6 +2032,8 @@ def phase_frontier(dev) -> tuple:
           "lanes": LANES, "chunk": fr.chunk, "row_bytes": fr.row_bytes,
           "drain_batch": fr.drain_batch, "arena_capacity": fr.arena.capacity,
           **totals, **timing, "cold_wall_s": cold_wall,
+          "k8_plan": {"refreshes": delta_plan.launches,
+                      "staging_slot_words": delta_plan.slot_words},
           "profiled": profiled, "summaries_checked": checked})
     return timing, profiled
 
@@ -1893,15 +2098,27 @@ def phase_telemetry(dev) -> dict:
             and lifecycle["forks_claimed"]):
         raise AssertionError(f"the telemetry run missed a path: {lifecycle}")
 
-    # K9's device cost per step: the TEL instantiation against the plain
-    # one, a chunk of steps each from the same snapshot (the plane changes
-    # nothing else, so both walk the same states)
-    steps = CHUNK
-    on = [convert.clone(t) for t in snapshot]
-    off = [convert.clone(t) for t in snapshot]
-    off[3] = off[3]._replace(telemetry=None)
-    on_ms = device_ms(lambda _: ops.sym_step(*on), steps, K4_KERNELS)
-    off_ms = device_ms(lambda _: ops.sym_step(*off), steps, K4_KERNELS)
+    # K9's device cost per step and by launch: the TEL instantiation against
+    # the plain one, a chunk of eager steps each from the same snapshot; at
+    # 2048 lanes from one graphed chunk of wide_tree's 256 seeds with the
+    # plane armed, its escape rows drained
+    by_launch, on_ms, off_ms = k9_eager(snapshot, CHUNK)
+    wide = wide_tree(dev, 1)
+    wide[3] = wide[3]._replace(telemetry=symstep.new_telemetry(
+        TEL_TAG_PCS, TEL_FLEET_SLOTS, 2, device=dev))
+    wide = list(symstep.run_chunk(*wide, CHUNK))
+    frontier.reset_esc(wide[3])
+    wide_by_launch, wide_on_ms, wide_off_ms = k9_eager(wide, 16)
+    registers = ptxas_side_by_side("sym_step", K4_KERNELS)
+    # no launch over lanes adds to the plane with a global atomic: the TEL
+    # instantiations of K4's many-block launches hold none (the plain
+    # classify holds the executed count's, which shows the search works)
+    atomics = global_atomics("sym_step", K4_KERNELS)
+    shared = {name: kinds for name, kinds in atomics.items()
+              if name in K4_MANY_BLOCKS and kinds.get("tel")}
+    if shared or not atomics.get("sym_classify_kernel", {}).get("plain"):
+        raise AssertionError(f"K9: global atomics in the many-block TEL "
+                             f"launches: {shared} (found {atomics})")
     plain_on = [convert.clone(t) for t in snapshot]
     plain_off = [convert.clone(t) for t in snapshot]
     plain_off[3] = plain_off[3]._replace(telemetry=None)
@@ -1925,6 +2142,12 @@ def phase_telemetry(dev) -> dict:
           "telemetry_words": words, "max_abs_err": 0,
           "step_device_ms": {"tel": on_ms, "plain": off_ms,
                              "k9": on_ms - off_ms},
+          "wide_step_device_ms": {"lanes": WIDE_LANES, "tel": wide_on_ms,
+                                  "plain": wide_off_ms,
+                                  "k9": wide_on_ms - wide_off_ms},
+          "k9_by_launch": {"lanes_128": by_launch,
+                           f"lanes_{WIDE_LANES}": wide_by_launch},
+          "ptxas": registers, "global_atomics": atomics,
           "twin_step_device_ms": {"tel": plain_on_ms, "plain": plain_off_ms,
                                   "plane": plain_ms}})
     return {"name": "telemetry", "route": "cuda",
@@ -1932,6 +2155,12 @@ def phase_telemetry(dev) -> dict:
             "replaces": "mythril_tpu/parallel/symstep.py:822",
             "max_abs_err": 0, "ms": on_ms - off_ms,
             "device_ms": on_ms - off_ms, "plain_ms": plain_ms,
+            "wide_device_ms": wide_on_ms - wide_off_ms,
+            "k9_by_launch_eager": {
+                "lanes_128": {name: v["k9_ms_per_step"]
+                              for name, v in by_launch.items()},
+                f"lanes_{WIDE_LANES}": {name: v["k9_ms_per_step"]
+                                        for name, v in wide_by_launch.items()}},
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library": "none: no PyTorch call computes the counters",
             "held_by": "phase telemetry"}
@@ -2108,7 +2337,9 @@ def phase_frontier_default(dev, off_timing, off_profiled) -> dict:
           "off": {"wall_s": off_timing["wall_s"],
                   "idle_share": off_profiled["idle_share"],
                   "device_busy_ms": off_profiled["device_busy_ms"]},
-          "wall_ratio_on_off": timing["wall_s"] / off_timing["wall_s"]})
+          "wall_ratio_on_off": timing["wall_s"] / off_timing["wall_s"],
+          "k9_by_launch": k9_increments(profiled["k4_functions"],
+                                        off_profiled["k4_functions"])})
     return timing, profiled
 
 
@@ -2249,7 +2480,7 @@ def phase_wide_lanes(dev) -> dict:
     return record
 
 
-def phase_frontier_wide(dev) -> dict:
+def phase_frontier_wide(dev) -> tuple:
     """DeviceFrontier(2048) in the default configuration on branchy(12)
     until the tree drains, held to the JAX `_Frontier(n_lanes=2048)`'s
     counters, digests and telemetry words; its wall and lane-steps/s. As in
@@ -2270,12 +2501,24 @@ def phase_frontier_wide(dev) -> dict:
     checked = checked_run(
         lambda: frontier.DeviceFrontier(WIDE_LANES, device=dev),
         stress_seed(N_BRANCHES), default_totals, EXPECTED_WIDE, "frontier_wide")
+    # the same drive with telemetry and merging off (no merge pass runs at
+    # this width): K9 by launch, the graphed TEL functions against these
+    off, off_profiled = profiled_run(
+        lambda: frontier.DeviceFrontier(WIDE_LANES, device=dev, **OFF),
+        stress_seed(N_BRANCHES))
+    if off.lane_steps != fr.lane_steps:
+        raise AssertionError(f"frontier_wide off walked {off.lane_steps} "
+                             f"lane-steps, on {fr.lane_steps}")
+    k9 = k9_increments(profiled["k4_functions"], off_profiled["k4_functions"])
     emit({"phase": "frontier_wide",
           "contract": f"dispatcher(branchy({N_BRANCHES}))",
           "lanes": WIDE_LANES, "chunk": fr.chunk, "drain_batch": fr.drain_batch,
           **totals, **timing, "cold_wall_s": cold_wall, "replays": replays,
-          "profiled": profiled, "summaries_checked": checked})
-    return timing
+          "profiled": profiled, "summaries_checked": checked,
+          "off_profiled": {key: off_profiled[key] for key in (
+              "wall_ms", "device_busy_ms", "idle_share", "k4_functions")},
+          "k9_by_launch": k9})
+    return timing, k9
 
 
 # ---- phases 14-16: the sharded frontier (K4/K5 segmented, K12) -----------------------
@@ -3142,7 +3385,8 @@ def main() -> int:
         dev, default_timing, default_profiled)
     main_path_launches += [shard_timing["launches"], fleet_timing["launches"]]
     # 2048 lanes: past the 1024 that K4 and K10 once scanned in one block
-    main_path_launches.append(phase_frontier_wide(dev)["launches"])
+    wide_timing, wide_k9 = phase_frontier_wide(dev)
+    main_path_launches.append(wide_timing["launches"])
     # the device SAT lane: captured queries at full width, one flush
     sat_launches, sat_profiled = phase_sat_lane(dev)
     main_path_launches += [sat_launches, phase_sat_batch(dev)]
@@ -3160,6 +3404,15 @@ def main() -> int:
     for record in records:
         name = record["name"]
         record["launches"] = launches[name]
+        if name == "telemetry":
+            # K9 by launch in the graphed drives with the plane armed
+            record["k9_by_launch_graphed"] = {
+                "frontier_default": {
+                    key: value["k9_ms_per_step"] for key, value in
+                    k9_increments(default_profiled["k4_functions"],
+                                  off_profiled["k4_functions"]).items()},
+                "frontier_wide": {key: value["k9_ms_per_step"]
+                                  for key, value in wide_k9.items()}}
         if name == "arena_alloc":
             record["launches"] = launches[name] + folded
             record["launches_standalone"] = launches[name]

@@ -27,6 +27,15 @@ def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
 _COPY_STREAMS = {}
 
 
+def copy_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The device's side stream for work that lands on the host while the
+    current stream goes on (one a device, made at first use)."""
+    side = _COPY_STREAMS.get(device)
+    if side is None:
+        side = _COPY_STREAMS[device] = torch.cuda.Stream(device=device)
+    return side
+
+
 def start_host_copy(tensors):
     """Start copying `tensors` to the host; returns (host tensors, event).
 
@@ -38,9 +47,7 @@ def start_host_copy(tensors):
     if not tensors or not tensors[0].is_cuda:
         return tensors, None
     dev = tensors[0].device
-    side = _COPY_STREAMS.get(dev)
-    if side is None:
-        side = _COPY_STREAMS[dev] = torch.cuda.Stream(device=dev)
+    side = copy_stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
     hosts = []
     with torch.cuda.stream(side):

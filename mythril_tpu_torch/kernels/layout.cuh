@@ -190,7 +190,29 @@ enum Layout {
     K4_AR_CONST = 241,
     K4_AR_N_CONST = 242,
     K4_AR_CCAP = 243,
-    K4_NARGS = 244,
+    // kernel K9's per-step count table (uint8 [N_TC, NB rounded up to 16],
+    // TEL instantiation only)
+    K4_TEL_ROWS = 244,
+    K4_NARGS = 245,
+
+    // K9's count table columns, one byte a block each: the launch over
+    // lanes that counts stores its block's counts, the fork phase's
+    // sym_move (the step's last launch) sums every column into the plane.
+    // sym_seed_count: ERRORED lanes freed; sym_fork_apply: bad jump
+    // deaths, frozen forks revived; sym_classify: op classes, escape
+    // causes, cold SLOADs, running lanes, then the tags and after them the
+    // fleet slots (TC_TAG + n_tags + slot); sym_planes: arena-overflow
+    // kills
+    TC_ERR = 0,
+    TC_BAD_JUMP = 1,
+    TC_REVIVED = 2,
+    TC_OP = 3,
+    TC_CAUSE = 18,
+    TC_COLD = 26,
+    TC_RUNNING = 27,
+    TC_OVF = 28,
+    TC_TAG = 29,
+    N_TC = 157,
 
     // K4 int32 scratch rows [N_ISCR, B]
     I_OP = 0,

@@ -49,7 +49,8 @@ for a set of tensors (keyed on their data pointers, shapes and dtypes,
 and the few static arguments) and reused while the key holds; a call
 with the very tensor objects of its cache's last call skips the key
 (`_Plans`). K6's and K7's outputs are allocated a call (a K7 gather's
-one flat buffer, whose leaf views it returns). A
+one flat buffer, whose leaf views it returns); K8 writes into its plan's
+pinned staging, one plan an arena and mirror. A
 chunk of K4 steps (`run_chunk_graph`) and a chunk of K11 steps are each
 captured as one CUDA graph per key and replayed, adding the captured
 launches to `LAUNCHES` on every replay; `REPLAYS` counts the replays and
@@ -103,6 +104,7 @@ _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_keccak_preload": "keccak",
               "mtpu_gather_rows": "gather_rows",
               "mtpu_scatter_rows": "gather_rows",
               "mtpu_arena_delta": "arena_delta",
+              "mtpu_arena_delta_map": "arena_delta",
               "mtpu_merge_pair": "merge_pass", "mtpu_merge_run": "merge_pass",
               "mtpu_sat_run": "sat_step", "mtpu_sat_preload": "sat_step",
               "mtpu_steal_pass": "steal_pass", "mtpu_steal_grid": "steal_pass"}
@@ -139,9 +141,12 @@ def _raw_stream() -> int:
     return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
-def _call(name: str, block) -> None:
+def _call(name: str, block, stream: Optional[int] = None) -> None:
+    """Launch `name` on `stream` (a raw handle; the current stream when
+    None) with its parameter block."""
     rc = _entry(name)(ctypes.cast(block, ctypes.c_void_p), len(block),
-                      ctypes.c_void_p(_raw_stream()))
+                      ctypes.c_void_p(_raw_stream() if stream is None
+                                      else stream))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
 
@@ -600,6 +605,11 @@ class _StepPlan:
             values[Lay.K4_TEL_N_TAGS] = n_tags
             values[Lay.K4_TEL_N_CTX] = n_ctx
             values[Lay.K4_TEL_N_FLEET] = n_fleet
+            # K9's per-step count table: a byte a block of each column,
+            # the blocks padded to 16-byte words
+            self.tel_rows = scratch(Lay.N_TC, -(-n_tiles // 16) * 16,
+                                    dtype=torch.uint8)
+            values[Lay.K4_TEL_ROWS] = self.tel_rows.data_ptr()
         suffix = "_tel" if self.telemetry else ""
         self.pre, self.post = "mtpu_sym_pre" + suffix, "mtpu_sym_post" + suffix
         self.k4 = _block(self.pre, values)
@@ -1069,32 +1079,117 @@ def scatter_rows(state, planes, index: torch.Tensor, rows_state, rows_planes):
 
 # ---- K8 -----------------------------------------------------------------------------
 
-def arena_delta(arena, start: int, cstart: int, bucket: int, cbucket: int):
+def _pinned_int32(n: int) -> torch.Tensor:
+    """n int32 words of pinned host memory (K8's staging)."""
+    return torch.empty(n, dtype=torch.int32, pin_memory=True)
+
+
+def _mapped_address(host: torch.Tensor) -> int:
+    """The device address of pinned host memory, as the CUDA runtime gives
+    it (cudaHostGetDevicePointer in arena_delta.cu)."""
+    values = (ctypes.c_longlong * 2)(host.data_ptr(), 0)
+    rc = _entry("mtpu_arena_delta_map")(ctypes.cast(values, ctypes.c_void_p),
+                                        2, None)
+    if rc != 0:
+        raise RuntimeError(f"mtpu_arena_delta_map: cudaError {rc}")
+    return values[1]
+
+
+def _launch_after_current(name: str, block, device, event):
+    """Launch `name` on the device's copy stream once the work queued on the
+    current stream is done, and record `event` (a new one when None) on
+    the copy stream after it; returns the event."""
+    from .. import device as _device
+
+    side = _device.copy_stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    _call(name, block, side.cuda_stream)
+    if event is None:
+        event = torch.cuda.Event()
+    event.record(side)
+    return event
+
+
+class _DeltaPlan:
+    """K8's parameter block for one arena and one mirror (the six node
+    columns and the const pool checked once), and the mirror's pinned
+    staging: two slots, each the size of the largest delta so far rounded
+    up to a power of two, so that a refresh allocates nothing once the
+    buckets stop growing. A grown staging replaces the old one, which a
+    handle still in flight keeps alive through its views."""
+
+    def __init__(self, arena):
+        self.capacity, self.const_capacity = (arena.op.shape[0],
+                                              arena.const_vals.shape[0])
+        values = [0] * Lay.K8_NARGS
+        for position, col in enumerate((arena.op, arena.a, arena.b, arena.c,
+                                        arena.imm, arena.imm2)):
+            values[Lay.K8_COL + position] = _check(col, "arena column",
+                                                   torch.int32,
+                                                   (self.capacity,))
+        values[Lay.K8_CONST_VALS] = _check(arena.const_vals,
+                                           "arena.const_vals", torch.int32,
+                                           (self.const_capacity, 16))
+        self.block = _block("mtpu_arena_delta", values)
+        self.device = arena.op.device
+        self.staging = None
+        self.slot_words = 0
+        self.mapped = 0
+        self.events = [None, None]
+        self.launches = 0
+
+    def launch(self, slot: int, start: int, cstart: int, bucket: int,
+               cbucket: int):
+        words = 6 * bucket + 16 * cbucket
+        if words > self.slot_words:
+            self.slot_words = 1 << (words - 1).bit_length()
+            self.staging = _pinned_int32(2 * self.slot_words)
+            self.mapped = _mapped_address(self.staging)
+        base = slot * self.slot_words
+        block = self.block
+        block[Lay.K8_START] = start
+        block[Lay.K8_CSTART] = cstart
+        block[Lay.K8_BUCKET] = bucket
+        block[Lay.K8_CBUCKET] = cbucket
+        block[Lay.K8_OUT_ROWS] = self.mapped + 4 * base
+        block[Lay.K8_OUT_CONSTS] = self.mapped + 4 * (base + 6 * bucket)
+        self.events[slot] = _launch_after_current(
+            "mtpu_arena_delta", block, self.device, self.events[slot])
+        self.launches += 1
+        LAUNCHES["arena_delta"] += 1
+        rows = self.staging[base:base + 6 * bucket].view(6, bucket)
+        consts = self.staging[base + 6 * bucket:base + words].view(cbucket, 16)
+        return rows, consts, self.events[slot]
+
+
+_DELTA_PLANS = _Plans(limit=8)
+
+
+def delta_plan(arena, mirror) -> _DeltaPlan:
+    """K8's cached plan for `arena` and the mirror keyed `mirror`."""
+    return _DELTA_PLANS.get(
+        [arena.op, arena.a, arena.b, arena.c, arena.imm, arena.imm2,
+         arena.const_vals], (mirror,), lambda: _DeltaPlan(arena))
+
+
+def arena_delta(arena, mirror, slot: int, start: int, cstart: int,
+                bucket: int, cbucket: int):
     """K8: node rows [start, start+bucket) as int32[6, bucket] and const rows
-    [cstart, cstart+cbucket) as int32[cbucket, 16]; both starts clamp so the
-    blocks fit."""
-    cap, ccap = arena.op.shape[0], arena.const_vals.shape[0]
+    [cstart, cstart+cbucket) as int32[cbucket, 16] (both starts clamp so
+    the blocks fit), written by one launch on the copy stream, after the
+    work queued on the current stream, into staging slot `slot` (0 or 1)
+    of the mirror keyed `mirror`. Returns host views of the slot and the
+    event after which they hold the blocks; the slot is the caller's to
+    keep unused until then."""
+    if slot not in (0, 1):
+        raise ValueError(f"delta staging slot {slot}")
+    plan = delta_plan(arena, mirror)
+    cap, ccap = plan.capacity, plan.const_capacity
     if not (0 < bucket <= cap and 0 < cbucket <= ccap):
         raise ValueError(f"delta buckets {bucket}, {cbucket} outside the arena")
-    values = [0] * Lay.K8_NARGS
-    for position, col in enumerate((arena.op, arena.a, arena.b, arena.c,
-                                    arena.imm, arena.imm2)):
-        values[Lay.K8_COL + position] = _check(col, "arena column",
-                                               torch.int32, (cap,))
-    values[Lay.K8_CONST_VALS] = _check(arena.const_vals, "arena.const_vals",
-                                       torch.int32, (ccap, 16))
-    values[Lay.K8_START] = max(min(int(start), cap - bucket), 0)
-    values[Lay.K8_CSTART] = max(min(int(cstart), ccap - cbucket), 0)
-    values[Lay.K8_BUCKET] = bucket
-    values[Lay.K8_CBUCKET] = cbucket
-    dev = arena.op.device
-    rows = torch.empty((6, bucket), dtype=torch.int32, device=dev)
-    consts = torch.empty((cbucket, 16), dtype=torch.int32, device=dev)
-    values[Lay.K8_OUT_ROWS] = rows.data_ptr()
-    values[Lay.K8_OUT_CONSTS] = consts.data_ptr()
-    _launch("mtpu_arena_delta", values)
-    LAUNCHES["arena_delta"] += 1
-    return rows, consts
+    return plan.launch(slot, max(min(int(start), cap - bucket), 0),
+                       max(min(int(cstart), ccap - cbucket), 0), bucket,
+                       cbucket)
 
 
 # ---- K10 ----------------------------------------------------------------------------

@@ -52,11 +52,32 @@
 //
 // Kernel K9, the telemetry plane (symstep.py:822-908 with 359-360), is the
 // `TEL = true` instantiation of the launches that count, with no launch of
-// its own; the `TEL = false` program is the plane-free step. Counts are
-// summed per block in shared memory and added to the plane with atomics
-// (sums commute, so they are exact); what is decided per segment is counted
-// by the one-block launches; the high-water marks read the step's final
-// tops in its last launch.
+// its own; the `TEL = false` program is the plane-free step, launch for
+// launch. What bounds it: a step's counts are a few hundred bytes, so only
+// latency, how the blocks' counts meet. Every block of the launches over
+// lanes once added its counters to the same plane words with 64-bit
+// global atomics, which the L2 serialises per address, more of them the
+// more blocks (32 at 128 lanes, 512 at 2048). Now no launch over lanes
+// adds to the plane. A block counts its lanes in shared memory (the tags
+// by the lane's group of threads) and stores its counts, one byte each (at
+// most K4_LPB lanes), with plain stores into its column of the step's
+// table (layout.cuh TC_*; every column is written each step, so nothing
+// is cleared). The fork phase's move, the step's last launch, sums every
+// column into the plane (`TeamFold`): a team of threads (a warp) a column,
+// the columns on the grid's last teams, whose blocks lie past the moves;
+// a team loads its words (16 blocks' counts each) and the plane's value
+// before the block's moves and, after them, sums with shuffles and stores.
+// Sums commute, so the plane is exact and independent of block order, and
+// whole after every step; the executed count of the TEL instantiation is
+// folded with the running lanes. What is decided per segment is counted by
+// the one-block launches as before, and the same launch's last block takes
+// the high-water marks from the step's final tops. On the card, folds in
+// the one-block launches that follow (sym_seed_seg, sym_esc_seg) cost
+// 0.5-2 us a step more than the atomics had: their block has one warp at
+// 128 lanes, which runs the fold's instructions one after another; folds
+// spread over three wide launches cost more than this one (PERF.md). A
+// warp holds one lane on the card (K4_GROUP 32), so there is nothing to
+// aggregate within a warp before shared memory.
 #include "arena.cuh"
 
 namespace {
@@ -127,6 +148,28 @@ __device__ __forceinline__ long long* tel_counter(const Args& a, int slot) {
     return arg_ptr<long long>(a, slot);
 }
 
+static_assert(TC_CAUSE == TC_OP + static_cast<int>(N_OP_CLASSES)
+                  && TC_COLD == TC_CAUSE + static_cast<int>(N_ESC_CAUSES)
+                  && N_TC == TC_TAG + 2 * static_cast<int>(MAX_TEL_SLOTS),
+              "K9's table columns (layout.cuh) do not match the plane");
+
+// K9's table: column c, one byte a block, blocks padded to a 16-byte word
+__device__ __forceinline__ uint8_t* tel_col(const Args& a, int c) {
+    const long long nbp = (arg_int(a, K4_NB) + 15) & ~15;
+    return arg_ptr<uint8_t>(a, K4_TEL_ROWS) + c * nbp;
+}
+
+// the sum of a word's 16 bytes
+__device__ __forceinline__ int byte_sum(const Vec16& v) {
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+    int sum = 0;
+    for (int i = 0; i < 4; ++i) {
+        const uint32_t pairs = (words[i] & 0x00FF00FFu) + ((words[i] >> 8) & 0x00FF00FFu);
+        sum += static_cast<int>((pairs & 0xFFFFu) + (pairs >> 16));
+    }
+    return sum;
+}
+
 // low 32 bits of 16 stored limbs and whether no higher bit is set
 __device__ __forceinline__ long long low32(const int32_t* w, bool* fits) {
     bool f = true;
@@ -135,6 +178,98 @@ __device__ __forceinline__ long long low32(const int32_t* w, bool* fits) {
     return static_cast<long long>((static_cast<uint32_t>(w[0]) & 0xFFFFu)
                                   | ((static_cast<uint32_t>(w[1]) & 0xFFFFu) << 16));
 }
+
+enum { TEAM_WORDS = 2 };
+
+// the 16-byte words of a column of K9's table
+__device__ __forceinline__ int tel_words(const Args& a) {
+    return ((arg_int(a, K4_NB) + 15) & ~15) / 16;
+}
+
+// the plane counters column c of K9's table sums into, k = 0 and 1
+// (nullptr: none; the running lanes go to the occupancy and, in the TEL
+// instantiation, to the executed count)
+__device__ __forceinline__ long long* tel_dst(const Args& a, int c, int k) {
+    if (c == TC_RUNNING)
+        return k ? arg_ptr<long long>(a, K4_EXECUTED) : tel_counter(a, K4_TEL_OCCUPANCY);
+    if (k) return nullptr;
+    long long* lifecycle = tel_counter(a, K4_TEL_LIFECYCLE);
+    const int n_tags = arg_int(a, K4_TEL_N_TAGS);
+    switch (c) {
+        case TC_ERR: return lifecycle + LC_ERR_DEATHS;
+        case TC_BAD_JUMP: return lifecycle + LC_BAD_JUMP_DEATHS;
+        case TC_REVIVED: return lifecycle + LC_FROZEN_REVIVED;
+        case TC_COLD: return lifecycle + LC_COLD_SLOADS;
+        case TC_OVF: return lifecycle + LC_OVERFLOW_KILLS;
+        default: break;
+    }
+    if (c < TC_CAUSE) return tel_counter(a, K4_TEL_OP_HIST) + (c - TC_OP);
+    if (c < TC_COLD) return tel_counter(a, K4_TEL_ESC_CAUSE) + (c - TC_CAUSE);
+    if (c < TC_TAG + n_tags) return tel_counter(a, K4_TEL_TAG_OCC) + (c - TC_TAG);
+    return tel_counter(a, K4_TEL_FLEET_OCC) + (c - TC_TAG - n_tags);
+}
+
+// A team of the block's threads for K9's folds: a warp on the card (the
+// largest power of two up to 32 that divides the block), and this
+// thread's rank in it, its team's index in the block and the lanes of its
+// warp it shares shuffles with.
+struct Team {
+    int size, rank, index;
+    unsigned mask;
+};
+
+__device__ __forceinline__ Team team_of() {
+    Team t;
+    const int low = static_cast<int>(blockDim.x & (0u - blockDim.x));
+    t.size = low < 32 ? low : 32;
+    t.rank = threadIdx.x % t.size;
+    t.index = threadIdx.x / t.size;
+    t.mask = t.size == 32 ? 0xFFFFFFFFu
+                          : ((1u << t.size) - 1u) << ((threadIdx.x & 31u) - t.rank);
+    return t;
+}
+
+// K9's fold of one column of the step's table into the plane by a team,
+// in two halves so that its loads wait beside the launch's own. load()
+// issues the team's words of the column (rank r: words r, r + size, ...,
+// TEAM_WORDS of them; finish() reads any others) and, in rank 0, the
+// plane's values. finish(), by every thread of the team, sums the words'
+// bytes over the team with shuffles; rank 0 stores value plus sum. A
+// column < 0 is none (the same for the whole team).
+struct TeamFold {
+    Vec16 v[TEAM_WORDS];
+    long long old[2];
+    int c;
+
+    __device__ void load(const Args& a, int column, const Team& t) {
+        c = column;
+        if (c < 0) return;
+        const int words = tel_words(a);
+        const Vec16* w = reinterpret_cast<const Vec16*>(tel_col(a, c));
+        for (int k = 0; k < TEAM_WORDS; ++k)
+            if (t.rank + k * t.size < words) v[k] = w[t.rank + k * t.size];
+        for (int k = 0; k < 2; ++k) {
+            const long long* p = t.rank == 0 ? tel_dst(a, c, k) : nullptr;
+            old[k] = p ? *p : 0;
+        }
+    }
+
+    __device__ void finish(const Args& a, const Team& t) const {
+        if (c < 0) return;
+        const int words = tel_words(a);
+        int sum = 0;
+        for (int k = 0; k < TEAM_WORDS; ++k)
+            if (t.rank + k * t.size < words) sum += byte_sum(v[k]);
+        const Vec16* w = reinterpret_cast<const Vec16*>(tel_col(a, c));
+        for (int e = t.rank + TEAM_WORDS * t.size; e < words; e += t.size) sum += byte_sum(w[e]);
+        for (int m = t.size / 2; m > 0; m >>= 1) sum += __shfl_xor_sync(t.mask, sum, m, t.size);
+        if (t.rank != 0 || !sum) return;
+        for (int k = 0; k < 2; ++k) {
+            long long* p = tel_dst(a, c, k);
+            if (p) *p = old[k] + sum;
+        }
+    }
+};
 
 // This thread's place in a launch over lanes: blockDim.x = K4_LPB lanes
 // times the launch's threads per lane (1 for the narrow launches,
@@ -270,8 +405,7 @@ __global__ void sym_seed_count_kernel(Args a) {
         dead0 = st == ST_DEAD;
     }
     tile_scan(a, l, SC_DEAD0, 1, dead0, buf);
-    if (TEL && threadIdx.x == 0 && n_err)
-        add64(tel_counter(a, K4_TEL_LIFECYCLE) + LC_ERR_DEATHS, n_err);
+    if (TEL && threadIdx.x == 0) tel_col(a, TC_ERR)[blockIdx.x] = static_cast<uint8_t>(n_err);
 }
 
 // segment d's DEAD lanes take from the top of pool segment d: the counts,
@@ -335,6 +469,7 @@ __global__ void sym_move_kernel(Args a) {
     const int n_items = arg_int(a, K4_N_ITEMS);
     const int* items = arg_ptr<const int>(a, K4_ITEMS);
     const int* entries = arg_ptr<const int>(a, K4_ENTRIES);
+    const auto moves = [&]() {
     for (long long w = blockIdx.x; w < n_moves * n_items; w += gridDim.x) {
         const int m = static_cast<int>(w / n_items), item = static_cast<int>(w % n_items);
         const int src_base = move_row(a, MV_SRC_BASE)[m], dst_base = move_row(a, MV_DST_BASE)[m];
@@ -382,20 +517,49 @@ __global__ void sym_move_kernel(Args a) {
             }
         }
     }
-    if (TEL && phase == PH_FORK && blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
-        // the global rows in use: the sum of the segments' final tops
-        // (symstep.py:878-882)
-        const int32_t* stack_top = arg_ptr<const int32_t>(a, K4_STACK_TOP);
-        const int32_t* esc_count = arg_ptr<const int32_t>(a, K4_ESC_COUNT);
-        long long tops[2] = {0, 0};
-        for (int d = 0; d < arg_int(a, K4_D); ++d) {
-            tops[0] += stack_top[d];
-            tops[1] += esc_count[d];
+    };
+    if constexpr (TEL) {
+        if (phase == PH_FORK) {
+            // K9 in the step's last launch: every column of the step's
+            // table, a team a column from the grid's last team down (the
+            // blocks past the moves have no copy work), its loads before
+            // the block's moves; the last block's first thread takes the
+            // high-water marks of the global rows in use, the sum of the
+            // segments' final tops (symstep.py:878-882)
+            const Team team = team_of();
+            const int per_block = blockDim.x / team.size;
+            const int n_teams = gridDim.x * per_block;
+            const int rank = n_teams - 1 - (blockIdx.x * per_block + team.index);
+            const int n_cols = TC_TAG + arg_int(a, K4_TEL_N_TAGS) + arg_int(a, K4_TEL_N_FLEET);
+            TeamFold fold;
+            fold.load(a, rank < n_cols ? rank : -1, team);
+            const bool last = blockIdx.x == gridDim.x - 1 && threadIdx.x == 0;
+            long long* hwm = tel_counter(a, K4_TEL_HWM);
+            long long tops[2] = {0, 0}, marks[2] = {0, 0};
+            if (last) {
+                const int32_t* stack_top = arg_ptr<const int32_t>(a, K4_STACK_TOP);
+                const int32_t* esc_count = arg_ptr<const int32_t>(a, K4_ESC_COUNT);
+                for (int d = 0; d < arg_int(a, K4_D); ++d) {
+                    tops[0] += stack_top[d];
+                    tops[1] += esc_count[d];
+                }
+                marks[0] = hwm[0];
+                marks[1] = hwm[1];
+            }
+            moves();
+            fold.finish(a, team);
+            for (int c = rank + n_teams; c < n_cols; c += n_teams) {
+                TeamFold more;
+                more.load(a, c, team);
+                more.finish(a, team);
+            }
+            if (last)
+                for (int k = 0; k < 2; ++k)
+                    if (tops[k] > marks[k]) hwm[k] = tops[k];
+            return;
         }
-        long long* hwm = tel_counter(a, K4_TEL_HWM);
-        for (int k = 0; k < 2; ++k)
-            if (tops[k] > hwm[k]) hwm[k] = tops[k];
     }
+    moves();
 }
 
 // ---- classification -------------------------------------------------------------------
@@ -404,18 +568,20 @@ __global__ void sym_move_kernel(Args a) {
 template <bool TEL>
 __global__ void sym_classify_kernel(Args a) {
     enum { R_CSYM, R_CMIS, R_SLOT, R_READS, R_COPY, R_MCOPY, N_RED };
-    enum { T_OP = 0, T_CAUSE = T_OP + N_OP_CLASSES, T_TAG = T_CAUSE + N_ESC_CAUSES,
-           T_FLEET = T_TAG + MAX_TEL_SLOTS, T_COLD = T_FLEET + MAX_TEL_SLOTS,
-           T_RUNNING, N_T };
+    // the block's counts by K9 column (the plain step counts running lanes
+    // only)
+    constexpr int n_t = TEL ? N_TC : TC_RUNNING + 1;
     __shared__ int red[N_RED][MAX_LPB];
-    __shared__ int tel[N_T];
+    __shared__ int tel[n_t];
     const Lanes l = lanes_of(a);
     const int S = arg_int(a, K4_S), M = arg_int(a, K4_M), C = arg_int(a, K4_C),
               K = arg_int(a, K4_K), KC = arg_int(a, K4_KC);
+    const int n_tags = TEL ? arg_int(a, K4_TEL_N_TAGS) : 0;
+    const int n_fleet = TEL ? arg_int(a, K4_TEL_N_FLEET) : 0;
     if (l.leader) {
         for (int r = 0; r < N_RED; ++r) red[r][l.slot] = r == R_SLOT ? NO_SLOT : 0;
     }
-    for (int i = threadIdx.x; i < N_T; i += blockDim.x) tel[i] = 0;
+    for (int i = threadIdx.x; i < n_t; i += blockDim.x) tel[i] = 0;
     __syncthreads();
 
     // ---- the lane's scalars (every thread of the group reads them) --------------------
@@ -469,6 +635,16 @@ __global__ void sym_classify_kernel(Args a) {
             atomicMax(&red[R_COPY][l.slot], 1);
         if (mcopy_range && range_share(ms, 0, M, M, l.sub, l.g))
             atomicMax(&red[R_MCOPY][l.slot], 1);
+        // K9: the tags at the lane's pc, a share of them each thread of
+        // the group (at most two of 64 on the card: read beside the lane's
+        // own loads, not staged, which would put a load before the
+        // block's first barrier)
+        if constexpr (TEL) {
+            const int32_t* tag_pcs = arg_ptr<const int32_t>(a, K4_TEL_TAG_PCS);
+            if (running)
+                for (int k = l.sub; k < n_tags; k += l.g)
+                    if (pc == tag_pcs[k]) atomicAdd(&tel[TC_TAG + k], 1);
+        }
         int32_t* wa = wscr(a, W_A, L);
         int32_t* wb = wscr(a, W_B, L);
         for (int i = l.sub; i < 16; i += l.g) {
@@ -531,7 +707,7 @@ __global__ void sym_classify_kernel(Args a) {
         esc = esc || (running && symbolic_env && (op == OP_CALLDATACOPY || op == OP_SELFBALANCE));
         const bool force_escape = (esc || esc_always) && !force_fork;
 
-        if (TEL) {
+        if constexpr (TEL) {
             // the where-chain of symstep.py:836-858: the last matching cause wins
             if (force_escape) {
                 int cause = EC_HOST_OP;
@@ -544,25 +720,21 @@ __global__ void sym_classify_kernel(Args a) {
                 if (running && (op == OP_JUMP || op == OP_JUMPI) && sym1 != 0)
                     cause = EC_SYM_JUMP_DEST;
                 if (esc_always) cause = EC_HALT;
-                atomicAdd(&tel[T_CAUSE + cause], 1);
+                atomicAdd(&tel[TC_CAUSE + cause], 1);
             }
             if (running) {
-                atomicAdd(&tel[T_OP + OPF_OP_CLASS(flags)], 1);
-                const int32_t* tag_pcs = arg_ptr<const int32_t>(a, K4_TEL_TAG_PCS);
-                for (int k = 0; k < arg_int(a, K4_TEL_N_TAGS); ++k)
-                    if (pc == tag_pcs[k]) atomicAdd(&tel[T_TAG + k], 1);
+                atomicAdd(&tel[TC_OP + OPF_OP_CLASS(flags)], 1);
                 // the fleet slot of the lane's seeding context
-                const int n_ctx = arg_int(a, K4_TEL_N_CTX), n_fleet = arg_int(a, K4_TEL_N_FLEET);
                 if (n_fleet > 0) {
                     const int ctx = leaf<int32_t>(a, K4_LANE, L_CTX_ID)[L];
                     const int fslot = arg_ptr<const int32_t>(a, K4_TEL_FLEET_SLOTS)[
-                        clampll(ctx, 0, n_ctx - 1)];
-                    if (fslot >= 0 && fslot < n_fleet) atomicAdd(&tel[T_FLEET + fslot], 1);
+                        clampll(ctx, 0, arg_int(a, K4_TEL_N_CTX) - 1)];
+                    if (fslot >= 0 && fslot < n_fleet) atomicAdd(&tel[TC_TAG + n_tags + fslot], 1);
                 }
             }
-            if (sload_cold) atomicAdd(&tel[T_COLD], 1);
+            if (sload_cold) atomicAdd(&tel[TC_COLD], 1);
         }
-        if (running) atomicAdd(&tel[T_RUNNING], 1);
+        if (running) atomicAdd(&tel[TC_RUNNING], 1);
 
         iscr(a, I_OP)[L] = op;
         iscr(a, I_SYM1)[L] = sym1;
@@ -587,21 +759,17 @@ __global__ void sym_classify_kernel(Args a) {
         fscr(a, F_SSTORE)[L] = sstore_mask;
     }
     __syncthreads();
-    // the block's counts into the scheduler and the plane
-    if (threadIdx.x == 0 && tel[T_RUNNING]) {
-        add64(arg_ptr<long long>(a, K4_EXECUTED), tel[T_RUNNING]);
-        if (TEL) add64(tel_counter(a, K4_TEL_OCCUPANCY), tel[T_RUNNING]);
-    }
-    if (TEL) {
-        for (int i = threadIdx.x; i < T_RUNNING; i += blockDim.x) {
-            if (!tel[i]) continue;
-            long long* dst;
-            if (i < T_CAUSE) dst = tel_counter(a, K4_TEL_OP_HIST) + (i - T_OP);
-            else if (i < T_TAG) dst = tel_counter(a, K4_TEL_ESC_CAUSE) + (i - T_CAUSE);
-            else if (i < T_FLEET) dst = tel_counter(a, K4_TEL_TAG_OCC) + (i - T_TAG);
-            else if (i < T_COLD) dst = tel_counter(a, K4_TEL_FLEET_OCC) + (i - T_FLEET);
-            else dst = tel_counter(a, K4_TEL_LIFECYCLE) + LC_COLD_SLOADS;
-            add64(dst, tel[i]);
+    if constexpr (!TEL) {
+        // the block's running lanes into the scheduler's executed count
+        if (threadIdx.x == 0 && tel[TC_RUNNING])
+            add64(arg_ptr<long long>(a, K4_EXECUTED), tel[TC_RUNNING]);
+    } else {
+        // K9: the block's counts into its byte of each column it writes
+        // ([TC_OP, TC_OVF), the tags and fleet slots); sym_esc_seg sums
+        // them, and the executed count with them
+        for (int i = threadIdx.x; i < TC_OVF - TC_OP + n_tags + n_fleet; i += blockDim.x) {
+            const int c = i < TC_OVF - TC_OP ? TC_OP + i : TC_TAG + i - (TC_OVF - TC_OP);
+            tel_col(a, c)[blockIdx.x] = static_cast<uint8_t>(tel[c]);
         }
     }
 }
@@ -806,8 +974,7 @@ __global__ void sym_planes_kernel(Args a) {
     const bool esc_now = l.active && *arg_ptr<uint8_t>(a, K4_ENABLED)
                          && status[L] == ST_ESCAPED;
     tile_scan(a, l, SC_ESC, 1, esc_now, buf);
-    if (TEL && threadIdx.x == 0 && n_ovf)
-        add64(tel_counter(a, K4_TEL_LIFECYCLE) + LC_OVERFLOW_KILLS, n_ovf);
+    if (TEL && threadIdx.x == 0) tel_col(a, TC_OVF)[blockIdx.x] = static_cast<uint8_t>(n_ovf);
 }
 
 // ---- escape buffering -----------------------------------------------------------------
@@ -998,11 +1165,9 @@ __global__ void sym_fork_apply_kernel(Args a) {
     }
     if (!TEL) return;
     __syncthreads();
-    if (threadIdx.x == 0) {
-        long long* lifecycle = tel_counter(a, K4_TEL_LIFECYCLE);
-        if (counts[0]) add64(lifecycle + LC_BAD_JUMP_DEATHS, counts[0]);
-        if (counts[1]) add64(lifecycle + LC_FROZEN_REVIVED, counts[1]);
-    }
+    // K9: the block's counts into its byte of two columns
+    if (threadIdx.x < 2)
+        tel_col(a, TC_BAD_JUMP + threadIdx.x)[blockIdx.x] = static_cast<uint8_t>(counts[threadIdx.x]);
 }
 
 // ---- launchers ------------------------------------------------------------------------

@@ -19,6 +19,7 @@ SMT layer and is not ported yet."""
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -182,19 +183,32 @@ def fetch_delta_reference(arena: Arena, start: int, cstart: int, bucket: int,
 
 def fetch_delta(arena: Arena, start: int, cstart: int, bucket: int,
                 cbucket: int):
-    """Delta fetch: kernel K8 on CUDA tensors, the twin on the CPU."""
+    """Delta fetch: kernel K8 on CUDA tensors (landed in host memory, the
+    blocks returned as CPU tensors of their own), the twin on the CPU."""
     if arena.op.is_cuda:
         from ..kernels import ops
 
-        return ops.arena_delta(arena, start, cstart, bucket, cbucket)
+        rows, consts, event = ops.arena_delta(arena, None, 0, start, cstart,
+                                              bucket, cbucket)
+        _device.wait_host_copy(event)
+        return rows.clone(), consts.clone()
     return fetch_delta_reference(arena, start, cstart, bucket, cbucket)
+
+
+#: a key for each HostArena, naming its staging among K8's plans
+_MIRROR_KEYS = itertools.count()
 
 
 class HostArena:
     """Incrementally mirrored host copy of the arena tables (numpy, in the
     JAX package's dtypes). The arena is append-only, so a row never changes
     once mirrored: `refresh` moves only rows [self.n, used) and consts
-    [self.n_const, used_const), fetched in power-of-two buckets."""
+    [self.n_const, used_const), fetched in power-of-two buckets.
+
+    A refresh's delta lands in one of two staging slots (on the card, K8
+    writes it into the mirror's pinned staging): at most two
+    `refresh_async` handles are in flight, and a third refresh, blocking
+    or not, raises until one of them is applied."""
 
     def __init__(self, arena: Arena, used: Optional[int] = None,
                  used_const: Optional[int] = None):
@@ -206,6 +220,8 @@ class HostArena:
         self.n = 0
         self.n_const = 0
         self._var_memo: Dict[int, set] = {}
+        self._key = next(_MIRROR_KEYS)
+        self._in_flight = [None, None]  # the handle holding each slot
         self.refresh(arena, used, used_const)
 
     def refresh(self, arena: Arena, used: Optional[int] = None,
@@ -216,8 +232,10 @@ class HostArena:
 
     def refresh_async(self, arena: Arena, used: Optional[int] = None,
                       used_const: Optional[int] = None):
-        """Launch the delta fetch and start its copy to the host; the
-        returned handle goes to `refresh_apply`. None when nothing is new."""
+        """Launch the delta fetch into a free staging slot (on the card,
+        after the work queued on the current stream, on the copy stream);
+        the returned handle goes to `refresh_apply`. None when nothing is
+        new. Raises if both slots hold handles in flight."""
         from .batch import next_pow2
 
         if used is None:
@@ -234,19 +252,35 @@ class HostArena:
         # clamp so start+bucket fits; the host offset below compensates
         start = max(min(self.n, self.op.shape[0] - bucket), 0)
         cstart = max(min(self.n_const, self.const_vals.shape[0] - cbucket), 0)
-        (rows, consts), event = _device.start_host_copy(
-            fetch_delta(arena, start, cstart, bucket, cbucket))
-        return rows, consts, event, start, cstart, used, used_const
+        if None not in self._in_flight:
+            raise RuntimeError("arena mirror: both staging slots hold "
+                               "refreshes in flight; apply one first")
+        slot = self._in_flight.index(None)
+        if arena.op.is_cuda:
+            from ..kernels import ops
+
+            rows, consts, event = ops.arena_delta(arena, self._key, slot, start,
+                                                  cstart, bucket, cbucket)
+        else:
+            rows, consts = fetch_delta_reference(arena, start, cstart, bucket,
+                                                 cbucket)
+            event = None
+        handle = (slot, rows, consts, event, start, cstart, used, used_const)
+        self._in_flight[slot] = handle
+        return handle
 
     def refresh_apply(self, handle) -> None:
         """Fill the mirror from a `refresh_async` handle, waiting for its
-        copy if it is still in flight."""
+        delta if it is still in flight, and free its slot."""
         if handle is None:
             return
-        rows, consts, event, start, cstart, used, used_const = handle
+        slot, rows, consts, event, start, cstart, used, used_const = handle
+        if self._in_flight[slot] is not handle:
+            raise ValueError("arena mirror handle not in flight here")
+        _device.wait_host_copy(event)
+        self._in_flight[slot] = None
         if used < self.n or used_const < self.n_const:
             raise ValueError("arena mirror handles applied out of order")
-        _device.wait_host_copy(event)
         rows = rows.numpy()
         consts = consts.numpy().view(np.uint32)
         delta = used - self.n

@@ -1129,7 +1129,10 @@ class DeviceFrontier:
                        arena_n: int, arena_nc: int):
         """Launch the pack of the buffered escape rows and the arena mirror
         delta and start both copies (frontier.py:1785); `_flush_backlog`
-        lands them after the next chunk is queued."""
+        lands them after the next chunk is queued. `run` flushes the last
+        backlog before its blocking `_harena` refreshes and fetches after
+        them, so a refresh never starts while two are in flight (the
+        mirror's two staging slots)."""
         if self.harena is None:
             self.harena = A.HostArena(self.arena, 1, 0)  # empty mirror
         delta_handle = self.harena.refresh_async(self.arena, arena_n,

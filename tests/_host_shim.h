@@ -210,6 +210,11 @@ inline T atomicOr(T* address, T value) {
     return std::atomic_ref<T>(*address).fetch_or(value);
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// host memory is its own device address here
+inline int cudaHostGetDevicePointer(void** device, void* host, unsigned) {
+    *device = host;
+    return 0;
+}
 inline int __ffs(int x) { return __builtin_ffs(x); }
 #define MTPU_LAUNCH(kernel, grid, block, stream, args) shim_launch(kernel, grid, block, args)
 #define MTPU_LAUNCH_STATUS() 0

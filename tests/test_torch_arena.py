@@ -139,3 +139,53 @@ def test_host_arena_refuses_stale_handles():
     mirror.refresh(tar)
     with pytest.raises(ValueError, match="out of order"):
         mirror.refresh_apply(stale)
+
+
+def test_host_arena_interleaved_refreshes_match_jax():
+    """Refreshes as a drain loop may issue them: two launched before either
+    lands, then one in flight across a blocking one, each round after new
+    allocations; the mirror equals JAX's after every landing. A third refresh while two
+    are in flight raises (a slot holding a delta in flight is never
+    written) and leaves the mirror as it was; a handle applied twice
+    raises."""
+    rng = np.random.default_rng(17)
+    jar = ja.new_arena(1 << 10, 64)
+    tar = ta.new_arena(1 << 10, 64, device="cpu")
+    j_mirror = ja.HostArena(jar, 1, 0)
+    t_mirror = ta.HostArena(tar, 1, 0)
+
+    def same():
+        assert (t_mirror.n, t_mirror.n_const) == (j_mirror.n, j_mirror.n_const)
+        for col in ta.ROW_COLS + ("const_vals",):
+            ref, got = getattr(j_mirror, col), getattr(t_mirror, col)
+            assert got.dtype == ref.dtype and np.array_equal(got, ref), col
+
+    for round_ in range(6):
+        handles = []
+        for _ in range(2):
+            jar, tar = _allocate(rng, jar, tar, 2)
+            handles.append((j_mirror.refresh_async(jar), t_mirror.refresh_async(tar)))
+        jar, tar = _allocate(rng, jar, tar, 1)
+        before = (t_mirror.n, t_mirror.n_const)
+        with pytest.raises(RuntimeError, match="in flight"):
+            t_mirror.refresh_async(tar)
+        with pytest.raises(RuntimeError, match="in flight"):
+            t_mirror.refresh(tar)
+        assert (t_mirror.n, t_mirror.n_const) == before
+        for j_handle, t_handle in handles:
+            j_mirror.refresh_apply(j_handle)
+            t_mirror.refresh_apply(t_handle)
+            same()
+        with pytest.raises(ValueError, match="not in flight"):
+            t_mirror.refresh_apply(handles[0][1])
+        jar, tar = _allocate(rng, jar, tar, 1)
+        # one in flight while a blocking refresh to the same rows takes the
+        # other slot; the handle then lands nothing new
+        j_handle, t_handle = j_mirror.refresh_async(jar), t_mirror.refresh_async(tar)
+        j_mirror.refresh(jar)
+        t_mirror.refresh(tar)
+        same()
+        j_mirror.refresh_apply(j_handle)
+        t_mirror.refresh_apply(t_handle)
+        same()
+    assert t_mirror.n == int(tar.n)

@@ -88,7 +88,7 @@ def test_wrappers_refuse_cpu_tensors():
                  lambda: ops.reset_esc(sched),
                  lambda: ops.gather_rows(state, planes, index),
                  lambda: ops.scatter_rows(state, planes, index, state, planes),
-                 lambda: ops.arena_delta(arena, 0, 0, 16, 16),
+                 lambda: ops.arena_delta(arena, None, 0, 0, 0, 16, 16),
                  lambda: ops.steal_pass(state, sharded, 1, 4)):
         with pytest.raises(ValueError):
             call()
@@ -149,6 +149,18 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def host_staging(monkeypatch):
+    """K8's staging in plain host memory, its launch on the calling thread
+    (no copy stream or event: the shim's launch has returned when the
+    blocks are written)."""
+    monkeypatch.setattr(ops, "_pinned_int32",
+                        lambda n: torch.zeros(n, dtype=torch.int32))
+    monkeypatch.setattr(ops, "_launch_after_current",
+                        lambda name, block, device, event: ops._call(name, block))
+    monkeypatch.setattr(ops, "_DELTA_PLANS", ops._Plans(limit=8))
 
 
 @pytest.fixture
@@ -356,6 +368,73 @@ def test_host_telemetry_matches_twin(on_host):
     assert int((lifecycle > 0).sum()) >= 8
 
 
+#: a loop that forks on a calldata word, both sides looping; the same fork
+#: to a pc past the code (the forker dies on the bad destination, the
+#: fall-through side halts)
+K9_FORKER = assemble("JUMPDEST\nPUSH1 0x00\nCALLDATALOAD\nPUSH1 0x00\nJUMPI\n"
+                     "PUSH1 0x00\nJUMP")
+K9_BAD_JUMP = assemble("PUSH1 0x00\nCALLDATALOAD\nPUSH1 0x40\nJUMPI\nSTOP")
+K9_SPIN = assemble("JUMPDEST\nPUSH1 0x00\nJUMP")
+#: an SLOAD of a slot not yet read, on a symbolic storage base: it pauses
+K9_COLD_SLOAD = assemble("PUSH1 0x00\nSLOAD\nSTOP")
+
+
+#: K9's per-step cases: (arena capacity, the lifecycle counts that must
+#: fire); a small arena kills the forkers on overflow, a large one keeps
+#: them forking until they wait for room
+K9_CASES = {"pressure": (1 << 8, ("err_deaths", "bad_jump_deaths", "fork_waits",
+                                  "cold_sloads", "forks_spilled",
+                                  "frozen_revived")),
+            "overflow": (8, ("err_deaths", "overflow_kills", "bad_jump_deaths",
+                             "cold_sloads"))}
+
+
+@pytest.mark.parametrize("case", sorted(K9_CASES))
+@pytest.mark.parametrize("n_lanes, steps", [(128, 36), (2048, 36)],
+                         ids=["128", "2048"])
+def test_host_telemetry_plane_every_step(on_host, n_lanes, steps, case):
+    """K9 at the card's tile (4 lanes a block: 32 and 512 blocks) against
+    the twin after every step: the whole plane and the executed count.
+    Every lane spins but the last block's: a forking loop, a fork to a bad
+    destination, a cold SLOAD and a stack underflow. So no lane is free, forks push, spill and wait (the escape
+    count is zeroed every 6 steps, as a drain does, and the waiting
+    forkers revive), and every lifecycle count comes from the last block,
+    which the shim runs last: it must reach the plane within its step
+    (the fork phase's move folds the blocks' table, its columns on the
+    grid's last teams). Every leaf at the end."""
+    from test_torch_shard import seed_lanes
+    from test_torch_telemetry import FLEET_SLOTS, TAG_PCS
+
+    last = [K9_FORKER, K9_BAD_JUMP, K9_COLD_SLOAD, bytes.fromhex("01")]
+    placed = {lane: K9_SPIN for lane in range(n_lanes - len(last))}
+    placed.update({n_lanes - len(last) + i: code for i, code in enumerate(last)})
+    capacity, counts = K9_CASES[case]
+    state, planes, arena = seed_lanes(placed, n_lanes, base_sym=[n_lanes - 2],
+                                      arena_capacity=capacity)
+    sched = jsym.new_scheduler(state, planes, 4, 3, telemetry=jsym.new_telemetry(
+        TAG_PCS, FLEET_SLOTS, 3))
+    plain = [to_port(k, t) for k, t in zip(("state", "planes", "arena", "sched"),
+                                           (state, planes, arena, sched))]
+    kernel = [convert.clone(t) for t in plain]
+    for step in range(steps):
+        plain = list(ts.sym_step_reference(*plain))
+        kernel = list(ops.sym_step(*kernel, lanes_per_block=4, group=1))
+        _same(kernel[3].telemetry, plain[3].telemetry, f"step {step} plane")
+        assert int(kernel[3].executed) == int(plain[3].executed), step
+        if step % 6 == 5:
+            plain[3].esc_count.zero_()
+            kernel[3].esc_count.zero_()
+    for kind, got, ref in zip(("state", "planes", "arena", "sched"), kernel,
+                              plain):
+        _same(got, ref, kind)
+    lifecycle = dict(zip(ts.LIFECYCLE_NAMES, plain[3].telemetry.lifecycle.tolist()))
+    for name in counts:
+        assert lifecycle[name] > 0, (name, lifecycle)
+    tel = plain[3].telemetry
+    assert int(tel.esc_cause.sum()) > 0 and int(tel.tag_occ.sum()) > 0
+    assert int((tel.fleet_occ > 0).sum()) == 3
+
+
 def _k6_pool(seed: int, rows: int = 1024):
     """A pool of `rows` random rows (8 stack slots, 256 memory bytes, 64
     storage slots, 16 conds), every leaf filled from the seed."""
@@ -395,7 +474,7 @@ K6_CASES = {
 
 
 @pytest.mark.parametrize("case", ["mid_run"] + sorted(K6_CASES))
-def test_host_frontier_programs_match_twins(on_host, case):
+def test_host_frontier_programs_match_twins(on_host, host_staging, case):
     """K5-K8 against their twins on a mid-run state: escape rows buffered,
     lanes forking; the escape drain's zero-padded index and a lane index
     padded by repetition; a scatter with a dropped pad; a delta whose
@@ -471,11 +550,54 @@ def test_host_frontier_programs_match_twins(on_host, case):
     for start, cstart, bucket, cbucket in ((0, 0, 16, 16), (int(arena.n), 3, 64, 16),
                                            (4090, 250, 16, 16)):
         for mine, theirs in zip(
-                ops.arena_delta(arena, start, cstart, bucket, cbucket),
+                ops.arena_delta(arena, None, 0, start, cstart, bucket, cbucket)[:2],
                 ta.fetch_delta_reference(arena, start, cstart, bucket, cbucket)):
             assert torch.equal(mine, theirs)
     ops.reset_esc(sched)
     assert int(sched.esc_count) == 0
+
+
+#: K8's host cases: (start, cstart, bucket, cbucket) in call order over a
+#: 4096-node arena with 256 consts: aligned and unaligned starts, starts
+#: that clamp, buckets that grow the staging past a slot and to the whole
+#: arena, then a small one again (the grown staging kept)
+K8_CASES = [(0, 0, 16, 16), (5, 3, 16, 16), (1001, 17, 1024, 64),
+            (4090, 250, 16, 16), (4093, 255, 64, 32), (1, 0, 4096, 256),
+            (7, 9, 16, 16)]
+
+
+def test_host_arena_delta_staging(on_host, host_staging):
+    """K8 into its staging, each case in turn into slot 0 and 1, against
+    `fetch_delta_reference`: the blocks as host views of the slot, the
+    other slot left as it was; one plan for the arena and mirror, its
+    staging grown by powers of two and never shrunk."""
+    rng = np.random.default_rng(8)
+    arena = ta.new_arena(4096, 256, device="cpu")
+    for col in ta.ROW_COLS:
+        getattr(arena, col).copy_(torch.from_numpy(
+            rng.integers(-2 ** 31, 2 ** 31, 4096).astype(np.int32)))
+    arena.const_vals.copy_(torch.from_numpy(
+        rng.integers(-2 ** 31, 2 ** 31, (256, 16)).astype(np.int32)))
+    plan, sizes = None, []
+    for index, (start, cstart, bucket, cbucket) in enumerate(K8_CASES):
+        slot = index % 2
+        keep = plan.staging.clone() if plan is not None else None
+        rows, consts, _ = ops.arena_delta(arena, "mirror", slot, start, cstart,
+                                          bucket, cbucket)
+        ref_rows, ref_consts = ta.fetch_delta_reference(arena, start, cstart,
+                                                        bucket, cbucket)
+        assert torch.equal(rows, ref_rows) and torch.equal(consts, ref_consts), index
+        plan = ops.delta_plan(arena, "mirror")
+        sizes.append(plan.slot_words)
+        assert plan.slot_words >= 6 * bucket + 16 * cbucket
+        assert rows.data_ptr() == plan.staging.data_ptr() + 4 * slot * plan.slot_words
+        if keep is not None and sizes[-1] == sizes[-2]:
+            # the other slot is untouched
+            other = slice((1 - slot) * plan.slot_words, (2 - slot) * plan.slot_words)
+            assert torch.equal(plan.staging[other], keep[other]), index
+    assert plan.launches == len(K8_CASES)
+    assert sizes == sorted(sizes) and len(set(sizes)) > 2
+    assert all(size & (size - 1) == 0 for size in sizes)
 
 
 #: K10's host cases: (inputs, free arena nodes, passes); "overflow*" cut
