@@ -20,6 +20,14 @@ copy to the host) held word for word to the twin on the same tensors
 (`summaries_checked`). Phases:
 
   1. the card's name and power limit (nvidia-smi);
+ 1a. static_tables, on the host: the port's static analysis
+     (`frontier.static_tables` over staticanalysis/) on branchy(12),
+     mem_branchy(8), the fleet pair, the KILLBILLY and BECTOKEN
+     dispatchers (tools/measure_headline.py), a loop beside joins and 40
+     diamonds past the tag and window caps: the number of tags,
+     merge pcs and window rows and a digest of the tables, held to the JAX
+     static analysis's (constants here), the cold build (a fresh
+     Disassembly: CFA, absint and taint) and the memoized lookup;
   2. K1 keccak (its standalone form) vs `keccak256_reference`: 4096
      random messages of 0..512 bytes, and the SHA3 shape of the main path
      (128 rows of a 4096-byte memory, ranges clipped at msize); at both,
@@ -91,14 +99,17 @@ copy to the host) held word for word to the twin on the same tensors
      pass, vs `merge_pass_reference` on the states the
      default-configuration frontier hands its merge passes: branchy(12)
      (strict rounds) and mem_branchy(8) with its window table (widened
-     rounds); every leaf, the arena and the stats; K10's time per strict
+     rounds), on the tables the frontier built for itself (held to the JAX
+     static analysis's); every leaf, the arena and the stats; K10's time per strict
      and per widened pass, by launch, and its standalone K3 calls (none);
  12. frontier_default: `DeviceFrontier(128)` on branchy(12) with telemetry
      and merging on, held to the JAX `_Frontier`'s counters, merges,
-     digests and final telemetry words; its wall time and idle share beside
+     digests and final telemetry words, and the tables it built for itself
+     to the JAX analysis's (empty: branchy(12) has no joins); its wall time and idle share beside
      phase 8's;
- 13. frontier_merge: the same on mem_branchy(8) with the tag and window
-     tables the JAX static analysis builds for it (constants here);
+ 13. frontier_merge: the same on mem_branchy(8), on the tag and window
+     tables the frontier builds for itself, held to those the JAX static
+     analysis builds (constants here);
  14. graph_chunk: `run_chunk`'s CUDA graph vs eager `sym_step` calls from
      the same state (branchy(12), 3 chunks): telemetry and merging off, on
      (a merge pass between chunks), and on with 4 shards; every leaf after
@@ -124,7 +135,8 @@ copy to the host) held word for word to the twin on the same tensors
      counters, steal counters, digests and telemetry words; wall, idle
      share, K12 launches and K4's device time per step beside phase 12's;
      then a fleet of branchy(12) and mem_branchy(8) owned by shards 0 and
-     2 with fleet slots and both codes' tables, held the same way;
+     2 with fleet slots, on the tables the frontier builds for both codes
+     (held to the JAX analysis's), held the same way;
  19. frontier_wide: `DeviceFrontier(2048)` in the default configuration on
      branchy(12) until the tree drains, held to the JAX
      `_Frontier(n_lanes=2048)`'s counters, digests and telemetry words,
@@ -184,6 +196,8 @@ from mythril_tpu_torch.smt import terms
 from mythril_tpu_torch.smt.smtlib import from_smt2
 from mythril_tpu_torch.smt.solver import preprocess
 from mythril_tpu_torch.smt.solver.bitblast import Blaster
+from tools.measure_headline import BECTOKEN
+from tools.measure_headline import KILLBILLY as HEADLINE_KILLBILLY
 
 # ---- the frontier's default geometry (mythril_tpu/parallel/frontier.py) ---------
 LANES = 128          # DEFAULT_LANES (MYTHRIL_TPU_LANES)
@@ -663,10 +677,112 @@ FLEET_RUN = {"branchy12": branchy_contract(N_BRANCHES),
              "mem_branchy8": mem_branchy_contract(MERGE_BRANCHES)}
 
 
+#: a dispatcher with a counting loop beside three memory diamonds: its loop
+#: header is tagged before the merge points
+LOOPS_AND_JOINS = {
+    "count()": "PUSH1 0x00\nhead:\nJUMPDEST\nDUP1\nPUSH1 0x05\nEQ\n"
+               "PUSH @exit\nJUMPI\nPUSH1 0x01\nADD\nPUSH @head\nJUMP\n"
+               "exit:\nJUMPDEST\nPOP\nSTOP",
+    "diamonds()": mem_branchy_contract(3)}
+
+
+def wide_diamonds(n_branches: int) -> str:
+    """mem_branchy(n) with two-byte memory offsets, for n past 8: 40 of them
+    fill the 32 tag slots and the 64 window rows."""
+    lines = []
+    for i in range(n_branches):
+        lines += [f"PUSH2 {hex(4 + 32 * (i % 8))}", "CALLDATALOAD",
+                  f"PUSH @t{i}", "JUMPI",
+                  f"PUSH1 {hex(2 * i + 1)}", f"PUSH2 {hex(32 * i)}", "MSTORE",
+                  f"PUSH @j{i}", "JUMP",
+                  f"t{i}:", "JUMPDEST",
+                  f"PUSH1 {hex(2 * i + 2)}", f"PUSH2 {hex(32 * i)}", "MSTORE",
+                  "JUMPDEST", f"j{i}:", "JUMPDEST"]
+    return "\n".join(lines + ["STOP"])
+
+
 def fleet_tables() -> dict:
     """The JAX static analysis's tables for the fleet's two codes: those of
     mem_branchy(8) (branchy(12) has no joins)."""
     return mem_branchy_tables()
+
+
+#: the JAX static analysis's tables for a code without joins or loops
+#: (branchy(12))
+NO_TABLES = {"tag_pcs": [], "tag_names": [], "merge_pcs": [],
+             "merge_names": [], "mem_pcs": [], "mem_words": []}
+
+
+def static_codes() -> dict:
+    """The static_tables phase's code sets, each in seed order: branchy(12),
+    mem_branchy(8), the fleet pair, the headline dispatchers
+    (tools/measure_headline.py), a loop beside joins and 40 diamonds past
+    the tag and window caps."""
+    def stress(body):
+        return assemble(dispatcher({"stress()": body}))
+
+    return {"branchy12": [stress(branchy_contract(N_BRANCHES))],
+            "mem_branchy8": [stress(mem_branchy_contract(MERGE_BRANCHES))],
+            "fleet": [stress(body) for body in FLEET_RUN.values()],
+            "killbilly": [assemble(dispatcher(HEADLINE_KILLBILLY))],
+            "bectoken": [assemble(dispatcher(BECTOKEN))],
+            "loops_and_joins": [assemble(dispatcher(LOOPS_AND_JOINS))],
+            "past_the_caps": [stress(wide_diamonds(40))]}
+
+
+def table_counts(tables: dict) -> dict:
+    """The sizes of a set of static tables (`frontier.static_tables`'s keys)
+    and the sha256 of every table's shape and values."""
+    doc = {key: [list(np.shape(tables[key])),
+                 np.asarray(tables[key]).tolist()]
+           for key in frontier.TABLE_KEYS}
+    return {"tags": len(tables["tag_pcs"]),
+            "merge_pcs": len(tables["merge_pcs"]),
+            "window_rows": len(tables["mem_pcs"]),
+            "sha256": hashlib.sha256(json.dumps(
+                doc, sort_keys=True).encode()).hexdigest()}
+
+
+#: table_counts of the JAX static analysis's tables for each of
+#: static_codes() (tests/test_torch_frontier.py recomputes them): the
+#: fleet's are mem_branchy(8)'s, branchy(12) and the headline dispatchers
+#: have no joins or loops; loops_and_joins tags its loop header before its
+#: merge points, past_the_caps fills the 32 tags and the 64 window rows
+_EMPTY_SHA256 = \
+    "f889d5258842060f7a4a3e4507b0807d8d4d56d4feb9361f539fd32449a7eceb"
+_MEM_BRANCHY_SHA256 = \
+    "6a9cbbeba5b0d1aba2eb51d221b083cff7e77806674f06e98c2ce3eee216811e"
+EXPECTED_STATIC = {
+    "branchy12": {"tags": 0, "merge_pcs": 0, "window_rows": 0,
+                  "sha256": _EMPTY_SHA256},
+    "mem_branchy8": {"tags": 8, "merge_pcs": 8, "window_rows": 37,
+                     "sha256": _MEM_BRANCHY_SHA256},
+    "fleet": {"tags": 8, "merge_pcs": 8, "window_rows": 37,
+              "sha256": _MEM_BRANCHY_SHA256},
+    "killbilly": {"tags": 0, "merge_pcs": 0, "window_rows": 0,
+                  "sha256": _EMPTY_SHA256},
+    "bectoken": {"tags": 0, "merge_pcs": 0, "window_rows": 0,
+                 "sha256": _EMPTY_SHA256},
+    "loops_and_joins": {"tags": 5, "merge_pcs": 4, "window_rows": 12,
+                        "sha256": "da6c8f0c43bdb4c56eadb8e0bc9a5900d8890da95"
+                                  "cf85736b5f478fb92b70c82"},
+    "past_the_caps": {"tags": 32, "merge_pcs": 40, "window_rows": 64,
+                      "sha256": "b13e3bf55e7989a052cb692deaa3d94c32daca3e85"
+                                "18bc4f68ca228fa456514b"}}
+
+
+def check_tables(fr, expected: dict, what: str) -> None:
+    """The tables a DeviceFrontier built for itself equal `expected` (the
+    JAX static analysis's, as the constants above hold them)."""
+    got = fr.tables()
+    if not fr.own_tables or any(
+            np.asarray(got[key]).tolist() != np.asarray(expected[key]).tolist()
+            for key in frontier.TABLE_KEYS):
+        raise AssertionError(f"{what}: the frontier's own tables differ from "
+                             f"the JAX static analysis's: {got}")
+    for key in ("merge_pcs", "mem_pcs", "mem_words"):
+        if got[key].dtype != np.int32:
+            raise AssertionError(f"{what}: {key} is {got[key].dtype}")
 
 
 # ---- helpers ---------------------------------------------------------------------
@@ -1972,11 +2088,12 @@ def profiled_run(make, seeds) -> tuple:
                                  event.count) for event in events}, steps)}
 
 
-def checked_run(make, seeds, totals, expected: dict, what: str) -> int:
+def checked_run(make, seeds, totals, expected: dict, what: str,
+                tables=None) -> int:
     """One more drive of a DeviceFrontier from make() with every summary it
     reads (K5 and its copy to the host) held word for word to the twin on the
-    same tensors, and its totals(fr) to `expected`; returns the summaries
-    checked."""
+    same tensors, its totals(fr) to `expected` and, given `tables`, the
+    tables it built for itself to them; returns the summaries checked."""
     read, checked = frontier.summary_read, [0]
 
     def check(state, planes, arena, sched):
@@ -1995,6 +2112,8 @@ def checked_run(make, seeds, totals, expected: dict, what: str) -> int:
     finally:
         frontier.summary_read = read
     check_totals(totals(fr), expected, f"{what} (summaries checked)")
+    if tables is not None:
+        check_tables(fr, tables, f"{what} (summaries checked)")
     return checked[0]
 
 
@@ -2003,6 +2122,35 @@ def check_totals(totals: dict, expected: dict, what: str) -> None:
         diff = {k: (totals.get(k), v) for k, v in expected.items()
                 if totals.get(k) != v}
         raise AssertionError(f"{what} differs from the JAX reference: {diff}")
+
+
+def phase_static_tables() -> None:
+    """The port's static analysis on the host: for each of static_codes(),
+    the tables `frontier.static_tables` builds, held to EXPECTED_STATIC (the
+    JAX static analysis's), the cold build (a fresh Disassembly per code:
+    the CFA, absint and taint passes as `DeviceFrontier.seed` warms them,
+    then the tables; median of 5) and the memoized lookup (median of 200)."""
+    record = {}
+    for name, codes in static_codes().items():
+        cold = []
+        for _ in range(5):
+            disassemblies = {}
+            start = time.perf_counter()
+            frontier.warm_static(codes, disassemblies)
+            tables = frontier.static_tables(codes,
+                                            disassemblies=disassemblies)
+            cold.append(time.perf_counter() - start)
+        counts = table_counts(tables)
+        if counts != EXPECTED_STATIC[name]:
+            raise AssertionError(f"static_tables {name}: {counts} differs "
+                                 f"from the JAX analysis's "
+                                 f"{EXPECTED_STATIC[name]}")
+        record[name] = {**counts, "codes": len(codes),
+                        "code_bytes": sum(len(code) for code in codes),
+                        "cold_ms": float(np.median(cold)) * 1e3,
+                        "memo_us": host_us(lambda: frontier.static_tables(
+                            codes, disassemblies=disassemblies))}
+    emit({"phase": "static_tables", "tables": record})
 
 
 def phase_frontier(dev) -> tuple:
@@ -2166,14 +2314,17 @@ def phase_telemetry(dev) -> dict:
             "held_by": "phase telemetry"}
 
 
-MERGE_RUNS = {"branchy12": (N_BRANCHES, None, {}),
+#: the merge_kernel phase's runs: (branches, body, the tables the frontier
+#: must build for itself)
+MERGE_RUNS = {"branchy12": (N_BRANCHES, None, NO_TABLES),
               "mem_branchy8": (0, mem_branchy_contract(MERGE_BRANCHES),
                                mem_branchy_tables())}
 
 
 def captured_merges(dev, name) -> list:
     """The (state, planes, arena, tables) each merge pass of a default
-    DeviceFrontier(128) run on `name` is handed, cloned before the pass."""
+    DeviceFrontier(128) run on `name` is handed, cloned before the pass; the
+    frontier builds its tables itself."""
     branches, body, tables = MERGE_RUNS[name]
     captured = []
     merge_pass = symstep.merge_pass
@@ -2183,12 +2334,13 @@ def captured_merges(dev, name) -> list:
                          args, kwargs))
         return merge_pass(state, planes, arena, *args, **kwargs)
 
-    fr = frontier.DeviceFrontier(LANES, device=dev, **tables)
+    fr = frontier.DeviceFrontier(LANES, device=dev)
     symstep.merge_pass = capture
     try:
         fr.run(*fr.seed(stress_seed(branches, body)))
     finally:
         symstep.merge_pass = merge_pass
+    check_tables(fr, tables, f"merge_kernel {name}")
     return captured
 
 
@@ -2322,6 +2474,7 @@ def phase_frontier_default(dev, off_timing, off_profiled) -> dict:
     timing = drive_frontier(fr, stress_seed(N_BRANCHES))
     totals = default_totals(fr)
     check_totals(totals, EXPECTED_DEFAULT, "frontier_default")
+    check_tables(fr, NO_TABLES, "frontier_default")
     replay, profiled = profiled_run(
         lambda: frontier.DeviceFrontier(LANES, device=dev),
         stress_seed(N_BRANCHES))
@@ -2329,7 +2482,7 @@ def phase_frontier_default(dev, off_timing, off_profiled) -> dict:
                  "profiled frontier_default")
     checked = checked_run(lambda: frontier.DeviceFrontier(LANES, device=dev),
                           stress_seed(N_BRANCHES), default_totals,
-                          EXPECTED_DEFAULT, "frontier_default")
+                          EXPECTED_DEFAULT, "frontier_default", NO_TABLES)
     emit({"phase": "frontier_default",
           "contract": f"dispatcher(branchy({N_BRANCHES}))", "lanes": LANES,
           **totals, **timing, "profiled": profiled,
@@ -2344,24 +2497,24 @@ def phase_frontier_default(dev, off_timing, off_profiled) -> dict:
 
 
 def phase_frontier_merge(dev) -> dict:
-    """The default configuration on mem_branchy(8) with its tables: the tag
-    trigger and the widened rounds."""
+    """The default configuration on mem_branchy(8), on the tables the
+    frontier builds for itself: the tag trigger and the widened rounds."""
     tables = mem_branchy_tables()
-    fr = frontier.DeviceFrontier(LANES, device=dev, **tables)
+    fr = frontier.DeviceFrontier(LANES, device=dev)
     timing = drive_frontier(fr, stress_seed(
         0, mem_branchy_contract(MERGE_BRANCHES)))
     totals = default_totals(fr)
     check_totals(totals, EXPECTED_MERGE, "frontier_merge")
+    check_tables(fr, tables, "frontier_merge")
     if not (fr.mem_blends and fr.merges):
         raise AssertionError("frontier_merge blended no memory")
     checked = checked_run(
-        lambda: frontier.DeviceFrontier(LANES, device=dev, **tables),
+        lambda: frontier.DeviceFrontier(LANES, device=dev),
         stress_seed(0, mem_branchy_contract(MERGE_BRANCHES)), default_totals,
-        EXPECTED_MERGE, "frontier_merge")
+        EXPECTED_MERGE, "frontier_merge", tables)
     emit({"phase": "frontier_merge",
           "contract": f"dispatcher(mem_branchy({MERGE_BRANCHES}))",
-          "lanes": LANES, "tables": {"tags": len(tables["tag_pcs"]),
-                                     "window_rows": len(tables["mem_pcs"])},
+          "lanes": LANES, "tables": table_counts(fr.tables()),
           **totals, "tag_merges": fr.tag_merges, "ite_depth": fr.ite_depth,
           **timing, "summaries_checked": checked})
     return timing
@@ -2835,7 +2988,7 @@ def phase_frontier_shard(dev, default_timing, default_profiled) -> tuple:
         return frontier.DeviceFrontier(LANES, device=dev, n_shards=SHARDS,
                                        seed_owner_index=FLEET_OWNERS,
                                        fleet_slots=list(range(len(names))),
-                                       fleet_names=names, **fleet_tables())
+                                       fleet_names=names)
 
     fleet = make_fleet()
     seeds = [seed for body in FLEET_RUN.values()
@@ -2843,11 +2996,12 @@ def phase_frontier_shard(dev, default_timing, default_profiled) -> tuple:
     fleet_timing = drive_frontier(fleet, seeds)
     fleet_totals = shard_totals(fleet)
     check_totals(fleet_totals, EXPECTED_FLEET, "frontier_shard fleet")
+    check_tables(fleet, fleet_tables(), "frontier_shard fleet")
     if not (fleet.mem_blends and fleet.steal_rows):
         raise AssertionError("the fleet run blended no memory or stole "
                              "no rows")
     fleet_checked = checked_run(make_fleet, seeds, shard_totals, EXPECTED_FLEET,
-                                "frontier_shard fleet")
+                                "frontier_shard fleet", fleet_tables())
     emit({"phase": "frontier_shard_fleet", "members": names,
           "owners": FLEET_OWNERS, "lanes": LANES, "shards": SHARDS,
           **fleet_totals,
@@ -3355,6 +3509,7 @@ def main() -> int:
     paths = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - start,
           "libraries": sorted(p.rsplit("/", 1)[-1] for p in paths.values())})
+    phase_static_tables()
     rng = np.random.default_rng(2024)
     keccak_record = phase_keccak(dev, rng)
     step_record, keccak_step = phase_step(dev)

@@ -42,8 +42,10 @@ cold-SLOAD fault-ins) needs the host engine, which is not ported: drained
 rows wait in `deferred` as [rows_state, rows_planes, count, cursor] blocks,
 and a cold-SLOAD pause goes to a caller-given `service_cold` hook. The
 static tables that tag merge points and bound the widened memory merge
-come from the caller (the CFA / absint analysis that builds them is not
-ported). The fleet driver (per-member budgets, deadline drains) and
+are built by the port's static analysis (`static_tables`, from
+`staticanalysis/` through `smt/solver/cfa_screen.py` and
+`analysis/module_screen.py`) when `seed` sees the codes, unless the caller
+hands them in. The fleet driver (per-member budgets, deadline drains) and
 checkpoints need the host engine and are not ported: a caller hands in
 the seeds' owners and the fleet slots."""
 
@@ -57,6 +59,9 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..analysis import module_screen
+from ..frontends.disassembler import Disassembly
+from ..smt.solver import cfa_screen
 from . import arena as A
 from . import symstep, words
 from .batch import (DEAD, ESCAPED, FORKING, RUNNING, U32_FIELDS, LaneSpec,
@@ -541,6 +546,127 @@ def mirror_digest(harena) -> str:
     return sha.hexdigest()
 
 
+# ---- the static tables ----------------------------------------------------------------
+
+def disassembly_of(code: bytes,
+                   disassemblies: Dict[bytes, Disassembly]) -> Disassembly:
+    """The `Disassembly` of `code` in `disassemblies` (made there on first
+    use): the static analyses memoize on the instance, so its owner, a
+    frontier or one `static_tables` call, builds each code's once."""
+    code = bytes(code)
+    dis = disassemblies.get(code)
+    if dis is None:
+        dis = disassemblies[code] = Disassembly(code.hex())
+    return dis
+
+
+def warm_static(codes: Sequence[bytes],
+                disassemblies: Dict[bytes, Disassembly]) -> None:
+    """Build each code's CFA, absint tables and summary now, outside the
+    step loop (the JAX `seed`, frontier.py:968, 971)."""
+    for code in codes:
+        disassembly = disassembly_of(code, disassemblies)
+        cfa_screen.warm(disassembly)
+        module_screen.warm(disassembly)
+
+
+def _tag_table(codes: Sequence[Disassembly]) -> Tuple[List[int], List[str]]:
+    """`_collect_tag_pcs` (frontier.py:753): loop headers first, then
+    post-dominator merge points, deduplicated, at most TAG_SLOTS."""
+    loops: List[Tuple[int, str]] = []
+    merges: List[Tuple[int, str]] = []
+    seen = set()
+    for code in codes:
+        summary = module_screen.summary_for(code)
+        if summary is not None:
+            for loop in summary.loops:
+                key = ("loop", loop.header_pc)
+                if key not in seen:
+                    seen.add(key)
+                    loops.append((loop.header_pc,
+                                  f"loop@{loop.header_pc:#x}"))
+        cfa = cfa_screen.cfa_for(code)
+        if cfa is not None:
+            for pc in sorted(cfa.merge_points):
+                key = ("merge", pc)
+                if key not in seen:
+                    seen.add(key)
+                    merges.append((pc, f"merge@{pc:#x}"))
+    tags = (loops + merges)[:TAG_SLOTS]
+    return [pc for pc, _ in tags], [name for _, name in tags]
+
+
+def _merge_table(codes: Sequence[Disassembly], absint: bool) -> tuple:
+    """`_merge_pc_table` (frontier.py:816): the merge-attribution pcs and
+    names (at most MERGE_PC_SLOTS) and the widened merge's window table,
+    one row per join-block pc that a join's proven windows cover
+    (`mem_pcs` int32[J], `mem_words` int32[J, W] padded with -1; (0, 1)
+    when there is none)."""
+    pcs: List[int] = []
+    names: List[str] = []
+    seen = set()
+    mem_map: Dict[int, Tuple[int, ...]] = {}
+    for code in codes:
+        cfa = cfa_screen.cfa_for(code)
+        if cfa is None:
+            continue
+        for pc in sorted(cfa.merge_points):
+            if pc not in seen:
+                seen.add(pc)
+                pcs.append(pc)
+                names.append(f"merge@{pc:#x}")
+            if absint and pc not in mem_map:
+                windows = cfa_screen.merge_mem_windows(code, pc)
+                if windows:
+                    for row_pc in cfa_screen.merge_window_pcs(code, pc):
+                        mem_map.setdefault(row_pc, tuple(windows))
+    pcs, names = pcs[:MERGE_PC_SLOTS], names[:MERGE_PC_SLOTS]
+    mem_items = sorted(mem_map.items())[:MERGE_PC_SLOTS]
+    if mem_items:
+        width = max(len(w) for _, w in mem_items)
+        mem_pcs = np.asarray([pc for pc, _ in mem_items], dtype=np.int32)
+        mem_words = np.full((len(mem_items), width), -1, dtype=np.int32)
+        for i, (_, w) in enumerate(mem_items):
+            mem_words[i, :len(w)] = w
+    else:
+        mem_pcs = np.zeros(0, dtype=np.int32)
+        mem_words = np.zeros((0, 1), dtype=np.int32)
+    return np.asarray(pcs, dtype=np.int32), names, mem_pcs, mem_words
+
+
+def static_tables(codes: Sequence[bytes], telemetry: bool = True,
+                  state_merge: bool = True, absint: Optional[bool] = None,
+                  disassemblies: Optional[Dict[bytes, Disassembly]] = None
+                  ) -> dict:
+    """The static tables of a frontier whose seeds run `codes` (seed
+    order), as `DeviceFrontier`'s table arguments: `tag_pcs`/`tag_names`
+    (empty with telemetry off), `merge_pcs`/`merge_names` and the window
+    table `mem_pcs`/`mem_words` (empty with merging off; the window table
+    also with `absint` off, which defaults to `cfa_screen.absint_enabled`).
+    Each code's analyses are built once, on its Disassembly in
+    `disassemblies` (a fresh dict, unless the caller keeps one)."""
+    if absint is None:
+        absint = cfa_screen.absint_enabled()
+    if disassemblies is None:
+        disassemblies = {}
+    disassemblies = [disassembly_of(code, disassemblies) for code in codes]
+    tag_pcs, tag_names = _tag_table(disassemblies) if telemetry else ([], [])
+    if state_merge:
+        merge_pcs, merge_names, mem_pcs, mem_words = _merge_table(
+            disassemblies, absint)
+    else:
+        merge_pcs, merge_names = np.zeros(0, dtype=np.int32), []
+        mem_pcs = np.zeros(0, dtype=np.int32)
+        mem_words = np.zeros((0, 1), dtype=np.int32)
+    return {"tag_pcs": tag_pcs, "tag_names": tag_names,
+            "merge_pcs": merge_pcs, "merge_names": merge_names,
+            "mem_pcs": mem_pcs, "mem_words": mem_words}
+
+
+TABLE_KEYS = ("tag_pcs", "tag_names", "merge_pcs", "merge_names", "mem_pcs",
+              "mem_words")
+
+
 # ---- the driver ---------------------------------------------------------------------
 
 #: (code, concrete storage {key: value}, storage base symbolic, gas limit,
@@ -566,13 +692,18 @@ class DeviceFrontier:
     to 1), `steal_cadence`/`steal_min_imbalance`
     MYTHRIL_TPU_STEAL_CADENCE/STEAL_MIN_IMBALANCE.
 
-    The static tables are the caller's, in the shapes the JAX frontier's
-    `_collect_tag_pcs` (frontier.py:753) and `_merge_pc_table` (816) give:
-    `tag_pcs`/`tag_names` (at most TAG_SLOTS; names "merge@0x..",
-    "loop@0x.."), `merge_pcs`/`merge_names` (at most MERGE_PC_SLOTS) and
-    the window table `mem_pcs` int32[J] / `mem_words` int32[J, W] (-1
-    padded). Without them the frontier behaves as the JAX one does without
-    the CFA: no tags, strict merging on the 4-chunk cadence.
+    The static tables are those the JAX frontier's `_collect_tag_pcs`
+    (frontier.py:753) and `_merge_pc_table` (816) give: `tag_pcs`/
+    `tag_names` (at most TAG_SLOTS; names "merge@0x..", "loop@0x.."),
+    `merge_pcs`/`merge_names` (at most MERGE_PC_SLOTS) and the window table
+    `mem_pcs` int32[J] / `mem_words` int32[J, W] (-1 padded). Unless the
+    caller hands any of them in, `seed` builds them from its seeds' codes
+    with `static_tables` (after warming each code's CFA and summary, as
+    the JAX `seed` does, on the frontier's own Disassembly of each code),
+    `cfa_screen.absint_enabled()` at construction deciding the window
+    table, as the JAX frontier reads it. Tables handed in are used as they are; empty
+    ones behave as the JAX frontier does without the CFA: no tags, strict
+    merging on the 4-chunk cadence.
 
     A fleet caller also hands in what `FleetDriver` sets on the JAX
     frontier: `seed_owner_index` (each seed's owner shard, round robin
@@ -587,9 +718,10 @@ class DeviceFrontier:
                  arena: Optional[A.Arena] = None,
                  service_cold: Optional[ColdService] = None,
                  telemetry: bool = True, state_merge: bool = True,
-                 tag_pcs: Sequence[int] = (), tag_names: Sequence[str] = (),
-                 merge_pcs: Sequence[int] = (),
-                 merge_names: Sequence[str] = (),
+                 tag_pcs: Optional[Sequence[int]] = None,
+                 tag_names: Optional[Sequence[str]] = None,
+                 merge_pcs: Optional[Sequence[int]] = None,
+                 merge_names: Optional[Sequence[str]] = None,
                  mem_pcs=None, mem_words=None, n_shards: int = 1,
                  steal_cadence: int = STEAL_CADENCE,
                  steal_min_imbalance: int = STEAL_MIN_IMBALANCE,
@@ -626,33 +758,19 @@ class DeviceFrontier:
         self.drained_rows = 0
         self.frozen_rows = 0   # lanes deferred frozen ESCAPED
         self.row_bytes = 0
-        if len(tag_pcs) != len(tag_names) or len(tag_pcs) > TAG_SLOTS:
-            raise ValueError(f"tag_pcs/tag_names: {len(tag_pcs)} pcs, "
-                             f"{len(tag_names)} names, at most {TAG_SLOTS}")
-        if len(merge_pcs) != len(merge_names) \
-                or len(merge_pcs) > MERGE_PC_SLOTS:
-            raise ValueError("merge_pcs/merge_names: lengths differ or "
-                             f"exceed {MERGE_PC_SLOTS}")
         self.telemetry = telemetry
         self.state_merge = state_merge
-        self.tag_pcs = [int(pc) for pc in tag_pcs]
-        self.tag_names = list(tag_names)
-        self.merge_pcs = np.asarray(merge_pcs, dtype=np.int32)
-        self.merge_names = list(merge_names)
-        if mem_pcs is None or not len(mem_pcs):
-            self.mem_pcs = np.zeros(0, dtype=np.int32)
-            self.mem_words = np.zeros((0, 1), dtype=np.int32)
-        else:
-            self.mem_pcs = np.asarray(mem_pcs, dtype=np.int32)
-            self.mem_words = np.asarray(mem_words, dtype=np.int32)
-            if self.mem_words.shape[0] != self.mem_pcs.shape[0] \
-                    or len(self.mem_pcs) > MERGE_PC_SLOTS:
-                raise ValueError("mem_pcs/mem_words: one window row per pc, "
-                                 f"at most {MERGE_PC_SLOTS}")
-        # the tables on the device once: every merge pass of the run gets the
-        # same tensors, so K10's plan (keyed on them) serves all
-        self.merge_tables = symstep._merge_tables(
-            self.merge_pcs, self.mem_pcs, self.mem_words, self.device)
+        self.absint = cfa_screen.absint_enabled()
+        given = (tag_pcs, tag_names, merge_pcs, merge_names, mem_pcs,
+                 mem_words)
+        #: the tables are built in `seed` from the seeds' codes (in order)
+        #: unless the caller handed any in
+        self.own_tables = all(table is None for table in given)
+        self.seed_codes: List[bytes] = []
+        #: one Disassembly per seeded code, which its analyses memoize on
+        self.disassemblies: Dict[bytes, Disassembly] = {}
+        self._set_tables(*(() if table is None else table
+                           for table in given))
         #: telemetry: this phase's last raw words (cumulative on the
         #: device), the last chunk's merge-tag deltas (the merge trigger)
         #: and the deltas summed over every phase
@@ -661,7 +779,6 @@ class DeviceFrontier:
         self.op_hist = np.zeros(symstep.N_OP_CLASSES, dtype=np.int64)
         self.lifecycle = np.zeros(symstep.N_LIFECYCLE, dtype=np.int64)
         self.esc_cause = np.zeros(symstep.N_ESC_CAUSES, dtype=np.int64)
-        self.tag_occupancy = np.zeros(len(self.tag_pcs), dtype=np.int64)
         self.stack_hwm = self.esc_hwm = 0
         #: merging: passes run, pairs collapsed (one lane retired each),
         #: ITE nodes blended, memory windows blended, refusals by gate,
@@ -699,14 +816,69 @@ class DeviceFrontier:
         self.shard_imbalance = 0
         self.shard_fairness = 1.0
 
+    def _set_tables(self, tag_pcs, tag_names, merge_pcs, merge_names,
+                    mem_pcs, mem_words) -> None:
+        """Check and keep the static tables, and put K10's on the device
+        once: every merge pass gets the same tensors, so K10's plan (keyed
+        on them) serves all."""
+        if len(tag_pcs) != len(tag_names) or len(tag_pcs) > TAG_SLOTS:
+            raise ValueError(f"tag_pcs/tag_names: {len(tag_pcs)} pcs, "
+                             f"{len(tag_names)} names, at most {TAG_SLOTS}")
+        if len(merge_pcs) != len(merge_names) \
+                or len(merge_pcs) > MERGE_PC_SLOTS:
+            raise ValueError("merge_pcs/merge_names: lengths differ or "
+                             f"exceed {MERGE_PC_SLOTS}")
+        self.tag_pcs = [int(pc) for pc in tag_pcs]
+        self.tag_names = list(tag_names)
+        self.merge_pcs = np.asarray(merge_pcs, dtype=np.int32)
+        self.merge_names = list(merge_names)
+        if not len(mem_pcs):
+            self.mem_pcs = np.zeros(0, dtype=np.int32)
+            self.mem_words = np.zeros((0, 1), dtype=np.int32)
+        else:
+            self.mem_pcs = np.asarray(mem_pcs, dtype=np.int32)
+            self.mem_words = np.asarray(mem_words, dtype=np.int32)
+            if self.mem_words.shape[0] != self.mem_pcs.shape[0] \
+                    or len(self.mem_pcs) > MERGE_PC_SLOTS:
+                raise ValueError("mem_pcs/mem_words: one window row per pc, "
+                                 f"at most {MERGE_PC_SLOTS}")
+        self.merge_tables = symstep._merge_tables(
+            self.merge_pcs, self.mem_pcs, self.mem_words, self.device)
+        self.tag_occupancy = np.zeros(len(self.tag_pcs), dtype=np.int64)
+
+    def tables(self) -> dict:
+        """The static tables in use, keyed as `static_tables` returns them."""
+        return {"tag_pcs": self.tag_pcs, "tag_names": self.tag_names,
+                "merge_pcs": self.merge_pcs, "merge_names": self.merge_names,
+                "mem_pcs": self.mem_pcs, "mem_words": self.mem_words}
+
+    def _build_tables(self, codes: Sequence[bytes]) -> None:
+        """Warm each code's static analysis (`warm_static`), then, for a
+        frontier that owns its tables, build them over every seed so far;
+        the device tensors are replaced only when the tables change."""
+        warm_static(codes, self.disassemblies)
+        self.seed_codes += [bytes(code) for code in codes]
+        if not self.own_tables:
+            return
+        built = static_tables(self.seed_codes, self.telemetry,
+                              self.state_merge, self.absint,
+                              self.disassemblies)
+        current = self.tables()
+        if not all(np.array_equal(np.asarray(built[key]),
+                                  np.asarray(current[key]))
+                   for key in TABLE_KEYS):
+            self._set_tables(*(built[key] for key in TABLE_KEYS))
+
     # -- seeding ------------------------------------------------------------------------
 
     def seed(self, seeds: Sequence[Seed]) -> Tuple[StateBatch, SymPlanes]:
         """One RUNNING lane per seed at `assign_seed_lanes`'s lane
         (symbolic env), DEAD fillers elsewhere; `ctx_id` is the seed's
-        index (frontier.py:914-989 without host terms)."""
+        index (frontier.py:914-989 without host terms). The seeds' codes
+        go through the static analysis first (`_build_tables`)."""
         if len(seeds) > self.n_lanes:
             raise ValueError(f"{len(seeds)} seeds for {self.n_lanes} lanes")
+        self._build_tables([seed[0] for seed in seeds])
         lanes = self.assign_seed_lanes(len(seeds))
         specs = [LaneSpec(code=b"\x00")] * self.n_lanes
         for lane, (code, storage, _base, gas_limit, address) in zip(lanes,

@@ -28,9 +28,11 @@ from mythril_tpu.frontends.asm import assemble, dispatcher
 from mythril_tpu.parallel import batch as jb
 from mythril_tpu.parallel import frontier as jf
 from mythril_tpu.parallel import symstep as jsym
+from mythril_tpu_torch import staticanalysis as sa
 from mythril_tpu_torch.parallel import arena as ta
 from mythril_tpu_torch.parallel import batch as tb
 from mythril_tpu_torch.parallel import frontier as tf
+from mythril_tpu_torch.support import support_args
 from test_analysis import KILLBILLY
 
 N_LANES = 16
@@ -616,6 +618,168 @@ def test_chip_smoke_tables_are_the_jax_analysis():
     assert tables["mem_words"] == mem_words.tolist()
 
 
+# ---- the tables the port builds for itself -----------------------------------------
+
+def _jax_tables(codes) -> dict:
+    """`jax_static_tables(codes)` keyed as `static_tables` returns them."""
+    tags, merge_table = jax_static_tables(codes)
+    return dict(zip(tf.TABLE_KEYS, (*tags, *merge_table)))
+
+
+def _same_tables(got: dict, expected: dict) -> None:
+    """Every table equal, its type, dtype and shape too."""
+    assert set(got) == set(expected) == set(tf.TABLE_KEYS)
+    for key in tf.TABLE_KEYS:
+        mine, theirs = got[key], expected[key]
+        assert type(mine) is type(theirs), key
+        if isinstance(theirs, np.ndarray):
+            assert mine.dtype == theirs.dtype and mine.shape == theirs.shape \
+                and np.array_equal(mine, theirs), key
+        else:
+            assert list(mine) == list(theirs), key
+
+
+def _static_cases() -> dict:
+    """name -> codes in seed order: chip_smoke's static_tables sets (loops
+    beside joins and 40 diamonds past the 32 tags and 64 window rows among
+    them), the planes contract, two codes whose joins differ, and the
+    corpus."""
+    import chip_smoke
+    import test_cfa
+
+    def stress(body):
+        return assemble(dispatcher({"stress()": body}))
+
+    cases = dict(chip_smoke.static_codes())
+    cases["planes"] = [CODES[1]]
+    cases["two_codes"] = [stress(_mem_branchy_contract(2)),
+                          stress(_mem_branchy_contract(5)),
+                          stress(_mem_branchy_contract(2))]
+    for name, code_hex in test_cfa._corpus_bytecodes():
+        cases[f"corpus_{name}"] = [bytes.fromhex(code_hex.removeprefix("0x"))]
+    return cases
+
+
+STATIC_CASES = _static_cases()
+
+
+@pytest.mark.parametrize("case", sorted(STATIC_CASES))
+def test_static_tables_match_jax(case):
+    """`static_tables(codes)` is what the JAX `_collect_tag_pcs` and
+    `_merge_pc_table` build over contexts running `codes`."""
+    codes = STATIC_CASES[case]
+    expected = _jax_tables(codes)
+    _same_tables(tf.static_tables(codes), expected)
+    if case == "past_the_caps":
+        assert len(expected["tag_pcs"]) == tf.TAG_SLOTS
+        assert len(expected["mem_pcs"]) == tf.MERGE_PC_SLOTS
+        assert len(expected["merge_pcs"]) == 40
+    if case == "loops_and_joins":
+        assert expected["tag_names"][0].startswith("loop@")
+        assert expected["tag_names"][-1].startswith("merge@")
+
+
+@pytest.mark.parametrize("off", ["telemetry", "state_merge", "absint"])
+def test_static_tables_switched_off(off, monkeypatch):
+    """Telemetry off: no tags; merging off: no merge tables (JAX
+    frontier.py:733, 1133-1137); absint off: no window table, the JAX
+    frontier under MYTHRIL_TPU_ABSINT=0."""
+    codes = STATIC_CASES["mem_branchy8"]
+    if off == "absint":
+        monkeypatch.setenv("MYTHRIL_TPU_ABSINT", "0")
+    expected = _jax_tables(codes)
+    if off == "telemetry":
+        expected.update(tag_pcs=[], tag_names=[])
+    if off == "state_merge":
+        expected.update(merge_pcs=np.zeros(0, np.int32), merge_names=[],
+                        mem_pcs=np.zeros(0, np.int32),
+                        mem_words=np.zeros((0, 1), np.int32))
+    got = tf.static_tables(codes, **{off: False})
+    _same_tables(got, expected)
+    assert len(got["tag_pcs"]) == (0 if off == "telemetry" else 8)
+    assert len(got["mem_pcs"]) == (37 if off == "telemetry" else 0)
+
+
+def test_seed_builds_the_tables_and_drives_the_same(default_run):
+    """A DeviceFrontier handed no tables builds the JAX analysis's in
+    `seed`, keeps K10's table tensors for the whole run, and drives as the
+    one handed the tables and as the JAX frontier do."""
+    name, frontier, mstats, hand_fed = default_run
+    code = assemble(dispatcher({"stress()": DEFAULT_BODIES[name]}))
+    state, planes, arena = _seed([code])
+    port = _port_frontier(arena, _row_bytes(state, planes), telemetry=True,
+                          state_merge=True, chunk=DEFAULT_CHUNK)
+    assert port.own_tables and not hand_fed.own_tables
+    assert not port.tag_pcs and not len(port.mem_pcs)
+    port.seed([(code, {}, False, 10_000_000, 0)])
+    _same_tables(port.tables(), _jax_tables([code]))
+    tensors = port.merge_tables
+    port.run(to_port("state", state), to_port("planes", planes))
+    assert port.merge_tables is tensors
+    _same_blocks(frontier.deferred, port.deferred)
+    _same_mirror(frontier.harena, port.harena)
+    for counter in ("lane_steps", "forks", "stack_pushes", "stack_pops",
+                    "merge_passes", "merges", "merge_ites", "mem_blends",
+                    "blocked_by", "tag_merges", "ite_depth"):
+        assert getattr(port, counter) == getattr(hand_fed, counter), counter
+    assert np.array_equal(port.tel_words, hand_fed.tel_words)
+    assert np.array_equal(port.tel_words, frontier._tel_prev)
+    assert port.tag_names == frontier.tag_names
+    if name == "mem_branchy8":
+        assert port.mem_blends > 0 and port.merges > 0
+
+
+def test_absint_off_blocks_the_memory_merge(monkeypatch):
+    """With absint off (`--no-absint`) the frontier builds no window table,
+    and the diverged memory planes of mem_branchy(8)'s arms block their
+    merges (blocked_by memory, as tests/test_absint.py's A/B run counts)."""
+    monkeypatch.setattr(support_args.args, "absint", False)
+    code = assemble(dispatcher({"stress()": DEFAULT_BODIES["mem_branchy8"]}))
+    state, planes, arena = _seed([code])
+    port = _port_frontier(arena, _row_bytes(state, planes), telemetry=True,
+                          state_merge=True, chunk=DEFAULT_CHUNK)
+    port.seed([(code, {}, False, 10_000_000, 0)])
+    assert port.mem_pcs.shape == (0,) and port.mem_words.shape == (0, 1)
+    assert len(port.merge_pcs) == len(port.tag_pcs) == 8
+    port.run(to_port("state", state), to_port("planes", planes))
+    assert port.merge_passes > 0 and port.mem_blends == 0
+    assert port.blocked_by["memory"] > 0
+
+
+def test_switch_off_does_not_outlive_its_frontier(monkeypatch):
+    """A frontier seeded with the CFA switched off builds no tables; its
+    Disassemblies, and the bail verdicts memoized on them, are its own, so
+    frontiers and `static_tables` calls after the switch is back on build
+    the JAX analysis's tables."""
+    codes = STATIC_CASES["mem_branchy8"]
+    seeds = [(code, {}, False, 10_000_000, 0) for code in codes]
+    monkeypatch.setitem(sa.ENABLED, "cfa", False)
+    off = tf.DeviceFrontier(N_LANES, device="cpu")
+    off.seed(seeds)
+    assert not off.tag_pcs and not len(off.merge_pcs) \
+        and not len(off.mem_pcs)
+    assert not tf.static_tables(codes)["tag_pcs"]
+    monkeypatch.setitem(sa.ENABLED, "cfa", True)
+    expected = _jax_tables(codes)
+    _same_tables(tf.static_tables(codes), expected)
+    on = tf.DeviceFrontier(N_LANES, device="cpu")
+    on.seed(seeds)
+    _same_tables(on.tables(), expected)
+
+
+def test_chip_smoke_static_tables_are_the_jax_analysis():
+    """chip_smoke.py's static_tables constants, recomputed with JAX."""
+    import chip_smoke
+
+    for name, codes in chip_smoke.static_codes().items():
+        assert chip_smoke.table_counts(_jax_tables(codes)) \
+            == chip_smoke.EXPECTED_STATIC[name], name
+    branchy = chip_smoke.static_codes()["branchy12"]
+    assert {key: np.asarray(value).tolist()
+            for key, value in _jax_tables(branchy).items()} \
+        == chip_smoke.NO_TABLES
+
+
 def _counting_drain(frontier, monkeypatch):
     """Wrap run_chunk and _fetch_escapes to count chunks and drains; wrap
     the merge publication to keep each pass's stats vector."""
@@ -674,6 +838,8 @@ def _check_sharded_constants(chip_smoke, codes, expected, owners, fleet_names,
     tags, merge_table = jax_static_tables(codes)
     frontier._collect_tag_pcs = lambda: tags
     frontier._merge_pc_table = lambda: merge_table
+    # the port's frontier builds these for itself on the card
+    _same_tables(tf.static_tables(codes), _jax_tables(codes))
     if fleet_names is not None:
         frontier._collect_fleet_slots = lambda: (list(range(len(codes))),
                                                  list(fleet_names))
