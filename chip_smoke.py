@@ -13,7 +13,9 @@ configuration with both on (phases 12-13), sharded into 4 logical shards
 with work stealing (phase 18) and at 2048 lanes (phase 19); then the
 device SAT lane (`device_solver.solve_cnf_device` and
 `solve_cnf_device_batch` on K11) on captured analysis queries at full
-width (phases 21-22). Every phase prints one JSON line; any mismatch
+width (phases 21-22), after the port's SMT façade and its own CDCL have
+decided the same queries on the host (phase 20a). Every phase prints one
+JSON line; any mismatch
 raises, and the run exits non-zero. Each frontier* phase drives its
 configuration once more with every summary the loop reads (K5 and its
 copy to the host) held word for word to the twin on the same tensors
@@ -149,6 +151,17 @@ copy to the host) held word for word to the twin on the same tensors
      V1 65,536) on a captured query of each tile bucket (64 and 256): 64
      steps compared, then K11's time per step by launch (device time,
      launches, blocks) beside the twin's and the bound;
+20a. host_solver, on the host: the port's SMT façade and its own CDCL
+     (mythril_tpu_torch/native/cdcl.cpp, built here with g++; the build's
+     seconds): every EXPECTED_SAT query parsed with from_smt2 and decided
+     by `Solver().check()` through the incremental pipeline, and its
+     one-shot CNF (lower_constraints -> Blaster -> `sat.solve_cnf`), both
+     held to the CDCL verdicts, every SAT model to each parsed constraint
+     (`Model.eval`) or to every clause and lowered constraint; then
+     `get_model` minimizing 1540-2's gas, held to the JAX package's
+     optimum, and a second `get_model` answered from the ModelCache without
+     a solver query; the seconds per query (parse, check, one-shot). Phases
+     21 and 22 hold every verdict K11 decides to the façade's too;
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -186,6 +199,7 @@ import time
 import numpy as np
 import torch
 
+from mythril_tpu_torch import native, smt
 from mythril_tpu_torch.frontends.asm import assemble, dispatcher
 from mythril_tpu_torch.kernels import build, ops
 from mythril_tpu_torch.parallel import arena as A
@@ -194,8 +208,11 @@ from mythril_tpu_torch.parallel import (convert, device_solver, frontier,
                                         keccak, lockstep, symstep)
 from mythril_tpu_torch.smt import terms
 from mythril_tpu_torch.smt.smtlib import from_smt2
-from mythril_tpu_torch.smt.solver import preprocess
+from mythril_tpu_torch.smt.solver import preprocess, sat
+from mythril_tpu_torch.smt.solver import solver as smt_solver
 from mythril_tpu_torch.smt.solver.bitblast import Blaster
+from mythril_tpu_torch.smt.solver.solver_statistics import SolverStatistics
+from mythril_tpu_torch.support import model as model_service
 from tools.measure_headline import BECTOKEN
 from tools.measure_headline import KILLBILLY as HEADLINE_KILLBILLY
 
@@ -3101,20 +3118,32 @@ def model_digest(model) -> str:
     return sha256_of(np.asarray(model, dtype=np.uint8))
 
 
-def corpus_query(name: str):
-    """(clauses, n_vars, lowered constraints, blaster) of one captured
-    query through the port's from_smt2 -> lower_constraints -> Blaster."""
+def corpus_text(name: str) -> str:
+    """The SMT-LIB2 text of one captured query."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         SAT_CORPUS)
-    # fresh names from 0, as if the query were the first of its process
-    preprocess._fresh_counter = itertools.count()
     with tarfile.open(path) as tar:
-        text = tar.extractfile(name).read().decode("utf-8")
-    lowered, _ = preprocess.lower_constraints(list(from_smt2(text)))
+        return tar.extractfile(name).read().decode("utf-8")
+
+
+def blast(constraints):
+    """(clauses, n_vars, lowered constraints, blaster) of a constraint list
+    through the port's lower_constraints -> Blaster."""
+    lowered, _ = preprocess.lower_constraints(list(constraints))
     blaster = Blaster()
     for node in lowered:
         blaster.assert_true(node)
     return blaster.clauses, blaster.n_vars, lowered, blaster
+
+
+def corpus_query(name: str):
+    """(clauses, n_vars, lowered constraints, blaster) of one captured
+    query through the port's from_smt2 -> lower_constraints -> Blaster."""
+    # fresh names from 0, as if the query were the first of its process
+    # (no incremental pipeline may lower anything after this: its pool's
+    # fresh names would come round again)
+    preprocess._fresh_counter = itertools.count()
+    return blast(from_smt2(corpus_text(name)))
 
 
 def check_model(clauses, lowered, blaster, model, what: str) -> None:
@@ -3326,6 +3355,93 @@ def phase_sat_kernel(dev) -> dict:
             "held_by": "phase sat_kernel"}
 
 
+#: host_solver's get_model objective: 1540-2's gas, which the query bounds
+#: below (bvult 2300 gas), so the search goes past its first extreme probe;
+#: the optimum is the JAX package's get_model's on the same text
+#: (tests/_torch_sat_constants.py)
+HOST_SOLVER_QUERY = "1540-2.smt2"
+HOST_SOLVER_OBJECTIVE = ("1_gas", 256)
+HOST_SOLVER_OPTIMUM = 2301
+
+VERDICT_OF = {"sat": sat.SAT, "unsat": sat.UNSAT, "unknown": sat.UNKNOWN}
+
+
+def phase_host_solver() -> dict:
+    """The SMT façade and the port's CDCL on the host: the EXPECTED_SAT
+    queries through `Solver().check()` (the incremental pipeline) and
+    through the one-shot CNF with `sat.solve_cnf`, both held to the CDCL
+    verdicts, then `get_model` with an objective and a ModelCache hit.
+    Returns the façade's verdicts (1 SAT, 0 UNSAT)."""
+    start = time.perf_counter()
+    compiled = not os.path.exists(native.library_path())
+    library = native.build()
+    build_s = time.perf_counter() - start
+    # a fresh pipeline, and its pool lowered on one run of fresh names
+    smt_solver.reset_solver_backend()
+    verdicts, queries = {}, {}
+    for name, want in EXPECTED_SAT.items():
+        start = time.perf_counter()
+        constraints = [smt.Bool(raw) for raw in from_smt2(corpus_text(name))]
+        parse_s = time.perf_counter() - start
+        solver = smt.Solver()
+        solver.add(*constraints)
+        start = time.perf_counter()
+        status = solver.check()
+        check_s = time.perf_counter() - start
+        if VERDICT_OF[status] != want["cdcl"]:
+            raise AssertionError(f"host_solver {name}: Solver says {status}, "
+                                 f"CDCL {want['cdcl']}")
+        if status == "sat":
+            model = solver.model()
+            if not all(model.eval(c) is True for c in constraints):
+                raise AssertionError(f"host_solver {name}: the model "
+                                     f"falsifies a constraint")
+        start = time.perf_counter()
+        clauses, n_vars, lowered, blaster = blast(c.raw for c in constraints)
+        oneshot, bits = sat.solve_cnf(clauses, n_vars)
+        oneshot_s = time.perf_counter() - start
+        if oneshot != want["cdcl"]:
+            raise AssertionError(f"host_solver {name}: the one-shot CNF is "
+                                 f"{oneshot}, CDCL {want['cdcl']}")
+        if oneshot == sat.SAT:
+            check_model(clauses, lowered, blaster, bits, name)
+        verdicts[name] = VERDICT_OF[status]
+        queries[name] = {"verdict": status, "clauses": len(clauses),
+                         "n_vars": n_vars, "parse_s": parse_s,
+                         "check_s": check_s, "oneshot_s": oneshot_s}
+    # get_model: the optimum, then a query the cache answers
+    constraints = [smt.Bool(raw) for raw in
+                   from_smt2(corpus_text(HOST_SOLVER_QUERY))]
+    gas = smt.symbol_factory.BitVecSym(*HOST_SOLVER_OBJECTIVE)
+    start = time.perf_counter()
+    best = model_service.get_model(constraints, minimize=(gas,))
+    minimize_s = time.perf_counter() - start
+    if best.eval(gas) != HOST_SOLVER_OPTIMUM:
+        raise AssertionError(f"host_solver: get_model's minimum "
+                             f"{best.eval(gas)}, the JAX package's "
+                             f"{HOST_SOLVER_OPTIMUM}")
+    first = model_service.get_model(constraints)
+    stats = SolverStatistics()
+    solved = stats.query_count
+    start = time.perf_counter()
+    again = model_service.get_model(constraints + [gas == first.eval(gas)])
+    cached_s = time.perf_counter() - start
+    hits = int(again is first and stats.query_count == solved)
+    if not hits:
+        raise AssertionError("host_solver: the second get_model was not "
+                             "answered from the ModelCache")
+    # later phases lower corpus queries from fresh name 0: no pipeline may
+    # outlive this phase
+    smt_solver.reset_solver_backend()
+    emit({"phase": "host_solver", "library": os.path.basename(library),
+          "compiled": compiled, "build_s": build_s, "queries": queries,
+          "get_model": {"query": HOST_SOLVER_QUERY,
+                        "minimize": HOST_SOLVER_OBJECTIVE[0],
+                        "optimum": best.eval(gas), "minimize_s": minimize_s,
+                        "model_cache_hits": hits, "cached_s": cached_s}})
+    return verdicts
+
+
 def sat_solve(solve, *args, **kwargs) -> dict:
     """One entry-point call with the launch counts zeroed just before and
     read just after, each chunk's stream time (CUDA events around
@@ -3365,12 +3481,16 @@ def sat_solve(solve, *args, **kwargs) -> dict:
             "host_ms_per_chunk": (wall * 1e3 - stream_ms) / chunks}
 
 
-def sat_verdict(name, status, model, clauses, lowered, blaster) -> str:
+def sat_verdict(name, status, model, clauses, lowered, blaster,
+                facade) -> str:
     if status == device_solver.SAT:
         check_model(clauses, lowered, blaster, model, name)
     if status != device_solver.UNKNOWN and status != EXPECTED_SAT[name]["cdcl"]:
         raise AssertionError(f"{name}: verdict {status}, CDCL says "
                              f"{EXPECTED_SAT[name]['cdcl']}")
+    if status != device_solver.UNKNOWN and status != facade[name]:
+        raise AssertionError(f"{name}: verdict {status}, the SMT façade "
+                             f"says {facade[name]}")
     return {device_solver.SAT: "sat", device_solver.UNSAT: "unsat",
             device_solver.UNKNOWN: "unknown"}[status]
 
@@ -3382,7 +3502,7 @@ def check_cnf(name, clauses, n_vars) -> None:
         raise AssertionError(f"{name}: the CNF differs from the JAX one")
 
 
-def phase_sat_lane(dev) -> tuple:
+def phase_sat_lane(dev, facade) -> tuple:
     """The slice at full width: captured queries through the port's CNF
     pipeline and `solve_cnf_device` with its defaults."""
     launches = {name: 0 for name in ops.LAUNCHES}
@@ -3415,7 +3535,8 @@ def phase_sat_lane(dev) -> tuple:
             for index, state in enumerate(states):
                 device_solver.run_chunk_reference(plain, tensors, 256, 5)
                 assert_same(state, plain, f"{name} chunk {index + 1}")
-        verdict = sat_verdict(name, status, model, clauses, lowered, blaster)
+        verdict = sat_verdict(name, status, model, clauses, lowered, blaster,
+                              facade)
         if "jax" in want:
             jax_run = want["jax"]
             if (status, run["chunks"]) != (jax_run["status"],
@@ -3466,7 +3587,7 @@ def phase_sat_lane(dev) -> tuple:
     return launches, profiled
 
 
-def phase_sat_batch(dev) -> dict:
+def phase_sat_batch(dev, facade) -> dict:
     """One dispatch flush: four captured queries of one bucket through
     `solve_cnf_device_batch`, held to the JAX batch runner's first chunk."""
     queries, parts = [], []
@@ -3486,7 +3607,7 @@ def phase_sat_batch(dev) -> dict:
     if state_digest(run.pop("states")[0]) != EXPECTED_SAT_BATCH:
         raise AssertionError("sat_batch: the state after the first chunk "
                              "differs from the JAX batch runner's")
-    verdicts = {name: sat_verdict(name, status, model, *part)
+    verdicts = {name: sat_verdict(name, status, model, *part, facade)
                 for name, (status, model), part
                 in zip(SAT_BATCH_QUERIES, results, parts)}
     launches = run.pop("launches")
@@ -3542,9 +3663,11 @@ def main() -> int:
     # 2048 lanes: past the 1024 that K4 and K10 once scanned in one block
     wide_timing, wide_k9 = phase_frontier_wide(dev)
     main_path_launches.append(wide_timing["launches"])
-    # the device SAT lane: captured queries at full width, one flush
-    sat_launches, sat_profiled = phase_sat_lane(dev)
-    main_path_launches += [sat_launches, phase_sat_batch(dev)]
+    # the SMT façade and the host CDCL, then the device SAT lane: captured
+    # queries at full width, one flush, their verdicts held to the façade's
+    facade = phase_host_solver()
+    sat_launches, sat_profiled = phase_sat_lane(dev, facade)
+    main_path_launches += [sat_launches, phase_sat_batch(dev, facade)]
     for counts in main_path_launches:
         for name, count in counts.items():
             launches[name] += count

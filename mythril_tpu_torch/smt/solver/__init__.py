@@ -1,3 +1,5 @@
-"""The one-shot CNF pipeline of the port: `preprocess.lower_constraints`
-(after `simplify`) and `bitblast.Blaster`, copies of the JAX package's
-modules of the same names."""
+"""The port's solver stack, copies of the JAX package's modules of the same
+names: the one-shot CNF pipeline (`preprocess.lower_constraints` after
+`simplify`, then `bitblast.Blaster`), the native CDCL and the Python DPLL
+(`sat`), the incremental pipeline (`incremental`), `Solver`/`Optimize`
+(`solver`) and `IndependenceSolver`."""

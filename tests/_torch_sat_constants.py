@@ -3,8 +3,10 @@
     JAX_PLATFORMS=cpu python tests/_torch_sat_constants.py            # EXPECTED_SAT*
     JAX_PLATFORMS=cpu python tests/_torch_sat_constants.py stability  # STABLE_CNFS
 
-The first form runs every query of chip_smoke.SAT_LANE_QUERIES and
-SAT_BATCH_QUERIES through mythril_tpu's from_smt2 -> lower_constraints ->
+The first form prints chip_smoke.HOST_SOLVER_OPTIMUM, the JAX package's
+`get_model` minimum of HOST_SOLVER_OBJECTIVE over HOST_SOLVER_QUERY, then
+runs every query of chip_smoke.SAT_LANE_QUERIES and SAT_BATCH_QUERIES
+through mythril_tpu's from_smt2 -> lower_constraints ->
 Blaster, the native CDCL core and `jax_solver.solve_cnf_device` (or
 `solve_cnf_device_batch`) with their defaults on the CPU, and prints the
 counts, digests and verdicts chip_smoke holds the port's lane to. The lane
@@ -42,6 +44,26 @@ def jax_cnf(name):
     for node in lowered:
         blaster.assert_true(node)
     return blaster.clauses, blaster.n_vars
+
+
+def get_model_optimum():
+    """The JAX package's get_model minimum of chip_smoke's
+    HOST_SOLVER_OBJECTIVE over HOST_SOLVER_QUERY (HOST_SOLVER_OPTIMUM), from
+    a fresh solver backend."""
+    import chip_smoke as cs
+    from mythril_tpu import smt
+    from mythril_tpu.smt.smtlib import from_smt2
+    from mythril_tpu.smt.solver.solver import reset_solver_backend
+    from mythril_tpu.support.model import get_model
+
+    reset_solver_backend()
+    try:
+        constraints = [smt.Bool(raw) for raw in
+                       from_smt2(cs.corpus_text(cs.HOST_SOLVER_QUERY))]
+        objective = smt.symbol_factory.BitVecSym(*cs.HOST_SOLVER_OBJECTIVE)
+        return get_model(constraints, minimize=(objective,)).eval(objective)
+    finally:
+        reset_solver_backend()
 
 
 class _Stop(Exception):
@@ -83,6 +105,7 @@ def constants():
     from mythril_tpu.parallel import jax_solver
     from mythril_tpu.smt.solver import sat
 
+    print("HOST_SOLVER_OPTIMUM =", get_model_optimum(), flush=True)
     out = {}
     for name in dict.fromkeys(cs.SAT_LANE_QUERIES + cs.SAT_BATCH_QUERIES):
         clauses, n_vars = jax_cnf(name)

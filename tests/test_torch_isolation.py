@@ -1,6 +1,7 @@
 """The port stands alone: no module of mythril_tpu_torch, and nothing that
-chip_smoke.py imports, loads jax or anything of mythril_tpu; its entry
-points run on the card unless asked for the CPU."""
+chip_smoke.py imports, loads jax or anything of mythril_tpu (the SMT façade
+and the host solver stack included); its entry points run on the card
+unless asked for the CPU."""
 
 import os
 import subprocess
@@ -31,6 +32,13 @@ print("SAT", all(m in sys.modules for m in (
     "mythril_tpu_torch.smt.solver.preprocess",
     "mythril_tpu_torch.smt.solver.bitblast",
     "mythril_tpu_torch.smt.solver.solver_statistics")))
+print("SOLVER", all(m in sys.modules for m in (
+    "mythril_tpu_torch.smt.solver.solver",
+    "mythril_tpu_torch.smt.solver.incremental",
+    "mythril_tpu_torch.smt.solver.sat",
+    "mythril_tpu_torch.smt.solver.independence_solver",
+    "mythril_tpu_torch.support.model", "mythril_tpu_torch.support.resilience",
+    "mythril_tpu_torch.observe.trace", "mythril_tpu_torch.native")))
 print("BAD", bad)
 """
 
@@ -44,6 +52,7 @@ def test_port_and_smoke_import_no_jax():
     loaded = int(proc.stdout.split("LOADED")[1].split()[0])
     assert loaded >= 16 and "FRONTIER True" in proc.stdout
     assert "SAT True" in proc.stdout
+    assert "SOLVER True" in proc.stdout
 
 
 def test_entry_points_default_to_cuda():

@@ -5,7 +5,8 @@ The port runs its plain PyTorch twin (`run_chunk_reference`, what K11
 computes); the JAX side runs its jitted runners on the CPU, as
 tests/test_jax_solver.py does. Every comparison is exact: the problem
 arrays, all five SolverState leaves after each chunk (dtype and shape too),
-and the verdicts and models of the entry points."""
+and the verdicts and models of the entry points; the decided verdicts are
+held to the port's own CDCL too."""
 
 import random
 import tarfile
@@ -19,9 +20,9 @@ import mythril_tpu.parallel  # noqa: F401  (x64 on, as the JAX package runs)
 from _torch_parity import assert_same, np_tree
 from chip_smoke import three_sat
 from mythril_tpu.parallel import jax_solver as js
-from mythril_tpu.smt.solver import sat
 from mythril_tpu_torch.parallel import convert
 from mythril_tpu_torch.parallel import device_solver as ds
+from mythril_tpu_torch.smt.solver import sat
 
 CORPUS = "tests/data/smt2_corpus.tar.gz"
 

@@ -5,9 +5,12 @@ package's modules of the same names, on captured analysis queries.
 For every 8th query of tests/data/smt2_corpus.tar.gz, `from_smt2` ->
 `lower_constraints` -> `Blaster` must give the same clause and variable
 counts and the same CDCL verdict in both packages, and the same clause list
-wherever the CNF does not depend on the process; every model the native
-CDCL core finds for the port's CNF must make the port's `terms.evaluate`
-hold each lowered constraint true. The fresh-name counters of both
+wherever the CNF does not depend on the process; every model the port's
+native CDCL core finds for the port's CNF must make the port's
+`terms.evaluate` hold each lowered constraint true. The verdicts come from
+the port's own CDCL (mythril_tpu_torch/native/cdcl.cpp); on each stable
+CNF the JAX package's library, solving the JAX clause list, must give the
+port's verdict and model bit for bit. The fresh-name counters of both
 lowering modules are reset before each query, so a name never depends on
 what ran before.
 
@@ -29,9 +32,9 @@ from chip_smoke import STABLE_CNFS as STABLE_SMOKE
 from mythril_tpu.smt import smtlib as jsmtlib
 from mythril_tpu.smt.solver import bitblast as jbitblast
 from mythril_tpu.smt.solver import preprocess as jpreprocess
-from mythril_tpu.smt.solver import sat
+from mythril_tpu.smt.solver import sat as jsat
 from mythril_tpu_torch.smt import smtlib, terms
-from mythril_tpu_torch.smt.solver import bitblast, preprocess
+from mythril_tpu_torch.smt.solver import bitblast, preprocess, sat
 from mythril_tpu_torch.smt.solver.solver_statistics import SolverStatistics
 
 CORPUS = "tests/data/smt2_corpus.tar.gz"
@@ -90,12 +93,16 @@ def test_corpus_cnfs_match_jax(fresh_names):
         lowered, got = _blast(smtlib, preprocess, bitblast.Blaster, text)
         assert got.n_vars == expected.n_vars, name
         assert len(got.clauses) == len(expected.clauses), name
+        status, model = sat.solve_cnf(got.clauses, got.n_vars, 100_000)
         if name in STABLE_CNFS:
             assert got.clauses == expected.clauses, name
+            # the two CDCL libraries, one C++ source, on the same clauses
+            assert jsat.solve_cnf_native(expected.clauses, expected.n_vars,
+                                         100_000) == (status, model), name
             n_exact += 1
-        status, model = sat.solve_cnf(got.clauses, got.n_vars, 100_000)
-        assert status == sat.solve_cnf(expected.clauses, expected.n_vars,
-                                       100_000)[0], name
+        else:
+            assert status == sat.solve_cnf(expected.clauses, expected.n_vars,
+                                           100_000)[0], name
         if status == sat.SAT:
             check_model(got.clauses, lowered, got, model, name)
             n_sat += 1
@@ -105,7 +112,7 @@ def test_corpus_cnfs_match_jax(fresh_names):
 
 def test_chip_constants_cnfs_and_verdicts(fresh_names):
     """chip_smoke.py's CNF digests, sizes and CDCL verdicts, recomputed with
-    the JAX package's pipeline and the native CDCL core."""
+    the JAX package's pipeline and the port's native CDCL core."""
     assert STABLE_SMOKE <= STABLE_CNFS
     for name, text in _corpus(set(EXPECTED_SAT)):
         want = EXPECTED_SAT[name]
