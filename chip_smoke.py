@@ -14,9 +14,10 @@ with work stealing (phase 18) and at 2048 lanes (phase 19); then the
 device SAT lane (`device_solver.solve_cnf_device` and
 `solve_cnf_device_batch` on K11) on captured analysis queries at full
 width (phases 21-22), after the port's SMT façade and its own CDCL have
-decided the same queries on the host (phase 20a). Every phase prints one
-JSON line; any mismatch
-raises, and the run exits non-zero. Each frontier* phase drives its
+decided the same queries on the host (phase 20a) and its host engine has
+explored two contracts and held K1 and K2 to its interpreter (phase 20b).
+Every phase prints one JSON line; any mismatch raises, and the run exits
+non-zero. Each frontier* phase drives its
 configuration once more with every summary the loop reads (K5 and its
 copy to the host) held word for word to the twin on the same tensors
 (`summaries_checked`). Phases:
@@ -162,6 +163,18 @@ copy to the host) held word for word to the twin on the same tensors
      optimum, and a second `get_model` answered from the ModelCache without
      a solver query; the seconds per query (parse, check, one-shot). Phases
      21 and 22 hold every verdict K11 decides to the façade's too;
+20b. host_engine, on the host and then the card: the port's
+     `LaserEVM(engine="host")` explores KILLBILLY (2 transactions) and
+     branchy(8) (1 transaction) in dispatchers, in creation and runtime
+     mode, each run's states, nodes, edges and open states after each
+     transaction held to EXPECTED_HOST_ENGINE (the JAX package's LaserEVM);
+     its seconds, states a second, solver queries and their seconds; that
+     this Python has ripemd160 (precompile 3), or the run fails. Then the
+     mixed program at 128 lanes through `lockstep.step_many` on the card
+     (K1's step form and K2): every lane that does not escape ends with the
+     storage and transient storage that the host interpreter's concrete
+     message call of the same lane leaves (core/transaction/concolic.py,
+     GAS bound to the lower-bound gas the host accounts);
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -200,15 +213,20 @@ import numpy as np
 import torch
 
 from mythril_tpu_torch import native, smt
-from mythril_tpu_torch.frontends.asm import assemble, dispatcher
+from mythril_tpu_torch.core import function_managers, node, svm
+from mythril_tpu_torch.core.state.world_state import WorldState
+from mythril_tpu_torch.core.transaction import concolic, transaction_models
+from mythril_tpu_torch.frontends.asm import (assemble, creation_wrapper,
+                                             dispatcher)
+from mythril_tpu_torch.frontends.disassembler import Disassembly
 from mythril_tpu_torch.kernels import build, ops
 from mythril_tpu_torch.parallel import arena as A
 from mythril_tpu_torch.parallel import batch as B
 from mythril_tpu_torch.parallel import (convert, device_solver, frontier,
-                                        keccak, lockstep, symstep)
+                                        keccak, lockstep, symstep, words)
 from mythril_tpu_torch.smt import terms
 from mythril_tpu_torch.smt.smtlib import from_smt2
-from mythril_tpu_torch.smt.solver import preprocess, sat
+from mythril_tpu_torch.smt.solver import preprocess, sat, simplify
 from mythril_tpu_torch.smt.solver import solver as smt_solver
 from mythril_tpu_torch.smt.solver.bitblast import Blaster
 from mythril_tpu_torch.smt.solver.solver_statistics import SolverStatistics
@@ -687,6 +705,41 @@ def branchy_contract(n_branches: int) -> str:
                   f"PUSH4 {hex(0x10000 + i)}", "LT", f"PUSH @l{i}", "JUMPI",
                   f"l{i}:", "JUMPDEST"]
     return "\n".join(lines + ["STOP"])
+
+
+#: the host engine's statespace runs (phase host_engine): the contracts
+#: behind a dispatcher and their transaction counts
+HOST_ENGINE_CONTRACTS = {"killbilly": KILLBILLY,
+                         "branchy8": {"stress()": branchy_contract(8)}}
+HOST_ENGINE_RUNS = (("killbilly", 2), ("branchy8", 1))
+
+#: the JAX package's `mythril_tpu.core.svm.LaserEVM(max_depth=128,
+#: transaction_count=n)` (DFS, budgets it never reaches) on the same runs
+#: from fresh node, transaction and function-manager counters: total states,
+#: nodes, edges and open states after each transaction. Creation mode runs
+#: `sym_exec(creation_code=creation_wrapper(runtime))`, runtime mode the
+#: world state SymExecWrapper builds (balance 10**18, symbolic storage).
+#: tests/test_torch_svm.py recomputes them with JAX and checks them.
+EXPECTED_HOST_ENGINE = {
+    "killbilly": {
+        "creation": {"states": 124, "nodes": 25, "edges": 24,
+                     "open_after_tx": [3, 9]},
+        "runtime": {"states": 127, "nodes": 27, "edges": 26,
+                    "open_after_tx": [4, 11]}},
+    "branchy8": {
+        "creation": {"states": 2313, "nodes": 514, "edges": 513,
+                     "open_after_tx": [257]},
+        "runtime": {"states": 2307, "nodes": 513, "edges": 512,
+                    "open_after_tx": [257]}},
+}
+#: wall-clock budgets of the host engine's runs: neither is reached
+HOST_ENGINE_BUDGET_S = 600
+#: transient slots the mixed program writes (TSTORE 8)
+MIXED_TRANSIENT_SLOTS = (8,)
+#: the callee of the host interpreter's concrete call of a mixed lane
+MIXED_CALLEE = 0x0ACE000000000000000000000000000000000001
+#: steps of the mixed program in phase host_engine: every lane halts by then
+MIXED_STEPS = 256
 
 
 #: the fleet run's members, in seed and fleet-slot order
@@ -3442,6 +3495,165 @@ def phase_host_solver() -> dict:
     return verdicts
 
 
+def fresh_host_engine() -> None:
+    """Reset what numbers the host engine's symbols (node uids, transaction
+    ids, the keccak and exponent function managers) and the solver's
+    backend, statistics and memo: a run then numbers as the JAX package's
+    LaserEVM does from a fresh process."""
+    node.Node._uid_counter = 0
+    transaction_models.tx_id_manager.restart_counter()
+    function_managers.keccak_function_manager.reset()
+    function_managers.exponent_function_manager.__init__()
+    smt_solver.reset_solver_backend()
+    SolverStatistics().reset()
+    simplify.reset_simplify_memo()
+
+
+def host_engine_run(contract: str, mode: str, transaction_count: int) -> dict:
+    """One `LaserEVM(engine="host").sym_exec` on a dispatcher of
+    HOST_ENGINE_CONTRACTS[contract], held to EXPECTED_HOST_ENGINE."""
+    fresh_host_engine()
+    runtime = assemble(dispatcher(HOST_ENGINE_CONTRACTS[contract]))
+    laser = svm.LaserEVM(max_depth=128, execution_timeout=HOST_ENGINE_BUDGET_S,
+                         create_timeout=HOST_ENGINE_BUDGET_S,
+                         transaction_count=transaction_count)
+    after_tx = []
+    laser.register_laser_hooks(
+        "stop_sym_trans", lambda: after_tx.append(len(laser.open_states)))
+    stats = SolverStatistics()
+    start = time.perf_counter()
+    if mode == "creation":
+        laser.sym_exec(creation_code=creation_wrapper(runtime).hex(),
+                       contract_name=contract)
+    else:
+        # the world state SymExecWrapper builds for runtime code
+        world_state = WorldState()
+        account = world_state.create_account(balance=10 ** 18, address=None,
+                                             concrete_storage=False)
+        account.code = Disassembly(runtime.hex())
+        account.contract_name = contract
+        laser.sym_exec(world_state=world_state,
+                       target_address=account.address.value)
+    seconds = time.perf_counter() - start
+    counts = {"states": laser.total_states, "nodes": len(laser.nodes),
+              "edges": len(laser.edges), "open_after_tx": after_tx}
+    if laser.timed_out:
+        raise AssertionError(f"host_engine {contract} {mode}: the budget "
+                             f"of {HOST_ENGINE_BUDGET_S} s ran out")
+    if counts != EXPECTED_HOST_ENGINE[contract][mode]:
+        raise AssertionError(f"host_engine {contract} {mode}: {counts}, the "
+                             f"JAX LaserEVM "
+                             f"{EXPECTED_HOST_ENGINE[contract][mode]}")
+    return {**counts, "transactions": transaction_count, "seconds": seconds,
+            "states_per_s": laser.total_states / seconds,
+            "solver_queries": stats.query_count,
+            "solver_s": stats.solver_time}
+
+
+def host_lane(spec: B.LaneSpec) -> dict:
+    """One lane as a concrete message call through the host interpreter
+    (core/transaction/concolic.py): the callee's storage and transient
+    storage after it. The host models GAS as a fresh symbol; the step
+    kernels push the gas limit less the lower-bound gas used, which the
+    host accounts too (`min_gas_used`), so each GAS symbol is bound to that
+    reading."""
+    world_state = WorldState()
+    account = world_state.create_account(balance=10 ** 18, address=MIXED_CALLEE,
+                                         concrete_storage=True)
+    account.code = Disassembly(spec.code.hex())
+    world_state.create_account(balance=2 ** 128, address=spec.caller)
+    laser = svm.LaserEVM(max_depth=8000, execution_timeout=HOST_ENGINE_BUDGET_S,
+                         requires_statespace=False)
+    laser.open_states = [world_state]
+    gas = {}
+
+    def read_gas(state):
+        gas[state.mstate.stack[-1].raw] = \
+            state.mstate.gas_limit - state.mstate.min_gas_used
+
+    laser.register_instr_hooks("post", "GAS", read_gas)
+    concolic.execute_message_call(
+        laser, callee_address=MIXED_CALLEE, caller_address=spec.caller,
+        origin_address=spec.caller, value=0, data=list(spec.calldata),
+        gas_limit=spec.gas_limit, gas_price=1)
+    if len(laser.open_states) != 1:
+        raise AssertionError("host_engine: the host's concrete call of a "
+                             "returning lane left no world state")
+    post = laser.open_states[0]
+    callee = post.accounts[MIXED_CALLEE]
+
+    def bound(expression):
+        raw = expression.raw
+        return raw.value if raw.is_const else terms.evaluate(raw, gas)
+
+    slot = smt.symbol_factory.BitVecVal
+    return {"storage": {bound(key): bound(value) for key, value
+                        in callee.storage.printable_storage.items()},
+            "transient": {index: bound(post.transient_storage.get(
+                callee.address, slot(index, 256)))
+                for index in MIXED_TRANSIENT_SLOTS}}
+
+
+def lane_tables(state, lane: int) -> dict:
+    """One lane's storage and transient storage (at MIXED_TRANSIENT_SLOTS)
+    as the step left them."""
+    used = state.tstore_used[lane].cpu().tolist()
+    keys = words.to_ints(state.tstore_keys[lane])
+    values = words.to_ints(state.tstore_vals[lane])
+    transient = {int(keys[i]): int(values[i])
+                 for i in range(len(used)) if used[i]}
+    return {"storage": B.extract_storage(state, lane),
+            "transient": {index: transient.get(index, 0)
+                          for index in MIXED_TRANSIENT_SLOTS}}
+
+
+def phase_host_engine(dev) -> None:
+    """The port's host engine: the statespace runs of HOST_ENGINE_RUNS,
+    then K1 and K2 held to the host interpreter on the mixed program."""
+    try:
+        hashlib.new("ripemd160")
+    except ValueError as error:
+        raise AssertionError(f"host_engine: this Python's hashlib has no "
+                             f"ripemd160, which precompile 3 needs: {error}")
+    runs = {}
+    for contract, transaction_count in HOST_ENGINE_RUNS:
+        for mode in ("creation", "runtime"):
+            runs[f"{contract}/{mode}"] = host_engine_run(
+                contract, mode, transaction_count)
+    fresh_host_engine()
+    specs = mixed_specs(LANES)
+    before = dict(ops.LAUNCHES)
+    state = lockstep.step_many(B.build_batch(specs, device=dev), MIXED_STEPS)
+    torch.cuda.synchronize()
+    launches = {name: ops.LAUNCHES[name] - before[name]
+                for name in ("keccak", "evm_step")}
+    if launches != {"keccak": MIXED_STEPS, "evm_step": MIXED_STEPS}:
+        raise AssertionError(f"host_engine: K1/K2 launches {launches} for "
+                             f"{MIXED_STEPS} steps")
+    status = state.status.cpu().tolist()
+    compared = escaped = 0
+    start = time.perf_counter()
+    for lane, spec in enumerate(specs):
+        if status[lane] == B.ESCAPED:
+            escaped += 1
+            continue
+        if status[lane] != B.RETURNED:
+            raise AssertionError(f"host_engine: mixed lane {lane} ended "
+                                 f"with status {status[lane]}")
+        host, device = host_lane(spec), lane_tables(state, lane)
+        if host != device:
+            raise AssertionError(f"host_engine: mixed lane {lane}: the host "
+                                 f"interpreter left {host}, K1/K2 {device}")
+        compared += 1
+    host_s = time.perf_counter() - start
+    fresh_host_engine()
+    emit({"phase": "host_engine", "ripemd160": True,
+          "runs": runs, "interpreter_vs_step": {
+              "lanes": len(specs), "steps": MIXED_STEPS,
+              "compared": compared, "escaped": escaped,
+              "launches": launches, "host_s": host_s}})
+
+
 def sat_solve(solve, *args, **kwargs) -> dict:
     """One entry-point call with the launch counts zeroed just before and
     read just after, each chunk's stream time (CUDA events around
@@ -3666,6 +3878,7 @@ def main() -> int:
     # the SMT façade and the host CDCL, then the device SAT lane: captured
     # queries at full width, one flush, their verdicts held to the façade's
     facade = phase_host_solver()
+    phase_host_engine(dev)
     sat_launches, sat_profiled = phase_sat_lane(dev, facade)
     main_path_launches += [sat_launches, phase_sat_batch(dev, facade)]
     for counts in main_path_launches:

@@ -37,17 +37,19 @@ PyTorch twins (`*_reference`) on CPU tensors:
   K10 `symstep.merge_pass`              kernels/merge_pass.cu
   K12 `steal_pass`                      kernels/steal_pass.cu
 
-What the host does with the drained rows (materializing GlobalStates,
-cold-SLOAD fault-ins) needs the host engine, which is not ported: drained
-rows wait in `deferred` as [rows_state, rows_planes, count, cursor] blocks,
-and a cold-SLOAD pause goes to a caller-given `service_cold` hook. The
+What the host does with the drained rows (materializing GlobalStates of
+the port's host engine, cold-SLOAD fault-ins) is the single-contract
+driver's, which is not ported (ROADMAP A 7): drained rows wait in
+`deferred` as [rows_state, rows_planes, count, cursor] blocks, and a
+cold-SLOAD pause goes to a caller-given `service_cold` hook.
+`LoopHintAnnotation` rides on such materialized states. The
 static tables that tag merge points and bound the widened memory merge
 are built by the port's static analysis (`static_tables`, from
 `staticanalysis/` through `smt/solver/cfa_screen.py` and
 `analysis/module_screen.py`) when `seed` sees the codes, unless the caller
 hands them in. The fleet driver (per-member budgets, deadline drains) and
-checkpoints need the host engine and are not ported: a caller hands in
-the seeds' owners and the fleet slots."""
+checkpoints are not ported (ROADMAP A 11, 7): a caller hands in the
+seeds' owners and the fleet slots."""
 
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ import torch
 
 from .. import device as _device
 from ..analysis import module_screen
+from ..core.state.annotation import StateAnnotation
 from ..frontends.disassembler import Disassembly
 from ..smt.solver import cfa_screen
 from . import arena as A
@@ -108,6 +111,22 @@ _PLANE_FIELDS = frozenset(("cond_count", "ctx_id", "last_jump", "branches"))
 
 
 # ---- the device programs (twins) ------------------------------------------------------
+
+class LoopHintAnnotation(StateAnnotation):
+    """Rides on materialized lanes whose pc sits inside a natural loop
+    (taint summary's per-loop-header hint tables): the bounded-unroll
+    budgeter groups lanes by header pc to cap per-loop lane spend. A copy
+    of mythril_tpu/parallel/frontier.py:508-520; the port's
+    `core/strategy/bounded_loops.py` looks it up in this module."""
+
+    __slots__ = ("header_pc",)
+
+    def __init__(self, header_pc: int):
+        self.header_pc = header_pc
+
+    def __copy__(self):
+        return LoopHintAnnotation(self.header_pc)
+
 
 def summary_reference(state: StateBatch, planes: SymPlanes, arena: A.Arena,
                       sched: symstep.DeviceScheduler) -> torch.Tensor:

@@ -81,3 +81,13 @@ def keccak256_py(data: bytes) -> bytes:
 
     out = b"".join(state[i].to_bytes(8, "little") for i in range(4))
     return out[:32]
+
+
+def keccak256(data: bytes) -> bytes:
+    """Keccak-256 digest: the JAX package's `keccak256` without its native
+    library, which gives the same digest."""
+    return keccak256_py(data)
+
+
+def keccak256_int(data: bytes) -> int:
+    return int.from_bytes(keccak256_py(data), "big")

@@ -1,7 +1,7 @@
 """The port stands alone: no module of mythril_tpu_torch, and nothing that
-chip_smoke.py imports, loads jax or anything of mythril_tpu (the SMT façade
-and the host solver stack included); its entry points run on the card
-unless asked for the CPU."""
+chip_smoke.py imports, loads jax or anything of mythril_tpu (the SMT façade,
+the host solver stack and the host engine included); its entry points run
+on the card unless asked for the CPU."""
 
 import os
 import subprocess
@@ -39,6 +39,24 @@ print("SOLVER", all(m in sys.modules for m in (
     "mythril_tpu_torch.smt.solver.independence_solver",
     "mythril_tpu_torch.support.model", "mythril_tpu_torch.support.resilience",
     "mythril_tpu_torch.observe.trace", "mythril_tpu_torch.native")))
+print("CORE", all(m in sys.modules for m in (
+    "mythril_tpu_torch.core.svm", "mythril_tpu_torch.core.instructions",
+    "mythril_tpu_torch.core.natives", "mythril_tpu_torch.core.call",
+    "mythril_tpu_torch.core.cheat_code", "mythril_tpu_torch.core.node",
+    "mythril_tpu_torch.core.util", "mythril_tpu_torch.core.state.global_state",
+    "mythril_tpu_torch.core.state.world_state",
+    "mythril_tpu_torch.core.state.machine_state",
+    "mythril_tpu_torch.core.state.calldata",
+    "mythril_tpu_torch.core.state.transient_storage",
+    "mythril_tpu_torch.core.function_managers.keccak_function_manager",
+    "mythril_tpu_torch.core.transaction.symbolic",
+    "mythril_tpu_torch.core.transaction.concolic",
+    "mythril_tpu_torch.core.strategy.bounded_loops",
+    "mythril_tpu_torch.core.strategy.beam",
+    "mythril_tpu_torch.core.strategy.constraint_strategy",
+    "mythril_tpu_torch.core.plugin.signals",
+    "mythril_tpu_torch.support.loader", "mythril_tpu_torch.utils.helpers",
+    "mythril_tpu_torch.utils.secp256k1")))
 print("BAD", bad)
 """
 
@@ -53,6 +71,7 @@ def test_port_and_smoke_import_no_jax():
     assert loaded >= 16 and "FRONTIER True" in proc.stdout
     assert "SAT True" in proc.stdout
     assert "SOLVER True" in proc.stdout
+    assert "CORE True" in proc.stdout
 
 
 def test_entry_points_default_to_cuda():
