@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (mythril_tpu_torch) on one card.
 
     python3 chip_smoke.py        # from the root of a checkout; one CUDA card
+    python3 chip_smoke.py --headline   # only the two headline analyses
 
 It builds the hand-written kernels (K1-K12, eleven sources) from the
 checkout's sources, holds each against its plain PyTorch version on the
@@ -14,8 +15,10 @@ with work stealing (phase 18) and at 2048 lanes (phase 19); then the
 device SAT lane (`device_solver.solve_cnf_device` and
 `solve_cnf_device_batch` on K11) on captured analysis queries at full
 width (phases 21-22), after the port's SMT façade and its own CDCL have
-decided the same queries on the host (phase 20a) and its host engine has
-explored two contracts and held K1 and K2 to its interpreter (phase 20b).
+decided the same queries on the host (phase 20a), its host engine has
+explored two contracts and held K1 and K2 to its interpreter (phase 20b)
+and its `analyze` CLI has analyzed three contracts end to end with
+--engine host (phase 20c).
 Every phase prints one JSON line; any mismatch raises, and the run exits
 non-zero. Each frontier* phase drives its
 configuration once more with every summary the loop reads (K5 and its
@@ -175,6 +178,19 @@ copy to the host) held word for word to the twin on the same tensors
      storage and transient storage that the host interpreter's concrete
      message call of the same lane leaves (core/transaction/concolic.py,
      GAS bound to the lower-bound gas the host accounts);
+20c. analyze, on the host: the port's CLI in a subprocess (`python -m
+     mythril_tpu_torch -v 4 analyze -c <creation code> -o json`, the
+     default --engine host with the CDCL) on KILLBILLY with all modules
+     at 2 transactions, SAFE_KILL and the tx.origin contract, each exit
+     code and issue (SWC id, title, address) held to EXPECTED_ANALYZE
+     (the JAX package's CLI); a line a run with its exit code, host wall
+     seconds, explored states, states a host second and solver queries
+     and their seconds (the host's clock: the card runs none of it).
+     `--headline` runs only tools/measure_headline.py's KILLBILLY (3
+     transactions, AccidentallyKillable) and BECTOKEN (4,
+     IntegerArithmetics) the same way, side by side, held to SWC-106 and
+     SWC-101 unless a run reports itself incomplete at its budget: they
+     are solver-bound and take tens of minutes;
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -204,6 +220,7 @@ import itertools
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import tarfile
@@ -642,6 +659,19 @@ KILLBILLY = {
         "do_kill:\nJUMPDEST\nCALLER\nSELFDESTRUCT",
 }
 
+#: tests/test_analysis.py's SAFE_KILL: only the creator may kill
+SAFE_KILL = {
+    "kill()":
+        "CALLER\nPUSH1 0x07\nSLOAD\nEQ\nPUSH @do_kill\nJUMPI\nSTOP\n"
+        "do_kill:\nJUMPDEST\nCALLER\nSELFDESTRUCT",
+}
+
+#: tests/test_analysis.py's tx.origin contract
+TX_ORIGIN = {
+    "check()": "ORIGIN\nPUSH1 0x42\nEQ\nPUSH @ok\nJUMPI\nSTOP\n"
+               "ok:\nJUMPDEST\nSTOP",
+}
+
 WORD_MASK = (1 << 256) - 1
 SPECIAL = [0, 1, 2, 3, 7, 31, 32, 255, 256, 1 << 255, WORD_MASK,
            WORD_MASK - 1, (1 << 255) - 1, 0xDEADBEEF, 1 << 128,
@@ -734,6 +764,39 @@ EXPECTED_HOST_ENGINE = {
 }
 #: wall-clock budgets of the host engine's runs: neither is reached
 HOST_ENGINE_BUDGET_S = 600
+#: the analyze phase's runs of the port's CLI (`python -m mythril_tpu_torch
+#: analyze -c <creation code> -t N [-m MODULES] -o json`, the default
+#: configuration: --engine host, the CDCL, bfs): a dispatcher of the
+#: contract, its modules (None: all) and transaction count
+ANALYZE_RUNS = {
+    "killbilly": (KILLBILLY, None, 2),
+    "safe_kill": (SAFE_KILL, "AccidentallyKillable", 2),
+    "tx_origin": (TX_ORIGIN, "TxOrigin", 1),
+}
+#: the JAX package's CLI (`python -m mythril_tpu analyze`) on the same
+#: arguments: its exit code and each issue's SWC id, title and address, in
+#: the report's order. tests/test_torch_cli.py recomputes them with JAX.
+EXPECTED_ANALYZE = {
+    "killbilly": {"exit": 1,
+                  "issues": [["106", "Unprotected Selfdestruct", 52]]},
+    "safe_kill": {"exit": 0, "issues": []},
+    "tx_origin": {"exit": 1,
+                  "issues": [["115", "Dependence on tx.origin", 27]]},
+}
+#: tools/measure_headline.py's two runs through the port's CLI, with the
+#: same contract, modules and transaction count, and the SWC ids each must
+#: report. They are solver-bound and take tens of minutes on a host CPU,
+#: past this script's time limit: `python3 chip_smoke.py --headline` runs
+#: them alone, side by side
+HEADLINE_RUNS = {
+    "headline_killbilly": (HEADLINE_KILLBILLY, "AccidentallyKillable", 3),
+    "headline_bectoken": (BECTOKEN, "IntegerArithmetics", 4),
+}
+EXPECTED_HEADLINE = {"headline_killbilly": ["106"],
+                     "headline_bectoken": ["101"]}
+#: the headline runs' --execution-timeout; a run that reaches it reports
+#: itself incomplete
+HEADLINE_BUDGET_S = 1800
 #: transient slots the mixed program writes (TSTORE 8)
 MIXED_TRANSIENT_SLOTS = (8,)
 #: the callee of the host interpreter's concrete call of a mixed lane
@@ -3654,6 +3717,108 @@ def phase_host_engine(dev) -> None:
               "launches": launches, "host_s": host_s}})
 
 
+def analyze_argv(contract, modules, transaction_count: int,
+                 budget_s=None) -> list:
+    """The port's CLI arguments of one analyze run of a dispatcher of
+    `contract`, in creation mode."""
+    code = creation_wrapper(assemble(dispatcher(contract))).hex()
+    argv = ["analyze", "-c", code, "-t", str(transaction_count), "-o", "json"]
+    if modules:
+        argv += ["-m", modules]
+    if budget_s:
+        argv += ["--execution-timeout", str(budget_s)]
+    return argv
+
+
+def analyze_summary(report: dict, exit_code: int) -> dict:
+    """What EXPECTED_ANALYZE holds of a run: its exit code and each issue's
+    SWC id, title and address."""
+    return {"exit": exit_code,
+            "issues": [[issue["swc-id"], issue["title"], issue["address"]]
+                       for issue in report["issues"]]}
+
+
+def check_analyze(name: str, report: dict, exit_code: int) -> None:
+    """Raise unless one of ANALYZE_RUNS gave its EXPECTED_ANALYZE."""
+    got = analyze_summary(report, exit_code)
+    if got != EXPECTED_ANALYZE[name]:
+        raise AssertionError(f"analyze {name}: {got}, the JAX CLI "
+                             f"{EXPECTED_ANALYZE[name]}")
+
+
+#: the port analyzer's INFO lines the analyze phase reads
+STATES_LINE = re.compile(r"analysis of \S+: (\d+) states explored")
+SOLVER_LINE = re.compile(r"solver statistics: Solver statistics: query "
+                         r"count: (\d+), solver time: ([0-9.]+)s")
+
+
+def start_analyze(argv: list) -> tuple:
+    """Start `python -m mythril_tpu_torch -v 4 <argv>` from the checkout's
+    root; `finish_analyze` waits for it."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mythril_tpu_torch", "-v", "4", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, time.perf_counter()
+
+
+def finish_analyze(name: str, started: tuple, timeout_s: float) -> tuple:
+    """A started run's report and a record of its exit code, host wall
+    seconds, explored states and solver queries (from its log)."""
+    proc, start = started
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout_s)
+    finally:
+        proc.kill()
+    wall = time.perf_counter() - start
+    if proc.returncode not in (0, 1):
+        raise AssertionError(f"analyze {name}: exit {proc.returncode}: "
+                             f"{stderr[-2000:]}")
+    report = json.loads(stdout)
+    states = STATES_LINE.findall(stderr)
+    solver = SOLVER_LINE.findall(stderr)
+    if len(states) != 1 or len(solver) != 1:
+        raise AssertionError(f"analyze {name}: no states or solver line "
+                             f"in its log")
+    states = int(states[0])
+    return report, {"phase": "analyze", "run": name, "exit": proc.returncode,
+                    "clock": "host", "host_wall_s": wall, "states": states,
+                    "states_per_host_s": states / wall,
+                    "solver_queries": int(solver[0][0]),
+                    "host_solver_s": float(solver[0][1]),
+                    "incomplete": bool(report.get("incomplete"))}
+
+
+def phase_analyze() -> None:
+    """The port's `analyze` CLI end to end on the host (--engine host):
+    ANALYZE_RUNS held to EXPECTED_ANALYZE; one line a run."""
+    for name, run in ANALYZE_RUNS.items():
+        report, record = finish_analyze(
+            name, start_analyze(analyze_argv(*run)), 300)
+        if record["incomplete"]:
+            raise AssertionError(f"analyze {name}: the budget ran out")
+        check_analyze(name, report, record["exit"])
+        emit({**record, "issues": analyze_summary(report, 0)["issues"]})
+
+
+def phase_headline() -> None:
+    """HEADLINE_RUNS side by side through the port's CLI, each held to its
+    SWC ids unless it reports itself incomplete; one line a run."""
+    started = {name: start_analyze(analyze_argv(
+                   *run, budget_s=HEADLINE_BUDGET_S))
+               for name, run in HEADLINE_RUNS.items()}
+    missed = []
+    for name, run in started.items():
+        report, record = finish_analyze(name, run, HEADLINE_BUDGET_S + 600)
+        found = sorted({issue["swc-id"] for issue in report["issues"]})
+        emit({**record, "swc": found, "budget_s": HEADLINE_BUDGET_S})
+        if found != EXPECTED_HEADLINE[name] and not record["incomplete"]:
+            missed.append(f"{name}: SWC {found}, expected "
+                          f"{EXPECTED_HEADLINE[name]}")
+    if missed:
+        raise AssertionError(f"analyze: {missed}")
+
+
 def sat_solve(solve, *args, **kwargs) -> dict:
     """One entry-point call with the launch counts zeroed just before and
     read just after, each chunk's stream time (CUDA events around
@@ -3838,6 +4003,11 @@ def main() -> int:
     CARD = card_line()
     emit({"phase": "card", "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    if sys.argv[1:] == ["--headline"]:
+        phase_headline()
+        print(CARD, flush=True)
+        print_ok()
+        return 0
     start = time.perf_counter()
     paths = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - start,
@@ -3879,6 +4049,7 @@ def main() -> int:
     # queries at full width, one flush, their verdicts held to the façade's
     facade = phase_host_solver()
     phase_host_engine(dev)
+    phase_analyze()
     sat_launches, sat_profiled = phase_sat_lane(dev, facade)
     main_path_launches += [sat_launches, phase_sat_batch(dev, facade)]
     for counts in main_path_launches:
@@ -3938,10 +4109,15 @@ def main() -> int:
                                                       k4_same_work))
     print(CARD, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
+    print_ok()
+    return 0
+
+
+def print_ok() -> None:
+    """The last line: the card the run used."""
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -9,3 +9,5 @@ JAX package's frontier is a CUDA C++ kernel written for `sm_90a` under
 The package imports torch and numpy, never jax and nothing of mythril_tpu.
 Entry points run on the card unless the caller passes `device="cpu"`.
 """
+
+__version__ = "0.1.0"

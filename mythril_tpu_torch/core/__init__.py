@@ -2,6 +2,7 @@
 (`state/`), the instruction interpreter (`instructions`, `natives`, `call`,
 `cheat_code`), transactions (`transaction/`), search strategies
 (`strategy/`) and the worklist executor `svm.LaserEVM`, plus `time_handler`,
-the wall-clock budget that `support.model.get_model` and `Optimize` read.
-The plugins, the concolic strategy and checkpoints come later (ROADMAP A
-6b.2b, 6b.3)."""
+the wall-clock budget that `support.model.get_model` and `Optimize` read,
+the laser plugins (`plugin/`), the transaction prioritiser and the
+concolic strategy. Checkpoints come with the device driver (ROADMAP A
+7)."""

@@ -1,6 +1,9 @@
-"""The plugin layer's control-flow signals. The plugins themselves, their
-interface, builder and loader come with ROADMAP A 6b.2b."""
+"""The port's copy of mythril_tpu/core/plugin/__init__.py."""
 
+from .interface import LaserPlugin
+from .builder import PluginBuilder
+from .loader import LaserPluginLoader
 from .signals import PluginSignal, PluginSkipState, PluginSkipWorldState
 
-__all__ = ["PluginSignal", "PluginSkipState", "PluginSkipWorldState"]
+__all__ = ["LaserPlugin", "PluginBuilder", "LaserPluginLoader", "PluginSignal",
+           "PluginSkipState", "PluginSkipWorldState"]

@@ -1,6 +1,4 @@
-"""The port's copy of mythril_tpu/core/strategy/__init__.py.
-`ConcolicStrategy` is left out until ROADMAP A 6b.3 (it needs
-`analysis.solver`)."""
+"""The port's copy of mythril_tpu/core/strategy/__init__.py."""
 
 from .basic import (BasicSearchStrategy, BreadthFirstSearchStrategy,
                     DepthFirstSearchStrategy, ReturnRandomNaivelyStrategy,
@@ -8,9 +6,10 @@ from .basic import (BasicSearchStrategy, BreadthFirstSearchStrategy,
 from .beam import BeamSearch
 from .constraint_strategy import DelayConstraintStrategy
 from .bounded_loops import BoundedLoopsStrategy
+from .concolic import ConcolicStrategy
 
 __all__ = [
     "BasicSearchStrategy", "DepthFirstSearchStrategy", "BreadthFirstSearchStrategy",
     "ReturnRandomNaivelyStrategy", "ReturnWeightedRandomStrategy", "BeamSearch",
-    "DelayConstraintStrategy", "BoundedLoopsStrategy",
+    "DelayConstraintStrategy", "BoundedLoopsStrategy", "ConcolicStrategy",
 ]

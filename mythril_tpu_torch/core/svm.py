@@ -11,8 +11,9 @@ the semantic referee.
 The port's copy of mythril_tpu/core/svm.py. Two seams raise until their
 modules are ported: `engine="tpu"` without a `fleet_gate` (the single-contract
 driver `execute_message_call_tpu`, ROADMAP A 7), and a `checkpoint_path` or
-`resume_path` (support/checkpoint.py reads the detection modules, ROADMAP
-6b.3). Without a path, the worklist runs exactly as the reference's does."""
+`resume_path` (support/checkpoint.py pickles the worklist beside the
+device frontier's checkpoint, ROADMAP A 7). Without a path, the worklist
+runs exactly as the reference's does."""
 
 from __future__ import annotations
 
@@ -80,7 +81,10 @@ class LaserEVM:
         if checkpoint_path is not None or resume_path is not None:
             raise NotImplementedError(
                 "host checkpoints and resume need support/checkpoint.py, "
-                "which reads the detection modules: ROADMAP A 6b.3")
+                "which pickles the worklist beside the device frontier's "
+                "checkpoint: ROADMAP A 7")
+        #: the transaction being explored (the coverage of a partial report)
+        self._current_tx_index = 0
         #: set when the global analysis deadline fired mid-exploration: the
         #: run drained gracefully (partial report flagged `incomplete`)
         #: instead of dying mid-transaction
@@ -187,6 +191,7 @@ class LaserEVM:
         if not predicted_hashes:
             predicted_hashes = self._predicted_function_hashes(address)
         for i in range(self.transaction_count):
+            self._current_tx_index = i
             if len(self.open_states) == 0:
                 log.info("no open states left, ending transaction sequence")
                 break

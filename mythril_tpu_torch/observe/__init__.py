@@ -1,3 +1,3 @@
-"""The port's tracing surface: `trace` is a null tracer that records
-nothing. The port's own span and metric registry replaces it (ROADMAP A
-14)."""
+"""The port's observability surface: `trace` is a null tracer and
+`metrics` a null registry; both record nothing. The port's own span and
+metric registry replaces them (ROADMAP A 14)."""

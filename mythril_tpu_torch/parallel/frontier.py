@@ -1043,8 +1043,8 @@ class DeviceFrontier:
             if len(cold):
                 if self.service_cold is None:
                     raise NotImplementedError(
-                        "cold-SLOAD service needs the host engine "
-                        "(ROADMAP A 6b/7)")
+                        "a cold-SLOAD pause needs the frontier's fault-in "
+                        "service _service_cold: ROADMAP A 7")
                 self._harena(arena_n, arena_nc)
                 state, planes = self.service_cold(
                     self, state, planes, status, [int(l) for l in cold])

@@ -9,16 +9,31 @@ that names symbols (node uids, transaction ids, the keccak and exponent
 function managers) and the solver's backend and caches, so both sides
 number their symbols alike. Expression text depends on the process
 (terms.py orders commutative operands by an id-based hash, ROADMAP C):
-symbolic values are compared as sorted tokens, never as exact text."""
+symbolic values are compared as sorted tokens, never as exact text.
 
+`fresh` also resets what an analysis leaves behind: the detection
+modules' issues and caches, the laser plugin loader, the `args` fields
+the analyzer writes, and the JAX package's signature database, which
+persists to a file under HOME (the port's is in memory): each case points
+it at a fresh temporary file. The report helpers below compare two
+analyses' `-o json` reports by the rule of `report_parity`."""
+
+import atexit
 import hashlib
+import json
+import os
 import re
+import shutil
+import tempfile
 from types import SimpleNamespace
 
 from chip_smoke import HOST_ENGINE_CONTRACTS, branchy_contract
 from mythril_tpu import exceptions as jexceptions
 from mythril_tpu import smt as jsmt
+from mythril_tpu import mythril as jmythril
 from mythril_tpu.analysis import module_screen as jmodule_screen
+from mythril_tpu.analysis import security as jsecurity
+from mythril_tpu.core import plugin as jplugin
 from mythril_tpu.core import cheat_code as jcheat_code
 from mythril_tpu.core import function_managers as jfunction_managers
 from mythril_tpu.core import instructions as jinstructions
@@ -39,10 +54,15 @@ from mythril_tpu.smt.solver import simplify as jsimplify
 from mythril_tpu.smt.solver import solver as jsolver
 from mythril_tpu.smt.solver import solver_statistics as jstatistics
 from mythril_tpu.support import model as jmodel
+from mythril_tpu.support import signatures as jsignatures
+from mythril_tpu.support import support_args as jsupport_args
 from mythril_tpu.utils import keccak as jkeccak
 from mythril_tpu_torch import exceptions as pexceptions
 from mythril_tpu_torch import smt as psmt
+from mythril_tpu_torch import mythril as pmythril
 from mythril_tpu_torch.analysis import module_screen as pmodule_screen
+from mythril_tpu_torch.analysis import security as psecurity
+from mythril_tpu_torch.core import plugin as pplugin
 from mythril_tpu_torch.core import cheat_code as pcheat_code
 from mythril_tpu_torch.core import function_managers as pfunction_managers
 from mythril_tpu_torch.core import instructions as pinstructions
@@ -63,6 +83,8 @@ from mythril_tpu_torch.smt.solver import simplify as psimplify
 from mythril_tpu_torch.smt.solver import solver as psolver
 from mythril_tpu_torch.smt.solver import solver_statistics as pstatistics
 from mythril_tpu_torch.support import model as pmodel
+from mythril_tpu_torch.support import signatures as psignatures
+from mythril_tpu_torch.support import support_args as psupport_args
 from mythril_tpu_torch.utils import keccak as pkeccak
 
 JAX = SimpleNamespace(
@@ -73,7 +95,8 @@ JAX = SimpleNamespace(
     concolic=jconcolic, asm=jasm, module_screen=jmodule_screen,
     solver=jsolver, simplify=jsimplify, stats=jstatistics.SolverStatistics,
     model=jmodel, keccak=jkeccak, exceptions=jexceptions,
-    time_handler=jtime_handler)
+    time_handler=jtime_handler, mythril=jmythril, security=jsecurity,
+    plugin=jplugin, args=jsupport_args.args, signatures=jsignatures)
 PORT = SimpleNamespace(
     name="port", smt=psmt, state=pstate, calldata=pcalldata, tx=ptx,
     util=putil, Disassembly=PDisassembly, instructions=pinstructions,
@@ -82,7 +105,8 @@ PORT = SimpleNamespace(
     concolic=pconcolic, asm=pasm, module_screen=pmodule_screen,
     solver=psolver, simplify=psimplify, stats=pstatistics.SolverStatistics,
     model=pmodel, keccak=pkeccak, exceptions=pexceptions,
-    time_handler=ptime_handler)
+    time_handler=ptime_handler, mythril=pmythril, security=psecurity,
+    plugin=pplugin, args=psupport_args.args, signatures=psignatures)
 SIDES = (JAX, PORT)
 
 #: the statespace contracts, by name: chip_smoke.py's KILLBILLY (tests/
@@ -91,8 +115,28 @@ CONTRACTS = {**HOST_ENGINE_CONTRACTS,
              "branchy6": {"stress()": branchy_contract(6)}}
 
 
+#: the directory of the JAX side's per-case signature databases
+_SIGNATURE_DIR = []
+
+
+def _fresh_signature_db(side) -> None:
+    """Point the JAX package's signature database at a fresh file (the
+    port's is an in-memory store that nothing in an analysis adds to)."""
+    if side is not JAX:
+        return
+    if not _SIGNATURE_DIR:
+        _SIGNATURE_DIR.append(tempfile.mkdtemp(prefix="jax-signatures-"))
+        atexit.register(shutil.rmtree, _SIGNATURE_DIR[0], True)
+    path = os.path.join(_SIGNATURE_DIR[0], "signatures.db")
+    if os.path.exists(path):
+        os.remove(path)
+    database = side.signatures.SignatureDB(path=path)
+    side.signatures.SignatureDB._instance = database
+
+
 def fresh(side) -> None:
-    """Reset what numbers symbols and what caches verdicts, process-wide."""
+    """Reset what numbers symbols and what caches verdicts, process-wide,
+    and what an analysis leaves behind."""
     side.node.Node._uid_counter = 0
     side.tx.tx_id_manager.restart_counter()
     side.fm.keccak_function_manager.reset()
@@ -100,12 +144,17 @@ def fresh(side) -> None:
     side.solver.reset_solver_backend()
     side.stats().reset()
     side.simplify.reset_simplify_memo()
+    side.security.reset_callback_modules()
+    side.plugin.LaserPluginLoader().reset()
+    side.args._init_defaults()
+    _fresh_signature_db(side)
 
 
 def run_on(side, case, *args):
     """One case on one side from a fresh engine; the side's wall-clock
-    budget is left as it was found."""
+    budget and signature database are left as they were found."""
     saved = (side.time_handler._start_time, side.time_handler._execution_time)
+    database = side.signatures.SignatureDB._instance
     fresh(side)
     try:
         return case(side, *args)
@@ -113,6 +162,7 @@ def run_on(side, case, *args):
         fresh(side)
         (side.time_handler._start_time,
          side.time_handler._execution_time) = saved
+        side.signatures.SignatureDB._instance = database
 
 
 def run_both(case, *args):
@@ -398,3 +448,129 @@ def bound(side, expression, gas=None):
         except KeyError:  # a symbol other than GAS's
             pass
     return tokens(str(raw))
+
+
+# ---- analyses and their reports -----------------------------------------------------
+
+#: the CLI's strategy and budgets neither side reaches; the analyzer's
+#: own defaults are the CLI's (mythril_tpu/interfaces/cli.py:22-173)
+ANALYZE_DEFAULTS = dict(strategy="bfs", execution_timeout=BUDGET_S,
+                        create_timeout=BUDGET_S)
+
+#: the fields of an issue compared exactly
+ISSUE_FIELDS = ("swc-id", "title", "severity", "contract", "function",
+                "address", "min_gas_used", "max_gas_used", "sourceMap")
+
+
+def analyze_report(side, code: bytes, modules=None, transaction_count=2,
+                   bin_runtime=False, **options) -> dict:
+    """`analyze` through one side's MythrilAnalyzer, as its CLI runs it:
+    the `-o json` report as a dict, the blast pool's digest, and the
+    analyzer's own objects for the tests that read them."""
+    disassembler = side.mythril.MythrilDisassembler()
+    address, _ = disassembler.load_from_bytecode(code.hex(), bin_runtime)
+    cmd = SimpleNamespace(**{**ANALYZE_DEFAULTS, **options})
+    analyzer = side.mythril.MythrilAnalyzer(
+        disassembler, cmd_args=cmd, strategy=cmd.strategy, address=address)
+    report = analyzer.fire_lasers(modules=modules,
+                                  transaction_count=transaction_count)
+    pipeline = side.solver._pipeline
+    pool = [] if pipeline is None else pipeline.blaster.clauses
+    plugins = dict(side.plugin.LaserPluginLoader().plugin_list)
+    return {"json": json.loads(report.as_json()),
+            "exceptions": list(report.exceptions),
+            "pool": hashlib.sha256(repr(pool).encode()).hexdigest(),
+            "plugins": plugins}
+
+
+def report_view(report: dict) -> dict:
+    """What two reports must share exactly: every issue's identity fields,
+    in order, its description as sorted tokens (symbolic text depends on
+    the process), its steps and their callees and the accounts of its
+    initial state; and whether the analysis was complete."""
+    issues = []
+    for issue in report["issues"]:
+        sequence = issue["tx_sequence"] or {"steps": [], "initialState": {}}
+        accounts = sequence["initialState"].get("accounts", {})
+        issues.append({
+            **{field: issue[field] for field in ISSUE_FIELDS},
+            "description": tokens(issue["description"]),
+            "steps": [step["address"] for step in sequence["steps"]],
+            "accounts": {address: (account["nonce"], account["code"],
+                                   account["storage"])
+                         for address, account in accounts.items()}})
+    return {"success": report["success"], "error": report["error"],
+            "issues": issues, "incomplete": report.get("incomplete", False),
+            "coverage": report.get("coverage")}
+
+
+def witness(report: dict) -> list:
+    """The model-dependent part of a report: every step's input, value,
+    origin and gas price, and the initial balances."""
+    out = []
+    for issue in report["issues"]:
+        sequence = issue["tx_sequence"] or {"steps": [], "initialState": {}}
+        out.append((
+            [(step["input"], step["value"], step["origin"], step["gasPrice"])
+             for step in sequence["steps"]],
+            {address: account["balance"] for address, account in
+             sequence["initialState"].get("accounts", {}).items()}))
+    return out
+
+
+def replay_reaches(steps, initial_accounts, address: int) -> bool:
+    """Replay a witness concretely on the port's host engine
+    (core/transaction/concolic) and say whether its last step executes
+    the instruction at `address`. A witness that starts with a creation
+    runs it on an empty world; one that starts with a call runs on the
+    initial state's accounts, their storage symbolic as the analyzer
+    leaves a deployed contract's."""
+    side = PORT
+    world_state = side.state.WorldState()
+    if steps and steps[0]["address"] != "":
+        for key, account in initial_accounts.items():
+            created = world_state.create_account(
+                balance=int(account["balance"], 16), address=int(key, 16),
+                concrete_storage=False)
+            created.code = side.Disassembly(account["code"][2:])
+            created.nonce = account["nonce"]
+    laser = side.svm.LaserEVM(max_depth=8000, execution_timeout=BUDGET_S,
+                              requires_statespace=False)
+    laser.open_states = [world_state]
+    reached = []
+    laser.register_laser_hooks(
+        "execute_state",
+        lambda state: reached[-1].add(
+            state.get_current_instruction()["address"]))
+    for step in steps:
+        reached.append(set())
+        data = bytes.fromhex(step["input"][2:])
+        value, origin = int(step["value"], 16), int(step["origin"], 16)
+        gas = dict(gas_limit=int(step["gasLimit"], 16),
+                   gas_price=int(step["gasPrice"], 16))
+        if step["address"] == "":
+            side.concolic.execute_contract_creation(
+                laser, None, origin, value, [], code=data.hex(),
+                origin_address=origin, **gas)
+        else:
+            side.concolic.execute_message_call(
+                laser, int(step["address"], 16), origin, value, list(data),
+                origin_address=origin, **gas)
+    return bool(reached) and address in reached[-1]
+
+
+def report_parity(port: dict, jax: dict, same_pool: bool) -> None:
+    """The port's report against the JAX package's: `report_view` exactly;
+    the witness exactly where both sides blasted the same clause pool (one
+    CDCL on the same clauses), else each of the port's witnesses replayed
+    concretely on the port's engine must reach its issue's address (the
+    CNF, and so the model, depends on the process: ROADMAP C)."""
+    assert report_view(port) == report_view(jax)
+    if same_pool:
+        assert witness(port) == witness(jax)
+        return
+    for issue in port["issues"]:
+        sequence = issue["tx_sequence"]
+        assert replay_reaches(sequence["steps"],
+                              sequence["initialState"]["accounts"],
+                              issue["address"]), issue

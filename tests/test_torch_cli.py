@@ -1,0 +1,250 @@
+"""The port's CLI (`python -m mythril_tpu_torch`) against the JAX
+package's (`python -m mythril_tpu`), each in a subprocess with the same
+arguments and a HOME of the test's own (the JAX package's signature
+database lives under HOME; the port's is in memory).
+
+- `analyze -o json` on chip_smoke.py's ANALYZE_RUNS (KILLBILLY with all
+  modules at two transactions, SAFE_KILL, the tx.origin contract) and on
+  KILLBILLY's runtime code (`--bin-runtime`): the exit code (0 clean, 1
+  issues found) and the report, by tests/_torch_engine.py's
+  `report_parity` with each port witness replayed (a subprocess's clause
+  pool is not visible here);
+- `-o text`, `jsonv2` and `markdown` on the tx.origin contract: equal
+  with the witness values masked (its descriptions hold no symbolic
+  text), and the witness in the port's output replayed;
+- `list-detectors`, `disassemble`, `function-to-hash`, `hash-to-address`
+  and `safe-functions` byte for byte;
+- every input and subcommand whose path the port has not ported exits 2,
+  naming its ROADMAP item, before any contract is analyzed;
+- chip_smoke.py's EXPECTED_ANALYZE recomputed from the JAX CLI's reports,
+  and its own check of the port's."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+import chip_smoke
+from _torch_engine import PORT, replay_reaches, report_parity
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PACKAGES = {"jax": "mythril_tpu", "port": "mythril_tpu_torch"}
+
+
+def creation_hex(contract) -> str:
+    return PORT.asm.creation_wrapper(
+        PORT.asm.assemble(PORT.asm.dispatcher(contract))).hex()
+
+
+#: `analyze` runs beyond chip_smoke.py's: KILLBILLY's runtime code
+RUNTIME_ARGV = ["analyze", "-c",
+                PORT.asm.assemble(PORT.asm.dispatcher(chip_smoke.KILLBILLY))
+                .hex(), "--bin-runtime", "-t", "2", "-o", "json"]
+
+
+def analyze_argv(name: str) -> list:
+    if name == "killbilly_runtime":
+        return RUNTIME_ARGV
+    return chip_smoke.analyze_argv(*chip_smoke.ANALYZE_RUNS[name])
+
+
+def tx_origin_argv(outform: str) -> list:
+    argv = analyze_argv("tx_origin")
+    return argv[:argv.index("-o")] + ["-o", outform]
+
+
+@pytest.fixture(scope="module")
+def cli(tmp_path_factory):
+    """cli(side, argv) -> CompletedProcess, each command run once."""
+    home = str(tmp_path_factory.mktemp("home"))
+    env = dict(os.environ, HOME=home, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    done = {}
+
+    def run(side, argv):
+        key = (side, tuple(argv))
+        if key not in done:
+            done[key] = subprocess.run(
+                [sys.executable, "-m", PACKAGES[side], *argv],
+                capture_output=True, text=True, cwd=home, env=env,
+                timeout=900)
+        return done[key]
+
+    return run
+
+
+def both(cli, argv):
+    return cli("port", argv), cli("jax", argv)
+
+
+ANALYZE_CASES = sorted(chip_smoke.ANALYZE_RUNS) + ["killbilly_runtime"]
+
+
+@pytest.mark.parametrize("name", ANALYZE_CASES)
+def test_analyze_json(cli, name):
+    port, jax = both(cli, analyze_argv(name))
+    assert port.returncode == jax.returncode, port.stderr
+    report = json.loads(port.stdout)
+    assert port.returncode == (1 if report["issues"] else 0)
+    report_parity(report, json.loads(jax.stdout), same_pool=False)
+
+
+def test_exit_codes(cli):
+    assert cli("port", analyze_argv("safe_kill")).returncode == 0
+    assert cli("port", analyze_argv("killbilly")).returncode == 1
+
+
+#: the witness in text output: caller, calldata and value of each step
+TEXT_STEP = re.compile(r"^(\d+): (CREATE|CALL) Caller: \[(0x[0-9a-f]+)\], "
+                       r"function: (\S+), txdata: (0x[0-9a-f]*), "
+                       r"value: (0x[0-9a-f]+)$", re.M)
+
+
+def mask_text(text: str) -> str:
+    return TEXT_STEP.sub(r"\1: \2 Caller: [?], function: \4, txdata: ?, "
+                         r"value: ?", text)
+
+
+def mask_sequence(sequence: dict) -> dict:
+    steps = [{**step, "input": "?", "calldata": "?", "value": "?",
+              "origin": "?", "gasPrice": "?"} for step in sequence["steps"]]
+    accounts = {address: {**account, "balance": "?"} for address, account
+                in sequence["initialState"]["accounts"].items()}
+    return {"initialState": {"accounts": accounts}, "steps": steps}
+
+
+def replay_each(issues) -> None:
+    """Every (steps, initial accounts, address) witness reaches its address
+    on the port's host engine."""
+    assert issues
+    for steps, accounts, address in issues:
+        assert replay_reaches(steps, accounts, address), (steps, address)
+
+
+def test_text_output(cli):
+    port, jax = both(cli, tx_origin_argv("text"))
+    assert port.returncode == jax.returncode == 1
+    assert mask_text(port.stdout) == mask_text(jax.stdout)
+    # the text gives no callee, gas or initial state: those come from the
+    # port's json report of the same analysis, whose are held to JAX's
+    issue = json.loads(cli("port", analyze_argv("tx_origin")).stdout)[
+        "issues"][0]
+    sequence = issue["tx_sequence"]
+    steps = [{**shape, "origin": caller, "input": data, "value": value}
+             for shape, (_, _, caller, _, data, value)
+             in zip(sequence["steps"], TEXT_STEP.findall(port.stdout))]
+    assert len(steps) == len(sequence["steps"])
+    replay_each([(steps, sequence["initialState"]["accounts"],
+                  issue["address"])])
+
+
+def test_jsonv2_output(cli):
+    port, jax = both(cli, tx_origin_argv("jsonv2"))
+    assert port.returncode == jax.returncode == 1
+    port_issues = json.loads(port.stdout)[0]["issues"]
+
+    def masked(stdout):
+        report = json.loads(stdout)
+        for issue in report[0]["issues"]:
+            issue["extra"]["testCases"] = [
+                mask_sequence(case) for case in issue["extra"]["testCases"]]
+        return report
+
+    assert masked(port.stdout) == masked(jax.stdout)
+    replay_each([(case["steps"], case["initialState"]["accounts"],
+                  issue["locations"][0]["bytecodeOffset"])
+                 for issue in port_issues
+                 for case in issue["extra"]["testCases"]])
+
+
+def test_markdown_output(cli):
+    port, jax = both(cli, tx_origin_argv("markdown"))
+    assert port.returncode == jax.returncode == 1
+    assert port.stdout == jax.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    ["list-detectors"],
+    ["disassemble", "-c", creation_hex(chip_smoke.KILLBILLY)],
+    ["d", "-c", PORT.asm.assemble(PORT.asm.dispatcher(
+        chip_smoke.TX_ORIGIN)).hex()],
+    ["function-to-hash", "commencekilling()"],
+    ["hash-to-address", "0x7c11da20"],
+    ["hash-to-address", "0x00000000"],
+    ["safe-functions", "-c", creation_hex(chip_smoke.TX_ORIGIN), "-t", "1"],
+], ids=["list-detectors", "disassemble", "d", "function-to-hash",
+        "hash-to-address", "hash-to-address-unknown", "safe-functions"])
+def test_byte_for_byte(cli, argv):
+    port, jax = both(cli, argv)
+    assert (port.returncode, port.stdout) == (jax.returncode, jax.stdout)
+    assert port.stdout
+
+
+def test_version(cli):
+    from mythril_tpu_torch import __version__
+
+    port, jax = both(cli, ["version"])
+    assert port.stdout == f"myth-tpu-torch {__version__}\n"
+    assert jax.stdout == f"myth-tpu {__version__}\n"
+
+
+TX_ORIGIN_CODE = creation_hex(chip_smoke.TX_ORIGIN)
+
+#: (arguments, ROADMAP item): every path the port has not ported
+SEAMS = [
+    (["--engine", "tpu"], "A 7"),
+    (["--fleet"], "A 11"),
+    (["--solver", "jax"], "A 10"),
+    (["--checkpoint", "{tmp}/checkpoint"], "A 7"),
+    (["--resume", "{tmp}/checkpoint"], "A 7"),
+    (["--metrics-out", "{tmp}/metrics.json"], "A 14"),
+    (["--trace-out", "{tmp}/trace.json"], "A 14"),
+    (["--rpc", "localhost:8545"], "A 14"),
+]
+COMMAND_SEAMS = [
+    (["analyze", "-a", "0x" + "11" * 20], "A 14"),
+    (["analyze", "{tmp}/Token.sol"], "A 14"),
+    (["disassemble", "-a", "0x" + "11" * 20], "A 14"),
+    (["optimize", "-c", "6000"], "A 14"),
+    (["opt", "-c", "6000"], "A 14"),
+    (["foundry", "--project-root", "{tmp}"], "A 14"),
+    (["concolic", "{tmp}/trace.json", "--branches", "0x10"], "A 14"),
+    (["read-storage", "0x" + "11" * 20, "0"], "A 14"),
+    (["serve", "--stdio"], "A 12"),
+    (["client", "status"], "A 12"),
+]
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["analyze", "-c", TX_ORIGIN_CODE, "-t", "1", *flags], item)
+    for flags, item in SEAMS] + COMMAND_SEAMS,
+    ids=[flags[0] for flags, _ in SEAMS] + [
+        " ".join(argv[:2]) for argv, _ in COMMAND_SEAMS])
+def test_unported_paths_refuse(cli, tmp_path, argv, item):
+    """Exit 2 and the ROADMAP item on stderr, with nothing analyzed: no
+    report, and none of the files the flags name."""
+    (tmp_path / "Token.sol").write_text("contract Token {}\n")
+    argv = [arg.format(tmp=tmp_path) for arg in argv]
+    before = sorted(os.listdir(tmp_path))
+    proc = cli("port", argv)
+    assert proc.returncode == 2, (proc.stdout, proc.stderr)
+    assert f"ROADMAP {item}" in proc.stderr
+    assert proc.stdout == ""
+    assert sorted(os.listdir(tmp_path)) == before
+
+
+def test_chip_smoke_constants_are_the_jax_reports(cli):
+    """chip_smoke.py's analyze phase holds the port's CLI to
+    EXPECTED_ANALYZE: the JAX CLI's reports give those summaries, and the
+    phase's own check (which raises on a difference) passes the port's."""
+    for name in chip_smoke.ANALYZE_RUNS:
+        jax = cli("jax", analyze_argv(name))
+        assert chip_smoke.analyze_summary(
+            json.loads(jax.stdout), jax.returncode) == \
+            chip_smoke.EXPECTED_ANALYZE[name], name
+        port = cli("port", analyze_argv(name))
+        chip_smoke.check_analyze(name, json.loads(port.stdout),
+                                 port.returncode)

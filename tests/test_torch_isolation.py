@@ -1,7 +1,8 @@
 """The port stands alone: no module of mythril_tpu_torch, and nothing that
 chip_smoke.py imports, loads jax or anything of mythril_tpu (the SMT façade,
-the host solver stack and the host engine included); its entry points run
-on the card unless asked for the CPU."""
+the host solver stack, the host engine, the plugins, detectors, analyzer
+and CLI included); its entry points run on the card unless asked for the
+CPU."""
 
 import os
 import subprocess
@@ -57,6 +58,25 @@ print("CORE", all(m in sys.modules for m in (
     "mythril_tpu_torch.core.plugin.signals",
     "mythril_tpu_torch.support.loader", "mythril_tpu_torch.utils.helpers",
     "mythril_tpu_torch.utils.secp256k1")))
+print("ANALYSIS", all(m in sys.modules for m in (
+    "mythril_tpu_torch.__main__", "mythril_tpu_torch.interfaces.cli",
+    "mythril_tpu_torch.mythril.mythril_analyzer",
+    "mythril_tpu_torch.mythril.mythril_disassembler",
+    "mythril_tpu_torch.mythril.mythril_config",
+    "mythril_tpu_torch.analysis.symbolic", "mythril_tpu_torch.analysis.report",
+    "mythril_tpu_torch.analysis.solver", "mythril_tpu_torch.analysis.security",
+    "mythril_tpu_torch.analysis.callgraph",
+    "mythril_tpu_torch.analysis.traceexplore",
+    "mythril_tpu_torch.analysis.module.loader",
+    "mythril_tpu_torch.analysis.modules.suicide",
+    "mythril_tpu_torch.analysis.modules.integer",
+    "mythril_tpu_torch.core.plugin.loader",
+    "mythril_tpu_torch.core.plugin.plugins.summary",
+    "mythril_tpu_torch.core.plugin.plugins.state_merge",
+    "mythril_tpu_torch.core.strategy.concolic",
+    "mythril_tpu_torch.core.tx_prioritiser",
+    "mythril_tpu_torch.frontends.features",
+    "mythril_tpu_torch.observe.metrics")))
 print("BAD", bad)
 """
 
@@ -72,6 +92,7 @@ def test_port_and_smoke_import_no_jax():
     assert "SAT True" in proc.stdout
     assert "SOLVER True" in proc.stdout
     assert "CORE True" in proc.stdout
+    assert "ANALYSIS True" in proc.stdout
 
 
 def test_entry_points_default_to_cuda():
@@ -97,8 +118,15 @@ def test_entry_points_default_to_cuda():
         device_solver.solve_cnf_device([[1, 2], [-1]], 2)
     with pytest.raises(RuntimeError):
         device_solver.solve_cnf_device_batch([([[1, 2], [-1]], 2)])
-    assert device_solver.solve_cnf_device([[1, 2], [-1]], 2,
-                                          device="cpu")[0] == device_solver.SAT
+    # the K11 twin is many small ops: on one thread, as beside other test
+    # processes a pool of threads per op costs it more than it gives
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert device_solver.solve_cnf_device(
+            [[1, 2], [-1]], 2, device="cpu")[0] == device_solver.SAT
+    finally:
+        torch.set_num_threads(threads)
     assert batch.build_batch([spec], device="cpu").stack.device.type == "cpu"
     # the steal pass takes the twin for CPU tensors (K12 for CUDA ones)
     pair = batch.build_batch([spec] * 2, device="cpu")

@@ -7,8 +7,8 @@ tests/test_resilience.py; and the port's own build of the native CDCL
 Each resilience case runs on both packages from a fresh registry and plan
 and returns what it observed; the two must be equal. The device,
 checkpoint and analysis cases of tests/test_resilience.py wait for the
-port's batch dispatch (ROADMAP A 10), its frontier driver (A 7) and its
-analyzer (A 6b.3)."""
+port's batch dispatch (ROADMAP A 10; the analysis case runs under
+`--solver jax`) and its frontier driver with checkpoints (A 7)."""
 
 import os
 import shutil

@@ -81,7 +81,8 @@ def test_fleet_gate_seam_stays():
 
 @pytest.mark.parametrize("path", ["checkpoint_path", "resume_path"])
 def test_checkpoints_raise_until_the_detectors_are_ported(path):
-    """support/checkpoint.py reads the detection modules (ROADMAP A 6b.3):
-    a checkpoint or resume path raises instead of running without one."""
-    with pytest.raises(NotImplementedError, match="6b.3"):
+    """support/checkpoint.py pickles the worklist beside the device
+    frontier's checkpoint (ROADMAP A 7): a checkpoint or resume path raises
+    instead of running without one."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A 7"):
         PORT.svm.LaserEVM(**{path: "/nonexistent/checkpoint.pkl"})
