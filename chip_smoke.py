@@ -16,9 +16,10 @@ device SAT lane (`device_solver.solve_cnf_device` and
 `solve_cnf_device_batch` on K11) on captured analysis queries at full
 width (phases 21-22), after the port's SMT façade and its own CDCL have
 decided the same queries on the host (phase 20a), its host engine has
-explored two contracts and held K1 and K2 to its interpreter (phase 20b)
-and its `analyze` CLI has analyzed three contracts end to end with
---engine host (phase 20c).
+explored two contracts and held K1 and K2 to its interpreter (phase 20b),
+its `analyze` CLI has analyzed three contracts end to end with
+--engine host (phase 20c) and four with --engine tpu on the card (phase
+20d).
 Every phase prints one JSON line; any mismatch raises, and the run exits
 non-zero. Each frontier* phase drives its
 configuration once more with every summary the loop reads (K5 and its
@@ -48,7 +49,9 @@ copy to the host) held word for word to the twin on the same tensors
      grids as the launches recorded them and ptxas's registers and spills
      (K1's numbers go to its kernels record);
   4. K3 arena_alloc vs its twins: a random want-mask sequence up to and
-     past capacity;
+     past capacity, then the main path's standalone launch (one host-term
+     leaf, `Frontier._alloc_host_term`) on a default-size arena, fresh, at
+     its last free row and full; that launch is the one timed;
   5. K4 (K3's step allocations folded in) with K1-K2 vs the twins on
      contracts that walk the symbolic planes
      (memory round trips, symbolic SSTORE, a cold SLOAD pause, a concrete
@@ -66,7 +69,10 @@ copy to the host) held word for word to the twin on the same tensors
      escape reset (K6's grids as the launches recorded them, the maxima
      over more than one block, its device time by launch and its plan
      lookup), a gather and a scatter of 32 lanes (and with clamped
-     indices and dropped pads; K7's grid of row copy items), the arena delta
+     indices and dropped pads; K7's grid of row copy items), the cold-SLOAD
+     service's flat gather and scatter of 1, 2 and 3 rows (the index padded
+     to a power of two with its first lane, the pad rows scattered to the
+     drop index 128), the arena delta
      of the first drain (K8 into the pinned staging: the whole refresh
      into an emptied mirror timed from the launch to the mirror landed,
      beside seven narrow + copy_ into pinned memory and the card's
@@ -191,6 +197,21 @@ copy to the host) held word for word to the twin on the same tensors
      IntegerArithmetics) the same way, side by side, held to SWC-106 and
      SWC-101 unless a run reports itself incomplete at its budget: they
      are solver-bound and take tens of minutes;
+20d. analyze_tpu, on the card: the port's CLI with `--engine tpu`
+     (`cli.main` in this process, so its launches count; the default
+     configuration: 128 lanes, telemetry and merging on, the CDCL, bfs) on
+     the three ANALYZE_RUNS, KILLBILLY's runtime code (`--bin-runtime`:
+     a symbolic storage base, so SLOADs pause and fault in: standalone K3
+     a symbolic leaf, K7's gather and scatter a service) and SPIN, whose
+     counting loop outlasts the device's step budget (the hand-over
+     materializes its live lane through K6 and defers the rest), each exit
+     code, issue and per-transaction frontier counters held to
+     EXPECTED_ANALYZE_TPU (the JAX package's CLI with --engine tpu); a line
+     a run with its host wall seconds, explored states, solver queries
+     and seconds, its launches and, per transaction, the frontier's
+     forks, fault-ins, rows materialized and deferred, lane-steps, chunks
+     and its device and host phases' seconds. It fails unless it
+     launched standalone K3 and K7 and handed a live lane over;
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -205,19 +226,22 @@ copy to the host) held word for word to the twin on the same tensors
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
      state after the first chunk, verdicts and models as in phase 21;
  23. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 18, 19, 21, 22; K3's are its allocations folded into K4's
-     steps and K10's passes), its time, its plain version's time, the least
-     time the card could take and the library call's time (K11's per
-     step).
+     12, 13, 18, 19, 20d, 21, 22; K3's are its allocations folded into
+     K4's steps and K10's passes and its standalone calls in 20d), its
+     time, its plain version's time, the least time the card could take
+     and the library call's time (K11's per step).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result."""
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import itertools
 import json
+import logging
 import os
 import random
 import re
@@ -782,6 +806,40 @@ EXPECTED_ANALYZE = {
     "safe_kill": {"exit": 0, "issues": []},
     "tx_origin": {"exit": 1,
                   "issues": [["115", "Dependence on tx.origin", 27]]},
+}
+#: a counting loop of 1024 turns (8 steps a turn) past the device's step
+#: budget, beside an unprotected kill: the device phase ends with the loop's
+#: lane live, so the hand-over materializes it into the host's worklist
+SPIN = {
+    "spin()": "PUSH1 0x00\nloop:\nJUMPDEST\nPUSH1 0x01\nADD\nDUP1\n"
+              "PUSH2 0x0400\nGT\nPUSH @loop\nJUMPI\nPOP\nSTOP",
+    "kill()": "CALLER\nSELFDESTRUCT",
+}
+#: the analyze_tpu phase's runs of the port's CLI with `--engine tpu`, in
+#: the default configuration (128 lanes, telemetry and merging on, the
+#: CDCL, bfs): ANALYZE_RUNS in creation mode, KILLBILLY's runtime code
+#: (`--bin-runtime`: a symbolic storage base, so SLOADs fault in) and SPIN
+#: in creation mode for one transaction (the step budget's hand-over)
+ANALYZE_TPU_RUNS = (*ANALYZE_RUNS, "killbilly_runtime", "spin")
+#: the JAX package's CLI (`MYTHRIL_TPU_LANES=128 python -m mythril_tpu
+#: analyze ... --engine tpu`) on the same arguments: its exit code, each
+#: issue's SWC id, title and address and, per transaction, its frontier's
+#: forks, storage fault-ins, states materialized and rows deferred. tests/test_torch_tpu_engine.py
+#: recomputes them with JAX.
+EXPECTED_ANALYZE_TPU = {
+    "killbilly": {"exit": 1,
+                  "issues": [["106", "Unprotected Selfdestruct", 52]],
+                  "frontier": [[2, 0, 0, 3], [6, 0, 0, 9]]},
+    "safe_kill": {"exit": 0, "issues": [],
+                  "frontier": [[2, 0, 0, 3], [4, 0, 0, 6]]},
+    "tx_origin": {"exit": 1,
+                  "issues": [["115", "Dependence on tx.origin", 27]],
+                  "frontier": [[1, 0, 0, 2]]},
+    "killbilly_runtime": {"exit": 1,
+                          "issues": [["106", "Unprotected Selfdestruct", 52]],
+                          "frontier": [[3, 1, 0, 4], [8, 2, 0, 11]]},
+    "spin": {"exit": 1, "issues": [["106", "Unprotected Selfdestruct", 51]],
+             "frontier": [[2, 0, 1, 2]]},
 }
 #: tools/measure_headline.py's two runs through the port's CLI, with the
 #: same contract, modules and transaction count, and the SWC ids each must
@@ -1364,26 +1422,52 @@ def phase_arena(dev, rng) -> dict:
     emit({"phase": "arena_alloc", "rounds": 48, "lanes": LANES,
           "overflowed": overflowed, "max_abs_err": 0})
 
-    # time one node allocation at the main path's shape: default arena
-    arena_k = A.new_arena(device=dev)
+    # the main path's standalone launch (Frontier._alloc_host_term): a batch
+    # of one VAR leaf of class V_HOST_TERM on a default-size arena, fresh,
+    # at its last free row and full
     arena_p = A.new_arena(device=dev)
-    want = torch.from_numpy(rng.random(LANES) < 0.5).to(dev)
-    args = [torch.full((LANES,), v, dtype=torch.int32, device=dev)
-            for v in (0x01, 1, 2, 0, 0, 7)]
-    n_want = int(want.sum())
-    # each lane reads want + 6 operands and writes id + overflow; each
-    # allocated node writes 7 columns and reads 3 child masks
-    nbytes = LANES * (1 + 6 * 4 + 4 + 1) + n_want * (7 * 4 + 3 * 4) + 8
-    b_ms, b_by = bound_ms(nbytes, 0)
+    arena_k = convert.clone(arena_p)
+    cap = arena_p.capacity
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+
+    def leaf(alloc, arena, term):
+        return alloc(arena, one, A.VAR, 0, 0, 0, A.V_HOST_TERM, term)
+
+    seen = []
+    for term, start in enumerate((None, None, None, cap - 1, None)):
+        if start is not None:
+            arena_p.n.fill_(start)
+            arena_k.n.fill_(start)
+        _, id_p, ovf_p = leaf(A.alloc_rows_reference, arena_p, term)
+        _, id_k, ovf_k = leaf(A.alloc_rows, arena_k, term)
+        if not (torch.equal(id_p, id_k) and torch.equal(ovf_p, ovf_k)):
+            raise AssertionError(f"K3 host-term leaf {term}: {id_k.tolist()} "
+                                 f"{ovf_k.tolist()}, twin {id_p.tolist()} "
+                                 f"{ovf_p.tolist()}")
+        assert_same(arena_k, arena_p, f"K3 host-term leaf {term}")
+        seen.append((int(id_p[0]), bool(ovf_p[0])))
+    if seen != [(1, False), (2, False), (3, False), (cap - 1, False),
+                (0, True)]:
+        raise AssertionError(f"K3 host-term leaves: {seen}")
+    emit({"phase": "arena_alloc_leaf", "capacity": cap, "leaves": seen,
+          "max_abs_err": 0})
+
+    # time that launch; the arena back to one node so that none overflows
+    arena_p.n.fill_(1)
+    arena_k.n.fill_(1)
+    # the lane reads want and six operands and writes its id and overflow;
+    # the node writes 7 columns and reads 3 child masks; n is read and written
+    b_ms, b_by = bound_ms((1 + 6 * 4 + 4 + 1) + (7 * 4 + 3 * 4) + 8, 0)
     return {"name": "arena_alloc", "route": "cuda",
             "source": "mythril_tpu_torch/kernels/arena_alloc.cu",
             "replaces": "mythril_tpu/parallel/arena.py:105",
             "max_abs_err": 0,
-            "ms": event_ms(lambda _: A.alloc_rows(arena_k, want, *args), 50),
+            "ms": event_ms(lambda _: leaf(A.alloc_rows, arena_k, 0), 50),
             "plain_ms": event_ms(
-                lambda _: A.alloc_rows_reference(arena_p, want, *args), 20),
+                lambda _: leaf(A.alloc_rows_reference, arena_p, 0), 20),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "held_by": "phase arena_alloc"}
+            "shape": "one host-term leaf, arena of 1<<22 rows",
+            "held_by": "phases arena_alloc, arena_alloc_leaf"}
 
 
 # ---- phase 5: the slice ----------------------------------------------------------
@@ -1801,6 +1885,33 @@ def phase_frontier_programs(dev) -> list:
     frontier.scatter_rows_reference(*drop_p, pads, *odd_ref)
     assert_same(drop_k[0], drop_p[0], "K7 scatter state, dropped pads")
     assert_same(drop_k[1], drop_p[1], "K7 scatter planes, dropped pads")
+    # the cold-SLOAD service's shapes (Frontier._gather_host, _scatter_host):
+    # the paused lanes' rows into one flat buffer, the index padded to a
+    # power of two with its first lane; back from that buffer's views to
+    # other lanes, the pad rows sent to the drop index LANES
+    n_state = len(B.StateBatch._fields)
+    for cold in ([5], [9, 3], [17, 2, 40]):
+        bucket = B.next_pow2(len(cold))
+        index = torch.tensor(cold + cold[:1] * (bucket - len(cold)),
+                             dtype=torch.int32, device=dev)
+        flat, slabs = frontier.gather_rows_flat(state, planes, index)
+        views = B.row_views(flat, slabs)
+        rows = (B.StateBatch(*views[:n_state]),
+                symstep.SymPlanes(*views[n_state:]))
+        for got, ref in zip(rows, frontier.gather_rows_reference(
+                state, planes, index)):
+            assert_same(got, ref, f"K7 flat gather of {len(cold)} rows")
+        back = torch.tensor([(lane + 1) % LANES for lane in cold]
+                            + [LANES] * (bucket - len(cold)),
+                            dtype=torch.int32, device=dev)
+        cold_k = [convert.clone(t) for t in (state, planes)]
+        cold_p = [convert.clone(t) for t in (state, planes)]
+        frontier.scatter_rows(*cold_k, back, *rows)
+        frontier.scatter_rows_reference(*cold_p, back, *rows)
+        assert_same(cold_k[0], cold_p[0],
+                    f"K7 scatter state of {len(cold)} rows")
+        assert_same(cold_k[1], cold_p[1],
+                    f"K7 scatter planes of {len(cold)} rows")
     row_bytes = fr.row_bytes
     leaves = list(state) + list(planes)
     lanes64 = lanes.to(torch.int64)
@@ -3819,6 +3930,146 @@ def phase_headline() -> None:
         raise AssertionError(f"analyze: {missed}")
 
 
+def analyze_tpu_argv(name: str) -> list:
+    """The CLI arguments of one of ANALYZE_TPU_RUNS."""
+    if name == "killbilly_runtime":
+        argv = ["analyze", "-c", assemble(dispatcher(KILLBILLY)).hex(),
+                "--bin-runtime", "-t", "2", "-o", "json"]
+    elif name == "spin":
+        argv = analyze_argv(SPIN, None, 1)
+    else:
+        argv = analyze_argv(*ANALYZE_RUNS[name])
+    return argv + ["--engine", "tpu"]
+
+
+#: the device driver's lines, one each a transaction
+FRONTIER_LINE = re.compile(
+    r"frontier: (\d+) forks, (\d+) storage fault-ins, \d+ infeasible "
+    r"pruned, (\d+) states materialized \+ (\d+) deferred")
+PHASES_LINE = re.compile(
+    r"frontier phases: \d+ lanes, (\d+) lane-steps in (\d+) chunks, device "
+    r"phase ([0-9.]+) s, host continuation ([0-9.]+) s")
+
+
+def tpu_summary(report: dict, exit_code: int, log_text: str) -> dict:
+    """What EXPECTED_ANALYZE_TPU holds of a run, from its report and its
+    log (the port's or the JAX package's: their frontier lines read
+    alike)."""
+    return {**analyze_summary(report, exit_code),
+            "frontier": [[int(forks), int(faults), int(materialized),
+                          int(deferred)] for forks, faults, materialized,
+                         deferred in FRONTIER_LINE.findall(log_text)]}
+
+
+class LogLines(logging.Handler):
+    """Collects the messages of the records it handles."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def analyze_tpu_run(name: str) -> tuple:
+    """One of ANALYZE_TPU_RUNS through the port's CLI entry point in this
+    process (`cli.main`, so that its kernel launches count here), from
+    what a fresh process starts from, on the device `frontier.configure`
+    names. Its
+    report and a record: exit code, host wall seconds, explored states,
+    solver queries and seconds, the launches, and per transaction the
+    frontier's counters and its device and host phases' seconds."""
+    from mythril_tpu_torch.analysis.security import reset_callback_modules
+    from mythril_tpu_torch.core.plugin.loader import LaserPluginLoader
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.support.support_args import args
+
+    # what a fresh process starts from: the symbol counters, the detection
+    # modules' issues, the plugins and the analyzer's arguments
+    fresh_host_engine()
+    reset_callback_modules()
+    LaserPluginLoader().reset()
+    args._init_defaults()
+    before = dict(ops.LAUNCHES)
+    lines, root = LogLines(), logging.getLogger()
+    level = root.level
+    root.addHandler(lines)
+    root.setLevel(logging.INFO)
+    out = io.StringIO()
+    start = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            exit_code = cli.main(["-v", "4", *analyze_tpu_argv(name)])
+    finally:
+        root.removeHandler(lines)
+        root.setLevel(level)
+        args._init_defaults()
+    wall = time.perf_counter() - start
+    log_text = "\n".join(lines.lines)
+    if exit_code not in (0, 1):
+        raise AssertionError(f"analyze_tpu {name}: exit {exit_code}: "
+                             f"{log_text[-2000:]}")
+    report = json.loads(out.getvalue())
+    solver = SOLVER_LINE.findall(log_text)
+    states = STATES_LINE.findall(log_text)
+    phases = PHASES_LINE.findall(log_text)
+    summary = tpu_summary(report, exit_code, log_text)
+    if len(states) != 1 or len(solver) != 1 \
+            or len(phases) != len(summary["frontier"]):
+        raise AssertionError(f"analyze_tpu {name}: no states, solver or "
+                             f"frontier lines in its log")
+    frontier_runs = [
+        {"forks": counts[0], "fault_ins": counts[1],
+         "materialized": counts[2], "deferred": counts[3],
+         "lane_steps": int(steps), "chunks": int(chunks),
+         "device_phase_s": float(device_s), "host_continuation_s":
+         float(host_s)}
+        for counts, (steps, chunks, device_s, host_s)
+        in zip(summary["frontier"], phases)]
+    return report, summary, {
+        "phase": "analyze_tpu", "run": name, "exit": exit_code,
+        "clock": "host", "host_wall_s": wall, "states": int(states[0]),
+        "solver_queries": int(solver[0][0]),
+        "host_solver_s": float(solver[0][1]),
+        "incomplete": bool(report.get("incomplete")),
+        "frontier": frontier_runs,
+        "launches": {key: ops.LAUNCHES[key] - before[key]
+                     for key in ops.LAUNCHES}}
+
+
+def check_analyze_tpu(name: str, summary: dict) -> None:
+    """Raise unless one of ANALYZE_TPU_RUNS gave its EXPECTED_ANALYZE_TPU."""
+    if summary != EXPECTED_ANALYZE_TPU[name]:
+        raise AssertionError(f"analyze_tpu {name}: {summary}, the JAX CLI "
+                             f"{EXPECTED_ANALYZE_TPU[name]}")
+
+
+def phase_analyze_tpu() -> dict:
+    """The port's `analyze --engine tpu` end to end on the card:
+    ANALYZE_TPU_RUNS held to EXPECTED_ANALYZE_TPU; one line a run. Returns
+    the phase's kernel launches."""
+    frontier.configure()
+    launches = {name: 0 for name in ops.LAUNCHES}
+    handed_over = 0
+    for name in ANALYZE_TPU_RUNS:
+        report, summary, record = analyze_tpu_run(name)
+        if record["incomplete"]:
+            raise AssertionError(f"analyze_tpu {name}: the budget ran out")
+        check_analyze_tpu(name, summary)
+        emit({**record, "issues": summary["issues"]})
+        for key, count in record["launches"].items():
+            launches[key] += count
+        handed_over += sum(tx["materialized"] for tx in record["frontier"])
+    missing = [key for key in ("arena_alloc", "gather_rows", "pack_rows",
+                               "sym_step") if not launches[key]]
+    if missing:
+        raise AssertionError(f"analyze_tpu: no launch of {missing}")
+    if not handed_over:
+        raise AssertionError("analyze_tpu: no live lane handed over")
+    return launches
+
+
 def sat_solve(solve, *args, **kwargs) -> dict:
     """One entry-point call with the launch counts zeroed just before and
     read just after, each chunk's stream time (CUDA events around
@@ -4050,16 +4301,17 @@ def main() -> int:
     facade = phase_host_solver()
     phase_host_engine(dev)
     phase_analyze()
+    main_path_launches.append(phase_analyze_tpu())
     sat_launches, sat_profiled = phase_sat_lane(dev, facade)
     main_path_launches += [sat_launches, phase_sat_batch(dev, facade)]
     for counts in main_path_launches:
         for name, count in counts.items():
             launches[name] += count
     # K3 runs on the main path folded into K4's steps and K10's passes
-    # (one count a step and a pass); no standalone call is left there
+    # (one count a step and a pass), and standalone for the host-term
+    # leaves of analyze_tpu's seeds and fault-ins
     folded = launches["arena_alloc_step"] + launches["arena_alloc_merge"]
-    idle = sorted(name for name, count in launches.items()
-                  if count == 0 and name != "arena_alloc")
+    idle = sorted(name for name, count in launches.items() if count == 0)
     if idle or not folded:
         raise AssertionError(f"kernels the main-path phases never ran: {idle}"
                              f" (K3 folded: {folded})")

@@ -8,12 +8,13 @@ engine (parallel/) steps thousands of lanes in lockstep against the same
 instruction semantics; `--engine tpu` routes exploration there with this engine as
 the semantic referee.
 
-The port's copy of mythril_tpu/core/svm.py. Two seams raise until their
-modules are ported: `engine="tpu"` without a `fleet_gate` (the single-contract
-driver `execute_message_call_tpu`, ROADMAP A 7), and a `checkpoint_path` or
-`resume_path` (support/checkpoint.py pickles the worklist beside the
-device frontier's checkpoint, ROADMAP A 7). Without a path, the worklist
-runs exactly as the reference's does."""
+The port's copy of mythril_tpu/core/svm.py. `engine="tpu"` without a
+`fleet_gate` hands each message-call transaction to the single-contract
+device driver `parallel/frontier.execute_message_call_tpu`, on the device
+`frontier.configure` names (the card by default: `sym_exec` raises before
+exploring anything when there is none). A `checkpoint_path` or
+`resume_path` raises until support/checkpoint.py is ported (ROADMAP A 7b);
+without one the worklist runs exactly as the reference's does."""
 
 from __future__ import annotations
 
@@ -53,12 +54,6 @@ class SVMError(Exception):
     pass
 
 
-def _tpu_engine_unported() -> None:
-    raise NotImplementedError(
-        "engine='tpu' needs the single-contract device driver "
-        "execute_message_call_tpu: ROADMAP A 7")
-
-
 class LaserEVM:
     """Worklist symbolic virtual machine."""
 
@@ -82,7 +77,7 @@ class LaserEVM:
             raise NotImplementedError(
                 "host checkpoints and resume need support/checkpoint.py, "
                 "which pickles the worklist beside the device frontier's "
-                "checkpoint: ROADMAP A 7")
+                "checkpoint: ROADMAP A 7b")
         #: the transaction being explored (the coverage of a partial report)
         self._current_tx_index = 0
         #: set when the global analysis deadline fired mid-exploration: the
@@ -146,7 +141,10 @@ class LaserEVM:
         if pre_configuration_mode == scratch_mode:
             raise SVMError("need exactly one of (world_state, target) | creation code")
         if self.engine == "tpu" and getattr(self, "fleet_gate", None) is None:
-            _tpu_engine_unported()
+            # no card, no exploration: never a host or CPU run in its place
+            from ..parallel import frontier
+
+            frontier.resolve_device()
 
         self._start_time = datetime.now()
         for hook in self._start_sym_exec_hooks:
@@ -219,7 +217,11 @@ class LaserEVM:
                         # device phase for all packed contracts at once
                         gate(self, address, func_hashes=hashes)
                     else:
-                        _tpu_engine_unported()
+                        from ..parallel.frontier import \
+                            execute_message_call_tpu
+
+                        execute_message_call_tpu(self, address,
+                                                 func_hashes=hashes)
                 else:
                     execute_message_call(self, address, func_hashes=hashes)
             for hook in self._stop_sym_trans_hooks:

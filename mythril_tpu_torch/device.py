@@ -10,12 +10,14 @@ from typing import Optional, Union
 
 import torch
 
+from .exceptions import DeviceUnavailable
+
 
 def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The torch.device an entry point should place its tensors on."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceUnavailable(
             "mythril_tpu_torch: a CUDA device was requested but "
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch versions")

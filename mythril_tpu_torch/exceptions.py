@@ -1,6 +1,8 @@
 """Framework-wide exception hierarchy (capability parity: mythril/exceptions.py).
 
-The port's copy of mythril_tpu/exceptions.py, unchanged.
+The port's copy of mythril_tpu/exceptions.py, with `DeviceUnavailable`
+added (the port's entry points run on the CUDA card and raise it when there
+is none).
 """
 
 
@@ -38,3 +40,7 @@ class DetectorNotFoundError(MythrilTpuBaseException):
 
 class IllegalArgumentError(ValueError, MythrilTpuBaseException):
     """Bad argument to a framework API."""
+
+
+class DeviceUnavailable(RuntimeError):
+    """The CUDA card was asked for and there is none."""

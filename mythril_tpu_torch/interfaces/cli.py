@@ -13,11 +13,13 @@ the batched interpreter.
 The port's copy of mythril_tpu/interfaces/cli.py: `analyze`/`a`,
 `safe-functions`, `disassemble`/`d`, `list-detectors`, `function-to-hash`,
 `hash-to-address` and `version`, with the reference's arguments and
-defaults (`--engine host` and the CDCL solver). The other subcommands exit
-with code 2 and the ROADMAP item that ports them, and so does every input
-whose path is not ported (`--engine tpu`, `--fleet`, `--solver jax`,
-`--checkpoint`/`--resume`, `--metrics-out`/`--trace-out`, `-a`/`--rpc`,
-Solidity files), before any contract is analyzed. The extension discovery
+defaults (`--engine host` and the CDCL solver). `--engine tpu` explores each
+message call on the CUDA card (`parallel/frontier.execute_message_call_tpu`)
+and exits 2 before any contract is analyzed when there is no card. The
+other subcommands exit with code 2 and the ROADMAP item that ports them,
+and so does every input whose path is not ported (`--fleet`, `--solver
+jax`, `--checkpoint`/`--resume`, `--metrics-out`/`--trace-out`,
+`-a`/`--rpc`, Solidity files), before any contract is analyzed. The extension discovery
 of third-party plugins is not booted (ROADMAP A 14)."""
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def _add_analysis_args(parser: argparse.ArgumentParser) -> None:
                               "measurement; --engine tpu only)")
     options.add_argument("--engine", default="host", choices=["host", "tpu"],
                          help="exploration engine: host worklist, or the "
-                              "device frontier (not ported: ROADMAP A 7)")
+                              "device frontier on the CUDA card")
     options.add_argument("--fleet", action="store_true",
                          help="pack every loaded contract into one device "
                               "frontier (not ported: ROADMAP A 11)")
@@ -113,10 +115,10 @@ def _add_analysis_args(parser: argparse.ArgumentParser) -> None:
     options.add_argument("--checkpoint", default=None, metavar="PATH",
                          help="periodically snapshot the analysis so a "
                               "killed run can --resume (not ported: "
-                              "ROADMAP A 7)")
+                              "ROADMAP A 7b)")
     options.add_argument("--resume", default=None, metavar="PATH",
                          help="resume a killed analysis from --checkpoint "
-                              "state (not ported: ROADMAP A 7)")
+                              "state (not ported: ROADMAP A 7b)")
     options.add_argument("--inject-fault", default=None,
                          metavar="CLASS[:NTH]",
                          help="deterministic fault injection for resilience "
@@ -346,9 +348,11 @@ def main(argv=None) -> int:
     # the extension discovery of mythril_tpu/plugin/ (third-party
     # plugins under the mythril_tpu.plugins entry-point group) is not
     # ported: ROADMAP A 14
+    from ..exceptions import DeviceUnavailable
+
     try:
         return _dispatch(parser, cli_args, __version__)
-    except NotImplementedError as error:
+    except (NotImplementedError, DeviceUnavailable) as error:
         print(f"myth-tpu-torch: {error}", file=sys.stderr)
         return 2
 

@@ -6,9 +6,12 @@ exactly once here, mirroring the reference's flow :66-85).
 The port's copy of mythril_tpu/mythril/mythril_analyzer.py. `fire_lasers` turns
 an exception inside a contract's analysis into a traceback in the report,
 so the seams the port has not ported raise here, in the constructor,
-before any contract is analyzed: `engine="tpu"` (ROADMAP A 7), `fleet`
-(A 11), `solver="jax"` (A 10), a checkpoint or resume path (A 7), and a
-metrics or trace file (A 14). The knob reads of the metrics and trace
+before any contract is analyzed: `fleet` (ROADMAP A 11), `solver="jax"`
+(A 10), a checkpoint or resume path (A 7b), and a metrics or trace file
+(A 14). So does `engine="tpu"` without the device that
+`parallel/frontier.configure` names (the CUDA card unless a test names the
+CPU): `device.DeviceUnavailable`, never an analysis on the host or the CPU
+in its place. The knob reads of the metrics and trace
 paths are gone with them, and so is the fleet path. Each contract's
 explored states are logged beside its solver statistics (INFO), where
 chip_smoke.py's `analyze` phase reads them."""
@@ -50,6 +53,10 @@ class MythrilAnalyzer:
         self.create_timeout = getattr(cmd, "create_timeout", 10)
         self.max_depth = getattr(cmd, "max_depth", 128)
         self.engine = getattr(cmd, "engine", "host") or "host"
+        if self.engine == "tpu":
+            from ..parallel import frontier
+
+            frontier.resolve_device()
         self.disable_dependency_pruning = getattr(
             cmd, "disable_dependency_pruning", False)
         self.custom_modules_directory = getattr(
@@ -203,12 +210,10 @@ class MythrilAnalyzer:
 #: the analyzer's inputs whose paths the port has not ported: (attribute,
 #: value that takes the path, what it needs, ROADMAP item)
 _UNPORTED = (
-    ("engine", "tpu", "the single-contract device driver "
-     "execute_message_call_tpu", "A 7"),
     ("fleet", True, "the fleet driver FleetDriver/FleetMember", "A 11"),
     ("solver", "jax", "the batched device SAT dispatch", "A 10"),
-    ("checkpoint", None, "support/checkpoint.py", "A 7"),
-    ("resume", None, "support/checkpoint.py", "A 7"),
+    ("checkpoint", None, "support/checkpoint.py", "A 7b"),
+    ("resume", None, "support/checkpoint.py", "A 7b"),
     ("metrics_out", None, "the port's metric registry", "A 14"),
     ("trace_out", None, "the port's span tracer", "A 14"),
 )

@@ -1,4 +1,4 @@
-"""Expression arena, device half (port of mythril_tpu/parallel/arena.py:1-163).
+"""Expression arena (port of mythril_tpu/parallel/arena.py).
 
 A symbolic word on the device is one int32: an index into append-only arena
 tables. Building an expression is a scatter write plus a bump of the
@@ -14,8 +14,11 @@ tensors they run the `*_reference` twins.
 `HostArena` is the host mirror of the arena tables (arena.py:209-298): only
 rows allocated since the last refresh cross to the host, in power-of-two
 buckets, and the copy of a drain overlaps the next chunk (pinned buffers,
-non-blocking copies, one CUDA event). Term conversion (`to_term`) needs the
-SMT layer and is not ported yet."""
+non-blocking copies, one CUDA event). `HostArena.to_term` turns a mirrored
+node into a term of the port's SMT layer (arena.py:300-435): variable leaves
+come from a `TxContext` (arena.py:479-544), named as the host engine names
+them, and device-executed ADD/SUB/MUL/EXP carry the integer detector's
+`OverUnderflowAnnotation` at a `_DeviceArithSite` (458-476)."""
 
 from __future__ import annotations
 
@@ -198,6 +201,17 @@ def fetch_delta(arena: Arena, start: int, cstart: int, bucket: int,
 #: a key for each HostArena, naming its staging among K8's plans
 _MIRROR_KEYS = itertools.count()
 
+#: arena op byte -> terms constructor name for binary BV ops (arena.py:169)
+_BINOP = {
+    0x01: "bvadd", 0x02: "bvmul", 0x03: "bvsub", 0x04: "bvudiv",
+    0x05: "bvsdiv", 0x06: "bvurem", 0x07: "bvsrem",
+    0x16: "bvand", 0x17: "bvor", 0x18: "bvxor",
+}
+_SHIFTS = {0x1B: "bvshl", 0x1C: "bvlshr", 0x1D: "bvashr"}
+_CMP = {0x10: ("bvult", False), 0x11: ("bvult", True),   # LT, GT(swap)
+        0x12: ("bvslt", False), 0x13: ("bvslt", True),   # SLT, SGT(swap)
+        0x14: ("eq", False)}                             # EQ
+
 
 class HostArena:
     """Incrementally mirrored host copy of the arena tables (numpy, in the
@@ -219,6 +233,8 @@ class HostArena:
                                    dtype=np.uint32)
         self.n = 0
         self.n_const = 0
+        #: (node, id(ctx)) -> term: a node converts once per seeding context
+        self._memo: Dict[tuple, object] = {}
         self._var_memo: Dict[int, set] = {}
         self._key = next(_MIRROR_KEYS)
         self._in_flight = [None, None]  # the handle holding each slot
@@ -297,6 +313,141 @@ class HostArena:
                 consts[coff:coff + cdelta]
             self.n_const = used_const
 
+    def to_term(self, node_id: int, ctx: "TxContext"):
+        """Arena node -> BitVec of the port's SMT layer, via ctx's variable
+        leaves."""
+        from ..smt import BitVec
+
+        result = self._convert(int(node_id), ctx)
+        assert isinstance(result, BitVec)
+        return result
+
+    def _convert(self, node_id: int, ctx: "TxContext"):
+        from ..smt import BitVec, symbol_factory
+        from ..smt import terms as T
+
+        memo = self._memo
+        key = (node_id, id(ctx))  # var leaves differ per seeding context
+        hit = memo.get(key)
+        if hit is not None:
+            return hit
+        op = int(self.op[node_id])
+        if op == CONST:
+            value = words.to_ints(self.const_vals[int(self.imm[node_id])])
+            result = symbol_factory.BitVecVal(int(value), 256)
+        elif op == VAR:
+            result = ctx.var(int(self.imm[node_id]), int(self.imm2[node_id]))
+        else:
+            ca = self._convert(int(self.a[node_id]), ctx) \
+                if self.a[node_id] else None
+            cb = self._convert(int(self.b[node_id]), ctx) \
+                if self.b[node_id] else None
+            # detector taint (OriginAnnotation etc.) flows through wrapper
+            # annotations as in host execution (smt/bitvec.py ops)
+            annotations = set()
+            for child in (ca, cb):
+                if child is not None:
+                    annotations |= child.annotations
+
+            def bv(term):
+                return BitVec(term, annotations)
+
+            if op in _BINOP:
+                raw = T.bv_binop(_BINOP[op], ca.raw, cb.raw)
+                if op in (0x04, 0x05, 0x06, 0x07):
+                    # EVM division semantics: x/0 = 0, x%0 = 0 (SMT-LIB
+                    # gives all-ones / x; the host's guard: instructions.py
+                    # div_)
+                    raw = T.ite(T.bv_cmp("eq", cb.raw, T.bv_const(0, 256)),
+                                T.bv_const(0, 256), raw)
+                result = bv(raw)
+                if op in (0x01, 0x02, 0x03):
+                    # the integer detector's source hook fires at host
+                    # ADD/SUB/MUL; device-executed arithmetic gets the same
+                    # marker here (the site address rides in imm2)
+                    self._attach_overflow_annotation(
+                        op, result, ca, cb, int(self.imm2[node_id]), ctx)
+            elif op in _SHIFTS:
+                # EVM shift operand order: (shift, value)
+                result = bv(T.bv_binop(_SHIFTS[op], cb.raw, ca.raw))
+            elif op in _CMP:
+                kind, swap = _CMP[op]
+                left, right = (cb, ca) if swap else (ca, cb)
+                cond = T.bv_cmp(kind, left.raw, right.raw)
+                result = bv(T.ite(cond, T.bv_const(1, 256),
+                                  T.bv_const(0, 256)))
+            elif op == 0x15:  # ISZERO
+                cond = T.bv_cmp("eq", ca.raw, T.bv_const(0, 256))
+                result = bv(T.ite(cond, T.bv_const(1, 256),
+                                  T.bv_const(0, 256)))
+            elif op == 0x19:  # NOT
+                result = bv(T.bv_not(ca.raw))
+            elif op == 0x1A:  # BYTE(i, x): i = child a, x = child b
+                shift = T.bv_binop(
+                    "bvmul",
+                    T.bv_binop("bvsub", T.bv_const(31, 256), ca.raw),
+                    T.bv_const(8, 256))
+                shifted = T.bv_binop("bvlshr", cb.raw, shift)
+                result = bv(T.bv_binop("bvand", shifted,
+                                       T.bv_const(0xFF, 256)))
+            elif op == 0x0B:  # SIGNEXTEND(size=a, value=b)
+                size = ca.raw
+                if size.is_const and size.value < 32:
+                    bits = 8 * (size.value + 1)
+                    result = bv(T.sext(T.extract(bits - 1, 0, cb.raw),
+                                       256 - bits))
+                else:
+                    result = cb
+            elif op == 0x0A:  # EXP -> the host Power UF
+                from ..core.function_managers import \
+                    exponent_function_manager
+
+                result, _ = exponent_function_manager.create_condition(ca, cb)
+                self._attach_overflow_annotation(
+                    op, result, ca, cb, int(self.imm2[node_id]), ctx)
+            elif op == 0x0F:  # internal: ite(cond=a, then=b, else=c)
+                cc = self._convert(int(self.c[node_id]), ctx)
+                cond = T.bool_not(T.bv_cmp("eq", ca.raw, T.bv_const(0, 256)))
+                result = bv(T.ite(cond, cb.raw, cc.raw))
+            else:
+                raise ValueError(f"arena node {node_id}: unknown op {op:#x}")
+        memo[key] = result
+        return result
+
+    @staticmethod
+    def _attach_overflow_annotation(op: int, result, ca, cb, address: int,
+                                    ctx) -> None:
+        """Device-executed ADD/SUB/MUL/EXP: attach the integer detector's
+        OverUnderflowAnnotation as the host pre-hook would
+        (analysis/modules/integer.py _handle_add/_handle_sub/_handle_mul),
+        at a light site that carries the address and environment."""
+        from ..analysis.modules.integer import OverUnderflowAnnotation
+        from ..smt import (BVAddNoOverflow, BVMulNoOverflow,
+                           BVSubNoUnderflow, Not, UGT, symbol_factory)
+
+        if ca.raw.is_const and cb.raw.is_const:
+            return
+        if op == 0x01:
+            operator = "addition"
+            constraint = Not(BVAddNoOverflow(ca, cb, False))
+        elif op == 0x03:
+            operator = "subtraction"
+            constraint = Not(BVSubNoUnderflow(ca, cb, False))
+        elif op == 0x0A:
+            if ca.raw.is_const and ca.raw.value < 2:
+                return
+            operator = "exponentiation"
+            constraint = UGT(cb, symbol_factory.BitVecVal(255, 256))
+        else:
+            if (ca.raw.is_const and ca.raw.value < 2) or \
+                    (cb.raw.is_const and cb.raw.value < 2):
+                return
+            operator = "multiplication"
+            constraint = Not(BVMulNoOverflow(ca, cb, False))
+        result.annotate(OverUnderflowAnnotation(
+            _DeviceArithSite(ctx.environment, address), operator,
+            constraint))
+
     def var_classes(self, node_id: int) -> set:
         """All VAR classes reachable from node_id (arena.py:437)."""
         hit = self._var_memo.get(node_id)
@@ -315,3 +466,90 @@ class HostArena:
                               int(self.c[node])))
         self._var_memo[int(node_id)] = classes
         return classes
+
+
+class _DeviceArithSite:
+    """Light stand-in for the GlobalState at a device-executed arithmetic
+    instruction: what the integer detector reads from
+    annotation.overflowing_state (the environment, the site address, empty
+    constraints for the pre-check)."""
+
+    class _WorldView:
+        def __init__(self):
+            from ..core.state.constraints import Constraints
+
+            self.constraints = Constraints()
+
+    def __init__(self, environment, address: int):
+        self.environment = environment
+        self.world_state = self._WorldView()
+        self._address = address
+
+    def get_current_instruction(self):
+        return {"address": self._address, "opcode": "ARITH"}
+
+
+class TxContext:
+    """Variable leaves for one (open state, transaction) seeding, named as
+    the host engine names them so materialized states interoperate."""
+
+    def __init__(self, tx_id: str, calldata, environment):
+        self.tx_id = tx_id
+        self.calldata = calldata          # SymbolicCalldata
+        self.environment = environment    # host Environment
+        self.host_terms: list = []        # V_HOST_TERM leaves (BitVec)
+        #: (var_class, qualifier) -> BitVec: each lane allocates its own VAR
+        #: node per occurrence, so the node memo misses across lanes, and
+        #: calldata.get_word_at builds a 32-byte If-chain each call
+        self._var_cache: dict = {}
+
+    def var(self, var_class: int, qualifier: int):
+        key = (var_class, qualifier)
+        hit = self._var_cache.get(key)
+        if hit is None:
+            hit = self._var_cache[key] = self._var(var_class, qualifier)
+        return hit
+
+    def _var(self, var_class: int, qualifier: int):
+        from ..smt import symbol_factory
+
+        env = self.environment
+        if var_class == V_CALLDATA_WORD:
+            return self.calldata.get_word_at(qualifier)
+        if var_class == V_CALLDATASIZE:
+            return self.calldata.calldatasize
+        if var_class == V_CALLER:
+            return env.sender
+        if var_class == V_ORIGIN:
+            # the taint the host's origin_ handler attaches, so the TxOrigin
+            # detector fires on materialized states too
+            from ..analysis.modules.dependence_on_origin import \
+                OriginAnnotation
+
+            origin = env.origin
+            if not list(origin.get_annotations(OriginAnnotation)):
+                origin.annotate(OriginAnnotation())
+            return origin
+        if var_class == V_CALLVALUE:
+            return env.callvalue
+        if var_class == V_GASPRICE:
+            return env.gasprice
+        if var_class == V_BASEFEE:
+            return env.basefee
+        if var_class == V_HOST_TERM:
+            return self.host_terms[qualifier]
+        # block attributes: the host's naming (instructions.py,
+        # GlobalState.new_bitvec prefixes the tx id)
+        name = {V_TIMESTAMP: "timestamp", V_NUMBER: "block_number",
+                V_COINBASE: "coinbase", V_PREVRANDAO: "prevrandao"}.get(
+                    var_class)
+        if name is not None:
+            from ..analysis.modules.dependence_on_predictable_vars import \
+                PredictableValueAnnotation
+
+            operation = ("block.timestamp" if var_class == V_TIMESTAMP
+                         else f"block.{name}".replace("block.block_", "block."))
+            value = symbol_factory.BitVecSym(f"{self.tx_id}_{name}", 256)
+            value.annotate(PredictableValueAnnotation(operation))
+            return value
+        raise ValueError(f"unknown var class {var_class}")

@@ -1,6 +1,5 @@
-"""The frontier's drain loop, device half (port of
-mythril_tpu/parallel/frontier.py:66-390, 706-747, 914-1014, 1068-1363,
-1481-1531, 1616-1848, 2378-2435).
+"""The frontier driver (port of mythril_tpu/parallel/frontier.py:66-2579,
+without checkpoints and the fleet).
 
 `DeviceFrontier.run` loops `symstep.run_chunk` and, between chunks, does what
 the JAX driver does with the device's output:
@@ -8,14 +7,15 @@ the JAX driver does with the device's output:
   1. reads ONE packed summary vector (scheduler scalars, escape-row maxima,
      lane status, fork condition, context id) — the chunk's only blocking
      read besides what a drain needs;
-  2. packs lanes frozen ESCAPED (escape buffer full) off to the deferred
+  2. hands cold-SLOAD pauses to its `service_cold` hook;
+  3. packs lanes frozen ESCAPED (escape buffer full) off to the deferred
      queue and frees them;
-  3. spills half the waiting forkers to the host overflow tier when the
+  4. spills half the waiting forkers to the host overflow tier when the
      frontier deadlocks with the sibling stack full;
-  4. bulk-drains the escape buffer into packed host rows and mirrors the
+  5. bulk-drains the escape buffer into packed host rows and mirrors the
      new arena rows, both copied to the host while the next chunk runs;
-  5. reseeds host overflow rows into DEAD lanes once the stack is empty;
-  6. decodes the telemetry words at the summary's end into per-chunk
+  6. reseeds host overflow rows into DEAD lanes once the stack is empty;
+  7. decodes the telemetry words at the summary's end into per-chunk
      deltas, and runs a merge pass (`symstep.merge_pass`) when the merge
      tags' occupancy or the chunk cadence says so.
 
@@ -37,24 +37,31 @@ PyTorch twins (`*_reference`) on CPU tensors:
   K10 `symstep.merge_pass`              kernels/merge_pass.cu
   K12 `steal_pass`                      kernels/steal_pass.cu
 
-What the host does with the drained rows (materializing GlobalStates of
-the port's host engine, cold-SLOAD fault-ins) is the single-contract
-driver's, which is not ported (ROADMAP A 7): drained rows wait in
-`deferred` as [rows_state, rows_planes, count, cursor] blocks, and a
-cold-SLOAD pause goes to a caller-given `service_cold` hook.
-`LoopHintAnnotation` rides on such materialized states. The
-static tables that tag merge points and bound the widened memory merge
-are built by the port's static analysis (`static_tables`, from
-`staticanalysis/` through `smt/solver/cfa_screen.py` and
-`analysis/module_screen.py`) when `seed` sees the codes, unless the caller
-hands them in. The fleet driver (per-member budgets, deadline drains) and
-checkpoints are not ported (ROADMAP A 11, 7): a caller hands in the
-seeds' owners and the fleet slots."""
+`Frontier`, the single-contract driver's host half, extends it: it seeds
+from the host engine's GlobalStates (`build_seed_templates`; symbolic
+storage values become host-term leaves, one standalone K3 allocation
+each), serves cold-SLOAD pauses (one K7 gather, host fault-ins of
+Select(base, key), one K7 scatter), materializes drained rows into the
+laser's worklist (`make_feeder`, lazily, as the host's exec loop asks),
+and runs under the host's execution budget, dropping what is left when it
+is spent. `execute_message_call_tpu` is what `core/svm.py` calls for each
+message-call transaction under `engine="tpu"`; `configure` sets its lanes,
+chunk, step budget, escape-time pruning, host-drain skip and device (the
+card unless a test names the CPU). The static tables that tag merge
+points and bound the widened memory merge are built by the port's static
+analysis (`static_tables`, from `staticanalysis/` through
+`smt/solver/cfa_screen.py` and `analysis/module_screen.py`) when `seed`
+sees the codes, unless the caller hands them in. The fleet driver
+(per-member budgets, deadline drains) and checkpoints are not ported
+(ROADMAP A 11, 7b): a fleet caller hands `DeviceFrontier` the seeds'
+owners and the fleet slots."""
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import time
+from copy import copy
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -72,6 +79,8 @@ from .batch import (DEAD, ESCAPED, FORKING, RUNNING, U32_FIELDS, LaneSpec,
                     row_views, shard_count)
 from .symstep import SymPlanes
 
+log = logging.getLogger(__name__)
+
 I32 = torch.int32
 I64 = torch.int64
 
@@ -83,6 +92,10 @@ CHUNK = 64
 MAX_STEPS = 4_096
 #: device lanes (seeds + fork capacity)
 DEFAULT_LANES = 128
+#: share of the execution budget left at its start that the single-contract
+#: driver's device phase may take; the rest is the host continuation's
+#: (MYTHRIL_TPU_DEVICE_FRAC's default)
+DEVICE_FRAC = 0.85
 #: per-lane path-constraint capacity (conds plane)
 MAX_CONDS = 64
 #: telemetry tag slots (frontier.py:751)
@@ -1011,8 +1024,7 @@ class DeviceFrontier:
         while steps < self.max_steps:
             if arena_n > self.arena.capacity - headroom:
                 break
-            if deadline_s is not None \
-                    and time.monotonic() - phase_start > deadline_s:
+            if self.out_of_time(phase_start, deadline_s):
                 break
             state, planes, self.arena, sched = symstep.run_chunk(
                 state, planes, self.arena, sched, chunk)
@@ -1043,8 +1055,9 @@ class DeviceFrontier:
             if len(cold):
                 if self.service_cold is None:
                     raise NotImplementedError(
-                        "a cold-SLOAD pause needs the frontier's fault-in "
-                        "service _service_cold: ROADMAP A 7")
+                        "a cold-SLOAD pause needs a service_cold hook "
+                        "(the single-contract driver's is "
+                        "Frontier._service_cold)")
                 self._harena(arena_n, arena_nc)
                 state, planes = self.service_cold(
                     self, state, planes, status, [int(l) for l in cold])
@@ -1111,6 +1124,19 @@ class DeviceFrontier:
                     and not self.pending:
                 self._flush_backlog(backlog)
                 return
+        self.finish(state, planes, sched, backlog)
+
+    def out_of_time(self, phase_start: float,
+                    deadline_s: Optional[float]) -> bool:
+        """Whether the device phase ends before the next chunk: `deadline_s`
+        seconds after `phase_start` (time.monotonic)."""
+        return deadline_s is not None \
+            and time.monotonic() - phase_start > deadline_s
+
+    def finish(self, state: StateBatch, planes: SymPlanes,
+               sched: symstep.DeviceScheduler, backlog) -> None:
+        """The budget ran out with the tree not drained: land the last
+        drain, then `hand_over` what is left."""
         self._flush_backlog(backlog)
         self.hand_over(state, planes, sched)
 
@@ -1259,10 +1285,12 @@ class DeviceFrontier:
         if count:
             self.deferred.append([rows_state, rows_planes, count, 0])
 
-    def _spill_host(self, state, planes, status, lanes: List[int]) -> None:
-        """Full rows of `lanes` to the host overflow tier (frontier.py:1726):
-        one gather into a flat buffer and one copy of it to the host; the
-        lanes go DEAD on the host."""
+    def _gather_host(self, state, planes, lanes):
+        """Full rows of `lanes` on the host: one K7 gather into a flat
+        buffer (the index padded to a power of two with lanes[0]) and one
+        copy of it. Returns (host buffer, slabs, state rows, plane rows),
+        the rows numpy views of the buffer keyed by field, limbs as
+        uint32."""
         index = np.asarray(lanes, dtype=np.int64)
         padded = np.full(next_pow2(len(index)), index[0], dtype=np.int64)
         padded[:len(index)] = index
@@ -1275,6 +1303,25 @@ class DeviceFrontier:
                               else array)
                       for field, array in zip(StateBatch._fields, arrays)}
         rows_planes = dict(zip(SymPlanes._fields, arrays[n_state:]))
+        return hosts[0], slabs, rows_state, rows_planes
+
+    def _scatter_host(self, state, planes, host: torch.Tensor, slabs,
+                      index: np.ndarray):
+        """Row i of the flat host row block to lane index[i], in place: one
+        copy to the device and one K7 scatter (indices outside the lanes
+        are dropped)."""
+        views = row_views(host.to(self.device, non_blocking=True), slabs)
+        n_state = len(StateBatch._fields)
+        return scatter_rows(state, planes, self._index(index),
+                            StateBatch(*views[:n_state]),
+                            SymPlanes(*views[n_state:]))
+
+    def _spill_host(self, state, planes, status, lanes: List[int]) -> None:
+        """Full rows of `lanes` to the host overflow tier (frontier.py:1726);
+        the lanes go DEAD on the host."""
+        index = np.asarray(lanes, dtype=np.int64)
+        _, _, rows_state, rows_planes = self._gather_host(state, planes,
+                                                          index)
         for row in range(len(index)):
             self.pending.append((
                 {field: rows_state[field][row] for field in rows_state},
@@ -1305,11 +1352,7 @@ class DeviceFrontier:
         for (part, field), view in zip(fields, row_views(host, slabs)):
             rows = np.stack([entry[part][field] for entry in take])
             view.numpy().view(rows.dtype)[:count] = rows
-        views = row_views(host.to(self.device, non_blocking=True), slabs)
-        n_state = len(StateBatch._fields)
-        state, planes = scatter_rows(
-            state, planes, self._index(index),
-            StateBatch(*views[:n_state]), SymPlanes(*views[n_state:]))
+        state, planes = self._scatter_host(state, planes, host, slabs, index)
         for position, lane in enumerate(lanes):
             status[lane] = int(take[position][0]["status"])
         self.reseeded += count
@@ -1387,3 +1430,679 @@ class DeviceFrontier:
                 {field: value[None] for field, value in row_planes.items()},
                 1, 0])
         del self.pending[:]
+
+
+# ---- the single-contract driver ---------------------------------------------------
+
+#: the driver's settings (`configure`)
+_settings: dict = {}
+
+
+def configure(lanes: int = DEFAULT_LANES, chunk: int = CHUNK,
+              max_steps: int = MAX_STEPS, check_escapes: bool = False,
+              skip_host_drain: bool = False, device=None) -> None:
+    """Set what `execute_message_call_tpu` runs with; what a call does not
+    name takes its default, the JAX knob's (mythril_tpu/support/
+    tpu_config.py:38-55: MYTHRIL_TPU_LANES, CHUNK, MAX_STEPS,
+    CHECK_ESCAPES, SKIP_HOST_DRAIN). `device` None is the card; "cpu" runs
+    the plain twins (tests)."""
+    _settings.update(lanes=lanes, chunk=chunk, max_steps=max_steps,
+                     check_escapes=check_escapes,
+                     skip_host_drain=skip_host_drain, device=device)
+
+
+def reset() -> None:
+    """Restore the default settings."""
+    configure()
+
+
+configure()
+
+
+def resolve_device() -> torch.device:
+    """The configured device (`device.resolve`: the card unless `configure`
+    named the CPU; raises without a card)."""
+    return _device.resolve(_settings["device"])
+
+
+class LaneContext(A.TxContext):
+    """Seeding context: one (open world state, transaction) pair
+    (frontier.py:482-491)."""
+
+    def __init__(self, tx_id: str, calldata, environment, template):
+        super().__init__(tx_id, calldata, environment)
+        self.template = template
+
+
+class MergeTagAnnotation(StateAnnotation):
+    """Rides on materialized lanes whose basic block reconverges at a
+    static post-dominator pc (frontier.py:494-505)."""
+
+    __slots__ = ("merge_pc",)
+
+    def __init__(self, merge_pc: int):
+        self.merge_pc = merge_pc
+
+    def __copy__(self):
+        return MergeTagAnnotation(self.merge_pc)
+
+
+def storage_entries(storage) -> Tuple[List[Tuple[int, object]], bool]:
+    """`_storage_entries` (frontier.py:522-555): walk the storage store
+    chain into ((concrete key, BitVec value) pairs, base is symbolic),
+    latest store first. A symbolic key stops the walk there: the stores
+    above it seed the table, and it and everything below become the
+    symbolic base that cold SLOADs fault in from. A base other than the
+    zero constant array is symbolic."""
+    from ..smt import BitVec
+
+    node = storage._standard_storage.raw
+    entries: Dict[int, object] = {}
+    while node.op == "store":
+        key, value = node.args[1], node.args[2]
+        if not key.is_const:
+            return list(entries.items()), True
+        entries.setdefault(key.value, BitVec(value))
+        node = node.args[0]
+    if node.op == "const_array":
+        return list(entries.items()), not (node.args[0].is_const
+                                           and node.args[0].value == 0)
+    return list(entries.items()), True
+
+
+def annotation_class_bits(value) -> int:
+    """The arena class bits of a host term's detector annotations
+    (frontier.py:1041-1052): origin or predictable taint carried through
+    storage must still stop a dependent JUMPI on the device."""
+    from ..analysis.modules.dependence_on_origin import OriginAnnotation
+    from ..analysis.modules.dependence_on_predictable_vars import \
+        PredictableValueAnnotation
+
+    bits = 0
+    for annotation in getattr(value, "annotations", ()):
+        if isinstance(annotation, OriginAnnotation):
+            bits |= 1 << A.V_ORIGIN
+        elif isinstance(annotation, PredictableValueAnnotation):
+            bits |= 1 << A.V_TIMESTAMP
+    return bits
+
+
+class Frontier(DeviceFrontier):
+    """The host half of `_Frontier` (frontier.py:558-2435) over the device
+    half: seeding from host GlobalStates with symbolic storage values as
+    host-term leaves, the cold-SLOAD fault-in service, materialization of
+    drained rows into the laser's worklist, the execution budget and the
+    hand-over. Telemetry and state merging follow the port's `args`
+    (`--no-frontier-telemetry`, `--no-state-merge`), the window table
+    `cfa_screen.absint_enabled()`, as the JAX frontier reads them."""
+
+    def __init__(self, laser_evm, n_lanes: int = DEFAULT_LANES, device=None,
+                 chunk: int = CHUNK, max_steps: int = MAX_STEPS,
+                 check_escapes: bool = False):
+        from ..support.support_args import args
+
+        super().__init__(
+            n_lanes, device=device, chunk=chunk, max_steps=max_steps,
+            service_cold=type(self)._service_cold,
+            telemetry=getattr(args, "frontier_telemetry", True),
+            state_merge=getattr(args, "state_merge", True))
+        self.laser = laser_evm
+        #: escape-time pruning (MYTHRIL_TPU_CHECK_ESCAPES), off by default:
+        #: the host engine's JUMPI is optimistic, so feasibility is decided
+        #: where the host decides it, at issue time
+        self.check_escapes = check_escapes
+        self.contexts: List[LaneContext] = []
+        self.materialized = 0
+        self.infeasible = 0
+        self.faults = 0  # cold-SLOAD fault-ins serviced
+        #: (signed cond id, ctx index) -> Bool (see _cond_bools)
+        self._cond_memo: Dict[Tuple[int, int], object] = {}
+
+    # -- seeding ------------------------------------------------------------------------
+
+    def seed(self, templates) -> Tuple[StateBatch, SymPlanes]:
+        """One lane per template (frontier.py:914-989): its code, concrete
+        storage table, symbolic base, gas limit and address; symbolic
+        storage values enter as host-term leaves in `storage_sym`."""
+        specs = []
+        for template in templates:
+            entries, base_sym = storage_entries(
+                template.environment.active_account.storage)
+            code_hex = template.environment.code.bytecode
+            code = bytes.fromhex(code_hex[2:] if code_hex.startswith("0x")
+                                 else code_hex)
+            # symbolic-valued slots enter the table with a 0 placeholder so
+            # the slot exists; storage_sym overlays the leaf
+            table = {key: (value.raw.value if value.raw.is_const else 0)
+                     for key, value in entries}
+            specs.append((template, entries, (
+                code, table, base_sym, int(template.mstate.gas_limit),
+                template.environment.address.raw.value)))
+        state, planes = super().seed([spec for _, _, spec in specs])
+        placed = []  # (lane, slot, node) of each host-term leaf
+        for lane, (template, entries, _) in zip(
+                self.assign_seed_lanes(len(specs)), specs):
+            tx, _ = template.transaction_stack[-1]
+            ctx = LaneContext(str(tx.id), template.environment.calldata,
+                              template.environment, template)
+            code = template.environment.code
+            cfa_screen.warm(code)
+            module_screen.warm(code)
+            self.contexts.append(ctx)
+            for key, value in entries:
+                if value.raw.is_const:
+                    continue
+                node = self._alloc_host_term(ctx, value)
+                if node is None:
+                    continue
+                slot = self._storage_slot_of(state, lane, key)
+                if slot is not None:
+                    placed.append((lane, slot, node))
+        if placed:
+            lanes, slots, nodes = (torch.tensor(column, device=self.device)
+                                   for column in zip(*placed))
+            planes.storage_sym[lanes, slots] = nodes.to(I32)
+        return state, planes
+
+    def _alloc_host_term(self, ctx: LaneContext, value) -> Optional[int]:
+        """Park a host BitVec as a V_HOST_TERM arena leaf (frontier.py:
+        1016-1038): one K3 allocation, then the leaf's class bits widened by
+        the term's detector annotations. None when the arena is full."""
+        ctx.host_terms.append(value)
+        want = torch.ones(1, dtype=torch.bool, device=self.device)
+        _, node, overflow = A.alloc_rows(
+            self.arena, want, A.VAR, 0, 0, 0, A.V_HOST_TERM,
+            len(ctx.host_terms) - 1)
+        node, overflow = (int(v) for v in torch.stack(
+            [node[0], overflow[0].to(I32)]).cpu())
+        if overflow:
+            return None
+        bits = annotation_class_bits(value)
+        if bits:
+            self.arena.cls[node:node + 1].bitwise_or_(bits)
+        return node
+
+    @staticmethod
+    def _storage_slot_of(state: StateBatch, lane: int, key: int
+                         ) -> Optional[int]:
+        used = state.storage_used[lane].cpu().numpy()
+        keys = state.storage_keys[lane].cpu().numpy()
+        for slot in range(used.shape[0]):
+            if used[slot] and int(words.to_ints(keys[slot])) == key:
+                return slot
+        return None
+
+    # -- the budget -----------------------------------------------------------------------
+
+    def run(self, state: StateBatch, planes: SymPlanes) -> None:
+        """The drain loop under the execution budget (frontier.py:1154-1172):
+        it ends when the host's budget has 1 s or less left, or after
+        DEVICE_FRAC of the time left at its start."""
+        from ..core.time_handler import time_handler
+
+        super().run(state, planes,
+                    time_handler.time_remaining() * DEVICE_FRAC / 1000)
+
+    def out_of_time(self, phase_start: float,
+                    deadline_s: Optional[float]) -> bool:
+        from ..core.time_handler import time_handler
+
+        if time_handler.time_remaining() <= 1000:  # ms
+            log.info("execution budget exhausted; ending device phase")
+            return True
+        if super().out_of_time(phase_start, deadline_s):
+            log.info("device budget fraction (%.0f%%) consumed; the host "
+                     "continuation takes over", DEVICE_FRAC * 100)
+            return True
+        return False
+
+    def finish(self, state, planes, sched, backlog) -> None:
+        """With no budget left the last drain is not landed: its rows drop
+        like the host's mid-worklist states (frontier.py:1357-1363)."""
+        from ..core.time_handler import time_handler
+
+        if time_handler.time_remaining() > 1000:
+            self._flush_backlog(backlog)
+        self.hand_over(state, planes, sched)
+
+    def hand_over(self, state: StateBatch, planes: SymPlanes,
+                  sched: Optional[symstep.DeviceScheduler] = None) -> None:
+        """`_hand_over_running` (frontier.py:2378-2435): with the budget
+        spent, drop the live lanes and the backlog, marking the laser
+        timed out; else materialize the live lanes straight into the
+        worklist, and defer the pools' used rows and the host overflow
+        rows."""
+        from ..core.time_handler import time_handler
+
+        status = state.status.cpu().numpy()
+        live = np.nonzero((status == RUNNING) | (status == FORKING)
+                          | (status == ESCAPED))[0]
+        pools = []
+        if sched is not None:
+            pools = [(sched.stack_state, sched.stack_planes,
+                      sched.stack_top.cpu().numpy()),
+                     (sched.esc_state, sched.esc_planes,
+                      sched.esc_count.cpu().numpy())]
+        backlog = len(self.pending) + sum(int(np.sum(used))
+                                          for _, _, used in pools)
+        if not len(live) and not backlog:
+            return
+        if time_handler.time_remaining() <= 1000:
+            log.info("execution budget exhausted with %d live lanes + %d "
+                     "backlog rows; dropping them (host-timeout parity)",
+                     len(live), backlog)
+            self.laser.timed_out = True
+            self.laser.dropped_states = getattr(
+                self.laser, "dropped_states", 0) + len(live) + backlog
+            return
+        harena = self._harena()
+        if len(live):
+            self._materialize_lanes(state, planes, harena, live)
+        for pool_state, pool_planes, used in pools:
+            index = pool_used_indices(used, pool_state.status.shape[0])
+            if len(index):
+                self._defer_lanes(pool_state, pool_planes, index)
+        for row_state, row_planes in self.pending:
+            self.deferred.append([
+                {field: value[None] for field, value in row_state.items()},
+                {field: value[None] for field, value in row_planes.items()},
+                1, 0])
+        del self.pending[:]
+
+    # -- the cold-SLOAD service -----------------------------------------------------------
+
+    def _service_cold(self, state: StateBatch, planes: SymPlanes, status,
+                      cold: List[int]) -> Tuple[StateBatch, SymPlanes]:
+        """Fault-in service for cold-SLOAD pauses (frontier.py:1881-1908):
+        one K7 gather of the lanes' rows (padded to a power of two with
+        index[0]) and its copy to the host, the fault-ins on the host rows,
+        then one K7 scatter back (pad rows sent to the drop index)."""
+        host, slabs, state_rows, planes_rows = self._gather_host(
+            state, planes, cold)
+        for row, lane in enumerate(cold):
+            self._cold_sload_lane(state_rows, planes_rows, self.harena,
+                                  status, int(lane), row)
+        index = np.full(next_pow2(len(cold)), self.n_lanes,
+                        dtype=np.int32)  # pad rows: dropped
+        index[:len(cold)] = cold
+        return self._scatter_host(state, planes, host, slabs, index)
+
+    def _cold_sload_lane(self, state_np, planes_np, harena, status,
+                         lane: int, row: int) -> None:
+        """Fault one storage slot into a lane's table (frontier.py:
+        1910-1955): the lane paused at an SLOAD whose concrete key misses
+        the table on a symbolic base. The template's storage gives
+        Select(base, key) or a known value, parked as a host-term leaf (a
+        fault-in is a read: the slot stays clean), and the lane resumes. A
+        full table or arena hands the lane to the host instead."""
+        from ..smt import symbol_factory
+
+        ctx = self.contexts[int(planes_np["ctx_id"][row])]
+        sp = int(state_np["sp"][row])
+        key = int(words.to_ints(state_np["stack"][row, sp - 1]))
+        free = np.nonzero(~state_np["storage_used"][row])[0]
+        if not len(free):
+            self._materialize_np(state_np, planes_np, harena, row)
+            status[lane] = DEAD
+            return
+        slot = int(free[0])
+        account = ctx.template.environment.active_account
+        value = account.storage[symbol_factory.BitVecVal(key, 256)]
+        state_np["storage_keys"][row, slot] = words.from_int(key)
+        state_np["storage_used"][row, slot] = True
+        if value.raw.is_const:
+            state_np["storage_vals"][row, slot] = words.from_int(
+                value.raw.value)
+            planes_np["storage_sym"][row, slot] = 0
+        else:
+            node = self._alloc_host_term(ctx, value)
+            if node is None:
+                # node 0 would read as concrete: the host takes the lane
+                state_np["storage_used"][row, slot] = False
+                self._materialize_np(state_np, planes_np, harena, row)
+                status[lane] = DEAD
+                return
+            planes_np["storage_sym"][row, slot] = node
+        planes_np["storage_dirty"][row, slot] = False
+        self.faults += 1
+        status[lane] = RUNNING
+
+    # -- materialization ------------------------------------------------------------------
+
+    def _cond_bools(self, planes_np, harena, lane: int) -> list:
+        """Signed condition ids -> Bools, memoized per (id, context)
+        (frontier.py:1957-1977): siblings share long condition prefixes."""
+        from ..smt import Bool
+        from ..smt import terms as T
+
+        ctx_index = int(planes_np["ctx_id"][lane])
+        ctx = self.contexts[ctx_index]
+        memo = self._cond_memo
+        bools = []
+        for position in range(int(planes_np["cond_count"][lane])):
+            signed = int(planes_np["conds"][lane, position])
+            key = (signed, ctx_index)
+            cached = memo.get(key)
+            if cached is None:
+                word = harena.to_term(abs(signed), ctx)
+                is_zero = T.bv_cmp("eq", word.raw, T.bv_const(0, 256))
+                cached = Bool(T.bool_not(is_zero) if signed > 0
+                              else is_zero)
+                memo[key] = cached
+            bools.append(cached)
+        return bools
+
+    def _prefetch_feasibility(self, planes_np, rows, state_np=None) -> None:
+        """With `check_escapes`, queue the feasibility queries of a slab of
+        rows before they materialize one by one (frontier.py:1979-2036,
+        one group: no fleet). Rows on a statically dead pc are skipped; a
+        failure only means the rows solve one at a time."""
+        if not self.check_escapes:
+            return
+        from ..core.state.constraints import Constraints
+        from ..support.model import prefetch_models
+
+        sets = []
+        for row in rows:
+            if int(planes_np["cond_count"][row]) <= 0:
+                continue
+            ctx = self.contexts[int(planes_np["ctx_id"][row])]
+            if state_np is not None and cfa_screen.statically_dead(
+                    ctx.template.environment.code, int(state_np["pc"][row])):
+                continue
+            constraints = Constraints(
+                list(ctx.template.world_state.constraints)
+                + self._cond_bools(planes_np, self.harena, row))
+            sets.append(tuple(constraints.get_all_constraints()))
+        if not sets:
+            return
+        try:
+            prefetch_models(sets)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as error:
+            log.debug("feasibility prefetch failed (%r); rows solve "
+                      "individually", error)
+
+    def _feasible(self, planes_np, harena, lane: int) -> bool:
+        """A row's path conditions satisfiable (frontier.py:2038-2059); a
+        solver timeout or failure keeps the row."""
+        from ..core.state.constraints import Constraints
+        from ..exceptions import SolverTimeOutException, UnsatError
+        from ..support.model import get_model
+
+        ctx = self.contexts[int(planes_np["ctx_id"][lane])]
+        constraints = Constraints(
+            list(ctx.template.world_state.constraints)
+            + self._cond_bools(planes_np, harena, lane))
+        try:
+            get_model(tuple(constraints.get_all_constraints()))
+            return True
+        except SolverTimeOutException:
+            return True  # a budget is not infeasibility
+        except UnsatError:
+            return False
+        except Exception:
+            return True
+
+    def _materialize_np(self, state_np, planes_np, harena, lane: int) -> None:
+        """One host row into a GlobalState of the template, appended to the
+        laser's worklist (frontier.py:2063-2210): pc index (off the end is
+        STOP), stack, the memory bytes that need a term, the dirty storage
+        slots, path conditions, the integer detector's harvest, the last
+        jump, merge and loop tags, gas and depth."""
+        from ..smt import Extract, symbol_factory
+
+        ctx = self.contexts[int(planes_np["ctx_id"][lane])]
+        if self.check_escapes and int(planes_np["cond_count"][lane]) > 0 \
+                and not self._feasible(planes_np, harena, lane):
+            self.infeasible += 1
+            return
+        template = ctx.template
+        global_state = copy(template)
+        mstate = global_state.mstate
+
+        byte_pc = int(state_np["pc"][lane])
+        disassembly = global_state.environment.code
+        index = disassembly.index_of_address(byte_pc)
+        if index is None:
+            if byte_pc >= int(state_np["code_len"][lane]):
+                # off the code end: the host's fetch treats it as STOP
+                index = len(disassembly.instruction_list)
+            else:
+                log.warning("materialize: pc %d not on an instruction "
+                            "boundary", byte_pc)
+                return
+        mstate.pc = index
+
+        sp = int(state_np["sp"][lane])
+        mstate.stack.clear()
+        for slot in range(sp):
+            node = int(planes_np["stack_sym"][lane, slot])
+            if node:
+                mstate.stack.append(harena.to_term(node, ctx))
+            else:
+                value = int(words.to_ints(state_np["stack"][lane, slot]))
+                mstate.stack.append(symbol_factory.BitVecVal(value, 256))
+
+        # memory: only the bytes that need a term (symbolic markers and
+        # nonzero concrete bytes)
+        msize = int(state_np["msize"][lane])
+        if msize:
+            mstate.mem_extend(0, msize)
+            mem = state_np["memory"][lane][:msize]
+            mem_sym = planes_np["mem_sym"][lane][:msize]
+            for offset in np.nonzero(mem_sym)[0]:
+                marker = int(mem_sym[offset])
+                node, byte_index = marker >> 5, marker & 31
+                word = harena.to_term(node, ctx)
+                high = 255 - 8 * byte_index
+                mstate.memory[int(offset)] = Extract(high, high - 7, word)
+            for offset in np.nonzero((mem_sym == 0) & (mem != 0))[0]:
+                mstate.memory[int(offset)] = symbol_factory.BitVecVal(
+                    int(mem[offset]), 8)
+
+        # storage written on the device (dirty slots only: seeds and
+        # fault-ins are in the template's storage already)
+        account = global_state.environment.active_account
+        used = state_np["storage_used"][lane]
+        dirty = planes_np["storage_dirty"][lane]
+        sink_values = []  # the integer detector's SSTORE/JUMPI sinks
+        for slot in range(used.shape[0]):
+            if not used[slot] or not dirty[slot]:
+                continue
+            key = int(words.to_ints(state_np["storage_keys"][lane, slot]))
+            node = int(planes_np["storage_sym"][lane, slot])
+            if node:
+                value = harena.to_term(node, ctx)
+                sink_values.append(value)
+            else:
+                value = symbol_factory.BitVecVal(
+                    int(words.to_ints(state_np["storage_vals"][lane, slot])),
+                    256)
+            account.storage[symbol_factory.BitVecVal(key, 256)] = value
+
+        for condition in self._cond_bools(planes_np, harena, lane):
+            global_state.world_state.constraints.append(condition)
+        for position in range(int(planes_np["cond_count"][lane])):
+            signed = int(planes_np["conds"][lane, position])
+            sink_values.append(harena.to_term(abs(signed), ctx))
+        if sink_values:
+            from ..analysis.modules.integer import harvest_values
+
+            harvest_values(global_state, sink_values)
+
+        # the exceptions detector keys its dedup cache on the last JUMP
+        last_jump = int(planes_np["last_jump"][lane])
+        if last_jump:
+            from ..analysis.modules.exceptions import LastJumpAnnotation
+
+            global_state.annotate(LastJumpAnnotation(last_jump))
+        merge_pc = cfa_screen.merge_point_at(disassembly, byte_pc)
+        if merge_pc is not None:
+            global_state.annotate(MergeTagAnnotation(merge_pc))
+        loop_header = module_screen.loop_header_at(disassembly, byte_pc)
+        if loop_header is not None:
+            global_state.annotate(LoopHintAnnotation(loop_header))
+
+        # the device tracks the lower-bound gas model
+        gas_used = int(state_np["gas_used"][lane])
+        mstate.min_gas_used += gas_used
+        mstate.max_gas_used += gas_used
+        # depth parity: every JUMPI branch the device took
+        mstate.depth += int(planes_np["branches"][lane])
+
+        self.materialized += 1
+        laser = self.laser
+        if getattr(laser, "requires_statespace", False) and \
+                global_state.node is None:
+            global_state.node = template.node
+        laser.work_list.append(global_state)
+
+    def _materialize_lanes(self, state, planes, harena, lanes) -> None:
+        """The lanes' rows (K6 maxima and pack, one copy) into the worklist
+        (frontier.py:1681-1689)."""
+        rows_state, rows_planes, count = self._fetch_rows(state, planes,
+                                                          lanes)
+        for row in range(count):
+            self._materialize_np(rows_state, rows_planes, harena, row)
+
+    def make_feeder(self, batch_rows: int = 256) -> Callable[[], bool]:
+        """The svm exec loop's refill: materialize up to `batch_rows`
+        deferred rows into the worklist; False when none is left
+        (frontier.py:1827-1848)."""
+        def feeder() -> bool:
+            fed = 0
+            while self.deferred and fed < batch_rows:
+                entry = self.deferred[0]
+                rows_state, rows_planes, count, cursor = entry
+                take = min(count - cursor, batch_rows - fed)
+                self._prefetch_feasibility(rows_planes,
+                                           range(cursor, cursor + take),
+                                           state_np=rows_state)
+                for row in range(cursor, cursor + take):
+                    self._materialize_np(rows_state, rows_planes,
+                                         self.harena, row)
+                entry[3] += take
+                fed += take
+                if entry[3] >= count:
+                    self.deferred.pop(0)
+            return fed > 0
+
+        return feeder
+
+    def undelivered(self) -> int:
+        """Deferred rows not materialized yet."""
+        return sum(entry[2] - entry[3] for entry in self.deferred)
+
+
+def build_seed_templates(laser_evm, callee_address,
+                         func_hashes=None) -> list:
+    """Consume the laser's open states into seed templates
+    (frontier.py:2464-2514): one pending MessageCallTransaction GlobalState
+    per open world state, with the ACTORS caller constraint and the
+    selector restriction applied as on the host path."""
+    from ..core.state.calldata import SymbolicCalldata
+    from ..core.transaction.symbolic import (ACTORS,
+                                             generate_function_constraints)
+    from ..core.transaction.transaction_models import (
+        MessageCallTransaction, get_next_transaction_id)
+    from ..smt import Or, symbol_factory
+
+    open_states = laser_evm.open_states[:]
+    del laser_evm.open_states[:]
+    seeds = []
+    for open_world_state in open_states:
+        if open_world_state[callee_address].deleted:
+            continue
+        next_transaction_id = get_next_transaction_id()
+        external_sender = symbol_factory.BitVecSym(
+            f"sender_{next_transaction_id}", 256)
+        calldata = SymbolicCalldata(next_transaction_id)
+        transaction = MessageCallTransaction(
+            world_state=open_world_state,
+            identifier=next_transaction_id,
+            gas_price=symbol_factory.BitVecSym(
+                f"gas_price{next_transaction_id}", 256),
+            gas_limit=8000000,
+            origin=external_sender,
+            caller=external_sender,
+            callee_account=open_world_state[callee_address],
+            call_data=calldata,
+            call_value=symbol_factory.BitVecSym(
+                f"call_value{next_transaction_id}", 256),
+        )
+        template = transaction.initial_global_state()
+        template.transaction_stack.append((transaction, None))
+        template.world_state.constraints.append(
+            Or(*[transaction.caller == actor
+                 for actor in ACTORS.addresses.values()]))
+        if func_hashes:
+            for constraint in generate_function_constraints(calldata,
+                                                            func_hashes):
+                template.world_state.constraints.append(constraint)
+        if getattr(laser_evm, "requires_statespace", False):
+            laser_evm.new_node_for_transaction(template, transaction)
+        seeds.append(template)
+    return seeds
+
+
+def execute_message_call_tpu(laser_evm, callee_address,
+                             func_hashes=None) -> None:
+    """`core/transaction/symbolic.py:execute_message_call` on the device
+    (frontier.py:2517-2579): seed a frontier from every open state, explore
+    on the device, then run the host continuation over the materialized
+    and deferred rows, where the detectors run unchanged. Settings come
+    from `configure`."""
+    seeds = build_seed_templates(laser_evm, callee_address, func_hashes)
+    if not seeds:
+        laser_evm.exec()
+        return
+    setting = _settings
+    frontier = Frontier(laser_evm,
+                        n_lanes=max(setting["lanes"], 2 * len(seeds)),
+                        device=setting["device"], chunk=setting["chunk"],
+                        max_steps=setting["max_steps"],
+                        check_escapes=setting["check_escapes"])
+    start = time.perf_counter()
+    state, planes = frontier.seed(seeds)
+    frontier.run(state, planes)
+    device_s = time.perf_counter() - start
+    log.info("frontier: %d forks, %d storage fault-ins, %d infeasible "
+             "pruned, %d states materialized + %d deferred for the host "
+             "(arena nodes: %d, stack pushes/pops %d/%d, host "
+             "spills/reseeds %d/%d)",
+             frontier.forks, frontier.faults, frontier.infeasible,
+             frontier.materialized, frontier.undelivered(),
+             int(frontier.arena.n), frontier.stack_pushes,
+             frontier.stack_pops, frontier.spilled, frontier.reseeded)
+    laser_evm.frontier_lane_steps = getattr(
+        laser_evm, "frontier_lane_steps", 0) + frontier.lane_steps
+    laser_evm.frontier_forks = getattr(
+        laser_evm, "frontier_forks", 0) + frontier.forks
+    if setting["skip_host_drain"]:
+        # warm-up aid: the device phase without the host continuation
+        del laser_evm.work_list[:]
+        del frontier.deferred[:]
+        return
+    # deferred rows materialize lazily as the exec loop drains the
+    # worklist: rows the budget never reaches cost nothing
+    laser_evm.frontier_feeder = frontier.make_feeder()
+    start = time.perf_counter()
+    try:
+        laser_evm.exec()
+    finally:
+        laser_evm.frontier_feeder = None
+        dropped = frontier.undelivered()
+        if dropped:
+            log.info("execution budget exhausted with %d deferred frontier "
+                     "rows unmaterialized; dropping them (host-timeout "
+                     "parity)", dropped)
+            laser_evm.timed_out = True
+            laser_evm.dropped_states = getattr(
+                laser_evm, "dropped_states", 0) + dropped
+            del frontier.deferred[:]
+        log.info("frontier phases: %d lanes, %d lane-steps in %d chunks, "
+                 "device phase %.6f s, host continuation %.6f s",
+                 frontier.n_lanes, frontier.lane_steps, frontier.chunks,
+                 device_s, time.perf_counter() - start)

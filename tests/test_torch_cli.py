@@ -15,7 +15,8 @@ database lives under HOME; the port's is in memory).
 - `list-detectors`, `disassemble`, `function-to-hash`, `hash-to-address`
   and `safe-functions` byte for byte;
 - every input and subcommand whose path the port has not ported exits 2,
-  naming its ROADMAP item, before any contract is analyzed;
+  naming its ROADMAP item, before any contract is analyzed, and so does
+  `--engine tpu` without a card, naming the CUDA device;
 - chip_smoke.py's EXPECTED_ANALYZE recomputed from the JAX CLI's reports,
   and its own check of the port's."""
 
@@ -195,11 +196,10 @@ TX_ORIGIN_CODE = creation_hex(chip_smoke.TX_ORIGIN)
 
 #: (arguments, ROADMAP item): every path the port has not ported
 SEAMS = [
-    (["--engine", "tpu"], "A 7"),
     (["--fleet"], "A 11"),
     (["--solver", "jax"], "A 10"),
-    (["--checkpoint", "{tmp}/checkpoint"], "A 7"),
-    (["--resume", "{tmp}/checkpoint"], "A 7"),
+    (["--checkpoint", "{tmp}/checkpoint"], "A 7b"),
+    (["--resume", "{tmp}/checkpoint"], "A 7b"),
     (["--metrics-out", "{tmp}/metrics.json"], "A 14"),
     (["--trace-out", "{tmp}/trace.json"], "A 14"),
     (["--rpc", "localhost:8545"], "A 14"),
@@ -232,6 +232,23 @@ def test_unported_paths_refuse(cli, tmp_path, argv, item):
     proc = cli("port", argv)
     assert proc.returncode == 2, (proc.stdout, proc.stderr)
     assert f"ROADMAP {item}" in proc.stderr
+    assert proc.stdout == ""
+    assert sorted(os.listdir(tmp_path)) == before
+
+
+def test_engine_tpu_without_a_card_refuses(cli, tmp_path):
+    """`--engine tpu` runs on the CUDA card: without one it exits 2 with
+    `device.resolve`'s error, naming the CUDA device, before any contract
+    is analyzed (no report), never on the host or the CPU instead."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: --engine tpu runs on it")
+    before = sorted(os.listdir(tmp_path))
+    proc = cli("port", ["analyze", "-c", TX_ORIGIN_CODE, "-t", "1",
+                        "--engine", "tpu", "-o", "json"])
+    assert proc.returncode == 2, (proc.stdout, proc.stderr)
+    assert "CUDA device" in proc.stderr
     assert proc.stdout == ""
     assert sorted(os.listdir(tmp_path)) == before
 

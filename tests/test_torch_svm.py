@@ -15,12 +15,14 @@ process the pools' order can differ, and each model is then held to its
 own path constraints). Budgets are ones neither side reaches
 (`timed_out` is False on both). tests/test_torch_statespace.py does the
 same for branchy(6); this file also holds chip_smoke.py's
-EXPECTED_HOST_ENGINE and the seams that raise."""
+EXPECTED_HOST_ENGINE, `engine="tpu"` through the device driver on the
+CPU configuration (and its refusal without a card), and the seams that
+raise."""
 
 import pytest
 
-from _torch_engine import (JAX, PORT, check_statespace, fresh, run_on,
-                           statespace_counts)
+from _torch_engine import (BUDGET_S, CONTRACTS, JAX, PORT, check_statespace,
+                           fresh, run_on, statespace_counts)
 from chip_smoke import EXPECTED_HOST_ENGINE, HOST_ENGINE_RUNS, host_engine_run
 
 
@@ -47,17 +49,55 @@ def test_chip_smoke_constants_are_the_jax_statespace():
             assert got["states"] == want["states"]
 
 
-def test_tpu_engine_raises_until_the_device_driver_is_ported():
-    """engine="tpu" without a fleet gate needs execute_message_call_tpu
-    (ROADMAP A 7): sym_exec raises before it explores anything."""
+def tpu_explore(side) -> dict:
+    """KILLBILLY's creation and two transactions through
+    `LaserEVM(engine="tpu")` (the device driver at 16 lanes)."""
+    runtime = side.asm.assemble(side.asm.dispatcher(CONTRACTS["killbilly"]))
+    laser = side.svm.LaserEVM(max_depth=128, execution_timeout=BUDGET_S,
+                              create_timeout=BUDGET_S, transaction_count=2,
+                              engine="tpu")
+    laser.sym_exec(creation_code=side.asm.creation_wrapper(runtime).hex(),
+                   contract_name="killbilly")
+    return {"states": laser.total_states, "nodes": len(laser.nodes),
+            "open": len(laser.open_states), "forks": laser.frontier_forks,
+            "lane_steps": laser.frontier_lane_steps,
+            "timed_out": laser.timed_out}
+
+
+def test_tpu_engine_explores_on_the_cpu_configuration(monkeypatch):
+    """engine="tpu" hands each message call to the device driver; with
+    `frontier.configure(device="cpu")` it runs the plain twins and explores
+    as the JAX package's LaserEVM(engine="tpu") does."""
+    from mythril_tpu_torch.parallel import frontier
+
+    monkeypatch.setenv("MYTHRIL_TPU_LANES", "16")
+    frontier.configure(lanes=16, device="cpu")
+    try:
+        got = run_on(PORT, tpu_explore)
+    finally:
+        frontier.reset()
+    assert got == run_on(JAX, tpu_explore)
+    assert got["forks"] > 0 and got["open"] > 0 and not got["timed_out"]
+
+
+def test_tpu_engine_without_a_card_raises():
+    """Without a card and without `frontier.configure`, sym_exec raises
+    `device.resolve`'s error before it explores anything: never a run on
+    the host or the CPU in its place."""
+    import torch
+
+    from mythril_tpu_torch.exceptions import DeviceUnavailable
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the device driver runs on it")
     fresh(PORT)
     laser = PORT.svm.LaserEVM(engine="tpu")
     world_state = PORT.state.WorldState()
     account = world_state.create_account(balance=1, address=None)
-    with pytest.raises(NotImplementedError, match="A 7"):
+    with pytest.raises(DeviceUnavailable, match="CUDA"):
         laser.sym_exec(world_state=world_state,
                        target_address=account.address.value)
-    with pytest.raises(NotImplementedError, match="A 7"):
+    with pytest.raises(DeviceUnavailable, match="CUDA"):
         laser.sym_exec(creation_code="00", contract_name="x")
     assert laser.total_states == 0 and laser.nodes == {}
     assert laser.open_states == []
@@ -82,7 +122,7 @@ def test_fleet_gate_seam_stays():
 @pytest.mark.parametrize("path", ["checkpoint_path", "resume_path"])
 def test_checkpoints_raise_until_the_detectors_are_ported(path):
     """support/checkpoint.py pickles the worklist beside the device
-    frontier's checkpoint (ROADMAP A 7): a checkpoint or resume path raises
-    instead of running without one."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A 7"):
+    frontier's checkpoint (ROADMAP A 7b): a checkpoint or resume path
+    raises instead of running without one."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A 7b"):
         PORT.svm.LaserEVM(**{path: "/nonexistent/checkpoint.pkl"})
