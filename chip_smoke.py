@@ -19,7 +19,9 @@ decided the same queries on the host (phase 20a), its host engine has
 explored two contracts and held K1 and K2 to its interpreter (phase 20b),
 its `analyze` CLI has analyzed three contracts end to end with
 --engine host (phase 20c) and four with --engine tpu on the card (phase
-20d).
+20d), four more with the device SAT lane deciding the solver's queries on
+K11 (--solver jax, phase 20e), and a killed analysis and a device drive
+have resumed from their checkpoints (phase 20f).
 Every phase prints one JSON line; any mismatch raises, and the run exits
 non-zero. Each frontier* phase drives its
 configuration once more with every summary the loop reads (K5 and its
@@ -212,6 +214,38 @@ copy to the host) held word for word to the twin on the same tensors
      forks, fault-ins, rows materialized and deferred, lane-steps, chunks
      and its device and host phases' seconds. It fails unless it
      launched standalone K3 and K7 and handed a live lane over;
+20e. analyze_jax, on the card: 20d's runs but SPIN with `--solver jax
+     --device-crosscheck 1` (the batch dispatch, smt/solver/dispatch.py,
+     onto `solve_cnf_device(_batch)` and K11 at the lane's defaults: 32
+     probes, chunk 256; every device verdict re-decided on the host
+     CDCL), each exit code and issue held to EXPECTED_ANALYZE_TPU (the
+     solver changes no verdict), then KILLBILLY's runtime code once more
+     with escape-time pruning (`frontier.configure(check_escapes=True)`),
+     whose slab queues its rows' feasibility queries on the dispatch; a
+     line a run with 20d's fields and the lane's counters: queries
+     submitted, flushes and their mean occupancy, cache and dedup hits,
+     verdicts decided on the card and left UNKNOWN (the CDCL decides
+     those), cross-checks, K11 launches and graph captures, and the
+     seconds in flushes against the rest of the solver's. It fails on a
+     classified device failure, a divergence, a breaker that left CLOSED,
+     or when K11 never launched or decided nothing;
+20f. resume_tpu, each analysis in this process: (a) `analyze --engine tpu
+     --checkpoint P` on KILLBILLY (2 transactions), a save every 5 popped
+     host states, killed at the 10th by `--inject-fault host_crash:10`
+     (mid-way through the second transaction's host continuation, after a
+     periodic save); `--resume P` must give EXPECTED_ANALYZE_TPU's exit
+     and issues; (c) LATE_GUARD's runtime code (a cold SLOAD's host-term
+     leaf guarding a kill 1,200 steps later), its device phase killed
+     right after the first periodic save, which holds the leaf; `--resume
+     P` loads `P.device.npz` in `Frontier.run` (host terms unpickled,
+     contract ids and transaction checked, the host mirror rebuilt from
+     row 0 through K8) and must give the uninterrupted run's report; (b)
+     SPIN's device drive (128 lanes, the escape buffer drained every
+     chunk) saved to its .npz after 16 chunks, loaded into a fresh
+     DeviceFrontier (seeded, then `load_checkpoint`) and continued: after
+     16 more chunks its state, planes and arena are bit for bit the
+     uninterrupted drive's after 32, and its first chunk is a new graph
+     capture;
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -226,8 +260,9 @@ copy to the host) held word for word to the twin on the same tensors
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
      state after the first chunk, verdicts and models as in phase 21;
  23. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 18, 19, 20d, 21, 22; K3's are its allocations folded into
-     K4's steps and K10's passes and its standalone calls in 20d), its
+     12, 13, 18, 19, 20d-20f, 21, 22; K3's are its allocations folded
+     into K4's steps and K10's passes and its standalone calls in 20d-20f;
+     K11's from the analyzer, 20e, also on their own), its
      time, its plain version's time, the least time the card could take
      and the library call's time (K11's per step).
 
@@ -249,6 +284,7 @@ import subprocess
 import sys
 import tarfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -3972,14 +4008,15 @@ class LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def analyze_tpu_run(name: str) -> tuple:
+def analyze_tpu_run(name: str, extra=(), argv=None) -> tuple:
     """One of ANALYZE_TPU_RUNS through the port's CLI entry point in this
     process (`cli.main`, so that its kernel launches count here), from
     what a fresh process starts from, on the device `frontier.configure`
     names. Its
     report and a record: exit code, host wall seconds, explored states,
     solver queries and seconds, the launches, and per transaction the
-    frontier's counters and its device and host phases' seconds."""
+    frontier's counters and its device and host phases' seconds. `extra`
+    arguments follow the run's own; `argv` replaces them."""
     from mythril_tpu_torch.analysis.security import reset_callback_modules
     from mythril_tpu_torch.core.plugin.loader import LaserPluginLoader
     from mythril_tpu_torch.interfaces import cli
@@ -3991,7 +4028,7 @@ def analyze_tpu_run(name: str) -> tuple:
     reset_callback_modules()
     LaserPluginLoader().reset()
     args._init_defaults()
-    before = dict(ops.LAUNCHES)
+    before, replays = dict(ops.LAUNCHES), dict(ops.REPLAYS)
     lines, root = LogLines(), logging.getLogger()
     level = root.level
     root.addHandler(lines)
@@ -4000,7 +4037,8 @@ def analyze_tpu_run(name: str) -> tuple:
     start = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
-            exit_code = cli.main(["-v", "4", *analyze_tpu_argv(name)])
+            exit_code = cli.main(["-v", "4", *(argv or analyze_tpu_argv(name)),
+                                  *extra])
     finally:
         root.removeHandler(lines)
         root.setLevel(level)
@@ -4035,7 +4073,9 @@ def analyze_tpu_run(name: str) -> tuple:
         "incomplete": bool(report.get("incomplete")),
         "frontier": frontier_runs,
         "launches": {key: ops.LAUNCHES[key] - before[key]
-                     for key in ops.LAUNCHES}}
+                     for key in ops.LAUNCHES},
+        "replays": {key: ops.REPLAYS[key] - replays[key]
+                    for key in ops.REPLAYS}}
 
 
 def check_analyze_tpu(name: str, summary: dict) -> None:
@@ -4068,6 +4108,358 @@ def phase_analyze_tpu() -> dict:
     if not handed_over:
         raise AssertionError("analyze_tpu: no live lane handed over")
     return launches
+
+
+#: the analyze_jax phase's runs: ANALYZE_TPU_RUNS without SPIN, under the
+#: device SAT lane with every device verdict held to the host CDCL
+ANALYZE_JAX_RUNS = tuple(name for name in ANALYZE_TPU_RUNS if name != "spin")
+SOLVER_JAX = ("--solver", "jax", "--device-crosscheck", "1")
+
+
+def lane_record(stats) -> dict:
+    """The device SAT lane's counters of one analysis (SolverStatistics):
+    queries submitted, flushes and their mean occupancy, cache and dedup
+    hits, verdicts the device decided and left UNKNOWN, cross-checks,
+    divergences, the host oracle's answers that failed their own clauses
+    (ROADMAP C) and how many of those a second ask (unit clauses first)
+    proved UNSAT, classified failures, and the seconds inside flushes."""
+    flushes = stats.batch_flushes
+    return {"submitted": stats.batch_submitted, "flushes": flushes,
+            "mean_occupancy": (stats.batch_flushed_queries / flushes
+                               if flushes else 0.0),
+            "cache_hits": stats.batch_cache_hits,
+            "dedup_hits": stats.batch_dedup_hits,
+            "device_queries": stats.device_queries,
+            "device_decided": stats.device_solved,
+            "unknown": stats.device_fallbacks,
+            "skipped": stats.device_skipped,
+            "crosschecks": stats.crosschecks,
+            "divergences": stats.divergences,
+            "oracle_faults": stats.oracle_faults,
+            "oracle_confirmed": stats.oracle_confirmed,
+            "failures": dict(stats.failure_counts),
+            "flush_s": stats.batch_device_time}
+
+
+def check_lane(name: str, lane: dict) -> None:
+    """Raise if the device lane failed, diverged or left its breaker, or if
+    a device UNSAT stood on the host oracle's faulty answer without a
+    second witness."""
+    from mythril_tpu_torch.support import resilience
+
+    state = resilience.registry.backend(resilience.DEVICE).state
+    if lane["failures"] or lane["divergences"] or lane["skipped"] \
+            or state != resilience.CLOSED \
+            or lane["oracle_confirmed"] != lane["oracle_faults"]:
+        raise AssertionError(f"analyze_jax {name}: failures "
+                             f"{lane['failures']}, divergences "
+                             f"{lane['divergences']}, oracle faults "
+                             f"{lane['oracle_faults']} of which confirmed "
+                             f"{lane['oracle_confirmed']}, breaker {state}")
+
+
+def phase_analyze_jax() -> dict:
+    """The port's `analyze --engine tpu --solver jax --device-crosscheck 1`
+    on the card: ANALYZE_JAX_RUNS held to EXPECTED_ANALYZE_TPU's exits and
+    issues (the solver changes no verdict; what the device leaves UNKNOWN
+    the CDCL decides), every device verdict cross-checked on the host;
+    then KILLBILLY's runtime code once more with escape-time pruning, whose
+    slab queues its rows' feasibility queries on the dispatch. One line a
+    run; returns the phase's kernel launches."""
+    launches = {name: 0 for name in ops.LAUNCHES}
+    decided = 0
+    runs = [(name, {}) for name in ANALYZE_JAX_RUNS] \
+        + [("killbilly_runtime", {"check_escapes": True})]
+    for name, settings in runs:
+        frontier.configure(**settings)
+        try:
+            report, summary, record = analyze_tpu_run(name, SOLVER_JAX)
+        finally:
+            frontier.configure()
+        lane = lane_record(SolverStatistics())
+        if record["incomplete"]:
+            raise AssertionError(f"analyze_jax {name}: the budget ran out")
+        want = EXPECTED_ANALYZE_TPU[name]
+        if (summary["exit"], summary["issues"]) != (want["exit"],
+                                                    want["issues"]):
+            raise AssertionError(f"analyze_jax {name}: {summary}, the JAX "
+                                 f"CLI {want}")
+        check_lane(name, lane)
+        lane["k11_launches"] = record["launches"]["sat_step"]
+        lane["sat_captures"] = record["replays"]["sat_captures"]
+        lane["cdcl_and_host_s"] = record["host_solver_s"] - lane["flush_s"]
+        decided += lane["device_decided"]
+        emit({**record, "phase": "analyze_jax", "settings": settings,
+              "solver": "jax", "issues": summary["issues"], "lane": lane})
+        for key, count in record["launches"].items():
+            launches[key] += count
+    if not launches["sat_step"] or not decided:
+        raise AssertionError(f"analyze_jax: K11 launched "
+                             f"{launches['sat_step']} times, the device "
+                             f"decided {decided} queries")
+    return launches
+
+
+#: the killed analysis of resume_tpu (a): a save every 5 popped host states,
+#: KILLBILLY's 10th popped state kills it (3 in the first transaction's
+#: host continuation, so the kill lands mid-way through the second's, after
+#: a periodic save)
+KILL_AT = 10
+CHECKPOINT_STATES = 5
+#: resume_tpu (c): runtime code whose cold SLOAD faults in a host-term
+#: leaf that guards a kill 1,200 straight-line steps later, so that the
+#: drive's first periodic save (16 chunks of 64: 1,024 steps) holds the
+#: leaf on a lane's stack before the guard forks. KILLBILLY's runtime drive
+#: faults in only after its one save, and SPIN's holds no leaf
+LATE_GUARD = {
+    "kill()": "PUSH1 0x00\nSLOAD\n" + "JUMPDEST\n" * 1200 +
+              "PUSH1 0x01\nEQ\nPUSH @do_kill\nJUMPI\nSTOP\n"
+              "do_kill:\nJUMPDEST\nCALLER\nSELFDESTRUCT",
+}
+LATE_GUARD_ARGV = ["analyze", "-c", assemble(dispatcher(LATE_GUARD)).hex(),
+                   "--bin-runtime", "-t", "1", "-o", "json", "--engine", "tpu"]
+#: resume_tpu (b): SPIN's drive saves every 16 chunks; the uninterrupted
+#: drive runs 32, the continuation 16 from the first save
+SAVE_CHUNKS = 16
+
+
+def spin_seeds():
+    return [(assemble(dispatcher(SPIN)), {}, False, 10_000_000, 0)]
+
+
+def saving_drive(dev, path: str, chunks: int, load=None) -> tuple:
+    """SPIN's drive on a DeviceFrontier that saves to `path` every
+    SAVE_CHUNKS chunks (the escape buffer drained every chunk, so a save
+    holds no scheduler rows), `chunks` chunks long; with `load`, the seeded
+    trees are replaced by that .npz's. Returns the frontier, copies of the
+    trees at each save, a copy of the first .npz, the graph captures of
+    the first chunk, and the seeded and driven trees (alive, so that a
+    later drive's tensors cannot take their addresses)."""
+    fr = frontier.DeviceFrontier(LANES, device=dev,
+                                 max_steps=chunks * CHUNK, drain_batch=1)
+    fr.checkpoint_path = path
+    seeded = fr.seed(spin_seeds())
+    state, planes = fr.load_checkpoint(load) if load else seeded
+    saves, first, captures = [], [], []
+    periodic = fr.periodic_checkpoint
+
+    def record(state, planes, sched):
+        periodic(state, planes, sched)
+        saves.append([convert.clone(tree)
+                      for tree in (state, planes, fr.arena)])
+        if not first:
+            with np.load(path + ".npz", allow_pickle=False) as data:
+                first.append({key: data[key] for key in data.files})
+
+    run_chunk = symstep.run_chunk
+
+    def first_chunk(*args, **kwargs):
+        before = ops.REPLAYS["captures"]
+        out = run_chunk(*args, **kwargs)
+        if not captures:
+            captures.append(ops.REPLAYS["captures"] - before)
+        return out
+
+    fr.periodic_checkpoint = record
+    symstep.run_chunk = first_chunk
+    try:
+        fr.run(state, planes)
+        torch.cuda.synchronize()
+    finally:
+        symstep.run_chunk = run_chunk
+    return fr, saves, first, captures, (seeded, state, planes)
+
+
+@contextlib.contextmanager
+def device_phase_kill(saves: list):
+    """`Frontier.periodic_checkpoint` wrapped to kill the analysis with
+    `InjectedCrash` right after its first save that holds a host-term leaf
+    (`--inject-fault host_crash` fires on popped host states only, never
+    inside the device phase); each save's host-term counts go to
+    `saves`."""
+    from mythril_tpu_torch.support import resilience
+
+    periodic = frontier.Frontier.periodic_checkpoint
+
+    def save_then_kill(fr, state, planes, sched):
+        periodic(fr, state, planes, sched)
+        terms = [len(ctx.host_terms) for ctx in fr.contexts]
+        saves.append(terms)
+        if sum(terms):
+            raise resilience.InjectedCrash("killed after a device save")
+
+    with mock.patch.object(frontier.Frontier, "periodic_checkpoint",
+                           save_then_kill):
+        yield
+
+
+@contextlib.contextmanager
+def mirror_watch(seen: dict):
+    """Records each `Frontier.load_checkpoint`'s restored arena rows and
+    host terms, and each host-mirror refresh after it (the mirror's rows
+    before and the rows asked for), into `seen`."""
+    load = frontier.Frontier.load_checkpoint
+    refresh = A.HostArena.refresh_async
+
+    def watched_load(fr, path):
+        out = load(fr, path)
+        seen["loads"].append({"rows": int(fr.arena.n), "mirror": fr.harena,
+                              "host_terms": [len(ctx.host_terms)
+                                             for ctx in fr.contexts]})
+        return out
+
+    def watched_refresh(mirror, arena, used=None, used_const=None):
+        if seen["loads"]:
+            seen["refreshes"].append((id(mirror), mirror.n, used))
+        return refresh(mirror, arena, used, used_const)
+
+    with mock.patch.object(frontier.Frontier, "load_checkpoint",
+                           watched_load), \
+            mock.patch.object(A.HostArena, "refresh_async", watched_refresh):
+        yield
+
+
+def killed_run(name: str, argv: list) -> float:
+    """One analysis in this process, killed by an `InjectedCrash`, the
+    harness's stand-in for kill -9 (it unwinds past every `except
+    Exception`). Returns its seconds; raises if it ended otherwise."""
+    from mythril_tpu_torch.support import resilience
+
+    start = time.perf_counter()
+    try:
+        analyze_tpu_run(name, argv=argv)
+    except resilience.InjectedCrash:
+        return time.perf_counter() - start
+    raise AssertionError(f"resume_tpu: the killed {name} run ended")
+
+
+def phase_resume_tpu(dev) -> dict:
+    """Checkpoint and resume on the card, each analysis in this process.
+    (a) `analyze --engine tpu --checkpoint P` on KILLBILLY (2
+    transactions), killed by `--inject-fault host_crash:KILL_AT` in the
+    host continuation; `--resume P` must give
+    EXPECTED_ANALYZE_TPU["killbilly"]'s exit and issues. (c) LATE_GUARD's
+    device phase killed right after a periodic save that holds a host-term
+    leaf; `--resume P` goes through `Frontier.run`'s load of
+    `P.device.npz` (the host terms unpickled, the contract ids and the
+    transaction checked, the host mirror rebuilt from row 0 through K8)
+    and must give the uninterrupted run's report. (b) SPIN's drive saved
+    after 16 chunks, loaded into a fresh frontier and continued: the
+    continuation's trees after 16 more chunks are bit for bit the
+    uninterrupted drive's after 32, and its first chunk is a new graph
+    capture. Returns the phase's kernel launches."""
+    import shutil
+    import tempfile
+
+    from mythril_tpu_torch.support import checkpoint
+
+    work = tempfile.mkdtemp(prefix="resume_tpu-")
+    try:
+        path = os.path.join(work, "killbilly.ckpt")
+        checkpoint.configure(state_interval=CHECKPOINT_STATES)
+        try:
+            killed_s = killed_run("killbilly", [
+                *analyze_tpu_argv("killbilly"), "--checkpoint", path,
+                "--inject-fault", f"host_crash:{KILL_AT}"])
+        finally:
+            checkpoint.configure()
+        if not os.path.exists(path) or os.path.exists(path + ".tmp"):
+            raise AssertionError("resume_tpu: the killed run left no "
+                                 "checkpoint, or a partial one")
+        report, summary, record = analyze_tpu_run(
+            "killbilly", argv=[*analyze_tpu_argv("killbilly"), "--resume",
+                               path])
+        want = EXPECTED_ANALYZE_TPU["killbilly"]
+        if (summary["exit"], summary["issues"]) != (want["exit"],
+                                                    want["issues"]):
+            raise AssertionError(f"resume_tpu: the resumed run gave "
+                                 f"{summary}, the JAX CLI {want}")
+        launches = dict(record["launches"])
+
+        # (c) the analyzer's device phase killed and resumed
+        _, late_want, late_record = analyze_tpu_run("late_guard",
+                                                    argv=LATE_GUARD_ARGV)
+        late_path = os.path.join(work, "late_guard.ckpt")
+        saves, seen = [], {"loads": [], "refreshes": []}
+        with device_phase_kill(saves):
+            late_killed_s = killed_run("late_guard", [
+                *LATE_GUARD_ARGV, "--checkpoint", late_path])
+        npz = late_path + ".device.npz"
+        if not os.path.exists(npz) or os.path.exists(npz + ".tmp"):
+            raise AssertionError("resume_tpu: the killed device phase left "
+                                 "no .npz, or a partial one")
+        with mirror_watch(seen):
+            _, late_got, late_resumed = analyze_tpu_run(
+                "late_guard", argv=[*LATE_GUARD_ARGV, "--resume", late_path])
+        if (late_got["exit"], late_got["issues"]) != (
+                late_want["exit"], late_want["issues"]) \
+                or not late_want["issues"]:
+            raise AssertionError(f"resume_tpu: LATE_GUARD resumed gave "
+                                 f"{late_got}, uninterrupted {late_want}")
+        loads, refreshes = seen["loads"], seen["refreshes"]
+        if len(loads) != 1 or loads[0]["mirror"] is not None \
+                or not sum(loads[0]["host_terms"]):
+            raise AssertionError(f"resume_tpu: LATE_GUARD's resume loaded "
+                                 f"{loads}")
+        mirror = refreshes[0][0] if refreshes else None
+        reached = [used for key, _, used in refreshes if key == mirror]
+        if not refreshes or refreshes[0][1] != 0 or not any(
+                used is None or used >= loads[0]["rows"] for used in reached) \
+                or not late_resumed["launches"]["arena_delta"]:
+            raise AssertionError(f"resume_tpu: the host mirror after the "
+                                 f"load refreshed {refreshes}")
+        for record_c in (late_record, late_resumed):
+            for key, count in record_c["launches"].items():
+                launches[key] += count
+
+        # (b) the device phase's own .npz
+        ops.reset_launches()
+        uninterrupted, saves_a, first, _, alive = saving_drive(
+            dev, os.path.join(work, "a"), 2 * SAVE_CHUNKS)
+        npz = os.path.join(work, "first.npz")
+        np.savez(npz, **first[0])
+        if "pend_state_status" in first[0]:
+            raise AssertionError("resume_tpu: the save holds scheduler rows")
+        start = time.perf_counter()
+        resumed, saves_b, _, captures, _ = saving_drive(
+            dev, os.path.join(work, "b"), SAVE_CHUNKS, load=npz)
+        resumed_s = time.perf_counter() - start
+        if len(saves_a) != 2 or len(saves_b) != 1:
+            raise AssertionError(f"resume_tpu: {len(saves_a)} and "
+                                 f"{len(saves_b)} saves")
+        for kind, got, ref in zip(("state", "planes", "arena"), saves_b[0],
+                                  saves_a[1]):
+            assert_same(got, ref, f"resume_tpu continuation {kind}")
+        if captures != [1]:
+            raise AssertionError(f"resume_tpu: the first chunk after the "
+                                 f"load captured {captures} graphs")
+        for key, count in ops.LAUNCHES.items():
+            launches[key] += count
+        del alive
+        emit({"phase": "resume_tpu", "clock": "host",
+              "killed": {"run": "killbilly", "kill_at": KILL_AT,
+                         "checkpoint_states": CHECKPOINT_STATES,
+                         "wall_s": killed_s},
+              "resumed": {**record, "issues": summary["issues"]},
+              "device_phase": {
+                  "run": "late_guard", "issues": late_got["issues"],
+                  "saves_host_terms": saves, "killed_wall_s": late_killed_s,
+                  "restored_rows": loads[0]["rows"],
+                  "restored_host_terms": loads[0]["host_terms"],
+                  "mirror_refreshes": [[start_row, used] for _, start_row,
+                                       used in refreshes[:4]],
+                  "uninterrupted": late_record, "resumed": late_resumed},
+              "npz": {"contract": "dispatcher(SPIN)", "lanes": LANES,
+                      "save_chunks": SAVE_CHUNKS,
+                      "saved_lane_steps": int(first[0]["counters"][3]),
+                      "lane_steps": [uninterrupted.lane_steps,
+                                     resumed.lane_steps],
+                      "first_chunk_captures": captures[0],
+                      "continuation_wall_s": resumed_s,
+                      "bit_identical": True}})
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def sat_solve(solve, *args, **kwargs) -> dict:
@@ -4302,6 +4694,8 @@ def main() -> int:
     phase_host_engine(dev)
     phase_analyze()
     main_path_launches.append(phase_analyze_tpu())
+    jax_launches = phase_analyze_jax()
+    main_path_launches += [jax_launches, phase_resume_tpu(dev)]
     sat_launches, sat_profiled = phase_sat_lane(dev, facade)
     main_path_launches += [sat_launches, phase_sat_batch(dev, facade)]
     for counts in main_path_launches:
@@ -4334,6 +4728,8 @@ def main() -> int:
                 "sym_step": launches["arena_alloc_step"],
                 "merge_pass": launches["arena_alloc_merge"]}
         if name == "sat_step":
+            # the analyzer's share: analyze_jax's chunks
+            record["launches_analyzer"] = jax_launches["sat_step"]
             # K11's device time per step on the lane's profiled solve
             record["main_path_device_ms"] = \
                 sat_profiled["k11_device_ms_per_step"]

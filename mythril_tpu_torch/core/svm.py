@@ -12,9 +12,10 @@ The port's copy of mythril_tpu/core/svm.py. `engine="tpu"` without a
 `fleet_gate` hands each message-call transaction to the single-contract
 device driver `parallel/frontier.execute_message_call_tpu`, on the device
 `frontier.configure` names (the card by default: `sym_exec` raises before
-exploring anything when there is none). A `checkpoint_path` or
-`resume_path` raises until support/checkpoint.py is ported (ROADMAP A 7b);
-without one the worklist runs exactly as the reference's does."""
+exploring anything when there is none). A `checkpoint_path` saves the
+host worklist with support/checkpoint.py at every transaction boundary and
+periodically inside one (the device frontier's .npz rides beside it, with
+a `.device` suffix); a `resume_path` continues from such a save."""
 
 from __future__ import annotations
 
@@ -73,19 +74,28 @@ class LaserEVM:
         #: "host" = Python worklist; "tpu" = device symbolic frontier
         #: (parallel/frontier.py) with host continuation of escaped lanes
         self.engine = engine
-        if checkpoint_path is not None or resume_path is not None:
-            raise NotImplementedError(
-                "host checkpoints and resume need support/checkpoint.py, "
-                "which pickles the worklist beside the device frontier's "
-                "checkpoint: ROADMAP A 7b")
+        #: host-phase checkpointing (support/checkpoint.py): periodic
+        #: worklist snapshots + tx-boundary saves; device .npz rides beside
+        self.checkpoint_path = checkpoint_path
+        self.resume_path = resume_path
+        #: the device frontier reads its .npz resume point from here — the
+        #: host-resume logic consumes self.resume_path before the frontier
+        #: ever runs, so it must not share the attribute
+        self._device_resume_path = resume_path
         #: the transaction being explored (the coverage of a partial report)
         self._current_tx_index = 0
         #: set when the global analysis deadline fired mid-exploration: the
-        #: run drained gracefully (partial report flagged `incomplete`)
-        #: instead of dying mid-transaction
+        #: run drained gracefully (final checkpoint + partial report flagged
+        #: `incomplete`) instead of dying mid-transaction
         self.timed_out = False
         #: worklist states abandoned at the deadline (coverage stat)
         self.dropped_states = 0
+        self._states_since_checkpoint = 0
+        import time as time_module
+
+        # a 0.0 sentinel vs monotonic() would force a full checkpoint pickle
+        # on the very first popped state instead of after SAVE_INTERVAL_S
+        self._last_checkpoint_time = time_module.monotonic()
         self.dynamic_loader = dynamic_loader
         self.open_states: List[WorldState] = []
         self.total_states = 0
@@ -188,8 +198,40 @@ class LaserEVM:
         predicted_hashes = self._cli_transaction_sequences()
         if not predicted_hashes:
             predicted_hashes = self._predicted_function_hashes(address)
-        for i in range(self.transaction_count):
+        start_tx, pending_work_list = 0, None
+        if self.resume_path:
+            from ..support.checkpoint import (load_host_checkpoint,
+                                              restore_into_laser)
+
+            payload = load_host_checkpoint(
+                self.resume_path,
+                expected_contract_id=getattr(self, "contract_id", None))
+            if payload is not None:
+                start_tx, pending_work_list = restore_into_laser(payload, self)
+            self.resume_path = None  # consume once
+        for i in range(start_tx, self.transaction_count):
             self._current_tx_index = i
+            if pending_work_list is not None:
+                # mid-transaction resume: drain the restored worklist instead
+                # of opening a fresh transaction. The tx lifecycle hooks fire
+                # so plugins see the same protocol as an uninterrupted run
+                # (plugin-internal counters still restart: the dependency
+                # pruner may prune differently across a mid-tx resume; see
+                # support/checkpoint.py)
+                self.work_list.extend(pending_work_list)
+                pending_work_list = None
+                if self.work_list:
+                    log.info("resuming mid-transaction worklist, iteration: "
+                             "%d, %d states", i, len(self.work_list))
+                    for hook in self._start_sym_trans_hooks:
+                        hook()
+                    with trace.span("svm.tx", index=i, resumed=True,
+                                    states=len(self.work_list)):
+                        self.exec()
+                    for hook in self._stop_sym_trans_hooks:
+                        hook()
+                    self._save_checkpoint(tx_index=i + 1)
+                    continue
             if len(self.open_states) == 0:
                 log.info("no open states left, ending transaction sequence")
                 break
@@ -226,6 +268,19 @@ class LaserEVM:
                     execute_message_call(self, address, func_hashes=hashes)
             for hook in self._stop_sym_trans_hooks:
                 hook()
+            self._save_checkpoint(tx_index=i + 1)
+
+    def _save_checkpoint(self, tx_index: int, in_flight=None) -> None:
+        if not self.checkpoint_path:
+            return
+        import time as time_module
+
+        from ..support.checkpoint import save_host_checkpoint
+
+        save_host_checkpoint(self.checkpoint_path, self, tx_index,
+                             in_flight=in_flight)
+        self._last_checkpoint_time = time_module.monotonic()
+        self._states_since_checkpoint = 0
 
     @staticmethod
     def _cli_transaction_sequences() -> List[Optional[List]]:
@@ -318,14 +373,30 @@ class LaserEVM:
                    final_states: List[GlobalState]):
         """One drain of the current worklist; returns a non-None result to
         END exec (timeout), or None when the worklist ran dry."""
-        from ..support import resilience
+        import time as time_module
 
+        from ..support import resilience
+        from ..support.checkpoint import (SAVE_INTERVAL_S,
+                                          checkpoint_state_interval)
+
+        state_interval = checkpoint_state_interval()
         for global_state in self.strategy:
             if not create:
                 # deterministic host-crash injection boundary
                 # (`--inject-fault host_crash:N` kills the run at exactly the
-                # Nth popped message-call state)
+                # Nth popped message-call state — the checkpoint/resume
+                # equivalent of kill -9)
                 resilience.fire("host")
+                self._states_since_checkpoint += 1
+            if self.checkpoint_path and not create and \
+                    (time_module.monotonic() - self._last_checkpoint_time
+                     > SAVE_INTERVAL_S
+                     or self._states_since_checkpoint >= state_interval):
+                # periodic mid-transaction save (time OR state-count
+                # cadence); the popped state rides along so a kill between
+                # here and execute_state loses nothing
+                self._save_checkpoint(self._current_tx_index,
+                                      in_flight=global_state)
             if create and self.create_timeout and \
                     self.time + timedelta(seconds=self.create_timeout) <= datetime.now():
                 log.debug("hit create timeout, returning")
@@ -334,14 +405,16 @@ class LaserEVM:
             if not create and self.execution_timeout and \
                     self.time + timedelta(seconds=self.execution_timeout) <= datetime.now():
                 # global deadline: drain gracefully — count the abandoned
-                # frontier (popped state included), and let the analyzer
-                # emit a partial report flagged `incomplete`
+                # frontier, checkpoint it (popped state included), and let
+                # the analyzer emit a partial report flagged `incomplete`
                 self.timed_out = True
                 self.dropped_states += len(self.work_list) + 1
                 log.warning(
                     "hit execution timeout with %d worklist states pending "
-                    "— draining gracefully (partial report)",
+                    "— draining gracefully (checkpoint + partial report)",
                     len(self.work_list) + 1)
+                self._save_checkpoint(self._current_tx_index,
+                                      in_flight=global_state)
                 return final_states + self.work_list if track_gas \
                     else _EXEC_TIMED_OUT
 

@@ -6,19 +6,21 @@ function-to-hash, hash-to-address, list-detectors, version; the full analysis
 flag surface (strategy, tx count, timeouts, pruning, modules, reports) at
 cli.py:438-600. Exit code 1 iff issues were found (cli.py:880-883).
 
-TPU-specific additions: `--solver jax` selects the batched device solver
-(parallel/jax_solver.py); `--engine lockstep` routes concrete replay through
-the batched interpreter.
+Device additions: `--solver jax` selects the batched device solver
+(parallel/device_solver.py through smt/solver/dispatch.py); `--engine tpu`
+explores on the device frontier.
 
 The port's copy of mythril_tpu/interfaces/cli.py: `analyze`/`a`,
 `safe-functions`, `disassemble`/`d`, `list-detectors`, `function-to-hash`,
 `hash-to-address` and `version`, with the reference's arguments and
 defaults (`--engine host` and the CDCL solver). `--engine tpu` explores each
 message call on the CUDA card (`parallel/frontier.execute_message_call_tpu`)
-and exits 2 before any contract is analyzed when there is no card. The
-other subcommands exit with code 2 and the ROADMAP item that ports them,
-and so does every input whose path is not ported (`--fleet`, `--solver
-jax`, `--checkpoint`/`--resume`, `--metrics-out`/`--trace-out`,
+and exits 2 before any contract is analyzed when there is no card; so does
+`--solver jax`, which decides the solver's queries on the card's SAT lane
+(the batch dispatch over K11). `--checkpoint`/`--resume` save and resume
+the host worklist and the device frontier. The other subcommands exit
+with code 2 and the ROADMAP item that ports them, and so does every input
+whose path is not ported (`--fleet`, `--metrics-out`/`--trace-out`,
 `-a`/`--rpc`, Solidity files), before any contract is analyzed. The extension discovery
 of third-party plugins is not booted (ROADMAP A 14)."""
 
@@ -73,7 +75,8 @@ def _add_analysis_args(parser: argparse.ArgumentParser) -> None:
     options.add_argument("--solver-log", help="directory for .smt2 query dumps")
     options.add_argument("--solver", default="cdcl", choices=["cdcl", "jax"],
                          help="SAT backend: native CDCL, or the batched "
-                              "device solver (not ported: ROADMAP A 10)")
+                              "device solver on the CUDA card (the CDCL "
+                              "answers what it leaves unknown)")
     options.add_argument("--no-simplify", action="store_true",
                          help="disable the word-level simplification pass "
                               "ahead of the bit-blaster (A/B measurement)")
@@ -114,11 +117,11 @@ def _add_analysis_args(parser: argparse.ArgumentParser) -> None:
                          help="explicit function-sequence list (json)")
     options.add_argument("--checkpoint", default=None, metavar="PATH",
                          help="periodically snapshot the analysis so a "
-                              "killed run can --resume (not ported: "
-                              "ROADMAP A 7b)")
+                              "killed run can --resume (the device "
+                              "frontier's snapshot is PATH.device.npz)")
     options.add_argument("--resume", default=None, metavar="PATH",
                          help="resume a killed analysis from --checkpoint "
-                              "state (not ported: ROADMAP A 7b)")
+                              "state")
     options.add_argument("--inject-fault", default=None,
                          metavar="CLASS[:NTH]",
                          help="deterministic fault injection for resilience "

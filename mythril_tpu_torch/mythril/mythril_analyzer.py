@@ -6,12 +6,13 @@ exactly once here, mirroring the reference's flow :66-85).
 The port's copy of mythril_tpu/mythril/mythril_analyzer.py. `fire_lasers` turns
 an exception inside a contract's analysis into a traceback in the report,
 so the seams the port has not ported raise here, in the constructor,
-before any contract is analyzed: `fleet` (ROADMAP A 11), `solver="jax"`
-(A 10), a checkpoint or resume path (A 7b), and a metrics or trace file
-(A 14). So does `engine="tpu"` without the device that
-`parallel/frontier.configure` names (the CUDA card unless a test names the
-CPU): `device.DeviceUnavailable`, never an analysis on the host or the CPU
-in its place. The knob reads of the metrics and trace
+before any contract is analyzed: `fleet` (ROADMAP A 11) and a metrics or
+trace file (A 14). So does `engine="tpu"` without the device that
+`parallel/frontier.configure` names, and `solver="jax"` without the one
+`smt/solver/dispatch.configure` names (the CUDA card unless a test names
+the CPU): `device.DeviceUnavailable`, never an analysis on the host or the
+CPU in its place. The checkpoint and resume paths reach each contract's
+LaserEVM (support/checkpoint.py) as in the JAX package. The knob reads of the metrics and trace
 paths are gone with them, and so is the fleet path. Each contract's
 explored states are logged beside its solver statistics (INFO), where
 chip_smoke.py's `analyze` phase reads them."""
@@ -57,6 +58,12 @@ class MythrilAnalyzer:
             from ..parallel import frontier
 
             frontier.resolve_device()
+        if getattr(cmd, "solver", None) == "jax":
+            from ..smt.solver import dispatch
+
+            dispatch.resolve_device()
+        self.checkpoint_path = getattr(cmd, "checkpoint", None)
+        self.resume_path = getattr(cmd, "resume", None)
         self.disable_dependency_pruning = getattr(
             cmd, "disable_dependency_pruning", False)
         self.custom_modules_directory = getattr(
@@ -158,7 +165,9 @@ class MythrilAnalyzer:
                     compulsory_statespace=False,
                     disable_dependency_pruning=self.disable_dependency_pruning,
                     custom_modules_directory=self.custom_modules_directory,
-                    engine=self.engine)
+                    engine=self.engine,
+                    checkpoint_path=self.checkpoint_path,
+                    resume_path=self.resume_path)
                 issues = fire_lasers(sym, modules)
             except KeyboardInterrupt:
                 log.critical("analysis interrupted, saving issues found so far")
@@ -211,9 +220,6 @@ class MythrilAnalyzer:
 #: value that takes the path, what it needs, ROADMAP item)
 _UNPORTED = (
     ("fleet", True, "the fleet driver FleetDriver/FleetMember", "A 11"),
-    ("solver", "jax", "the batched device SAT dispatch", "A 10"),
-    ("checkpoint", None, "support/checkpoint.py", "A 7b"),
-    ("resume", None, "support/checkpoint.py", "A 7b"),
     ("metrics_out", None, "the port's metric registry", "A 14"),
     ("trace_out", None, "the port's span tracer", "A 14"),
 )

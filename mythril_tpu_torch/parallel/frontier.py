@@ -1,5 +1,5 @@
 """The frontier driver (port of mythril_tpu/parallel/frontier.py:66-2579,
-without checkpoints and the fleet).
+without the fleet).
 
 `DeviceFrontier.run` loops `symstep.run_chunk` and, between chunks, does what
 the JAX driver does with the device's output:
@@ -17,7 +17,13 @@ the JAX driver does with the device's output:
   6. reseeds host overflow rows into DEAD lanes once the stack is empty;
   7. decodes the telemetry words at the summary's end into per-chunk
      deltas, and runs a merge pass (`symstep.merge_pass`) when the merge
-     tags' occupancy or the chunk cadence says so.
+     tags' occupancy or the chunk cadence says so;
+  8. with a `checkpoint_path`, every 16 chunks saves the device phase as
+     one .npz (`save_checkpoint`: the trees, the arena's used prefix, the
+     counters, the scheduler's rows as pending rows, the host terms), in
+     the JAX package's key names and dtypes, so either package's
+     `load_checkpoint` continues the other's drive; a drive that ends
+     deletes it.
 
 With `n_shards` D > 1 the lane axis and both scheduler pools split into D
 logical shards (`symstep.new_scheduler(n_shards=D)`): seeds land in the
@@ -44,23 +50,32 @@ each), serves cold-SLOAD pauses (one K7 gather, host fault-ins of
 Select(base, key), one K7 scatter), materializes drained rows into the
 laser's worklist (`make_feeder`, lazily, as the host's exec loop asks),
 and runs under the host's execution budget, dropping what is left when it
-is spent. `execute_message_call_tpu` is what `core/svm.py` calls for each
-message-call transaction under `engine="tpu"`; `configure` sets its lanes,
-chunk, step budget, escape-time pruning, host-drain skip and device (the
-card unless a test names the CPU). The static tables that tag merge
-points and bound the widened memory merge are built by the port's static
-analysis (`static_tables`, from `staticanalysis/` through
-`smt/solver/cfa_screen.py` and `analysis/module_screen.py`) when `seed`
-sees the codes, unless the caller hands them in. The fleet driver
-(per-member budgets, deadline drains) and checkpoints are not ported
-(ROADMAP A 11, 7b): a fleet caller hands `DeviceFrontier` the seeds'
-owners and the fleet slots."""
+is spent. Beside the laser's host checkpoint it saves the device phase to
+`<checkpoint>.device.npz` (after materializing the deferred rows into the
+worklist, which the host pickle owns) and resumes from
+`<resume>.device.npz`. `execute_message_call_tpu` is what `core/svm.py`
+calls for each message-call transaction under `engine="tpu"`;
+`configure` sets its lanes, chunk, step budget, escape-time pruning,
+host-drain skip and device (the card unless a test names the CPU). The
+static tables that tag merge points and bound the widened memory merge
+are built by the port's static analysis (`static_tables`, from
+`staticanalysis/` through `smt/solver/cfa_screen.py` and
+`analysis/module_screen.py`) when `seed` sees the codes, unless the
+caller hands them in. The fleet driver (per-member budgets, deadline
+drains) is not ported (ROADMAP A 11): a fleet caller hands
+`DeviceFrontier` the seeds' owners and the fleet slots. The device
+checkpoint's paths come only from the laser's (the JAX package's
+MYTHRIL_TPU_CHECKPOINT/_RESUME overrides are not carried)."""
 
 from __future__ import annotations
 
 import hashlib
 import logging
+import os
+import pickle
+import sys
 import time
+import zipfile
 from copy import copy
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -69,6 +84,7 @@ import torch
 
 from .. import device as _device
 from ..analysis import module_screen
+from . import convert
 from ..core.state.annotation import StateAnnotation
 from ..frontends.disassembler import Disassembly
 from ..smt.solver import cfa_screen
@@ -113,6 +129,13 @@ STEAL_CADENCE = 4
 #: the least load gap at which a shard pair exchanges rows
 #: (MYTHRIL_TPU_STEAL_MIN_IMBALANCE)
 STEAL_MIN_IMBALANCE = 8
+
+#: the arena's per-node columns, in the checkpoint's order
+ARENA_COLUMNS = ("op", "a", "b", "c", "imm", "imm2", "cls")
+#: file-level errors of a device checkpoint that degrade a resume to a
+#: fresh device phase (a corrupt, truncated or foreign file)
+CHECKPOINT_ERRORS = (ValueError, KeyError, OSError, EOFError,
+                     pickle.UnpicklingError, zipfile.BadZipFile)
 
 #: words of the summary before its per-lane blocks
 SUMMARY_SCALARS = 13
@@ -847,6 +870,12 @@ class DeviceFrontier:
         self.steal_rows = 0
         self.shard_imbalance = 0
         self.shard_fairness = 1.0
+        #: seeding contexts (the single-contract driver's) and the laser
+        #: that owns them, which a checkpoint names; none here
+        self.contexts: list = []
+        self.laser = None
+        #: the device checkpoint `run` saves every 16 chunks (None: none)
+        self.checkpoint_path: Optional[str] = None
 
     def _set_tables(self, tag_pcs, tag_names, merge_pcs, merge_names,
                     mem_pcs, mem_words) -> None:
@@ -998,8 +1027,9 @@ class DeviceFrontier:
             deadline_s: Optional[float] = None) -> None:
         """Explore until the tree drains, the step budget or `deadline_s`
         (seconds of device phase) runs out, or the arena nears capacity
-        (frontier.py:1068-1363 without the fleet's deadline drain and
-        checkpoints). What is left goes to `deferred` (`hand_over`)."""
+        (frontier.py:1068-1363 without the fleet's deadline drain). What is
+        left goes to `deferred` (`hand_over`). With a `checkpoint_path` the
+        drive is saved every 16 chunks and the file deleted at its end."""
         chunk = self.chunk
         n = self.n_lanes
         headroom = max(ARENA_HEADROOM, 4 * chunk * n)
@@ -1119,12 +1149,16 @@ class DeviceFrontier:
                         state, planes, self.arena, *self.merge_tables,
                         n_rounds=MERGE_ROUNDS)
                     self._publish_merge(mstats.cpu().numpy())
+            if self.checkpoint_path and steps % (chunk * 16) == 0:
+                self.periodic_checkpoint(state, planes, sched)
             if not ((status == RUNNING) | (status == FORKING)).any() \
                     and stack_top == 0 and esc_count == 0 \
                     and not self.pending:
                 self._flush_backlog(backlog)
+                self._discard_checkpoint(self.checkpoint_path)
                 return
         self.finish(state, planes, sched, backlog)
+        self._discard_checkpoint(self.checkpoint_path)
 
     def out_of_time(self, phase_start: float,
                     deadline_s: Optional[float]) -> bool:
@@ -1431,6 +1465,210 @@ class DeviceFrontier:
                 1, 0])
         del self.pending[:]
 
+    # -- checkpointing --------------------------------------------------------------
+
+    def sched_rows(self, sched) -> List[Tuple[Dict[str, np.ndarray],
+                                              Dict[str, np.ndarray]]]:
+        """Full rows still held by the scheduler (sibling stack, then escape
+        buffer), as pending rows in the JAX dtypes (frontier.py:1850):
+        one K7 gather a pool. Read-only: the scheduler is not mutated."""
+        rows = []
+        for pool_state, pool_planes, counts in (
+                (sched.stack_state, sched.stack_planes, sched.stack_top),
+                (sched.esc_state, sched.esc_planes, sched.esc_count)):
+            used = pool_used_indices(counts.cpu().numpy(),
+                                     pool_state.status.shape[0])
+            if not len(used):
+                continue
+            _, _, rows_state, rows_planes = self._gather_host(
+                pool_state, pool_planes, used)
+            for row in range(len(used)):
+                rows.append((
+                    {field: rows_state[field][row].copy()
+                     for field in rows_state},
+                    {field: rows_planes[field][row].copy()
+                     for field in rows_planes}))
+        return rows
+
+    def checkpoint_arrays(self, state: StateBatch, planes: SymPlanes,
+                          sched=None) -> Dict[str, np.ndarray]:
+        """What `save_checkpoint` writes, keyed and typed as the JAX
+        frontier's .npz (frontier.py:2214-2302): the trees, the arena's
+        used prefix and capacities, the counters, the host overflow rows
+        and the scheduler's rows as pending rows, the identity (lanes,
+        contexts), the transaction index, and the contexts' host terms and
+        contract ids pickled into uint8 arrays."""
+        pending_rows = list(self.pending)
+        if sched is not None:
+            pending_rows += self.sched_rows(sched)
+        arrays = {}
+        for prefix, tree in (("state", state), ("planes", planes)):
+            for field, leaf in zip(tree._fields, convert.to_numpy(tree)):
+                arrays[f"{prefix}_{field}"] = leaf
+        arena = convert.to_numpy(self.arena)
+        used, used_const = int(arena.n), int(arena.n_const)
+        for field in ARENA_COLUMNS:
+            arrays[f"arena_{field}"] = getattr(arena, field)[:used]
+        arrays["arena_const_vals"] = arena.const_vals[:used_const]
+        arrays["arena_caps"] = np.asarray(
+            [arena.op.shape[0], arena.const_vals.shape[0], used, used_const])
+        arrays["counters"] = np.asarray(
+            [self.forks, getattr(self, "infeasible", 0),
+             getattr(self, "materialized", 0), self.lane_steps,
+             self.spilled, self.reseeded])
+        if pending_rows:
+            for field in StateBatch._fields:
+                arrays[f"pend_state_{field}"] = np.stack(
+                    [rs[field] for rs, _ in pending_rows])
+            for field in SymPlanes._fields:
+                arrays[f"pend_planes_{field}"] = np.stack(
+                    [rp[field] for _, rp in pending_rows])
+        arrays["identity"] = np.asarray([self.n_lanes, len(self.contexts)])
+        # a wave saved during an earlier transaction must not graft onto
+        # this one's seeds (the lane and context counts alone would pass)
+        arrays["tx_index"] = np.asarray(
+            [int(getattr(self.laser, "_current_tx_index", 0))])
+        # host-term leaves index into per-context lists that grow after
+        # seeding (cold-SLOAD fault-ins): save the lists themselves
+        limit = sys.getrecursionlimit()
+        sys.setrecursionlimit(max(limit, 200_000))
+        try:
+            arrays["host_terms"] = np.frombuffer(
+                pickle.dumps([ctx.host_terms for ctx in self.contexts]),
+                dtype=np.uint8)
+        finally:
+            sys.setrecursionlimit(limit)
+        arrays["contract_ids"] = np.frombuffer(
+            pickle.dumps([ctx_contract_id(ctx) for ctx in self.contexts]),
+            dtype=np.uint8)
+        return arrays
+
+    def save_checkpoint(self, path: str, state: StateBatch,
+                        planes: SymPlanes, sched=None) -> str:
+        """The device phase as one .npz (`checkpoint_arrays`), written
+        crash-safe (tmp + fsync + os.replace). States already materialized
+        onto the host worklist are the host checkpoint's. Returns the
+        path written (".npz" appended when missing)."""
+        from ..support.checkpoint import fsync_replace
+
+        if not path.endswith(".npz"):
+            path += ".npz"  # np.savez appends it; keep save/resume agreeing
+        arrays = self.checkpoint_arrays(state, planes, sched)
+        tmp = f"{path}.tmp"
+        with open(tmp, "wb") as handle:
+            np.savez_compressed(handle, **arrays)
+        fsync_replace(tmp, path)
+        return path
+
+    def load_checkpoint(self, path: str) -> Tuple[StateBatch, SymPlanes]:
+        """Restore (state, planes) saved by either package's
+        `save_checkpoint` onto this frontier's device; the arena, counters,
+        pending rows and host terms are restored in place, and the host
+        mirror is dropped (the next `_harena` rebuilds it from row 0).
+        Reads with allow_pickle=False; the host terms unpickle through the
+        checkpoint module's port-only Unpickler. Raises ValueError on an
+        identity mismatch (another seeding or transaction)."""
+        from ..support.checkpoint import port_loads
+
+        if not path.endswith(".npz"):
+            path += ".npz"
+        with np.load(path, allow_pickle=False) as npz:
+            data = {key: npz[key] for key in npz.files}
+        n_lanes, n_contexts = (int(v) for v in data["identity"])
+        if n_lanes != self.n_lanes or n_contexts != len(self.contexts):
+            raise ValueError(
+                f"checkpoint identity mismatch: saved {n_lanes} lanes / "
+                f"{n_contexts} contexts, this frontier has {self.n_lanes} / "
+                f"{len(self.contexts)}")
+        if "tx_index" in data:
+            saved_tx = int(data["tx_index"][0])
+            current_tx = int(getattr(self.laser, "_current_tx_index", 0))
+            if saved_tx != current_tx:
+                raise ValueError(
+                    f"checkpoint is for transaction {saved_tx}, the "
+                    f"analysis is at transaction {current_tx}")
+        if "contract_ids" in data:
+            saved_ids = port_loads(data["contract_ids"].tobytes())
+            current_ids = [ctx_contract_id(ctx) for ctx in self.contexts]
+            if saved_ids != current_ids:
+                raise ValueError(
+                    f"checkpoint contract namespace mismatch: saved "
+                    f"{saved_ids}, this seeding has {current_ids}")
+        if "host_terms" not in data:
+            raise ValueError("checkpoint predates host_terms serialization; "
+                             "V_HOST_TERM leaves would resolve wrongly")
+        for ctx, saved_terms in zip(
+                self.contexts, port_loads(data["host_terms"].tobytes())):
+            ctx.host_terms = saved_terms
+        state = convert.from_numpy("state", StateBatch(
+            **{f: data[f"state_{f}"] for f in StateBatch._fields}),
+            self.device)
+        planes = convert.from_numpy("planes", SymPlanes(
+            **{f: data[f"planes_{f}"] for f in SymPlanes._fields}),
+            self.device)
+        cap, const_cap, used, used_const = (int(v)
+                                            for v in data["arena_caps"])
+        fields = {}
+        for field in ARENA_COLUMNS:
+            column = np.zeros(cap, dtype=np.int32)
+            column[:used] = data[f"arena_{field}"]
+            fields[field] = column
+        const_vals = np.zeros((const_cap, words.NLIMBS), dtype=np.uint32)
+        const_vals[:used_const] = data["arena_const_vals"]
+        self.arena = convert.from_numpy("arena", A.Arena(
+            n=np.int32(used), n_const=np.int32(used_const),
+            const_vals=const_vals, **fields), self.device)
+        self.harena = None  # a mirror of the replaced arena is invalid
+        counters = [int(v) for v in data["counters"]]
+        (self.forks, self.infeasible, self.materialized,
+         self.lane_steps) = counters[:4]
+        if len(counters) >= 6:
+            self.spilled, self.reseeded = counters[4:6]
+        self.pending = []
+        if "pend_state_status" in data:
+            for row in range(data["pend_state_status"].shape[0]):
+                self.pending.append((
+                    {field: data[f"pend_state_{field}"][row]
+                     for field in StateBatch._fields},
+                    {field: data[f"pend_planes_{field}"][row]
+                     for field in SymPlanes._fields}))
+        return state, planes
+
+    def own_deferred(self) -> None:
+        """Before a periodic save: hand the deferred rows to whoever the
+        host checkpoint covers (the single-contract driver materializes
+        them into the worklist); here no one does."""
+
+    def periodic_checkpoint(self, state: StateBatch, planes: SymPlanes,
+                            sched) -> None:
+        """The drain loop's save every 16 chunks (frontier.py:1325-1351):
+        the deferred rows first (`own_deferred`), then `save_checkpoint`.
+        A save that fails on the file system or on pickling is logged and
+        the drive goes on; any other error (a kernel's) propagates."""
+        try:
+            self.own_deferred()
+            self.save_checkpoint(self.checkpoint_path, state, planes, sched)
+        except (OSError, pickle.PicklingError, RecursionError) as error:
+            log.warning("periodic device checkpoint failed (%s); "
+                        "continuing without it", error)
+
+    @staticmethod
+    def _discard_checkpoint(checkpoint_path) -> None:
+        """The device phase ended and its wave is fully on the host side:
+        a leftover .npz would graft this wave onto a LATER transaction's
+        fresh seeding on resume (same lane/context counts pass the
+        identity check) — delete it (frontier.py:1533)."""
+        if not checkpoint_path:
+            return
+        path = checkpoint_path if checkpoint_path.endswith(".npz") \
+            else checkpoint_path + ".npz"
+        try:
+            if os.path.exists(path):
+                os.remove(path)
+        except OSError as error:
+            log.warning("cannot remove completed device checkpoint %s: %s",
+                        path, error)
+
 
 # ---- the single-contract driver ---------------------------------------------------
 
@@ -1637,11 +1875,49 @@ class Frontier(DeviceFrontier):
     def run(self, state: StateBatch, planes: SymPlanes) -> None:
         """The drain loop under the execution budget (frontier.py:1154-1172):
         it ends when the host's budget has 1 s or less left, or after
-        DEVICE_FRAC of the time left at its start."""
+        DEVICE_FRAC of the time left at its start. The laser's checkpoint
+        path with a `.device` suffix is the drive's; its resume path's
+        `.device.npz`, when there is one, replaces the seeded trees
+        (frontier.py:1075-1105; consumed once, a file that does not load
+        is logged and the seeds run)."""
         from ..core.time_handler import time_handler
 
+        host_ckpt = getattr(self.laser, "checkpoint_path", None)
+        # not laser.resume_path: the host resume consumes that before the
+        # frontier runs (svm.execute_transactions)
+        host_resume = getattr(self.laser, "_device_resume_path", None)
+        self.checkpoint_path = f"{host_ckpt}.device" if host_ckpt else None
+        if host_resume:
+            resume_path = f"{host_resume}.device.npz"
+            if os.path.exists(resume_path):
+                try:
+                    state, planes = self.load_checkpoint(resume_path)
+                    log.info("resumed frontier from %s (%d forks so far)",
+                             resume_path, self.forks)
+                except CHECKPOINT_ERRORS as error:
+                    log.warning("cannot resume from %s (%s); starting the "
+                                "device phase fresh", resume_path, error)
+                self.laser._device_resume_path = None
         super().run(state, planes,
                     time_handler.time_remaining() * DEVICE_FRAC / 1000)
+
+    def own_deferred(self) -> None:
+        """Deferred rows live only in host memory, which neither the .npz
+        nor the host pickle covers: materialize them into the worklist, so
+        the host checkpoint owns them (frontier.py:1326-1345). The cursor
+        advances before a row is popped, so a failure leaves the rest to
+        the feeder."""
+        while self.deferred:
+            entry = self.deferred[0]
+            rows_state, rows_planes, count, _ = entry
+            self._prefetch_feasibility(rows_planes, range(entry[3], count),
+                                       state_np=rows_state)
+            while entry[3] < count:
+                row = entry[3]
+                self._materialize_np(rows_state, rows_planes, self.harena,
+                                     row)
+                entry[3] = row + 1
+            self.deferred.pop(0)
 
     def out_of_time(self, phase_start: float,
                     deadline_s: Optional[float]) -> bool:
@@ -1994,6 +2270,14 @@ class Frontier(DeviceFrontier):
     def undelivered(self) -> int:
         """Deferred rows not materialized yet."""
         return sum(entry[2] - entry[3] for entry in self.deferred)
+
+
+def ctx_contract_id(ctx) -> str:
+    """A seeding context's contract namespace, for checkpoint validation
+    (frontier.py:2597, without the fleet member's id): the active
+    account's contract name."""
+    account = ctx.template.environment.active_account
+    return getattr(account, "contract_name", "") or ""
 
 
 def build_seed_templates(laser_evm, callee_address,

@@ -27,10 +27,9 @@ pool-clauses + one unit per assumption literal, with the CDCL session as the
 loud fallback (solver.py counts the fallbacks).
 
 The port's copy of mythril_tpu/smt/solver/incremental.py. The device cone's
-clause cap is the port's `parallel/device_solver.DEFAULT_CLAUSE_CAP`; the
-port's `solver.check_formulas` passes no `device_solve` until the batch
-dispatch is ported (ROADMAP A 10), but `check`/`prepare_device_query` keep
-the hook and the cone extraction it needs.
+clause cap is the port's `parallel/device_solver.DEFAULT_CLAUSE_CAP`;
+under `--solver jax` the port's `solver.check_formulas` passes the batch
+dispatch (smt/solver/dispatch.py) as `device_solve`.
 """
 
 from __future__ import annotations

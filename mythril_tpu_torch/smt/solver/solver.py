@@ -11,15 +11,17 @@ Optimize implements minimize/maximize by bounded binary search over repeated
 check-sat calls — witness minimization parity for get_transaction_sequence
 (reference analysis/solver.py:219) without an OMT engine.
 
-The port's copy of mythril_tpu/smt/solver/solver.py on the host CDCL, with
-two differences:
-
-- `--solver jax` goes through the batch dispatch (the JAX package's
-  smt/solver/dispatch.py), which is not ported yet (ROADMAP A 10). With
-  `args.solver == "jax"`, `check_formulas`, `check_formulas_oneshot`,
-  `_solve_backend` and `prefetch_formulas` raise NotImplementedError; they
-  never answer on the CDCL in the device lane's place.
-- The JAX package takes its one-shot route (re-lower and re-blast every
+The port's copy of mythril_tpu/smt/solver/solver.py. `--solver jax` routes
+every query through the port's batch dispatch (smt/solver/dispatch.py, on
+the device SAT lane: K11 on the card), as the JAX package's does, and
+answers on the CDCL only what the device leaves UNKNOWN. Two differences:
+the cross-check (`_crosscheck_device_verdict`) holds the host oracle's SAT
+answer to the clauses before it lets it disprove a device UNSAT, since
+the CDCL can answer SAT with an assignment that falsifies them (ROADMAP
+C; the JAX package quarantines the device on such an answer): such an
+answer is asked again with the unit clauses first, and the device's
+UNSAT stands only if that second witness gives UNSAT too; and
+the JAX package takes its one-shot route (re-lower and re-blast every
   query) only when the native core is missing. The port always has its
   CDCL (a failed build raises), so `check_formulas` always runs the
   incremental pipeline and the one-shot route is `check_formulas_oneshot`.
@@ -40,21 +42,6 @@ from .preprocess import lower_constraints
 from . import sat
 from .solver_statistics import SolverStatistics, stat_smt_query
 
-#: why the device lane raises, until ROADMAP A 10 ports it
-DEVICE_LANE_MISSING = (
-    "--solver jax runs through the batch dispatch (mythril_tpu/smt/solver/"
-    "dispatch.py), which mythril_tpu_torch has not ported yet: ROADMAP A 10")
-
-
-def require_host_solver() -> None:
-    """Raise NotImplementedError when `args.solver` asks for the device
-    lane: the port answers only on the host CDCL until A 10."""
-    from ...support.support_args import args
-
-    if args.solver == "jax":
-        raise NotImplementedError(DEVICE_LANE_MISSING)
-
-
 #: conflict budget used when a caller gives a millisecond timeout; measured on this
 #: host a conflict averages ~1-3us in the native core, so 25_000ms ~ 4M conflicts.
 CONFLICTS_PER_MS = 160
@@ -71,6 +58,13 @@ def _model_satisfies(clauses, model) -> bool:
         else:
             return False
     return True
+
+
+def _units_first(clauses):
+    """The clauses with the unit clauses moved to the front, each group in
+    its own order."""
+    return [clause for clause in clauses if len(clause) == 1] + \
+        [clause for clause in clauses if len(clause) != 1]
 
 
 def _crosscheck_device_verdict(clauses, n_vars, max_conflicts, status, model):
@@ -105,7 +99,31 @@ def _crosscheck_device_verdict(clauses, n_vars, max_conflicts, status, model):
     else:  # UNSAT claim: replay through the host oracle
         host_status, host_model = sat.solve_cnf(clauses, n_vars,
                                                 max_conflicts)
-        if host_status == sat.SAT:
+        if host_status == sat.SAT and (
+                host_model is None
+                or not _model_satisfies(clauses, host_model)):
+            # the oracle's "model" fails the clauses (the CDCL can skip a
+            # level-0 literal, ROADMAP C): ask it again with the unit
+            # clauses first, which it propagates before any other clause
+            statistics.oracle_faults += 1
+            host_status, host_model = sat.solve_cnf(
+                _units_first(clauses), n_vars, max_conflicts)
+            if host_status == sat.UNSAT:
+                log.warning("host oracle answered SAT with an assignment "
+                            "that falsifies the clauses (%d clauses / %d "
+                            "vars); re-asked with the unit clauses first "
+                            "it confirms the device's UNSAT", len(clauses),
+                            n_vars)
+                statistics.oracle_confirmed += 1
+                host_status, host_model = status, model
+            elif host_status == sat.SAT and _model_satisfies(clauses,
+                                                             host_model):
+                diverged = "device claimed UNSAT but host oracle found a model"
+            else:
+                diverged = ("host oracle could not confirm the device's "
+                            "UNSAT (its SAT assignment falsifies the "
+                            "clauses)")
+        elif host_status == sat.SAT:
             diverged = "device claimed UNSAT but host oracle found a model"
         elif host_status == sat.UNKNOWN:
             # oracle inconclusive: cannot confirm or refute — keep device
@@ -122,18 +140,93 @@ def _crosscheck_device_verdict(clauses, n_vars, max_conflicts, status, model):
     return host_status, host_model
 
 
+def _device_solve(clauses, n_vars, max_conflicts):
+    """The `--solver jax` lane: every device query routes through the batch
+    dispatch layer (dispatch.py) — canonical-CNF verdict cache, in-flight
+    dedup, deferred-flush batching onto
+    `device_solver.solve_cnf_device_batch` — under the resilience contract
+    (one fire(DEVICE)/breaker gate per batch, failures classified, wall
+    budget amortized by occupancy, crosscheck sampling individual
+    queries). UNKNOWN on failure or oversize, so the caller falls back to
+    the native CDCL; with `--no-batch-solve` this is the legacy
+    one-query-one-launch path."""
+    from . import dispatch
+
+    return dispatch.solve(clauses, n_vars, max_conflicts)
+
+
 def prefetch_formulas(constraint_sets, max_conflicts: int = 2_000_000) -> int:
     """Speculatively queue the device cones of several independent
-    constraint sets on the batch dispatch queue (the `--solver jax` lane).
-    The host CDCL has no queue, so nothing is queued and this returns 0;
-    under `--solver jax` it raises until ROADMAP A 10 ports the dispatch."""
-    require_host_solver()
-    return 0
+    constraint sets on the batch dispatch queue WITHOUT flushing: the next
+    check_formulas over any of them lands on the queue's in-flight dedup
+    (or the verdict cache once a flush ran) and shares one device launch
+    with its siblings. Best-effort and side-effect-free for correctness:
+    lowering failures skip the set, the pool mutations are the same
+    monotone ones the real check would make, and nothing here decides a
+    query. Returns the number of sets actually queued."""
+    from ...support.support_args import args
+    from . import dispatch
+
+    if args.solver != "jax" or not dispatch.enabled():
+        return 0
+    from ...support import resilience
+
+    # peek, never allow(): an OPEN breaker's skip counter belongs to real
+    # queries, and speculative work against a sick device is pure waste
+    if resilience.registry.backend(resilience.DEVICE).state != \
+            resilience.CLOSED:
+        return 0
+    pipeline = _get_pipeline()
+    if pipeline is None:
+        return 0
+    submitted = 0
+    for raw_constraints in constraint_sets:
+        pending = []
+        constant_false = False
+        for constraint in raw_constraints:
+            if constraint is terms.TRUE:
+                continue
+            if constraint is terms.FALSE:
+                constant_false = True
+                break
+            pending.append(constraint)
+        if constant_false or not pending:
+            continue
+        if getattr(args, "simplify", True):
+            from .simplify import simplify_constraints
+
+            outcome = simplify_constraints(pending)
+            if outcome.is_false:
+                continue
+            pending = outcome.constraints
+            if not pending:
+                continue
+        try:
+            cone = pipeline.prepare_device_query(pending)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as error:
+            # speculation must never surface a failure the real query
+            # wouldn't hit identically — skip the set, the real check pays
+            log.debug("device prefetch lowering failed (%r) — set skipped",
+                      error)
+            continue
+        if cone is None:
+            continue
+        sub_clauses, n_sub_vars = cone
+        dispatch.submit(sub_clauses, n_sub_vars, max_conflicts)
+        submitted += 1
+    return submitted
 
 
 def _solve_backend(clauses, n_vars, max_conflicts, timeout_ms=0):
     """Route to the configured SAT backend (one-shot, non-incremental path)."""
-    require_host_solver()
+    from ...support.support_args import args
+
+    if args.solver == "jax":
+        status, model = _device_solve(clauses, n_vars, max_conflicts)
+        if status != sat.UNKNOWN:
+            return status, model
     return sat.solve_cnf(clauses, n_vars, max_conflicts, timeout_ms)
 
 
@@ -154,18 +247,27 @@ def _get_pipeline():
     return _pipeline
 
 
-def reset_solver_backend() -> None:
+def reset_solver_backend(keep_verdicts: bool = False) -> None:
     """Drop the process-wide incremental pipeline and the model caches.
 
     Per-query cost grows with the monotone pool (the session re-propagates
     its whole trail); a fresh analysis — or a test that asserts exact
     sat/unsat behavior — can call this to shed state accumulated by earlier
-    heavy workloads. (The JAX package also resets its dispatch queue here,
-    which the port does not have yet.)"""
+    heavy workloads.
+
+    ``keep_verdicts=True`` preserves the dispatch layer's canonical-CNF
+    verdict cache across the reset — the serve daemon's between-requests
+    mode (verdicts are properties of the clause set, sound across
+    pipelines; see dispatch.DispatchQueue.reset)."""
     global _pipeline
     if _pipeline is not None:
         _pipeline.close()
         _pipeline = None
+    # in-flight batch entries die with the discarded pipeline; cached
+    # verdicts are keyed on canonical CNFs and may outlive it on request
+    from . import dispatch
+
+    dispatch.reset(keep_verdicts=keep_verdicts)
     from ...support import model as model_service
 
     model_service.reset_model_caches()
@@ -221,11 +323,13 @@ def check_formulas(raw_constraints: List[terms.Term],
     """The core decision procedure. Returns ("sat"|"unsat"|"unknown", model).
     timeout_ms > 0 enforces a wall-clock deadline inside the native solver
     (reference analogue: the get_model watchdog, support/model.py:104-119)."""
-    require_host_solver()
     decided, pending = _prepass(raw_constraints)
     if decided is not None:
         return decided
-    return _get_pipeline().check(pending, max_conflicts,
+    from ...support.support_args import args
+
+    device = _device_solve if args.solver == "jax" else None
+    return _get_pipeline().check(pending, max_conflicts, device_solve=device,
                                  timeout_ms=timeout_ms)
 
 
@@ -236,7 +340,6 @@ def check_formulas_oneshot(raw_constraints: List[terms.Term],
     """check_formulas without the incremental pipeline: re-lower and
     re-blast the query from scratch and solve it with `sat.solve_cnf` (the
     JAX package's route when it has no native build)."""
-    require_host_solver()
     decided, pending = _prepass(raw_constraints)
     if decided is not None:
         return decided

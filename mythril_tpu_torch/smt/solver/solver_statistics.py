@@ -41,6 +41,11 @@ COUNTERS = {
     "breaker_recoveries": "resilience.breaker_recoveries",
     "crosschecks": "resilience.crosschecks",
     "divergences": "resilience.divergences",
+    #: the port's own: host-oracle SAT answers whose assignment failed the
+    #: clauses, which the cross-check did not let disprove the device, and
+    #: of those the ones a second ask (unit clauses first) proved UNSAT
+    "oracle_faults": "resilience.oracle_faults",
+    "oracle_confirmed": "resilience.oracle_confirmed",
     # batched device dispatch (smt/solver/dispatch.py)
     "batch_submitted": "dispatch.submitted",
     "batch_cache_hits": "dispatch.cache_hits",

@@ -5,11 +5,11 @@ pre-check + timeout conversion to UnsatError/SolverTimeOutException).
 Performance note: the quick-sat pre-check re-evaluates cached models against the new
 constraint set with the term evaluator (cheap, pure Python) before paying for a
 bit-blast + CDCL run; the overwhelming majority of engine-issued checks hit this
-path. This is also where `--solver jax` batches sat-checks on TPU.
+path. This is also where `--solver jax` batches sat-checks on the device.
 
-The port's copy of mythril_tpu/support/model.py. Its device prefetch
-(`prefetch_models`) queues nothing on the host CDCL, and under `--solver jax`
-it raises as the solver does until ROADMAP A 10 ports the batch dispatch."""
+The port's copy of mythril_tpu/support/model.py: under `--solver jax`
+`prefetch_models` queues the sets that would reach the solver on the
+port's batch dispatch (smt/solver/dispatch.py), as the JAX package's does."""
 
 from __future__ import annotations
 
@@ -91,14 +91,54 @@ _ZERO_MODEL = Model()
 
 def prefetch_models(constraint_tuples: Iterable[Tuple]) -> int:
     """Speculatively queue device SAT work for several upcoming get_model
-    calls (`--solver jax` + batching only; a cheap no-op otherwise). The
-    port has no batch dispatch yet: under `--solver jax` with batching on
-    this raises NotImplementedError (ROADMAP A 10)."""
-    if args.solver == "jax" and getattr(args, "batch_solve", True):
-        from ..smt.solver.solver import DEVICE_LANE_MISSING
+    calls (`--solver jax` + batching only; a cheap no-op otherwise).
 
-        raise NotImplementedError(DEVICE_LANE_MISSING)
-    return 0
+    Mirrors get_model's fast paths — constant-false, simplification,
+    result-cache, zero-model and quick-sat probes — so only the sets that
+    WOULD reach the solver get queued, then hands them to
+    solver.prefetch_formulas. The later real get_model over the same set
+    dedups onto the in-flight batch entry or hits the dispatch verdict
+    cache: N feasibility checks, one device launch. Returns the number of
+    sets queued."""
+    if args.solver != "jax" or not getattr(args, "batch_solve", True):
+        return 0
+    from ..smt.solver import solver as solver_service
+
+    sets = []
+    for constraints in constraint_tuples:
+        raw_constraints = []
+        constant_false = False
+        for constraint in constraints:
+            raw = constraint.raw if isinstance(constraint, Bool) else constraint
+            if raw is terms.FALSE:
+                constant_false = True
+                break
+            if raw is not terms.TRUE:
+                raw_constraints.append(raw)
+        if constant_false:
+            continue
+        if getattr(args, "simplify", True):
+            from ..smt.solver.simplify import simplify_constraints
+
+            outcome = simplify_constraints(raw_constraints)
+            if outcome.is_false:
+                continue
+            raw_constraints = outcome.constraints
+        if not raw_constraints:
+            continue
+        if _result_cache.get(tuple(raw_constraints)) is not None:
+            continue
+        try:
+            if all(_ZERO_MODEL.eval(c) for c in raw_constraints):
+                continue
+        except (KeyError, ValueError, TypeError):
+            pass  # zero probe failed to evaluate: the set stays a candidate
+        if model_cache.check_quick_sat(raw_constraints) is not None:
+            continue
+        sets.append(raw_constraints)
+    if not sets:
+        return 0
+    return solver_service.prefetch_formulas(sets)
 
 
 def get_model(constraints, minimize: Tuple = (), maximize: Tuple = (),

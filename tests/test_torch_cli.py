@@ -17,6 +17,9 @@ database lives under HOME; the port's is in memory).
 - every input and subcommand whose path the port has not ported exits 2,
   naming its ROADMAP item, before any contract is analyzed, and so does
   `--engine tpu` without a card, naming the CUDA device;
+- `--solver jax` (the port's SAT lane on its twin, through a wrapper that
+  configures it on the CPU), `--checkpoint` and `--resume` give the JAX
+  CLI's report on the tx.origin contract;
 - chip_smoke.py's EXPECTED_ANALYZE recomputed from the JAX CLI's reports,
   and its own check of the port's."""
 
@@ -57,6 +60,16 @@ def tx_origin_argv(outform: str) -> list:
     return argv[:argv.index("-o")] + ["-o", outform]
 
 
+#: the port's CLI with its SAT lane on the CPU twin, the device clause cap
+#: at 4096 (the JAX package's CPU gates shrink MYTHRIL_TPU_DEVICE_CLAUSE_CAP
+#: alike: larger queries go through the dispatch to the CDCL)
+PORT_ON_THE_CPU = (
+    "import sys; from mythril_tpu_torch.smt.solver import dispatch; "
+    "dispatch.configure(device='cpu', clause_cap=4096); "
+    "from mythril_tpu_torch.interfaces import cli; "
+    "sys.exit(cli.main(sys.argv[1:]))")
+
+
 @pytest.fixture(scope="module")
 def cli(tmp_path_factory):
     """cli(side, argv) -> CompletedProcess, each command run once."""
@@ -68,10 +81,12 @@ def cli(tmp_path_factory):
     def run(side, argv):
         key = (side, tuple(argv))
         if key not in done:
+            command = ([sys.executable, "-c", PORT_ON_THE_CPU]
+                       if side == "port-cpu"
+                       else [sys.executable, "-m", PACKAGES[side]])
             done[key] = subprocess.run(
-                [sys.executable, "-m", PACKAGES[side], *argv],
-                capture_output=True, text=True, cwd=home, env=env,
-                timeout=900)
+                [*command, *argv], capture_output=True, text=True, cwd=home,
+                env=env, timeout=900)
         return done[key]
 
     return run
@@ -197,9 +212,6 @@ TX_ORIGIN_CODE = creation_hex(chip_smoke.TX_ORIGIN)
 #: (arguments, ROADMAP item): every path the port has not ported
 SEAMS = [
     (["--fleet"], "A 11"),
-    (["--solver", "jax"], "A 10"),
-    (["--checkpoint", "{tmp}/checkpoint"], "A 7b"),
-    (["--resume", "{tmp}/checkpoint"], "A 7b"),
     (["--metrics-out", "{tmp}/metrics.json"], "A 14"),
     (["--trace-out", "{tmp}/trace.json"], "A 14"),
     (["--rpc", "localhost:8545"], "A 14"),
@@ -234,6 +246,48 @@ def test_unported_paths_refuse(cli, tmp_path, argv, item):
     assert f"ROADMAP {item}" in proc.stderr
     assert proc.stdout == ""
     assert sorted(os.listdir(tmp_path)) == before
+
+
+#: the paths this PR opened, once seams: (flag, the port side that runs it)
+PORTED = [(["--solver", "jax"], "port-cpu"),
+          (["--checkpoint", "{tmp}/checkpoint"], "port"),
+          (["--resume", "{tmp}/checkpoint"], "port")]
+
+
+@pytest.mark.parametrize("flags, side", PORTED,
+                         ids=[flags[0] for flags, _ in PORTED])
+def test_ported_paths_give_the_jax_report(cli, tmp_path_factory, flags,
+                                          side):
+    """`--solver jax`, `--checkpoint` and `--resume`, which exited 2 until
+    they were ported, analyze the tx.origin contract to the JAX CLI's
+    report (`report_parity`, the witness replayed): `--solver jax` against
+    the JAX CLI's default solver (the solver changes no verdict); a
+    checkpoint run against the JAX CLI's checkpoint run, each leaving its
+    host pickle; a resume from the port's own checkpoint, after the one
+    transaction, against the JAX CLI's resume from its own."""
+    tmp = tmp_path_factory.mktemp(flags[0].strip("-"))
+    base = ["analyze", "-c", TX_ORIGIN_CODE, "-t", "1", "-o", "json"]
+    if flags[0] == "--resume":
+        for name in ("port", "jax"):
+            written = cli(name, base + ["--checkpoint", f"{tmp}/{name}"])
+            assert written.returncode == 1, written.stderr[-2000:]
+    def named(name):
+        return [arg.replace("{tmp}/checkpoint", f"{tmp}/{name}")
+                for arg in flags]
+
+    verbose = ["-v", "4"] if flags[0] == "--resume" else []
+    port = cli(side, verbose + base + named("port"))
+    jax_flags = [] if flags[0] == "--solver" else named("jax")
+    jax = cli("jax", base + jax_flags)
+    assert port.returncode == jax.returncode == 1, port.stderr[-2000:]
+    report = json.loads(port.stdout)
+    report_parity(report, json.loads(jax.stdout), same_pool=False)
+    assert report["error"] is None and not report["issues"] == []
+    if flags[0] == "--checkpoint":
+        assert os.path.exists(f"{tmp}/port") and os.path.exists(f"{tmp}/jax")
+        assert not os.path.exists(f"{tmp}/port.device.npz")
+    if flags[0] == "--resume":
+        assert "resumed host checkpoint: tx 1" in port.stderr
 
 
 def test_engine_tpu_without_a_card_refuses(cli, tmp_path):

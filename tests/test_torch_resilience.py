@@ -5,10 +5,13 @@ tests/test_resilience.py; and the port's own build of the native CDCL
 (mythril_tpu_torch/native).
 
 Each resilience case runs on both packages from a fresh registry and plan
-and returns what it observed; the two must be equal. The device,
-checkpoint and analysis cases of tests/test_resilience.py wait for the
-port's batch dispatch (ROADMAP A 10; the analysis case runs under
-`--solver jax`) and its frontier driver with checkpoints (A 7)."""
+and returns what it observed; the two must be equal. The device cases
+stub the device entry point with the Python DPLL, as the reference test
+does, at the lane module the dispatch resolves it on (the JAX package's
+`parallel/jax_solver`, the port's `parallel/device_solver`) and reach it
+through `solver._device_solve` (the batch dispatch). The checkpoint cases
+and the analysis under `--solver jax` are in tests/test_torch_checkpoint.py
+and tests/test_torch_device_lane.py."""
 
 import os
 import shutil
@@ -16,6 +19,7 @@ from types import SimpleNamespace
 
 import pytest
 
+from mythril_tpu.parallel import jax_solver
 from mythril_tpu.smt.solver import dispatch as jdispatch
 from mythril_tpu.smt.solver import sat as jsat
 from mythril_tpu.smt.solver import solver as jsolver
@@ -23,6 +27,8 @@ from mythril_tpu.smt.solver import solver_statistics as jstatistics
 from mythril_tpu.support import resilience as jresilience
 from mythril_tpu.support import support_args as jsupport_args
 from mythril_tpu_torch import native
+from mythril_tpu_torch.parallel import device_solver
+from mythril_tpu_torch.smt.solver import dispatch as pdispatch
 from mythril_tpu_torch.smt.solver import sat as psat
 from mythril_tpu_torch.smt.solver import solver as psolver
 from mythril_tpu_torch.smt.solver import solver_statistics as pstatistics
@@ -33,10 +39,12 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 JAX = SimpleNamespace(name="jax", resilience=jresilience, sat=jsat,
                       solver=jsolver, stats=jstatistics.SolverStatistics,
-                      args=jsupport_args.args)
+                      args=jsupport_args.args, lane=jax_solver,
+                      dispatch=jdispatch)
 PORT = SimpleNamespace(name="port", resilience=presilience, sat=psat,
                        solver=psolver, stats=pstatistics.SolverStatistics,
-                       args=psupport_args.args)
+                       args=psupport_args.args, lane=device_solver,
+                       dispatch=pdispatch)
 
 SAT_CNF = ([[1, 2], [-1], [2]], 2, 1)
 UNSAT_CNF = ([[1], [-1]], 1, 0)
@@ -48,12 +56,16 @@ def _fresh(monkeypatch):
         side.resilience.reset()
         side.stats().reset()
         monkeypatch.setattr(side.args, "device_crosscheck", 0)
-    jdispatch.reset()
+        side.dispatch.reset()
+    # the port's lane on the CPU (its stubbed twin), where a host
+    # MemoryError is classified as the reference classifies its stub's
+    pdispatch.configure(device="cpu")
     yield
     for side in (JAX, PORT):
         side.resilience.reset()
         side.stats().reset()
-    jdispatch.reset()
+        side.dispatch.reset()
+    pdispatch.reset_settings()
 
 
 def observe(case):
@@ -62,6 +74,7 @@ def observe(case):
     for side in (JAX, PORT):
         side.resilience.reset()
         side.stats().reset()
+        side.dispatch.reset()
         out[side.name] = case(side)
     return out["port"], out["jax"]
 
@@ -222,6 +235,83 @@ def res_crosscheck_device_verdict(s):
             solver._model_satisfies(SAT_CNF[0], [False, True])]
 
 
+def stub_device(s, patch, device=None):
+    """The device entry point stubbed at the lane module: the Python DPLL
+    unless `device` is given."""
+    patch.setattr(s.lane, "solve_cnf_device", device or (
+        lambda clauses, n_vars, **kw: s.sat.solve_cnf_python(clauses,
+                                                             n_vars)))
+
+
+def device_record(s) -> list:
+    stats = s.stats()
+    return [stats.device_queries, stats.device_solved, stats.device_skipped,
+            stats.device_fallbacks, stats.crosschecks, stats.divergences,
+            dict(stats.failure_counts), list(stats.backends_quarantined),
+            s.resilience.registry.backend(s.resilience.DEVICE).state]
+
+
+def res_device_rung_matches_host_verdicts(s):
+    """A healthy device gives the host rungs' verdicts."""
+    with pytest.MonkeyPatch.context() as patch:
+        stub_device(s, patch)
+        verdicts = [s.solver._device_solve(clauses, n_vars, 10_000)
+                    for clauses, n_vars, _ in (SAT_CNF, UNSAT_CNF)]
+    assert [status for status, _ in verdicts] == [1, 0]
+    assert s.stats().device_solved == 2 and s.stats().failure_counts == {}
+    return [verdicts, device_record(s)]
+
+
+def res_device_failure_classified_then_breaker_skips(s):
+    """A device out of memory three times: classified, the breaker OPEN,
+    then the device is not called at all."""
+    calls = []
+
+    def exploding_device(clauses, n_vars, **kw):
+        calls.append(1)
+        raise MemoryError("hbm oom")
+
+    with pytest.MonkeyPatch.context() as patch:
+        stub_device(s, patch, exploding_device)
+        statuses = [s.solver._device_solve(*SAT_CNF[:2], 10_000)[0]
+                    for _ in range(s.resilience.DEFAULT_TRIP_AFTER)]
+        state = s.resilience.registry.backend(s.resilience.DEVICE).state
+        before = len(calls)
+        skipped = s.solver._device_solve(*SAT_CNF[:2], 10_000)
+    assert statuses == [-1] * 3 and state == s.resilience.OPEN
+    assert skipped[0] == -1 and len(calls) == before
+    assert s.stats().failure_counts == {"device:device_oom": 3}
+    return [statuses, state, skipped, len(calls), device_record(s)]
+
+
+def res_device_divergence_quarantined_host_verdict_wins(s):
+    """An injected divergence flips the device verdict; the cross-check
+    disproves it, quarantines the device and answers with the host's."""
+    s.resilience.configure("divergence:1")
+    clauses, n_vars, _ = SAT_CNF
+    with pytest.MonkeyPatch.context() as patch:
+        stub_device(s, patch)
+        first = s.solver._device_solve(clauses, n_vars, 10_000)
+        second = s.solver._device_solve(clauses, n_vars, 10_000)
+    assert first[0] == 1 and first[1] is not None and second[0] == -1
+    assert s.stats().divergences == 1
+    assert s.stats().backends_quarantined == ["device"]
+    return [first, second, device_record(s)]
+
+
+def res_sampled_crosscheck_passes_healthy_device(s):
+    s.args.device_crosscheck = 1
+    with pytest.MonkeyPatch.context() as patch:
+        stub_device(s, patch)
+        verdicts = [s.solver._device_solve(clauses, n_vars, 10_000)
+                    for clauses, n_vars, _ in (SAT_CNF, UNSAT_CNF)]
+    assert [status for status, _ in verdicts] == [1, 0]
+    assert (s.stats().crosschecks, s.stats().divergences) == (2, 0)
+    assert s.resilience.registry.backend(s.resilience.DEVICE).state == \
+        s.resilience.CLOSED
+    return [verdicts, device_record(s)]
+
+
 RESILIENCE_CASES = [res_classify_failure_taxonomy, res_fault_plan_nth_semantics,
                     res_fire_raises_typed_exception,
                     res_breaker_trips_recovers_and_counts,
@@ -230,12 +320,16 @@ RESILIENCE_CASES = [res_classify_failure_taxonomy, res_fault_plan_nth_semantics,
                     res_python_floor_verdicts,
                     res_native_rung_matches_python_floor,
                     res_native_failure_degrades_to_python_same_verdict,
-                    res_crosscheck_device_verdict]
+                    res_crosscheck_device_verdict,
+                    res_device_rung_matches_host_verdicts,
+                    res_device_failure_classified_then_breaker_skips,
+                    res_device_divergence_quarantined_host_verdict_wins,
+                    res_sampled_crosscheck_passes_healthy_device]
 
 
 @pytest.mark.parametrize("case", RESILIENCE_CASES, ids=lambda c: c.__name__[4:])
 def test_resilience_case(case):
-    """A host case of tests/test_resilience.py on both packages."""
+    """A case of tests/test_resilience.py on both packages."""
     got, want = observe(case)
     assert got == want
 
@@ -336,3 +430,48 @@ def test_failed_cdcl_build_raises_with_the_compiler_output(tmp_path,
     assert pstatistics.SolverStatistics().failure_counts == {}
     assert presilience.plan().site_counts == {}
     assert psat._lib is None
+
+
+#: the smallest input on which both packages' CDCL answers SAT for an
+#: unsatisfiable CNF: the units come after the clause they falsify, and
+#: `cancel_until(0)` in `add_clause` moves the propagation head past them
+#: (ROADMAP C)
+LEVEL0_UNITS = [[1, 2], [-1], [-2]]
+
+
+def test_crosscheck_holds_the_oracle_to_the_clauses():
+    """A device UNSAT that the host CDCL "refutes" with an assignment that
+    falsifies the clauses stands on the port only when the CDCL, asked
+    again with the unit clauses first, proves it UNSAT; it is counted as an
+    oracle fault, with the device's breaker CLOSED. The JAX package
+    quarantines its device on the same answer. Both CDCLs give that answer
+    (the reference's fault, copied with the source). A second answer that
+    still fails the clauses is a divergence on the port too."""
+    for side in (JAX, PORT):
+        status, model = side.sat.solve_cnf(LEVEL0_UNITS, 2)
+        assert (status, model) == (1, [False, False])
+        assert side.sat.solve_cnf_python(LEVEL0_UNITS, 2)[0] == 0
+    assert PORT.solver._units_first(LEVEL0_UNITS) == [[-1], [-2], [1, 2]]
+    assert PORT.sat.solve_cnf([[-1], [-2], [1, 2]], 2)[0] == 0
+
+    def crosscheck(side):
+        side.resilience.reset()
+        side.stats().reset()
+        side.args.device_crosscheck = 1
+        verdict = side.solver._crosscheck_device_verdict(
+            LEVEL0_UNITS, 2, 1000, 0, None)
+        states = side.resilience.registry.backend(side.resilience.DEVICE)
+        return verdict + (states.state, side.stats().divergences)
+
+    verdicts = {side.name: crosscheck(side) for side in (JAX, PORT)}
+    assert verdicts["port"] == (0, None, "closed", 0)
+    assert verdicts["jax"] == (1, [False, False], "quarantined", 1)
+    assert (PORT.stats().oracle_faults, PORT.stats().oracle_confirmed) == \
+        (1, 1)
+    # a second witness as faulty as the first confirms nothing
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(PORT.sat, "solve_cnf",
+                      lambda clauses, n_vars, *rest: (1, [False, False]))
+        assert crosscheck(PORT) == (1, [False, False], "quarantined", 1)
+    assert (PORT.stats().oracle_faults, PORT.stats().oracle_confirmed) == \
+        (1, 0)

@@ -704,29 +704,72 @@ def test_get_model_case(case):
     assert_parity(case)
 
 
-# ---- --solver jax waits for ROADMAP A 10 ------------------------------------------------
+# ---- --solver jax: the batch dispatch onto the device SAT lane ----------------------
 
 @pytest.mark.parametrize("entry", ["check_formulas", "check_formulas_oneshot",
                                    "prefetch_formulas", "get_model",
                                    "prefetch_models", "Solver"])
-def test_device_lane_raises(entry, monkeypatch):
-    """Under `--solver jax` the port refuses the query rather than answer
-    on the CDCL in the device lane's place."""
-    fresh(PORT)
-    x = sym(PORT, "jx")
-    raw = [(x * x == 49).raw]
-    calls = {
-        "check_formulas": lambda: psolver.check_formulas(raw),
-        "check_formulas_oneshot": lambda: psolver.check_formulas_oneshot(raw),
-        "prefetch_formulas": lambda: psolver.prefetch_formulas([raw]),
-        "get_model": lambda: pmodel.get_model([x * x == 49]),
-        "prefetch_models": lambda: pmodel.prefetch_models([[x * x == 49]]),
-        "Solver": lambda: psmt.Solver().check(x * x == 49)}
-    statistics = PORT.stats()
+def test_device_lane_entry(entry, monkeypatch):
+    """Each solver entry under `--solver jax` on both packages: the query
+    goes through the batch dispatch onto the device lane — the port's
+    plain twin of K11 (`dispatch.configure(device="cpu")`), the JAX
+    package's stubbed with its host CDCL as its own tests stub it — and
+    the verdicts, the queued counts and the device queries' tallies are
+    the JAX package's; a model satisfies the query."""
+    from mythril_tpu.parallel import jax_solver
+    from mythril_tpu.smt.solver import dispatch as jdispatch
+    from mythril_tpu_torch.smt.solver import dispatch as pdispatch
+
+    def run(s):
+        fresh(s)
+        x = sym(s, "jx")
+        raw = [(x * x == 49).raw]
+        calls = {
+            "check_formulas": lambda: s.solver.check_formulas(raw),
+            "check_formulas_oneshot": lambda: (
+                s.solver.check_formulas_oneshot(raw) if s is PORT
+                else s.solver.check_formulas(raw)),
+            "prefetch_formulas": lambda: s.solver.prefetch_formulas([raw]),
+            "get_model": lambda: s.model.get_model([x * x == 49]),
+            "prefetch_models": lambda: s.model.prefetch_models(
+                [[x * x == 49]]),
+            "Solver": lambda: s.smt.Solver().check(x * x == 49)}
+        result = calls[entry]()
+        dispatch = pdispatch if s is PORT else jdispatch
+        if isinstance(result, tuple):
+            status, model = result
+            if status == "sat":
+                assert model.eval(x.raw) * model.eval(x.raw) % 256 == 49
+            result = status
+        elif entry == "get_model":
+            assert result.eval(x.raw) * result.eval(x.raw) % 256 == 49
+            result = "model"
+        statistics = s.stats()
+        out = {"same": [result, dispatch.pending_count(),
+                        statistics.device_queries > 0,
+                        statistics.device_fallbacks, statistics.query_count]}
+        fresh(s)
+        return out
+
+    monkeypatch.setattr(jax_solver, "solve_cnf_device",
+                        lambda clauses, n_vars, **kw: jsat.solve_cnf(
+                            clauses, n_vars))
+    monkeypatch.setattr(jax_solver, "solve_cnf_device_batch",
+                        lambda queries, **kw: [jsat.solve_cnf(c, n)
+                                               for c, n in queries])
+    monkeypatch.setattr(JAX.args, "solver", "jax")
     monkeypatch.setattr(PORT.args, "solver", "jax")
-    with pytest.raises(NotImplementedError, match="ROADMAP A 10"):
-        calls[entry]()
-    assert psolver._pipeline is None
-    assert statistics.last_query_clauses == 0
-    monkeypatch.setattr(PORT.args, "solver", "cdcl")
-    assert calls[entry]() is not None
+    pdispatch.configure(device="cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        port, jax = run(PORT), run(JAX)
+    finally:
+        torch.set_num_threads(threads)
+        pdispatch.reset_settings()
+    assert port == jax
+    # a check decides on the device; a prefetch queues one query, unsent
+    assert port["same"][:3] == {
+        "prefetch_formulas": [1, 1, False],
+        "prefetch_models": [1, 1, False]}.get(entry,
+                                              [port["same"][0], 0, True])

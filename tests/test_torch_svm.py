@@ -16,8 +16,8 @@ own path constraints). Budgets are ones neither side reaches
 (`timed_out` is False on both). tests/test_torch_statespace.py does the
 same for branchy(6); this file also holds chip_smoke.py's
 EXPECTED_HOST_ENGINE, `engine="tpu"` through the device driver on the
-CPU configuration (and its refusal without a card), and the seams that
-raise."""
+CPU configuration (and its refusal without a card), the fleet gate's seam
+and the checkpoint and resume paths against the JAX laser's."""
 
 import pytest
 
@@ -119,10 +119,44 @@ def test_fleet_gate_seam_stays():
     fresh(PORT)
 
 
+def checkpointed_laser(side, path_kind: str, directory) -> dict:
+    """KILLBILLY's creation code, 2 transactions, DFS, with a checkpoint
+    path (saved at each transaction boundary) or resumed from a save after
+    the first transaction: the statespace counts and the last payload."""
+    from importlib import import_module
+
+    checkpoint = import_module(
+        ("mythril_tpu" if side is JAX else "mythril_tpu_torch")
+        + ".support.checkpoint")
+    path = str(directory / f"{side.name}.ckpt")
+    runtime = side.asm.assemble(side.asm.dispatcher(CONTRACTS["killbilly"]))
+    creation = side.asm.creation_wrapper(runtime).hex()
+    if path_kind == "resume_path":
+        first = side.svm.LaserEVM(
+            max_depth=128, execution_timeout=BUDGET_S,
+            create_timeout=BUDGET_S, transaction_count=1,
+            checkpoint_path=path)
+        first.sym_exec(creation_code=creation, contract_name="killbilly")
+        fresh(side)
+    laser = side.svm.LaserEVM(max_depth=128, execution_timeout=BUDGET_S,
+                              create_timeout=BUDGET_S, transaction_count=2,
+                              **{path_kind: path})
+    laser.sym_exec(creation_code=creation, contract_name="killbilly")
+    payload = checkpoint.load_host_checkpoint(path)
+    return {"states": laser.total_states, "open": len(laser.open_states),
+            "nodes": len(laser.nodes), "timed_out": laser.timed_out,
+            "saved": [payload["tx_index"], len(payload["open_states"]),
+                      len(payload["work_list"]), payload["total_states"]]}
+
+
 @pytest.mark.parametrize("path", ["checkpoint_path", "resume_path"])
-def test_checkpoints_raise_until_the_detectors_are_ported(path):
-    """support/checkpoint.py pickles the worklist beside the device
-    frontier's checkpoint (ROADMAP A 7b): a checkpoint or resume path
-    raises instead of running without one."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A 7b"):
-        PORT.svm.LaserEVM(**{path: "/nonexistent/checkpoint.pkl"})
+def test_checkpoint_paths_match_the_jax_laser(path, tmp_path):
+    """A checkpoint path saves the worklist with support/checkpoint.py at
+    each transaction boundary, and a resume path continues from such a
+    save: the statespace and the saved payload are the JAX laser's."""
+    jax = run_on(JAX, checkpointed_laser, path, tmp_path)
+    port = run_on(PORT, checkpointed_laser, path, tmp_path)
+    assert port == jax
+    # the resumed laser saves nothing: the payload is the first run's
+    assert port["saved"][0] == (2 if path == "checkpoint_path" else 1)
+    assert not port["timed_out"]
