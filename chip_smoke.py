@@ -21,7 +21,9 @@ its `analyze` CLI has analyzed three contracts end to end with
 --engine host (phase 20c) and four with --engine tpu on the card (phase
 20d), four more with the device SAT lane deciding the solver's queries on
 K11 (--solver jax, phase 20e), and a killed analysis and a device drive
-have resumed from their checkpoints (phase 20f).
+have resumed from their checkpoints (phase 20f), and six contracts have
+been analyzed as one fleet in shared device phases, sharded with K12's
+steal passes too (phase 20g).
 Every phase prints one JSON line; any mismatch raises, and the run exits
 non-zero. Each frontier* phase drives its
 configuration once more with every summary the loop reads (K5 and its
@@ -246,6 +248,22 @@ copy to the host) held word for word to the twin on the same tensors
      16 more chunks its state, planes and arena are bit for bit the
      uninterrupted drive's after 32, and its first chunk is a new graph
      capture;
+20g. analyze_fleet, each analysis in this process: FLEET_CORPUS (the three
+     ANALYZE_RUNS contracts and tests/test_fleet.py's three, one hex file
+     each, FLEET_MODULES, one transaction) through the port's CLI with
+     --engine tpu one contract a run, then all six with --fleet at 128
+     lanes (`parallel/fleet.py`: one frontier a transaction for every
+     member), then the same fleet under FLEET_SHARDED (4 shards, a steal
+     pass every chunk, the narrowest fleet and 8-step chunks): each
+     member's exit and issues held to its sequential run and, with the
+     driver's phases, lane-steps, forks, each member's lane-steps and the
+     steal passes and rows moved, to EXPECTED_ANALYZE_FLEET (the JAX
+     fleet's); it fails unless the sharded run launched K12 and moved
+     rows. Then a FleetDriver over the corpus with FLEET_PREEMPTED's
+     preempt event set: its report incomplete with the JAX member's
+     dropped states, the others complete. A line a run: host walls (the
+     fleet's beside the sum of the sequential runs'), the counters and
+     their share a phase, the device phases' seconds, K12 launches;
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -260,7 +278,8 @@ copy to the host) held word for word to the twin on the same tensors
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
      state after the first chunk, verdicts and models as in phase 21;
  23. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 18, 19, 20d-20f, 21, 22; K3's are its allocations folded
+     12, 13, 18, 19, 20d-20g, 21, 22; 20g's also on their own; K3's are
+     its allocations folded
      into K4's steps and K10's passes and its standalone calls in 20d-20f;
      K11's from the analyzer, 20e, also on their own), its
      time, its plain version's time, the least time the card could take
@@ -876,6 +895,86 @@ EXPECTED_ANALYZE_TPU = {
                           "frontier": [[3, 1, 0, 4], [8, 2, 0, 11]]},
     "spin": {"exit": 1, "issues": [["106", "Unprotected Selfdestruct", 51]],
              "frontier": [[2, 0, 1, 2]]},
+}
+#: the analyze_fleet phase's corpus: ANALYZE_RUNS' three contracts and
+#: tests/test_fleet.py's three, each a dispatcher in creation mode, one
+#: file a contract (the CLI names each member after its file), analyzed
+#: with one module list at one transaction (KILLBILLY and SAFE_KILL report
+#: nothing at one transaction; the JAX CLI recomputes the constants below
+#: in under a minute on a host CPU)
+def load_test_fleet():
+    """tests/test_fleet.py, loaded from this checkout by its path (a
+    `tests` package installed elsewhere may shadow the checkout's)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_test_fleet", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tests",
+            "test_fleet.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_TEST_FLEET = load_test_fleet()
+FLEET_CORPUS = {"killbilly": KILLBILLY, "safe_kill": SAFE_KILL,
+                "tx_origin": TX_ORIGIN, "branchy": _TEST_FLEET.BRANCHY,
+                "addflow": _TEST_FLEET.ADDFLOW, "combo": _TEST_FLEET.COMBO}
+FLEET_MODULES = "AccidentallyKillable,IntegerArithmetics,TxOrigin"
+FLEET_TX = 1
+#: the sharded fleet's settings: 4 shards and a steal pass every chunk;
+#: the corpus's trees end in under 64 steps and never fill a 32-lane
+#: shard of 128 lanes, so the run takes the narrowest fleet (2 lanes a
+#: seed, 3 a shard) and 8-step chunks, where shards fill and rows wait
+#: on the stack between forks for a steal pass to move
+FLEET_SHARDED = {"fleet_shard": 4, "steal_cadence": 1,
+                 "steal_min_imbalance": 1, "fleet_lanes": 8, "chunk": 8}
+#: the JAX knobs that give the JAX fleet FLEET_SHARDED
+FLEET_SHARDED_ENV = {"MYTHRIL_TPU_FLEET_SHARD": "4",
+                     "MYTHRIL_TPU_STEAL_CADENCE": "1",
+                     "MYTHRIL_TPU_STEAL_MIN_IMBALANCE": "1",
+                     "MYTHRIL_TPU_FLEET_LANES": "8", "MYTHRIL_TPU_CHUNK": "8"}
+#: the member whose preempt event is set before the preempted fleet runs
+FLEET_PREEMPTED = "addflow"
+#: the JAX package's fleet on the same corpus and arguments at 128 lanes
+#: (`MYTHRIL_TPU_LANES=128 python -m mythril_tpu analyze -f ... --engine tpu
+#: --fleet`, in process): its exit code and each contract's issues (SWC id,
+#: title, address); its driver's phases, lane-steps and forks and each
+#: member's lane-steps (the `frontier.fleet.lane_steps` labels), unsharded
+#: and under FLEET_SHARDED_ENV (with its steal passes and rows moved); and
+#: a FleetDriver over the corpus with FLEET_PREEMPTED's preempt event set:
+#: each member's completion, dropped states and issues.
+#: tests/test_torch_fleet_cli.py recomputes them with JAX.
+EXPECTED_ANALYZE_FLEET = {
+    "exit": 1,
+    "issues": {"killbilly": [], "safe_kill": [],
+               "tx_origin": [["115", "Dependence on tx.origin", 27]],
+               "branchy": [["106", "Unprotected Selfdestruct", 46]],
+               "addflow": [["101", "Integer Arithmetic Bugs", 26]],
+               "combo": [["106", "Unprotected Selfdestruct", 57],
+                         ["101", "Integer Arithmetic Bugs", 66]]},
+    "fleet": {"phases": 1, "lane_steps": 186, "forks": 11,
+              "occupancy": {"addflow": 25, "branchy": 36, "combo": 56,
+                            "killbilly": 30, "safe_kill": 22,
+                            "tx_origin": 17}},
+    "sharded": {"phases": 1, "lane_steps": 184, "forks": 11,
+                "occupancy": {"addflow": 25, "branchy": 34, "combo": 56,
+                              "killbilly": 30, "safe_kill": 22,
+                              "tx_origin": 17},
+                "steal_passes": 4, "steal_rows": 3},
+    "preempted": {
+        "killbilly": {"incomplete": False, "dropped_states": 0,
+                      "issues": []},
+        "safe_kill": {"incomplete": False, "dropped_states": 0,
+                      "issues": []},
+        "tx_origin": {"incomplete": False, "dropped_states": 0,
+                      "issues": [["115", "Dependence on tx.origin", 27]]},
+        "branchy": {"incomplete": False, "dropped_states": 0,
+                    "issues": [["106", "Unprotected Selfdestruct", 46]]},
+        "addflow": {"incomplete": True, "dropped_states": 2, "issues": []},
+        "combo": {"incomplete": False, "dropped_states": 0,
+                  "issues": [["101", "Integer Arithmetic Bugs", 66],
+                             ["106", "Unprotected Selfdestruct", 57]]}},
 }
 #: tools/measure_headline.py's two runs through the port's CLI, with the
 #: same contract, modules and transaction count, and the SWC ids each must
@@ -4008,47 +4107,75 @@ class LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def analyze_tpu_run(name: str, extra=(), argv=None) -> tuple:
-    """One of ANALYZE_TPU_RUNS through the port's CLI entry point in this
-    process (`cli.main`, so that its kernel launches count here), from
-    what a fresh process starts from, on the device `frontier.configure`
-    names. Its
-    report and a record: exit code, host wall seconds, explored states,
-    solver queries and seconds, the launches, and per transaction the
-    frontier's counters and its device and host phases' seconds. `extra`
-    arguments follow the run's own; `argv` replaces them."""
+def fresh_analysis() -> None:
+    """What a fresh process starts an analysis from: the symbol counters,
+    the detection modules' issues, the plugins and the analyzer's
+    arguments."""
     from mythril_tpu_torch.analysis.security import reset_callback_modules
     from mythril_tpu_torch.core.plugin.loader import LaserPluginLoader
-    from mythril_tpu_torch.interfaces import cli
     from mythril_tpu_torch.support.support_args import args
 
-    # what a fresh process starts from: the symbol counters, the detection
-    # modules' issues, the plugins and the analyzer's arguments
     fresh_host_engine()
     reset_callback_modules()
     LaserPluginLoader().reset()
     args._init_defaults()
+
+
+@contextlib.contextmanager
+def counted(record: dict):
+    """Fills `record` with the block's host wall seconds, INFO log text and
+    kernel launches and graph replays."""
     before, replays = dict(ops.LAUNCHES), dict(ops.REPLAYS)
     lines, root = LogLines(), logging.getLogger()
     level = root.level
     root.addHandler(lines)
     root.setLevel(logging.INFO)
-    out = io.StringIO()
     start = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out):
-            exit_code = cli.main(["-v", "4", *(argv or analyze_tpu_argv(name)),
-                                  *extra])
+        yield record
     finally:
         root.removeHandler(lines)
         root.setLevel(level)
+        record.update(
+            wall=time.perf_counter() - start,
+            log_text="\n".join(lines.lines),
+            launches={key: ops.LAUNCHES[key] - before[key]
+                      for key in ops.LAUNCHES},
+            replays={key: ops.REPLAYS[key] - replays[key]
+                     for key in ops.REPLAYS})
+
+
+def run_cli(name: str, argv: list) -> tuple:
+    """`cli.main(["-v", "4", *argv])` in this process (so that its kernel
+    launches count here), from what a fresh process starts from: its exit
+    code (raises unless 0 or 1), its report and `counted`'s record."""
+    from mythril_tpu_torch.interfaces import cli
+    from mythril_tpu_torch.support.support_args import args
+
+    fresh_analysis()
+    out = io.StringIO()
+    record = {}
+    try:
+        with counted(record), contextlib.redirect_stdout(out):
+            exit_code = cli.main(["-v", "4", *argv])
+    finally:
         args._init_defaults()
-    wall = time.perf_counter() - start
-    log_text = "\n".join(lines.lines)
     if exit_code not in (0, 1):
-        raise AssertionError(f"analyze_tpu {name}: exit {exit_code}: "
-                             f"{log_text[-2000:]}")
-    report = json.loads(out.getvalue())
+        raise AssertionError(f"{name}: exit {exit_code}: "
+                             f"{record['log_text'][-2000:]}")
+    return exit_code, json.loads(out.getvalue()), record
+
+
+def analyze_tpu_run(name: str, extra=(), argv=None) -> tuple:
+    """One of ANALYZE_TPU_RUNS through the port's CLI entry point in this
+    process (`run_cli`), on the device `frontier.configure` names. Its
+    report and a record: exit code, host wall seconds, explored states,
+    solver queries and seconds, the launches, and per transaction the
+    frontier's counters and its device and host phases' seconds. `extra`
+    arguments follow the run's own; `argv` replaces them."""
+    exit_code, report, counts = run_cli(
+        f"analyze_tpu {name}", [*(argv or analyze_tpu_argv(name)), *extra])
+    log_text, wall = counts["log_text"], counts["wall"]
     solver = SOLVER_LINE.findall(log_text)
     states = STATES_LINE.findall(log_text)
     phases = PHASES_LINE.findall(log_text)
@@ -4071,11 +4198,8 @@ def analyze_tpu_run(name: str, extra=(), argv=None) -> tuple:
         "solver_queries": int(solver[0][0]),
         "host_solver_s": float(solver[0][1]),
         "incomplete": bool(report.get("incomplete")),
-        "frontier": frontier_runs,
-        "launches": {key: ops.LAUNCHES[key] - before[key]
-                     for key in ops.LAUNCHES},
-        "replays": {key: ops.REPLAYS[key] - replays[key]
-                    for key in ops.REPLAYS}}
+        "frontier": frontier_runs, "launches": counts["launches"],
+        "replays": counts["replays"]}
 
 
 def check_analyze_tpu(name: str, summary: dict) -> None:
@@ -4462,6 +4586,200 @@ def phase_resume_tpu(dev) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def fleet_files(directory: str) -> dict:
+    """FLEET_CORPUS's creation codes, one hex file a contract: {name:
+    path}."""
+    paths = {}
+    for name, contract in FLEET_CORPUS.items():
+        paths[name] = os.path.join(directory, f"{name}.hex")
+        with open(paths[name], "w") as handle:
+            handle.write(creation_wrapper(assemble(dispatcher(contract)))
+                         .hex())
+    return paths
+
+
+def fleet_argv(paths, fleet: bool = True) -> list:
+    """The CLI arguments of an analysis of `paths` (one -f each) with
+    --engine tpu, FLEET_MODULES and FLEET_TX; `fleet` adds --fleet."""
+    return ["analyze", *[arg for path in paths for arg in ("-f", path)],
+            "--engine", "tpu", *(["--fleet"] if fleet else []), "-t",
+            str(FLEET_TX), "-m", FLEET_MODULES, "-o", "json"]
+
+
+def fleet_issues(report: dict, names) -> dict:
+    """{contract: its issues' [SWC id, title, address], sorted} of a
+    report whose issues name their contracts."""
+    issues = {name: [] for name in names}
+    for issue in report["issues"]:
+        issues[issue["contract"]].append(
+            [issue["swc-id"], issue["title"], issue["address"]])
+    return {name: sorted(rows, key=lambda row: (row[2], row[0]))
+            for name, rows in issues.items()}
+
+
+#: the fleet analyzer's counters line
+FLEET_LINE = re.compile(r"fleet counters: (\{.*\})")
+
+
+def fleet_counters(counters: dict, sharded: bool) -> dict:
+    """What EXPECTED_ANALYZE_FLEET holds of a fleet driver's counters."""
+    keys = ["phases", "lane_steps", "forks", "occupancy"]
+    if sharded:
+        keys += ["steal_passes", "steal_rows"]
+    return {key: counters[key] for key in keys}
+
+
+def preempted_fleet(fleet_module, symbolic, security) -> dict:
+    """A FleetDriver over FLEET_CORPUS with FLEET_PREEMPTED's preempt event
+    set before `run` (a package's `fleet_module` holding FleetDriver and
+    FleetMember, its analysis.symbolic and analysis.security): {name:
+    {"incomplete", "dropped_states", "issues"}}."""
+    import threading
+
+    members = []
+    modules = FLEET_MODULES.split(",")
+    for index, (name, contract) in enumerate(FLEET_CORPUS.items()):
+        preempt = threading.Event()
+        if name == FLEET_PREEMPTED:
+            preempt.set()
+        member = fleet_module.FleetMember(index, name, execution_timeout=600,
+                                          preempt=preempt)
+        code = creation_wrapper(assemble(dispatcher(contract))).hex()
+
+        def work(member=member, code=code):
+            sym = symbolic.SymExecWrapper(
+                code, address=None, strategy="bfs", max_depth=128,
+                execution_timeout=600, create_timeout=30,
+                transaction_count=FLEET_TX, compulsory_statespace=False,
+                modules=modules, engine="tpu", fleet=member)
+            return security.fire_lasers(sym, modules)
+
+        member.work = work
+        members.append(member)
+    fleet_module.FleetDriver(members).run()
+    out = {}
+    for member in members:
+        if member.error is not None:
+            raise AssertionError(f"preempted fleet: {member.contract_id} "
+                                 f"failed: {member.traceback_str}")
+        laser = member.gate_laser or member.laser
+        out[member.contract_id] = {
+            "incomplete": bool(getattr(laser, "timed_out", False)),
+            "dropped_states": getattr(laser, "dropped_states", 0),
+            "issues": sorted([issue.swc_id, issue.title, issue.address]
+                             for issue in member.result)}
+    return out
+
+
+def check_analyze_fleet(what: str, got) -> None:
+    """Raise unless `what` of EXPECTED_ANALYZE_FLEET is `got`."""
+    if got != EXPECTED_ANALYZE_FLEET[what]:
+        raise AssertionError(f"analyze_fleet {what}: {got}, the JAX fleet "
+                             f"{EXPECTED_ANALYZE_FLEET[what]}")
+
+
+def fleet_run(paths: dict, what: str) -> dict:
+    """The port's CLI with --fleet over `paths` in this process: its record
+    (exit, issues by contract, the driver's counters and their share a
+    phase, host wall, launches), held to EXPECTED_ANALYZE_FLEET."""
+    exit_code, report, counts = run_cli(f"analyze_fleet {what}",
+                                        fleet_argv(paths.values()))
+    counters = FLEET_LINE.findall(counts["log_text"])
+    if len(counters) != 1:
+        raise AssertionError(f"analyze_fleet {what}: no counters line")
+    counters = json.loads(counters[0])
+    issues = fleet_issues(report, paths)
+    if report.get("incomplete"):
+        raise AssertionError(f"analyze_fleet {what}: the budget ran out")
+    check_analyze_fleet("exit", exit_code)
+    check_analyze_fleet("issues", issues)
+    check_analyze_fleet(what, fleet_counters(counters, what == "sharded"))
+    phases = counters["phases"]
+    return {"phase": "analyze_fleet", "run": what, "exit": exit_code,
+            "clock": "host", "host_wall_s": counts["wall"],
+            "issues": issues, **counters,
+            "lane_steps_per_phase": counters["lane_steps"] / phases,
+            "forks_per_phase": counters["forks"] / phases,
+            "k12_launches": counts["launches"]["steal_pass"],
+            "launches": counts["launches"]}
+
+
+def phase_analyze_fleet() -> dict:
+    """The port's `analyze --engine tpu --fleet` on the card, in this
+    process: FLEET_CORPUS one by one (a CLI run a contract), then as one
+    fleet at 128 lanes, held to the sequential runs' issues and to
+    EXPECTED_ANALYZE_FLEET (issues and the driver's counters); the same
+    fleet under FLEET_SHARDED (K12 from the analyzer, rows moved); then
+    the fleet with FLEET_PREEMPTED preempted (its report incomplete with
+    the JAX member's dropped states, the others complete). One line a
+    run; returns the phase's kernel launches."""
+    import tempfile
+
+    from mythril_tpu_torch.analysis import security, symbolic
+    from mythril_tpu_torch.parallel import fleet
+
+    frontier.configure()
+    launches = {name: 0 for name in ops.LAUNCHES}
+    with tempfile.TemporaryDirectory() as directory:
+        paths = fleet_files(directory)
+        sequential = {}
+        for name, path in paths.items():
+            exit_code, report, counts = run_cli(
+                f"analyze_fleet sequential {name}",
+                fleet_argv([path], fleet=False))
+            sequential[name] = {
+                "exit": exit_code, "host_wall_s": counts["wall"],
+                "issues": fleet_issues(
+                    {"issues": [{**issue, "contract": name}
+                                for issue in report["issues"]]},
+                    [name])[name]}
+            for key, count in counts["launches"].items():
+                launches[key] += count
+        sequential_s = sum(run["host_wall_s"] for run in sequential.values())
+        emit({"phase": "analyze_fleet", "run": "sequential", "clock": "host",
+              "host_wall_s": sequential_s, "runs": sequential})
+        records = {}
+        for what, settings in (("fleet", {}), ("sharded", FLEET_SHARDED)):
+            frontier.configure(**settings)
+            try:
+                records[what] = fleet_run(paths, what)
+            finally:
+                frontier.configure()
+            for name, run in sequential.items():
+                member_exit = 1 if records[what]["issues"][name] else 0
+                if (member_exit, records[what]["issues"][name]) != (
+                        run["exit"], run["issues"]):
+                    raise AssertionError(
+                        f"analyze_fleet {what}: {name} exit {member_exit}, "
+                        f"issues {records[what]['issues'][name]}; the "
+                        f"sequential run {run}")
+            records[what]["sequential_host_wall_s"] = sequential_s
+            emit(records[what])
+            for key, count in records[what]["launches"].items():
+                launches[key] += count
+    if not records["sharded"]["k12_launches"] \
+            or not records["sharded"]["steal_rows"]:
+        raise AssertionError(
+            f"analyze_fleet sharded: K12 launched "
+            f"{records['sharded']['k12_launches']} times, moved "
+            f"{records['sharded']['steal_rows']} rows")
+    fresh_analysis()
+    record = {}
+    with counted(record):
+        preempted = preempted_fleet(fleet, symbolic, security)
+    check_analyze_fleet("preempted", preempted)
+    if not preempted[FLEET_PREEMPTED]["incomplete"] or any(
+            run["incomplete"] for name, run in preempted.items()
+            if name != FLEET_PREEMPTED):
+        raise AssertionError(f"analyze_fleet preempted: {preempted}")
+    emit({"phase": "analyze_fleet", "run": "preempted", "clock": "host",
+          "host_wall_s": record["wall"], "members": preempted,
+          "launches": record["launches"]})
+    for key, count in record["launches"].items():
+        launches[key] += count
+    return launches
+
+
 def sat_solve(solve, *args, **kwargs) -> dict:
     """One entry-point call with the launch counts zeroed just before and
     read just after, each chunk's stream time (CUDA events around
@@ -4696,6 +5014,9 @@ def main() -> int:
     main_path_launches.append(phase_analyze_tpu())
     jax_launches = phase_analyze_jax()
     main_path_launches += [jax_launches, phase_resume_tpu(dev)]
+    # several contracts in one frontier: the fleet driver, sharded too
+    fleet_launches = phase_analyze_fleet()
+    main_path_launches.append(fleet_launches)
     sat_launches, sat_profiled = phase_sat_lane(dev, facade)
     main_path_launches += [sat_launches, phase_sat_batch(dev, facade)]
     for counts in main_path_launches:
@@ -4712,6 +5033,8 @@ def main() -> int:
     for record in records:
         name = record["name"]
         record["launches"] = launches[name]
+        # the fleet analyzer's share (analyze_fleet)
+        record["launches_analyze_fleet"] = fleet_launches[name]
         if name == "telemetry":
             # K9 by launch in the graphed drives with the plane armed
             record["k9_by_launch_graphed"] = {

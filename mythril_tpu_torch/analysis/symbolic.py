@@ -2,8 +2,7 @@
 mythril/analysis/symbolic.py:44 — strategy selection, plugin wiring, detector hook
 installation, sym_exec run, post-hoc Call extraction from the statespace).
 
-The port's copy of mythril_tpu/analysis/symbolic.py, without the fleet
-member's hook (`fleet=`, the fleet driver's, ROADMAP A 11)."""
+The port's copy of mythril_tpu/analysis/symbolic.py."""
 
 from __future__ import annotations
 
@@ -48,7 +47,8 @@ class SymExecWrapper:
                  run_analysis_modules: bool = True, enable_coverage_strategy: bool = False,
                  custom_modules_directory: str = "", engine: str = "host",
                  checkpoint_path: Optional[str] = None,
-                 resume_path: Optional[str] = None):
+                 resume_path: Optional[str] = None,
+                 fleet=None):
         if isinstance(address, str):
             address = symbol_factory.BitVecVal(int(address, 16), 256)
         elif isinstance(address, int):
@@ -69,14 +69,17 @@ class SymExecWrapper:
             len(ModuleLoader().get_detection_modules(
                 EntryPoint.POST, modules)) > 0
         self.modules = modules
-        tx_id_manager.restart_counter()
-        # a fresh analysis must not inherit another's keccak axioms: with
-        # restarted tx ids, symbol names recur and stale concrete-hash
-        # conditions would conflict with this run's (making everything
-        # unsat)
-        from ..core.function_managers import keccak_function_manager
+        if fleet is None:
+            tx_id_manager.restart_counter()
+            # a fresh analysis must not inherit another's keccak axioms: with
+            # restarted tx ids, symbol names recur and stale concrete-hash
+            # conditions would conflict with this run's (making everything
+            # unsat)
+            from ..core.function_managers import keccak_function_manager
 
-        keccak_function_manager.reset()
+            keccak_function_manager.reset()
+        # fleet members get fresh tx/keccak namespaces from the driver's
+        # per-turn swap; restarting here would clobber the swapped-in state
 
         # non-incremental exploration: the RF prioritizer predicts which
         # function sequence to explore (reference symbolic.py:107-110)
@@ -99,6 +102,8 @@ class SymExecWrapper:
             checkpoint_path=checkpoint_path,
             resume_path=resume_path,
         )
+        if fleet is not None:
+            fleet.install(self.laser)
         if loop_bound is not None:
             self.laser.extend_strategy(BoundedLoopsStrategy,
                                        loop_bound=loop_bound)

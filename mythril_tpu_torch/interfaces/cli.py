@@ -18,9 +18,11 @@ message call on the CUDA card (`parallel/frontier.execute_message_call_tpu`)
 and exits 2 before any contract is analyzed when there is no card; so does
 `--solver jax`, which decides the solver's queries on the card's SAT lane
 (the batch dispatch over K11). `--checkpoint`/`--resume` save and resume
-the host worklist and the device frontier. The other subcommands exit
-with code 2 and the ROADMAP item that ports them, and so does every input
-whose path is not ported (`--fleet`, `--metrics-out`/`--trace-out`,
+the host worklist and the device frontier. `--fleet` with `--engine tpu`
+and repeated `-f` (each member named after its file) analyzes the
+contracts as one fleet in shared device phases. The other subcommands
+exit with code 2 and the ROADMAP item that ports them, and so does every
+input whose path is not ported (`--metrics-out`/`--trace-out`,
 `-a`/`--rpc`, Solidity files), before any contract is analyzed. The extension discovery
 of third-party plugins is not booted (ROADMAP A 14)."""
 
@@ -111,7 +113,8 @@ def _add_analysis_args(parser: argparse.ArgumentParser) -> None:
                               "device frontier on the CUDA card")
     options.add_argument("--fleet", action="store_true",
                          help="pack every loaded contract into one device "
-                              "frontier (not ported: ROADMAP A 11)")
+                              "frontier (--engine tpu, two or more "
+                              "contracts; else they run one by one)")
     options.add_argument("--beam-width", type=int, default=None)
     options.add_argument("--transaction-sequences", default=None,
                          help="explicit function-sequence list (json)")

@@ -1,5 +1,6 @@
-"""The frontier driver (port of mythril_tpu/parallel/frontier.py:66-2579,
-without the fleet).
+"""The frontier driver (port of mythril_tpu/parallel/frontier.py:66-2605;
+the fleet driver that packs several contracts into one frontier is
+`parallel/fleet.py`).
 
 `DeviceFrontier.run` loops `symstep.run_chunk` and, between chunks, does what
 the JAX driver does with the device's output:
@@ -61,11 +62,19 @@ static tables that tag merge points and bound the widened memory merge
 are built by the port's static analysis (`static_tables`, from
 `staticanalysis/` through `smt/solver/cfa_screen.py` and
 `analysis/module_screen.py`) when `seed` sees the codes, unless the
-caller hands them in. The fleet driver (per-member budgets, deadline
-drains) is not ported (ROADMAP A 11): a fleet caller hands
-`DeviceFrontier` the seeds' owners and the fleet slots. The device
+caller hands them in. `configure(fleet_shard=D)` splits every frontier
+it builds into D logical shards (with `steal_cadence` and
+`steal_min_imbalance`), as MYTHRIL_TPU_FLEET_SHARD does the JAX
+frontier's. A fleet (`parallel/fleet.py` `FleetDriver`) seeds one
+`Frontier` with several contracts' seeds and their members: the contexts
+carry each member and its laser, the occupancy telemetry gets a slot a
+member, the chunk loop calls the driver's deadline drain, rows of a
+drained member are dropped and counted on its own laser, solver calls
+run in the owning member's symbol namespace, and rows materialize into
+their own member's worklist. The device
 checkpoint's paths come only from the laser's (the JAX package's
-MYTHRIL_TPU_CHECKPOINT/_RESUME overrides are not carried)."""
+MYTHRIL_TPU_CHECKPOINT/_RESUME overrides are not carried), and a fleet
+saves none."""
 
 from __future__ import annotations
 
@@ -76,6 +85,7 @@ import pickle
 import sys
 import time
 import zipfile
+from contextlib import nullcontext
 from copy import copy
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -764,7 +774,10 @@ class DeviceFrontier:
     frontier: `seed_owner_index` (each seed's owner shard, round robin
     without it) and the telemetry's fleet block, `fleet_slots` (seed
     index -> slot) and `fleet_names` (one per slot), the shape of
-    `_collect_fleet_slots` (frontier.py:787)."""
+    `_collect_fleet_slots` (frontier.py:787). With `fleet` set (a
+    `FleetDriver`), each chunk's summary goes through its
+    `deadline_drain(frontier, status, lane_ctx)`, which may kill lanes
+    in place (frontier.py:1235-1240)."""
 
     def __init__(self, n_lanes: int = DEFAULT_LANES, device=None,
                  chunk: int = CHUNK, max_steps: int = MAX_STEPS,
@@ -855,6 +868,8 @@ class DeviceFrontier:
         self.fleet_slots = [int(slot) for slot in fleet_slots]
         self.fleet_names = list(fleet_names)
         self.fleet_occupancy = np.zeros(len(self.fleet_names), dtype=np.int64)
+        #: the fleet driver whose deadline drain runs after each summary
+        self.fleet = None
         #: logical shards and stealing; the last summary's shard block
         #: (per-shard tops and escape counts feed the drains) and the steal
         #: counters' deltas summed over every phase
@@ -1027,7 +1042,7 @@ class DeviceFrontier:
             deadline_s: Optional[float] = None) -> None:
         """Explore until the tree drains, the step budget or `deadline_s`
         (seconds of device phase) runs out, or the arena nears capacity
-        (frontier.py:1068-1363 without the fleet's deadline drain). What is
+        (frontier.py:1068-1363). What is
         left goes to `deferred` (`hand_over`). With a `checkpoint_path` the
         drive is saved every 16 chunks and the file deleted at its end."""
         chunk = self.chunk
@@ -1073,13 +1088,18 @@ class DeviceFrontier:
             packed = summary_read(state, planes, self.arena, sched)
             (stack_top, esc_count, executed, forks, pushes, pops, arena_n,
              arena_nc, esc_msize, esc_sp, esc_slots, esc_conds, status,
-             fork_cond) = self._decode_summary(packed,
-                                               sched.telemetry is not None)
+             fork_cond, lane_ctx) = self._decode_summary(
+                 packed, sched.telemetry is not None)
             self.lane_steps = lane_base + executed
             self.forks = fork_base + forks
             self.stack_pushes = push_base + pushes
             self.stack_pops = pop_base + pops
             dirty = False
+            # a fleet member past its budget has its live lanes killed in
+            # place, freed for the others: not a global abort
+            if self.fleet is not None \
+                    and self.fleet.deadline_drain(self, status, lane_ctx):
+                dirty = True
             # cold-SLOAD pauses need a host fault-in to progress at all
             cold = np.nonzero((status == FORKING) & (fork_cond == 0))[0]
             if len(cold):
@@ -1179,8 +1199,8 @@ class DeviceFrontier:
     def _decode_summary(self, packed: np.ndarray, telemetry: bool) -> tuple:
         """One chunk's summary vector: its shard block and its telemetry
         words published (copied, so that the caller may reuse `packed`);
-        returns the twelve scalars the loop reads, then status and
-        fork_cond as new int32 arrays."""
+        returns the twelve scalars the loop reads, then status, fork_cond
+        and each lane's context id as new int32 arrays."""
         n = self.n_lanes
         # a sharded summary ends in the shard block: peel it off first
         shard_words = None
@@ -1191,11 +1211,12 @@ class DeviceFrontier:
         base = SUMMARY_SCALARS
         status = packed[base:base + n].astype(np.int32)
         fork_cond = packed[base + n:base + 2 * n].astype(np.int32)
+        lane_ctx = packed[base + 2 * n:base + 3 * n].astype(np.int32)
         if shard_words is not None:
             self._publish_shard(shard_words, status)
         if telemetry:
             self._publish_telemetry(packed[base + 3 * n:])
-        return (*scalars, status, fork_cond)
+        return (*scalars, status, fork_cond, lane_ctx)
 
     def _publish_telemetry(self, tel_words) -> None:
         """One chunk's telemetry words (cumulative device counters) into
@@ -1678,15 +1699,25 @@ _settings: dict = {}
 
 def configure(lanes: int = DEFAULT_LANES, chunk: int = CHUNK,
               max_steps: int = MAX_STEPS, check_escapes: bool = False,
-              skip_host_drain: bool = False, device=None) -> None:
-    """Set what `execute_message_call_tpu` runs with; what a call does not
-    name takes its default, the JAX knob's (mythril_tpu/support/
-    tpu_config.py:38-55: MYTHRIL_TPU_LANES, CHUNK, MAX_STEPS,
-    CHECK_ESCAPES, SKIP_HOST_DRAIN). `device` None is the card; "cpu" runs
-    the plain twins (tests)."""
+              skip_host_drain: bool = False, device=None,
+              fleet_shard: int = 0, fleet_lanes: int = 0,
+              steal_cadence: int = STEAL_CADENCE,
+              steal_min_imbalance: int = STEAL_MIN_IMBALANCE) -> None:
+    """Set what `execute_message_call_tpu` and the fleet driver run with;
+    what a call does not name takes its default, the JAX knob's
+    (mythril_tpu/support/tpu_config.py:38-55, 117-143: MYTHRIL_TPU_LANES,
+    CHUNK, MAX_STEPS, CHECK_ESCAPES, SKIP_HOST_DRAIN, FLEET_SHARD,
+    FLEET_LANES, STEAL_CADENCE, STEAL_MIN_IMBALANCE). `device` None is the
+    card; "cpu" runs the plain twins (tests). `fleet_shard` is every
+    frontier's logical shard count, solo runs' too (0: the card count when
+    there is more than one card, else 1; one that does not divide the
+    lanes gives 1); `fleet_lanes` a fleet frontier's lanes (0: `lanes`)."""
     _settings.update(lanes=lanes, chunk=chunk, max_steps=max_steps,
                      check_escapes=check_escapes,
-                     skip_host_drain=skip_host_drain, device=device)
+                     skip_host_drain=skip_host_drain, device=device,
+                     fleet_shard=fleet_shard, fleet_lanes=fleet_lanes,
+                     steal_cadence=steal_cadence,
+                     steal_min_imbalance=steal_min_imbalance)
 
 
 def reset() -> None:
@@ -1701,6 +1732,25 @@ def resolve_device() -> torch.device:
     """The configured device (`device.resolve`: the card unless `configure`
     named the CPU; raises without a card)."""
     return _device.resolve(_settings["device"])
+
+
+def new_frontier(laser_evm, n_lanes: int) -> "Frontier":
+    """A `Frontier` of `n_lanes` lanes with the configured settings. The
+    shard count is read as the JAX frontier reads MYTHRIL_TPU_FLEET_SHARD
+    (frontier.py:668-680): 0 is the number of cards when the frontier
+    runs on a card and there are more than one (`batch.shard_count`
+    validates it against the lanes)."""
+    setting = _settings
+    n_shards = setting["fleet_shard"]
+    if n_shards == 0 and resolve_device().type == "cuda" \
+            and torch.cuda.device_count() > 1:
+        n_shards = torch.cuda.device_count()
+    return Frontier(laser_evm, n_lanes=n_lanes, device=setting["device"],
+                    chunk=setting["chunk"], max_steps=setting["max_steps"],
+                    check_escapes=setting["check_escapes"],
+                    n_shards=n_shards,
+                    steal_cadence=setting["steal_cadence"],
+                    steal_min_imbalance=setting["steal_min_imbalance"])
 
 
 class LaneContext(A.TxContext):
@@ -1772,18 +1822,26 @@ class Frontier(DeviceFrontier):
     drained rows into the laser's worklist, the execution budget and the
     hand-over. Telemetry and state merging follow the port's `args`
     (`--no-frontier-telemetry`, `--no-state-merge`), the window table
-    `cfa_screen.absint_enabled()`, as the JAX frontier reads them."""
+    `cfa_screen.absint_enabled()`, as the JAX frontier reads them.
+
+    A fleet's frontier (the driver sets `fleet` and `seed_owner_index`
+    and seeds it with the members) is the JAX `_Frontier` in fleet mode:
+    see the module's docstring."""
 
     def __init__(self, laser_evm, n_lanes: int = DEFAULT_LANES, device=None,
                  chunk: int = CHUNK, max_steps: int = MAX_STEPS,
-                 check_escapes: bool = False):
+                 check_escapes: bool = False, n_shards: int = 1,
+                 steal_cadence: int = STEAL_CADENCE,
+                 steal_min_imbalance: int = STEAL_MIN_IMBALANCE):
         from ..support.support_args import args
 
         super().__init__(
             n_lanes, device=device, chunk=chunk, max_steps=max_steps,
             service_cold=type(self)._service_cold,
             telemetry=getattr(args, "frontier_telemetry", True),
-            state_merge=getattr(args, "state_merge", True))
+            state_merge=getattr(args, "state_merge", True),
+            n_shards=n_shards, steal_cadence=steal_cadence,
+            steal_min_imbalance=steal_min_imbalance)
         self.laser = laser_evm
         #: escape-time pruning (MYTHRIL_TPU_CHECK_ESCAPES), off by default:
         #: the host engine's JUMPI is optimistic, so feasibility is decided
@@ -1795,13 +1853,19 @@ class Frontier(DeviceFrontier):
         self.faults = 0  # cold-SLOAD fault-ins serviced
         #: (signed cond id, ctx index) -> Bool (see _cond_bools)
         self._cond_memo: Dict[Tuple[int, int], object] = {}
+        #: a fleet: id(member) -> the indices of its seeding contexts
+        self.fleet_ctx_of: Dict[int, List[int]] = {}
 
     # -- seeding ------------------------------------------------------------------------
 
-    def seed(self, templates) -> Tuple[StateBatch, SymPlanes]:
+    def seed(self, templates, members=None) -> Tuple[StateBatch, SymPlanes]:
         """One lane per template (frontier.py:914-989): its code, concrete
         storage table, symbolic base, gas limit and address; symbolic
-        storage values enter as host-term leaves in `storage_sym`."""
+        storage values enter as host-term leaves in `storage_sym`. A
+        fleet hands in each template's member (frontier.py:2945-2951):
+        its context carries the member and the member's laser, and the
+        occupancy telemetry gets a slot a member
+        (`_collect_fleet_slots`)."""
         specs = []
         for template in templates:
             entries, base_sym = storage_entries(
@@ -1840,7 +1904,40 @@ class Frontier(DeviceFrontier):
             lanes, slots, nodes = (torch.tensor(column, device=self.device)
                                    for column in zip(*placed))
             planes.storage_sym[lanes, slots] = nodes.to(I32)
+        if members is not None:
+            for index, (ctx, member) in enumerate(zip(self.contexts,
+                                                      members)):
+                ctx.member = member
+                ctx.laser = member.gate_laser
+                self.fleet_ctx_of.setdefault(id(member), []).append(index)
+        self.fleet_slots, self.fleet_names = self._collect_fleet_slots()
+        self.fleet_occupancy = np.zeros(len(self.fleet_names),
+                                        dtype=np.int64)
         return state, planes
+
+    def _collect_fleet_slots(self) -> Tuple[List[int], List[str]]:
+        """Each seeding context's occupancy slot, one a member's contract
+        id, past TAG_SLOTS folded into the last (frontier.py:787-809);
+        none outside a fleet."""
+        if self.fleet is None:
+            return [], []
+        slots: List[int] = []
+        names: List[str] = []
+        index_of: Dict[str, int] = {}
+        for ctx in self.contexts:
+            member = getattr(ctx, "member", None)
+            cid = member.contract_id if member is not None else "(unowned)"
+            if cid not in index_of:
+                if len(names) >= TAG_SLOTS:
+                    log.info("frontier fleet telemetry: contract %r past "
+                             "the %d-slot cap, folding into last slot",
+                             cid, TAG_SLOTS)
+                    slots.append(len(names) - 1)
+                    continue
+                index_of[cid] = len(names)
+                names.append(cid)
+            slots.append(index_of[cid])
+        return slots, names
 
     def _alloc_host_term(self, ctx: LaneContext, value) -> Optional[int]:
         """Park a host BitVec as a V_HOST_TERM arena leaf (frontier.py:
@@ -1879,7 +1976,8 @@ class Frontier(DeviceFrontier):
         path with a `.device` suffix is the drive's; its resume path's
         `.device.npz`, when there is one, replaces the seeded trees
         (frontier.py:1075-1105; consumed once, a file that does not load
-        is logged and the seeds run)."""
+        is logged and the seeds run). A fleet's frontier saves and loads
+        none (frontier.py:1085-1092)."""
         from ..core.time_handler import time_handler
 
         host_ckpt = getattr(self.laser, "checkpoint_path", None)
@@ -1887,6 +1985,12 @@ class Frontier(DeviceFrontier):
         # frontier runs (svm.execute_transactions)
         host_resume = getattr(self.laser, "_device_resume_path", None)
         self.checkpoint_path = f"{host_ckpt}.device" if host_ckpt else None
+        if self.fleet is not None and (host_ckpt or host_resume):
+            # one npz under the primary member's name cannot hold a shared
+            # wave: the members' own host checkpoints carry the resume
+            log.info("fleet mode: device checkpoints disabled; per-contract "
+                     "host checkpoints carry resume")
+            self.checkpoint_path = host_resume = None
         if host_resume:
             resume_path = f"{host_resume}.device.npz"
             if os.path.exists(resume_path):
@@ -1945,9 +2049,10 @@ class Frontier(DeviceFrontier):
                   sched: Optional[symstep.DeviceScheduler] = None) -> None:
         """`_hand_over_running` (frontier.py:2378-2435): with the budget
         spent, drop the live lanes and the backlog, marking the laser
-        timed out; else materialize the live lanes straight into the
-        worklist, and defer the pools' used rows and the host overflow
-        rows."""
+        timed out (in a fleet, each row's own member's laser:
+        `_drop_fleet_lanes`); else materialize the live lanes straight
+        into the worklist, and defer the pools' used rows and the host
+        overflow rows."""
         from ..core.time_handler import time_handler
 
         status = state.status.cpu().numpy()
@@ -1967,9 +2072,12 @@ class Frontier(DeviceFrontier):
             log.info("execution budget exhausted with %d live lanes + %d "
                      "backlog rows; dropping them (host-timeout parity)",
                      len(live), backlog)
-            self.laser.timed_out = True
-            self.laser.dropped_states = getattr(
-                self.laser, "dropped_states", 0) + len(live) + backlog
+            if self.fleet is not None:
+                self._drop_fleet_lanes(planes, pools, live)
+            else:
+                self.laser.timed_out = True
+                self.laser.dropped_states = getattr(
+                    self.laser, "dropped_states", 0) + len(live) + backlog
             return
         harena = self._harena()
         if len(live):
@@ -1984,6 +2092,29 @@ class Frontier(DeviceFrontier):
                 {field: value[None] for field, value in row_planes.items()},
                 1, 0])
         del self.pending[:]
+
+    def _drop_fleet_lanes(self, planes: SymPlanes, pools, live) -> None:
+        """The budget spent in a fleet: count every dropped lane, pool row
+        and host overflow row on the laser of the member that owns it
+        (frontier.py:2437-2461), so each partial report carries its own
+        dropped states."""
+        ctx_ids = [int(c) for c in planes.ctx_id.cpu().numpy()[live]]
+        for _, pool_planes, used in pools:
+            pool_ctx = pool_planes.ctx_id.cpu().numpy()
+            ctx_ids += [int(c) for c in pool_ctx[pool_used_indices(
+                used, len(pool_ctx))]]
+        for _, row_planes in self.pending:
+            ctx_ids.append(int(np.asarray(row_planes["ctx_id"]).flat[0]))
+        for cid in ctx_ids:
+            ctx = self.contexts[cid] if 0 <= cid < len(self.contexts) \
+                else None
+            member = getattr(ctx, "member", None) if ctx else None
+            if member is not None:
+                member.count_dropped(1)
+            else:
+                self.laser.timed_out = True
+                self.laser.dropped_states = getattr(
+                    self.laser, "dropped_states", 0) + 1
 
     # -- the cold-SLOAD service -----------------------------------------------------------
 
@@ -2068,68 +2199,100 @@ class Frontier(DeviceFrontier):
             bools.append(cached)
         return bools
 
+    def _member_env(self, member):
+        """`_member_env` (frontier.py:2607-2616): in a fleet, a solver call
+        runs in `member`'s symbol namespace with its contract id as the
+        dispatch's query origin; elsewhere a no-op."""
+        if self.fleet is None or member is None:
+            return nullcontext()
+        return self.fleet.member_env(member)
+
     def _prefetch_feasibility(self, planes_np, rows, state_np=None) -> None:
         """With `check_escapes`, queue the feasibility queries of a slab of
-        rows before they materialize one by one (frontier.py:1979-2036,
-        one group: no fleet). Rows on a statically dead pc are skipped; a
-        failure only means the rows solve one at a time."""
+        rows before they materialize one by one (frontier.py:1979-2036).
+        In a fleet the rows go in groups by owning member, each built
+        under `_member_env`, all on the one dispatch queue before any
+        flush; a drained member's rows are skipped. Rows on a statically
+        dead pc are skipped; a failure only means the rows solve one at a
+        time."""
         if not self.check_escapes:
             return
         from ..core.state.constraints import Constraints
         from ..support.model import prefetch_models
 
-        sets = []
+        groups: List[Tuple[object, list]] = []
+        by_member: Dict[int, list] = {}
         for row in rows:
             if int(planes_np["cond_count"][row]) <= 0:
                 continue
             ctx = self.contexts[int(planes_np["ctx_id"][row])]
+            member = getattr(ctx, "member", None)
+            if member is not None and member.abandoned:
+                continue  # deadline-drained: its rows never materialize
             if state_np is not None and cfa_screen.statically_dead(
                     ctx.template.environment.code, int(state_np["pc"][row])):
                 continue
-            constraints = Constraints(
-                list(ctx.template.world_state.constraints)
-                + self._cond_bools(planes_np, self.harena, row))
-            sets.append(tuple(constraints.get_all_constraints()))
-        if not sets:
-            return
-        try:
-            prefetch_models(sets)
-        except (KeyboardInterrupt, SystemExit):
-            raise
-        except Exception as error:
-            log.debug("feasibility prefetch failed (%r); rows solve "
-                      "individually", error)
+            key = id(member)
+            if key not in by_member:
+                by_member[key] = []
+                groups.append((member, by_member[key]))
+            by_member[key].append((ctx, row))
+        for member, group_rows in groups:
+            with self._member_env(member):
+                sets = []
+                for ctx, row in group_rows:
+                    constraints = Constraints(
+                        list(ctx.template.world_state.constraints)
+                        + self._cond_bools(planes_np, self.harena, row))
+                    sets.append(tuple(constraints.get_all_constraints()))
+                try:
+                    prefetch_models(sets)
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except Exception as error:
+                    log.debug("feasibility prefetch failed (%r); rows solve "
+                              "individually", error)
 
     def _feasible(self, planes_np, harena, lane: int) -> bool:
-        """A row's path conditions satisfiable (frontier.py:2038-2059); a
-        solver timeout or failure keeps the row."""
+        """A row's path conditions satisfiable (frontier.py:2038-2059), in
+        its member's namespace in a fleet; a solver timeout or failure
+        keeps the row."""
         from ..core.state.constraints import Constraints
         from ..exceptions import SolverTimeOutException, UnsatError
         from ..support.model import get_model
 
         ctx = self.contexts[int(planes_np["ctx_id"][lane])]
-        constraints = Constraints(
-            list(ctx.template.world_state.constraints)
-            + self._cond_bools(planes_np, harena, lane))
-        try:
-            get_model(tuple(constraints.get_all_constraints()))
-            return True
-        except SolverTimeOutException:
-            return True  # a budget is not infeasibility
-        except UnsatError:
-            return False
-        except Exception:
-            return True
+        with self._member_env(getattr(ctx, "member", None)):
+            constraints = Constraints(
+                list(ctx.template.world_state.constraints)
+                + self._cond_bools(planes_np, harena, lane))
+            try:
+                get_model(tuple(constraints.get_all_constraints()))
+                return True
+            except SolverTimeOutException:
+                return True  # a budget is not infeasibility
+            except UnsatError:
+                return False
+            except Exception:
+                return True
 
     def _materialize_np(self, state_np, planes_np, harena, lane: int) -> None:
         """One host row into a GlobalState of the template, appended to the
         laser's worklist (frontier.py:2063-2210): pc index (off the end is
         STOP), stack, the memory bytes that need a term, the dirty storage
         slots, path conditions, the integer detector's harvest, the last
-        jump, merge and loop tags, gas and depth."""
+        jump, merge and loop tags, gas and depth. In a fleet the state goes
+        to its own member's laser, and a drained member's row is dropped
+        and counted on it."""
         from ..smt import Extract, symbol_factory
 
         ctx = self.contexts[int(planes_np["ctx_id"][lane])]
+        member = getattr(ctx, "member", None)
+        if member is not None and member.abandoned:
+            # the owning contract's budget is spent: its rows drop like
+            # the host's mid-worklist states at a timeout
+            member.count_dropped(1)
+            return
         if self.check_escapes and int(planes_np["cond_count"][lane]) > 0 \
                 and not self._feasible(planes_np, harena, lane):
             self.infeasible += 1
@@ -2229,7 +2392,8 @@ class Frontier(DeviceFrontier):
         mstate.depth += int(planes_np["branches"][lane])
 
         self.materialized += 1
-        laser = self.laser
+        # fleet demux: a row re-enters its own contract's worklist
+        laser = getattr(ctx, "laser", None) or self.laser
         if getattr(laser, "requires_statespace", False) and \
                 global_state.node is None:
             global_state.node = template.node
@@ -2274,8 +2438,11 @@ class Frontier(DeviceFrontier):
 
 def ctx_contract_id(ctx) -> str:
     """A seeding context's contract namespace, for checkpoint validation
-    (frontier.py:2597, without the fleet member's id): the active
+    (frontier.py:2597-2604): its fleet member's id, else the active
     account's contract name."""
+    member = getattr(ctx, "member", None)
+    if member is not None:
+        return member.contract_id
     account = ctx.template.environment.active_account
     return getattr(account, "contract_name", "") or ""
 
@@ -2343,11 +2510,7 @@ def execute_message_call_tpu(laser_evm, callee_address,
         laser_evm.exec()
         return
     setting = _settings
-    frontier = Frontier(laser_evm,
-                        n_lanes=max(setting["lanes"], 2 * len(seeds)),
-                        device=setting["device"], chunk=setting["chunk"],
-                        max_steps=setting["max_steps"],
-                        check_escapes=setting["check_escapes"])
+    frontier = new_frontier(laser_evm, max(setting["lanes"], 2 * len(seeds)))
     start = time.perf_counter()
     state, planes = frontier.seed(seeds)
     frontier.run(state, planes)

@@ -18,8 +18,9 @@ database lives under HOME; the port's is in memory).
   naming its ROADMAP item, before any contract is analyzed, and so does
   `--engine tpu` without a card, naming the CUDA device;
 - `--solver jax` (the port's SAT lane on its twin, through a wrapper that
-  configures it on the CPU), `--checkpoint` and `--resume` give the JAX
-  CLI's report on the tx.origin contract;
+  configures it on the CPU), `--checkpoint`, `--resume` and `--fleet`
+  (one contract: run as without it) give the JAX CLI's report on the
+  tx.origin contract;
 - chip_smoke.py's EXPECTED_ANALYZE recomputed from the JAX CLI's reports,
   and its own check of the port's."""
 
@@ -211,7 +212,6 @@ TX_ORIGIN_CODE = creation_hex(chip_smoke.TX_ORIGIN)
 
 #: (arguments, ROADMAP item): every path the port has not ported
 SEAMS = [
-    (["--fleet"], "A 11"),
     (["--metrics-out", "{tmp}/metrics.json"], "A 14"),
     (["--trace-out", "{tmp}/trace.json"], "A 14"),
     (["--rpc", "localhost:8545"], "A 14"),
@@ -251,20 +251,23 @@ def test_unported_paths_refuse(cli, tmp_path, argv, item):
 #: the paths this PR opened, once seams: (flag, the port side that runs it)
 PORTED = [(["--solver", "jax"], "port-cpu"),
           (["--checkpoint", "{tmp}/checkpoint"], "port"),
-          (["--resume", "{tmp}/checkpoint"], "port")]
+          (["--resume", "{tmp}/checkpoint"], "port"),
+          (["--fleet"], "port")]
 
 
 @pytest.mark.parametrize("flags, side", PORTED,
                          ids=[flags[0] for flags, _ in PORTED])
 def test_ported_paths_give_the_jax_report(cli, tmp_path_factory, flags,
                                           side):
-    """`--solver jax`, `--checkpoint` and `--resume`, which exited 2 until
-    they were ported, analyze the tx.origin contract to the JAX CLI's
-    report (`report_parity`, the witness replayed): `--solver jax` against
-    the JAX CLI's default solver (the solver changes no verdict); a
-    checkpoint run against the JAX CLI's checkpoint run, each leaving its
-    host pickle; a resume from the port's own checkpoint, after the one
-    transaction, against the JAX CLI's resume from its own."""
+    """`--solver jax`, `--checkpoint`, `--resume` and `--fleet`, which
+    exited 2 until they were ported, analyze the tx.origin contract to the
+    JAX CLI's report (`report_parity`, the witness replayed): `--solver
+    jax` against the JAX CLI's default solver (the solver changes no
+    verdict); a checkpoint run against the JAX CLI's checkpoint run, each
+    leaving its host pickle; a resume from the port's own checkpoint,
+    after the one transaction, against the JAX CLI's resume from its own;
+    `--fleet` with one contract (run as without it) against the JAX CLI's
+    `--fleet`."""
     tmp = tmp_path_factory.mktemp(flags[0].strip("-"))
     base = ["analyze", "-c", TX_ORIGIN_CODE, "-t", "1", "-o", "json"]
     if flags[0] == "--resume":

@@ -597,7 +597,10 @@ def test_settings_follow_the_jax_knobs():
 
     knobs = {"lanes": "LANES", "chunk": "CHUNK", "max_steps": "MAX_STEPS",
              "check_escapes": "CHECK_ESCAPES",
-             "skip_host_drain": "SKIP_HOST_DRAIN"}
+             "skip_host_drain": "SKIP_HOST_DRAIN",
+             "fleet_shard": "FLEET_SHARD", "fleet_lanes": "FLEET_LANES",
+             "steal_cadence": "STEAL_CADENCE",
+             "steal_min_imbalance": "STEAL_MIN_IMBALANCE"}
     assert pf.DEVICE_FRAC == REGISTRY["MYTHRIL_TPU_DEVICE_FRAC"].default
     pf.reset()
     try:
