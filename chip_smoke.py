@@ -23,7 +23,8 @@ its `analyze` CLI has analyzed three contracts end to end with
 K11 (--solver jax, phase 20e), and a killed analysis and a device drive
 have resumed from their checkpoints (phase 20f), and six contracts have
 been analyzed as one fleet in shared device phases, sharded with K12's
-steal passes too (phase 20g).
+steal passes too (phase 20g), and two analyses have written the metric
+snapshot and trace that the JAX package's CLI writes (phase 20h).
 Every phase prints one JSON line; any mismatch raises, and the run exits
 non-zero. Each frontier* phase drives its
 configuration once more with every summary the loop reads (K5 and its
@@ -264,6 +265,20 @@ copy to the host) held word for word to the twin on the same tensors
      dropped states, the others complete. A line a run: host walls (the
      fleet's beside the sum of the sequential runs'), the counters and
      their share a phase, the device phases' seconds, K12 launches;
+20h. observe_tpu, each analysis in this process: the port's metric
+     registry, span tracer and exporter (mythril_tpu_torch/observe/) on
+     the paths above. (a) KILLBILLY in 20d's configuration with
+     --metrics-out and --trace-out: exit and issues held to
+     EXPECTED_ANALYZE_TPU, the snapshot's frontier counters (chunks,
+     lane-steps, forks, cold-SLOAD fault-ins) to the run's own
+     per-transaction frontier lines, both files read by `python -m
+     tools.traceview` and `python -m tools.frontierview` with exit 0, and
+     `export.collect_device_memory()`'s HBM gauges non-zero; (b)
+     OBSERVE_CONTRACT at 8-step chunks, its snapshot (but for clock
+     readings, TIME_VALUED) held to EXPECTED_OBSERVE (the JAX CLI's);
+     (c) (a)'s span rollup (host seconds by category and by span name)
+     and the publish calls' host microseconds on (a)'s last summary,
+     tracer off and on, beside (a)'s host milliseconds a chunk;
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -278,7 +293,7 @@ copy to the host) held word for word to the twin on the same tensors
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
      state after the first chunk, verdicts and models as in phase 21;
  23. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 18, 19, 20d-20g, 21, 22; 20g's also on their own; K3's are
+     12, 13, 18, 19, 20d-20h, 21, 22; 20g's also on their own; K3's are
      its allocations folded
      into K4's steps and K10's passes and its standalone calls in 20d-20f;
      K11's from the analyzer, 20e, also on their own), its
@@ -4780,6 +4795,322 @@ def phase_analyze_fleet() -> dict:
     return launches
 
 
+# ---- phase 20h: observe_tpu ----------------------------------------------------------
+
+#: the metrics whose values read a clock, with the reason two runs cannot
+#: agree on them; of a histogram the observation counts are still compared
+TIME_VALUED = {
+    "solver.time": "seconds of wall time inside solver checks",
+    "simplify.time": "seconds of wall time inside the simplifier",
+    "dispatch.device_time": "seconds of wall time inside device flushes",
+    "dispatch.flush.latency_ms": "wall time of each flush",
+    "cache.exec.deserialize_ms": "wall time of each executable load",
+    "checkpoint.write_ms": "wall time of each checkpoint write",
+    "absint.build_ms": "wall time of each absint build",
+    "serve.request_ms": "wall time of each request",
+    "serve.queue.wait_ms": "wall time in the admission queue",
+    "profiler.instruction_us": "wall time of each instruction",
+    "bench.states_per_sec": "states over wall seconds",
+}
+#: metric families never compared, and why
+NOT_COMPARED = {
+    "xla.": "per-shape compile accounting: the JAX solver compiles a "
+            "program per clause shape, a CUDA kernel compiles once, so the "
+            "port declares these and emits none (ROADMAP 12)",
+    "device.hbm.": "the memory of the device each package runs on",
+}
+
+
+def deterministic(snapshot: dict) -> dict:
+    """The part of a `metrics.snapshot()` that two runs on the same inputs
+    must agree on: NOT_COMPARED families dropped, TIME_VALUED scalars
+    dropped and TIME_VALUED histograms cut to their observation counts."""
+    out = {}
+    for name, value in snapshot.items():
+        if name.startswith(tuple(NOT_COMPARED)):
+            continue
+        if name in TIME_VALUED:
+            if not isinstance(value, dict):
+                continue
+            if "count" in value and not isinstance(value["count"], dict):
+                out[name] = {"count": value["count"]}
+            else:
+                out[name] = {label: {"count": hist["count"]}
+                             for label, hist in value.items()}
+            continue
+        out[name] = value
+    return out
+
+
+#: (b)'s run: one FLEET_CORPUS contract, FLEET_MODULES, one transaction,
+#: 128 lanes and 8-step chunks (its tree takes several), --engine tpu
+OBSERVE_CONTRACT = "combo"
+OBSERVE_CHUNK = 8
+#: the deterministic snapshot of that run from the JAX package's CLI
+#: (`MYTHRIL_TPU_LANES=128 MYTHRIL_TPU_CHUNK=8 python -m mythril_tpu analyze
+#: -f combo.hex --engine tpu -t 1 -m ... --metrics-out M`);
+#: tests/test_torch_observe_cli.py recomputes it with JAX
+EXPECTED_OBSERVE = json.loads(
+    '{"absint.build_ms": {"count": 1}, "absint.regions_proven": 1, '
+    '"cfa.blocks": 10, "cfa.jumps_resolved": 4, "cfa.merge_points": 1, '
+    '"frontier.chunks": 4, "frontier.drain.rows": {"avg": 3.0, '
+    '"count": 1, "max": 3, "min": 3, "p50": 3, "p95": 3, "p99": 3, '
+    '"sum": 3.0}, "frontier.merge.events": 1, '
+    '"frontier.merge.ite_depth": {"1": {"avg": 1.0, "count": 1, '
+    '"max": 1, "min": 1, "p50": 1, "p95": 1, "p99": 1, "sum": 1.0}}, '
+    '"frontier.merge.ites": 1, "frontier.merge.lanes_retired": 1, '
+    '"frontier.merge.passes": 1, '
+    '"frontier.merge.tag_merges": {"untagged": {"avg": 1.0, '
+    '"count": 1, "max": 1, "min": 1, "p50": 1, "p95": 1, "p99": 1, '
+    '"sum": 1.0}}, "frontier.telemetry.arena_bytes": 504, '
+    '"frontier.telemetry.esc_bytes": 117918, '
+    '"frontier.telemetry.esc_cause": {"halt": {"avg": 1.0, "count": 2, '
+    '"max": 1, "min": 1, "p50": 1, "p95": 1, "p99": 1, "sum": 2.0}, '
+    '"host_op": {"avg": 7.0, "count": 1, "max": 7, "min": 7, "p50": 7, '
+    '"p95": 7, "p99": 7, "sum": 7.0}}, '
+    '"frontier.telemetry.esc_hwm": 3, "frontier.telemetry.escapes": 3, '
+    '"frontier.telemetry.executed": 54, "frontier.telemetry.forks": 3, '
+    '"frontier.telemetry.lifecycle": {"esc_buffered": {"avg": 1.5, '
+    '"count": 2, "max": 2, "min": 1, "p50": 1, "p95": 2, "p99": 2, '
+    '"sum": 3.0}, "forks_claimed": {"avg": 1.5, "count": 2, "max": 2, '
+    '"min": 1, "p50": 1, "p95": 2, "p99": 2, "sum": 3.0}}, '
+    '"frontier.telemetry.occupancy": 1.6875, '
+    '"frontier.telemetry.op_class": {"arith": {"avg": 1.0, "count": 1, '
+    '"max": 1, "min": 1, "p50": 1, "p95": 1, "p99": 1, "sum": 1.0}, '
+    '"cmp": {"avg": 2.0, "count": 2, "max": 2, "min": 2, "p50": 2, '
+    '"p95": 2, "p99": 2, "sum": 4.0}, "dup": {"avg": 1.0, "count": 2, '
+    '"max": 1, "min": 1, "p50": 1, "p95": 1, "p99": 1, "sum": 2.0}, '
+    '"env": {"avg": 1.25, "count": 4, "max": 2, "min": 1, "p50": 1, '
+    '"p95": 2, "p99": 2, "sum": 5.0}, "halt": {"avg": 1.5, "count": 2, '
+    '"max": 2, "min": 1, "p50": 1, "p95": 2, "p99": 2, "sum": 3.0}, '
+    '"jump": {"avg": 6.0, "count": 2, "max": 8, "min": 4, "p50": 4, '
+    '"p95": 8, "p99": 8, "sum": 12.0}, "mem": {"avg": 1.5, "count": 2, '
+    '"max": 2, "min": 1, "p50": 1, "p95": 2, "p99": 2, "sum": 3.0}, '
+    '"push": {"avg": 5.25, "count": 4, "max": 9, "min": 3, "p50": 4, '
+    '"p95": 9, "p99": 9, "sum": 21.0}, "storage": {"avg": 3.0, '
+    '"count": 1, "max": 3, "min": 3, "p50": 3, "p95": 3, "p99": 3, '
+    '"sum": 3.0}}, '
+    '"frontier.telemetry.tag_occupancy": {"merge@0x33": {"avg": 2.0, '
+    '"count": 1, "max": 2, "min": 2, "p50": 2, "p95": 2, "p99": 2, '
+    '"sum": 2.0}}, "simplify.const_props": 19, '
+    '"simplify.ite_collapses": 8, "simplify.iterations": 35, '
+    '"simplify.rewrites": 27, "solver.queries": 6, '
+    '"taint.functions": 2}')
+#: the span names whose host seconds (c) rolls up
+ROLLUP_SPANS = ("svm.tx", "frontier.device_phase", "frontier.chunk",
+                "frontier.sync", "frontier.host_continuation",
+                "dispatch.flush", "cfa.build")
+
+
+def observe_argv(path: str, metrics_out: str, trace_out: str) -> list:
+    """(b)'s CLI arguments on the contract in `path`."""
+    return [*fleet_argv([path], fleet=False), "--metrics-out", metrics_out,
+            "--trace-out", trace_out]
+
+
+def reset_observe() -> None:
+    """The registry and the tracer back to a fresh process's state."""
+    from mythril_tpu_torch.observe import metrics, trace
+
+    metrics.reset()
+    trace.reset()
+
+
+def observe_run(name: str, argv: list, metrics_out: str,
+                trace_out: str) -> tuple:
+    """`run_cli` from a fresh registry and tracer: its exit code, report
+    and record, the snapshot the CLI wrote and the trace's events."""
+    reset_observe()
+    try:
+        exit_code, report, counts = run_cli(name, argv)
+    finally:
+        reset_observe()
+    with open(metrics_out, encoding="utf-8") as handle:
+        snapshot = json.load(handle)
+    with open(trace_out, encoding="utf-8") as handle:
+        events = json.load(handle)["traceEvents"]
+    return exit_code, report, counts, snapshot, events
+
+
+def view_headings(trace_out: str, metrics_out: str) -> dict:
+    """`python -m tools.traceview` and `python -m tools.frontierview` on a
+    trace and a snapshot (both stdlib-only, reading the files): each
+    exit code must be 0; returns each tool's section headings."""
+    headings = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    for tool, extra in (("traceview", []),
+                        ("frontierview", ["--metrics", metrics_out])):
+        proc = subprocess.run(
+            [sys.executable, "-m", f"tools.{tool}", trace_out, *extra],
+            capture_output=True, text=True, cwd=root, timeout=120)
+        if proc.returncode != 0:
+            raise AssertionError(f"observe_tpu: tools.{tool} exit "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        headings[tool] = [line for line in proc.stdout.splitlines()
+                          if line.startswith("== ")]
+    return headings
+
+
+def span_rollup(events) -> dict:
+    """Host seconds of the trace's spans by category and by name (their
+    durations summed; a nested span counts in its parent too)."""
+    by_cat, by_name = {}, {}
+    for event in events:
+        if event["ph"] != "X":
+            continue
+        seconds = event["dur"] / 1e6
+        by_cat[event["cat"]] = by_cat.get(event["cat"], 0.0) + seconds
+        by_name[event["name"]] = by_name.get(event["name"], 0.0) + seconds
+    return {"by_category_s": dict(sorted(by_cat.items())),
+            "by_span_s": {name: by_name.get(name, 0.0)
+                          for name in ROLLUP_SPANS}}
+
+
+def check_frontier_metrics(snapshot: dict, record: dict) -> None:
+    """The snapshot's frontier counters agree with the run's own
+    per-transaction frontier lines: chunks, lane-steps, forks and
+    cold-SLOAD fault-ins summed over its transactions."""
+    lines = record["frontier"]
+    expected = {
+        "frontier.chunks": sum(tx["chunks"] for tx in lines),
+        "frontier.telemetry.executed": sum(tx["lane_steps"] for tx in lines),
+        "frontier.telemetry.forks": sum(tx["forks"] for tx in lines),
+        "frontier.cold_sloads": sum(tx["fault_ins"] for tx in lines)}
+    got = {name: snapshot.get(name, 0) for name in expected}
+    if got != expected:
+        raise AssertionError(f"observe_tpu: snapshot {got}, the frontier "
+                             f"lines {expected}")
+
+
+@contextlib.contextmanager
+def recorded_summaries(recorded: list):
+    """Within the block, every summary a DeviceFrontier decodes is kept in
+    `recorded` as (frontier, a copy of the vector, telemetry)."""
+    decode = frontier.DeviceFrontier._decode_summary
+
+    def recording(self, packed, telemetry):
+        recorded.append((self, np.array(packed), telemetry))
+        return decode(self, packed, telemetry)
+
+    with mock.patch.object(frontier.DeviceFrontier, "_decode_summary",
+                           recording):
+        yield
+
+
+def publish_host_us(recorded: list) -> dict:
+    """Host microseconds of one chunk's publish calls (`_decode_summary`:
+    the shard block and the telemetry words into the registry, the slog
+    check and, traced, the counter tracks) on the last summary `recorded`,
+    with the tracer off and on. The registry is reset after."""
+    from mythril_tpu_torch.observe import trace
+
+    import tempfile
+
+    fr, packed, telemetry = recorded[-1]
+    try:
+        off_us = host_us(lambda: fr._decode_summary(packed, telemetry))
+        with tempfile.TemporaryDirectory() as directory:
+            trace.enable(os.path.join(directory, "publish.trace.json"))
+            on_us = host_us(lambda: fr._decode_summary(packed, telemetry))
+    finally:
+        reset_observe()
+    return {"publish_host_us": off_us, "publish_host_us_traced": on_us}
+
+
+def phase_observe_tpu() -> dict:
+    """The port's observability on the card, in this process: (a)
+    KILLBILLY in analyze_tpu's configuration with --metrics-out and
+    --trace-out (exit and issues EXPECTED_ANALYZE_TPU's, the snapshot's
+    frontier counters the run's frontier lines', both files read by
+    tools.traceview and tools.frontierview, the CUDA memory gauges
+    non-zero); (b) OBSERVE_CONTRACT at 8-step chunks, its deterministic
+    snapshot EXPECTED_OBSERVE; (c) (a)'s span rollup on the host clock,
+    and the publish calls' host microseconds on (a)'s last summary beside
+    (a)'s host milliseconds a chunk. Returns the phase's kernel
+    launches."""
+    import tempfile
+
+    from mythril_tpu_torch.observe import export, metrics
+
+    frontier.configure()
+    launches = {name: 0 for name in ops.LAUNCHES}
+    with tempfile.TemporaryDirectory() as directory:
+        metrics_out = os.path.join(directory, "killbilly.metrics.json")
+        trace_out = os.path.join(directory, "killbilly.trace.json")
+        recorded = []
+        reset_observe()
+        try:
+            with recorded_summaries(recorded):
+                report, summary, record = analyze_tpu_run(
+                    "killbilly", extra=["--metrics-out", metrics_out,
+                                        "--trace-out", trace_out])
+        finally:
+            reset_observe()
+        check_analyze_tpu("killbilly", summary)
+        with open(metrics_out, encoding="utf-8") as handle:
+            snapshot = json.load(handle)
+        with open(trace_out, encoding="utf-8") as handle:
+            trace_doc = json.load(handle)
+        events = trace_doc["traceEvents"]
+        check_frontier_metrics(snapshot, record)
+        headings = view_headings(trace_out, metrics_out)
+        memory = export.collect_device_memory()
+        if not memory.get("bytes_in_use") or not memory.get("peak_bytes") \
+                or metrics.value("device.hbm.bytes_in_use") \
+                != memory["bytes_in_use"]:
+            raise AssertionError(f"observe_tpu: device memory {memory}")
+        for key, count in record["launches"].items():
+            launches[key] += count
+        rollup = span_rollup(events)
+        # (c): what the publish calls cost a chunk, beside the run's host
+        # time a chunk in its device phases
+        rollup.update(publish_host_us(recorded))
+        rollup["host_ms_per_chunk"] = (
+            rollup["by_span_s"]["frontier.device_phase"] * 1000.0
+            / snapshot["frontier.chunks"])
+        emit({"phase": "observe_tpu", "run": "killbilly", "clock": "host",
+              "host_wall_s": record["host_wall_s"], "exit": record["exit"],
+              "issues": summary["issues"], "frontier": record["frontier"],
+              "metrics": len(snapshot),
+              "trace_events": len(events),
+              "dropped_events": trace_doc["otherData"]["dropped_events"],
+              "counter_samples": sum(1 for e in events if e["ph"] == "C"),
+              "headings": headings, "device_memory": memory, **rollup,
+              "launches": record["launches"]})
+        # (b): the small run held to the JAX package's snapshot
+        paths = fleet_files(directory)
+        metrics_out = os.path.join(directory, "small.metrics.json")
+        trace_out = os.path.join(directory, "small.trace.json")
+        frontier.configure(chunk=OBSERVE_CHUNK)
+        try:
+            exit_code, report, counts, snapshot, events = observe_run(
+                "observe_tpu small", observe_argv(
+                    paths[OBSERVE_CONTRACT], metrics_out, trace_out),
+                metrics_out, trace_out)
+        finally:
+            frontier.configure()
+        got = deterministic(snapshot)
+        if got != EXPECTED_OBSERVE:
+            differ = sorted(name for name in set(got) | set(EXPECTED_OBSERVE)
+                            if got.get(name) != EXPECTED_OBSERVE.get(name))
+            raise AssertionError(f"observe_tpu small: the snapshot differs "
+                                 f"from the JAX package's in {differ}")
+        for key, count in counts["launches"].items():
+            launches[key] += count
+        emit({"phase": "observe_tpu", "run": "small",
+              "contract": OBSERVE_CONTRACT, "chunk": OBSERVE_CHUNK,
+              "clock": "host", "host_wall_s": counts["wall"],
+              "exit": exit_code, "metrics_compared": len(got),
+              "chunks": got.get("frontier.chunks", 0),
+              "counter_samples": sum(1 for e in events if e["ph"] == "C"),
+              "launches": counts["launches"]})
+    missing = [key for key in ("sym_step", "frontier_summary", "merge_pass")
+               if not launches[key]]
+    if missing:
+        raise AssertionError(f"observe_tpu: no launch of {missing}")
+    return launches
+
+
 def sat_solve(solve, *args, **kwargs) -> dict:
     """One entry-point call with the launch counts zeroed just before and
     read just after, each chunk's stream time (CUDA events around
@@ -5017,6 +5348,8 @@ def main() -> int:
     # several contracts in one frontier: the fleet driver, sharded too
     fleet_launches = phase_analyze_fleet()
     main_path_launches.append(fleet_launches)
+    # the same paths with the metric registry, tracer and exporter read back
+    main_path_launches.append(phase_observe_tpu())
     sat_launches, sat_profiled = phase_sat_lane(dev, facade)
     main_path_launches += [sat_launches, phase_sat_batch(dev, facade)]
     for counts in main_path_launches:

@@ -26,16 +26,17 @@ gives the cfa tables. Two screening levels:
 Everything funnels through :func:`enabled` — ``args.taint`` and the
 ``ENABLED["taint"]`` switch disable both levels for A/B parity runs, and
 a missing summary (cfa bailed, fixpoint blew its cap) means "no verdict":
-every module runs, every hook fires.
+every module runs, every hook fires. Skips are counted in the
+``taint.screen.*`` metrics.
 
-The port's own copy of the JAX package's module; its ``taint.screen.*``
-counters wait for the port's metric registry.
+The port's own copy of the JAX package's module.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+from ..observe import metrics
 from ..staticanalysis import ENABLED, ContractSummary, get_summary
 from ..support.support_args import args
 
@@ -86,6 +87,8 @@ def screen_modules(modules: Sequence, disassembly) -> Tuple[List, List]:
             skipped.append(module)
         else:
             kept.append(module)
+    if skipped:
+        metrics.inc("taint.screen.modules_skipped", len(skipped))
     return kept, skipped
 
 
@@ -117,7 +120,10 @@ def should_skip_site(module, op_code: str, global_state) -> bool:
                         for index in operand_indices)
     except IndexError:
         return False
-    return untainted
+    if untainted:
+        metrics.inc("taint.screen.sites_skipped")
+        return True
+    return False
 
 
 def loop_header_at(disassembly, pc: int) -> Optional[int]:

@@ -7,9 +7,8 @@ Counters live on the observe metrics registry (``bench.instructions``,
 and traces see the same numbers; :attr:`nr_of_executed_insns` stays as a
 facade property for existing callers.
 
-The port's copy of mythril_tpu/core/plugin/plugins/benchmark.py:
-its counters go to the port's null metric registry (`observe/metrics.py`),
-so it records nothing until the port's own registry lands (ROADMAP A 14)."""
+The port's copy of mythril_tpu/core/plugin/plugins/benchmark.py, on the
+port's metric registry (`observe/metrics.py`)."""
 
 from __future__ import annotations
 

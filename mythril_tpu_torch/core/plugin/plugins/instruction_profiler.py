@@ -10,9 +10,8 @@ one histogram label per opcode) instead of a private dict, so traceview and
 run manifests see them; :attr:`records` derives the legacy
 ``opcode -> (min, max, total_seconds, count)`` mapping for existing callers.
 
-The port's copy of mythril_tpu/core/plugin/plugins/instruction_profiler.py:
-its counters go to the port's null metric registry (`observe/metrics.py`),
-so it records nothing until the port's own registry lands (ROADMAP A 14)."""
+The port's copy of mythril_tpu/core/plugin/plugins/instruction_profiler.py,
+on the port's metric registry (`observe/metrics.py`)."""
 
 from __future__ import annotations
 

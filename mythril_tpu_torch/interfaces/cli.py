@@ -20,10 +20,11 @@ and exits 2 before any contract is analyzed when there is no card; so does
 (the batch dispatch over K11). `--checkpoint`/`--resume` save and resume
 the host worklist and the device frontier. `--fleet` with `--engine tpu`
 and repeated `-f` (each member named after its file) analyzes the
-contracts as one fleet in shared device phases. The other subcommands
-exit with code 2 and the ROADMAP item that ports them, and so does every
-input whose path is not ported (`--metrics-out`/`--trace-out`,
-`-a`/`--rpc`, Solidity files), before any contract is analyzed. The extension discovery
+contracts as one fleet in shared device phases. `--metrics-out` writes
+the metric registry's snapshot and `--trace-out` a Perfetto trace of the
+run (observe/). The other subcommands exit with code 2 and the ROADMAP
+item that ports them, and so does every input whose path is not ported
+(`-a`/`--rpc`, Solidity files), before any contract is analyzed. The extension discovery
 of third-party plugins is not booted (ROADMAP A 14)."""
 
 from __future__ import annotations
@@ -134,11 +135,10 @@ def _add_analysis_args(parser: argparse.ArgumentParser) -> None:
                               "NTH visit of its boundary (N, N+, or *; "
                               "default 1); comma-separate multiple entries")
     options.add_argument("--trace-out", default=None, metavar="PATH",
-                         help="write a trace_event JSON of the run to PATH "
-                              "(not ported: ROADMAP A 14)")
+                         help="write a trace_event JSON of the run to PATH")
     options.add_argument("--metrics-out", default=None, metavar="PATH",
                          help="write a JSON snapshot of the metric "
-                              "registry to PATH (not ported: ROADMAP A 14)")
+                              "registry to PATH")
     options.add_argument("--device-crosscheck", type=int, default=0,
                          metavar="N",
                          help="re-decide every Nth device sat/unsat verdict "

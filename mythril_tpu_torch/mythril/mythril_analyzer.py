@@ -5,9 +5,8 @@ exactly once here, mirroring the reference's flow :66-85).
 
 The port's copy of mythril_tpu/mythril/mythril_analyzer.py. `fire_lasers` turns
 an exception inside a contract's analysis into a traceback in the report,
-so the seams the port has not ported raise here, in the constructor,
-before any contract is analyzed: a metrics or trace file (ROADMAP A 14).
-So does `engine="tpu"` without the device that
+so what cannot run raises here, in the constructor, before any contract
+is analyzed: `engine="tpu"` without the device that
 `parallel/frontier.configure` names, and `solver="jax"` without the one
 `smt/solver/dispatch.configure` names (the CUDA card unless a test names
 the CPU): `device.DeviceUnavailable`, never an analysis on the host or the
@@ -15,8 +14,12 @@ CPU in its place. The checkpoint and resume paths reach each contract's
 LaserEVM (support/checkpoint.py) as in the JAX package; a fleet member's
 are the paths with its contract id appended. `fleet` with `engine="tpu"`
 and two or more contracts analyzes them as one fleet
-(`parallel/fleet.py`); otherwise it logs and runs them one by one. The
-knob reads of the metrics and trace paths are gone with them. Each
+(`parallel/fleet.py`); otherwise it logs and runs them one by one.
+`metrics_out` and `trace_out` come from the CLI only (the JAX package
+also reads MYTHRIL_TPU_METRICS and MYTHRIL_TPU_TRACE): a trace path
+enables the span tracer with a run manifest, and at the end of
+`fire_lasers` the trace is exported and the registry's snapshot written
+(tmp + fsync + rename). Each
 contract's explored states are logged beside its solver statistics
 (INFO), where chip_smoke.py's `analyze` phase reads them, and a fleet's
 driver counters as one JSON object (`fleet counters: {...}`), where its
@@ -50,7 +53,6 @@ class MythrilAnalyzer:
         self.address = address
 
         cmd = cmd_args or _Namespace()
-        _refuse_unported(cmd)
         # on-chain fault-in defaults ON (reference parity); --no-onchain-data
         # disables it (ADVICE r2: the old default-True getattr disabled it
         # permanently because the CLI never defined the flag)
@@ -110,6 +112,17 @@ class MythrilAnalyzer:
         from ..support import resilience
 
         resilience.configure(args.inject_fault)
+        # the metrics snapshot is written (fsync-atomic) at the end of
+        # fire_lasers; the tracer records from here
+        self.metrics_out = getattr(cmd, "metrics_out", None)
+        trace_out = getattr(cmd, "trace_out", None)
+        if trace_out:
+            trace.enable(trace_out)
+            trace.set_manifest(
+                engine=self.engine, strategy=strategy,
+                solver=getattr(args, "solver", "cdcl"),
+                execution_timeout=self.execution_timeout,
+                contracts=", ".join(c.name for c in self.contracts))
 
     def _dynloader(self):
         if self.use_onchain_data and self.eth is not None:
@@ -236,6 +249,14 @@ class MythrilAnalyzer:
         report.coverage = coverage
         for issue in all_issues:
             report.append_issue(issue)
+        # flush the trace now (the atexit hook rewrites the final one; an
+        # analyzer embedded in a longer process still leaves a loadable
+        # file behind)
+        trace.export()
+        if self.metrics_out:
+            from ..observe import metrics
+
+            metrics.write_snapshot(self.metrics_out)
         return report
 
     # -- fleet mode --------------------------------------------------------------------
@@ -263,11 +284,12 @@ class MythrilAnalyzer:
         driver = FleetDriver(members, modules=modules)
         log.info("fleet: packing %d contracts into one device frontier: %s",
                  len(members), ", ".join(contract_ids))
-        try:
-            driver.run()
-        except KeyboardInterrupt:
-            log.critical(
-                "fleet analysis interrupted, saving issues found so far")
+        with trace.span("analyze.fleet", contracts=len(members)):
+            try:
+                driver.run()
+            except KeyboardInterrupt:
+                log.critical(
+                    "fleet analysis interrupted, saving issues found so far")
         log.info("solver statistics: %s", SolverStatistics())
         log.info("fleet counters: %s", json.dumps({
             **driver.counters(),
@@ -372,25 +394,6 @@ def _unique_contract_ids(contracts) -> List[str]:
         seen[base] = count + 1
         ids.append(base if count == 0 else f"{base}-{count + 1}")
     return ids
-
-
-#: the analyzer's inputs whose paths the port has not ported: (attribute,
-#: what it needs, ROADMAP item)
-_UNPORTED = (
-    ("metrics_out", "the port's metric registry", "A 14"),
-    ("trace_out", "the port's span tracer", "A 14"),
-)
-
-
-def _refuse_unported(cmd) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for the first
-    input that takes a path the port has not ported."""
-    for name, needs, item in _UNPORTED:
-        given = getattr(cmd, name, None)
-        if given:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag} {given} needs {needs}: ROADMAP {item}")
 
 
 class _Namespace:

@@ -20,11 +20,16 @@ the configured device (`frontier.resolve_device`) before any member's turn:
 without a card it raises, and nothing explores on the host or the CPU in
 its place.
 
-The JAX driver's metrics and structured log events are counters here: on
-the driver `phases`, `lane_steps`, `forks`, `chunks`, `steal_passes`,
-`steal_rows`, `drained`, `device_s` and `occupancy` (lane-steps by
-contract id, the JAX `frontier.fleet.lane_steps` labels); on each member
-`drained` (its lanes killed by a deadline drain)."""
+The driver emits the JAX driver's spans (`frontier.fleet.seed`,
+`frontier.fleet.device_phase`, each member's
+`frontier.host_continuation`), metrics (`frontier.fleet.phases`,
+`frontier.fleet.drained`; the frontier's telemetry publishes
+`frontier.fleet.contracts` and `frontier.fleet.lane_steps`) and
+structured log events (`fleet.phase`, `fleet.deadline_drain`). It also
+keeps them as counters: on the driver `phases`, `lane_steps`, `forks`,
+`chunks`, `steal_passes`, `steal_rows`, `drained`, `device_s` and
+`occupancy` (lane-steps by contract id); on each member `drained` (its
+lanes killed by a deadline drain)."""
 
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..observe import metrics, slog, trace
 from . import frontier
 from .batch import DEAD, ESCAPED, FORKING, RUNNING
 
@@ -291,7 +297,8 @@ class FleetDriver:
         member._pending_feeder = None
         laser_evm.frontier_feeder = feeder
         try:
-            laser_evm.exec()
+            with trace.span("frontier.host_continuation"):
+                laser_evm.exec()
         finally:
             laser_evm.frontier_feeder = None
 
@@ -367,11 +374,20 @@ class FleetDriver:
                                    max(lanes, 2 * len(seeds)))
         fr.fleet = self
         fr.seed_owner_index = [gated.index(owner) for owner in owners]
-        state, planes = fr.seed(seeds, owners)
+        with trace.span("frontier.fleet.seed", seeds=len(seeds),
+                        contracts=len(gated)):
+            state, planes = fr.seed(seeds, owners)
         self._arm_clock(max(m.budget_remaining() for m in gated))
         self.phases += 1
+        metrics.inc("frontier.fleet.phases")
+        if slog.enabled():
+            slog.event("fleet.phase", contracts=len(gated),
+                       seeds=len(seeds), lanes=fr.n_lanes)
         start = time.perf_counter()
-        fr.run(state, planes)
+        with trace.span("frontier.fleet.device_phase", lanes=fr.n_lanes,
+                        contracts=len(gated)) as phase:
+            fr.run(state, planes)
+            phase.set(forks=fr.forks, lane_steps=fr.lane_steps)
         device_s = time.perf_counter() - start
         self.device_s += device_s
         self.lane_steps += fr.lane_steps
@@ -408,6 +424,9 @@ class FleetDriver:
                 member.abandoned = True
                 log.info("fleet member %r exhausted its budget; draining "
                          "its lanes (others continue)", member.contract_id)
+                if slog.enabled():
+                    slog.event("fleet.deadline_drain",
+                               contract=member.contract_id)
             indices = fr.fleet_ctx_of.get(id(member))
             if not indices:
                 continue
@@ -418,6 +437,7 @@ class FleetDriver:
                 member.count_dropped(count)
                 member.drained += count
                 self.drained += count
+                metrics.inc("frontier.fleet.drained", count)
                 changed = True
         return changed
 

@@ -18,7 +18,11 @@ the JAX driver does with the device's output:
   6. reseeds host overflow rows into DEAD lanes once the stack is empty;
   7. decodes the telemetry words at the summary's end into per-chunk
      deltas, and runs a merge pass (`symstep.merge_pass`) when the merge
-     tags' occupancy or the chunk cadence says so;
+     tags' occupancy or the chunk cadence says so; the decodes of the
+     telemetry, the shard block and each merge pass's stats are published
+     as the JAX frontier publishes them (observe/: the `frontier.*`
+     metrics, counter tracks and a `frontier.chunk` structured log
+     record), and the loop's calls are spans;
   8. with a `checkpoint_path`, every 16 chunks saves the device phase as
      one .npz (`save_checkpoint`: the trees, the arena's used prefix, the
      counters, the scheduler's rows as pending rows, the host terms), in
@@ -94,6 +98,7 @@ import torch
 
 from .. import device as _device
 from ..analysis import module_screen
+from ..observe import metrics, slog, trace
 from . import convert
 from ..core.state.annotation import StateAnnotation
 from ..frontends.disassembler import Disassembly
@@ -826,6 +831,7 @@ class DeviceFrontier:
         self.drained_rows = 0
         self.frozen_rows = 0   # lanes deferred frozen ESCAPED
         self.row_bytes = 0
+        self.node_bytes = 0
         self.telemetry = telemetry
         self.state_merge = state_merge
         self.absint = cfa_screen.absint_enabled()
@@ -1016,6 +1022,11 @@ class DeviceFrontier:
             stack_rows += (-stack_rows) % self.n_shards
             esc_rows += (-esc_rows) % self.n_shards
         self.row_bytes = row_bytes
+        # the telemetry's byte gauges: rows x row bytes, arena nodes x the
+        # bytes of the arena's per-node columns (frontier.py:1405-1421)
+        self.node_bytes = sum(
+            leaf.element_size() for leaf in self.arena
+            if leaf.dim() == 1 and leaf.shape[0] == self.arena.capacity)
         telemetry = None
         if self.telemetry:
             telemetry = symstep.new_telemetry(
@@ -1071,21 +1082,29 @@ class DeviceFrontier:
                 break
             if self.out_of_time(phase_start, deadline_s):
                 break
-            state, planes, self.arena, sched = symstep.run_chunk(
-                state, planes, self.arena, sched, chunk)
+            # the chunk is queued, not run: the span bounds its enqueue, the
+            # wait lands in the frontier.sync span below
+            with trace.span("frontier.chunk", steps=chunk):
+                state, planes, self.arena, sched = symstep.run_chunk(
+                    state, planes, self.arena, sched, chunk)
+            metrics.inc("frontier.chunks")
             self.chunks += 1
             steps += chunk
             # the cadenced steal pass: plan and moves stay on the device
             if n_shards > 1 and self.steal_cadence > 0 \
                     and (steps // chunk) % self.steal_cadence == 0:
-                sched = steal_pass(state, sched, self.steal_min_imbalance,
-                                   steal_max_rows)
+                with trace.span("frontier.steal"):
+                    sched = steal_pass(state, sched,
+                                       self.steal_min_imbalance,
+                                       steal_max_rows)
                 self.steal_passes += 1
+                metrics.inc("frontier.shard.steal_passes")
             # the chunk is queued: land the previous drain while it runs
             if backlog is not None:
                 self._flush_backlog(backlog)
                 backlog = None
-            packed = summary_read(state, planes, self.arena, sched)
+            with trace.span("frontier.sync"):
+                packed = summary_read(state, planes, self.arena, sched)
             (stack_top, esc_count, executed, forks, pushes, pops, arena_n,
              arena_nc, esc_msize, esc_sp, esc_slots, esc_conds, status,
              fork_cond, lane_ctx) = self._decode_summary(
@@ -1108,9 +1127,11 @@ class DeviceFrontier:
                         "a cold-SLOAD pause needs a service_cold hook "
                         "(the single-contract driver's is "
                         "Frontier._service_cold)")
-                self._harena(arena_n, arena_nc)
-                state, planes = self.service_cold(
-                    self, state, planes, status, [int(l) for l in cold])
+                metrics.inc("frontier.cold_sloads", len(cold))
+                with trace.span("frontier.service_cold", lanes=len(cold)):
+                    self._harena(arena_n, arena_nc)
+                    state, planes = self.service_cold(
+                        self, state, planes, status, [int(l) for l in cold])
                 dirty = True
             # escape-buffer overflow: frozen ESCAPED lanes go to deferred
             frozen = np.nonzero(status == ESCAPED)[0]
@@ -1141,9 +1162,11 @@ class DeviceFrontier:
             if esc_count >= drain_batch or (
                     esc_count and stack_top == 0
                     and not (status == RUNNING).any()):
-                backlog = self._fetch_escapes(sched, esc_count, esc_msize,
-                                              esc_sp, esc_slots, esc_conds,
-                                              arena_n, arena_nc)
+                metrics.observe("frontier.drain.rows", esc_count)
+                with trace.span("frontier.fetch_escapes", rows=esc_count):
+                    backlog = self._fetch_escapes(
+                        sched, esc_count, esc_msize, esc_sp, esc_slots,
+                        esc_conds, arena_n, arena_nc)
                 sched = reset_esc(sched)
                 self.drains += 1
                 self.drained_rows += esc_count
@@ -1165,10 +1188,13 @@ class DeviceFrontier:
                 else:
                     due = (steps // chunk) % 4 == 0
                 if due:
-                    state, planes, self.arena, mstats = symstep.merge_pass(
-                        state, planes, self.arena, *self.merge_tables,
-                        n_rounds=MERGE_ROUNDS)
-                    self._publish_merge(mstats.cpu().numpy())
+                    with trace.span("frontier.merge"):
+                        state, planes, self.arena, mstats = \
+                            symstep.merge_pass(
+                                state, planes, self.arena,
+                                *self.merge_tables, n_rounds=MERGE_ROUNDS)
+                        mstats = mstats.cpu().numpy()
+                    self._publish_merge(mstats)
             if self.checkpoint_path and steps % (chunk * 16) == 0:
                 self.periodic_checkpoint(state, planes, sched)
             if not ((status == RUNNING) | (status == FORKING)).any() \
@@ -1198,9 +1224,10 @@ class DeviceFrontier:
 
     def _decode_summary(self, packed: np.ndarray, telemetry: bool) -> tuple:
         """One chunk's summary vector: its shard block and its telemetry
-        words published (copied, so that the caller may reuse `packed`);
-        returns the twelve scalars the loop reads, then status, fork_cond
-        and each lane's context id as new int32 arrays."""
+        words published (copied, so that the caller may reuse `packed`),
+        in the JAX frontier's order; returns the twelve scalars the loop
+        reads, then status, fork_cond and each lane's context id as new
+        int32 arrays."""
         n = self.n_lanes
         # a sharded summary ends in the shard block: peel it off first
         shard_words = None
@@ -1215,12 +1242,20 @@ class DeviceFrontier:
         if shard_words is not None:
             self._publish_shard(shard_words, status)
         if telemetry:
-            self._publish_telemetry(packed[base + 3 * n:])
+            self._publish_telemetry(
+                packed[base + 3 * n:], running=int(np.sum(status == RUNNING)),
+                stack_top=scalars[0], esc_count=scalars[1],
+                arena_n=scalars[6])
         return (*scalars, status, fork_cond, lane_ctx)
 
-    def _publish_telemetry(self, tel_words) -> None:
+    def _publish_telemetry(self, tel_words, running: int, stack_top: int,
+                           esc_count: int, arena_n: int) -> None:
         """One chunk's telemetry words (cumulative device counters) into
-        per-chunk deltas summed on the object (frontier.py:1365)."""
+        per-chunk deltas, summed on the object and published as the JAX
+        frontier publishes them (frontier.py:1365-1480): declared metrics,
+        a `frontier.chunk` structured log record and Perfetto counter
+        tracks. `running`, `stack_top`, `esc_count` and `arena_n` are the
+        same summary's."""
         tel_words = np.array(tel_words, dtype=np.int64)
         prev = self.tel_words
         if prev is None or prev.shape != tel_words.shape:
@@ -1230,14 +1265,98 @@ class DeviceFrontier:
         n_op, n_lc = symstep.N_OP_CLASSES, symstep.N_LIFECYCLE
         n_ec = symstep.N_ESC_CAUSES
         fixed = symstep.TELEMETRY_FIXED_WORDS
-        self.op_hist += delta[:n_op]
-        self.lifecycle += delta[n_op:n_op + n_lc]
-        self.esc_cause += delta[n_op + n_lc:n_op + n_lc + n_ec]
+        op_d = delta[:n_op]
+        lc_d = delta[n_op:n_op + n_lc]
+        ec_d = delta[n_op + n_lc:n_op + n_lc + n_ec]
+        tag_d = delta[fixed:fixed + len(self.tag_names)]
+        fleet_d = delta[fixed + len(self.tag_names):]
+        self.op_hist += op_d
+        self.lifecycle += lc_d
+        self.esc_cause += ec_d
         self.stack_hwm, self.esc_hwm = (int(v) for v in tel_words[fixed - 2:
                                                                   fixed])
-        self.last_tag_delta = delta[fixed:fixed + len(self.tag_names)]
-        self.tag_occupancy += self.last_tag_delta
-        self.fleet_occupancy += delta[fixed + len(self.tag_names):]
+        self.last_tag_delta = tag_d
+        self.tag_occupancy += tag_d
+        self.fleet_occupancy += fleet_d
+
+        lc = dict(zip(symstep.LIFECYCLE_NAMES, (int(v) for v in lc_d)))
+        occupancy = tel_words[fixed - 4:fixed - 2]
+        metrics.inc("frontier.telemetry.executed", int(np.sum(op_d)))
+        metrics.inc("frontier.telemetry.forks",
+                    lc["forks_claimed"] + lc["forks_pushed"]
+                    + lc["forks_spilled"])
+        metrics.inc("frontier.telemetry.escapes",
+                    lc["esc_buffered"] + lc["esc_frozen"])
+        metrics.inc("frontier.telemetry.reseeds", lc["reseeds"])
+        metrics.inc("frontier.telemetry.deaths",
+                    lc["err_deaths"] + lc["overflow_kills"]
+                    + lc["bad_jump_deaths"])
+        metrics.inc("frontier.telemetry.cold_sload_pauses",
+                    lc["cold_sloads"])
+        metrics.set_gauge("frontier.telemetry.stack_hwm", self.stack_hwm)
+        metrics.set_gauge("frontier.telemetry.esc_hwm", self.esc_hwm)
+        # device memory from the summary and `new_sched`'s byte factors:
+        # no device read
+        stack_bytes = self.stack_hwm * self.row_bytes
+        esc_bytes = self.esc_hwm * self.row_bytes
+        arena_bytes = arena_n * self.node_bytes
+        metrics.set_gauge("frontier.telemetry.stack_bytes", stack_bytes)
+        metrics.set_gauge("frontier.telemetry.esc_bytes", esc_bytes)
+        metrics.set_gauge("frontier.telemetry.arena_bytes", arena_bytes)
+        if int(occupancy[1]):
+            metrics.set_gauge("frontier.telemetry.occupancy",
+                              float(occupancy[0]) / float(occupancy[1]))
+        for name, count in zip(symstep.OP_CLASS_NAMES, op_d):
+            if count:
+                metrics.observe("frontier.telemetry.op_class", int(count),
+                                label=name)
+        for name, count in zip(symstep.ESC_CAUSE_NAMES, ec_d):
+            if count:
+                metrics.observe("frontier.telemetry.esc_cause", int(count),
+                                label=name)
+        for name, count in lc.items():
+            if count:
+                metrics.observe("frontier.telemetry.lifecycle", count,
+                                label=name)
+        for name, count in zip(self.tag_names, tag_d):
+            if count:
+                metrics.observe("frontier.telemetry.tag_occupancy",
+                                int(count), label=name)
+        # per-contract fleet occupancy: the fairness signal
+        if self.fleet_names:
+            metrics.set_gauge("frontier.fleet.contracts",
+                              len(self.fleet_names))
+            for name, count in zip(self.fleet_names, fleet_d):
+                if count:
+                    metrics.observe("frontier.fleet.lane_steps",
+                                    int(count), label=name)
+        if slog.enabled():
+            slog.event("frontier.chunk", running=running,
+                       stack=stack_top, escaped=esc_count,
+                       arena=arena_n, executed=int(np.sum(op_d)),
+                       stack_bytes=stack_bytes, esc_bytes=esc_bytes,
+                       arena_bytes=arena_bytes)
+        if trace.enabled():
+            trace.counter("frontier.lanes", running=running,
+                          stack=stack_top, escaped=esc_count)
+            trace.counter("frontier.arena", nodes=arena_n)
+            trace.counter("frontier.memory", stack_bytes=stack_bytes,
+                          esc_bytes=esc_bytes, arena_bytes=arena_bytes)
+            trace.counter("frontier.ops", **{
+                name: int(count)
+                for name, count in zip(symstep.OP_CLASS_NAMES, op_d)})
+            trace.counter("frontier.causes", **{
+                name: int(count)
+                for name, count in zip(symstep.ESC_CAUSE_NAMES, ec_d)})
+            trace.counter("frontier.lifecycle", **lc)
+            if self.tag_names:
+                trace.counter("frontier.tags", **{
+                    name: int(count)
+                    for name, count in zip(self.tag_names, tag_d)})
+            if self.fleet_names:
+                trace.counter("frontier.fleet", **{
+                    name: int(count)
+                    for name, count in zip(self.fleet_names, fleet_d)})
 
     def _publish_shard(self, shard_words, status) -> None:
         """The summary's shard block (frontier.py:1481): per-shard tops and
@@ -1256,15 +1375,36 @@ class DeviceFrontier:
         if prev is None:
             prev = (np.zeros(d, dtype=np.int64), np.zeros(d, dtype=np.int64),
                     0)
-        self.steals_sent += sent - prev[0]
-        self.steals_received += recv - prev[1]
-        self.steal_rows += moved - prev[2]
+        d_sent, d_recv, d_moved = sent - prev[0], recv - prev[1], \
+            moved - prev[2]
+        self.steals_sent += d_sent
+        self.steals_received += d_recv
+        self.steal_rows += d_moved
         running = (np.asarray(status) == RUNNING).reshape(d, -1).sum(1)
         load = running.astype(np.float64) + tops.astype(np.float64)
         square_sum = float(np.sum(load * load))
         self.shard_imbalance = int(load.max() - load.min())
         self.shard_fairness = (float(np.sum(load)) ** 2 / (d * square_sum)
                                if square_sum > 0 else 1.0)
+        metrics.set_gauge("frontier.shard.devices", d)
+        metrics.set_gauge("frontier.shard.imbalance", self.shard_imbalance)
+        metrics.set_gauge("frontier.shard.fairness",
+                          round(self.shard_fairness, 4))
+        for dev in range(d):
+            metrics.observe("frontier.shard.occupancy", int(running[dev]),
+                            label=f"dev{dev}")
+        for dev in range(d):
+            if d_sent[dev]:
+                metrics.observe("frontier.shard.steals_sent",
+                                int(d_sent[dev]), label=f"dev{dev}")
+            if d_recv[dev]:
+                metrics.observe("frontier.shard.steals_received",
+                                int(d_recv[dev]), label=f"dev{dev}")
+        if d_moved:
+            metrics.inc("frontier.shard.steal_rows", d_moved)
+        if trace.enabled():
+            trace.counter("frontier.shard", **{
+                f"dev{dev}": int(load[dev]) for dev in range(d)})
 
     def _publish_merge(self, mstats: np.ndarray) -> None:
         """One merge pass's stats vector, decoded as `_publish_merge`
@@ -1274,26 +1414,47 @@ class DeviceFrontier:
         merge_names = self.merge_names
         n_tags = len(merge_names)
         self.merge_passes += 1
+        metrics.inc("frontier.merge.passes")
+        # the gates publish on a 0-merge pass too: "why did nothing merge"
         for label, count in zip(symstep.MERGE_BLOCKED_LABELS, mstats[3:8]):
             self.blocked_by[label] += int(count)
+            if count:
+                metrics.inc("frontier.merge.blocked_by." + label,
+                            int(count))
         merges = int(mstats[0])
         if not merges:
             return
         self.merges += merges
         self.merge_ites += int(mstats[1])
         self.mem_blends += int(mstats[2])
+        metrics.inc("frontier.merge.events", merges)
+        metrics.inc("frontier.merge.lanes_retired", merges)
+        metrics.inc("frontier.merge.ites", int(mstats[1]))
+        if int(mstats[2]):
+            metrics.inc("absint.merge.mem_blends", int(mstats[2]))
         tagged = 0
         for name, count in zip(merge_names, mstats[fixed:fixed + n_tags]):
             if count:
                 tagged += int(count)
                 self.tag_merges[name] = self.tag_merges.get(name, 0) \
                     + int(count)
+                metrics.observe("frontier.merge.tag_merges", int(count),
+                                label=name)
         if merges > tagged:
             self.tag_merges["untagged"] = self.tag_merges.get(
                 "untagged", 0) + merges - tagged
+            metrics.observe("frontier.merge.tag_merges", merges - tagged,
+                            label="untagged")
         for label, count in zip(symstep.MERGE_DEPTH_LABELS,
                                 mstats[fixed + n_tags:]):
             self.ite_depth[label] += int(count)
+            if count:
+                metrics.observe("frontier.merge.ite_depth", int(count),
+                                label=label)
+        if trace.enabled():
+            # per-pass deltas, like every frontier counter track
+            trace.counter("frontier.merges", merged=merges,
+                          ites=int(mstats[1]))
 
     # -- row transfers ------------------------------------------------------------------
 
@@ -1448,9 +1609,10 @@ class DeviceFrontier:
         if backlog is None:
             return
         pack_handle, delta_handle, count = backlog
-        self.harena.refresh_apply(delta_handle)
-        rows_state, rows_planes = self._pack_apply(pack_handle)
-        self.deferred.append([rows_state, rows_planes, count, 0])
+        with trace.span("frontier.host_drain", rows=count):
+            self.harena.refresh_apply(delta_handle)
+            rows_state, rows_planes = self._pack_apply(pack_handle)
+            self.deferred.append([rows_state, rows_planes, count, 0])
 
     # -- budget exhaustion --------------------------------------------------------------
 
@@ -1469,9 +1631,12 @@ class DeviceFrontier:
                       sched.stack_top.cpu().numpy()),
                      (sched.esc_state, sched.esc_planes,
                       sched.esc_count.cpu().numpy())]
-        if not len(live) and not self.pending \
-                and not any(np.sum(used) for _, _, used in pools):
+        backlog = len(self.pending) + sum(int(np.sum(used))
+                                          for _, _, used in pools)
+        if not len(live) and not backlog:
             return
+        trace.instant("frontier.hand_over", live_lanes=len(live),
+                      backlog_rows=backlog)
         self._harena()
         if len(live):
             self._defer_lanes(state, planes, live)
@@ -1575,10 +1740,16 @@ class DeviceFrontier:
         if not path.endswith(".npz"):
             path += ".npz"  # np.savez appends it; keep save/resume agreeing
         arrays = self.checkpoint_arrays(state, planes, sched)
-        tmp = f"{path}.tmp"
-        with open(tmp, "wb") as handle:
-            np.savez_compressed(handle, **arrays)
-        fsync_replace(tmp, path)
+        started = time.perf_counter()
+        with trace.span("checkpoint.save", kind="device",
+                        pending_rows=len(arrays.get("pend_state_status", ()))):
+            tmp = f"{path}.tmp"
+            with open(tmp, "wb") as handle:
+                np.savez_compressed(handle, **arrays)
+            fsync_replace(tmp, path)
+        metrics.inc("checkpoint.saves")
+        metrics.observe("checkpoint.write_ms",
+                        (time.perf_counter() - started) * 1000.0)
         return path
 
     def load_checkpoint(self, path: str) -> Tuple[StateBatch, SymPlanes]:
@@ -1593,7 +1764,8 @@ class DeviceFrontier:
 
         if not path.endswith(".npz"):
             path += ".npz"
-        with np.load(path, allow_pickle=False) as npz:
+        with trace.span("checkpoint.load", kind="device"), \
+                np.load(path, allow_pickle=False) as npz:
             data = {key: npz[key] for key in npz.files}
         n_lanes, n_contexts = (int(v) for v in data["identity"])
         if n_lanes != self.n_lanes or n_contexts != len(self.contexts):
@@ -1880,6 +2052,10 @@ class Frontier(DeviceFrontier):
             specs.append((template, entries, (
                 code, table, base_sym, int(template.mstate.gas_limit),
                 template.environment.address.raw.value)))
+            # the static analysis memoizes on the host engine's own
+            # Disassembly of the code, which the JAX frontier analyzes: each
+            # code is built (and counted) once, not once more a frontier
+            self.disassemblies.setdefault(code, template.environment.code)
         state, planes = super().seed([spec for _, _, spec in specs])
         placed = []  # (lane, slot, node) of each host-term leaf
         for lane, (template, entries, _) in zip(
@@ -2079,6 +2255,8 @@ class Frontier(DeviceFrontier):
                 self.laser.dropped_states = getattr(
                     self.laser, "dropped_states", 0) + len(live) + backlog
             return
+        trace.instant("frontier.hand_over", live_lanes=len(live),
+                      backlog_rows=backlog)
         harena = self._harena()
         if len(live):
             self._materialize_lanes(state, planes, harena, live)
@@ -2231,6 +2409,7 @@ class Frontier(DeviceFrontier):
                 continue  # deadline-drained: its rows never materialize
             if state_np is not None and cfa_screen.statically_dead(
                     ctx.template.environment.code, int(state_np["pc"][row])):
+                metrics.inc("cfa.frontier.prefetch_skipped")
                 continue
             key = id(member)
             if key not in by_member:
@@ -2380,9 +2559,11 @@ class Frontier(DeviceFrontier):
         merge_pc = cfa_screen.merge_point_at(disassembly, byte_pc)
         if merge_pc is not None:
             global_state.annotate(MergeTagAnnotation(merge_pc))
+            metrics.inc("cfa.frontier.merge_tagged")
         loop_header = module_screen.loop_header_at(disassembly, byte_pc)
         if loop_header is not None:
             global_state.annotate(LoopHintAnnotation(loop_header))
+            metrics.inc("taint.frontier.loop_tagged")
 
         # the device tracks the lower-bound gas model
         gas_used = int(state_np["gas_used"][lane])
@@ -2512,8 +2693,11 @@ def execute_message_call_tpu(laser_evm, callee_address,
     setting = _settings
     frontier = new_frontier(laser_evm, max(setting["lanes"], 2 * len(seeds)))
     start = time.perf_counter()
-    state, planes = frontier.seed(seeds)
-    frontier.run(state, planes)
+    with trace.span("frontier.seed", seeds=len(seeds)):
+        state, planes = frontier.seed(seeds)
+    with trace.span("frontier.device_phase", lanes=frontier.n_lanes) as ph:
+        frontier.run(state, planes)
+        ph.set(forks=frontier.forks, lane_steps=frontier.lane_steps)
     device_s = time.perf_counter() - start
     log.info("frontier: %d forks, %d storage fault-ins, %d infeasible "
              "pruned, %d states materialized + %d deferred for the host "
@@ -2537,7 +2721,8 @@ def execute_message_call_tpu(laser_evm, callee_address,
     laser_evm.frontier_feeder = frontier.make_feeder()
     start = time.perf_counter()
     try:
-        laser_evm.exec()
+        with trace.span("frontier.host_continuation"):
+            laser_evm.exec()
     finally:
         laser_evm.frontier_feeder = None
         dropped = frontier.undelivered()

@@ -19,14 +19,15 @@ Everything funnels through :func:`enabled` so ``--no-cfa`` (the
 ``args.cfa`` singleton field) and the ``ENABLED["cfa"]`` switch both gate
 the whole surface for A/B runs.
 
-The port's own copy of the JAX package's module; its ``cfa.screen.*`` and
-``absint.*`` counters wait for the port's metric registry.
+The port's own copy of the JAX package's module, with its
+``cfa.screen.*`` and ``absint.*`` counters.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+from ...observe import metrics
 from ...staticanalysis import (ENABLED, AbsintResult, CfaResult, get_absint,
                                get_cfa)
 from ...support.support_args import args
@@ -83,13 +84,20 @@ def screen_jump_target(disassembly, jump_address: int) -> Optional[bool]:
     True  -> `jump_address` is a statically-reachable JUMPDEST;
     False -> provably not a valid target (prune before the solver);
     None  -> no verdict (screen off, pass bailed, address out of range).
+
+    Every non-None answer is counted (``cfa.screen.answered``); False
+    answers additionally count ``cfa.screen.infeasible``.
     """
     result = cfa_for(disassembly)
     if result is None:
         return None
     if not 0 <= jump_address < result.code_length:
         return None  # out-of-range: leave to the dynamic path's error
-    return result.is_valid_target(jump_address)
+    verdict = result.is_valid_target(jump_address)
+    metrics.inc("cfa.screen.answered")
+    if not verdict:
+        metrics.inc("cfa.screen.infeasible")
+    return verdict
 
 
 def resolved_jump_targets(disassembly,
@@ -132,21 +140,29 @@ def jumpi_verdict(disassembly, site_pc: int) -> Optional[bool]:
     False -> provably always zero (never taken);
     None  -> no verdict (screen off, bailed, data-dependent condition).
 
-    The infeasible side is dropped before any constraint is appended or
-    solver query issued."""
+    Every non-None answer is counted (``absint.screen.range_answered``)
+    — the infeasible side is dropped before any constraint is appended
+    or solver query issued."""
     result = absint_for(disassembly)
     if result is None:
         return None
-    return result.jumpi_verdict(site_pc)
+    verdict = result.jumpi_verdict(site_pc)
+    if verdict is not None:
+        metrics.inc("absint.screen.range_answered")
+    return verdict
 
 
 def loop_bound_at(disassembly, header_pc: int) -> Optional[int]:
     """Statically proven header-arrival bound for the natural loop at
-    `header_pc`, or None (no proof / no verdict)."""
+    `header_pc`, or None (no proof / no verdict). Counted when a bound
+    is handed out (``absint.loop_bounds_applied``)."""
     result = absint_for(disassembly)
     if result is None:
         return None
-    return result.loop_bound(header_pc)
+    bound = result.loop_bound(header_pc)
+    if bound is not None:
+        metrics.inc("absint.loop_bounds_applied")
+    return bound
 
 
 def merge_mem_windows(disassembly, join_pc: int):

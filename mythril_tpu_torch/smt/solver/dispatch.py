@@ -55,7 +55,8 @@ Two differences:
   kernel that does not build (kernels/build.py), a launch that fails, the
   card out of memory, no card — propagates: the ladder never moves K11's
   work to the host unseen.
-Metrics and spans go to the port's null registry and tracer."""
+Metrics, spans and the `dispatch.flush` structured log record go to the
+port's registry, tracer and slog (observe/)."""
 
 from __future__ import annotations
 
@@ -66,7 +67,7 @@ from typing import List, Optional, Tuple
 
 from . import sat
 from .solver_statistics import SolverStatistics
-from ...observe import metrics, trace
+from ...observe import metrics, slog, trace
 
 log = logging.getLogger(__name__)
 
@@ -392,6 +393,11 @@ class DispatchQueue:
         if batched:
             statistics.batch_device_time += elapsed
             metrics.observe("dispatch.flush.latency_ms", elapsed * 1000.0)
+        if slog.enabled():
+            # correlated flush record: the cid rides the caller's contextvar
+            slog.event("dispatch.flush", occupancy=len(entries),
+                       batched=batched, contracts=len(origins),
+                       latency_ms=round(elapsed * 1000.0, 3))
         # wall budget per AMORTIZED query, not per batch: N queries sharing
         # one launch legitimately take up to N x the per-query budget
         overran = False

@@ -1,8 +1,4 @@
 """Word-level simplification pass — runs over the hash-consed term IR before any
-
-The port's copy of mythril_tpu/smt/solver/simplify.py, without the
-trace span around the pass (the port has no tracer yet).
-
 lowering or bit-blasting (preprocess.lower_constraints and
 incremental.IncrementalPipeline.check both invoke it).
 
@@ -36,6 +32,8 @@ All rewrites preserve satisfiability AND models (defining equalities are kept;
 rewritten conjuncts are logical consequences in both directions), so the pass is
 safe for both the native CDCL path and the batched device path, and cached
 models/witness extraction keep working unchanged.
+
+The port's copy of mythril_tpu/smt/solver/simplify.py.
 """
 
 from __future__ import annotations
@@ -47,6 +45,7 @@ from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from .. import terms
+from ...observe import trace
 from .solver_statistics import SolverStatistics
 
 #: UF namespace the keccak function manager owns; applications are injective by
@@ -109,21 +108,23 @@ def simplify_constraints(constraints: Iterable[terms.Term]) -> SimplifyOutcome:
     conjuncts = _flatten(list(key))
     substitutions: Dict[terms.Term, terms.Term] = {}
     iterations = 0
-    if conjuncts and conjuncts[0] is terms.FALSE:
-        outcome = SimplifyOutcome([terms.FALSE])
-    else:
-        while iterations < MAX_ITERATIONS:
-            iterations += 1
-            new_conjuncts = _iterate(conjuncts, substitutions, counters)
-            changed = len(new_conjuncts) != len(conjuncts) or any(
-                a is not b for a, b in zip(new_conjuncts, conjuncts))
-            conjuncts = new_conjuncts
-            if conjuncts and conjuncts[0] is terms.FALSE:
-                break
-            if not changed:
-                break
-        outcome = SimplifyOutcome(conjuncts, substitutions, iterations,
-                                  counters.rewrites)
+    with trace.span("simplify.pass", conjuncts=len(key)) as pass_span:
+        if conjuncts and conjuncts[0] is terms.FALSE:
+            outcome = SimplifyOutcome([terms.FALSE])
+        else:
+            while iterations < MAX_ITERATIONS:
+                iterations += 1
+                new_conjuncts = _iterate(conjuncts, substitutions, counters)
+                changed = len(new_conjuncts) != len(conjuncts) or any(
+                    a is not b for a, b in zip(new_conjuncts, conjuncts))
+                conjuncts = new_conjuncts
+                if conjuncts and conjuncts[0] is terms.FALSE:
+                    break
+                if not changed:
+                    break
+            outcome = SimplifyOutcome(conjuncts, substitutions, iterations,
+                                      counters.rewrites)
+        pass_span.set(iterations=iterations, rewrites=counters.rewrites)
 
     statistics.simplify_time += time.time() - started
     statistics.simplify_iterations += iterations

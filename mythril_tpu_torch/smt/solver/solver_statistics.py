@@ -1,11 +1,14 @@
 """Per-process solver query statistics: the port's copy of
 mythril_tpu/smt/solver/solver_statistics.py.
 
-The JAX package keeps every scalar counter in its typed metrics registry
-(observe/metrics.py); the port has no registry yet, so here each counter
-is a plain attribute of the singleton, with the same names, starting at 0.
-Container-shaped state (failure_counts, batch_bucket_shapes,
-backends_quarantined) is as in the JAX package.
+A facade over the port's typed metrics registry (observe/metrics.py), as
+the JAX package's is over its own: every scalar field in FACADE_METRICS
+is a property whose value lives in the registry under a declared metric
+name, so ``stats.query_count += 1`` and ``metrics.value("solver.queries")``
+are one number. The port's own two counters (PORT_COUNTERS), which the
+reference registry does not declare, are plain attributes. Container-
+shaped state (failure_counts, batch_bucket_shapes, backends_quarantined)
+stays on the instance.
 """
 
 from __future__ import annotations
@@ -13,9 +16,11 @@ from __future__ import annotations
 import time
 from functools import wraps
 
+from ...observe import metrics
 
-#: scalar counter -> the JAX package's metric name for it
-COUNTERS = {
+#: scalar field -> declared metric (observe/metrics.py REGISTRY); these
+#: become facade properties on SolverStatistics below
+FACADE_METRICS = {
     "query_count": "solver.queries",
     "solver_time": "solver.time",
     "device_queries": "solver.device.queries",
@@ -41,11 +46,6 @@ COUNTERS = {
     "breaker_recoveries": "resilience.breaker_recoveries",
     "crosschecks": "resilience.crosschecks",
     "divergences": "resilience.divergences",
-    #: the port's own: host-oracle SAT answers whose assignment failed the
-    #: clauses, which the cross-check did not let disprove the device, and
-    #: of those the ones a second ask (unit clauses first) proved UNSAT
-    "oracle_faults": "resilience.oracle_faults",
-    "oracle_confirmed": "resilience.oracle_confirmed",
     # batched device dispatch (smt/solver/dispatch.py)
     "batch_submitted": "dispatch.submitted",
     "batch_cache_hits": "dispatch.cache_hits",
@@ -54,6 +54,12 @@ COUNTERS = {
     "batch_flushed_queries": "dispatch.flushed_queries",
     "batch_device_time": "dispatch.device_time",
 }
+
+#: the port's own counters, plain attributes: host-oracle SAT answers
+#: whose assignment failed the clauses, which the cross-check did not let
+#: disprove the device, and of those the ones a second ask (unit clauses
+#: first) proved UNSAT
+PORT_COUNTERS = ("oracle_faults", "oracle_confirmed")
 
 
 class SolverStatistics:
@@ -98,7 +104,9 @@ class SolverStatistics:
         }
 
     def reset(self) -> None:
-        for counter in COUNTERS:
+        for metric_name in FACADE_METRICS.values():
+            metrics.set_value(metric_name, 0)
+        for counter in PORT_COUNTERS:
             setattr(self, counter, 0)
         self._init_containers()
 
@@ -142,6 +150,21 @@ class SolverStatistics:
         if self.backends_quarantined:
             out += f", QUARANTINED backends: {self.backends_quarantined}"
         return out
+
+
+def _facade_property(metric_name: str) -> property:
+    def fget(self):
+        return metrics.value(metric_name)
+
+    def fset(self, new_value):
+        metrics.set_value(metric_name, new_value)
+
+    return property(fget, fset)
+
+
+for _field, _metric in FACADE_METRICS.items():
+    setattr(SolverStatistics, _field, _facade_property(_metric))
+del _field, _metric
 
 
 def stat_smt_query(func):

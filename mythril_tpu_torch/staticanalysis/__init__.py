@@ -20,8 +20,9 @@ verdicts) behind :func:`get_absint`, same contract again.
 
 The port's own copy of the JAX package's static analysis (stdlib only).
 The three passes are switched by :data:`ENABLED` (all on, as the JAX
-package's MYTHRIL_TPU_CFA / TAINT / ABSINT knobs default); the builds are
-not counted or traced, since the port has no metric registry yet.
+package's MYTHRIL_TPU_CFA / TAINT / ABSINT knobs default); each build is
+a span (``cfa.build``, ``taint.build``, ``absint.build``) and counted on
+the metric registry, as the JAX package's are.
 """
 
 from __future__ import annotations
@@ -72,6 +73,8 @@ def get_cfa(disassembly) -> Optional[CfaResult]:
     pass is switched off (``ENABLED["cfa"]``) or bailed out; the None
     verdict is memoized too, so a bailing contract pays the bail check once.
     """
+    from ..observe import metrics, trace
+
     cached = getattr(disassembly, "_cfa_result", _MISS)
     if cached is not _MISS:
         return cached
@@ -80,7 +83,24 @@ def get_cfa(disassembly) -> Optional[CfaResult]:
         disassembly._cfa_result = None
         return None
 
-    result = build_cfa(disassembly)
+    with trace.span("cfa.build") as span:
+        result = build_cfa(disassembly)
+        if result is None:
+            span.set(bailed=True)
+        else:
+            span.set(
+                blocks=len(result.blocks),
+                edges=result.n_edges,
+                resolved=len(result.jump_targets),
+                unresolved=len(result.unresolved_jumps),
+                merge_points=len(result.merge_points),
+            )
+            metrics.inc("cfa.blocks", len(result.blocks))
+            metrics.inc("cfa.jumps_resolved", len(result.jump_targets))
+            metrics.inc("cfa.jumps_unresolved",
+                        len(result.unresolved_jumps))
+            metrics.inc("cfa.merge_points", len(result.merge_points))
+            metrics.inc("cfa.dead_bytes", result.dead_bytes)
     disassembly._cfa_result = result
     return result
 
@@ -94,6 +114,8 @@ def get_summary(disassembly) -> Optional[ContractSummary]:
     cfa tables are unavailable, or the taint fixpoint bailed — consumers
     treat None as "no verdict" and keep their dynamic paths.
     """
+    from ..observe import metrics, trace
+
     cached = getattr(disassembly, "_taint_summary", _MISS)
     if cached is not _MISS:
         return cached
@@ -107,7 +129,19 @@ def get_summary(disassembly) -> Optional[ContractSummary]:
         disassembly._taint_summary = None
         return None
 
-    result = build_summary(disassembly, cfa)
+    with trace.span("taint.build") as span:
+        result = build_summary(disassembly, cfa)
+        if result is None:
+            span.set(bailed=True)
+        else:
+            span.set(
+                functions=len(result.functions),
+                loops=len(result.loops),
+                sinks=len(result.sink_sites),
+                rounds=result.rounds,
+            )
+            metrics.inc("taint.functions", len(result.functions))
+            metrics.inc("taint.loops", len(result.loops))
     disassembly._taint_summary = result
     return result
 
@@ -127,6 +161,10 @@ def get_absint(disassembly) -> Optional[AbsintResult]:
     cfa tables are unavailable, or the fixpoint bailed — consumers
     treat None as "no verdict" and keep their dynamic paths.
     """
+    import time
+
+    from ..observe import metrics, trace
+
     cached = getattr(disassembly, "_absint_result", _MISS)
     if cached is not _MISS:
         return cached
@@ -140,6 +178,23 @@ def get_absint(disassembly) -> Optional[AbsintResult]:
         disassembly._absint_result = None
         return None
 
-    result = build_absint(disassembly, cfa)
+    with trace.span("absint.build") as span:
+        start = time.perf_counter()
+        result = build_absint(disassembly, cfa)
+        if result is None:
+            span.set(bailed=True)
+        else:
+            span.set(
+                blocks=len(result.entry_intervals),
+                widenings=result.widenings,
+                regions=result.regions_proven,
+                loop_bounds=len(result.loop_bounds),
+                const_jumpis=len(result.const_jumpis),
+            )
+            metrics.observe(
+                "absint.build_ms",
+                (time.perf_counter() - start) * 1000.0)
+            metrics.inc("absint.widenings", result.widenings)
+            metrics.inc("absint.regions_proven", result.regions_proven)
     disassembly._absint_result = result
     return result

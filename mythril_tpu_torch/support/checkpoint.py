@@ -29,7 +29,8 @@ through `_PortUnpickler`, which resolves only the port's own classes,
 safe builtins, `collections`, `copyreg` and numpy: a payload that names
 anything else (the JAX package's classes, say) is refused like a truncated
 one — a warning, then a fresh run — and never imports a module into the
-process. Spans and metrics go to the port's null tracer and registry."""
+process. Spans and metrics go to the port's tracer and registry
+(observe/)."""
 
 from __future__ import annotations
 

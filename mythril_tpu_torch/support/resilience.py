@@ -34,7 +34,7 @@ The port's copy of mythril_tpu/support/resilience.py. The JAX package reads
 the breaker thresholds, the fault plan, the device wall budget and the
 cross-check period from `MYTHRIL_TPU_*` variables; here they are
 `configure(...)` arguments with the same defaults, and `reset()` restores
-those. Its trace events go to the port's null tracer (observe/trace.py).
+those. Its trace events go to the port's tracer (observe/trace.py).
 """
 
 from __future__ import annotations

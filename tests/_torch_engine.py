@@ -11,7 +11,8 @@ number their symbols alike. Expression text depends on the process
 (terms.py orders commutative operands by an id-based hash, ROADMAP C):
 symbolic values are compared as sorted tokens, never as exact text.
 
-`fresh` also resets what an analysis leaves behind: the detection
+`fresh` also resets what an analysis leaves behind: the metric registry
+and the span tracer (each package has its own), the detection
 modules' issues and caches, the laser plugin loader, the `args` fields
 the analyzer writes, and the JAX package's signature database, which
 persists to a file under HOME (the port's is in memory): each case points
@@ -50,6 +51,8 @@ from mythril_tpu.core.transaction import concolic as jconcolic
 from mythril_tpu.core.transaction import transaction_models as jtx
 from mythril_tpu.frontends import asm as jasm
 from mythril_tpu.frontends.disassembler import Disassembly as JDisassembly
+from mythril_tpu.observe import metrics as jmetrics
+from mythril_tpu.observe import trace as jtrace
 from mythril_tpu.smt.solver import simplify as jsimplify
 from mythril_tpu.smt.solver import solver as jsolver
 from mythril_tpu.smt.solver import solver_statistics as jstatistics
@@ -79,6 +82,8 @@ from mythril_tpu_torch.core.transaction import concolic as pconcolic
 from mythril_tpu_torch.core.transaction import transaction_models as ptx
 from mythril_tpu_torch.frontends import asm as pasm
 from mythril_tpu_torch.frontends.disassembler import Disassembly as PDisassembly
+from mythril_tpu_torch.observe import metrics as pmetrics
+from mythril_tpu_torch.observe import trace as ptrace
 from mythril_tpu_torch.smt.solver import simplify as psimplify
 from mythril_tpu_torch.smt.solver import solver as psolver
 from mythril_tpu_torch.smt.solver import solver_statistics as pstatistics
@@ -96,7 +101,8 @@ JAX = SimpleNamespace(
     solver=jsolver, simplify=jsimplify, stats=jstatistics.SolverStatistics,
     model=jmodel, keccak=jkeccak, exceptions=jexceptions,
     time_handler=jtime_handler, mythril=jmythril, security=jsecurity,
-    plugin=jplugin, args=jsupport_args.args, signatures=jsignatures)
+    plugin=jplugin, args=jsupport_args.args, signatures=jsignatures,
+    metrics=jmetrics, trace=jtrace)
 PORT = SimpleNamespace(
     name="port", smt=psmt, state=pstate, calldata=pcalldata, tx=ptx,
     util=putil, Disassembly=PDisassembly, instructions=pinstructions,
@@ -106,7 +112,8 @@ PORT = SimpleNamespace(
     solver=psolver, simplify=psimplify, stats=pstatistics.SolverStatistics,
     model=pmodel, keccak=pkeccak, exceptions=pexceptions,
     time_handler=ptime_handler, mythril=pmythril, security=psecurity,
-    plugin=pplugin, args=psupport_args.args, signatures=psignatures)
+    plugin=pplugin, args=psupport_args.args, signatures=psignatures,
+    metrics=pmetrics, trace=ptrace)
 SIDES = (JAX, PORT)
 
 #: the statespace contracts, by name: chip_smoke.py's KILLBILLY (tests/
@@ -143,6 +150,8 @@ def fresh(side) -> None:
     side.fm.exponent_function_manager.__init__()
     side.solver.reset_solver_backend()
     side.stats().reset()
+    side.metrics.reset()
+    side.trace.reset()
     side.simplify.reset_simplify_memo()
     side.security.reset_callback_modules()
     side.plugin.LaserPluginLoader().reset()
@@ -465,8 +474,9 @@ ISSUE_FIELDS = ("swc-id", "title", "severity", "contract", "function",
 def analyze_report(side, code: bytes, modules=None, transaction_count=2,
                    bin_runtime=False, **options) -> dict:
     """`analyze` through one side's MythrilAnalyzer, as its CLI runs it:
-    the `-o json` report as a dict, the blast pool's digest, and the
-    analyzer's own objects for the tests that read them."""
+    the `-o json` report as a dict, the blast pool's digest, the
+    analyzer's own objects for the tests that read them and the side's
+    metric snapshot (the run starts from a reset registry: `fresh`)."""
     disassembler = side.mythril.MythrilDisassembler()
     address, _ = disassembler.load_from_bytecode(code.hex(), bin_runtime)
     cmd = SimpleNamespace(**{**ANALYZE_DEFAULTS, **options})
@@ -480,7 +490,7 @@ def analyze_report(side, code: bytes, modules=None, transaction_count=2,
     return {"json": json.loads(report.as_json()),
             "exceptions": list(report.exceptions),
             "pool": hashlib.sha256(repr(pool).encode()).hexdigest(),
-            "plugins": plugins}
+            "plugins": plugins, "metrics": side.metrics.snapshot()}
 
 
 def report_view(report: dict) -> dict:

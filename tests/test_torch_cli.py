@@ -17,6 +17,8 @@ database lives under HOME; the port's is in memory).
 - every input and subcommand whose path the port has not ported exits 2,
   naming its ROADMAP item, before any contract is analyzed, and so does
   `--engine tpu` without a card, naming the CUDA device;
+- `--metrics-out` and `--trace-out` write the registry's snapshot and the
+  run's trace, equal to the JAX CLI's but for the clock readings;
 - `--solver jax` (the port's SAT lane on its twin, through a wrapper that
   configures it on the CPU), `--checkpoint`, `--resume` and `--fleet`
   (one contract: run as without it) give the JAX CLI's report on the
@@ -212,8 +214,6 @@ TX_ORIGIN_CODE = creation_hex(chip_smoke.TX_ORIGIN)
 
 #: (arguments, ROADMAP item): every path the port has not ported
 SEAMS = [
-    (["--metrics-out", "{tmp}/metrics.json"], "A 14"),
-    (["--trace-out", "{tmp}/trace.json"], "A 14"),
     (["--rpc", "localhost:8545"], "A 14"),
 ]
 COMMAND_SEAMS = [
@@ -246,6 +246,35 @@ def test_unported_paths_refuse(cli, tmp_path, argv, item):
     assert f"ROADMAP {item}" in proc.stderr
     assert proc.stdout == ""
     assert sorted(os.listdir(tmp_path)) == before
+
+
+@pytest.mark.parametrize("flag", ["--metrics-out", "--trace-out"])
+def test_observability_files(cli, tmp_path_factory, flag):
+    """`--metrics-out` and `--trace-out`, which exited 2 until the port had
+    its own registry and tracer, write the file they name: the same
+    snapshot as the JAX CLI's but for its clock readings, and a trace with
+    the JAX CLI's spans (tests/_torch_observe.py)."""
+    from _torch_observe import deterministic, load_events, span_names
+
+    tmp = tmp_path_factory.mktemp(flag.strip("-"))
+    out = {}
+    for side in ("port", "jax"):
+        path = f"{tmp}/{side}.json"
+        proc = cli(side, ["analyze", "-c", TX_ORIGIN_CODE, "-t", "1", "-o",
+                          "json", flag, path])
+        assert proc.returncode == 1, proc.stderr[-2000:]
+        with open(path, encoding="utf-8") as handle:
+            out[side] = json.load(handle)
+    if flag == "--metrics-out":
+        assert deterministic(out["port"]) == deterministic(out["jax"])
+        assert out["port"]["solver.queries"] > 0
+        assert out["port"]["cfa.blocks"] > 0
+    else:
+        names = span_names(load_events(f"{tmp}/port.json"))
+        assert names == span_names(load_events(f"{tmp}/jax.json"))
+        assert names[("X", "svm.tx")] == 1
+        assert names[("X", "analyze.contract")] == 1
+        assert out["port"]["otherData"]["engine"] == "host"
 
 
 #: the paths this PR opened, once seams: (flag, the port side that runs it)

@@ -3,8 +3,8 @@ against the JAX package's: the cases of tests/test_state_merge.py,
 tests/test_tx_prioritiser.py and tests/test_summaries.py run on both
 packages, the port's results held to the JAX package's and to those
 tests' own assertions; and the A/B halves of the cfa, taint and absint
-screens on the port alone (their counter assertions wait for the port's
-metric registry, ROADMAP A 14).
+screens on the port alone, with their counters on the port's metric
+registry.
 
 Analyses run through each package's MythrilAnalyzer as its CLI runs them
 (tests/_torch_engine.py `analyze_report`) and their reports are compared
@@ -284,3 +284,14 @@ def test_screen_off_gives_the_same_detections(analyses, off):
     assert [issue["swc-id"] for issue in on["json"]["issues"]] == ["106"]
     assert report_view(without["json"]) == report_view(on["json"])
     report_parity(without["json"], on["json"], without["pool"] == on["pool"])
+    # test_cfa.py's and test_taint.py's A/B counters: a screen counts only
+    # while it is on (the absint tables are built only while theirs is)
+    def count(analysis, name):
+        value = analysis["metrics"].get(name, 0)
+        return value["count"] if isinstance(value, dict) else value
+
+    counter = {"no_cfa": "cfa.screen.answered",
+               "no_taint": "taint.screen.modules_skipped",
+               "no_absint": "absint.build_ms"}[off]
+    assert count(on, counter) > 0
+    assert count(without, counter) == 0

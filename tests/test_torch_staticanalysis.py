@@ -17,9 +17,9 @@ disk (`test_cfa._corpus_bytecodes`).
 Reference cases: tests/test_cfa.py :69-354, test_absint.py :213-448 and
 test_taint.py :162-340 and :485, with the JAX knobs replaced by the
 port's keyword arguments and pass switches (`staticanalysis.ENABLED`).
-The assertions on the JAX package's metric registry are left out (the
-port has none yet); the cases that need the host engine, the cfaview CLI
-or the serve warm set wait (ROADMAP A 6b, 12, 14)."""
+The assertions on the metric registry run on the port's own registry
+(mythril_tpu_torch/observe/), and each build is a span; the cases that
+need the cfaview CLI or the serve warm set wait (ROADMAP A 14, 12)."""
 
 import dataclasses
 import json
@@ -42,6 +42,7 @@ from mythril_tpu_torch.frontends.asm import dispatcher as port_dispatcher
 from mythril_tpu_torch.frontends.disassembler import (Disassembly,
                                                       find_op_code_sequence)
 from mythril_tpu_torch.frontends.evmcontract import EVMContract
+from mythril_tpu_torch.observe import metrics, trace
 from mythril_tpu_torch.smt.solver import cfa_screen
 from mythril_tpu_torch.staticanalysis.absint import AbsintResult, contains
 from mythril_tpu_torch.staticanalysis.taint import (TAG_CALLER, TAG_STORAGE,
@@ -54,7 +55,10 @@ from tools.measure_headline import BECTOKEN, KILLBILLY
 @pytest.fixture(autouse=True)
 def _switches_restored():
     saved = (dict(sa.ENABLED), args.cfa, args.taint, args.absint)
+    metrics.reset()
     yield
+    metrics.reset()
+    trace.reset()
     sa.ENABLED.update(saved[0])
     args.cfa, args.taint, args.absint = saved[1:]
 
@@ -390,12 +394,53 @@ def test_postdom_is_idom_on_reversed_diamond():
     assert sa.dominator_depth(ipostdom, 4) == [2, 2, 2, 1, 0]
 
 
+def test_metrics_emitted_on_build(tmp_path):
+    """Each build counts on the registry and is a span (test_cfa.py
+    :216), with the JAX package's counts on the same code."""
+    from mythril_tpu.observe import metrics as jmetrics
+
+    trace.enable(str(tmp_path / "build.json"))
+    code = port_assemble(port_dispatcher(test_taint.MINI)).hex()
+    dis = Disassembly(code)
+    assert sa.get_summary(dis) is not None
+    assert sa.get_absint(dis) is not None
+    snapshot = metrics.snapshot()
+    assert snapshot["cfa.blocks"] > 0
+    assert snapshot["cfa.jumps_resolved"] > 0
+    assert snapshot["taint.functions"] >= 2
+    assert snapshot["absint.build_ms"]["count"] == 1
+    events = json.load(open(trace.export()))["traceEvents"]
+    assert sorted(e["name"] for e in events if e["ph"] == "X") \
+        == ["absint.build", "cfa.build", "taint.build"]
+    sa.get_cfa(dis)  # memoized: counted once
+    assert metrics.snapshot()["cfa.blocks"] == snapshot["cfa.blocks"]
+    jmetrics.reset()
+    try:
+        jdis = JDisassembly(code)
+        jsa.get_summary(jdis)
+        jsa.get_absint(jdis)
+        expected = jmetrics.snapshot()
+    finally:
+        jmetrics.reset()
+    del snapshot["absint.build_ms"], expected["absint.build_ms"]
+    assert snapshot == expected
+    metrics.reset()
+    sa.get_cfa(Disassembly(port_assemble(CFA_PROGRAMS["diamond"]).hex()))
+    snapshot = metrics.snapshot()
+    assert snapshot["cfa.blocks"] > 0
+    assert snapshot["cfa.jumps_resolved"] == 2
+    assert snapshot["cfa.merge_points"] == 1
+
+
 def test_screen_verdicts():
     dis = Disassembly(port_assemble(CFA_PROGRAMS["diamond"]).hex())
     [merge_pc] = sa.get_cfa(dis).merge_points
     assert cfa_screen.screen_jump_target(dis, merge_pc) is True
     assert cfa_screen.screen_jump_target(dis, 0) is False
     assert cfa_screen.screen_jump_target(dis, 10_000) is None
+    snapshot = metrics.snapshot()
+    assert snapshot["cfa.screen.answered"] == 2
+    assert snapshot["cfa.screen.infeasible"] == 1
 
 
 def test_screen_agrees_with_dynamic_check_everywhere():
@@ -424,6 +469,7 @@ def test_no_cfa_flag_disables_every_verdict():
     assert cfa_screen.merge_point_at(dis, 0) is None
     assert not cfa_screen.statically_dead(dis, 0)
     assert cfa_screen.block_key(dis, 7) == 7
+    assert "cfa.screen.answered" not in metrics.snapshot()
 
 
 def test_block_key_and_merge_point_follow_the_blocks():
@@ -672,6 +718,7 @@ def test_loop_detection_on_counting_loop():
     assert loop.header_pc == jumpdest_pc and loop.depth == 1
     assert jumpi_pc in loop.back_edge_pcs
     assert module_screen.loop_header_at(dis, jumpi_pc) == jumpdest_pc
+    assert metrics.snapshot().get("taint.loops") == 1
 
 
 def test_sink_taints_on_mini():
@@ -712,6 +759,7 @@ def test_no_taint_flag_disables_every_consumer():
     assert module_screen.summary_for(dis) is None
     assert module_screen.loop_header_at(dis, 0) is None
     assert module_screen.function_order(dis) == ()
+    assert "taint.functions" not in metrics.snapshot()
 
 
 @pytest.mark.parametrize("name", ["killbilly", "bectoken", "taint_create"])
@@ -735,6 +783,9 @@ def test_module_screen_on_the_jax_modules(name):
         assert "AccidentallyKillable" in names
     else:
         assert skipped == []
+    # test_taint.py's whole-module skip counter
+    assert metrics.snapshot().get("taint.screen.modules_skipped", 0) \
+        == len(skipped)
 
 
 def test_evmcontract_disassembly_is_cached():
