@@ -24,7 +24,8 @@ K11 (--solver jax, phase 20e), and a killed analysis and a device drive
 have resumed from their checkpoints (phase 20f), and six contracts have
 been analyzed as one fleet in shared device phases, sharded with K12's
 steal passes too (phase 20g), and two analyses have written the metric
-snapshot and trace that the JAX package's CLI writes (phase 20h).
+snapshot and trace that the JAX package's CLI writes (phase 20h), and the
+gas superoptimizer has proved its rewrites on K11 (phase 20i).
 Every phase prints one JSON line; any mismatch raises, and the run exits
 non-zero. Each frontier* phase drives its
 configuration once more with every summary the loop reads (K5 and its
@@ -279,6 +280,20 @@ copy to the host) held word for word to the twin on the same tensors
      (c) (a)'s span rollup (host seconds by category and by span name)
      and the publish calls' host microseconds on (a)'s last summary,
      tracer off and on, beside (a)'s host milliseconds a chunk;
+20i. optimize_jax, each run in this process: the port's `optimize
+     --crosscheck 1` (superopt/, `cli.main`) on OPTIMIZE_CODES
+     (tests/test_superopt.py's SYNTHETIC, the KILLBILLY and BECTOKEN
+     dispatchers and bench.py's superopt contract at 12 blocks, copies
+     here) under `--solver jax`, whose real queries go through one
+     dispatch flush onto K11 (the CDCL decides what the card leaves
+     UNKNOWN), then under `--solver cdcl` on the host: each report but
+     its wall held to EXPECTED_OPTIMIZE (the JAX package's); a line a run
+     with its host wall, rewrites, queries, proofs by route, flushes and
+     their occupancy, device-decided and UNKNOWN verdicts, crosschecks,
+     divergences, K11 launches and graph captures. It fails if K11 never
+     launched from the optimizer, if one of the 12-block code's 12 proofs
+     is not the device's, on a divergence or a breaker off CLOSED, or if
+     a cdcl run launched a kernel;
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -293,10 +308,11 @@ copy to the host) held word for word to the twin on the same tensors
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
      state after the first chunk, verdicts and models as in phase 21;
  23. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 18, 19, 20d-20h, 21, 22; 20g's also on their own; K3's are
+     12, 13, 18, 19, 20d-20i, 21, 22; 20g's also on their own; K3's are
      its allocations folded
      into K4's steps and K10's passes and its standalone calls in 20d-20f;
-     K11's from the analyzer, 20e, also on their own), its
+     K11's from the analyzer, 20e, and from the optimizer, 20i, also on
+     their own), its
      time, its plain version's time, the least time the card could take
      and the library call's time (K11's per step).
 
@@ -373,7 +389,8 @@ EXPECTED = {"escapes": 4097, "forks": 4096, "pushes": 3968, "pops": 3968,
 #: `symstep.run_chunk`, `_fetch_escapes` and `_defer_lanes`; the digests are
 #: `frontier.deferred_digest(_Frontier.deferred)` and
 #: `frontier.mirror_digest(_Frontier.harena)`.
-#: tests/test_torch_frontier.py recomputes both with JAX and checks them.
+#: tests/test_torch_frontier_constants.py recomputes both with JAX and
+#: checks them.
 EXPECTED_FRONTIER = {
     "chunks": 8, "drains": 4, "drained_rows": 3713, "frozen_rows": 384,
     "spilled": 0, "reseeded": 0, "lane_steps": 36868, "forks": 4096,
@@ -404,8 +421,8 @@ EXPECTED_SPILL = {
 #: `_collect_tag_pcs` / `_merge_pc_table` returning what the JAX static
 #: analysis builds for the contract; merge passes, ITEs, memory blends and
 #: refusals summed over the passes' stats vectors, and the final telemetry
-#: words (`_Frontier._tel_prev`). tests/test_torch_frontier.py recomputes
-#: both.
+#: words (`_Frontier._tel_prev`).
+#: tests/test_torch_frontier_constants_merge.py recomputes both.
 EXPECTED_DEFAULT = {
     "chunks": 8, "drains": 4, "drained_rows": 3697, "frozen_rows": 384,
     "spilled": 0, "reseeded": 0, "lane_steps": 36788, "forks": 4088,
@@ -479,10 +496,11 @@ SHARDS = 4
 #: configuration on dispatcher(branchy(12)) from one seed (shard 0's block):
 #: `_Frontier(laser_evm=None, n_lanes=128)` with `n_shards = 4` set on the
 #: instance, counted as EXPECTED_DEFAULT, plus its steal passes and the
-#: shard block's final steal counters. tests/test_torch_frontier.py
-#: recomputes it. The run never drains and ends at the step budget (64
-#: chunks): the drain trigger compares the global escape count with the
-#: 1024-row drain batch while the escapes fill shard 0's 256-row segment,
+#: shard block's final steal counters.
+#: tests/test_torch_frontier_constants_merge.py recomputes it. The run
+#: never drains and ends at the step budget (64 chunks): the drain trigger
+#: compares the global escape count with the 1024-row drain batch while
+#: the escapes fill shard 0's 256-row segment,
 #: whose overflow freezes lanes that the host defers a chunk at a time
 #: (the JAX frontier does the same).
 EXPECTED_SHARD = {
@@ -5111,6 +5129,350 @@ def phase_observe_tpu() -> dict:
     return launches
 
 
+# ---- phase 20i: optimize_jax ----------------------------------------------------
+
+#: tests/test_superopt.py's SYNTHETIC (a copy: this script imports nothing
+#: of the tests): jump-linked blocks multiplying by powers of two, a
+#: dup/pop peephole and a swap before a commutative op
+SUPEROPT_SYNTHETIC = (
+    "PUSH1 0x00\nCALLDATALOAD\n"
+    "PUSH @b0\nJUMP\n"
+    "b0:\nJUMPDEST\nPUSH1 0x20\nMUL\nPUSH @b1\nJUMP\n"
+    "b1:\nJUMPDEST\nDUP1\nPOP\nPUSH2 0x100\nMUL\nPUSH @b2\nJUMP\n"
+    "b2:\nJUMPDEST\nPUSH1 0x05\nSWAP1\nADD\nPUSH1 0x08\nDIV\nSTOP"
+)
+
+
+def superopt_contract(n_blocks: int = 12) -> str:
+    """bench.py's `_superopt_contract` (a copy: bench.py imports the JAX
+    package): one stack word, then n_blocks jump-linked blocks, each
+    multiplying by a power of two, so that every block's PUSH 2^k; MUL ->
+    PUSH k; SHL rewrite is a real SAT query."""
+    lines = ["PUSH1 0x00", "CALLDATALOAD"]
+    for i in range(n_blocks):
+        lines += [f"PUSH @b{i}", "JUMP",
+                  f"b{i}:", "JUMPDEST",
+                  f"PUSH2 {hex(1 << (i % 14 + 1))}", "MUL"]
+    lines.append("STOP")
+    return "\n".join(lines)
+
+
+#: the optimizer's runtime codes: tests/test_superopt.py's corpus and
+#: bench.py's superopt A/B contract at 12 blocks
+OPTIMIZE_CODES = {
+    "synthetic": assemble(SUPEROPT_SYNTHETIC).hex(),
+    "killbilly": assemble(dispatcher(HEADLINE_KILLBILLY)).hex(),
+    "bectoken": assemble(dispatcher(BECTOKEN)).hex(),
+    "superopt12": assemble(superopt_contract()).hex(),
+}
+OPTIMIZE_SOLVERS = ("jax", "cdcl")
+#: the code whose 12 proofs must all be the device's under --solver jax
+OPTIMIZE_DEVICE_RUN = "superopt12"
+OPTIMIZE_DEVICE_PROOFS = 12
+#: the JAX package's reports (`optimize_bytecode(code, solver=...,
+#: crosscheck=1).to_json()` on the CPU) but for `wall_ms` and `code_in`
+#: (OPTIMIZE_CODES), by solver and code; tests/test_torch_superopt.py
+#: recomputes them with JAX
+EXPECTED_OPTIMIZE = json.loads(
+    '{"cdcl": {"bectoken": {"blocks_scanned": 11, "candidates": 0, '
+    '"code_out": "60003560e01c8063a9059cbb1461001d57806383f12fec1461005c5'
+    '7005b50602435336000526000602052604060002080548281106100be57039055602'
+    '43560043560005260006020526040600020805482019055005b60006000fd5b50600'
+    '4356004013580156100be57806014106100be5760243580156100be5702336000526'
+    '000602052604060002080548281106100be570390556024356024600435013560005'
+    '260006020526040600020805482019055600160005260206000f35b60006000fd", '
+    '"gas_saved": 0, "note": "", "proof_stats": {"batched": 0, '
+    '"crosschecks": 0, "divergences": 0, "obligations": 0, "queries": 0, '
+    '"sat": 0, "selfcheck_failures": 0, "syntactic": 0, "unknown": 0, '
+    '"unsat": 0}, "rewrites": [], "weighted_gas_saved": 0}, "killbilly": '
+    '{"blocks_scanned": 11, "candidates": 6, "code_out": "60003560e01c806'
+    '39fa299cc14610028578063840570651461003e5780637c11da201461005f57005b5'
+    '060016004356000526001602052604060002055005b5033600052600160205260406'
+    '0002054610058575f6000fdfe5b60015f5500fe5b505f546200006d575f6000fdfe5'
+    'b33ff", "gas_saved": 4, "note": "", "proof_stats": {"batched": 0, '
+    '"crosschecks": 0, "divergences": 0, "obligations": 6, "queries": 0, '
+    '"sat": 0, "selfcheck_failures": 0, "syntactic": 6, "unknown": 0, '
+    '"unsat": 0}, "rewrites": [{"after": ["PUSH0", "PUSH1 0x0"], '
+    '"before": ["PUSH1 0x0", "PUSH1 0x0"], "block_id": 6, "gas_after": 5,'
+    ' "gas_before": 6, "gas_saved": 1, "proof": "syntactic", "rule": '
+    '"push0_min", "start_pc": 83, "weight": 1, "weighted_saved": 1}, '
+    '{"after": ["PUSH1 0x1", "PUSH0", "SSTORE"], "before": ["PUSH1 0x1", '
+    '"PUSH1 0x0", "SSTORE"], "block_id": 7, "gas_after": 105, '
+    '"gas_before": 106, "gas_saved": 1, "proof": "syntactic", "rule": '
+    '"push0_min", "start_pc": 89, "weight": 1, "weighted_saved": 1}, '
+    '{"after": ["POP", "PUSH0", "SLOAD", "PUSH3 0x6d"], "before": ["POP",'
+    ' "PUSH1 0x0", "SLOAD", "PUSH2 0x6d"], "block_id": 8, "gas_after": '
+    '107, "gas_before": 108, "gas_saved": 1, "proof": "syntactic", '
+    '"rule": "push0_min", "start_pc": 96, "weight": 1, "weighted_saved": '
+    '1}, {"after": ["PUSH0", "PUSH1 0x0"], "before": ["PUSH1 0x0", "PUSH1'
+    ' 0x0"], "block_id": 9, "gas_after": 5, "gas_before": 6, "gas_saved":'
+    ' 1, "proof": "syntactic", "rule": "push0_min", "start_pc": 104, '
+    '"weight": 1, "weighted_saved": 1}], "weighted_gas_saved": 4}, '
+    '"superopt12": {"blocks_scanned": 13, "candidates": 12, "code_out": "'
+    '600035610007565b60011b61001056fe5b60021b61001956fe5b60031b61002256fe'
+    '5b60041b61002b56fe5b60051b61003456fe5b60061b61003d56fe5b60071b610046'
+    '56fe5b60081b61004f56fe5b60091b61005856fe5b600a1b61006156fe5b600b1b61'
+    '006a56fe5b600c1b00fe", "gas_saved": 24, "note": "", "proof_stats": '
+    '{"batched": 0, "crosschecks": 12, "divergences": 0, "obligations": '
+    '12, "queries": 12, "sat": 0, "selfcheck_failures": 0, "syntactic": '
+    '0, "unknown": 0, "unsat": 12}, "rewrites": [{"after": ["PUSH1 0x1", '
+    '"SHL", "PUSH2 0x10"], "before": ["PUSH2 0x2", "MUL", "PUSH2 0x10"], '
+    '"block_id": 1, "gas_after": 9, "gas_before": 11, "gas_saved": 2, '
+    '"proof": "host", "rule": "strength_mul", "start_pc": 8, "weight": 1,'
+    ' "weighted_saved": 2}, {"after": ["PUSH1 0x2", "SHL", "PUSH2 0x19"],'
+    ' "before": ["PUSH2 0x4", "MUL", "PUSH2 0x19"], "block_id": 2, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "host", '
+    '"rule": "strength_mul", "start_pc": 17, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x3", "SHL", "PUSH2 0x22"], '
+    '"before": ["PUSH2 0x8", "MUL", "PUSH2 0x22"], "block_id": 3, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "host", '
+    '"rule": "strength_mul", "start_pc": 26, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x4", "SHL", "PUSH2 0x2b"], '
+    '"before": ["PUSH2 0x10", "MUL", "PUSH2 0x2b"], "block_id": 4, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "host", '
+    '"rule": "strength_mul", "start_pc": 35, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x5", "SHL", "PUSH2 0x34"], '
+    '"before": ["PUSH2 0x20", "MUL", "PUSH2 0x34"], "block_id": 5, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "host", '
+    '"rule": "strength_mul", "start_pc": 44, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x6", "SHL", "PUSH2 0x3d"], '
+    '"before": ["PUSH2 0x40", "MUL", "PUSH2 0x3d"], "block_id": 6, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "host", '
+    '"rule": "strength_mul", "start_pc": 53, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x7", "SHL", "PUSH2 0x46"], '
+    '"before": ["PUSH2 0x80", "MUL", "PUSH2 0x46"], "block_id": 7, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "host", '
+    '"rule": "strength_mul", "start_pc": 62, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x8", "SHL", "PUSH2 0x4f"], '
+    '"before": ["PUSH2 0x100", "MUL", "PUSH2 0x4f"], "block_id": 8, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "host", '
+    '"rule": "strength_mul", "start_pc": 71, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x9", "SHL", "PUSH2 0x58"], '
+    '"before": ["PUSH2 0x200", "MUL", "PUSH2 0x58"], "block_id": 9, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "host", '
+    '"rule": "strength_mul", "start_pc": 80, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0xa", "SHL", "PUSH2 0x61"], '
+    '"before": ["PUSH2 0x400", "MUL", "PUSH2 0x61"], "block_id": 10, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "host", '
+    '"rule": "strength_mul", "start_pc": 89, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0xb", "SHL", "PUSH2 0x6a"], '
+    '"before": ["PUSH2 0x800", "MUL", "PUSH2 0x6a"], "block_id": 11, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "host", '
+    '"rule": "strength_mul", "start_pc": 98, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0xc", "SHL"], "before": '
+    '["PUSH2 0x1000", "MUL"], "block_id": 12, "gas_after": 6, '
+    '"gas_before": 8, "gas_saved": 2, "proof": "host", "rule": '
+    '"strength_mul", "start_pc": 107, "weight": 1, "weighted_saved": 2}],'
+    ' "weighted_gas_saved": 24}, "synthetic": {"blocks_scanned": 4, '
+    '"candidates": 4, "code_out": "600035610007565b60051b61000f565b610100'
+    '0261001a56fefe5b60050160080400fe", "gas_saved": 10, "note": "", '
+    '"proof_stats": {"batched": 0, "crosschecks": 2, "divergences": 0, '
+    '"obligations": 4, "queries": 2, "sat": 0, "selfcheck_failures": 0, '
+    '"syntactic": 2, "unknown": 0, "unsat": 2}, "rewrites": [{"after": '
+    '["PUSH1 0x5", "SHL", "PUSH2 0xf"], "before": ["PUSH1 0x20", "MUL", '
+    '"PUSH2 0xf"], "block_id": 1, "gas_after": 9, "gas_before": 11, '
+    '"gas_saved": 2, "proof": "host", "rule": "strength_mul", "start_pc":'
+    ' 8, "weight": 1, "weighted_saved": 2}, {"after": ["PUSH2 0x100", '
+    '"MUL", "PUSH2 0x1a"], "before": ["DUP1", "POP", "PUSH2 0x100", '
+    '"MUL", "PUSH2 0x1a"], "block_id": 2, "gas_after": 11, "gas_before": '
+    '16, "gas_saved": 5, "proof": "syntactic", "rule": "dup_pop", '
+    '"start_pc": 16, "weight": 1, "weighted_saved": 5}, {"after": ["PUSH1'
+    ' 0x5", "ADD", "PUSH1 0x8", "DIV"], "before": ["PUSH1 0x5", "SWAP1", '
+    '"ADD", "PUSH1 0x8", "DIV"], "block_id": 3, "gas_after": 14, '
+    '"gas_before": 17, "gas_saved": 3, "proof": "syntactic", "rule": '
+    '"swap_commutative", "start_pc": 27, "weight": 1, "weighted_saved": '
+    '3}], "weighted_gas_saved": 10}}, "jax": {"bectoken": '
+    '{"blocks_scanned": 11, "candidates": 0, "code_out": "60003560e01c806'
+    '3a9059cbb1461001d57806383f12fec1461005c57005b50602435336000526000602'
+    '052604060002080548281106100be570390556024356004356000526000602052604'
+    '0600020805482019055005b60006000fd5b506004356004013580156100be5780601'
+    '4106100be5760243580156100be57023360005260006020526040600020805482811'
+    '06100be5703905560243560246004350135600052600060205260406000208054820'
+    '19055600160005260206000f35b60006000fd", "gas_saved": 0, "note": "", '
+    '"proof_stats": {"batched": 1, "crosschecks": 0, "divergences": 0, '
+    '"obligations": 0, "queries": 0, "sat": 0, "selfcheck_failures": 0, '
+    '"syntactic": 0, "unknown": 0, "unsat": 0}, "rewrites": [], '
+    '"weighted_gas_saved": 0}, "killbilly": {"blocks_scanned": 11, '
+    '"candidates": 6, "code_out": "60003560e01c80639fa299cc14610028578063'
+    '840570651461003e5780637c11da201461005f57005b506001600435600052600160'
+    '2052604060002055005b50336000526001602052604060002054610058575f6000fd'
+    'fe5b60015f5500fe5b505f546200006d575f6000fdfe5b33ff", "gas_saved": 4,'
+    ' "note": "", "proof_stats": {"batched": 1, "crosschecks": 0, '
+    '"divergences": 0, "obligations": 6, "queries": 0, "sat": 0, '
+    '"selfcheck_failures": 0, "syntactic": 6, "unknown": 0, "unsat": 0}, '
+    '"rewrites": [{"after": ["PUSH0", "PUSH1 0x0"], "before": ["PUSH1 '
+    '0x0", "PUSH1 0x0"], "block_id": 6, "gas_after": 5, "gas_before": 6, '
+    '"gas_saved": 1, "proof": "syntactic", "rule": "push0_min", '
+    '"start_pc": 83, "weight": 1, "weighted_saved": 1}, {"after": ["PUSH1'
+    ' 0x1", "PUSH0", "SSTORE"], "before": ["PUSH1 0x1", "PUSH1 0x0", '
+    '"SSTORE"], "block_id": 7, "gas_after": 105, "gas_before": 106, '
+    '"gas_saved": 1, "proof": "syntactic", "rule": "push0_min", '
+    '"start_pc": 89, "weight": 1, "weighted_saved": 1}, {"after": ["POP",'
+    ' "PUSH0", "SLOAD", "PUSH3 0x6d"], "before": ["POP", "PUSH1 0x0", '
+    '"SLOAD", "PUSH2 0x6d"], "block_id": 8, "gas_after": 107, '
+    '"gas_before": 108, "gas_saved": 1, "proof": "syntactic", "rule": '
+    '"push0_min", "start_pc": 96, "weight": 1, "weighted_saved": 1}, '
+    '{"after": ["PUSH0", "PUSH1 0x0"], "before": ["PUSH1 0x0", "PUSH1 '
+    '0x0"], "block_id": 9, "gas_after": 5, "gas_before": 6, "gas_saved": '
+    '1, "proof": "syntactic", "rule": "push0_min", "start_pc": 104, '
+    '"weight": 1, "weighted_saved": 1}], "weighted_gas_saved": 4}, '
+    '"superopt12": {"blocks_scanned": 13, "candidates": 12, "code_out": "'
+    '600035610007565b60011b61001056fe5b60021b61001956fe5b60031b61002256fe'
+    '5b60041b61002b56fe5b60051b61003456fe5b60061b61003d56fe5b60071b610046'
+    '56fe5b60081b61004f56fe5b60091b61005856fe5b600a1b61006156fe5b600b1b61'
+    '006a56fe5b600c1b00fe", "gas_saved": 24, "note": "", "proof_stats": '
+    '{"batched": 1, "crosschecks": 12, "divergences": 0, "obligations": '
+    '12, "queries": 12, "sat": 0, "selfcheck_failures": 0, "syntactic": '
+    '0, "unknown": 0, "unsat": 12}, "rewrites": [{"after": ["PUSH1 0x1", '
+    '"SHL", "PUSH2 0x10"], "before": ["PUSH2 0x2", "MUL", "PUSH2 0x10"], '
+    '"block_id": 1, "gas_after": 9, "gas_before": 11, "gas_saved": 2, '
+    '"proof": "device", "rule": "strength_mul", "start_pc": 8, "weight": '
+    '1, "weighted_saved": 2}, {"after": ["PUSH1 0x2", "SHL", "PUSH2 '
+    '0x19"], "before": ["PUSH2 0x4", "MUL", "PUSH2 0x19"], "block_id": 2,'
+    ' "gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": '
+    '"device", "rule": "strength_mul", "start_pc": 17, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x3", "SHL", "PUSH2 0x22"], '
+    '"before": ["PUSH2 0x8", "MUL", "PUSH2 0x22"], "block_id": 3, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "device",'
+    ' "rule": "strength_mul", "start_pc": 26, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x4", "SHL", "PUSH2 0x2b"], '
+    '"before": ["PUSH2 0x10", "MUL", "PUSH2 0x2b"], "block_id": 4, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "device",'
+    ' "rule": "strength_mul", "start_pc": 35, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x5", "SHL", "PUSH2 0x34"], '
+    '"before": ["PUSH2 0x20", "MUL", "PUSH2 0x34"], "block_id": 5, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "device",'
+    ' "rule": "strength_mul", "start_pc": 44, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x6", "SHL", "PUSH2 0x3d"], '
+    '"before": ["PUSH2 0x40", "MUL", "PUSH2 0x3d"], "block_id": 6, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "device",'
+    ' "rule": "strength_mul", "start_pc": 53, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x7", "SHL", "PUSH2 0x46"], '
+    '"before": ["PUSH2 0x80", "MUL", "PUSH2 0x46"], "block_id": 7, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "device",'
+    ' "rule": "strength_mul", "start_pc": 62, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x8", "SHL", "PUSH2 0x4f"], '
+    '"before": ["PUSH2 0x100", "MUL", "PUSH2 0x4f"], "block_id": 8, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "device",'
+    ' "rule": "strength_mul", "start_pc": 71, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0x9", "SHL", "PUSH2 0x58"], '
+    '"before": ["PUSH2 0x200", "MUL", "PUSH2 0x58"], "block_id": 9, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "device",'
+    ' "rule": "strength_mul", "start_pc": 80, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0xa", "SHL", "PUSH2 0x61"], '
+    '"before": ["PUSH2 0x400", "MUL", "PUSH2 0x61"], "block_id": 10, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "device",'
+    ' "rule": "strength_mul", "start_pc": 89, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0xb", "SHL", "PUSH2 0x6a"], '
+    '"before": ["PUSH2 0x800", "MUL", "PUSH2 0x6a"], "block_id": 11, '
+    '"gas_after": 9, "gas_before": 11, "gas_saved": 2, "proof": "device",'
+    ' "rule": "strength_mul", "start_pc": 98, "weight": 1, '
+    '"weighted_saved": 2}, {"after": ["PUSH1 0xc", "SHL"], "before": '
+    '["PUSH2 0x1000", "MUL"], "block_id": 12, "gas_after": 6, '
+    '"gas_before": 8, "gas_saved": 2, "proof": "device", "rule": '
+    '"strength_mul", "start_pc": 107, "weight": 1, "weighted_saved": 2}],'
+    ' "weighted_gas_saved": 24}, "synthetic": {"blocks_scanned": 4, '
+    '"candidates": 4, "code_out": "600035610007565b60051b61000f565b610100'
+    '0261001a56fefe5b60050160080400fe", "gas_saved": 10, "note": "", '
+    '"proof_stats": {"batched": 1, "crosschecks": 2, "divergences": 0, '
+    '"obligations": 4, "queries": 2, "sat": 0, "selfcheck_failures": 0, '
+    '"syntactic": 2, "unknown": 0, "unsat": 2}, "rewrites": [{"after": '
+    '["PUSH1 0x5", "SHL", "PUSH2 0xf"], "before": ["PUSH1 0x20", "MUL", '
+    '"PUSH2 0xf"], "block_id": 1, "gas_after": 9, "gas_before": 11, '
+    '"gas_saved": 2, "proof": "device", "rule": "strength_mul", '
+    '"start_pc": 8, "weight": 1, "weighted_saved": 2}, {"after": ["PUSH2 '
+    '0x100", "MUL", "PUSH2 0x1a"], "before": ["DUP1", "POP", "PUSH2 '
+    '0x100", "MUL", "PUSH2 0x1a"], "block_id": 2, "gas_after": 11, '
+    '"gas_before": 16, "gas_saved": 5, "proof": "syntactic", "rule": '
+    '"dup_pop", "start_pc": 16, "weight": 1, "weighted_saved": 5}, '
+    '{"after": ["PUSH1 0x5", "ADD", "PUSH1 0x8", "DIV"], "before": '
+    '["PUSH1 0x5", "SWAP1", "ADD", "PUSH1 0x8", "DIV"], "block_id": 3, '
+    '"gas_after": 14, "gas_before": 17, "gas_saved": 3, "proof": '
+    '"syntactic", "rule": "swap_commutative", "start_pc": 27, "weight": '
+    '1, "weighted_saved": 3}], "weighted_gas_saved": 10}}}')
+
+
+def optimize_argv(name: str, solver: str) -> list:
+    """The port's CLI arguments of one optimizer run: every accepted proof
+    cross-checked on the host CDCL."""
+    return ["optimize", "-c", OPTIMIZE_CODES[name], "--solver", solver,
+            "--crosscheck", "1", "-o", "json"]
+
+
+def check_optimize(solver: str, name: str, report: dict) -> None:
+    """Raise unless a report is the JAX package's but for its wall."""
+    got = {key: value for key, value in report.items()
+           if key not in ("wall_ms", "code_in")}
+    want = EXPECTED_OPTIMIZE[solver][name]
+    if report["code_in"] != OPTIMIZE_CODES[name] or got != want:
+        differ = sorted(key for key in set(got) | set(want)
+                        if got.get(key) != want.get(key))
+        raise AssertionError(f"optimize_jax {solver} {name}: the report "
+                             f"differs from the JAX package's in {differ}")
+
+
+def phase_optimize_jax() -> dict:
+    """The port's `optimize --crosscheck 1` (`cli.main` in this process,
+    so its launches count) on OPTIMIZE_CODES: under `--solver jax` every
+    real query goes through one dispatch flush onto K11 on the card, and
+    the CDCL decides only what the card leaves UNKNOWN; then the same
+    runs under `--solver cdcl`, on the host. Each report held to
+    EXPECTED_OPTIMIZE; one line a run. It fails if K11 never launched from
+    the optimizer, if fewer than all of OPTIMIZE_DEVICE_RUN's proofs are
+    the device's, on a crosscheck divergence or a breaker off CLOSED, or
+    if the cdcl route launched a kernel. Returns the jax runs' launches."""
+    from mythril_tpu_torch.support import resilience
+
+    launches = {name: 0 for name in ops.LAUNCHES}
+    for solver in OPTIMIZE_SOLVERS:
+        for name in OPTIMIZE_CODES:
+            exit_code, report, record = run_cli(
+                f"optimize_jax {solver} {name}", optimize_argv(name, solver))
+            stats = report["proof_stats"]
+            lane = lane_record(SolverStatistics())
+            state = resilience.registry.backend(resilience.DEVICE).state
+            if exit_code or stats["divergences"] \
+                    or stats["selfcheck_failures"] \
+                    or state != resilience.CLOSED:
+                raise AssertionError(f"optimize_jax {solver} {name}: exit "
+                                     f"{exit_code}, {stats}, breaker "
+                                     f"{state}")
+            check_optimize(solver, name, report)
+            proofs = [rewrite["proof"] for rewrite in report["rewrites"]]
+            if solver == "jax" and name == OPTIMIZE_DEVICE_RUN \
+                    and proofs.count("device") < OPTIMIZE_DEVICE_PROOFS:
+                raise AssertionError(f"optimize_jax {name}: proofs {proofs}")
+            launched = sum(record["launches"].values())
+            if solver == "cdcl" and launched:
+                raise AssertionError(f"optimize_jax cdcl {name}: launched "
+                                     f"{record['launches']}")
+            emit({"phase": "optimize_jax", "run": name, "solver": solver,
+                  "clock": "host", "host_wall_s": record["wall"],
+                  "wall_ms": report["wall_ms"], "exit": exit_code,
+                  "rewrites": len(report["rewrites"]),
+                  "gas_saved": report["gas_saved"],
+                  "queries": stats["queries"],
+                  "syntactic": stats["syntactic"],
+                  "proofs": {proof: proofs.count(proof)
+                             for proof in sorted(set(proofs))},
+                  "flushes": lane["flushes"],
+                  "mean_occupancy": lane["mean_occupancy"],
+                  "device_decided": lane["device_decided"],
+                  "unknown": lane["unknown"],
+                  "crosschecks": stats["crosschecks"],
+                  "divergences": stats["divergences"],
+                  "flush_s": lane["flush_s"],
+                  "k11_launches": record["launches"]["sat_step"],
+                  "sat_captures": record["replays"]["sat_captures"]})
+            if solver == "jax":
+                for key, count in record["launches"].items():
+                    launches[key] += count
+    if not launches["sat_step"]:
+        raise AssertionError("optimize_jax: K11 never launched from the "
+                             "optimizer")
+    return launches
+
+
 def sat_solve(solve, *args, **kwargs) -> dict:
     """One entry-point call with the launch counts zeroed just before and
     read just after, each chunk's stream time (CUDA events around
@@ -5350,6 +5712,9 @@ def main() -> int:
     main_path_launches.append(fleet_launches)
     # the same paths with the metric registry, tracer and exporter read back
     main_path_launches.append(phase_observe_tpu())
+    # the gas superoptimizer's proofs on K11
+    optimize_launches = phase_optimize_jax()
+    main_path_launches.append(optimize_launches)
     sat_launches, sat_profiled = phase_sat_lane(dev, facade)
     main_path_launches += [sat_launches, phase_sat_batch(dev, facade)]
     for counts in main_path_launches:
@@ -5386,6 +5751,8 @@ def main() -> int:
         if name == "sat_step":
             # the analyzer's share: analyze_jax's chunks
             record["launches_analyzer"] = jax_launches["sat_step"]
+            # the optimizer's share: optimize_jax's chunks
+            record["launches_optimizer"] = optimize_launches["sat_step"]
             # K11's device time per step on the lane's profiled solve
             record["main_path_device_ms"] = \
                 sat_profiled["k11_device_ms_per_step"]

@@ -11,9 +11,10 @@ Device additions: `--solver jax` selects the batched device solver
 explores on the device frontier.
 
 The port's copy of mythril_tpu/interfaces/cli.py: `analyze`/`a`,
-`safe-functions`, `disassemble`/`d`, `list-detectors`, `function-to-hash`,
-`hash-to-address` and `version`, with the reference's arguments and
-defaults (`--engine host` and the CDCL solver). `--engine tpu` explores each
+`safe-functions`, `optimize`/`opt`, `concolic`, `disassemble`/`d`,
+`list-detectors`, `function-to-hash`, `hash-to-address` and `version`,
+with the reference's arguments and defaults (`--engine host` and the CDCL
+solver). `--engine tpu` explores each
 message call on the CUDA card (`parallel/frontier.execute_message_call_tpu`)
 and exits 2 before any contract is analyzed when there is no card; so does
 `--solver jax`, which decides the solver's queries on the card's SAT lane
@@ -22,10 +23,14 @@ the host worklist and the device frontier. `--fleet` with `--engine tpu`
 and repeated `-f` (each member named after its file) analyzes the
 contracts as one fleet in shared device phases. `--metrics-out` writes
 the metric registry's snapshot and `--trace-out` a Perfetto trace of the
-run (observe/). The other subcommands exit with code 2 and the ROADMAP
-item that ports them, and so does every input whose path is not ported
-(`-a`/`--rpc`, Solidity files), before any contract is analyzed. The extension discovery
-of third-party plugins is not booted (ROADMAP A 14)."""
+run (observe/). `optimize --solver jax` proves the optimizer's rewrites on
+the card's SAT lane (K11) and exits 2 without a card; `--solver cdcl` and
+`concolic` run on the host. The other subcommands exit with code 2 and
+the ROADMAP item that ports them, and so does every input whose path is
+not ported (`-a`/`--rpc`, Solidity files), before any contract is
+analyzed. Every command first activates the default-enabled third-party
+plugins of the `mythril_tpu_torch.plugins` entry-point group
+(plugin/discovery.py), as the reference does for its own group."""
 
 from __future__ import annotations
 
@@ -247,13 +252,89 @@ def _cmd_analyze(parser, cli_args, safe_functions: bool = False) -> int:
     return 1 if report.issues else 0
 
 
+def _add_optimize_args(parser: argparse.ArgumentParser) -> None:
+    inputs = parser.add_argument_group("input")
+    inputs.add_argument("-c", "--code", help="hex runtime bytecode")
+    inputs.add_argument("-f", "--codefile",
+                        help="file containing hex runtime bytecode")
+
+    # the defaults are superopt/engine.py's DEFAULT_MAX_BLOCK_LEN,
+    # DEFAULT_CANDIDATES and DEFAULT_CROSSCHECK (not imported here: the
+    # optimizer's import would slow every command's start)
+    options = parser.add_argument_group("options")
+    options.add_argument("--solver", default="cdcl", choices=["cdcl", "jax"],
+                         help="equivalence-proof backend: host CDCL oracle "
+                              "or the batched device dispatch queue on the "
+                              "CUDA card (one flush, shared verdict cache, "
+                              "UNKNOWNs fall down the ladder to the host)")
+    options.add_argument("--max-block-len", type=int, default=8,
+                         metavar="N",
+                         help="longest pure-stack block eligible for the "
+                              "exhaustive stack-scheduling search (default: "
+                              "%(default)s)")
+    options.add_argument("--candidates", type=int, default=256, metavar="N",
+                         help="search-sequence budget per block (default: "
+                              "%(default)s)")
+    options.add_argument("--crosscheck", type=int, default=8, metavar="N",
+                         help="re-decide every Nth accepted proof on the "
+                              "host CDCL oracle (default: %(default)s; 0 = "
+                              "off)")
+
+    output = parser.add_argument_group("output")
+    output.add_argument("-o", "--outform", default="text",
+                        choices=["text", "json"])
+    output.add_argument("--code-out", default=None, metavar="PATH",
+                        help="also write the rewritten runtime bytecode "
+                             "(hex) to PATH")
+
+
+def _cmd_optimize(parser, cli_args) -> int:
+    from ..superopt import optimize_bytecode
+
+    code = cli_args.code
+    if code is None and cli_args.codefile:
+        with open(cli_args.codefile) as handle:
+            code = handle.read().strip()
+    if not code:
+        parser.error("optimize needs -c or -f")
+    report = optimize_bytecode(
+        code, solver=cli_args.solver,
+        max_block_len=cli_args.max_block_len,
+        candidates_budget=cli_args.candidates,
+        crosscheck=cli_args.crosscheck)
+    if cli_args.code_out:
+        with open(cli_args.code_out, "w") as handle:
+            handle.write(report.code_out + "\n")
+    if cli_args.outform == "json":
+        print(json.dumps(report.to_json(), indent=2, sort_keys=True))
+    else:
+        stats = report.proof_stats
+        print(f"blocks scanned:     {report.blocks_scanned}")
+        print(f"candidates proven:  {report.candidates} "
+              f"({stats.get('queries', 0)} SAT queries, "
+              f"{stats.get('syntactic', 0)} syntactic)")
+        print(f"rewrites accepted:  {len(report.rewrites)}")
+        print(f"gas saved:          {report.gas_saved} static, "
+              f"{report.weighted_gas_saved} loop-weighted")
+        for rewrite in report.rewrites:
+            print(f"  pc {rewrite.start_pc:#06x} [{rewrite.rule}] "
+                  f"-{rewrite.gas_saved} gas (x{rewrite.weight}, "
+                  f"{rewrite.proof}): "
+                  f"{'; '.join(rewrite.before)} => "
+                  f"{'; '.join(rewrite.after) or '<elided>'}")
+        if report.note:
+            print(f"note: {report.note}")
+        print(report.code_out)
+    # a crosscheck divergence means an unsound device verdict slipped
+    # through: loud, non-zero, and the rewrite was already rejected
+    return 1 if report.proof_stats.get("divergences") else 0
+
+
 #: the subcommands the port has not ported: their aliases and the ROADMAP
 #: item that ports them
 _UNPORTED_COMMANDS = {
-    "optimize": (["opt"], "A 14 (superopt/)"),
-    "foundry": (["f"], "A 14 (frontends/solidity.py, solc)"),
-    "concolic": ([], "A 14 (concolic/)"),
-    "read-storage": ([], "A 14 (ethereum/rpc.py)"),
+    "foundry": (["f"], "A 14f (frontends/solidity.py, solc)"),
+    "read-storage": ([], "A 14e (ethereum/rpc.py)"),
     "serve": ([], "A 12 (serve/)"),
     "client": ([], "A 12 (serve/)"),
 }
@@ -277,6 +358,12 @@ def main(argv=None) -> int:
                                  help="list functions with no detected issues")
     _add_analysis_args(safe)
 
+    optimize = subparsers.add_parser(
+        "optimize", aliases=["opt"],
+        help="gas-superoptimize runtime bytecode: every rewrite backed "
+             "by an equivalence proof (batched device SAT or host CDCL)")
+    _add_optimize_args(optimize)
+
     disasm = subparsers.add_parser("disassemble", aliases=["d"],
                                    help="disassemble EVM bytecode")
     disasm.add_argument("-c", "--code", default=None)
@@ -284,6 +371,16 @@ def main(argv=None) -> int:
     disasm.add_argument("-a", "--address", default=None)
     disasm.add_argument("--rpc", default=None)
     disasm.add_argument("--rpctls", action="store_true")
+
+    concolic = subparsers.add_parser(
+        "concolic", help="flip branches of a concrete transaction trace")
+    concolic.add_argument("input", help="ConcreteData json file")
+    concolic.add_argument("--branches", required=True,
+                          help="comma-separated JUMPI addresses to flip")
+    concolic.add_argument("--engine", default="oracle",
+                          choices=["oracle", "lockstep"],
+                          help="concrete replay engine (both replay on the "
+                               "host engine; lockstep only logs a line)")
 
     f2h = subparsers.add_parser("function-to-hash",
                                 help="keccak selector of a signature")
@@ -351,10 +448,13 @@ def main(argv=None) -> int:
                logging.DEBUG][min(cli_args.v, 5)],
         format="%(levelname)s:%(name)s: %(message)s")
 
-    # the extension discovery of mythril_tpu/plugin/ (third-party
-    # plugins under the mythril_tpu.plugins entry-point group) is not
-    # ported: ROADMAP A 14
+    # activate third-party plugins published via the
+    # mythril_tpu_torch.plugins entry-point group (the reference boots its
+    # MythrilPluginLoader the same way; plugin/discovery.py)
     from ..exceptions import DeviceUnavailable
+    from ..plugin import MythrilPluginLoader
+
+    MythrilPluginLoader().load_default_enabled()
 
     try:
         return _dispatch(parser, cli_args, __version__)
@@ -366,6 +466,8 @@ def main(argv=None) -> int:
 def _dispatch(parser, cli_args, version: str) -> int:
     if cli_args.command in ("analyze", "a"):
         return _cmd_analyze(parser, cli_args)
+    if cli_args.command in ("optimize", "opt"):
+        return _cmd_optimize(parser, cli_args)
     if cli_args.command == "safe-functions":
         return _cmd_analyze(parser, cli_args, safe_functions=True)
     if cli_args.command in ("disassemble", "d"):
@@ -382,6 +484,16 @@ def _dispatch(parser, cli_args, version: str) -> int:
         if not code:
             parser.error("provide -c, -f or -a")
         sys.stdout.write(Disassembly(code).get_easm())
+        return 0
+    if cli_args.command == "concolic":
+        from ..concolic.concolic_execution import concolic_execution
+
+        with open(cli_args.input) as handle:
+            concrete_data = json.load(handle)
+        branches = [int(b, 0) for b in cli_args.branches.split(",")]
+        flipped = concolic_execution(concrete_data, branches,
+                                     engine=cli_args.engine)
+        print(json.dumps(flipped, indent=2))
         return 0
     if cli_args.command == "function-to-hash":
         from ..mythril import MythrilDisassembler

@@ -191,6 +191,37 @@ def tokens(text: str) -> list:
     return sorted(re.findall(r"[()]|[^\s()]+", text))
 
 
+#: the operators whose operand order depends on the process (terms.py
+#: orders commutative operands by an id-based hash, ROADMAP C)
+COMMUTATIVE = frozenset({"bvadd", "bvmul", "bvand", "bvor", "bvxor", "eq",
+                         "and", "or", "xor"})
+
+
+def canonical(text: str) -> str:
+    """An expression's text with the operands of commutative operators
+    sorted, and everything else in its order: equal for two packages'
+    terms exactly when they agree up to that order."""
+    items = re.findall(r"[()]|[^\s()]+", text)
+    position = 0
+
+    def parse():
+        nonlocal position
+        item = items[position]
+        position += 1
+        if item != "(":
+            return item
+        node = []
+        while items[position] != ")":
+            node.append(parse())
+        position += 1
+        head, args = node[0], node[1:]
+        if head in COMMUTATIVE:
+            args.sort()
+        return "(" + " ".join([head] + args) + ")"
+
+    return parse()
+
+
 def value_of(expression):
     """A BitVec as its value when concrete, else as sorted tokens."""
     raw = expression.raw

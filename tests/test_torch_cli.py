@@ -15,8 +15,13 @@ database lives under HOME; the port's is in memory).
 - `list-detectors`, `disassemble`, `function-to-hash`, `hash-to-address`
   and `safe-functions` byte for byte;
 - every input and subcommand whose path the port has not ported exits 2,
-  naming its ROADMAP item, before any contract is analyzed, and so does
-  `--engine tpu` without a card, naming the CUDA device;
+  naming its ROADMAP item, before any contract is analyzed, and so do
+  `--engine tpu` and `optimize --solver jax` without a card, naming the
+  CUDA device;
+- `optimize`/`opt` (text, JSON but for `wall_ms`, `--code-out`) byte for
+  byte on tests/test_superopt.py's SYNTHETIC, under `--solver cdcl` and,
+  on the port's CPU twin of K11, `--solver jax`; `concolic` with the
+  JAX CLI's exit code and last line of stderr;
 - `--metrics-out` and `--trace-out` write the registry's snapshot and the
   run's trace, equal to the JAX CLI's but for the clock readings;
 - `--solver jax` (the port's SAT lane on its twin, through a wrapper that
@@ -65,9 +70,12 @@ def tx_origin_argv(outform: str) -> list:
 
 #: the port's CLI with its SAT lane on the CPU twin, the device clause cap
 #: at 4096 (the JAX package's CPU gates shrink MYTHRIL_TPU_DEVICE_CLAUSE_CAP
-#: alike: larger queries go through the dispatch to the CDCL)
+#: alike: larger queries go through the dispatch to the CDCL), on one torch
+#: thread (the twin is many small ops: beside the other test workers a
+#: pool of threads an op takes it from seconds to minutes)
 PORT_ON_THE_CPU = (
-    "import sys; from mythril_tpu_torch.smt.solver import dispatch; "
+    "import sys, torch; torch.set_num_threads(1); "
+    "from mythril_tpu_torch.smt.solver import dispatch; "
     "dispatch.configure(device='cpu', clause_cap=4096); "
     "from mythril_tpu_torch.interfaces import cli; "
     "sys.exit(cli.main(sys.argv[1:]))")
@@ -220,10 +228,7 @@ COMMAND_SEAMS = [
     (["analyze", "-a", "0x" + "11" * 20], "A 14"),
     (["analyze", "{tmp}/Token.sol"], "A 14"),
     (["disassemble", "-a", "0x" + "11" * 20], "A 14"),
-    (["optimize", "-c", "6000"], "A 14"),
-    (["opt", "-c", "6000"], "A 14"),
     (["foundry", "--project-root", "{tmp}"], "A 14"),
-    (["concolic", "{tmp}/trace.json", "--branches", "0x10"], "A 14"),
     (["read-storage", "0x" + "11" * 20, "0"], "A 14"),
     (["serve", "--stdio"], "A 12"),
     (["client", "status"], "A 12"),
@@ -351,3 +356,76 @@ def test_chip_smoke_constants_are_the_jax_reports(cli):
         port = cli("port", analyze_argv(name))
         chip_smoke.check_analyze(name, json.loads(port.stdout),
                                  port.returncode)
+
+
+SYNTHETIC_CODE = chip_smoke.OPTIMIZE_CODES["synthetic"]
+
+
+def without_wall(stdout: str) -> dict:
+    report = json.loads(stdout)
+    del report["wall_ms"]
+    return report
+
+
+@pytest.mark.parametrize("side, solver", [("port", "cdcl"),
+                                          ("port-cpu", "jax")],
+                         ids=["cdcl", "jax"])
+def test_optimize_gives_the_jax_output(cli, tmp_path_factory, side, solver):
+    """`opt -o json --code-out` prints and writes what the JAX CLI does,
+    the JSON but for its wall, and under `cdcl` so does `optimize`'s text;
+    `--solver jax` on the port's twin of K11 against the JAX CLI's own
+    lane on the CPU (one run a side: each compiles its lane), whose
+    rewrites are the device's."""
+    tmp = tmp_path_factory.mktemp(f"optimize-{solver}")
+    out = {}
+    for name in ("port", "jax"):
+        runner = side if name == "port" else "jax"
+        as_json = cli(runner, ["opt", "-c", SYNTHETIC_CODE, "--solver",
+                               solver, "-o", "json",
+                               "--code-out", f"{tmp}/{name}.hex"])
+        assert as_json.returncode == 0, as_json.stderr[-2000:]
+        text = cli(runner, ["optimize", "-c", SYNTHETIC_CODE]) \
+            if solver == "cdcl" else None
+        assert text is None or text.returncode == 0
+        with open(f"{tmp}/{name}.hex", encoding="utf-8") as handle:
+            out[name] = (without_wall(as_json.stdout), handle.read(),
+                         text and text.stdout)
+    assert out["port"] == out["jax"]
+    report, code_out, text = out["port"]
+    assert code_out == report["code_out"] + "\n" and report["rewrites"]
+    assert text is None or report["code_out"] in text
+    proofs = {rewrite["proof"] for rewrite in report["rewrites"]}
+    assert ("device" if solver == "jax" else "host") in proofs
+
+
+def test_optimize_jax_without_a_card_refuses(cli, tmp_path):
+    """`optimize --solver jax` proves on the CUDA card: without one it
+    exits 2 with `device.resolve`'s error, naming the CUDA device, before
+    it prints or writes anything."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: --solver jax runs on it")
+    proc = cli("port", ["optimize", "-c", SYNTHETIC_CODE, "--solver", "jax",
+                        "--code-out", f"{tmp_path}/out.hex"])
+    assert proc.returncode == 2, (proc.stdout, proc.stderr)
+    assert "CUDA device" in proc.stderr
+    assert proc.stdout == ""
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("engine", ["oracle", "lockstep"])
+def test_concolic_fails_as_the_jax_cli(cli, tmp_path_factory, engine):
+    """`concolic` on tests/test_torch_concolic.py's ConcreteData, asked to
+    flip its JUMPI: the same exit code and last line of stderr as the JAX
+    CLI (both raise the AttributeError of ROADMAP C's concolic entry)."""
+    from test_torch_concolic import JUMPI, concrete_data
+
+    path = tmp_path_factory.mktemp(f"concolic-{engine}") / "trace.json"
+    path.write_text(json.dumps(concrete_data("call")))
+    argv = ["concolic", str(path), "--branches", str(JUMPI),
+            "--engine", engine]
+    port, jax = both(cli, argv)
+    last = [proc.stderr.strip().splitlines()[-1] for proc in (port, jax)]
+    assert (port.returncode, last[0]) == (jax.returncode, last[1])
+    assert port.returncode == 1 and "persist_to_world_state" in last[0]

@@ -14,12 +14,13 @@ frozen-lane deferral, the deadlock spill and the host reseed each ran.
 (branchy(8) never deadlocks at these pools; branchy(9) does.) Neither
 contract has a symbolic storage base, so no lane pauses on a cold SLOAD."""
 
-import json
-
 import numpy as np
 import pytest
 import torch
 
+# unspent_time_budget: autouse, the JAX driver's time budget disarmed
+from _torch_drain import (count_frozen, jax_tables, row_bytes_of,  # noqa: F401
+                          same_tables, unspent_time_budget)
 from _torch_parity import (assert_same, jax_static_tables, np_tree,
                            seed_frontier, to_port)
 from bench import _mem_branchy_contract
@@ -42,28 +43,10 @@ CODES = [assemble(dispatcher({"stress()": branchy_contract(9)})),
          assemble(dispatcher({"planes()": PLANES_SOURCE}))]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _unspent_time_budget():
-    """The JAX driver stops at the host engine's global time budget, which
-    an analysis test run earlier in this process may have left spent: run
-    these tests with it disarmed, as a fresh process has it."""
-    from mythril_tpu.core.time_handler import time_handler
-
-    saved = (time_handler._start_time, time_handler._execution_time)
-    time_handler.reset()
-    yield
-    time_handler._start_time, time_handler._execution_time = saved
-
-
 def _seed(codes=CODES, base_sym=()):
     return seed_frontier(codes, N_LANES, base_sym=base_sym,
                          max_conds=MAX_CONDS, arena_capacity=1 << 16,
                          const_capacity=1 << 12)
-
-
-def _row_bytes(state, planes) -> int:
-    return sum(int(np.dtype(leaf.dtype).itemsize) * int(np.prod(leaf.shape[1:]))
-               for leaf in list(state) + list(planes))
 
 
 def _jax_frontier(arena, row_bytes):
@@ -81,19 +64,6 @@ def _port_frontier(arena, row_bytes, **kwargs):
                              stack_bytes=POOL_ROWS * row_bytes,
                              esc_bytes=POOL_ROWS * row_bytes,
                              arena=to_port("arena", arena), **kwargs)
-
-
-def _count_frozen(frontier):
-    """Wrap the JAX frontier's frozen-lane deferral to count its lanes."""
-    frozen = [0]
-    defer = frontier._defer_lanes
-
-    def counting(state, planes, lanes):
-        frozen[0] += len(lanes)
-        return defer(state, planes, lanes)
-
-    frontier._defer_lanes = counting
-    return frozen
 
 
 def _same_blocks(jax_blocks, port_blocks):
@@ -277,9 +247,9 @@ def test_seed_and_sched_match_jax_seeding():
 def drained():
     """Both drivers run from the same seeds until the tree drains."""
     state, planes, arena = _seed()
-    row_bytes = _row_bytes(state, planes)
+    row_bytes = row_bytes_of(state, planes)
     frontier = _jax_frontier(arena, row_bytes)
-    frozen = _count_frozen(frontier)
+    frozen = count_frozen(frontier)
     port = _port_frontier(arena, row_bytes)
     frontier.run(state, planes)
     port.run(to_port("state", state), to_port("planes", planes))
@@ -316,7 +286,7 @@ def test_hand_over_matches_jax(monkeypatch):
     per-lane materialization replaced by the same deferral)."""
     monkeypatch.setenv("MYTHRIL_TPU_MAX_STEPS", str(2 * tf.CHUNK))
     state, planes, arena = _seed()
-    row_bytes = _row_bytes(state, planes)
+    row_bytes = row_bytes_of(state, planes)
     frontier = _jax_frontier(arena, row_bytes)
     monkeypatch.setattr(
         frontier, "_materialize_lanes",
@@ -336,7 +306,7 @@ def test_cold_sload_needs_a_service():
     no `service_cold` hook the driver refuses; a hook gets the lane."""
     codes = [assemble(dispatcher(KILLBILLY))]
     state, planes, arena = _seed(codes, base_sym=[0])
-    row_bytes = _row_bytes(state, planes)
+    row_bytes = row_bytes_of(state, planes)
     port = _port_frontier(arena, row_bytes)
     with pytest.raises(NotImplementedError, match="cold-SLOAD"):
         port.run(to_port("state", state), to_port("planes", planes))
@@ -393,7 +363,7 @@ def default_run(request):
     vectors, port)."""
     code = assemble(dispatcher({"stress()": DEFAULT_BODIES[request.param]}))
     state, planes, arena = _seed([code])
-    row_bytes = _row_bytes(state, planes)
+    row_bytes = row_bytes_of(state, planes)
     tags, merge_table = jax_static_tables([code])
     frontier = jf._Frontier(laser_evm=None, n_lanes=N_LANES)
     assert frontier.telemetry_enabled and frontier.state_merge
@@ -461,7 +431,7 @@ def test_telemetry_off_null():
     """With merging off, the plane changes no result and no read: the same
     number of summaries, the same deferred rows and mirror, on and off."""
     state, planes, arena = _seed()
-    row_bytes = _row_bytes(state, planes)
+    row_bytes = row_bytes_of(state, planes)
     runs = {}
     for telemetry in (False, True):
         reads = [0]
@@ -483,119 +453,6 @@ def test_telemetry_off_null():
 
 
 # ---- chip_smoke.py's reference constants ----------------------------------------------
-
-@pytest.mark.parametrize("which", ["frontier", "spill", "default", "merge",
-                                   "shard", "fleet", "wide"])
-def test_chip_smoke_constants_are_the_jax_drain(which, monkeypatch):
-    """chip_smoke.py holds the port's drain loop on the card to constants:
-    the JAX `_Frontier`'s drain of dispatcher(branchy(n)) from one seed at
-    the default geometry and budgets (128 lanes, branchy(12)), of the
-    reduced-pool run (16 lanes, 32 stack rows, branchy(10)), both with
-    telemetry and merging off, and of the default configuration (both on)
-    on branchy(12) and on mem_branchy(8) with the tables the JAX static
-    analysis builds for it, and on branchy(12) at 2048 lanes (phase
-    frontier_wide); and of the sharded frontier (4 shards, the default
-    steal knobs, `n_shards` set on the instance): branchy(12) from one
-    seed in shard 0, and the two-member fleet of branchy(12) and
-    mem_branchy(8) seeded in shards 0 and 2 with fleet slots [0, 1] and
-    the tables of both codes. Recompute all seven here with JAX."""
-    import chip_smoke
-
-    if which == "fleet":
-        names = list(chip_smoke.FLEET_RUN)
-        bodies = [chip_smoke.FLEET_RUN[name] for name in names]
-        codes = [assemble(dispatcher({"stress()": body})) for body in bodies]
-        _check_sharded_constants(chip_smoke, codes, chip_smoke.EXPECTED_FLEET,
-                                 chip_smoke.FLEET_OWNERS, names, monkeypatch)
-        return
-    if which == "shard":
-        code = assemble(dispatcher({"stress()": branchy_contract(
-            chip_smoke.N_BRANCHES)}))
-        _check_sharded_constants(chip_smoke, [code], chip_smoke.EXPECTED_SHARD,
-                                 None, None, monkeypatch)
-        return
-    runs = {
-        "frontier": (chip_smoke.LANES, branchy_contract(chip_smoke.N_BRANCHES),
-                     chip_smoke.EXPECTED_FRONTIER, False),
-        "spill": (chip_smoke.SPILL_LANES,
-                  branchy_contract(chip_smoke.SPILL_BRANCHES),
-                  chip_smoke.EXPECTED_SPILL, False),
-        "default": (chip_smoke.LANES, branchy_contract(chip_smoke.N_BRANCHES),
-                    chip_smoke.EXPECTED_DEFAULT, True),
-        "merge": (chip_smoke.LANES,
-                  _mem_branchy_contract(chip_smoke.MERGE_BRANCHES),
-                  chip_smoke.EXPECTED_MERGE, True),
-        "wide": (chip_smoke.WIDE_LANES, branchy_contract(chip_smoke.N_BRANCHES),
-                 chip_smoke.EXPECTED_WIDE, True)}
-    n_lanes, body, expected, default = runs[which]
-    code = assemble(dispatcher({"stress()": body}))
-    specs = [jb.LaneSpec(code=code, gas_limit=10_000_000)]
-    specs += [jb.LaneSpec(code=b"\x00")] * (n_lanes - 1)
-    state = jb.build_batch(specs)
-    status = np.full(n_lanes, jb.DEAD, dtype=np.int32)
-    status[0] = jb.RUNNING
-    state = state._replace(status=status)
-    planes = jsym.SymPlanes.empty(n_lanes, state.stack.shape[1],
-                                  state.memory.shape[1],
-                                  state.storage_keys.shape[1], jf.MAX_CONDS)
-    ctx = np.full(n_lanes, -1, dtype=np.int32)
-    ctx[0] = 0
-    planes = planes._replace(ctx_id=ctx)
-
-    frontier = jf._Frontier(laser_evm=None, n_lanes=n_lanes)
-    assert frontier.telemetry_enabled and frontier.state_merge
-    frontier.telemetry_enabled = frontier.state_merge = default
-    if which == "spill":
-        frontier.stack_bytes = chip_smoke.SPILL_STACK_ROWS \
-            * _row_bytes(state, planes)
-    mstats = []
-    if default:
-        tags, merge_table = jax_static_tables([code])
-        frontier._collect_tag_pcs = lambda: tags
-        frontier._merge_pc_table = lambda: merge_table
-        publish = frontier._publish_merge
-
-        def recording(stats, names):
-            mstats.append(np.asarray(stats))
-            return publish(stats, names)
-
-        frontier._publish_merge = recording
-    frozen = _count_frozen(frontier)
-    counts = {"chunks": 0, "drains": 0, "drained_rows": 0}
-    run_chunk, fetch = jsym.run_chunk, frontier._fetch_escapes
-
-    def counting_chunk(*args):
-        counts["chunks"] += 1
-        return run_chunk(*args)
-
-    def counting_fetch(*args):
-        backlog = fetch(*args)
-        counts["drains"] += 1
-        counts["drained_rows"] += backlog[2]
-        return backlog
-
-    monkeypatch.setattr(jsym, "run_chunk", counting_chunk)
-    frontier._fetch_escapes = counting_fetch
-    frontier.run(state, planes)
-    got = {**counts, "frozen_rows": frozen[0], "spilled": frontier.spilled,
-           "reseeded": frontier.reseeded, "lane_steps": frontier.lane_steps,
-           "forks": frontier.forks, "stack_pushes": frontier.stack_pushes,
-           "stack_pops": frontier.stack_pops,
-           "deferred_blocks": len(frontier.deferred),
-           "deferred_rows": sum(block[2] for block in frontier.deferred),
-           "mirror_n": frontier.harena.n,
-           "mirror_n_const": frontier.harena.n_const,
-           "deferred_sha256": tf.deferred_digest(frontier.deferred),
-           "mirror_sha256": tf.mirror_digest(frontier.harena)}
-    if default:
-        total = np.sum(mstats, axis=0) if mstats else np.zeros(8, np.int64)
-        got.update({"merge_passes": len(mstats), "merges": frontier.merges,
-                    "merge_ites": int(total[1]), "mem_blends": int(total[2]),
-                    "blocked_by": dict(zip(jsym.MERGE_BLOCKED_LABELS,
-                                           (int(v) for v in total[3:8]))),
-                    "telemetry_words": [int(v) for v in frontier._tel_prev]})
-    assert got == expected, json.dumps(got, sort_keys=True)
-
 
 def test_chip_smoke_tables_are_the_jax_analysis():
     """chip_smoke.py's copy of bench.py's memory diamonds, and the tag and
@@ -619,25 +476,6 @@ def test_chip_smoke_tables_are_the_jax_analysis():
 
 
 # ---- the tables the port builds for itself -----------------------------------------
-
-def _jax_tables(codes) -> dict:
-    """`jax_static_tables(codes)` keyed as `static_tables` returns them."""
-    tags, merge_table = jax_static_tables(codes)
-    return dict(zip(tf.TABLE_KEYS, (*tags, *merge_table)))
-
-
-def _same_tables(got: dict, expected: dict) -> None:
-    """Every table equal, its type, dtype and shape too."""
-    assert set(got) == set(expected) == set(tf.TABLE_KEYS)
-    for key in tf.TABLE_KEYS:
-        mine, theirs = got[key], expected[key]
-        assert type(mine) is type(theirs), key
-        if isinstance(theirs, np.ndarray):
-            assert mine.dtype == theirs.dtype and mine.shape == theirs.shape \
-                and np.array_equal(mine, theirs), key
-        else:
-            assert list(mine) == list(theirs), key
-
 
 def _static_cases() -> dict:
     """name -> codes in seed order: chip_smoke's static_tables sets (loops
@@ -668,8 +506,8 @@ def test_static_tables_match_jax(case):
     """`static_tables(codes)` is what the JAX `_collect_tag_pcs` and
     `_merge_pc_table` build over contexts running `codes`."""
     codes = STATIC_CASES[case]
-    expected = _jax_tables(codes)
-    _same_tables(tf.static_tables(codes), expected)
+    expected = jax_tables(codes)
+    same_tables(tf.static_tables(codes), expected)
     if case == "past_the_caps":
         assert len(expected["tag_pcs"]) == tf.TAG_SLOTS
         assert len(expected["mem_pcs"]) == tf.MERGE_PC_SLOTS
@@ -687,7 +525,7 @@ def test_static_tables_switched_off(off, monkeypatch):
     codes = STATIC_CASES["mem_branchy8"]
     if off == "absint":
         monkeypatch.setenv("MYTHRIL_TPU_ABSINT", "0")
-    expected = _jax_tables(codes)
+    expected = jax_tables(codes)
     if off == "telemetry":
         expected.update(tag_pcs=[], tag_names=[])
     if off == "state_merge":
@@ -695,7 +533,7 @@ def test_static_tables_switched_off(off, monkeypatch):
                         mem_pcs=np.zeros(0, np.int32),
                         mem_words=np.zeros((0, 1), np.int32))
     got = tf.static_tables(codes, **{off: False})
-    _same_tables(got, expected)
+    same_tables(got, expected)
     assert len(got["tag_pcs"]) == (0 if off == "telemetry" else 8)
     assert len(got["mem_pcs"]) == (37 if off == "telemetry" else 0)
 
@@ -707,12 +545,12 @@ def test_seed_builds_the_tables_and_drives_the_same(default_run):
     name, frontier, mstats, hand_fed = default_run
     code = assemble(dispatcher({"stress()": DEFAULT_BODIES[name]}))
     state, planes, arena = _seed([code])
-    port = _port_frontier(arena, _row_bytes(state, planes), telemetry=True,
+    port = _port_frontier(arena, row_bytes_of(state, planes), telemetry=True,
                           state_merge=True, chunk=DEFAULT_CHUNK)
     assert port.own_tables and not hand_fed.own_tables
     assert not port.tag_pcs and not len(port.mem_pcs)
     port.seed([(code, {}, False, 10_000_000, 0)])
-    _same_tables(port.tables(), _jax_tables([code]))
+    same_tables(port.tables(), jax_tables([code]))
     tensors = port.merge_tables
     port.run(to_port("state", state), to_port("planes", planes))
     assert port.merge_tables is tensors
@@ -736,7 +574,7 @@ def test_absint_off_blocks_the_memory_merge(monkeypatch):
     monkeypatch.setattr(support_args.args, "absint", False)
     code = assemble(dispatcher({"stress()": DEFAULT_BODIES["mem_branchy8"]}))
     state, planes, arena = _seed([code])
-    port = _port_frontier(arena, _row_bytes(state, planes), telemetry=True,
+    port = _port_frontier(arena, row_bytes_of(state, planes), telemetry=True,
                           state_merge=True, chunk=DEFAULT_CHUNK)
     port.seed([(code, {}, False, 10_000_000, 0)])
     assert port.mem_pcs.shape == (0,) and port.mem_words.shape == (0, 1)
@@ -760,11 +598,11 @@ def test_switch_off_does_not_outlive_its_frontier(monkeypatch):
         and not len(off.mem_pcs)
     assert not tf.static_tables(codes)["tag_pcs"]
     monkeypatch.setitem(sa.ENABLED, "cfa", True)
-    expected = _jax_tables(codes)
-    _same_tables(tf.static_tables(codes), expected)
+    expected = jax_tables(codes)
+    same_tables(tf.static_tables(codes), expected)
     on = tf.DeviceFrontier(N_LANES, device="cpu")
     on.seed(seeds)
-    _same_tables(on.tables(), expected)
+    same_tables(on.tables(), expected)
 
 
 def test_chip_smoke_static_tables_are_the_jax_analysis():
@@ -772,105 +610,9 @@ def test_chip_smoke_static_tables_are_the_jax_analysis():
     import chip_smoke
 
     for name, codes in chip_smoke.static_codes().items():
-        assert chip_smoke.table_counts(_jax_tables(codes)) \
+        assert chip_smoke.table_counts(jax_tables(codes)) \
             == chip_smoke.EXPECTED_STATIC[name], name
     branchy = chip_smoke.static_codes()["branchy12"]
     assert {key: np.asarray(value).tolist()
-            for key, value in _jax_tables(branchy).items()} \
+            for key, value in jax_tables(branchy).items()} \
         == chip_smoke.NO_TABLES
-
-
-def _counting_drain(frontier, monkeypatch):
-    """Wrap run_chunk and _fetch_escapes to count chunks and drains; wrap
-    the merge publication to keep each pass's stats vector."""
-    counts = {"chunks": 0, "drains": 0, "drained_rows": 0}
-    run_chunk, fetch = jsym.run_chunk, frontier._fetch_escapes
-
-    def counting_chunk(*args):
-        counts["chunks"] += 1
-        return run_chunk(*args)
-
-    def counting_fetch(*args):
-        backlog = fetch(*args)
-        counts["drains"] += 1
-        counts["drained_rows"] += backlog[2]
-        return backlog
-
-    monkeypatch.setattr(jsym, "run_chunk", counting_chunk)
-    frontier._fetch_escapes = counting_fetch
-    mstats = []
-    publish = frontier._publish_merge
-
-    def recording(stats, names):
-        mstats.append(np.asarray(stats))
-        return publish(stats, names)
-
-    frontier._publish_merge = recording
-    return counts, mstats
-
-
-def _check_sharded_constants(chip_smoke, codes, expected, owners, fleet_names,
-                             monkeypatch):
-    """The sharded default-configuration drain of `codes` (seed i owned by
-    shard owners[i], round robin without owners) with JAX, against
-    chip_smoke's constants."""
-    n_lanes = chip_smoke.LANES
-    frontier = jf._Frontier(laser_evm=None, n_lanes=n_lanes)
-    assert frontier.telemetry_enabled and frontier.state_merge
-    assert (frontier.steal_cadence, frontier.steal_min_imbalance) == (
-        tf.STEAL_CADENCE, tf.STEAL_MIN_IMBALANCE)
-    frontier.n_shards = chip_smoke.SHARDS
-    frontier._seed_owner_index = owners
-    lanes = frontier._assign_seed_lanes(len(codes))
-    specs = [jb.LaneSpec(code=b"\x00")] * n_lanes
-    for lane, code in zip(lanes, codes):
-        specs[lane] = jb.LaneSpec(code=code, gas_limit=10_000_000)
-    state = jb.build_batch(specs)
-    status = np.full(n_lanes, jb.DEAD, dtype=np.int32)
-    status[lanes] = jb.RUNNING
-    state = state._replace(status=status)
-    planes = jsym.SymPlanes.empty(n_lanes, state.stack.shape[1],
-                                  state.memory.shape[1],
-                                  state.storage_keys.shape[1], jf.MAX_CONDS)
-    ctx = np.full(n_lanes, -1, dtype=np.int32)
-    ctx[lanes] = np.arange(len(codes))
-    planes = planes._replace(ctx_id=ctx)
-    tags, merge_table = jax_static_tables(codes)
-    frontier._collect_tag_pcs = lambda: tags
-    frontier._merge_pc_table = lambda: merge_table
-    # the port's frontier builds these for itself on the card
-    _same_tables(tf.static_tables(codes), _jax_tables(codes))
-    if fleet_names is not None:
-        frontier._collect_fleet_slots = lambda: (list(range(len(codes))),
-                                                 list(fleet_names))
-        tables = chip_smoke.fleet_tables()
-        assert tables["tag_pcs"] == list(tags[0])
-        assert tables["tag_names"] == list(tags[1])
-        assert tables["merge_pcs"] == [int(pc) for pc in merge_table[0]]
-        assert tables["merge_names"] == list(merge_table[1])
-        assert tables["mem_pcs"] == merge_table[2].tolist()
-        assert tables["mem_words"] == merge_table[3].tolist()
-    frozen = _count_frozen(frontier)
-    counts, mstats = _counting_drain(frontier, monkeypatch)
-    frontier.run(state, planes)
-    total = np.sum(mstats, axis=0) if mstats else np.zeros(8, np.int64)
-    sent, recv, moved = frontier._shard_steals
-    got = {**counts, "frozen_rows": frozen[0], "spilled": frontier.spilled,
-           "reseeded": frontier.reseeded, "lane_steps": frontier.lane_steps,
-           "forks": frontier.forks, "stack_pushes": frontier.stack_pushes,
-           "stack_pops": frontier.stack_pops,
-           "deferred_blocks": len(frontier.deferred),
-           "deferred_rows": sum(block[2] for block in frontier.deferred),
-           "mirror_n": frontier.harena.n,
-           "mirror_n_const": frontier.harena.n_const,
-           "deferred_sha256": tf.deferred_digest(frontier.deferred),
-           "mirror_sha256": tf.mirror_digest(frontier.harena),
-           "merge_passes": len(mstats), "merges": frontier.merges,
-           "merge_ites": int(total[1]), "mem_blends": int(total[2]),
-           "blocked_by": dict(zip(jsym.MERGE_BLOCKED_LABELS,
-                                  (int(v) for v in total[3:8]))),
-           "telemetry_words": [int(v) for v in frontier._tel_prev],
-           "steal_passes": frontier._steal_passes,
-           "steals_sent": [int(v) for v in sent],
-           "steals_received": [int(v) for v in recv], "steal_rows": int(moved)}
-    assert got == expected, json.dumps(got, sort_keys=True)

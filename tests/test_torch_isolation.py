@@ -1,7 +1,8 @@
 """The port stands alone: no module of mythril_tpu_torch, and nothing that
 chip_smoke.py imports, loads jax or anything of mythril_tpu (the SMT façade,
 the host solver stack, the host engine, the plugins, detectors, analyzer
-and CLI included); its entry points run on the card unless asked for the
+and CLI, the superoptimizer, the concolic driver and the extension
+discovery included); its entry points run on the card unless asked for the
 CPU."""
 
 import os
@@ -76,7 +77,11 @@ print("ANALYSIS", all(m in sys.modules for m in (
     "mythril_tpu_torch.core.strategy.concolic",
     "mythril_tpu_torch.core.tx_prioritiser",
     "mythril_tpu_torch.frontends.features",
-    "mythril_tpu_torch.observe.metrics")))
+    "mythril_tpu_torch.observe.metrics",
+    "mythril_tpu_torch.superopt.engine", "mythril_tpu_torch.superopt.rules",
+    "mythril_tpu_torch.concolic.find_trace",
+    "mythril_tpu_torch.concolic.concolic_execution",
+    "mythril_tpu_torch.plugin.loader", "mythril_tpu_torch.plugin.discovery")))
 print("BAD", bad)
 """
 
@@ -118,6 +123,11 @@ def test_entry_points_default_to_cuda():
         device_solver.solve_cnf_device([[1, 2], [-1]], 2)
     with pytest.raises(RuntimeError):
         device_solver.solve_cnf_device_batch([([[1, 2], [-1]], 2)])
+    # the optimizer's proofs under --solver jax: refused before any block
+    from mythril_tpu_torch.superopt import optimize_bytecode
+
+    with pytest.raises(RuntimeError):
+        optimize_bytecode("600035600202", solver="jax")
     # the K11 twin is many small ops: on one thread, as beside other test
     # processes a pool of threads per op costs it more than it gives
     threads = torch.get_num_threads()

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_drain import row_bytes_of
 from _torch_observe import (counter_samples, deterministic, observed,
                             span_names)
 from _torch_parity import jax_static_tables, to_port
@@ -31,8 +32,7 @@ from mythril_tpu.parallel import frontier as jf
 from mythril_tpu.parallel import symstep as jsym
 from mythril_tpu_torch.parallel import convert
 from mythril_tpu_torch.parallel import frontier as tf
-from test_torch_frontier import (DEFAULT_CHUNK, N_LANES, POOL_ROWS, _row_bytes,
-                                 _seed)
+from test_torch_frontier import DEFAULT_CHUNK, N_LANES, POOL_ROWS, _seed
 
 PLANES = assemble(dispatcher({"planes()": PLANES_SOURCE}))
 
@@ -63,7 +63,7 @@ def _default_pair(body: str, patch, max_steps: int = tf.MAX_STEPS):
     dispatcher({"stress()": body}), with a step budget."""
     code = assemble(dispatcher({"stress()": body}))
     state, planes, arena = _seed([code])
-    row_bytes = _row_bytes(state, planes)
+    row_bytes = row_bytes_of(state, planes)
     tags, merge_table = jax_static_tables([code])
     frontier = jf._Frontier(laser_evm=None, n_lanes=N_LANES)
     frontier.arena = arena
@@ -98,7 +98,7 @@ def _shard_pair(patch):
     state_np = jbatch.StateBatch(**convert.to_numpy(state)._asdict())
     planes_np = jsym.SymPlanes(**convert.to_numpy(planes)._asdict())
     arena = jarena.new_arena(1 << 16, 1 << 12)
-    row_bytes = _row_bytes(state_np, planes_np)
+    row_bytes = row_bytes_of(state_np, planes_np)
     frontier = jf._Frontier(laser_evm=None, n_lanes=N_LANES)
     frontier.arena = arena
     frontier.stack_bytes = frontier.esc_bytes = POOL_ROWS * row_bytes

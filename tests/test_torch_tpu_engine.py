@@ -27,14 +27,13 @@ CPU (`MYTHRIL_TPU_LANES=16`), every counter reset on both sides
 - `frontier.configure`'s defaults against the JAX knobs'."""
 
 import logging
-import re
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_engine import (BUDGET_S, JAX, PORT, analyze_report,
+from _torch_engine import (BUDGET_S, JAX, PORT, analyze_report, canonical,
                            report_parity, run_on, value_of)
 from _torch_parity import np_tree
 from chip_smoke import KILLBILLY, SAFE_KILL, branchy_contract
@@ -367,37 +366,6 @@ def environment(side):
         calldata=side.calldata.SymbolicCalldata("1"),
         gasprice=sym("gas_price1", 256), callvalue=sym("call_value1", 256),
         origin=sym("sender_1", 256), basefee=sym("basefee", 256))
-
-
-#: the operators whose operand order depends on the process (terms.py
-#: orders commutative operands by an id-based hash, ROADMAP C)
-COMMUTATIVE = frozenset({"bvadd", "bvmul", "bvand", "bvor", "bvxor", "eq",
-                         "and", "or", "xor"})
-
-
-def canonical(text: str) -> str:
-    """An expression's text with the operands of commutative operators
-    sorted, and everything else in its order: equal for two packages'
-    terms exactly when they agree up to that order."""
-    items = re.findall(r"[()]|[^\s()]+", text)
-    position = 0
-
-    def parse():
-        nonlocal position
-        item = items[position]
-        position += 1
-        if item != "(":
-            return item
-        node = []
-        while items[position] != ")":
-            node.append(parse())
-        position += 1
-        head, args = node[0], node[1:]
-        if head in COMMUTATIVE:
-            args.sort()
-        return "(" + " ".join([head] + args) + ")"
-
-    return parse()
 
 
 def annotation_view(term) -> list:
