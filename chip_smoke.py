@@ -24,8 +24,10 @@ K11 (--solver jax, phase 20e), and a killed analysis and a device drive
 have resumed from their checkpoints (phase 20f), and six contracts have
 been analyzed as one fleet in shared device phases, sharded with K12's
 steal passes too (phase 20g), and two analyses have written the metric
-snapshot and trace that the JAX package's CLI writes (phase 20h), and the
-gas superoptimizer has proved its rewrites on K11 (phase 20i).
+snapshot and trace that the JAX package's CLI writes (phase 20h), the
+gas superoptimizer has proved its rewrites on K11 (phase 20i), and the
+port's daemon has answered analyze requests on the card, cold, warm, as a
+fleet and through its worker pool (phase 20j).
 Every phase prints one JSON line; any mismatch raises, and the run exits
 non-zero. Each frontier* phase drives its
 configuration once more with every summary the loop reads (K5 and its
@@ -294,6 +296,27 @@ copy to the host) held word for word to the twin on the same tensors
      launched from the optimizer, if one of the 12-block code's 12 proofs
      is not the device's, on a divergence or a breaker off CLOSED, or if
      a cdcl run launched a kernel;
+20j. serve_tpu: the port's daemon (`python -m mythril_tpu_torch serve
+     --socket S --engine tpu`: 128 lanes, telemetry and merging on, K11 at
+     32 probes and chunk 256), a subprocess driven through the port's
+     client, four times. Cold (warmup over an empty manifest): ping;
+     ANALYZE_RUNS' three contracts, each reply's issues held to
+     EXPECTED_ANALYZE_TPU, a `metrics` scrape and a `healthz` answered
+     while the first holds its grant (the Prometheus exposition with
+     `device.hbm.*`); tx_origin under `"solver": "jax"` on K11; a repeat
+     answered from the result store; shutdown, exit 0, the manifest
+     holding the K11 shape keys it ran. Warm, on that manifest (its result
+     store and verdict sidecar removed, so that the request runs): every
+     key warmed, none failed; tx_origin under `"solver": "jax"` counts
+     bucket reuses and no first run; K11 launches and graph captures in
+     the warmup and in the request, the request's wall beside the cold
+     one's. Fleet (`--fleet`): FLEET_CORPUS sent at once, issues held to
+     EXPECTED_ANALYZE_FLEET, one reply or more batched with another.
+     Workers (`--workers 2 --inject-fault worker_segv:2`): three tx_origin
+     requests at once, the killed dispatch retried on a fresh worker, one
+     death, one restart, nothing quarantined. Each process writes its
+     kernel launches at exit (SERVE_RUNNER), and they count on the main
+     path; `--serve` runs only the build and this phase;
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -308,11 +331,11 @@ copy to the host) held word for word to the twin on the same tensors
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
      state after the first chunk, verdicts and models as in phase 21;
  23. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 18, 19, 20d-20i, 21, 22; 20g's also on their own; K3's are
+     12, 13, 18, 19, 20d-20j, 21, 22; 20g's also on their own; K3's are
      its allocations folded
      into K4's steps and K10's passes and its standalone calls in 20d-20f;
      K11's from the analyzer, 20e, and from the optimizer, 20i, also on
-     their own), its
+     their own; the serving tier's, 20j, on their own too), its
      time, its plain version's time, the least time the card could take
      and the library call's time (K11's per step).
 
@@ -5473,6 +5496,475 @@ def phase_optimize_jax() -> dict:
     return launches
 
 
+#: the serve_tpu phase's runner of a daemon or worker process: runs
+#: MODULE as `python -m MODULE ARGS` does and writes the process's kernel
+#: launches and graph replays to OUT at exit, with the counts after the
+#: warm set's warmup, each CUDA-graph capture's window on the system's
+#: monotonic clock, and each engine run's launches beside the worker job
+#: it served (its id and whether it was a retry); a daemon's workers run
+#: under it too, each into a file of its own beside OUT (a worker that
+#: dies writes none)
+SERVE_RUNNER = r"""
+import atexit, json, os, runpy, sys, time
+
+import torch
+
+sys.path.insert(0, {repo!r})
+out, module = sys.argv[1], sys.argv[2]
+sys.argv = [module, *sys.argv[3:]]
+marks = {{"captures": [], "runs": []}}
+
+
+def counts():
+    from mythril_tpu_torch.kernels import ops
+
+    return {{"launches": dict(ops.LAUNCHES), "replays": dict(ops.REPLAYS)}}
+
+
+def dump():
+    with open(out, "w") as handle:
+        json.dump({{**counts(), "marks": marks}}, handle)
+
+
+atexit.register(dump)
+capture_enter = torch.cuda.graph.__enter__
+capture_exit = torch.cuda.graph.__exit__
+
+
+def timed_enter(self):
+    self.started_at = time.monotonic()
+    return capture_enter(self)
+
+
+def timed_exit(self, *exc):
+    try:
+        return capture_exit(self, *exc)
+    finally:
+        marks["captures"].append([self.started_at, time.monotonic()])
+
+
+torch.cuda.graph.__enter__ = timed_enter
+torch.cuda.graph.__exit__ = timed_exit
+from mythril_tpu_torch.observe import slog
+from mythril_tpu_torch.serve import service, supervisor, warmset
+
+warmup = warmset.WarmSet.warmup
+event = slog.event
+job = {{}}
+
+
+def marked_warmup(self):
+    warmed = warmup(self)
+    marks["after_warmup"] = counts()
+    return warmed
+
+
+def job_event(name, **fields):
+    if name == "serve.worker.job":
+        job.update(job_id=fields.get("job_id"), retry=fields.get("retry"))
+    return event(name, **fields)
+
+
+run_local = service.AnalysisService._run_analysis_local
+
+
+def counted_run(self, *args, **kwargs):
+    before = counts()["launches"]
+    try:
+        return run_local(self, *args, **kwargs)
+    finally:
+        after = counts()["launches"]
+        marks["runs"].append({{**job, "launches": {{
+            name: after[name] - before[name] for name in after}}}})
+
+
+command = supervisor.Supervisor._worker_command
+
+
+def runner_command(self):
+    argv = command(self)
+    at = argv.index("-m")
+    return [argv[0], os.path.abspath(__file__),
+            f"{{out}}.worker-{{os.urandom(4).hex()}}", *argv[at + 1:]]
+
+
+warmset.WarmSet.warmup = marked_warmup
+slog.event = job_event
+service.AnalysisService._run_analysis_local = counted_run
+supervisor.Supervisor._worker_command = runner_command
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+#: how long a daemon may take to answer its first ping
+SERVE_START_S = 180
+
+
+class ServeDaemon:
+    """`python -m mythril_tpu_torch serve --socket S ARGS` as a
+    subprocess under SERVE_RUNNER, with its log in the work directory."""
+
+    def __init__(self, work: str, name: str, args: list):
+        from mythril_tpu_torch.serve import client
+
+        self.client = client
+        self.socket = os.path.join(work, f"{name}.sock")
+        self.counts_path = os.path.join(work, f"{name}.counts.json")
+        self.log_path = os.path.join(work, f"{name}.log")
+        runner = os.path.join(work, "serve_runner.py")
+        with open(runner, "w") as handle:
+            handle.write(SERVE_RUNNER.format(
+                repo=os.path.dirname(os.path.abspath(__file__))))
+        self.log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, runner, self.counts_path, "mythril_tpu_torch",
+             "serve", "--socket", self.socket, *args],
+            stdout=self.log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        started = time.perf_counter()
+        while True:
+            try:
+                self.request({"op": "ping"}, timeout=10)
+                break
+            except client.ServeClientError:
+                if self.proc.poll() is not None or \
+                        time.perf_counter() - started > SERVE_START_S:
+                    self.fail(f"daemon {name} never answered a ping")
+                time.sleep(0.25)
+        self.start_s = time.perf_counter() - started
+
+    def request(self, payload: dict, timeout: float = 600.0) -> dict:
+        return self.client.request(payload, socket_path=self.socket,
+                                   timeout=timeout)
+
+    def fail(self, message: str):
+        self.log.flush()
+        with open(self.log_path) as handle:
+            tail = handle.read()[-3000:]
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        raise AssertionError(f"serve_tpu: {message}\n{tail}")
+
+    def stop(self) -> dict:
+        """Shut the daemon down (exit 0 or fail); its process's and its
+        workers' counts, summed: {"launches", "replays", "after_warmup",
+        "captures", "runs"}: the daemon's capture windows, and every
+        engine run of the daemon and its workers with its launches."""
+        reply = self.request({"op": "shutdown"}, timeout=120)
+        try:
+            code = self.proc.wait(120)
+        except subprocess.TimeoutExpired:
+            self.fail("daemon did not exit after shutdown")
+        self.log.close()
+        if not reply.get("ok") or code != 0:
+            self.fail(f"shutdown {reply}, exit {code}")
+        with open(self.counts_path) as handle:
+            own = json.load(handle)
+        total = {key: dict(own[key]) for key in ("launches", "replays")}
+        total["runs"] = list(own["marks"]["runs"])
+        directory = os.path.dirname(self.counts_path)
+        prefix = os.path.basename(self.counts_path) + ".worker-"
+        for filename in sorted(os.listdir(directory)):
+            if filename.startswith(prefix):
+                with open(os.path.join(directory, filename)) as handle:
+                    worker = json.load(handle)
+                for key in ("launches", "replays"):
+                    for name, count in worker[key].items():
+                        total[key][name] += count
+                total["runs"] += worker["marks"]["runs"]
+        total["after_warmup"] = own["marks"].get("after_warmup")
+        total["captures"] = own["marks"]["captures"]
+        return total
+
+
+def serve_analyze(name: str, contract, modules, transaction_count: int,
+                  **extra) -> dict:
+    """An analyze request of one dispatcher in creation mode."""
+    payload = {"op": "analyze", "id": name,
+               "code": creation_wrapper(assemble(dispatcher(contract))).hex(),
+               "transaction_count": transaction_count, **extra}
+    if modules:
+        payload["modules"] = modules.split(",")
+    return payload
+
+
+def serve_issues(reply: dict, what: str) -> list:
+    """A reply's issues as EXPECTED_ANALYZE_TPU holds them (fails on an
+    error reply)."""
+    if not reply.get("ok"):
+        raise AssertionError(f"serve_tpu {what}: {reply}")
+    return [[issue["swc-id"], issue["title"], issue["address"]]
+            for issue in reply["report"]["issues"]]
+
+
+def concurrently(daemon: ServeDaemon, payloads: list) -> list:
+    """Send `payloads` at once, one connection and thread each; their
+    replies in order."""
+    import threading
+
+    replies = [None] * len(payloads)
+    barrier = threading.Barrier(len(payloads))
+
+    def send(index):
+        barrier.wait()
+        try:
+            replies[index] = daemon.request(payloads[index])
+        except Exception as error:  # noqa: BLE001 — reported below
+            replies[index] = {"ok": False, "error": repr(error)}
+
+    threads = [threading.Thread(target=send, args=(index,))
+               for index in range(len(payloads))]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(900)
+    return replies
+
+
+def count_delta(after: dict, before: dict) -> dict:
+    return {key: {name: after[key][name] - before[key][name]
+                  for name in after[key]} for key in ("launches", "replays")}
+
+
+def phase_serve_tpu() -> dict:
+    """Phase 20j: the port's daemon on the card (`python -m
+    mythril_tpu_torch serve --engine tpu`, the default 128 lanes with
+    telemetry and merging on, K11 at 32 probes and chunk 256), four
+    daemons in turn, each a subprocess driven through the port's client:
+    a cold one (empty manifest), a warm one on the manifest the cold one
+    wrote, a `--fleet` one and one of two workers with an injected worker
+    death. A line a daemon; it fails on any reply that differs from the
+    JAX constants. Returns the launches the daemons and their workers
+    made."""
+    import shutil
+    import tempfile
+
+    from mythril_tpu_torch.serve import result_store, warmset
+
+    work = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+    launches = {name: 0 for name in ops.LAUNCHES}
+
+    def add(counts):
+        for name, count in counts["launches"].items():
+            launches[name] += count
+
+    try:
+        # 1. the cold daemon: warmup over an empty manifest
+        manifest = os.path.join(work, "warmset.json")
+        cold = ServeDaemon(work, "cold", ["--engine", "tpu",
+                                          "--manifest", manifest])
+        first = serve_analyze("killbilly", *ANALYZE_RUNS["killbilly"])
+        import threading
+
+        held = {}
+        analyze = threading.Thread(
+            target=lambda: held.update(reply=cold.request(first)))
+        analyze.start()
+        time.sleep(0.3)
+        scrape_start = time.perf_counter()
+        scraped = cold.request({"op": "metrics", "id": "m"}, timeout=60)
+        health = cold.request({"op": "healthz", "id": "h"}, timeout=60)
+        scrape_ms = (time.perf_counter() - scrape_start) * 1000.0
+        # the analyze held its admission grant when healthz answered
+        in_flight = bool(health.get("ok")) and health["queue"]["active"] >= 1
+        analyze.join(900)
+        exposition = scraped.get("exposition", "")
+        hbm = re.search(r"^mythril_tpu_device_hbm_bytes_in_use (\S+)$",
+                        exposition, re.M)
+        if not (scraped.get("ok") and in_flight and hbm
+                and "mythril_tpu_serve_requests_total" in exposition
+                and "requests_served" in health):
+            cold.fail(f"scrapes during an analyze: in flight {in_flight}, "
+                      f"{health}, {exposition[:500]}")
+        replies = {"killbilly": held["reply"]}
+        for name in ("safe_kill", "tx_origin"):
+            replies[name] = cold.request(serve_analyze(name,
+                                                       *ANALYZE_RUNS[name]))
+        for name, reply in replies.items():
+            if serve_issues(reply, name) != \
+                    EXPECTED_ANALYZE_TPU[name]["issues"]:
+                cold.fail(f"{name}: {serve_issues(reply, name)}")
+        jax_cold = cold.request(serve_analyze(
+            "tx_origin_jax", *ANALYZE_RUNS["tx_origin"], solver="jax"))
+        if serve_issues(jax_cold, "tx_origin jax") != \
+                EXPECTED_ANALYZE_TPU["tx_origin"]["issues"] \
+                or not jax_cold["warm"]["cold_buckets"]:
+            cold.fail(f"tx_origin jax: {jax_cold['warm']}")
+        repeat = cold.request(serve_analyze("repeat",
+                                            *ANALYZE_RUNS["killbilly"]))
+        if not repeat.get("cached") or serve_issues(repeat, "repeat") != \
+                EXPECTED_ANALYZE_TPU["killbilly"]["issues"]:
+            cold.fail(f"repeat not from the result store: {repeat}")
+        observed = cold.request({"op": "status"})["warmset"]
+        # the allocator's bytes once the requests ran (the scrape above
+        # came before the first allocation)
+        after = re.search(r"^mythril_tpu_device_hbm_peak_bytes (\S+)$",
+                          cold.request({"op": "metrics"})["exposition"],
+                          re.M)
+        cold_counts = cold.stop()
+        add(cold_counts)
+        keys = warmset.load_manifest(manifest)
+        if not keys or len(keys) != observed["observed_buckets"] \
+                or not cold_counts["launches"]["sat_step"]:
+            raise AssertionError(f"serve_tpu cold: manifest {keys}, "
+                                 f"{observed}, {cold_counts['launches']}")
+        emit({"phase": "serve_tpu", "daemon": "cold", "clock": "host",
+              "start_s": cold.start_s, "scrape_ms": scrape_ms,
+              "scrape_in_flight": in_flight,
+              "hbm_bytes_in_use": float(hbm.group(1)),
+              "hbm_peak_bytes_after": float(after.group(1)),
+              "elapsed_ms": {name: reply["elapsed_ms"]
+                             for name, reply in replies.items()},
+              "jax_elapsed_ms": jax_cold["elapsed_ms"],
+              "jax_warm": jax_cold["warm"], "repeat_cached": True,
+              "manifest_keys": keys, "launches": cold_counts["launches"],
+              "replays": cold_counts["replays"]})
+
+        # 2. the warm daemon on that manifest; the cold daemon's result
+        # store and verdict sidecar go, so that the request runs K11
+        for path in (warmset.verdicts_path_for(manifest),
+                     result_store.results_path_for(manifest)):
+            if os.path.exists(path):
+                os.remove(path)
+        warm = ServeDaemon(work, "warm", ["--engine", "tpu",
+                                          "--manifest", manifest])
+        status = warm.request({"op": "status"})["warmset"]
+        # metrics and healthz back to back from another connection for as
+        # long as the request runs: its chunk graphs and K11 graphs are
+        # captured and replayed in the engine thread meanwhile
+        scrapes, scraping = [], threading.Event()
+
+        def scrape_loop():
+            while not scraping.is_set():
+                for op in ("metrics", "healthz"):
+                    sent = time.monotonic()
+                    try:
+                        reply = warm.request({"op": op, "id": op},
+                                             timeout=60)
+                    except Exception as error:  # noqa: BLE001 — failed
+                        reply = {"ok": False, "error": repr(error)}
+                    scrapes.append((sent, time.monotonic(), op, reply))
+
+        scraper = threading.Thread(target=scrape_loop)
+        scraper.start()
+        try:
+            jax_warm = warm.request(serve_analyze(
+                "tx_origin_jax", *ANALYZE_RUNS["tx_origin"], solver="jax"))
+        finally:
+            scraping.set()
+            scraper.join(120)
+        warm_counts = warm.stop()
+        add(warm_counts)
+        during = count_delta(warm_counts, warm_counts["after_warmup"])
+        if status["warmed_buckets"] != len(keys) \
+                or status["unwarmable_buckets"] \
+                or serve_issues(jax_warm, "warm tx_origin jax") != \
+                EXPECTED_ANALYZE_TPU["tx_origin"]["issues"] \
+                or jax_warm["warm"]["cold_buckets"] \
+                or not jax_warm["warm"]["warm_hits"]:
+            raise AssertionError(f"serve_tpu warm: {status}, "
+                                 f"{jax_warm.get('warm')}")
+        failed = [(op, reply) for _, _, op, reply in scrapes
+                  if not reply.get("ok")
+                  or (op == "metrics" and "mythril_tpu_device_hbm_bytes_in_use"
+                      not in reply.get("exposition", ""))
+                  or (op == "healthz" and "requests_served" not in reply)]
+        # the scrapes in flight while a graph was being captured
+        overlapping = sum(
+            1 for sent, answered, _, _ in scrapes
+            if any(sent < end and start < answered
+                   for start, end in warm_counts["captures"]))
+        request_captures = during["replays"]["captures"] \
+            + during["replays"]["sat_captures"]
+        if failed or not scrapes or not request_captures \
+                or not overlapping:
+            raise AssertionError(
+                f"serve_tpu warm: scrapes during the request: {len(scrapes)}"
+                f", {overlapping} during a capture, {request_captures} "
+                f"captures, failed {failed[:2]}")
+        emit({"phase": "serve_tpu", "daemon": "warm", "clock": "host",
+              "start_s": warm.start_s, "warmed_buckets":
+              status["warmed_buckets"], "warm": jax_warm["warm"],
+              "warmup_k11_launches":
+              warm_counts["after_warmup"]["launches"]["sat_step"],
+              "warmup_sat_captures":
+              warm_counts["after_warmup"]["replays"]["sat_captures"],
+              "request_k11_launches": during["launches"]["sat_step"],
+              "request_sat_captures": during["replays"]["sat_captures"],
+              "request_chunk_captures": during["replays"]["captures"],
+              "scrapes_during_request": len(scrapes),
+              "scrapes_during_a_capture": overlapping,
+              "scrape_ms_max": max((answered - sent) * 1000.0
+                                   for sent, answered, _, _ in scrapes),
+              "elapsed_ms": jax_warm["elapsed_ms"],
+              "cold_elapsed_ms": jax_cold["elapsed_ms"]})
+
+        # 3. the fleet daemon: FLEET_CORPUS sent at once
+        fleet = ServeDaemon(work, "fleet", [
+            "--engine", "tpu", "--fleet",
+            "--manifest", os.path.join(work, "fleet", "warmset.json")])
+        names = list(FLEET_CORPUS)
+        fleet_replies = concurrently(fleet, [
+            serve_analyze(name, FLEET_CORPUS[name], FLEET_MODULES, FLEET_TX)
+            for name in names])
+        fleet_counts = fleet.stop()
+        add(fleet_counts)
+        got = {name: serve_issues(reply, f"fleet {name}")
+               for name, reply in zip(names, fleet_replies)}
+        batched = [reply.get("fleet_batched", 1) for reply in fleet_replies]
+        if got != EXPECTED_ANALYZE_FLEET["issues"] or max(batched) < 2:
+            raise AssertionError(f"serve_tpu fleet: {got}, batches "
+                                 f"{batched}")
+        emit({"phase": "serve_tpu", "daemon": "fleet", "clock": "host",
+              "start_s": fleet.start_s, "fleet_batched": batched,
+              "elapsed_ms": [reply["elapsed_ms"] for reply in fleet_replies],
+              "launches": fleet_counts["launches"]})
+
+        # 4. two workers, the second dispatch's worker killed (SIGSEGV)
+        pool = ServeDaemon(work, "pool", [
+            "--engine", "tpu", "--workers", "2",
+            "--inject-fault", "worker_segv:2",
+            "--manifest", os.path.join(work, "pool", "warmset.json")])
+        pool_replies = concurrently(pool, [
+            serve_analyze(f"tx_origin_{index}", *ANALYZE_RUNS["tx_origin"])
+            for index in range(3)])
+        deadline = time.perf_counter() + SERVE_START_S
+        while True:
+            workers = pool.request({"op": "healthz"})["workers"]
+            if workers["restarts"] >= 1 or time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+        pool_counts = pool.stop()
+        add(pool_counts)
+        issues = [serve_issues(reply, "pool") for reply in pool_replies]
+        # each engine run in a worker (the killed dispatch died before
+        # its run) and the retry among them, each on the card: K1, K2, K4
+        runs = pool_counts["runs"]
+        retried = [run for run in runs if run.get("retry")]
+        on_card = [all(run["launches"][name] for name in
+                       ("keccak", "evm_step", "sym_step")) for run in runs]
+        if issues != [EXPECTED_ANALYZE_TPU["tx_origin"]["issues"]] * 3 \
+                or workers["deaths"] != 1 or workers["restarts"] != 1 \
+                or workers["quarantine"]["quarantined"] \
+                or any(reply.get("cached") for reply in pool_replies) \
+                or len(runs) != 3 or len(retried) != 1 or not all(on_card):
+            raise AssertionError(f"serve_tpu pool: {issues}, {workers}, "
+                                 f"runs {runs}")
+        emit({"phase": "serve_tpu", "daemon": "pool", "clock": "host",
+              "start_s": pool.start_s, "deaths": workers["deaths"],
+              "restarts": workers["restarts"],
+              "quarantined": workers["quarantine"]["quarantined"],
+              "elapsed_ms": [reply["elapsed_ms"] for reply in pool_replies],
+              "retry_launches": retried[0]["launches"],
+              "launches": pool_counts["launches"]})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for name in ("keccak", "evm_step", "sym_step", "frontier_summary",
+                 "sat_step"):
+        if not launches[name]:
+            raise AssertionError(f"serve_tpu: {name} never launched")
+    return launches
+
+
 def sat_solve(solve, *args, **kwargs) -> dict:
     """One entry-point call with the launch counts zeroed just before and
     read just after, each chunk's stream time (CUDA events around
@@ -5662,6 +6154,12 @@ def main() -> int:
         print(CARD, flush=True)
         print_ok()
         return 0
+    if sys.argv[1:] == ["--serve"]:
+        build.build_all()
+        emit({"phase": "serve_tpu", "launches": phase_serve_tpu()})
+        print(CARD, flush=True)
+        print_ok()
+        return 0
     start = time.perf_counter()
     paths = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - start,
@@ -5715,6 +6213,9 @@ def main() -> int:
     # the gas superoptimizer's proofs on K11
     optimize_launches = phase_optimize_jax()
     main_path_launches.append(optimize_launches)
+    # the daemon: its processes' launches, read from each at its exit
+    serve_launches = phase_serve_tpu()
+    main_path_launches.append(serve_launches)
     sat_launches, sat_profiled = phase_sat_lane(dev, facade)
     main_path_launches += [sat_launches, phase_sat_batch(dev, facade)]
     for counts in main_path_launches:
@@ -5733,6 +6234,8 @@ def main() -> int:
         record["launches"] = launches[name]
         # the fleet analyzer's share (analyze_fleet)
         record["launches_analyze_fleet"] = fleet_launches[name]
+        # the serving tier's share (serve_tpu's daemons and workers)
+        record["launches_serve"] = serve_launches[name]
         if name == "telemetry":
             # K9 by launch in the graphed drives with the plane armed
             record["k9_by_launch_graphed"] = {

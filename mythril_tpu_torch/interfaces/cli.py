@@ -25,10 +25,14 @@ contracts as one fleet in shared device phases. `--metrics-out` writes
 the metric registry's snapshot and `--trace-out` a Perfetto trace of the
 run (observe/). `optimize --solver jax` proves the optimizer's rewrites on
 the card's SAT lane (K11) and exits 2 without a card; `--solver cdcl` and
-`concolic` run on the host. The other subcommands exit with code 2 and
-the ROADMAP item that ports them, and so does every input whose path is
-not ported (`-a`/`--rpc`, Solidity files), before any contract is
-analyzed. Every command first activates the default-enabled third-party
+`concolic` run on the host. `serve` runs the port's daemon (serve/:
+stdio, unix socket or HTTP; `--engine tpu` and `--solver jax` exit 2 at
+start without a card) and `client` sends it one request; where the JAX
+CLI writes `--workers-min`/`--workers-max`/`--queue-max` into the
+environment, the port passes them to the service as arguments. The other
+subcommands exit with code 2 and the ROADMAP item that ports them, and so
+does every input whose path is not ported (`-a`/`--rpc`, Solidity
+files), before any contract is analyzed. Every command first activates the default-enabled third-party
 plugins of the `mythril_tpu_torch.plugins` entry-point group
 (plugin/discovery.py), as the reference does for its own group."""
 
@@ -330,13 +334,201 @@ def _cmd_optimize(parser, cli_args) -> int:
     return 1 if report.proof_stats.get("divergences") else 0
 
 
+def _add_serve_args(parser: argparse.ArgumentParser) -> None:
+    transport = parser.add_argument_group("transport")
+    transport.add_argument("--socket", default=None, metavar="PATH",
+                           help="unix-socket path (default: "
+                                "~/.mythril_tpu_torch/serve.sock)")
+    transport.add_argument("--stdio", action="store_true",
+                           help="serve one JSON-lines session on "
+                                "stdin/stdout instead of a socket "
+                                "(logs stay on stderr)")
+    transport.add_argument("--http", type=int, default=None, metavar="PORT",
+                           help="serve the thin HTTP shim on PORT instead "
+                                "of a socket (POST / = one protocol "
+                                "request; GET /healthz = ping)")
+    transport.add_argument("--http-host", default="127.0.0.1",
+                           help="bind address for --http")
+
+    daemon = parser.add_argument_group("daemon")
+    daemon.add_argument("--solver", default="cdcl", choices=["cdcl", "jax"],
+                        help="default SAT backend for requests that do not "
+                             "pick one (jax: K11 on the CUDA card)")
+    daemon.add_argument("--engine", default="host", choices=["host", "tpu"],
+                        help="default exploration engine (tpu: the device "
+                             "frontier on the CUDA card)")
+    daemon.add_argument("--strategy", default="bfs",
+                        choices=["dfs", "bfs", "naive-random",
+                                 "weighted-random", "beam-search", "pending"])
+    daemon.add_argument("--manifest", default=None, metavar="PATH",
+                        help="warm-set manifest (default: "
+                             "~/.mythril_tpu_torch/warmset.json)")
+    daemon.add_argument("--no-warmup", action="store_true",
+                        help="skip the startup warmup phase")
+    daemon.add_argument("--max-inflight", type=int, default=None,
+                        help="admitted-but-unfinished request bound "
+                             "(default: 4)")
+    daemon.add_argument("--fleet", action="store_true",
+                        help="micro-batch concurrent compatible analyze "
+                             "requests into one shared fleet step instead "
+                             "of serializing them on the engine lock")
+    daemon.add_argument("--workers", type=int, default=None, metavar="N",
+                        help="run the engine in N supervised worker "
+                             "processes instead of in-process: a "
+                             "segfault/OOM/hang kills one sandbox, the "
+                             "request is retried once, repeat-offender "
+                             "contracts are quarantined (0 disables)")
+    daemon.add_argument("--workers-min", type=int, default=None,
+                        metavar="N",
+                        help="autoscale floor for the worker pool (0 uses "
+                             "the --workers size)")
+    daemon.add_argument("--workers-max", type=int, default=None,
+                        metavar="N",
+                        help="autoscale ceiling for the worker pool: the "
+                             "supervisor grows the pool on sustained "
+                             "backlog and shrinks it on sustained idle "
+                             "(0, the default, keeps the pool fixed)")
+    daemon.add_argument("--queue-max", type=int, default=None, metavar="N",
+                        help="bounded admission-queue capacity; past it "
+                             "the lowest-priority oldest waiter is shed "
+                             "with a typed `overloaded` error (default: 16)")
+    daemon.add_argument("--inject-fault", default=None, metavar="SPEC",
+                        help="deterministic fault injection for the worker "
+                             "pool, e.g. worker_segv:2 (kill the worker on "
+                             "the 2nd dispatched job); same grammar as the "
+                             "analyze-side flag, worker_* classes fire at "
+                             "the supervisor's dispatch site")
+
+
+def _cmd_serve(cli_args) -> int:
+    from ..serve.daemon import install_sigterm_drain
+    from ..serve.service import AnalysisService
+    from ..serve.warmset import default_manifest_path
+
+    # the card is resolved before the daemon starts: without one a tpu or
+    # jax daemon exits 2 (DeviceUnavailable), as analyze does
+    if cli_args.engine == "tpu":
+        from ..parallel import frontier
+
+        frontier.resolve_device()
+    if cli_args.solver == "jax":
+        from ..smt.solver import dispatch
+
+        dispatch.resolve_device()
+    settings = {name: value for name, value in (
+        ("max_inflight", cli_args.max_inflight),
+        ("workers", cli_args.workers),
+        ("workers_min", cli_args.workers_min),
+        ("workers_max", cli_args.workers_max),
+        ("queue_max", cli_args.queue_max)) if value is not None}
+    service = AnalysisService(
+        solver=cli_args.solver, engine=cli_args.engine,
+        strategy=cli_args.strategy,
+        manifest_path=cli_args.manifest or default_manifest_path(),
+        warmup=not cli_args.no_warmup, fleet=cli_args.fleet,
+        inject_fault=cli_args.inject_fault, **settings)
+    install_sigterm_drain(service)
+    if cli_args.stdio:
+        from ..serve.daemon import serve_stdio
+
+        serve_stdio(service)
+        return 0
+    if cli_args.http is not None:
+        from ..serve.http_shim import serve_http
+
+        serve_http(service, host=cli_args.http_host, port=cli_args.http)
+        return 0
+    from ..serve.daemon import serve_socket
+
+    serve_socket(service, socket_path=cli_args.socket)
+    return 0
+
+
+def _add_client_args(client: argparse.ArgumentParser) -> None:
+    client.add_argument("op", nargs="?", default="analyze",
+                        choices=["analyze", "optimize", "ping", "status",
+                                 "shutdown"])
+    client.add_argument("-c", "--code", help="hex creation bytecode")
+    client.add_argument("-f", "--codefile",
+                        help="file containing hex bytecode")
+    client.add_argument("--bin-runtime", action="store_true",
+                        help="treat -c/-f input as runtime (deployed) code")
+    client.add_argument("-m", "--modules",
+                        help="comma-separated detection module list")
+    client.add_argument("-t", "--transaction-count", type=int, default=2)
+    client.add_argument("--strategy", default="bfs",
+                        choices=["dfs", "bfs", "naive-random",
+                                 "weighted-random", "beam-search", "pending"])
+    client.add_argument("--max-depth", type=int, default=128)
+    client.add_argument("--solver", default=None, choices=["cdcl", "jax"])
+    client.add_argument("--engine", default=None, choices=["host", "tpu"])
+    client.add_argument("--deadline-ms", type=int, default=None,
+                        help="per-request analysis deadline (the daemon "
+                             "returns a partial report when it expires)")
+    client.add_argument("--priority", default=None,
+                        choices=["interactive", "bulk"],
+                        help="admission class (default interactive): "
+                             "bulk work absorbs shedding under overload "
+                             "and yields the engine to interactive "
+                             "arrivals")
+    client.add_argument("--retries", type=int, default=1, metavar="N",
+                        help="total attempts for retryable failures "
+                             "(connection reset/refused, busy, "
+                             "overloaded) with jittered exponential "
+                             "backoff honoring the daemon's "
+                             "retry_after_ms hint (default 1: no retry)")
+    client.add_argument("--id", default=None, help="request id to echo")
+    client.add_argument("--socket", default=None, metavar="PATH",
+                        help="daemon socket path (default: "
+                             "~/.mythril_tpu_torch/serve.sock)")
+    client.add_argument("--timeout", type=float, default=600.0,
+                        help="seconds to wait for the reply")
+
+
+def _cmd_client(parser, cli_args) -> int:
+    from ..serve import client as serve_client
+
+    payload = {"op": cli_args.op}
+    if cli_args.id is not None:
+        payload["id"] = cli_args.id
+    if cli_args.op in ("analyze", "optimize"):
+        code = cli_args.code
+        if code is None and cli_args.codefile:
+            with open(cli_args.codefile) as handle:
+                code = handle.read().strip()
+        if not code:
+            parser.error(f"client {cli_args.op} needs -c or -f")
+        payload.update(
+            code=code, bin_runtime=cli_args.bin_runtime,
+            transaction_count=cli_args.transaction_count,
+            strategy=cli_args.strategy, max_depth=cli_args.max_depth)
+        if cli_args.modules:
+            payload["modules"] = cli_args.modules.split(",")
+        if cli_args.solver:
+            payload["solver"] = cli_args.solver
+        if cli_args.engine:
+            payload["engine"] = cli_args.engine
+        if cli_args.deadline_ms:
+            payload["deadline_ms"] = cli_args.deadline_ms
+        if cli_args.priority:
+            payload["priority"] = cli_args.priority
+    try:
+        reply = serve_client.request_with_retry(
+            payload, socket_path=cli_args.socket,
+            timeout=cli_args.timeout,
+            attempts=max(1, cli_args.retries))
+    except serve_client.ServeClientError as error:
+        print(f"myth-tpu-torch client: {error}", file=sys.stderr)
+        return 2
+    print(json.dumps(reply, indent=2, sort_keys=True))
+    return 0 if reply.get("ok") else 2
+
+
 #: the subcommands the port has not ported: their aliases and the ROADMAP
 #: item that ports them
 _UNPORTED_COMMANDS = {
     "foundry": (["f"], "A 14f (frontends/solidity.py, solc)"),
     "read-storage": ([], "A 14e (ethereum/rpc.py)"),
-    "serve": ([], "A 12 (serve/)"),
-    "client": ([], "A 12 (serve/)"),
 }
 
 
@@ -389,6 +581,16 @@ def main(argv=None) -> int:
     h2a = subparsers.add_parser("hash-to-address",
                                 help="signature lookup for a 4-byte selector")
     h2a.add_argument("hash")
+
+    serve = subparsers.add_parser(
+        "serve", help="run the persistent analysis daemon "
+                      "(JSON-lines over stdio/unix-socket/HTTP, "
+                      "warmed K11 buckets)")
+    _add_serve_args(serve)
+
+    client = subparsers.add_parser(
+        "client", help="send one request to a running serve daemon")
+    _add_client_args(client)
 
     subparsers.add_parser("list-detectors", help="list detection modules")
     subparsers.add_parser("version", help="print version")
@@ -464,6 +666,10 @@ def main(argv=None) -> int:
 
 
 def _dispatch(parser, cli_args, version: str) -> int:
+    if cli_args.command == "serve":
+        return _cmd_serve(cli_args)
+    if cli_args.command == "client":
+        return _cmd_client(parser, cli_args)
     if cli_args.command in ("analyze", "a"):
         return _cmd_analyze(parser, cli_args)
     if cli_args.command in ("optimize", "opt"):

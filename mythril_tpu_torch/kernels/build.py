@@ -9,17 +9,40 @@ parallel, into its own shared library with a plain C interface:
 The library name carries a hash of the sources and flags, so an edited
 kernel is rebuilt and an unchanged one is reused. Nothing is built at import
 time: the first wrapper call on a CUDA tensor builds what is missing. A
-failed build raises with the compiler's output; there is no fallback."""
+failed build raises with the compiler's output; there is no fallback.
+
+A build holds an exclusive `fcntl` lock on `build/build.lock` and looks
+again for each library once it has the lock, so processes that start
+together on a cold checkout (the serve daemon's workers) run nvcc once per
+source.
+
+The libraries are the port's counterpart of the JAX package's executable
+cache (mythril_tpu/parallel/exec_cache.py, which persists a compiled
+solver runner per clause-shape bucket). The port has one compile, this
+build, once for every shape; the hash in a library's name is the entry
+key's program fingerprint, and there is no second copy and no
+serialization step. The JAX metrics read here as:
+
+* ``cache.exec.hits`` — a library this process loaded from disk, built by
+  an earlier process;
+* ``cache.exec.misses`` — a library nvcc had to build for this process;
+* ``cache.exec.deserialize_ms`` — the time to load one (``ctypes.CDLL``).
+
+The JAX switch MYTHRIL_TPU_EXEC_CACHE=0 has no counterpart: a library on
+disk is never rebuilt, so there is nothing for it to turn off; nor has
+MYTHRIL_TPU_EXEC_CACHE_DIR: the libraries live beside their sources."""
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import time
 from typing import Dict, List, Optional
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -31,6 +54,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+#: the libraries nvcc built for this process (their loads are no hits)
+_BUILT: set = set()
 
 
 def nvcc_path() -> str:
@@ -63,6 +89,20 @@ def build_all(extra_flags: Optional[List[str]] = None) -> Dict[str, str]:
     extra_flags = list(extra_flags or [])
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {name: library_path(name, extra_flags) for name in SOURCES}
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        built = _build_missing(paths, extra_flags)
+    if built and not extra_flags:
+        from ..observe import metrics
+
+        _BUILT.update(built)
+        metrics.inc("cache.exec.misses", len(built))
+    return paths
+
+
+def _build_missing(paths: Dict[str, str], extra_flags: List[str]) -> List[str]:
+    """Run nvcc for every library of `paths` not on disk (under the build
+    lock); returns the names it built."""
     procs = {}
     for name, path in paths.items():
         if os.path.exists(path):
@@ -84,7 +124,7 @@ def build_all(extra_flags: Optional[List[str]] = None) -> Dict[str, str]:
         os.replace(tmp, path)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
-    return paths
+    return list(procs)
 
 
 def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
@@ -121,11 +161,27 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
     return report
 
 
+def stats() -> Dict[str, int]:
+    """The libraries this process found built and had built (the serve
+    worker's ready event, the warm set's status)."""
+    from ..observe import metrics
+
+    return {"hits": int(metrics.value("cache.exec.hits")),
+            "misses": int(metrics.value("cache.exec.misses"))}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one source, building all missing ones first."""
     if name not in _LIBS:
+        from ..observe import metrics
+
         path = library_path(name)
         if not os.path.exists(path):
             build_all()
+        started = time.perf_counter()
         _LIBS[name] = ctypes.CDLL(path)
+        metrics.observe("cache.exec.deserialize_ms",
+                        (time.perf_counter() - started) * 1000.0)
+        if name not in _BUILT:
+            metrics.inc("cache.exec.hits")
     return _LIBS[name]

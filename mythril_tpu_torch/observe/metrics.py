@@ -118,7 +118,7 @@ _METRICS: List[MetricSpec] = [
                "bucket (pays a per-shape compile or a cache load)."),
     MetricSpec("xla.bucket_reuses", COUNTER, "1",
                "Solver runner invocations on an already-compiled bucket."),
-    # -- durable warmth caches (parallel/exec_cache.py, serve/warmset.py) --------
+    # -- durable warmth caches (kernels/build.py, serve/warmset.py) --------------
     MetricSpec("cache.exec.hits", COUNTER, "1",
                "Shape buckets warmed by deserializing a persisted "
                "executable instead of compiling."),

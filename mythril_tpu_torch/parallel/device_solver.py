@@ -35,6 +35,16 @@ Shapes are bucketed as in the JAX package: the ``coarse`` scheme (default)
 rounds clause tiles, the variable axis (with a floor) and the batch query
 axis to powers of four, ``fine`` to powers of two. The scheme is the
 `scheme` argument here, where the JAX package reads an environment knob.
+
+Every chunk of an entry point runs under a shape key, the JAX runner's
+(``("single", 1, chunk, forced depth, tiles, V1, probes)``,
+``("batch", chunk, forced depth, tiles, V1, queries, probes)``), so that
+the serve warm set writes the manifest the JAX daemon writes
+(`observed_shape_keys`) and replays it (`warm_shape_key`).
+``xla.bucket_compiles`` counts the first run of a key in this process and
+``xla.bucket_reuses`` every later run, as the JAX package counts them; in
+the port the first run of a key pays no compile (K11 is built once for
+every shape), only the first chunk's CUDA-graph capture for its tensors.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..observe import metrics
 from ..smt.solver.solver_statistics import SolverStatistics
 from .batch import next_pow2
 
@@ -416,6 +427,96 @@ def step(state: SolverState, problem: DeviceProblem,
     return run_chunk(state, problem, 1, forced_depth)
 
 
+# ---- shape accounting and the serve warm hooks -----------------------------------
+
+#: shape keys whose chunk has run at least once in this process
+_SHAPES_RUN: set = set()
+
+#: sanity bounds for manifest-sourced shape keys (JAX jax_solver.py:639-645):
+#: a corrupt or hostile manifest must not allocate arbitrary device memory
+#: at daemon start
+_WARM_MAX_TILES = 1 << 12
+_WARM_MAX_VARS = 1 << 22
+_WARM_MAX_PROBES = 1 << 10
+_WARM_MAX_BATCH = 1 << 12
+_WARM_MAX_CHUNK = 1 << 12
+
+
+def _run_accounted(shape_key: tuple, state: SolverState,
+                   problem: DeviceProblem, chunk: int, forced_depth: int,
+                   freeze: bool = False) -> SolverState:
+    """`run_chunk` with the JAX bucket accounting (jax_solver.py:91):
+    the first run of `shape_key` in this process counts
+    ``xla.bucket_compiles``, every later run ``xla.bucket_reuses``."""
+    if shape_key in _SHAPES_RUN:
+        metrics.inc("xla.bucket_reuses")
+    else:
+        _SHAPES_RUN.add(shape_key)
+        metrics.inc("xla.bucket_compiles")
+    return run_chunk(state, problem, chunk, forced_depth, freeze)
+
+
+def observed_shape_keys() -> List[tuple]:
+    """Every shape key run in this process, sorted: what the serve warm
+    set writes into its manifest."""
+    return sorted(_SHAPES_RUN)
+
+
+def warm_shape_key(key, device=None) -> bool:
+    """Run one chunk of K11 at a manifest key's padded shapes, on a
+    zero-clause problem (every probe just decides variables), so that the
+    key counts as run (JAX `warm_shape_key`, jax_solver.py:656).
+
+    Returns False for a malformed key, one out of the sanity bounds, or
+    one that names more than one device (there is one card); True for a
+    key already run. Any failure of a well-formed key raises, as every
+    kernel failure does."""
+    try:
+        key = tuple(key)
+        kind = key[0]
+        if kind == "single":
+            _, n_devices, chunk, forced_depth, n_tiles, v1, n_probes = key
+            n_padded = 0
+        elif kind == "batch":
+            _, chunk, forced_depth, n_tiles, v1, n_padded, n_probes = key
+            n_devices = 1
+        else:
+            return False
+        dims = [n_devices, chunk, forced_depth, n_tiles, v1, n_probes]
+        if kind == "batch":
+            dims.append(n_padded)
+        if not all(isinstance(d, int) and d >= 0 for d in dims):
+            return False
+        if not (0 < n_tiles <= _WARM_MAX_TILES
+                and 0 < v1 <= _WARM_MAX_VARS
+                and 0 < n_probes <= _WARM_MAX_PROBES
+                and 0 < chunk <= _WARM_MAX_CHUNK
+                and forced_depth <= 30
+                and (kind != "batch" or 0 < n_padded <= _WARM_MAX_BATCH)):
+            return False
+    except (TypeError, ValueError, IndexError):
+        return False
+    if key in _SHAPES_RUN:
+        return True
+    if n_devices > 1:
+        return False
+    dev = _device.resolve(device)
+    problem = Problem(np.zeros((n_tiles, TILE, 3), dtype=np.int32),
+                      np.zeros((n_tiles, TILE), dtype=bool),
+                      np.arange(v1, dtype=np.int32),
+                      np.zeros(v1, dtype=np.int8), 0)
+    if kind == "batch":
+        tensors = device_problem([problem] * n_padded, dev)
+        init_assign = np.zeros((n_padded, v1), dtype=np.int8)
+    else:
+        tensors = device_problem(problem, dev)
+        init_assign = problem.init_assign
+    state = initial_state(init_assign, n_probes, dev)
+    _run_accounted(key, state, tensors, chunk, forced_depth,
+                   freeze=kind == "batch")
+    return True
+
+
 # ---- entry points ---------------------------------------------------------------
 
 def _model(assign_row: torch.Tensor, n_vars: int) -> List[bool]:
@@ -448,9 +549,11 @@ def solve_cnf_device(clauses: List[List[int]], n_vars: int,
     forced_depth = forced_depth_of(n_probes)
     tensors = device_problem(problem, dev)
     state = initial_state(problem.init_assign, n_probes, dev)
+    shape_key = ("single", 1, chunk, forced_depth, problem.lits.shape[0],
+                 problem.order.shape[0], n_probes)
     steps = 0
     while steps < max_steps:
-        run_chunk(state, tensors, chunk, forced_depth)
+        _run_accounted(shape_key, state, tensors, chunk, forced_depth)
         steps += chunk
         status = state.status.cpu().numpy()
         if (status == S_SAT).any() or (status != SEARCHING).all():
@@ -511,9 +614,12 @@ def solve_cnf_device_batch(queries: List[Tuple[List[List[int]], int]],
         tensors = device_problem(problems, dev)
         state = initial_state(np.stack([p.init_assign for p in problems]),
                               n_probes, dev)
+        shape_key = ("batch", chunk, forced_depth, n_tiles, v1, n_padded,
+                     n_probes)
         steps = 0
         while steps < max_steps:
-            run_chunk(state, tensors, chunk, forced_depth, freeze=True)
+            _run_accounted(shape_key, state, tensors, chunk, forced_depth,
+                           freeze=True)
             steps += chunk
             status = state.status.cpu().numpy()[:n_real]
             if ((status == S_SAT).any(axis=1)

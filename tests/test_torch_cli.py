@@ -230,8 +230,6 @@ COMMAND_SEAMS = [
     (["disassemble", "-a", "0x" + "11" * 20], "A 14"),
     (["foundry", "--project-root", "{tmp}"], "A 14"),
     (["read-storage", "0x" + "11" * 20, "0"], "A 14"),
-    (["serve", "--stdio"], "A 12"),
-    (["client", "status"], "A 12"),
 ]
 
 

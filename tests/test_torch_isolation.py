@@ -1,9 +1,9 @@
 """The port stands alone: no module of mythril_tpu_torch, and nothing that
 chip_smoke.py imports, loads jax or anything of mythril_tpu (the SMT façade,
 the host solver stack, the host engine, the plugins, detectors, analyzer
-and CLI, the superoptimizer, the concolic driver and the extension
-discovery included); its entry points run on the card unless asked for the
-CPU."""
+and CLI, the superoptimizer, the concolic driver, the extension discovery
+and the serving tier included); its entry points run on the card unless
+asked for the CPU."""
 
 import os
 import subprocess
@@ -82,6 +82,14 @@ print("ANALYSIS", all(m in sys.modules for m in (
     "mythril_tpu_torch.concolic.find_trace",
     "mythril_tpu_torch.concolic.concolic_execution",
     "mythril_tpu_torch.plugin.loader", "mythril_tpu_torch.plugin.discovery")))
+print("SERVE", all(m in sys.modules for m in (
+    "mythril_tpu_torch.serve", "mythril_tpu_torch.serve.protocol",
+    "mythril_tpu_torch.serve.admission", "mythril_tpu_torch.serve.autoscale",
+    "mythril_tpu_torch.serve.client", "mythril_tpu_torch.serve.daemon",
+    "mythril_tpu_torch.serve.http_shim", "mythril_tpu_torch.serve.quarantine",
+    "mythril_tpu_torch.serve.result_store", "mythril_tpu_torch.serve.service",
+    "mythril_tpu_torch.serve.supervisor", "mythril_tpu_torch.serve.warmset",
+    "mythril_tpu_torch.serve.worker")))
 print("BAD", bad)
 """
 
@@ -98,6 +106,7 @@ def test_port_and_smoke_import_no_jax():
     assert "SOLVER True" in proc.stdout
     assert "CORE True" in proc.stdout
     assert "ANALYSIS True" in proc.stdout
+    assert "SERVE True" in proc.stdout
 
 
 def test_entry_points_default_to_cuda():
