@@ -27,7 +27,10 @@ steal passes too (phase 20g), and two analyses have written the metric
 snapshot and trace that the JAX package's CLI writes (phase 20h), the
 gas superoptimizer has proved its rewrites on K11 (phase 20i), and the
 port's daemon has answered analyze requests on the card, cold, warm, as a
-fleet and through its worker pool (phase 20j).
+fleet and through its worker pool (phase 20j), and its CLI has analyzed a
+contract read from a stub JSON-RPC chain with its storage faulted in from
+the chain (phase 20k) and a Solidity file and a foundry project through a
+stub solc (phase 20l).
 Every phase prints one JSON line; any mismatch raises, and the run exits
 non-zero. Each frontier* phase drives its
 configuration once more with every summary the loop reads (K5 and its
@@ -317,6 +320,28 @@ copy to the host) held word for word to the twin on the same tensors
      death, one restart, nothing quarantined. Each process writes its
      kernel launches at exit (SERVE_RUNNER), and they count on the main
      path; `--serve` runs only the build and this phase;
+20k. onchain_tpu, each run in this process: the port's `analyze -a
+     ONCHAIN_ADDRESS --rpc 127.0.0.1:PORT --engine tpu -t 1` against
+     `ChainStub` (a JSON-RPC chain in a thread serving KILLBILLY's
+     runtime code; `-a` in mixed case) at the default configuration,
+     with slot 0 = 1 (the kill armed), slot 0 = 0, and `--no-onchain-data`
+     (the slot symbolic): exit, issues and frontier counters a
+     transaction held to EXPECTED_ONCHAIN and the chain's request log to
+     EXPECTED_ONCHAIN_RPC (the JAX CLI's); then `read-storage` (two
+     positions, a mapping key) and `disassemble -a`, their output held to
+     the JAX CLI's by EXPECTED_ONCHAIN_OUTPUT's digests. A line a run with
+     its wall, its seconds and calls of JSON-RPC (an RPC made during a
+     CUDA graph capture fails the phase) and K7's gathers and scatters.
+     It fails unless the on-chain runs faulted a slot in through K7's
+     gather and scatter with at least one `eth_getStorageAt`;
+20l. solidity_tpu, each run in this process: a stub `solc` (an executable
+     script written to a temporary directory, put first on PATH, which is
+     restored after) prints canned standard-JSON for KillBilly.sol (the
+     source text beside it, a source map entry an instruction, a small
+     AST); `analyze KillBilly.sol --engine tpu -t 2` and `foundry
+     --project-root foundry --engine tpu -t 2` (forge's artifact layout)
+     held to EXPECTED_SOLIDITY: each issue's SWC id, address and source
+     mapping (file, line, code);
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -331,11 +356,12 @@ copy to the host) held word for word to the twin on the same tensors
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
      state after the first chunk, verdicts and models as in phase 21;
  23. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 18, 19, 20d-20j, 21, 22; 20g's also on their own; K3's are
+     12, 13, 18, 19, 20d-20l, 21, 22; 20g's also on their own; K3's are
      its allocations folded
-     into K4's steps and K10's passes and its standalone calls in 20d-20f;
-     K11's from the analyzer, 20e, and from the optimizer, 20i, also on
-     their own; the serving tier's, 20j, on their own too), its
+     into K4's steps and K10's passes and its standalone calls in 20d-20f
+     and 20k; K11's from the analyzer, 20e, and from the optimizer, 20i,
+     also on their own; the serving tier's, 20j, and the on-chain and
+     Solidity inputs', 20k and 20l, on their own too), its
      time, its plain version's time, the least time the card could take
      and the library call's time (K11's per step).
 
@@ -367,7 +393,7 @@ from mythril_tpu_torch.core import function_managers, node, svm
 from mythril_tpu_torch.core.state.world_state import WorldState
 from mythril_tpu_torch.core.transaction import concolic, transaction_models
 from mythril_tpu_torch.frontends.asm import (assemble, creation_wrapper,
-                                             dispatcher)
+                                             dispatcher, selector)
 from mythril_tpu_torch.frontends.disassembler import Disassembly
 from mythril_tpu_torch.kernels import build, ops
 from mythril_tpu_torch.parallel import arena as A
@@ -5965,6 +5991,566 @@ def phase_serve_tpu() -> dict:
     return launches
 
 
+# ---- on-chain input: a JSON-RPC chain stub -------------------------------------------
+
+
+class ChainStub:
+    """A JSON-RPC chain on 127.0.0.1 (a free port) served from a thread:
+    `eth_getCode`, `eth_getStorageAt` and `eth_getBalance` answer from
+    `codes`, `storage` and `balances`, keyed by the lower-case address (so
+    both spellings of an address read one account), any method of
+    `answers` with its canned result, and every other method, or one named
+    in `fail`, with a JSON-RPC error. `log` holds each request's [method,
+    params] in order and `bodies` the requests as sent. A context manager:
+    the server runs inside the block."""
+
+    def __init__(self, codes: dict, storage=None, balances=None,
+                 answers=None, fail=()):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.codes = {address.lower(): code for address, code in codes.items()}
+        self.storage = {(address.lower(), slot): value
+                        for (address, slot), value in (storage or {}).items()}
+        self.balances = {address.lower(): value
+                         for address, value in (balances or {}).items()}
+        self.answers = dict(answers or {})
+        self.fail = set(fail)
+        self.bodies = []
+        self.lock = threading.Lock()
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                length = int(self.headers.get("Content-Length", 0))
+                reply = json.dumps(stub.answer(json.loads(
+                    self.rfile.read(length)))).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(reply)))
+                self.end_headers()
+                self.wfile.write(reply)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+
+    @property
+    def rpc(self) -> str:
+        """The endpoint as `--rpc` takes it."""
+        return f"127.0.0.1:{self.server.server_address[1]}"
+
+    @property
+    def log(self) -> list:
+        with self.lock:
+            return [[body.get("method"), body.get("params")]
+                    for body in self.bodies]
+
+    def clear(self) -> None:
+        with self.lock:
+            self.bodies.clear()
+
+    def answer(self, body: dict) -> dict:
+        with self.lock:
+            self.bodies.append(body)
+        method, params = body.get("method"), body.get("params") or []
+        result = None
+        if method in self.fail:
+            pass
+        elif method in self.answers:
+            result = self.answers[method]
+        elif method == "eth_getCode":
+            result = "0x" + self.codes.get(params[0].lower(), "")
+        elif method == "eth_getStorageAt":
+            value = self.storage.get((params[0].lower(), int(params[1], 16)),
+                                     0)
+            result = "0x{:064x}".format(value)
+        elif method == "eth_getBalance":
+            result = hex(self.balances.get(params[0].lower(), 0))
+        if result is None:
+            return {"jsonrpc": "2.0", "id": body.get("id"),
+                    "error": {"code": -32601,
+                              "message": f"the stub chain does not serve "
+                                         f"{method}"}}
+        return {"jsonrpc": "2.0", "id": body.get("id"), "result": result}
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+
+#: the onchain_tpu phase's account: KILLBILLY's runtime code, named to `-a`
+#: in mixed case (the frontier's fault-ins ask for its storage in lower
+#: case, `Storage.__getitem__`)
+ONCHAIN_ADDRESS = "0x00000000000000000000000000000000DeaDBeef"
+ONCHAIN_CODE = assemble(dispatcher(KILLBILLY)).hex()
+#: read-storage's slots: 0 and 1 (slot 1 = 5), and key 7 of the mapping at
+#: position 1 (keccak(key . position) = 42)
+ONCHAIN_MAPPING = (1, 7, 42)
+
+
+def mapping_slot(position: int, key: int) -> int:
+    from mythril_tpu_torch.utils.helpers import sha3
+
+    return int.from_bytes(sha3(key.to_bytes(32, "big")
+                               + position.to_bytes(32, "big")), "big")
+
+
+def onchain_chain(armed: int, fail=()) -> ChainStub:
+    """The chain of the onchain_tpu phase: slot 0 = `armed`."""
+    position, key, value = ONCHAIN_MAPPING
+    return ChainStub(
+        {ONCHAIN_ADDRESS: ONCHAIN_CODE},
+        storage={(ONCHAIN_ADDRESS, 0): armed, (ONCHAIN_ADDRESS, 1): 5,
+                 (ONCHAIN_ADDRESS, mapping_slot(position, key)): value},
+        balances={ONCHAIN_ADDRESS: 10 ** 18}, fail=fail)
+
+
+#: the phase's analyses, at the default configuration and one transaction:
+#: slot 0's value on the chain and the extra arguments. Slot 0 = 1 arms
+#: the kill (SWC-106 at one transaction), 0 leaves it unarmed, and
+#: --no-onchain-data leaves the slot symbolic (the kill is reachable)
+ONCHAIN_RUNS = {"armed": (1, ()), "unarmed": (0, ()),
+                "no_onchain_data": (1, ("--no-onchain-data",))}
+#: the phase's other commands on the same chain (slot 0 = 1)
+ONCHAIN_COMMANDS = {
+    "read_storage": ["read-storage", ONCHAIN_ADDRESS, "0", "2"],
+    "read_storage_mapping": ["read-storage", ONCHAIN_ADDRESS, "mapping",
+                             str(ONCHAIN_MAPPING[0]),
+                             str(ONCHAIN_MAPPING[1])],
+    "disassemble": ["disassemble", "-a", ONCHAIN_ADDRESS],
+}
+
+
+def onchain_argv(name: str, rpc: str, engine: str = "tpu") -> list:
+    """The CLI arguments of one of ONCHAIN_RUNS or ONCHAIN_COMMANDS."""
+    if name in ONCHAIN_COMMANDS:
+        return [*ONCHAIN_COMMANDS[name], "--rpc", rpc]
+    return ["analyze", "-a", ONCHAIN_ADDRESS, "--rpc", rpc, "-t", "1", "-o",
+            "json", "--engine", engine, *ONCHAIN_RUNS[name][1]]
+
+
+#: the JAX package's CLI (`MYTHRIL_TPU_LANES=128 python -m mythril_tpu -v 4
+#: analyze -a ... --rpc ... --engine tpu`) on ONCHAIN_RUNS: exit code,
+#: issues and per transaction the frontier's counters (`tpu_summary`);
+#: tests/test_torch_rpc.py recomputes them with JAX
+EXPECTED_ONCHAIN = {
+    "armed": {"exit": 1,
+              "issues": [["106", "Unprotected Selfdestruct", 52]],
+              "frontier": [[2, 1, 0, 3]]},
+    "unarmed": {"exit": 0, "issues": [], "frontier": [[2, 1, 0, 3]]},
+    "no_onchain_data": {"exit": 1,
+                        "issues": [["106", "Unprotected Selfdestruct", 52]],
+                        "frontier": [[3, 1, 0, 4]]},
+}
+_GET_CODE = ["eth_getCode", ["0x00000000000000000000000000000000DeaDBeef",
+                             "latest"]]
+#: the stub's request log ([method, params]) of each of the JAX CLI's
+#: ONCHAIN_RUNS and ONCHAIN_COMMANDS: `-a` as given, the fault-in's slot at
+#: the lower-case address
+EXPECTED_ONCHAIN_RPC = {
+    "armed": [_GET_CODE, [
+        "eth_getStorageAt",
+        ["0x00000000000000000000000000000000deadbeef", "0x0", "latest"]]],
+    "unarmed": [_GET_CODE, [
+        "eth_getStorageAt",
+        ["0x00000000000000000000000000000000deadbeef", "0x0", "latest"]]],
+    "no_onchain_data": [_GET_CODE],
+    "read_storage": [
+        ["eth_getStorageAt",
+         ["0x00000000000000000000000000000000DeaDBeef", "0x0", "latest"]],
+        ["eth_getStorageAt",
+         ["0x00000000000000000000000000000000DeaDBeef", "0x1", "latest"]]],
+    "read_storage_mapping": [
+        ["eth_getStorageAt",
+         ["0x00000000000000000000000000000000DeaDBeef",
+          "0xdc686ec4a0ff239c70e7c7c36e8f853eced3bc8618f48d2b816da2a74311237e",
+          "latest"]]],
+    "disassemble": [_GET_CODE],
+}
+#: the sha256 of the JAX CLI's standard output of each of ONCHAIN_COMMANDS
+EXPECTED_ONCHAIN_OUTPUT = {
+    "read_storage":
+        "8fe5fa015fa7fb6cf6ed7fb4be5ca4e97c36d3462fc4f8f3427c536ab4f34d6c",
+    "read_storage_mapping":
+        "93679275bbb2908567a58017384ef718fc8a365d1242fef8e6a4c14c06c110f9",
+    "disassemble":
+        "6ae6734f4f52ac24b7b058e7c57e62a5256f5cb41004080254303360767a77ca",
+}
+
+
+def cli_output(name: str, argv: list) -> tuple:
+    """`cli.main(argv)` in this process: exit code and standard output
+    (raises unless 0)."""
+    from mythril_tpu_torch.interfaces import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        exit_code = cli.main(argv)
+    if exit_code != 0:
+        raise AssertionError(f"{name}: exit {exit_code}")
+    return exit_code, out.getvalue()
+
+
+@contextlib.contextmanager
+def rpc_timed(record: dict):
+    """Adds each JSON-RPC call's seconds to record["rpc_s"] and counts it
+    in record["rpc_calls"]; a call made while the current stream captures
+    a CUDA graph raises."""
+    from mythril_tpu_torch.ethereum.rpc import EthJsonRpc
+
+    call = EthJsonRpc._call
+    record.update(rpc_s=0.0, rpc_calls=0)
+
+    def timed(self, method, params=None):
+        if torch.cuda.is_available() \
+                and torch.cuda.is_current_stream_capturing():
+            raise AssertionError(f"{method} inside a CUDA graph capture")
+        start = time.perf_counter()
+        try:
+            return call(self, method, params)
+        finally:
+            record["rpc_s"] += time.perf_counter() - start
+            record["rpc_calls"] += 1
+
+    with mock.patch.object(EthJsonRpc, "_call", timed):
+        yield record
+
+
+@contextlib.contextmanager
+def k7_calls(record: dict):
+    """Counts K7's gathers and scatters (`ops.gather_rows_flat`,
+    `ops.scatter_rows`) in record["k7_gathers"] and ["k7_scatters"]."""
+    record.update(k7_gathers=0, k7_scatters=0)
+    gather, scatter = ops.gather_rows_flat, ops.scatter_rows
+
+    def counted_gather(*args, **kwargs):
+        record["k7_gathers"] += 1
+        return gather(*args, **kwargs)
+
+    def counted_scatter(*args, **kwargs):
+        record["k7_scatters"] += 1
+        return scatter(*args, **kwargs)
+
+    with mock.patch.object(ops, "gather_rows_flat", counted_gather), \
+            mock.patch.object(ops, "scatter_rows", counted_scatter):
+        yield record
+
+
+def onchain_run(name: str, chain: ChainStub) -> tuple:
+    """One of ONCHAIN_RUNS through `analyze_tpu_run` on `chain` (its log
+    cleared first): the run's summary, its record with the RPC seconds and
+    calls and K7's gathers and scatters, and the chain's request log."""
+    chain.clear()
+    record = {}
+    with rpc_timed(record), k7_calls(record):
+        _, summary, run = analyze_tpu_run(
+            name, argv=onchain_argv(name, chain.rpc))
+    return summary, {**run, **record, "phase": "onchain_tpu"}, chain.log
+
+
+def check_onchain(name: str, summary: dict, log: list) -> None:
+    """Raise unless one of ONCHAIN_RUNS gave the JAX CLI's summary and
+    request log."""
+    if summary != EXPECTED_ONCHAIN[name]:
+        raise AssertionError(f"onchain_tpu {name}: {summary}, the JAX CLI "
+                             f"{EXPECTED_ONCHAIN[name]}")
+    if log != EXPECTED_ONCHAIN_RPC[name]:
+        raise AssertionError(f"onchain_tpu {name}: requests {log}, the JAX "
+                             f"CLI's {EXPECTED_ONCHAIN_RPC[name]}")
+
+
+def onchain_command(name: str, chain: ChainStub) -> tuple:
+    """One of ONCHAIN_COMMANDS through `cli.main` in this process: its
+    output's sha256 and the chain's request log."""
+    chain.clear()
+    _, text = cli_output(f"onchain_tpu {name}", onchain_argv(name, chain.rpc))
+    return hashlib.sha256(text.encode()).hexdigest(), chain.log
+
+
+def phase_onchain_tpu() -> dict:
+    """`analyze -a ADDRESS --rpc` on the card: ONCHAIN_RUNS against a stub
+    chain, each held to EXPECTED_ONCHAIN and its request log to
+    EXPECTED_ONCHAIN_RPC, then ONCHAIN_COMMANDS' output to the JAX CLI's.
+    Fails unless the on-chain runs faulted storage in through K7's
+    gathers and scatters with at least one eth_getStorageAt. Returns the
+    phase's kernel launches."""
+    frontier.configure()
+    launches = {name: 0 for name in ops.LAUNCHES}
+    gathers = scatters = fault_ins = storage_reads = 0
+    for name, (armed, extra) in ONCHAIN_RUNS.items():
+        with onchain_chain(armed) as chain:
+            summary, record, log = onchain_run(name, chain)
+        if record["incomplete"]:
+            raise AssertionError(f"onchain_tpu {name}: the budget ran out")
+        check_onchain(name, summary, log)
+        emit({**record, "issues": summary["issues"], "requests": len(log)})
+        for key, count in record["launches"].items():
+            launches[key] += count
+        if not extra:
+            gathers += record["k7_gathers"]
+            scatters += record["k7_scatters"]
+            fault_ins += sum(tx["fault_ins"] for tx in record["frontier"])
+            storage_reads += sum(method == "eth_getStorageAt"
+                                 for method, _ in log)
+    if not (gathers and scatters and fault_ins and storage_reads):
+        raise AssertionError(
+            f"onchain_tpu: {gathers} K7 gathers, {scatters} scatters, "
+            f"{fault_ins} fault-ins, {storage_reads} eth_getStorageAt")
+    with onchain_chain(1) as chain:
+        for name in ONCHAIN_COMMANDS:
+            digest, log = onchain_command(name, chain)
+            if [digest, log] != [EXPECTED_ONCHAIN_OUTPUT[name],
+                                 EXPECTED_ONCHAIN_RPC[name]]:
+                raise AssertionError(
+                    f"onchain_tpu {name}: output {digest}, requests {log}; "
+                    f"the JAX CLI's {EXPECTED_ONCHAIN_OUTPUT[name]}, "
+                    f"{EXPECTED_ONCHAIN_RPC[name]}")
+            emit({"phase": "onchain_tpu", "run": name, "requests": len(log)})
+    return launches
+
+
+# ---- Solidity and foundry input: a stub solc -----------------------------------------
+
+#: KILLBILLY as Solidity: the source text the stub solc's output names, and
+#: the source range of each of its runtime instructions (`killbilly_srcmap`)
+KILLBILLY_SOL = """\
+// SPDX-License-Identifier: MIT
+pragma solidity ^0.8.0;
+
+contract KillBilly {
+    uint256 killable;
+
+    function activatekillability() public {
+        killable = 1;
+    }
+
+    function commencekilling() public {
+        if (killable == 1) {
+            selfdestruct(payable(msg.sender));
+        }
+    }
+}
+"""
+_ACTIVATE = "function activatekillability() public {\n        killable = 1;\n    }"
+_COMMENCE = KILLBILLY_SOL[KILLBILLY_SOL.index("function commencekilling"):
+                          KILLBILLY_SOL.rindex("    }\n}") + 5]
+_IF = KILLBILLY_SOL[KILLBILLY_SOL.index("if (killable"):
+                    KILLBILLY_SOL.rindex("        }") + 9]
+#: the runtime instructions in order (`dispatcher(KILLBILLY)`), a snippet
+#: of the source each: the dispatcher and fallback are the contract's
+KILLBILLY_SNIPPETS = (
+    [KILLBILLY_SOL[KILLBILLY_SOL.index("contract"):].rstrip("\n")] * 15
+    + [_ACTIVATE] * 2 + ["killable = 1"] * 3 + [_ACTIVATE]
+    + [_COMMENCE] * 2 + ["killable == 1"] * 4 + [_IF] * 2 + [_COMMENCE]
+    + [_IF[_IF.index("{"):], "msg.sender",
+       "selfdestruct(payable(msg.sender))"])
+SOLIDITY_FILE = "KillBilly.sol"
+SOLIDITY_CONTRACT = "KillBilly"
+
+
+def killbilly_srcmap(snippets) -> str:
+    """A solc source map (`s:l:f:j`, a field left empty where it repeats
+    the entry before) with one entry a snippet, file 0."""
+    entries, before = [], None
+    for snippet in snippets:
+        fields = [str(KILLBILLY_SOL.index(snippet)), str(len(snippet)), "0",
+                  "-"]
+        entries.append(":".join(
+            "" if before and field == was else field
+            for field, was in zip(fields, before or fields)).rstrip(":"))
+        before = fields
+    return ";".join(entries)
+
+
+def killbilly_standard_json() -> dict:
+    """The stub solc's standard-JSON output for KillBilly.sol: creation and
+    runtime code, a source map entry an instruction (the creation code's
+    CODECOPY prologue is the contract's, the runtime it carries mapped as
+    the runtime) and a small AST (two functions, one with selfdestruct)."""
+    runtime = assemble(dispatcher(KILLBILLY))
+    creation = creation_wrapper(runtime)
+    if len(Disassembly(runtime.hex()).instruction_list) \
+            != len(KILLBILLY_SNIPPETS):
+        raise AssertionError("KILLBILLY_SNIPPETS: not one an instruction")
+    prologue = len(Disassembly(creation.hex()).instruction_list) \
+        - len(KILLBILLY_SNIPPETS)
+    contract = KILLBILLY_SNIPPETS[0]
+
+    def function(name, body):
+        return {"nodeType": "FunctionDefinition", "name": name,
+                "stateMutability": "nonpayable", "visibility": "public",
+                "modifiers": [], "body": {"nodeType": "Block",
+                                          "statements": body}}
+
+    killable = {"nodeType": "Identifier", "name": "killable"}
+    ast = {"nodeType": "SourceUnit", "absolutePath": SOLIDITY_FILE, "id": 0,
+           "nodes": [{"nodeType": "ContractDefinition",
+                      "name": SOLIDITY_CONTRACT, "nodes": [
+                          {"nodeType": "VariableDeclaration",
+                           "name": "killable", "stateVariable": True},
+                          function("activatekillability", [
+                              {"nodeType": "ExpressionStatement",
+                               "expression": {"nodeType": "Assignment",
+                                              "leftHandSide": killable}}]),
+                          function("commencekilling", [
+                              {"nodeType": "IfStatement",
+                               "condition": {"nodeType": "BinaryOperation",
+                                             "operator": "==",
+                                             "leftExpression": killable},
+                               "trueBody": {"nodeType": "FunctionCall",
+                                            "expression": {
+                                                "nodeType": "Identifier",
+                                                "name": "selfdestruct"}}}])]}]}
+    return {
+        "sources": {SOLIDITY_FILE: {"id": 0, "ast": ast}},
+        "contracts": {SOLIDITY_FILE: {SOLIDITY_CONTRACT: {"evm": {
+            "bytecode": {"object": creation.hex(), "sourceMap":
+                         killbilly_srcmap([contract] * prologue
+                                          + KILLBILLY_SNIPPETS)},
+            "deployedBytecode": {"object": runtime.hex(), "sourceMap":
+                                 killbilly_srcmap(KILLBILLY_SNIPPETS)},
+            "methodIdentifiers": {signature: f"{selector(signature):08x}"
+                                  for signature in KILLBILLY}}}}},
+    }
+
+
+#: the stub solc: prints the canned output beside it and reads (and drops)
+#: the standard-JSON input
+STUB_SOLC = """#!{python}
+import sys
+sys.stdin.read()
+with open({output!r}) as handle:
+    sys.stdout.write(handle.read())
+"""
+
+
+def solidity_fixture(directory: str) -> dict:
+    """Writes into `directory` KillBilly.sol, a stub `solc` (in bin/) that
+    prints `killbilly_standard_json()`, and a foundry project
+    (foundry/out/KillBilly.sol/KillBilly.json, forge's artifact layout).
+    Returns their paths: `bin`, `source`, `foundry`."""
+    paths = {"bin": os.path.join(directory, "bin"),
+             "source": os.path.join(directory, SOLIDITY_FILE),
+             "foundry": os.path.join(directory, "foundry")}
+    os.makedirs(paths["bin"], exist_ok=True)
+    output = killbilly_standard_json()
+    with open(paths["source"], "w") as handle:
+        handle.write(KILLBILLY_SOL)
+    canned = os.path.join(paths["bin"], "solc.json")
+    with open(canned, "w") as handle:
+        json.dump(output, handle)
+    solc = os.path.join(paths["bin"], "solc")
+    with open(solc, "w") as handle:
+        handle.write(STUB_SOLC.format(python=sys.executable, output=canned))
+    os.chmod(solc, 0o755)
+    artifacts = os.path.join(paths["foundry"], "out", SOLIDITY_FILE)
+    os.makedirs(artifacts, exist_ok=True)
+    evm = output["contracts"][SOLIDITY_FILE][SOLIDITY_CONTRACT]["evm"]
+    with open(os.path.join(artifacts, SOLIDITY_CONTRACT + ".json"),
+              "w") as handle:
+        json.dump({kind: {"object": "0x" + evm[kind]["object"],
+                          "sourceMap": evm[kind]["sourceMap"]}
+                   for kind in ("bytecode", "deployedBytecode")}, handle)
+    return paths
+
+
+#: the solidity_tpu phase's runs, from the fixture's directory with the stub
+#: solc first on PATH
+SOLIDITY_RUNS = {
+    "analyze": ["analyze", SOLIDITY_FILE, "-t", "2", "-o", "json"],
+    "foundry": ["foundry", "--project-root", "foundry", "-t", "2", "-o",
+                "json"],
+}
+
+
+def source_issues(report: dict) -> list:
+    """Each issue's SWC id, address and source mapping (file, line,
+    code)."""
+    return [[issue["swc-id"], issue["address"], issue.get("filename"),
+             issue.get("lineno"), issue.get("code")]
+            for issue in report["issues"]]
+
+
+def solidity_summary(report: dict, exit_code: int, log_text: str) -> dict:
+    """What EXPECTED_SOLIDITY holds of a run: `tpu_summary`'s, its issues
+    by `source_issues`."""
+    return {**tpu_summary(report, exit_code, log_text),
+            "issues": source_issues(report)}
+
+
+#: the JAX package's CLI (`MYTHRIL_TPU_LANES=128 python -m mythril_tpu -v 4
+#: <run> --engine tpu` from the fixture's directory, the stub solc first on
+#: PATH) on SOLIDITY_RUNS; tests/test_torch_solidity.py recomputes them
+EXPECTED_SOLIDITY = {
+    "analyze": {"exit": 1,
+                "issues": [["106", 52, "KillBilly.sol", 13,
+                            "selfdestruct(payable(msg.sender))"]],
+                "frontier": [[2, 0, 0, 3], [6, 0, 0, 9]]},
+    "foundry": {"exit": 1, "issues": [["106", 52, None, None, None]],
+                "frontier": [[2, 0, 0, 3], [6, 0, 0, 9]]},
+}
+
+
+@contextlib.contextmanager
+def solidity_fixture_dir():
+    """A fixture directory (`solidity_fixture`) as the working directory,
+    its stub solc first on PATH; both restored after the block."""
+    import shutil
+    import tempfile
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_solidity_")
+    cwd, path = os.getcwd(), os.environ.get("PATH", "")
+    try:
+        paths = solidity_fixture(directory)
+        os.environ["PATH"] = paths["bin"] + os.pathsep + path
+        os.chdir(directory)
+        yield paths
+    finally:
+        os.chdir(cwd)
+        os.environ["PATH"] = path
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def solidity_run(name: str) -> tuple:
+    """One of SOLIDITY_RUNS with `--engine tpu` through `analyze_tpu_run`,
+    from the fixture directory that `solidity_fixture_dir` made current:
+    its summary (as `solidity_summary`) and record."""
+    report, summary, record = analyze_tpu_run(
+        name, argv=[*SOLIDITY_RUNS[name], "--engine", "tpu"])
+    return ({**summary, "issues": source_issues(report)},
+            {**record, "phase": "solidity_tpu"})
+
+
+def phase_solidity_tpu() -> dict:
+    """A Solidity file and a foundry project on the card: SOLIDITY_RUNS
+    with the stub solc, each held to EXPECTED_SOLIDITY (the source-mapped
+    issues of the JAX CLI). Returns the phase's kernel launches."""
+    frontier.configure()
+    launches = {name: 0 for name in ops.LAUNCHES}
+    with solidity_fixture_dir():
+        for name in SOLIDITY_RUNS:
+            summary, record = solidity_run(name)
+            if record["incomplete"] or summary != EXPECTED_SOLIDITY[name]:
+                raise AssertionError(f"solidity_tpu {name}: {summary}, the "
+                                     f"JAX CLI {EXPECTED_SOLIDITY[name]}")
+            emit({**record, "issues": summary["issues"]})
+            for key, count in record["launches"].items():
+                launches[key] += count
+    for name in ("keccak", "evm_step", "sym_step"):
+        if not launches[name]:
+            raise AssertionError(f"solidity_tpu: {name} never launched")
+    return launches
+
+
 def sat_solve(solve, *args, **kwargs) -> dict:
     """One entry-point call with the launch counts zeroed just before and
     read just after, each chunk's stream time (CUDA events around
@@ -6216,6 +6802,11 @@ def main() -> int:
     # the daemon: its processes' launches, read from each at its exit
     serve_launches = phase_serve_tpu()
     main_path_launches.append(serve_launches)
+    # on-chain input through a stub chain, then Solidity and foundry input
+    # through a stub solc
+    onchain_launches = phase_onchain_tpu()
+    solidity_launches = phase_solidity_tpu()
+    main_path_launches += [onchain_launches, solidity_launches]
     sat_launches, sat_profiled = phase_sat_lane(dev, facade)
     main_path_launches += [sat_launches, phase_sat_batch(dev, facade)]
     for counts in main_path_launches:
@@ -6236,6 +6827,10 @@ def main() -> int:
         record["launches_analyze_fleet"] = fleet_launches[name]
         # the serving tier's share (serve_tpu's daemons and workers)
         record["launches_serve"] = serve_launches[name]
+        # the on-chain and Solidity inputs' shares (onchain_tpu,
+        # solidity_tpu)
+        record["launches_onchain"] = onchain_launches[name]
+        record["launches_solidity"] = solidity_launches[name]
         if name == "telemetry":
             # K9 by launch in the graphed drives with the plane armed
             record["k9_by_launch_graphed"] = {

@@ -10,11 +10,15 @@ Device additions: `--solver jax` selects the batched device solver
 (parallel/device_solver.py through smt/solver/dispatch.py); `--engine tpu`
 explores on the device frontier.
 
-The port's copy of mythril_tpu/interfaces/cli.py: `analyze`/`a`,
-`safe-functions`, `optimize`/`opt`, `concolic`, `disassemble`/`d`,
-`list-detectors`, `function-to-hash`, `hash-to-address` and `version`,
-with the reference's arguments and defaults (`--engine host` and the CDCL
-solver). `--engine tpu` explores each
+The port's copy of mythril_tpu/interfaces/cli.py, every subcommand with
+the reference's arguments and defaults (`--engine host` and the CDCL
+solver). Inputs are hex code (`-c`, `-f`), an on-chain address (`-a`,
+read through the JSON-RPC client of `--rpc`, ethereum/rpc.py, whose
+storage the analysis then faults in from the chain unless
+`--no-onchain-data`), Solidity files (`X.sol` or `X.sol:Name`, compiled by
+the `solc` on PATH, frontends/solidity.py) and a foundry project's build
+artifacts (`foundry --project-root`); `read-storage` reads slots from the
+chain. `--engine tpu` explores each
 message call on the CUDA card (`parallel/frontier.execute_message_call_tpu`)
 and exits 2 before any contract is analyzed when there is no card; so does
 `--solver jax`, which decides the solver's queries on the card's SAT lane
@@ -29,10 +33,8 @@ the card's SAT lane (K11) and exits 2 without a card; `--solver cdcl` and
 stdio, unix socket or HTTP; `--engine tpu` and `--solver jax` exit 2 at
 start without a card) and `client` sends it one request; where the JAX
 CLI writes `--workers-min`/`--workers-max`/`--queue-max` into the
-environment, the port passes them to the service as arguments. The other
-subcommands exit with code 2 and the ROADMAP item that ports them, and so
-does every input whose path is not ported (`-a`/`--rpc`, Solidity
-files), before any contract is analyzed. Every command first activates the default-enabled third-party
+environment, the port passes them to the service as arguments. Every
+command first activates the default-enabled third-party
 plugins of the `mythril_tpu_torch.plugins` entry-point group
 (plugin/discovery.py), as the reference does for its own group."""
 
@@ -164,7 +166,7 @@ def _add_analysis_args(parser: argparse.ArgumentParser) -> None:
 
     rpc = parser.add_argument_group("rpc")
     rpc.add_argument("--rpc", help="custom RPC (host:port, ganache, "
-                                   "infura-<net>; not ported: ROADMAP A 14)")
+                                   "infura-<net>)")
     rpc.add_argument("--rpctls", action="store_true")
     rpc.add_argument("--no-onchain-data", action="store_true",
                      help="do not fault in on-chain storage/balances/code "
@@ -524,14 +526,6 @@ def _cmd_client(parser, cli_args) -> int:
     return 0 if reply.get("ok") else 2
 
 
-#: the subcommands the port has not ported: their aliases and the ROADMAP
-#: item that ports them
-_UNPORTED_COMMANDS = {
-    "foundry": (["f"], "A 14f (frontends/solidity.py, solc)"),
-    "read-storage": ([], "A 14e (ethereum/rpc.py)"),
-}
-
-
 def main(argv=None) -> int:
     from .. import __version__
 
@@ -564,6 +558,11 @@ def main(argv=None) -> int:
     disasm.add_argument("--rpc", default=None)
     disasm.add_argument("--rpctls", action="store_true")
 
+    foundry = subparsers.add_parser("foundry", aliases=["f"],
+                                    help="analyze a foundry project")
+    _add_analysis_args(foundry)
+    foundry.add_argument("--project-root", default=".")
+
     concolic = subparsers.add_parser(
         "concolic", help="flip branches of a concrete transaction trace")
     concolic.add_argument("input", help="ConcreteData json file")
@@ -573,6 +572,15 @@ def main(argv=None) -> int:
                           choices=["oracle", "lockstep"],
                           help="concrete replay engine (both replay on the "
                                "host engine; lockstep only logs a line)")
+
+    read_storage = subparsers.add_parser(
+        "read-storage", help="read storage slots from a deployed contract")
+    read_storage.add_argument("address")
+    read_storage.add_argument("params", nargs="+",
+                              help="position | position length | "
+                                   "mapping position key...")
+    read_storage.add_argument("--rpc", default="localhost:8545")
+    read_storage.add_argument("--rpctls", action="store_true")
 
     f2h = subparsers.add_parser("function-to-hash",
                                 help="keccak selector of a signature")
@@ -594,21 +602,8 @@ def main(argv=None) -> int:
 
     subparsers.add_parser("list-detectors", help="list detection modules")
     subparsers.add_parser("version", help="print version")
-    unported = {}
-    for command, (aliases, item) in _UNPORTED_COMMANDS.items():
-        subparsers.add_parser(command, aliases=aliases, add_help=False,
-                              help=f"not ported: ROADMAP {item}")
-        unported.update(dict.fromkeys([command, *aliases], item))
 
-    # the unported subcommands take any arguments: they refuse below
-    cli_args, unknown = parser.parse_known_args(argv)
-    item = unported.get(cli_args.command)
-    if item is not None:
-        print(f"myth-tpu-torch: {cli_args.command} is not ported: "
-              f"ROADMAP {item}", file=sys.stderr)
-        return 2
-    if unknown:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    cli_args = parser.parse_args(argv)
     if getattr(cli_args, "transaction_sequences", None):
         # "[[0xdeadbeef], [-1]]" -> nested int lists (reference cli.py:651-668;
         # a sequence longer than -t silently extends the tx count there too)
@@ -660,7 +655,7 @@ def main(argv=None) -> int:
 
     try:
         return _dispatch(parser, cli_args, __version__)
-    except (NotImplementedError, DeviceUnavailable) as error:
+    except DeviceUnavailable as error:
         print(f"myth-tpu-torch: {error}", file=sys.stderr)
         return 2
 
@@ -676,6 +671,19 @@ def _dispatch(parser, cli_args, version: str) -> int:
         return _cmd_optimize(parser, cli_args)
     if cli_args.command == "safe-functions":
         return _cmd_analyze(parser, cli_args, safe_functions=True)
+    if cli_args.command in ("foundry", "f"):
+        from ..mythril import MythrilAnalyzer, MythrilDisassembler
+
+        disassembler = MythrilDisassembler()
+        disassembler.load_from_foundry(cli_args.project_root)
+        cli_args.disable_iprof = not cli_args.enable_iprof
+        analyzer = MythrilAnalyzer(disassembler, cmd_args=cli_args,
+                                   strategy=cli_args.strategy)
+        report = analyzer.fire_lasers(
+            modules=cli_args.modules.split(",") if cli_args.modules else None,
+            transaction_count=cli_args.transaction_count)
+        print(_format_report(report, cli_args.outform))
+        return 1 if report.issues else 0
     if cli_args.command in ("disassemble", "d"):
         from ..frontends.disassembler import Disassembly
 
@@ -700,6 +708,11 @@ def _dispatch(parser, cli_args, version: str) -> int:
         flipped = concolic_execution(concrete_data, branches,
                                      engine=cli_args.engine)
         print(json.dumps(flipped, indent=2))
+        return 0
+    if cli_args.command == "read-storage":
+        disassembler = _build_disassembler(cli_args)
+        print(disassembler.get_state_variable_from_storage(
+            cli_args.address, cli_args.params))
         return 0
     if cli_args.command == "function-to-hash":
         from ..mythril import MythrilDisassembler

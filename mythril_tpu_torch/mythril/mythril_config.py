@@ -3,9 +3,8 @@
 `set_api_rpc*` helpers that build the JSON-RPC client).
 
 The port's copy of mythril_tpu/mythril/mythril_config.py: the
-`MYTHRIL_TPU_DIR` read is the `mythril_dir` keyword's default, and the RPC
-client (`ethereum/rpc.py`) is not ported, so `set_api_rpc` raises
-(ROADMAP A 14)."""
+`MYTHRIL_TPU_DIR` read is the `mythril_dir` keyword's default and the
+`MYTHRIL_TPU_RPC` read `set_api_rpc`'s `default_rpc`, both None."""
 
 from __future__ import annotations
 
@@ -13,6 +12,8 @@ import configparser
 import logging
 from pathlib import Path
 from typing import Optional
+
+from ..ethereum.rpc import EthJsonRpc
 
 log = logging.getLogger(__name__)
 
@@ -25,7 +26,7 @@ class MythrilConfig:
         self.config_path = Path(config_path) if config_path else \
             self.mythril_dir / "config.ini"
         self.config = configparser.ConfigParser()
-        self.eth = None
+        self.eth: Optional[EthJsonRpc] = None
         self._load()
 
     def _load(self) -> None:
@@ -40,11 +41,15 @@ class MythrilConfig:
             self.config.write(handle)
 
     # -- RPC selection ---------------------------------------------------------------
-    def set_api_rpc(self, rpc: Optional[str] = None,
-                    rpctls: bool = False) -> None:
-        raise NotImplementedError(
-            "on-chain input (-a/--address, --rpc) needs the JSON-RPC client "
-            "ethereum/rpc.py: ROADMAP A 14")
+    def set_api_rpc(self, rpc: Optional[str] = None, rpctls: bool = False,
+                    default_rpc: Optional[str] = None) -> None:
+        """The client of `rpc`, else of `default_rpc`, else of config.ini's
+        `dynamic_loading`, else of infura-mainnet."""
+        rpc = rpc or default_rpc or \
+            self.config.get("defaults", "dynamic_loading",
+                            fallback="infura-mainnet")
+        self.eth = EthJsonRpc.from_preset(rpc, rpctls)
+        log.info("using RPC endpoint %s", self.eth.url)
 
     def set_api_rpc_infura(self, network: str = "mainnet") -> None:
         self.set_api_rpc(f"infura-{network}")

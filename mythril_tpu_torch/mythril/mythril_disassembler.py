@@ -3,9 +3,7 @@ mythril/mythril/mythril_disassembler.py:43 — load_from_bytecode:103,
 load_from_address:134, load_from_solidity:258, load_from_foundry:171,
 read-storage helper:345, function-hash helpers).
 
-The port's copy of mythril_tpu/mythril/mythril_disassembler.py. Solidity input
-(`load_from_solidity`, `load_from_foundry`) needs `frontends/solidity.py`
-and `solc`, which are not ported: both raise (ROADMAP A 14)."""
+The port's copy of mythril_tpu/mythril/mythril_disassembler.py."""
 
 from __future__ import annotations
 
@@ -14,15 +12,12 @@ import re
 from typing import List, Optional, Tuple
 
 from ..frontends.evmcontract import EVMContract
+from ..frontends.solidity import (SolidityContract, get_contracts_from_file,
+                                  get_contracts_from_foundry)
 from ..support.loader import DynLoader
 from ..utils.helpers import sha3
 
 log = logging.getLogger(__name__)
-
-
-def _solidity_unported() -> None:
-    raise NotImplementedError(
-        "Solidity input needs frontends/solidity.py and solc: ROADMAP A 14")
 
 
 class MythrilDisassembler:
@@ -70,11 +65,24 @@ class MythrilDisassembler:
         self.contracts.append(contract)
         return address, contract
 
-    def load_from_solidity(self, solidity_files: List[str]):
-        _solidity_unported()
+    def load_from_solidity(self, solidity_files: List[str]
+                           ) -> Tuple[str, List[SolidityContract]]:
+        contracts: List[SolidityContract] = []
+        for file in solidity_files:
+            name = None
+            if ":" in file and not file.startswith("0x"):
+                file, name = file.rsplit(":", 1)
+            contracts.extend(get_contracts_from_file(
+                file, solc_binary=self.solc_binary,
+                solc_settings_json=self.solc_settings_json, name=name))
+        self.contracts.extend(contracts)
+        return "0x" + "0" * 40, contracts
 
-    def load_from_foundry(self, project_root: str):
-        _solidity_unported()
+    def load_from_foundry(self, project_root: str
+                          ) -> Tuple[str, List[SolidityContract]]:
+        contracts = list(get_contracts_from_foundry(project_root))
+        self.contracts.extend(contracts)
+        return "0x" + "0" * 40, contracts
 
     # -- helpers ----------------------------------------------------------------------
     @staticmethod

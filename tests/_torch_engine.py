@@ -615,3 +615,29 @@ def report_parity(port: dict, jax: dict, same_pool: bool) -> None:
         assert replay_reaches(sequence["steps"],
                               sequence["initialState"]["accounts"],
                               issue["address"]), issue
+
+
+def cli_main(side, argv: list) -> tuple:
+    """`cli.main(argv)` of one side's CLI in this process, from fresh
+    counters (`run_on`): its exit code, standard output and the run's INFO
+    log text (chip_smoke's `counted`)."""
+    import contextlib
+    import io
+
+    from chip_smoke import counted
+
+    if side is JAX:
+        from mythril_tpu.interfaces import cli
+    else:
+        from mythril_tpu_torch.interfaces import cli
+
+    def case(side):
+        out, record = io.StringIO(), {}
+        try:
+            with counted(record), contextlib.redirect_stdout(out):
+                exit_code = cli.main(argv)
+        finally:
+            side.args._init_defaults()
+        return exit_code, out.getvalue(), record["log_text"]
+
+    return run_on(side, case)

@@ -14,10 +14,10 @@ database lives under HOME; the port's is in memory).
   text), and the witness in the port's output replayed;
 - `list-detectors`, `disassemble`, `function-to-hash`, `hash-to-address`
   and `safe-functions` byte for byte;
-- every input and subcommand whose path the port has not ported exits 2,
-  naming its ROADMAP item, before any contract is analyzed, and so do
-  `--engine tpu` and `optimize --solver jax` without a card, naming the
-  CUDA device;
+- `--engine tpu` and `optimize --solver jax` without a card exit 2,
+  naming the CUDA device, before any contract is analyzed (on-chain,
+  Solidity and foundry input: tests/test_torch_rpc.py and
+  tests/test_torch_solidity.py);
 - `optimize`/`opt` (text, JSON but for `wall_ms`, `--code-out`) byte for
   byte on tests/test_superopt.py's SYNTHETIC, under `--solver cdcl` and,
   on the port's CPU twin of K11, `--solver jax`; `concolic` with the
@@ -219,36 +219,6 @@ def test_version(cli):
 
 
 TX_ORIGIN_CODE = creation_hex(chip_smoke.TX_ORIGIN)
-
-#: (arguments, ROADMAP item): every path the port has not ported
-SEAMS = [
-    (["--rpc", "localhost:8545"], "A 14"),
-]
-COMMAND_SEAMS = [
-    (["analyze", "-a", "0x" + "11" * 20], "A 14"),
-    (["analyze", "{tmp}/Token.sol"], "A 14"),
-    (["disassemble", "-a", "0x" + "11" * 20], "A 14"),
-    (["foundry", "--project-root", "{tmp}"], "A 14"),
-    (["read-storage", "0x" + "11" * 20, "0"], "A 14"),
-]
-
-
-@pytest.mark.parametrize("argv, item", [
-    (["analyze", "-c", TX_ORIGIN_CODE, "-t", "1", *flags], item)
-    for flags, item in SEAMS] + COMMAND_SEAMS,
-    ids=[flags[0] for flags, _ in SEAMS] + [
-        " ".join(argv[:2]) for argv, _ in COMMAND_SEAMS])
-def test_unported_paths_refuse(cli, tmp_path, argv, item):
-    """Exit 2 and the ROADMAP item on stderr, with nothing analyzed: no
-    report, and none of the files the flags name."""
-    (tmp_path / "Token.sol").write_text("contract Token {}\n")
-    argv = [arg.format(tmp=tmp_path) for arg in argv]
-    before = sorted(os.listdir(tmp_path))
-    proc = cli("port", argv)
-    assert proc.returncode == 2, (proc.stdout, proc.stderr)
-    assert f"ROADMAP {item}" in proc.stderr
-    assert proc.stdout == ""
-    assert sorted(os.listdir(tmp_path)) == before
 
 
 @pytest.mark.parametrize("flag", ["--metrics-out", "--trace-out"])

@@ -1,8 +1,9 @@
 """The port stands alone: no module of mythril_tpu_torch, and nothing that
 chip_smoke.py imports, loads jax or anything of mythril_tpu (the SMT façade,
 the host solver stack, the host engine, the plugins, detectors, analyzer
-and CLI, the superoptimizer, the concolic driver, the extension discovery
-and the serving tier included); its entry points run on the card unless
+and CLI, the superoptimizer, the concolic driver, the extension discovery,
+the serving tier, the JSON-RPC client and the Solidity front end
+included); its entry points run on the card unless
 asked for the CPU."""
 
 import os
@@ -81,7 +82,9 @@ print("ANALYSIS", all(m in sys.modules for m in (
     "mythril_tpu_torch.superopt.engine", "mythril_tpu_torch.superopt.rules",
     "mythril_tpu_torch.concolic.find_trace",
     "mythril_tpu_torch.concolic.concolic_execution",
-    "mythril_tpu_torch.plugin.loader", "mythril_tpu_torch.plugin.discovery")))
+    "mythril_tpu_torch.plugin.loader", "mythril_tpu_torch.plugin.discovery",
+    "mythril_tpu_torch.ethereum", "mythril_tpu_torch.ethereum.rpc",
+    "mythril_tpu_torch.frontends.solidity")))
 print("SERVE", all(m in sys.modules for m in (
     "mythril_tpu_torch.serve", "mythril_tpu_torch.serve.protocol",
     "mythril_tpu_torch.serve.admission", "mythril_tpu_torch.serve.autoscale",

@@ -18,7 +18,10 @@ replayed on the port's engine).
   `"solver": "jax"` requests with the typed `analysis_failed` reply.
 
 Each case runs from `fresh` counters, solver backend, registries and
-tracers on both sides (tests/_torch_engine.py `run_on`)."""
+tracers on both sides (tests/_torch_engine.py `run_on`), and from empty
+sets of run shape keys: each solver's `_SHAPES_RUN` is a process global
+that an earlier file on the same worker may have filled, and a status
+reply counts it (`warmset.observed_buckets`)."""
 
 import json
 
@@ -28,11 +31,13 @@ import torch
 from _torch_engine import JAX, PORT, report_parity, run_on
 from chip_smoke import (ANALYZE_RUNS, EXPECTED_ANALYZE, KILLBILLY,
                         OPTIMIZE_CODES, TX_ORIGIN, deterministic)
+from mythril_tpu.parallel import jax_solver
 from mythril_tpu.serve import protocol as jprotocol
 from mythril_tpu.serve import result_store as jresult_store
 from mythril_tpu.serve import service as jservice
 from mythril_tpu_torch.frontends.asm import (assemble, creation_wrapper,
                                              dispatcher)
+from mythril_tpu_torch.parallel import device_solver
 from mythril_tpu_torch.parallel import frontier as pf
 from mythril_tpu_torch.serve import protocol as pprotocol
 from mythril_tpu_torch.serve import result_store as presult_store
@@ -117,6 +122,12 @@ def both(tmp_path, frames, **settings):
         directory.mkdir()
         out[side.name] = run_on(side, drive, directory, frames, **settings)
     return out["jax"], out["port"]
+
+
+@pytest.fixture(autouse=True)
+def _no_shapes_run(monkeypatch):
+    monkeypatch.setattr(jax_solver, "_SHAPES_RUN", set())
+    monkeypatch.setattr(device_solver, "_SHAPES_RUN", set())
 
 
 @pytest.fixture(autouse=True)
