@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py        # from the root of a checkout; one CUDA card
     python3 chip_smoke.py --headline   # only the two headline analyses
+    python3 chip_smoke.py --sat-shard  # only the build and phase 22a
 
-It builds the hand-written kernels (K1-K12, eleven sources) from the
+It builds the hand-written kernels (K1-K13, eleven sources) from the
 checkout's sources, holds each against its plain PyTorch version on the
 card, then drives the port's main device path, the frontier's drain loop
 (`DeviceFrontier.run` around `symstep.run_chunk`, one CUDA graph a
@@ -355,8 +356,27 @@ copy to the host) held word for word to the twin on the same tensors
  22. sat_batch: `solve_cnf_device_batch` on four captured queries of one
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
      state after the first chunk, verdicts and models as in phase 21;
+ 22a. sat_shard: K13, the clause-sharded chunk (`device_solver.configure`,
+     `run_chunk_sharded`, `ops.sat_run_sharded`: K11's launches a shard,
+     the exchange planes copied between shards, `sat_shard_combine`),
+     against `run_chunk_sharded_reference` on the card at D = 2 and 4
+     logical shards on one card: the phase race (D = 4 must give FALSE
+     where the unsharded K11 gives TRUE) and 1689-24 and 1689-28 at 32
+     probes, every leaf after every chunk and every shard's replica equal
+     to the state; both queries solved sharded, their verdicts the
+     unsharded K11's; on a host with two cards or more the full-width
+     comparison again over distinct cards (else one line says that one
+     card was present); the time a step at D = 1, 2 and 4 and its bound
+     (K11's bytes and the exchange as int8 phase planes); the combine's
+     device time beside its own bound (the keyed-var bitmaps and this
+     run's keyed phase codes) and `torch.amax` over the stacked int8
+     phase planes (JAX's pmax) as its yardstick; then
+     SAT_SHARD_RUN through the CLI with `--solver jax` on a mesh of four
+     logical shards and the clause cap at SAT_SHARD_CAP, so that its
+     queries shard through the dispatch: exit and issues held to
+     EXPECTED_ANALYZE_TPU, and it fails unless the combine launched;
  23. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 18, 19, 20d-20l, 21, 22; 20g's also on their own; K3's are
+     12, 13, 18, 19, 20d-20l, 21, 22, 22a; 20g's also on their own; K3's are
      its allocations folded
      into K4's steps and K10's passes and its standalone calls in 20d-20f
      and 20k; K11's from the analyzer, 20e, and from the optimizer, 20i,
@@ -402,7 +422,7 @@ from mythril_tpu_torch.parallel import (convert, device_solver, frontier,
                                         keccak, lockstep, symstep, words)
 from mythril_tpu_torch.smt import terms
 from mythril_tpu_torch.smt.smtlib import from_smt2
-from mythril_tpu_torch.smt.solver import preprocess, sat, simplify
+from mythril_tpu_torch.smt.solver import dispatch, preprocess, sat, simplify
 from mythril_tpu_torch.smt.solver import solver as smt_solver
 from mythril_tpu_torch.smt.solver.bitblast import Blaster
 from mythril_tpu_torch.smt.solver.solver_statistics import SolverStatistics
@@ -3698,17 +3718,27 @@ def sat_step_bytes(before, after, tensors) -> int:
     return reads + writes
 
 
-def sat_bound_ms_per_step(state, tensors, steps: int, depth: int) -> tuple:
+def sat_bound_ms_per_step(state, tensors, steps: int, depth: int,
+                          n_shards: int = 0) -> tuple:
     """bound_ms of one step, averaged over the `steps` steps from `state`
-    (stepped by the twin on a copy)."""
+    (stepped by the twin on a copy); with `n_shards`, of K13's step: the
+    sharded twin's steps, and beside K11's bytes the exchange at the dtype
+    the function needs, JAX's pmax of int8 `implied` (jax_solver.py:293,
+    297): the D phase planes [P, V1] read once and the combined one
+    written, a byte an element."""
     total = 0
     before = convert.clone(state)
     for _ in range(steps):
-        after = device_solver.run_chunk_reference(convert.clone(before),
-                                                  tensors, 1, depth)
+        after = convert.clone(before)
+        if n_shards:
+            device_solver.run_chunk_sharded_reference(after, tensors, 1,
+                                                      depth, n_shards)
+        else:
+            device_solver.run_chunk_reference(after, tensors, 1, depth)
         total += sat_step_bytes(before, after, tensors)
         before = after
-    return bound_ms(total / steps, 0)
+    planes = (n_shards + 1) * before.assign.numel() if n_shards else 0
+    return bound_ms(total / steps + planes, 0)
 
 
 #: K11's variable tile in the fixtures' second pass: V1 1,024 over 16 blocks
@@ -6725,6 +6755,284 @@ def phase_sat_batch(dev, facade) -> dict:
     return launches
 
 
+#: K13's logical shard counts on one card
+SAT_SHARD_COUNTS = (2, 4)
+#: the full-width comparison: two chunks of this many steps a query
+SAT_SHARD_STEPS = 16
+#: the analyze_jax run whose queries shard through the dispatch, and the
+#: clause cap that sends its cones (17 to 51 thousand clauses: 16 and 64
+#: tiles) to a mesh of four shards
+SAT_SHARD_RUN = "tx_origin"
+SAT_SHARD_CAP = 16384
+
+
+def race_cnf() -> tuple:
+    """The phase race of two shards (tests/test_torch_sat_shard.py): var 5
+    FALSE by clause 0 and TRUE by clause 2048; at D = 4 the two lie in
+    different shards and FALSE wins, unsharded the higher clause (TRUE)."""
+    return [[-5]] + [[1, 2, 3]] * 2047 + [[5]] + [[1, 2, 4]] * 2047, 8
+
+
+def sat_shard_compare(state, tensors, chunk, n_chunks, depth, mesh,
+                      what) -> None:
+    """K13 against its twin from one state, every leaf after each chunk and
+    every shard's replica equal to the state."""
+    plain = convert.clone(state)
+    kern = convert.clone(state)
+    for index in range(n_chunks):
+        device_solver.run_chunk_sharded_reference(plain, tensors, chunk,
+                                                  depth, len(mesh))
+        ops.sat_run_sharded(kern, tensors, chunk, depth, mesh)
+        assert_same(kern, plain, f"K13 {what} chunk {index}")
+        for shard, replica in enumerate(ops.sat_shard_replicas(
+                kern, tensors, depth, mesh)):
+            for leaf, got in zip(kern, replica):
+                if not torch.equal(leaf.cpu(), got.cpu()):
+                    raise AssertionError(f"K13 {what} chunk {index}: shard "
+                                         f"{shard}'s replica differs")
+
+
+#: set bits of each byte value
+POPCOUNT8 = [bin(value).count("1") for value in range(256)]
+
+
+def shard_exchange(state, tensors, depth, mesh) -> tuple:
+    """What one K13 step of `state` exchanged (the kernel's planes, read
+    after the step; the combine clears its own shard's, so each shard's
+    plane is read from the next shard's copy; D >= 2): the keyed-var bitmaps
+    [D, rows, NW] and each shard's phase codes [D, rows, V1] (int8: 0
+    none, 1 TRUE, 2 FALSE)."""
+    n_shards = len(mesh)
+    rows, v1 = state.assign.numel() // state.assign.shape[-1], \
+        state.assign.shape[-1]
+    n_words = -(-v1 // 32)
+    planes = ops.sat_shard_planes(state, tensors, depth, mesh)
+    own = torch.stack([planes[(d + 1) % n_shards][d]
+                       for d in range(n_shards)])
+    keys = own[:, :rows * v1].reshape(n_shards, rows, v1)
+    bits = own[:, rows * v1:rows * (v1 + n_words)].reshape(n_shards, rows,
+                                                           n_words)
+    phases = torch.where(keys == 0, 0, torch.where((keys & 1) == 1, 1, 2))
+    return bits, phases.to(torch.int8)
+
+
+def shard_combine_bound(state, tensors, depth, mesh, steps) -> tuple:
+    """bound_ms of one `sat_shard_combine` launch set (all D shards), a step
+    averaged over `steps` K13 steps from `state`, counted on this run's
+    exchange: each shard's keyed-var bitmap words and its two flags read,
+    a byte for each of its keyed vars' phase codes, and the combined
+    bitmap, phase codes and flags written once. Returns (ms, by, bytes a
+    step, keyed vars a step, the last step's stacked phase planes)."""
+    n_shards = len(mesh)
+    table = torch.tensor(POPCOUNT8, dtype=torch.int64,
+                         device=state.assign.device)
+    work = convert.clone(state)
+    total = keyed = 0
+    phases = None
+    for _ in range(steps):
+        ops.sat_run_sharded(work, tensors, 1, depth, mesh)
+        bits, phases = shard_exchange(work, tensors, depth, mesh)
+        rows, n_words = bits.shape[1:]
+        union = bits[0]
+        for d in range(1, n_shards):
+            union = union | bits[d]
+        per_shard = int(table[bits.view(torch.uint8).long()].sum())
+        in_union = int(table[union.view(torch.uint8).long()].sum())
+        keyed += per_shard
+        total += (n_shards * rows * (n_words * 4 + 2) + per_shard
+                  + rows * (n_words * 4 + 2) + in_union)
+    return (*bound_ms(total / steps, 0), total / steps, keyed / steps,
+            phases)
+
+
+def phase_sat_shard(dev) -> tuple:
+    """K13 against its twin at D = 2 and 4 logical shards on the card (and
+    over distinct cards where the host has them), verdicts against the
+    unsharded K11's, times a step, then the dispatch route through the
+    CLI. Returns the kernels record and the CLI run's launches."""
+    card = torch.device("cuda", torch.cuda.current_device())
+    depth = device_solver.forced_depth_of(32)
+    # the phase race, one step a chunk
+    clauses, n_vars = race_cnf()
+    problem = device_solver.build_problem(clauses, n_vars)
+    tensors = device_solver.device_problem(problem, dev)
+    race = {}
+    for n_shards in SAT_SHARD_COUNTS:
+        mesh = (card,) * n_shards
+        state = device_solver.initial_state(problem.init_assign, 2, dev)
+        sat_shard_compare(state, tensors, 1, 3, 1, mesh, f"race D={n_shards}")
+        first = convert.clone(state)
+        ops.sat_run_sharded(first, tensors, 1, 1, mesh)
+        race[n_shards] = first.assign[:, 5].tolist()
+    unsharded = device_solver.initial_state(problem.init_assign, 2, dev)
+    ops.sat_run(unsharded, tensors, 1, 1, False, graph=False)
+    if race[4] != [2, 2] or unsharded.assign[:, 5].tolist() != [1, 1]:
+        raise AssertionError(f"K13 race: D = 4 gave {race[4]}, the unsharded "
+                             f"K11 {unsharded.assign[:, 5].tolist()}")
+
+    # full width: two chunks against the twin, then the solve's verdict
+    queries = {}
+    timing = None
+    for name in ("1689-24.smt2", "1689-28.smt2"):
+        clauses, n_vars, lowered, blaster = corpus_query(name)
+        problem = device_solver.build_problem(clauses, n_vars)
+        tensors = device_solver.device_problem(problem, dev)
+        state = device_solver.initial_state(problem.init_assign, 32, dev)
+        start = time.perf_counter()
+        status, model = device_solver.solve_cnf_device(clauses, n_vars,
+                                                       device=dev)
+        torch.cuda.synchronize()
+        record = {"tiles": problem.lits.shape[0], "k11": {
+            "status": status, "wall_s": time.perf_counter() - start}}
+        for n_shards in SAT_SHARD_COUNTS:
+            mesh = (card,) * n_shards
+            sat_shard_compare(state, tensors, SAT_SHARD_STEPS, 2, depth, mesh,
+                              f"{name} D={n_shards}")
+            device_solver.configure(shard=True, mesh=mesh)
+            keys = device_solver._SHAPES_RUN
+            device_solver._SHAPES_RUN = set()
+            try:
+                start = time.perf_counter()
+                got, got_model = device_solver.solve_cnf_device(
+                    clauses, n_vars, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - start
+                shard_keys = device_solver.observed_shape_keys()
+            finally:
+                device_solver._SHAPES_RUN = keys
+                device_solver.reset_settings()
+            if got != status or shard_keys[0][1] != n_shards:
+                raise AssertionError(f"K13 {name} D={n_shards}: verdict "
+                                     f"{got} keyed {shard_keys}, the "
+                                     f"unsharded K11's {status}")
+            if got == device_solver.SAT:
+                check_model(clauses, lowered, blaster, got_model,
+                            f"K13 {name} D={n_shards}")
+            record[f"d{n_shards}"] = {"status": got, "wall_s": wall,
+                                      "key": list(shard_keys[0])}
+        queries[name] = record
+        if timing is None:
+            timing = (state, tensors)
+
+    # times a step on 1689-24 at D = 1 (K11, and K13 alone), 2 and 4
+    state, tensors = timing
+    steps = 32
+    work = convert.clone(state)
+
+    def fresh():
+        refill([work], [state])
+
+    per_step = {"k11_graphed": event_ms(
+        lambda _: ops.sat_run(work, tensors, steps, depth, False), 3,
+        setup=fresh) / steps,
+        "k11_eager": event_ms(
+        lambda _: ops.sat_run(work, tensors, steps, depth, False,
+                              graph=False), 3, setup=fresh) / steps}
+    by_launch = {}
+    for n_shards in (1,) + SAT_SHARD_COUNTS:
+        mesh = (card,) * n_shards
+
+        def run(_, mesh=mesh):
+            return ops.sat_run_sharded(work, tensors, steps, depth, mesh)
+
+        per_step[f"d{n_shards}"] = event_ms(run, 3, setup=fresh) / steps
+        times = device_times(lambda _, run=run: run(fresh()), 2, counts=True)
+        by_launch[f"d{n_shards}"] = {
+            key.split("(")[0].split()[-1]: {"device_ms": ms / steps,
+                                            "launches": calls / steps}
+            for key, (ms, calls) in times.items()}
+    main = by_launch[f"d{SAT_SHARD_COUNTS[-1]}"]
+    combine_ms = sum(row["device_ms"] for key, row in main.items()
+                     if "sat_shard_combine" in key)
+    if combine_ms <= 0:
+        raise AssertionError("the profiler recorded no device time of "
+                             "sat_shard_combine")
+    n_shards = SAT_SHARD_COUNTS[-1]
+    main_mesh = (card,) * n_shards
+    c_ms, c_by, c_bytes, c_keyed, phases = shard_combine_bound(
+        state, tensors, depth, main_mesh, steps)
+    # the combine's yardstick: JAX's pmax as one PyTorch call, over the
+    # stacked int8 phase planes [D, P, V1] of this run's last step
+    library_ms = event_ms(lambda _: torch.amax(phases, dim=0), 20)
+    plain_ms = event_ms(
+        lambda s: device_solver.run_chunk_sharded_reference(
+            s, tensors, 4, depth, n_shards), 2,
+        setup=lambda: convert.clone(state)) / 4
+    b_ms, b_by = sat_bound_ms_per_step(state, tensors, steps, depth,
+                                       n_shards)
+
+    # distinct cards, where the host has them
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        mesh = tuple(torch.device("cuda", i)
+                     for i in range(4 if cards >= 4 else 2))
+        sat_shard_compare(state, tensors, SAT_SHARD_STEPS, 2, depth, mesh,
+                          f"1689-24 over {len(mesh)} cards")
+        cards_note = f"compared over {len(mesh)} cards"
+    else:
+        cards_note = "one card present: no comparison over distinct cards"
+        print(f"sat_shard: {cards_note}", flush=True)
+
+    # the dispatch route: the analyzer's queries over four logical shards
+    device_solver.configure(shard=True, mesh=(card,) * 4)
+    dispatch.configure(clause_cap=SAT_SHARD_CAP)
+    keys = device_solver._SHAPES_RUN
+    device_solver._SHAPES_RUN = set()
+    try:
+        _, summary, run = analyze_tpu_run(SAT_SHARD_RUN, SOLVER_JAX)
+        shard_keys = device_solver.observed_shape_keys()
+    finally:
+        device_solver._SHAPES_RUN = keys
+        device_solver.reset_settings()
+        dispatch.reset_settings()
+    lane = lane_record(SolverStatistics())
+    want = EXPECTED_ANALYZE_TPU[SAT_SHARD_RUN]
+    if run["incomplete"] or (summary["exit"], summary["issues"]) != (
+            want["exit"], want["issues"]):
+        raise AssertionError(f"sat_shard {SAT_SHARD_RUN}: {summary}, the JAX "
+                             f"CLI {want}")
+    check_lane(SAT_SHARD_RUN, lane)
+    if not run["launches"]["sat_shard_combine"]:
+        raise AssertionError(f"sat_shard {SAT_SHARD_RUN}: the combine never "
+                             f"launched (keys {shard_keys})")
+    emit({"phase": "sat_shard", "shard_counts": list(SAT_SHARD_COUNTS),
+          "race": {f"d{d}": race[d] for d in race},
+          "race_unsharded": unsharded.assign[:, 5].tolist(),
+          "compared_steps": 2 * SAT_SHARD_STEPS, "max_abs_err": 0,
+          "queries": queries, "ms_per_step": per_step,
+          "device_ms_per_step_by_launch": by_launch,
+          "combine_device_ms_per_step": combine_ms,
+          "combine_bound_ms_per_step": c_ms,
+          "combine_bytes_per_step": c_bytes,
+          "combine_keyed_vars_per_step": c_keyed,
+          "amax_library_ms": library_ms, "plain_ms_per_step": plain_ms,
+          "bound_ms_per_step": b_ms, "cards": cards_note,
+          "dispatch": {**run, "settings": {"shard": True, "mesh": 4,
+                                           "clause_cap": SAT_SHARD_CAP},
+                       "issues": summary["issues"], "lane": lane,
+                       "shape_keys": [list(k) for k in shard_keys]}})
+    return {"name": "sat_shard_combine", "route": "cuda",
+            "source": "mythril_tpu_torch/kernels/sat_step.cu",
+            "replaces": "mythril_tpu/parallel/jax_solver.py:397",
+            "max_abs_err": 0,
+            "per": f"step (32 probes, 64 tiles, V1 65536, D = {n_shards} "
+                   f"logical shards on one card)",
+            "ms": per_step[f"d{n_shards}"],
+            "device_ms": sum(row["device_ms"] for row in main.values()),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "library": "none: no PyTorch call computes a sharded DPLL step "
+                       "(as K11); the combine's own yardstick is under "
+                       "combine",
+            "combine": {
+                "device_ms": combine_ms, "bound_ms": c_ms, "bound_by": c_by,
+                "bytes": c_bytes, "keyed_vars": c_keyed,
+                "library_ms": library_ms,
+                "library": f"torch.amax over the stacked int8 [{n_shards}, "
+                           f"P, V1] phase planes (JAX's pmax of implied)"},
+            "held_by": "phase sat_shard"}, run["launches"]
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -6744,6 +7052,13 @@ def main() -> int:
         build.build_all()
         emit({"phase": "serve_tpu", "launches": phase_serve_tpu()})
         print(CARD, flush=True)
+        print_ok()
+        return 0
+    if sys.argv[1:] == ["--sat-shard"]:
+        build.build_all()
+        record, _ = phase_sat_shard(dev)
+        print(CARD, flush=True)
+        print(json.dumps({"kernels": [record]}), flush=True)
         print_ok()
         return 0
     start = time.perf_counter()
@@ -6809,6 +7124,10 @@ def main() -> int:
     main_path_launches += [onchain_launches, solidity_launches]
     sat_launches, sat_profiled = phase_sat_lane(dev, facade)
     main_path_launches += [sat_launches, phase_sat_batch(dev, facade)]
+    # K13: the clause-sharded route, its CLI run on the main path
+    shard_record, shard_launches = phase_sat_shard(dev)
+    records.append(shard_record)
+    main_path_launches.append(shard_launches)
     for counts in main_path_launches:
         for name, count in counts.items():
             launches[name] += count
@@ -6846,6 +7165,10 @@ def main() -> int:
             record["launches_folded"] = {
                 "sym_step": launches["arena_alloc_step"],
                 "merge_pass": launches["arena_alloc_merge"]}
+        if name == "sat_shard_combine":
+            # the sharded chunks of the dispatch route (sat_shard's CLI run)
+            record["launches_dispatch"] = shard_launches[name]
+            continue
         if name == "sat_step":
             # the analyzer's share: analyze_jax's chunks
             record["launches_analyzer"] = jax_launches["sat_step"]

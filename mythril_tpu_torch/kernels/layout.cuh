@@ -523,7 +523,19 @@ enum Layout {
     // blocks per query
     K11_PROP_SHIFT = 24,
     K11_PROP_BPQ = 25,
-    K11_NARGS = 26,
+    // the clause range [C0, C1) of each query's C clauses that propagate
+    // scans (mtpu_sat_run sets the whole range; a shard its block)
+    K11_C0 = 26,
+    K11_C1 = 27,
+    // K13, the sharded chunk: int32 exchange planes [D, N_XCHG] on this
+    // shard's device, N_XCHG = Q * P * (V1 + ceil(V1 / 32) + 2): each
+    // shard's implied keys, keyed-var bitmaps, conflict and unit-seen
+    // flags (its propagate writes its own plane, the others arrive by
+    // copy); the shard count D and this shard's index
+    K11_XCHG = 28,
+    K11_SHARDS = 29,
+    K11_SHARD = 30,
+    K11_NARGS = 31,
     SAT_RES_BRANCH = 0,
     SAT_RES_LEN = 1,
     SAT_RES_CLEAR = 2,

@@ -1,4 +1,4 @@
-"""Thin PyTorch wrappers around the hand-written CUDA kernels K1-K12.
+"""Thin PyTorch wrappers around the hand-written CUDA kernels K1-K13.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates what the
 kernel writes with `torch.empty`, fills the kernel's parameter block (slot
@@ -28,6 +28,9 @@ that its main path went through the kernels.
                                          _get_batch_runner (509)
   K12 steal_pass kernels/steal_pass.cu   frontier._steal_pass (frontier.py:319)
                                          with its codec (252, 267)
+  K13 sat_shard_combine                  jax_solver._get_sharded_runner
+                 kernels/sat_step.cu     (jax_solver.py:397): K11 over
+                                         clause shards, combined a step
 
 A count is per wrapper call: K4's call makes its launches of its own (K9
 counts the calls that run its TEL instantiation) and runs the step's four
@@ -38,10 +41,11 @@ standalone K3 calls only (the tests'); K1 counts its step form's launches
 and its standalone calls; K6 counts its three entries together, K7 its
 two. K11 counts one per chunk: its call runs every step of the chunk
 (three launches a step, four with the batch runner's freeze gate, after
-the chunk's mirror). K5 counts one per summary (the grid and its
-combining launch), K6's `row_maxima` one per call (its grid and its
-combining launch). K12 counts one per pass (a plan launch and a move
-launch).
+the chunk's mirror). A sharded chunk (`sat_run_sharded`) counts one for
+K11 and one for K13's combine, whatever its shards and steps launch. K5
+counts one per summary (the grid and its combining launch), K6's
+`row_maxima` one per call (its grid and its combining launch). K12
+counts one per pass (a plan launch and a move launch).
 
 K2's (with K1's step form, eager or inside K4's step), K4's, K5's, K6's,
 K7's, K10's, K11's and K12's parameter blocks and scratch are built once
@@ -59,6 +63,7 @@ the captures of each. A K10 pass is one eager host call.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -82,7 +87,8 @@ LAUNCHES: Dict[str, int] = {"keccak": 0, "evm_step": 0, "arena_alloc": 0,
                             "telemetry": 0,
                             "frontier_summary": 0, "pack_rows": 0,
                             "gather_rows": 0, "arena_delta": 0,
-                            "merge_pass": 0, "sat_step": 0, "steal_pass": 0}
+                            "merge_pass": 0, "sat_step": 0, "steal_pass": 0,
+                            "sat_shard_combine": 0}
 
 #: CUDA graph replays and captures since the last reset_launches(): of
 #: `run_chunk_graph` (K4's chunks) and of K11's chunks
@@ -107,6 +113,9 @@ _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_keccak_preload": "keccak",
               "mtpu_arena_delta_map": "arena_delta",
               "mtpu_merge_pair": "merge_pass", "mtpu_merge_run": "merge_pass",
               "mtpu_sat_run": "sat_step", "mtpu_sat_preload": "sat_step",
+              "mtpu_sat_shard_mirror": "sat_step",
+              "mtpu_sat_shard_propagate": "sat_step",
+              "mtpu_sat_shard_resolve": "sat_step",
               "mtpu_steal_pass": "steal_pass", "mtpu_steal_grid": "steal_pass"}
 _FUNCS: Dict[str, object] = {}
 _OPTABS: Dict[str, torch.Tensor] = {}
@@ -1447,6 +1456,211 @@ def sat_run(state, problem, steps: int, forced_depth: int, freeze: bool,
     else:
         plan.launch(steps)
     return state
+
+
+# ---- K13 ----------------------------------------------------------------------------
+
+def _on(device: torch.device):
+    """The block's launches and copies on `device` (its current stream)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class _SatShardPlan:
+    """K13's shards for one state and problem: for each shard its device,
+    its replica of the state (shard 0 on the state's device steps the
+    caller's state itself), the problem's tensors on its device (a copy on
+    another device), its block of the clause tiles as a clause range,
+    K11's step scratch, its exchange planes [D, Q * P * (V1 + ceil(V1 /
+    32) + 2)] and its parameter block. The plan holds no tensor of the
+    caller's."""
+
+    def __init__(self, state, problem, forced_depth: int, mesh: tuple,
+                 var_tile: int):
+        n_shards = len(mesh)
+        queries = state.assign.shape[:-2]
+        lead = queries[0] if queries else 1
+        n_probes, v1 = state.assign.shape[-2:]
+        if n_probes > 1024:
+            raise ValueError(f"{n_probes} probes: the kernel takes at most 1024")
+        if var_tile < 32 or var_tile & (var_tile - 1):
+            raise ValueError(f"var_tile = {var_tile}: a power of two >= 32")
+        if problem.valid.dim() != state.assign.dim():
+            raise ValueError(f"valid: shape {tuple(problem.valid.shape)} does "
+                             f"not match the state's queries")
+        n_tiles = problem.valid.shape[-2]
+        if n_shards < 1 or n_tiles % n_shards:
+            raise ValueError(f"{n_tiles} clause tiles do not split over "
+                             f"{n_shards} shards")
+        tiles = queries + (n_tiles, TILE)
+        for leaf, what, dtype, shape in (
+                (state.assign, "assign", torch.int8, state.assign.shape),
+                (state.trail, "trail", torch.int32, state.assign.shape),
+                (state.tag, "tag", torch.int8, state.assign.shape),
+                (state.trail_len, "trail_len", torch.int32,
+                 state.assign.shape[:-1]),
+                (state.status, "status", torch.int8, state.assign.shape[:-1]),
+                (problem.lits, "lits", torch.int32, tiles + (3,)),
+                (problem.valid, "valid", torch.bool, tiles),
+                (problem.order, "order", torch.int32, queries + (v1,))):
+            _check(leaf, what, dtype, shape)
+        rows = lead * n_probes
+        n_words = -(-v1 // 32)
+        plane = rows * (v1 + n_words + 2)
+        width = n_tiles // n_shards * TILE
+        self.shards = []
+        for index, dev in enumerate(mesh):
+            shard = {"device": dev}
+            if index == 0 and dev == state.assign.device:
+                leaves = list(state)
+            else:
+                leaves = shard["replica"] = [
+                    torch.empty(leaf.shape, dtype=leaf.dtype, device=dev)
+                    for leaf in state]
+            if dev == problem.lits.device:
+                tensors = list(problem)
+            else:
+                tensors = shard["problem"] = [
+                    torch.empty(leaf.shape, dtype=leaf.dtype, device=dev)
+                    for leaf in problem]
+
+            def scratch(*shape, dtype=torch.int32):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+
+            n_var_tiles = -(-v1 // var_tile)
+            shard["scratch"] = {
+                Lay.K11_KEY: scratch(rows, v1),
+                Lay.K11_CONFLICT: scratch(rows),
+                Lay.K11_UNIT: scratch(rows),
+                Lay.K11_BITS: scratch(rows, n_words),
+                Lay.K11_MIRROR: scratch(lead, v1, n_probes, dtype=torch.int8),
+                Lay.K11_PART64: scratch(rows, n_var_tiles, dtype=torch.int64),
+                Lay.K11_PART32: scratch(rows, n_var_tiles, 2),
+                Lay.K11_RES: scratch(rows, Lay.N_SAT_RES),
+                Lay.K11_XCHG: scratch(n_shards, plane)}
+            values = [0] * Lay.K11_NARGS
+            for slot, tensor in zip(
+                    (Lay.K11_ASSIGN, Lay.K11_TRAIL, Lay.K11_TAG,
+                     Lay.K11_TRAIL_LEN, Lay.K11_STATUS, Lay.K11_LITS,
+                     Lay.K11_VALID, Lay.K11_ORDER), leaves + tensors):
+                values[slot] = tensor.data_ptr()
+            for slot, tensor in shard["scratch"].items():
+                values[slot] = tensor.data_ptr()
+            for slot, value in ((Lay.K11_Q, lead), (Lay.K11_P, n_probes),
+                                (Lay.K11_V1, v1), (Lay.K11_C, n_tiles * TILE),
+                                (Lay.K11_C0, index * width),
+                                (Lay.K11_C1, (index + 1) * width),
+                                (Lay.K11_FORCED_DEPTH, forced_depth),
+                                (Lay.K11_VT, var_tile),
+                                (Lay.K11_SHARDS, n_shards),
+                                (Lay.K11_SHARD, index)):
+                values[slot] = value
+            shard["block_values"] = _block("mtpu_sat_shard_propagate", values)
+            self.shards.append(shard)
+        # the problem tensors last copied to the other devices (weak: a
+        # solve never writes its problem, so a copy holds until the caller
+        # passes other tensors, which may lie at the same addresses)
+        self.copied = ()
+
+    def replicas(self, state) -> list:
+        """Every shard's state: the caller's for a shard that steps it."""
+        return [shard.get("replica", list(state)) for shard in self.shards]
+
+    def planes(self) -> list:
+        """Every shard's exchange planes [D, N_XCHG] (layout.cuh K11_XCHG)."""
+        return [shard["scratch"][Lay.K11_XCHG] for shard in self.shards]
+
+    def launch(self, state, problem, steps: int) -> None:
+        """One chunk: the replicas refreshed from the caller's state (and
+        the problem's copies from the caller's problem, when it is other
+        tensors than the last chunk's), every shard's mirror, then `steps`
+        steps; the caller's state takes shard 0's."""
+        shards = self.shards
+        fresh = len(self.copied) != len(problem) or any(
+            ref() is not leaf for ref, leaf in zip(self.copied, problem))
+        for shard in shards:
+            with _on(shard["device"]):
+                for copy, leaf in zip(shard.get("replica", ()), state):
+                    copy.copy_(leaf)
+                if fresh:
+                    for copy, leaf in zip(shard.get("problem", ()), problem):
+                        copy.copy_(leaf)
+                _call("mtpu_sat_shard_mirror", shard["block_values"])
+        self.copied = tuple(weakref.ref(leaf) for leaf in problem)
+        planes = self.planes()
+        for _ in range(steps):
+            for shard in shards:
+                with _on(shard["device"]):
+                    _call("mtpu_sat_shard_propagate", shard["block_values"])
+            for index, shard in enumerate(shards):
+                with _on(shard["device"]):
+                    for other in range(len(shards)):
+                        if other != index:
+                            planes[index][other].copy_(planes[other][other])
+            for shard in shards:
+                with _on(shard["device"]):
+                    _call("mtpu_sat_shard_resolve", shard["block_values"])
+        if "replica" in shards[0]:
+            with _on(state.assign.device):
+                for leaf, value in zip(state, shards[0]["replica"]):
+                    leaf.copy_(value)
+        LAUNCHES["sat_step"] += 1
+        LAUNCHES["sat_shard_combine"] += 1
+
+
+_SAT_SHARD_PLANS = _Plans(limit=2)
+
+
+def sat_run_sharded(state, problem, steps: int, forced_depth: int,
+                    mesh: tuple, var_tile: int = SAT_VAR_TILE):
+    """K13: `steps` DPLL steps of every probe over the clause shards of
+    `mesh` (one a device; a device may repeat), in place, as JAX
+    `_get_sharded_runner`: eager host calls, a step at a time (every
+    shard's gate and propagate, the exchange planes' copies to every
+    shard's device, every shard's combine, count and apply). `state` and
+    `problem` as `sat_run`'s (no freeze: the JAX package never shards a
+    batch); the tiles must divide over the mesh. Returns the state."""
+    if steps < 0:
+        raise ValueError(f"steps = {steps}")
+    mesh = tuple(torch.device(dev) for dev in mesh)
+    tensors = list(state) + list(problem)
+    static = (forced_depth, var_tile, mesh)
+    plan = _SAT_SHARD_PLANS.get(tensors, static, lambda: _SatShardPlan(
+        state, problem, forced_depth, mesh, var_tile))
+    if steps:
+        plan.launch(state, problem, steps)
+    return state
+
+
+def _sat_shard_plan(state, problem, forced_depth: int, mesh: tuple,
+                    var_tile: int) -> _SatShardPlan:
+    mesh = tuple(torch.device(dev) for dev in mesh)
+    plan = _SAT_SHARD_PLANS.plans.get(_key(list(state) + list(problem),
+                                           (forced_depth, var_tile, mesh)))
+    if plan is None:
+        raise KeyError("no sharded chunk ran on these tensors")
+    return plan
+
+
+def sat_shard_replicas(state, problem, forced_depth: int, mesh: tuple,
+                       var_tile: int = SAT_VAR_TILE) -> list:
+    """Every shard's state after the last `sat_run_sharded` of these
+    tensors and arguments (the plan's replicas; the caller's state for a
+    shard that steps it)."""
+    return _sat_shard_plan(state, problem, forced_depth, mesh,
+                           var_tile).replicas(state)
+
+
+def sat_shard_planes(state, problem, forced_depth: int, mesh: tuple,
+                     var_tile: int = SAT_VAR_TILE) -> list:
+    """Every shard's exchange planes after the last `sat_run_sharded` of
+    these tensors and arguments: int32 [D, Q * P * (V1 + ceil(V1 / 32) +
+    2)] a shard (keys, keyed-var bitmap words, conflict and unit flags).
+    The combine clears its own shard's plane; the others hold the copies
+    of the last step's."""
+    return _sat_shard_plan(state, problem, forced_depth, mesh,
+                           var_tile).planes()
 
 
 # ---- K12 ----------------------------------------------------------------------------

@@ -38,6 +38,26 @@
 //              atomics land in), or clears its part of the trail above the
 //              flip, and zeroes the keys and bitmap words it set.
 //
+// K13, the clause-sharded chunk (mythril_tpu/parallel/jax_solver.py:397
+// `_get_sharded_runner`, `_step` with axis_name "clauses"): D shards, each
+// with a replica of the state and the mirror and a contiguous block of the
+// clause tiles, on its own device or several on one. Per step the host runs
+//
+//   propagate  on every shard (`mtpu_sat_shard_propagate`: the gate, then
+//              propagate over the shard's clause range [C0, C1) into the
+//              shard's own exchange plane: keys, bitmap, flags);
+//   copies     every shard's plane to every other shard's device;
+//   combine    on every shard (`mtpu_sat_shard_resolve`: the new kernel
+//              `sat_shard_combine_kernel`, a thread per (probe, bitmap
+//              word), folds the D planes into the step scratch that count
+//              and apply read: bitmap words and flags by OR, and for each
+//              keyed var the larger of the shards' phase codes, as JAX's
+//              pmax; within a shard its highest clause still wins, the last
+//              write of its own tile scan), then count and apply.
+//
+// So the shards of one variable race as in JAX: a FALSE from any shard
+// beats a TRUE from another whatever their clause indices.
+//
 // Bound: bytes. A step reads each clause's literals once (12 B) and one
 // mirror byte per literal and searching probe, then per probe the branch's
 // share of its rows: about 1 µs at the main shape (32 probes, V1 65,536,
@@ -190,8 +210,9 @@ __global__ void sat_propagate_kernel(Args a) {
     const unsigned shift = static_cast<unsigned>(a.v[K11_PROP_SHIFT]);
     const unsigned q = blockIdx.x / bpq;
     const unsigned i = (blockIdx.x - q * bpq) * blockDim.x + threadIdx.x;
-    const unsigned c = i >> shift, p0 = (i & ((1u << shift) - 1)) * PPT;
-    if (c >= s.C || p0 >= s.P || !s.valid[q * s.C + c]) return;
+    const unsigned c = static_cast<unsigned>(a.v[K11_C0]) + (i >> shift);
+    const unsigned p0 = (i & ((1u << shift) - 1)) * PPT;
+    if (c >= a.v[K11_C1] || p0 >= s.P || !s.valid[q * s.C + c]) return;
     if (s.decided != nullptr && s.decided[q] != 0) return;
     // the group's searching probes (status SAT_SEARCHING is byte 0)
     const Word status = *reinterpret_cast<const Word*>(s.status + q * s.P + p0);
@@ -422,50 +443,170 @@ __global__ void sat_apply_kernel(Args a) {
     }
 }
 
-MTPU_EXPORT int mtpu_sat_run(const long long* values, int n, void* stream) {
-    Args a = mtpu_pack(values, n);
+// K13: a thread per (probe row, bitmap word) of every query. It reads the
+// word of each of the D exchange planes; for each var keyed in any, the
+// shards' keys there (phase: the key's low bit, TRUE or FALSE), and writes
+// into the step scratch (zero on entry, as K11 leaves it) the OR of the
+// words, the largest phase as a key of that phase (2 | TRUE bit, which is
+// all apply reads of a key) and, in its row's first word's thread, the OR
+// of the flags. It zeroes what this shard's propagate wrote in its own
+// plane (the other planes are overwritten whole by the next step's copies).
+__global__ void sat_shard_combine_kernel(Args a) {
+    const SatView s = sat_view(a);
+    const long long rows = s.Q * s.P;
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= rows * s.NW) return;
+    const long long row = i / s.NW, w = i % s.NW;
+    const long long plane = rows * (s.V1 + s.NW + 2), n_shards = a.v[K11_SHARDS];
+    int32_t* xchg = arg_ptr<int32_t>(a, K11_XCHG);
+    int32_t* own = xchg + a.v[K11_SHARD] * plane;
+    const long long at_bits = rows * s.V1 + row * s.NW + w;
+    uint32_t word = 0;
+    for (long long d = 0; d < n_shards; ++d) word |= static_cast<uint32_t>(xchg[d * plane + at_bits]);
+    if (word) {
+        s.bits[row * s.NW + w] = word;
+        for (uint32_t left = word; left; left &= left - 1) {
+            const long long v = w * 32 + __ffs(left) - 1;
+            int phase = SAT_UNASSIGNED;
+            for (long long d = 0; d < n_shards; ++d) {
+                const int k = xchg[d * plane + row * s.V1 + v];
+                const int shard_phase = k == 0 ? SAT_UNASSIGNED : ((k & 1) ? SAT_TRUE : SAT_FALSE);
+                phase = shard_phase > phase ? shard_phase : phase;
+            }
+            s.key[row * s.V1 + v] = 2 | (phase == SAT_TRUE ? 1 : 0);
+        }
+    }
+    for (uint32_t left = static_cast<uint32_t>(own[at_bits]); left; left &= left - 1)
+        own[row * s.V1 + w * 32 + __ffs(left) - 1] = 0;
+    own[at_bits] = 0;
+    if (w == 0) {
+        const long long at_flags = rows * (s.V1 + s.NW) + row;
+        int conflict = 0, unit = 0;
+        for (long long d = 0; d < n_shards; ++d) {
+            conflict |= xchg[d * plane + at_flags];
+            unit |= xchg[d * plane + at_flags + rows];
+        }
+        if (conflict) s.conflict[row] = 1;
+        if (unit) s.unit[row] = 1;
+        own[at_flags] = 0;
+        own[at_flags + rows] = 0;
+    }
+}
+
+// the launch geometry of a chunk's kernels, checked; propagate's (over the
+// clause range [C0, C1)) goes into the block. Returns 0, or 1 for a shape
+// the kernels do not take (cudaErrorInvalidValue).
+struct SatGrid {
+    int ppt, tiles, tile_threads, gate_blocks, prop_blocks, mirror_blocks;
+};
+
+static int sat_grid(Args& a, SatGrid* g) {
     const long long Q = a.v[K11_Q], P = a.v[K11_P], V1 = a.v[K11_V1], C = a.v[K11_C];
-    const long long VT = a.v[K11_VT];
+    const long long VT = a.v[K11_VT], C0 = a.v[K11_C0], C1 = a.v[K11_C1];
     if (Q <= 0 || P <= 0 || P > SAT_MAX_PROBES || V1 < 2 || V1 > (1LL << 31)
-        || C <= 0 || C >= (1LL << 30) || C * P >= (1LL << 30) || VT < 32 || (VT & (VT - 1)))
-        return 1;  // cudaErrorInvalidValue
+        || C <= 0 || C >= (1LL << 30) || C * P >= (1LL << 30) || VT < 32 || (VT & (VT - 1))
+        || C0 < 0 || C1 <= C0 || C1 > C)
+        return 1;
     const long long NT = (V1 + VT - 1) / VT;
     if (Q * P * NT > 0x7FFFFFFFLL) return 1;
     // four probes a thread where the probe count allows aligned 32-bit loads
-    const int ppt = P % 4 == 0 ? 4 : 1;
+    g->ppt = P % 4 == 0 ? 4 : 1;
     int shift = 0;
-    while ((1LL << shift) < P / ppt) ++shift;
-    const long long bpq = ((C << shift) + SAT_PROP_THREADS - 1) / SAT_PROP_THREADS;
+    while ((1LL << shift) < P / g->ppt) ++shift;
+    const long long bpq = (((C1 - C0) << shift) + SAT_PROP_THREADS - 1) / SAT_PROP_THREADS;
     a.v[K11_PROP_SHIFT] = shift;
     a.v[K11_PROP_BPQ] = bpq;
     const long long prop_blocks = Q * bpq;
     const long long mirror_blocks = Q * ((V1 * P + SAT_PROP_THREADS - 1) / SAT_PROP_THREADS);
     if (prop_blocks > 0x7FFFFFFFLL || mirror_blocks > 0x7FFFFFFFLL) return 1;
-    const int tiles = static_cast<int>(Q * P * NT);
-    const int tile_threads = static_cast<int>(
+    g->prop_blocks = static_cast<int>(prop_blocks);
+    g->mirror_blocks = static_cast<int>(mirror_blocks);
+    g->tiles = static_cast<int>(Q * P * NT);
+    g->tile_threads = static_cast<int>(
         VT / 16 < 32 ? 32 : (VT / 16 > SAT_TILE_THREADS ? SAT_TILE_THREADS : VT / 16));
-    const int gate_blocks = static_cast<int>((Q + SAT_GATE_THREADS - 1) / SAT_GATE_THREADS);
-    MTPU_LAUNCH(sat_mirror_kernel, static_cast<int>(mirror_blocks), SAT_PROP_THREADS, stream, a);
+    g->gate_blocks = static_cast<int>((Q + SAT_GATE_THREADS - 1) / SAT_GATE_THREADS);
+    return 0;
+}
+
+static void sat_propagate(const Args& a, const SatGrid& g, void* stream) {
+    if (a.v[K11_DECIDED] != 0)
+        MTPU_LAUNCH(sat_gate_kernel, g.gate_blocks, SAT_GATE_THREADS, stream, a);
+    if (g.ppt == 4)
+        MTPU_LAUNCH(sat_propagate_kernel<4>, g.prop_blocks, SAT_PROP_THREADS, stream, a);
+    else
+        MTPU_LAUNCH(sat_propagate_kernel<1>, g.prop_blocks, SAT_PROP_THREADS, stream, a);
+}
+
+static void sat_resolve(const Args& a, const SatGrid& g, void* stream) {
+    MTPU_LAUNCH(sat_count_kernel, g.tiles, g.tile_threads, stream, a);
+    MTPU_LAUNCH(sat_apply_kernel, g.tiles, g.tile_threads, stream, a);
+}
+
+MTPU_EXPORT int mtpu_sat_run(const long long* values, int n, void* stream) {
+    Args a = mtpu_pack(values, n);
+    a.v[K11_C0] = 0;
+    a.v[K11_C1] = a.v[K11_C];
+    SatGrid g;
+    if (sat_grid(a, &g)) return 1;
+    MTPU_LAUNCH(sat_mirror_kernel, g.mirror_blocks, SAT_PROP_THREADS, stream, a);
     int rc = MTPU_LAUNCH_STATUS();
     for (long long step = 0; step < a.v[K11_STEPS] && !rc; ++step) {
-        if (a.v[K11_DECIDED] != 0)
-            MTPU_LAUNCH(sat_gate_kernel, gate_blocks, SAT_GATE_THREADS, stream, a);
-        if (ppt == 4)
-            MTPU_LAUNCH(sat_propagate_kernel<4>, static_cast<int>(prop_blocks), SAT_PROP_THREADS,
-                        stream, a);
-        else
-            MTPU_LAUNCH(sat_propagate_kernel<1>, static_cast<int>(prop_blocks), SAT_PROP_THREADS,
-                        stream, a);
-        MTPU_LAUNCH(sat_count_kernel, tiles, tile_threads, stream, a);
-        MTPU_LAUNCH(sat_apply_kernel, tiles, tile_threads, stream, a);
+        sat_propagate(a, g, stream);
+        sat_resolve(a, g, stream);
         rc = MTPU_LAUNCH_STATUS();
     }
     return rc;
+}
+
+// K13's entries, one shard's block each: the chunk's mirror; a step's gate
+// and propagate into the shard's own exchange plane; a step's combine of
+// the planes (copied in by the host) and its count and apply
+static int sat_shard_args(const long long* values, int n, Args* a, SatGrid* g) {
+    *a = mtpu_pack(values, n);
+    const long long D = a->v[K11_SHARDS], shard = a->v[K11_SHARD];
+    if (D < 1 || shard < 0 || shard >= D || a->v[K11_XCHG] == 0) return 1;
+    return sat_grid(*a, g);
+}
+
+MTPU_EXPORT int mtpu_sat_shard_mirror(const long long* values, int n, void* stream) {
+    Args a;
+    SatGrid g;
+    if (sat_shard_args(values, n, &a, &g)) return 1;
+    MTPU_LAUNCH(sat_mirror_kernel, g.mirror_blocks, SAT_PROP_THREADS, stream, a);
+    return MTPU_LAUNCH_STATUS();
+}
+
+MTPU_EXPORT int mtpu_sat_shard_propagate(const long long* values, int n, void* stream) {
+    Args a;
+    SatGrid g;
+    if (sat_shard_args(values, n, &a, &g)) return 1;
+    const long long rows = a.v[K11_Q] * a.v[K11_P], V1 = a.v[K11_V1];
+    const long long NW = (V1 + 31) / 32;
+    int32_t* own = reinterpret_cast<int32_t*>(a.v[K11_XCHG]) + a.v[K11_SHARD] * rows * (V1 + NW + 2);
+    a.v[K11_KEY] = reinterpret_cast<long long>(own);
+    a.v[K11_BITS] = reinterpret_cast<long long>(own + rows * V1);
+    a.v[K11_CONFLICT] = reinterpret_cast<long long>(own + rows * (V1 + NW));
+    a.v[K11_UNIT] = reinterpret_cast<long long>(own + rows * (V1 + NW + 1));
+    sat_propagate(a, g, stream);
+    return MTPU_LAUNCH_STATUS();
+}
+
+MTPU_EXPORT int mtpu_sat_shard_resolve(const long long* values, int n, void* stream) {
+    Args a;
+    SatGrid g;
+    if (sat_shard_args(values, n, &a, &g)) return 1;
+    const long long words = a.v[K11_Q] * a.v[K11_P] * ((a.v[K11_V1] + 31) / 32);
+    const long long blocks = (words + SAT_PROP_THREADS - 1) / SAT_PROP_THREADS;
+    if (blocks > 0x7FFFFFFFLL) return 1;
+    MTPU_LAUNCH(sat_shard_combine_kernel, static_cast<int>(blocks), SAT_PROP_THREADS, stream, a);
+    sat_resolve(a, g, stream);
+    return MTPU_LAUNCH_STATUS();
 }
 
 // load every kernel of this source (before a CUDA graph captures them)
 MTPU_EXPORT int mtpu_sat_preload(const long long*, int, void*) {
     return MTPU_PRELOAD(sat_mirror_kernel) | MTPU_PRELOAD(sat_gate_kernel)
            | MTPU_PRELOAD(sat_propagate_kernel<1>) | MTPU_PRELOAD(sat_propagate_kernel<4>)
-           | MTPU_PRELOAD(sat_count_kernel) | MTPU_PRELOAD(sat_apply_kernel);
+           | MTPU_PRELOAD(sat_count_kernel) | MTPU_PRELOAD(sat_apply_kernel)
+           | MTPU_PRELOAD(sat_shard_combine_kernel);
 }

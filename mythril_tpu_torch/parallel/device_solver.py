@@ -27,9 +27,21 @@ carries them across leaf for leaf, and every step is bit-identical to JAX
 * newly implied variables append to the trail in variable order.
 
 Problems above `clause_cap` return UNKNOWN at once, as in the JAX package:
-the caller answers them with the CDCL core. There is one card, so the JAX
-package's mesh-sharded runner has no counterpart here (K11's grid over
-clause blocks is its one-card analogue).
+the caller answers them with the CDCL core.
+
+The clause-sharded route is the counterpart of JAX `_get_sharded_runner`
+(K13: `run_chunk_sharded`, `kernels.ops.sat_run_sharded`; its twin
+`run_chunk_sharded_reference`). A mesh of D devices (`configure`; a
+device may repeat, which gives logical shards on one card) splits the
+clause tiles into D contiguous blocks, each shard steps a replica of the
+state over its block, and every step combines the shards' verdicts as
+JAX's pmax does: conflicts and units by any-of, each implied variable's
+phase by the larger code (FALSE over TRUE), after each shard's own highest
+clause won inside it. So a variable implied both ways by two shards takes
+FALSE where the unsharded step takes the higher clause's phase. As in the
+JAX package, `solve_cnf_device` takes the route when the mesh has more
+than one device and the tiles divide over it, and the clause cap scales
+with the device count; `solve_cnf_device_batch` never shards.
 
 Shapes are bucketed as in the JAX package: the ``coarse`` scheme (default)
 rounds clause tiles, the variable axis (with a floor) and the batch query
@@ -37,7 +49,7 @@ axis to powers of four, ``fine`` to powers of two. The scheme is the
 `scheme` argument here, where the JAX package reads an environment knob.
 
 Every chunk of an entry point runs under a shape key, the JAX runner's
-(``("single", 1, chunk, forced depth, tiles, V1, probes)``,
+(``("single", mesh devices, chunk, forced depth, tiles, V1, probes)``,
 ``("batch", chunk, forced depth, tiles, V1, queries, probes)``), so that
 the serve warm set writes the manifest the JAX daemon writes
 (`observed_shape_keys`) and replays it (`warm_shape_key`).
@@ -55,6 +67,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..exceptions import DeviceUnavailable
 from ..observe import metrics
 from ..smt.solver.solver_statistics import SolverStatistics
 from .batch import next_pow2
@@ -80,6 +93,69 @@ _UNASSIGNED, _TRUE, _FALSE = 0, 1, 2
 _NOT_FREE = 1 << 30
 
 SCHEMES = ("coarse", "fine")
+
+#: the clause-sharded route's settings (`configure`), read at call time
+_DEFAULT_SETTINGS = {"shard": None, "mesh": None}
+_settings = dict(_DEFAULT_SETTINGS)
+
+
+def configure(shard: Optional[bool] = None, mesh=None) -> None:
+    """The clause-sharded route's settings, read at call time as the JAX
+    package reads MYTHRIL_TPU_SHARD and `jax.devices()`.
+
+    `mesh`: a tuple of devices, one a shard; a device may repeat (logical
+    shards on one card). None: every visible CUDA card when the call's
+    device is a card, else the call's device alone. `shard`: None (the
+    knob unset) shards when the mesh has more than one device and they are
+    cards; True (=1) shards over any mesh of more than one device, the CPU
+    included; False (=0) never shards."""
+    _settings.update(shard=shard, mesh=None if mesh is None else tuple(mesh))
+
+
+def reset_settings() -> None:
+    _settings.update(_DEFAULT_SETTINGS)
+
+
+def _mesh_device(device) -> torch.device:
+    dev = _device.resolve(device)
+    if dev.type == "cuda":
+        index = torch.cuda.current_device() if dev.index is None else dev.index
+        if index >= torch.cuda.device_count():
+            raise DeviceUnavailable(
+                f"mythril_tpu_torch: the mesh names cuda:{index}, but "
+                f"{torch.cuda.device_count()} CUDA devices are visible")
+        dev = torch.device("cuda", index)
+    return dev
+
+
+def mesh_devices(device=None) -> tuple:
+    """The configured mesh, resolved, for a call on `device`. A mesh
+    device that is not there, or one of another type than the call's (a
+    CPU mesh under a card call, a card mesh under a CPU call), raises
+    DeviceUnavailable: the call never moves to another kind of device."""
+    dev = _mesh_device(device)
+    mesh = _settings["mesh"]
+    if mesh is None:
+        if dev.type != "cuda":
+            return (dev,)
+        return tuple(torch.device("cuda", index)
+                     for index in range(torch.cuda.device_count()))
+    mesh = tuple(_mesh_device(shard) for shard in mesh)
+    if any(shard.type != dev.type for shard in mesh):
+        raise DeviceUnavailable(
+            f"mythril_tpu_torch: the configured mesh {mesh} is not on the "
+            f"call's device type ({dev.type})")
+    return mesh
+
+
+def shard_count(mesh: tuple) -> int:
+    """The devices a query's clauses split over (JAX
+    jax_solver.py:452-457): the mesh's, or 1."""
+    flag = _settings["shard"]
+    if len(mesh) > 1 and flag is not False \
+            and (flag is True or mesh[0].type == "cuda"):
+        return len(mesh)
+    return 1
 
 
 class Problem(NamedTuple):
@@ -250,11 +326,32 @@ def _set_at(base: torch.Tensor, index: torch.Tensor,
                         values.to(base.dtype).unsqueeze(-1))
 
 
+def _implied(key: torch.Tensor, unit_var: torch.Tensor, v1: int,
+             shard: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """int8 [Q, P, V1] phase codes of the implied vars, from each clause's
+    key ((clause + 1) << 1 | TRUE bit, 0: no unit), var and shard: inside
+    each shard the highest clause's phase (the last write of JAX's tile
+    scan), then the larger code over the shards (JAX's pmax over the
+    "clauses" axis)."""
+    n_queries, n_probes, _ = key.shape
+    implied_key = torch.zeros((n_queries, n_probes, n_shards * v1),
+                              dtype=torch.int64, device=key.device)
+    implied_key.scatter_reduce_(-1, unit_var + shard * v1, key, "amax")
+    implied_key = implied_key.view(n_queries, n_probes, n_shards, v1)
+    implied_key[..., 0] = 0
+    phase = torch.where(implied_key == 0, _UNASSIGNED,
+                        torch.where((implied_key & 1) == 1, _TRUE, _FALSE))
+    return phase.amax(-2).to(torch.int8)
+
+
 def _step_batched(state: SolverState, lits: torch.Tensor, valid: torch.Tensor,
                   order: torch.Tensor, forced_depth: int,
-                  frozen: Optional[torch.Tensor] = None) -> SolverState:
+                  frozen: Optional[torch.Tensor] = None,
+                  n_shards: int = 1) -> SolverState:
     """One transition of JAX `_step` for every probe of every query, on
-    batched views; queries with `frozen` set keep their state."""
+    batched views; queries with `frozen` set keep their state. With
+    `n_shards` > 1, the step of the clause axis split into that many
+    contiguous blocks (`_step` with axis_name)."""
     assign, trail, tag, trail_len, status = state
     n_queries, n_probes, v1 = assign.shape
     dev = assign.device
@@ -285,16 +382,13 @@ def _step_batched(state: SolverState, lits: torch.Tensor, valid: torch.Tensor,
     unit_lit = torch.gather(lit64[:, None].expand(-1, n_probes, -1, -1), -1,
                             unit_slot.unsqueeze(-1)).squeeze(-1)
     # the highest clause index decides a variable implied by several units
-    clause_key = (torch.arange(n_clauses, device=dev) + 1) << 1
-    key = torch.where(unit_clause, clause_key | (unit_lit > 0).long(), 0)
+    # (inside each shard)
+    clause = torch.arange(n_clauses, device=dev)
+    key = torch.where(unit_clause, ((clause + 1) << 1) | (unit_lit > 0).long(),
+                      0)
     unit_var = torch.where(unit_clause, unit_lit.abs(), 0)
-    implied_key = torch.zeros((n_queries, n_probes, v1), dtype=torch.int64,
-                              device=dev)
-    implied_key.scatter_reduce_(-1, unit_var, key, "amax")
-    implied_key[..., 0] = 0
-    implied = torch.where(implied_key == 0, _UNASSIGNED,
-                          torch.where((implied_key & 1) == 1, _TRUE, _FALSE)
-                          ).to(torch.int8)
+    implied = _implied(key, unit_var, v1, clause // (n_clauses // n_shards),
+                       n_shards)
     newly = (implied != 0) & (assign == _UNASSIGNED)         # [Q, P, V1]
     has_units = newly.any(-1)
 
@@ -388,21 +482,40 @@ def step_reference(state: SolverState, problem: DeviceProblem,
     return new
 
 
+def _run_twin(state: SolverState, problem: DeviceProblem, chunk: int,
+              forced_depth: int, freeze: bool, n_shards: int) -> SolverState:
+    """`chunk` twin steps in place."""
+    batched, lits, valid, order = _batched(state, problem)
+    current = batched
+    for _ in range(chunk):
+        frozen = _decided(current.status) if freeze else None
+        current = _step_batched(current, lits, valid, order, forced_depth,
+                                frozen, n_shards)
+    for leaf, value in zip(batched, current):
+        leaf.copy_(value)
+    return state
+
+
 def run_chunk_reference(state: SolverState, problem: DeviceProblem,
                         chunk: int, forced_depth: int,
                         freeze: bool = False) -> SolverState:
     """The plain twin of `run_chunk`, in place: `chunk` steps as JAX
     `_get_runner` (freeze False) or `_get_batch_runner` (freeze True: a
     query stops once one probe is SAT or none is searching)."""
-    batched, lits, valid, order = _batched(state, problem)
-    current = batched
-    for _ in range(chunk):
-        frozen = _decided(current.status) if freeze else None
-        current = _step_batched(current, lits, valid, order, forced_depth,
-                                frozen)
-    for leaf, value in zip(batched, current):
-        leaf.copy_(value)
-    return state
+    return _run_twin(state, problem, chunk, forced_depth, freeze, 1)
+
+
+def run_chunk_sharded_reference(state: SolverState, problem: DeviceProblem,
+                                chunk: int, forced_depth: int,
+                                n_shards: int) -> SolverState:
+    """The plain twin of `run_chunk_sharded`, in place: `chunk` steps as
+    JAX `_get_sharded_runner` over `n_shards` devices (the tiles must
+    divide); a batch-shaped state steps each query so."""
+    n_tiles = problem.valid.shape[-2]
+    if n_shards < 1 or n_tiles % n_shards:
+        raise ValueError(f"{n_tiles} clause tiles do not split over "
+                         f"{n_shards} shards")
+    return _run_twin(state, problem, chunk, forced_depth, False, n_shards)
 
 
 # ---- the kernel path ------------------------------------------------------------
@@ -419,6 +532,20 @@ def run_chunk(state: SolverState, problem: DeviceProblem, chunk: int,
     from ..kernels import ops
 
     return ops.sat_run(state, problem, chunk, forced_depth, freeze, graph)
+
+
+def run_chunk_sharded(state: SolverState, problem: DeviceProblem,
+                      chunk: int, forced_depth: int, mesh: tuple
+                      ) -> SolverState:
+    """`chunk` steps of the clause-sharded route over `mesh` (one shard a
+    device), in place: K13 on CUDA tensors (eager: every shard's launches
+    and the planes' copies, a step at a time), the twin on CPU tensors."""
+    if not state.assign.is_cuda:
+        return run_chunk_sharded_reference(state, problem, chunk,
+                                           forced_depth, len(mesh))
+    from ..kernels import ops
+
+    return ops.sat_run_sharded(state, problem, chunk, forced_depth, mesh)
 
 
 def step(state: SolverState, problem: DeviceProblem,
@@ -444,15 +571,19 @@ _WARM_MAX_CHUNK = 1 << 12
 
 def _run_accounted(shape_key: tuple, state: SolverState,
                    problem: DeviceProblem, chunk: int, forced_depth: int,
-                   freeze: bool = False) -> SolverState:
-    """`run_chunk` with the JAX bucket accounting (jax_solver.py:91):
-    the first run of `shape_key` in this process counts
-    ``xla.bucket_compiles``, every later run ``xla.bucket_reuses``."""
+                   freeze: bool = False, mesh: Optional[tuple] = None
+                   ) -> SolverState:
+    """`run_chunk` (`run_chunk_sharded` over `mesh`) with the JAX bucket
+    accounting (jax_solver.py:91): the first run of `shape_key` in this
+    process counts ``xla.bucket_compiles``, every later run
+    ``xla.bucket_reuses``."""
     if shape_key in _SHAPES_RUN:
         metrics.inc("xla.bucket_reuses")
     else:
         _SHAPES_RUN.add(shape_key)
         metrics.inc("xla.bucket_compiles")
+    if mesh is not None:
+        return run_chunk_sharded(state, problem, chunk, forced_depth, mesh)
     return run_chunk(state, problem, chunk, forced_depth, freeze)
 
 
@@ -463,14 +594,15 @@ def observed_shape_keys() -> List[tuple]:
 
 
 def warm_shape_key(key, device=None) -> bool:
-    """Run one chunk of K11 at a manifest key's padded shapes, on a
-    zero-clause problem (every probe just decides variables), so that the
-    key counts as run (JAX `warm_shape_key`, jax_solver.py:656).
+    """Run one chunk of K11 (K13 for a key of more than one device) at a
+    manifest key's padded shapes, on a zero-clause problem (every probe
+    just decides variables), so that the key counts as run (JAX
+    `warm_shape_key`, jax_solver.py:646).
 
-    Returns False for a malformed key, one out of the sanity bounds, or
-    one that names more than one device (there is one card); True for a
-    key already run. Any failure of a well-formed key raises, as every
-    kernel failure does."""
+    Returns False for a malformed key, one out of the sanity bounds, or a
+    sharded key the mesh cannot host (fewer devices than the key names, or
+    tiles that do not divide over them); True for a key already run. Any
+    failure of a well-formed key raises, as every kernel failure does."""
     try:
         key = tuple(key)
         kind = key[0]
@@ -498,9 +630,14 @@ def warm_shape_key(key, device=None) -> bool:
         return False
     if key in _SHAPES_RUN:
         return True
-    if n_devices > 1:
-        return False
     dev = _device.resolve(device)
+    mesh = None
+    if n_devices > 1:
+        mesh = mesh_devices(dev)
+        if len(mesh) < n_devices or n_tiles % n_devices:
+            return False
+        mesh = mesh[:n_devices]
+        dev = mesh[0]
     problem = Problem(np.zeros((n_tiles, TILE, 3), dtype=np.int32),
                       np.zeros((n_tiles, TILE), dtype=bool),
                       np.arange(v1, dtype=np.int32),
@@ -513,7 +650,7 @@ def warm_shape_key(key, device=None) -> bool:
         init_assign = problem.init_assign
     state = initial_state(init_assign, n_probes, dev)
     _run_accounted(key, state, tensors, chunk, forced_depth,
-                   freeze=kind == "batch")
+                   freeze=kind == "batch", mesh=mesh)
     return True
 
 
@@ -530,10 +667,13 @@ def solve_cnf_device(clauses: List[List[int]], n_vars: int,
                      scheme: str = "coarse", device=None
                      ) -> Tuple[int, Optional[List[bool]]]:
     """Solve a CNF on the card: (status, model) with model[v-1] the value
-    of DIMACS var v, as JAX `solve_cnf_device` on one device.
+    of DIMACS var v, as JAX `solve_cnf_device`: over the configured mesh's
+    clause shards when it shards (`configure`) and the tiles divide over
+    it, else on `device`.
 
     Returns UNKNOWN (never raises, never guesses) when the problem exceeds
-    `clause_cap`."""
+    `clause_cap` times the mesh's shard count, or `clause_cap` when its
+    tiles do not divide over the mesh."""
     dev = _device.resolve(device)
     if not clauses:
         # trivially satisfiable: padding with a zero row would fabricate an
@@ -542,18 +682,29 @@ def solve_cnf_device(clauses: List[List[int]], n_vars: int,
     for clause in clauses:
         if not clause:
             return UNSAT, None
-    if len(clauses) > clause_cap:
+    mesh = mesh_devices(dev)
+    n_devices = shard_count(mesh)
+    if len(clauses) > clause_cap * n_devices:
         return UNKNOWN, None
 
     problem = build_problem(clauses, n_vars, scheme=scheme)
     forced_depth = forced_depth_of(n_probes)
+    n_tiles = problem.lits.shape[0]
+    if n_devices > 1 and n_tiles % n_devices == 0 and n_tiles >= n_devices:
+        dev = mesh[0]
+    else:
+        # the mesh-scaled cap holds only where the tiles shard
+        if len(clauses) > clause_cap:
+            return UNKNOWN, None
+        mesh = None
     tensors = device_problem(problem, dev)
     state = initial_state(problem.init_assign, n_probes, dev)
-    shape_key = ("single", 1, chunk, forced_depth, problem.lits.shape[0],
+    shape_key = ("single", n_devices, chunk, forced_depth, n_tiles,
                  problem.order.shape[0], n_probes)
     steps = 0
     while steps < max_steps:
-        _run_accounted(shape_key, state, tensors, chunk, forced_depth)
+        _run_accounted(shape_key, state, tensors, chunk, forced_depth,
+                       mesh=mesh)
         steps += chunk
         status = state.status.cpu().numpy()
         if (status == S_SAT).any() or (status != SEARCHING).all():

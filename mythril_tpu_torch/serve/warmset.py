@@ -327,7 +327,8 @@ class WarmSet:
                      verdicts_loaded=self.loaded_verdicts)
         if self.failed:
             log.warning("warmup skipped %d un-warmable manifest shapes "
-                        "(more than one device, malformed, or no card): %s",
+                        "(a mesh that cannot host them, malformed, or no "
+                        "card): %s",
                         len(self.failed), self.failed[:4])
         log.info("warmup ran %d clause-shape buckets (%d kernel libraries "
                  "found built), loaded %d verdicts",

@@ -48,6 +48,9 @@ Two differences:
   _VERDICT_CACHE and _DEVICE_CLAUSE_CAP; here they are `configure(...)`
   arguments with the same defaults, beside the lane's `device` (None: the
   card; "cpu" runs the twin, for tests). `reset_settings()` restores them.
+  MYTHRIL_TPU_SHARD and the mesh are the lane's own settings
+  (`device_solver.configure`): a single-query flush shards its clauses
+  over the mesh as the JAX lane does, a batch never.
 - A device failure is classified and answered by the CDCL only when it is
   an injected fault (`resilience.BackendFailure`; `--inject-fault
   device_oom` raises one), or a host `MemoryError` of the plain twin on

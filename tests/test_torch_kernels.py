@@ -107,12 +107,14 @@ def test_library_names_follow_sources(name):
     assert os.path.basename(a).startswith(f"lib{name}-")
     assert os.path.exists(os.path.join(build.KERNEL_DIR, f"{name}.cu"))
     # every exported entry lives in a built source, and every kernel counts
-    # (K9, the telemetry plane, is an instantiation inside sym_step.cu; K3's
+    # (K9, the telemetry plane, is an instantiation inside sym_step.cu; K13,
+    # the sharded chunk's combine, a kernel of sat_step.cu; K3's
     # allocations folded into K4's step and K10's pass count apart from
     # standalone K3)
     assert set(ops._ENTRY_LIB.values()) == set(build.SOURCES)
     assert set(ops.LAUNCHES) == set(build.SOURCES) | {
-        "telemetry", "arena_alloc_step", "arena_alloc_merge"}
+        "telemetry", "sat_shard_combine", "arena_alloc_step",
+        "arena_alloc_merge"}
 
 
 # ---- the kernel sources, compiled for the host -------------------------------------
