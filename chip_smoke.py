@@ -357,22 +357,27 @@ copy to the host) held word for word to the twin on the same tensors
      bucket (a dispatch flush) at chunk 32, held to the JAX batch runner's
      state after the first chunk, verdicts and models as in phase 21;
  22a. sat_shard: K13, the clause-sharded chunk (`device_solver.configure`,
-     `run_chunk_sharded`, `ops.sat_run_sharded`: K11's launches a shard,
-     the exchange planes copied between shards, `sat_shard_combine`),
-     against `run_chunk_sharded_reference` on the card at D = 2 and 4
-     logical shards on one card: the phase race (D = 4 must give FALSE
-     where the unsharded K11 gives TRUE) and 1689-24 and 1689-28 at 32
-     probes, every leaf after every chunk and every shard's replica equal
-     to the state; both queries solved sharded, their verdicts the
-     unsharded K11's; on a host with two cards or more the full-width
-     comparison again over distinct cards (else one line says that one
-     card was present); the time a step at D = 1, 2 and 4 and its bound
-     (K11's bytes and the exchange as int8 phase planes); the combine's
-     device time beside its own bound (the keyed-var bitmaps and this
-     run's keyed phase codes) and `torch.amax` over the stacked int8
-     phase planes (JAX's pmax) as its yardstick; then
-     SAT_SHARD_RUN through the CLI with `--solver jax` on a mesh of four
-     logical shards and the clause cap at SAT_SHARD_CAP, so that its
+     `run_chunk_sharded`, `ops.sat_run_sharded`: K11's launches a shard
+     with the seal after propagate, the two-bitmap exchange planes copied
+     between shards, `sat_shard_combine`; on a one-card mesh one CUDA
+     graph replay a chunk, a stream a shard), graphed and eager, against
+     `run_chunk_sharded_reference` on the card at D = 2 and 4 logical
+     shards on one card: the phase race (D = 4 must give FALSE where the
+     unsharded K11 gives TRUE) and 1689-24 and 1689-28 at 32 probes, every
+     leaf after every chunk, every shard's replica equal to the state and
+     `REPLAYS["sat_shard_chunk"]` one a graphed chunk; both queries solved
+     sharded, their verdicts the unsharded K11's; on a host with two cards
+     or more the full-width comparison again over distinct cards (else one
+     line says that one card was present); the time a step at D = 1, 2
+     and 4, graphed and eager (CUDA events and the host clock), its device
+     time by launch (seal, combine, copies) and its bound (K11's bytes and
+     D + 1 exchange planes of two bits a var, beside the bound with D + 1
+     int8 phase planes instead); the plane bytes copied a step;
+     the seal's and the combine's device times beside their own bounds
+     (this run's bitmaps, flags and keyed vars) and `torch.amax` over the
+     stacked int8 phase planes (JAX's pmax) as the combine's yardstick;
+     then SAT_SHARD_RUN through the CLI with `--solver jax` on a mesh of
+     four logical shards and the clause cap at SAT_SHARD_CAP, so that its
      queries shard through the dispatch: exit and issues held to
      EXPECTED_ANALYZE_TPU, and it fails unless the combine launched;
  23. the kernels line: each kernel's launches on the main-path phases (8, 9,
@@ -3718,14 +3723,11 @@ def sat_step_bytes(before, after, tensors) -> int:
     return reads + writes
 
 
-def sat_bound_ms_per_step(state, tensors, steps: int, depth: int,
-                          n_shards: int = 0) -> tuple:
-    """bound_ms of one step, averaged over the `steps` steps from `state`
-    (stepped by the twin on a copy); with `n_shards`, of K13's step: the
-    sharded twin's steps, and beside K11's bytes the exchange at the dtype
-    the function needs, JAX's pmax of int8 `implied` (jax_solver.py:293,
-    297): the D phase planes [P, V1] read once and the combined one
-    written, a byte an element."""
+def sat_mean_step_bytes(state, tensors, steps: int, depth: int,
+                        n_shards: int = 0) -> float:
+    """`sat_step_bytes` of one step, averaged over the `steps` steps from
+    `state`, stepped on a copy by the twin (with `n_shards`, the sharded
+    twin)."""
     total = 0
     before = convert.clone(state)
     for _ in range(steps):
@@ -3737,8 +3739,13 @@ def sat_bound_ms_per_step(state, tensors, steps: int, depth: int,
             device_solver.run_chunk_reference(after, tensors, 1, depth)
         total += sat_step_bytes(before, after, tensors)
         before = after
-    planes = (n_shards + 1) * before.assign.numel() if n_shards else 0
-    return bound_ms(total / steps + planes, 0)
+    return total / steps
+
+
+def sat_bound_ms_per_step(state, tensors, steps: int, depth: int) -> tuple:
+    """bound_ms of one K11 step, averaged over the `steps` steps from
+    `state`."""
+    return bound_ms(sat_mean_step_bytes(state, tensors, steps, depth), 0)
 
 
 #: K11's variable tile in the fixtures' second pass: V1 1,024 over 16 blocks
@@ -6775,74 +6782,154 @@ def race_cnf() -> tuple:
 
 def sat_shard_compare(state, tensors, chunk, n_chunks, depth, mesh,
                       what) -> None:
-    """K13 against its twin from one state, every leaf after each chunk and
-    every shard's replica equal to the state."""
+    """K13, graphed and eager, against its twin from one state: every leaf
+    after each chunk, every shard's replica equal to the state, and on a
+    one-card mesh one graph replay a graphed chunk (the eager chunk none);
+    on a mesh of several cards both run eager host calls."""
     plain = convert.clone(state)
-    kern = convert.clone(state)
+    runs = {"graphed": (convert.clone(state), True),
+            "eager": (convert.clone(state), False)}
+    one_card = all(dev == state.assign.device for dev in mesh)
     for index in range(n_chunks):
         device_solver.run_chunk_sharded_reference(plain, tensors, chunk,
                                                   depth, len(mesh))
-        ops.sat_run_sharded(kern, tensors, chunk, depth, mesh)
-        assert_same(kern, plain, f"K13 {what} chunk {index}")
-        for shard, replica in enumerate(ops.sat_shard_replicas(
-                kern, tensors, depth, mesh)):
-            for leaf, got in zip(kern, replica):
-                if not torch.equal(leaf.cpu(), got.cpu()):
-                    raise AssertionError(f"K13 {what} chunk {index}: shard "
-                                         f"{shard}'s replica differs")
+        for mode, (kern, graph) in runs.items():
+            replays = ops.REPLAYS["sat_shard_chunk"]
+            ops.sat_run_sharded(kern, tensors, chunk, depth, mesh,
+                                graph=graph)
+            want = replays + (1 if graph and one_card else 0)
+            if ops.REPLAYS["sat_shard_chunk"] != want:
+                raise AssertionError(
+                    f"K13 {what} {mode} chunk {index}: "
+                    f"{ops.REPLAYS['sat_shard_chunk'] - replays} graph "
+                    f"replays")
+            assert_same(kern, plain, f"K13 {what} {mode} chunk {index}")
+            for shard, replica in enumerate(ops.sat_shard_replicas(
+                    kern, tensors, depth, mesh)):
+                for leaf, got in zip(kern, replica):
+                    if not torch.equal(leaf.cpu(), got.cpu()):
+                        raise AssertionError(
+                            f"K13 {what} {mode} chunk {index}: shard "
+                            f"{shard}'s replica differs")
 
 
 #: set bits of each byte value
 POPCOUNT8 = [bin(value).count("1") for value in range(256)]
 
 
+def plane_bytes(state) -> int:
+    """Bytes of one shard's exchange plane (layout.cuh K11_XCHG): two
+    bitmap words a probe and bitmap word, two flags a probe, int32."""
+    rows = state.assign.numel() // state.assign.shape[-1]
+    return 4 * rows * 2 * (-(-state.assign.shape[-1] // 32) + 1)
+
+
 def shard_exchange(state, tensors, depth, mesh) -> tuple:
-    """What one K13 step of `state` exchanged (the kernel's planes, read
-    after the step; the combine clears its own shard's, so each shard's
-    plane is read from the next shard's copy; D >= 2): the keyed-var bitmaps
-    [D, rows, NW] and each shard's phase codes [D, rows, V1] (int8: 0
-    none, 1 TRUE, 2 FALSE)."""
+    """What the last K13 step of `state` exchanged (each shard's own
+    plane, which its seal wrote whole): the keyed-var and FALSE-phase
+    bitmaps [D, rows, NW] (int32 words) and each shard's conflict and unit
+    flags [D, 2, rows]."""
     n_shards = len(mesh)
-    rows, v1 = state.assign.numel() // state.assign.shape[-1], \
-        state.assign.shape[-1]
-    n_words = -(-v1 // 32)
+    rows = state.assign.numel() // state.assign.shape[-1]
+    n_words = -(-state.assign.shape[-1] // 32)
     planes = ops.sat_shard_planes(state, tensors, depth, mesh)
-    own = torch.stack([planes[(d + 1) % n_shards][d]
+    own = torch.stack([planes[d][d].to(state.assign.device)
                        for d in range(n_shards)])
-    keys = own[:, :rows * v1].reshape(n_shards, rows, v1)
-    bits = own[:, rows * v1:rows * (v1 + n_words)].reshape(n_shards, rows,
-                                                           n_words)
-    phases = torch.where(keys == 0, 0, torch.where((keys & 1) == 1, 1, 2))
-    return bits, phases.to(torch.int8)
+    words = rows * n_words
+    keyed = own[:, :words].reshape(n_shards, rows, n_words)
+    false = own[:, words:2 * words].reshape(n_shards, rows, n_words)
+    flags = own[:, 2 * words:].reshape(n_shards, 2, rows)
+    return keyed, false, flags
 
 
-def shard_combine_bound(state, tensors, depth, mesh, steps) -> tuple:
-    """bound_ms of one `sat_shard_combine` launch set (all D shards), a step
-    averaged over `steps` K13 steps from `state`, counted on this run's
-    exchange: each shard's keyed-var bitmap words and its two flags read,
-    a byte for each of its keyed vars' phase codes, and the combined
-    bitmap, phase codes and flags written once. Returns (ms, by, bytes a
-    step, keyed vars a step, the last step's stacked phase planes)."""
+def phase_planes_of(keyed, false, v1: int) -> torch.Tensor:
+    """int8 [D, rows, V1] phase codes (0 none, 1 TRUE, 2 FALSE) of the
+    bitmaps: each shard's phase of each var, as JAX's `implied` plane."""
+    shifts = torch.arange(32, device=keyed.device, dtype=torch.int32)
+
+    def unpack(words):
+        bits = (words.unsqueeze(-1) >> shifts) & 1
+        return bits.reshape(words.shape[:-1] + (-1,))[..., :v1]
+
+    k, f = unpack(keyed), unpack(false)
+    return (k * (1 + f)).to(torch.int8)
+
+
+def shard_exchange_bound(state, tensors, depth, mesh, steps) -> dict:
+    """bound_ms of all D shards' seal launches and of all D combine
+    launches, a step averaged over `steps` K13 steps from `state`, counted
+    on this run's exchange. The seal of a shard reads its bitmap words,
+    its two flags and the key of each var keyed there and writes its plane;
+    the combine function reads the D planes once and writes the combined
+    bitmap words and flags and a key for each var keyed in any shard.
+    Also the plane bytes copied a step (D (D - 1) planes) and the last
+    step's stacked int8 phase planes [D, rows, V1]."""
     n_shards = len(mesh)
     table = torch.tensor(POPCOUNT8, dtype=torch.int64,
                          device=state.assign.device)
     work = convert.clone(state)
-    total = keyed = 0
-    phases = None
+    plane = plane_bytes(state)
+    seal = combine = keyed_vars = union_vars = 0
     for _ in range(steps):
         ops.sat_run_sharded(work, tensors, 1, depth, mesh)
-        bits, phases = shard_exchange(work, tensors, depth, mesh)
-        rows, n_words = bits.shape[1:]
-        union = bits[0]
+        keyed, false, flags = shard_exchange(work, tensors, depth, mesh)
+        rows, n_words = keyed.shape[1:]
+        union = keyed[0]
         for d in range(1, n_shards):
-            union = union | bits[d]
-        per_shard = int(table[bits.view(torch.uint8).long()].sum())
-        in_union = int(table[union.view(torch.uint8).long()].sum())
-        keyed += per_shard
-        total += (n_shards * rows * (n_words * 4 + 2) + per_shard
-                  + rows * (n_words * 4 + 2) + in_union)
-    return (*bound_ms(total / steps, 0), total / steps, keyed / steps,
-            phases)
+            union = union | keyed[d]
+        per_shard = int(table[keyed.contiguous().view(torch.uint8).long()]
+                        .sum())
+        in_union = int(table[union.contiguous().view(torch.uint8).long()]
+                       .sum())
+        keyed_vars += per_shard
+        union_vars += in_union
+        seal += n_shards * (rows * n_words * 4 + rows * 2 * 4 + plane) \
+            + 4 * per_shard
+        combine += n_shards * plane + rows * n_words * 4 + rows * 2 * 4 \
+            + 4 * in_union
+    seal_ms, seal_by = bound_ms(seal / steps, 0)
+    combine_ms, combine_by = bound_ms(combine / steps, 0)
+    return {"seal_bound_ms": seal_ms, "seal_bound_by": seal_by,
+            "seal_bytes": seal / steps, "combine_bound_ms": combine_ms,
+            "combine_bound_by": combine_by, "combine_bytes": combine / steps,
+            "keyed_vars": keyed_vars / steps,
+            "keyed_vars_union": union_vars / steps,
+            "plane_bytes": plane,
+            "plane_bytes_copied": n_shards * (n_shards - 1) * plane,
+            "phases": phase_planes_of(keyed, false,
+                                      state.assign.shape[-1])}
+
+
+def chunk_launch_ms(run, fresh, steps: int) -> dict:
+    """{function: {device_ms, launches}} a step of one chunk `run()` of
+    `steps` steps, as torch.profiler records it (`fresh()`, which puts the
+    start state back, outside the trace)."""
+    _, _, events = profile_cuda(lambda _: run(), "sat_shard",
+                                prepare=fresh)
+    out = {}
+    for event in events:
+        key = event.key if "Memcpy" in event.key \
+            else event.key.split("(")[0].split()[-1]
+        entry = out.setdefault(key, {"device_ms": 0.0, "launches": 0.0})
+        entry["device_ms"] += event.self_device_time_total / 1e3 / steps
+        entry["launches"] += event.count / steps
+    return out
+
+
+def host_ms(run, fresh, reps: int) -> list:
+    """Host clock of `run()` to its synchronize, in ms, each of `reps`
+    calls after `fresh()` and a synchronize (the first call warms)."""
+    fresh()
+    run()
+    spent = []
+    for _ in range(reps):
+        fresh()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - start) * 1e3)
+    return spent
 
 
 def phase_sat_shard(dev) -> tuple:
@@ -6914,7 +7001,8 @@ def phase_sat_shard(dev) -> tuple:
         if timing is None:
             timing = (state, tensors)
 
-    # times a step on 1689-24 at D = 1 (K11, and K13 alone), 2 and 4
+    # times a step on 1689-24: K11, and K13 at D = 1, 2 and 4, graphed
+    # and eager (event-timed, host clock, and by launch under the profiler)
     state, tensors = timing
     steps = 32
     work = convert.clone(state)
@@ -6928,29 +7016,47 @@ def phase_sat_shard(dev) -> tuple:
         "k11_eager": event_ms(
         lambda _: ops.sat_run(work, tensors, steps, depth, False,
                               graph=False), 3, setup=fresh) / steps}
+    host_per_step = {}
     by_launch = {}
+    replays = {}
     for n_shards in (1,) + SAT_SHARD_COUNTS:
         mesh = (card,) * n_shards
+        for mode, graph in (("graphed", True), ("eager", False)):
+            def run(mesh=mesh, graph=graph):
+                return ops.sat_run_sharded(work, tensors, steps, depth, mesh,
+                                           graph=graph)
 
-        def run(_, mesh=mesh):
-            return ops.sat_run_sharded(work, tensors, steps, depth, mesh)
-
-        per_step[f"d{n_shards}"] = event_ms(run, 3, setup=fresh) / steps
-        times = device_times(lambda _, run=run: run(fresh()), 2, counts=True)
-        by_launch[f"d{n_shards}"] = {
-            key.split("(")[0].split()[-1]: {"device_ms": ms / steps,
-                                            "launches": calls / steps}
-            for key, (ms, calls) in times.items()}
-    main = by_launch[f"d{SAT_SHARD_COUNTS[-1]}"]
-    combine_ms = sum(row["device_ms"] for key, row in main.items()
-                     if "sat_shard_combine" in key)
-    if combine_ms <= 0:
-        raise AssertionError("the profiler recorded no device time of "
-                             "sat_shard_combine")
+            name = f"d{n_shards}_{mode}"
+            per_step[name] = event_ms(lambda _, run=run: run(), 3,
+                                      setup=fresh) / steps
+            host_per_step[name] = [ms / steps
+                                   for ms in host_ms(run, fresh, 3)]
+            before = ops.REPLAYS["sat_shard_chunk"]
+            by_launch[name] = chunk_launch_ms(run, fresh, steps)
+            replays[name] = ops.REPLAYS["sat_shard_chunk"] - before
+    if replays != {f"d{d}_{mode}": int(mode == "graphed")
+                   for d in (1,) + SAT_SHARD_COUNTS
+                   for mode in ("graphed", "eager")}:
+        raise AssertionError(f"K13: graph replays a profiled chunk {replays}")
     n_shards = SAT_SHARD_COUNTS[-1]
+    main = by_launch[f"d{n_shards}_graphed"]
+
+    def launch_sum(table, part):
+        return sum(row["device_ms"] for key, row in table.items()
+                   if part in key)
+
+    parts = {name: {part: launch_sum(table, part) for part in (
+        "sat_shard_seal", "sat_shard_combine", "Memcpy")}
+        for name, table in by_launch.items()}
+    for name, row in parts.items():
+        missing = [part for part, ms in row.items() if ms <= 0
+                   and not (part == "Memcpy" and name.startswith("d1_"))]
+        if missing:
+            raise AssertionError(f"K13 {name}: the profiler recorded no "
+                                 f"device time of {missing}")
     main_mesh = (card,) * n_shards
-    c_ms, c_by, c_bytes, c_keyed, phases = shard_combine_bound(
-        state, tensors, depth, main_mesh, steps)
+    exchange = shard_exchange_bound(state, tensors, depth, main_mesh, steps)
+    phases = exchange.pop("phases")
     # the combine's yardstick: JAX's pmax as one PyTorch call, over the
     # stacked int8 phase planes [D, P, V1] of this run's last step
     library_ms = event_ms(lambda _: torch.amax(phases, dim=0), 20)
@@ -6958,8 +7064,15 @@ def phase_sat_shard(dev) -> tuple:
         lambda s: device_solver.run_chunk_sharded_reference(
             s, tensors, 4, depth, n_shards), 2,
         setup=lambda: convert.clone(state)) / 4
-    b_ms, b_by = sat_bound_ms_per_step(state, tensors, steps, depth,
-                                       n_shards)
+    # the step's bound: K11's bytes and the exchange the function needs,
+    # the D planes of two bits a var and two flags a probe read once and
+    # the combined one written; beside it, as once counted, with D + 1 int8
+    # phase planes [P, V1] (JAX's pmax of `implied`) instead
+    step_bytes = sat_mean_step_bytes(state, tensors, steps, depth, n_shards)
+    b_ms, b_by = bound_ms(step_bytes
+                          + (n_shards + 1) * exchange["plane_bytes"], 0)
+    b8_ms, _ = bound_ms(step_bytes
+                        + (n_shards + 1) * state.assign.numel(), 0)
 
     # distinct cards, where the host has them
     cards = torch.cuda.device_count()
@@ -6999,34 +7112,54 @@ def phase_sat_shard(dev) -> tuple:
           "race": {f"d{d}": race[d] for d in race},
           "race_unsharded": unsharded.assign[:, 5].tolist(),
           "compared_steps": 2 * SAT_SHARD_STEPS, "max_abs_err": 0,
+          "compared": ["graphed", "eager"],
           "queries": queries, "ms_per_step": per_step,
+          "host_ms_per_step": host_per_step,
           "device_ms_per_step_by_launch": by_launch,
-          "combine_device_ms_per_step": combine_ms,
-          "combine_bound_ms_per_step": c_ms,
-          "combine_bytes_per_step": c_bytes,
-          "combine_keyed_vars_per_step": c_keyed,
+          "device_ms_per_step_by_part": parts,
+          "graph_replays_per_chunk": replays,
+          **exchange,
           "amax_library_ms": library_ms, "plain_ms_per_step": plain_ms,
-          "bound_ms_per_step": b_ms, "cards": cards_note,
+          "bound_ms_per_step": b_ms, "bound_ms_per_step_int8_planes": b8_ms,
+          "cards": cards_note,
           "dispatch": {**run, "settings": {"shard": True, "mesh": 4,
                                            "clause_cap": SAT_SHARD_CAP},
                        "issues": summary["issues"], "lane": lane,
                        "shape_keys": [list(k) for k in shard_keys]}})
+    main_parts = parts[f"d{n_shards}_graphed"]
     return {"name": "sat_shard_combine", "route": "cuda",
             "source": "mythril_tpu_torch/kernels/sat_step.cu",
             "replaces": "mythril_tpu/parallel/jax_solver.py:397",
             "max_abs_err": 0,
             "per": f"step (32 probes, 64 tiles, V1 65536, D = {n_shards} "
-                   f"logical shards on one card)",
-            "ms": per_step[f"d{n_shards}"],
-            "device_ms": sum(row["device_ms"] for row in main.values()),
+                   f"logical shards on one card, graphed)",
+            "ms": per_step[f"d{n_shards}_graphed"],
+            "ms_eager": per_step[f"d{n_shards}_eager"],
+            "host_ms": min(host_per_step[f"d{n_shards}_graphed"]),
+            "device_ms_summed_over_streams": sum(
+                row["device_ms"] for row in main.values()),
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_int8_planes": b8_ms,
+            "bound": "K11's bytes and D + 1 exchange planes of two bits "
+                     "a var and two flags a probe (bound_ms_int8_planes: "
+                     "D + 1 int8 phase planes)",
+            "plane_bytes": exchange["plane_bytes"],
+            "plane_bytes_copied": exchange["plane_bytes_copied"],
             "library_ms": None,
             "library": "none: no PyTorch call computes a sharded DPLL step "
                        "(as K11); the combine's own yardstick is under "
                        "combine",
+            "seal": {"device_ms": main_parts["sat_shard_seal"],
+                     "bound_ms": exchange["seal_bound_ms"],
+                     "bound_by": exchange["seal_bound_by"],
+                     "bytes": exchange["seal_bytes"]},
+            "copies_device_ms": main_parts["Memcpy"],
             "combine": {
-                "device_ms": combine_ms, "bound_ms": c_ms, "bound_by": c_by,
-                "bytes": c_bytes, "keyed_vars": c_keyed,
+                "device_ms": main_parts["sat_shard_combine"],
+                "bound_ms": exchange["combine_bound_ms"],
+                "bound_by": exchange["combine_bound_by"],
+                "bytes": exchange["combine_bytes"],
+                "keyed_vars": exchange["keyed_vars"],
                 "library_ms": library_ms,
                 "library": f"torch.amax over the stacked int8 [{n_shards}, "
                            f"P, V1] phase planes (JAX's pmax of implied)"},

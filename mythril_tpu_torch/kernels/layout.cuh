@@ -528,10 +528,12 @@ enum Layout {
     K11_C0 = 26,
     K11_C1 = 27,
     // K13, the sharded chunk: int32 exchange planes [D, N_XCHG] on this
-    // shard's device, N_XCHG = Q * P * (V1 + ceil(V1 / 32) + 2): each
-    // shard's implied keys, keyed-var bitmaps, conflict and unit-seen
-    // flags (its propagate writes its own plane, the others arrive by
-    // copy); the shard count D and this shard's index
+    // shard's device, N_XCHG = Q * P * (2 * ceil(V1 / 32) + 2): each
+    // shard's keyed-var bitmaps [Q * P, NW], FALSE-phase bitmaps (a var's
+    // bit set where the shard's highest clause keying it implies FALSE)
+    // [Q * P, NW], conflict and unit-seen flags [Q * P] each (its seal
+    // writes its own plane whole, the others arrive by copy); the shard
+    // count D and this shard's index
     K11_XCHG = 28,
     K11_SHARDS = 29,
     K11_SHARD = 30,

@@ -55,10 +55,11 @@ with the very tensor objects of its cache's last call skips the key
 (`_Plans`). K6's and K7's outputs are allocated a call (a K7 gather's
 one flat buffer, whose leaf views it returns); K8 writes into its plan's
 pinned staging, one plan an arena and mirror. A
-chunk of K4 steps (`run_chunk_graph`) and a chunk of K11 steps are each
-captured as one CUDA graph per key and replayed, adding the captured
-launches to `LAUNCHES` on every replay; `REPLAYS` counts the replays and
-the captures of each. A K10 pass is one eager host call.
+chunk of K4 steps (`run_chunk_graph`), a chunk of K11 steps and a K13
+chunk whose shards all lie on the caller's card are each captured as one
+CUDA graph per key and replayed, adding the captured launches to
+`LAUNCHES` on every replay; `REPLAYS` counts the replays and the captures
+of each. A K10 pass is one eager host call.
 """
 
 from __future__ import annotations
@@ -91,9 +92,11 @@ LAUNCHES: Dict[str, int] = {"keccak": 0, "evm_step": 0, "arena_alloc": 0,
                             "sat_shard_combine": 0}
 
 #: CUDA graph replays and captures since the last reset_launches(): of
-#: `run_chunk_graph` (K4's chunks) and of K11's chunks
+#: `run_chunk_graph` (K4's chunks), of K11's chunks and of K13's one-card
+#: chunks
 REPLAYS: Dict[str, int] = {"run_chunk": 0, "captures": 0, "sat_chunk": 0,
-                           "sat_captures": 0}
+                           "sat_captures": 0, "sat_shard_chunk": 0,
+                           "sat_shard_captures": 0}
 
 #: which source each exported entry point lives in
 _ENTRY_LIB = {"mtpu_keccak_rows": "keccak", "mtpu_keccak_preload": "keccak",
@@ -684,7 +687,8 @@ def sym_step(state, planes, arena, sched, lanes_per_block: int = LANES_PER_BLOCK
 _GRAPHS = _Plans(limit=4)
 
 #: the REPLAYS entry counting each kind's captures
-_CAPTURES = {"run_chunk": "captures", "sat_chunk": "sat_captures"}
+_CAPTURES = {"run_chunk": "captures", "sat_chunk": "sat_captures",
+             "sat_shard_chunk": "sat_shard_captures"}
 
 
 @functools.cache
@@ -1472,9 +1476,10 @@ class _SatShardPlan:
     its replica of the state (shard 0 on the state's device steps the
     caller's state itself), the problem's tensors on its device (a copy on
     another device), its block of the clause tiles as a clause range,
-    K11's step scratch, its exchange planes [D, Q * P * (V1 + ceil(V1 /
-    32) + 2)] and its parameter block. The plan holds no tensor of the
-    caller's."""
+    K11's step scratch, its exchange planes [D, Q * P * 2 * (ceil(V1 / 32)
+    + 1)] and its parameter block. With every shard on the caller's card
+    (`one_card`) it also holds a stream a shard and the chunk graphs
+    captured on them. The plan holds no tensor of the caller's."""
 
     def __init__(self, state, problem, forced_depth: int, mesh: tuple,
                  var_tile: int):
@@ -1507,12 +1512,18 @@ class _SatShardPlan:
             _check(leaf, what, dtype, shape)
         rows = lead * n_probes
         n_words = -(-v1 // 32)
-        plane = rows * (v1 + n_words + 2)
+        plane = rows * 2 * (n_words + 1)
         width = n_tiles // n_shards * TILE
+        home = state.assign.device
+        self.one_card = home.type == "cuda" and all(
+            dev == home for dev in mesh + (problem.lits.device,))
+        self.streams = ([torch.cuda.Stream(device=home) for _ in mesh]
+                        if self.one_card else None)
+        self.graphs = _Plans(limit=4)
         self.shards = []
         for index, dev in enumerate(mesh):
             shard = {"device": dev}
-            if index == 0 and dev == state.assign.device:
+            if index == 0 and dev == home:
                 leaves = list(state)
             else:
                 leaves = shard["replica"] = [
@@ -1571,36 +1582,61 @@ class _SatShardPlan:
         """Every shard's exchange planes [D, N_XCHG] (layout.cuh K11_XCHG)."""
         return [shard["scratch"][Lay.K11_XCHG] for shard in self.shards]
 
-    def launch(self, state, problem, steps: int) -> None:
-        """One chunk: the replicas refreshed from the caller's state (and
-        the problem's copies from the caller's problem, when it is other
-        tensors than the last chunk's), every shard's mirror, then `steps`
-        steps; the caller's state takes shard 0's."""
+    def _chunk(self, state, steps: int, streams) -> None:
+        """A chunk's work after the problem's copies: every shard's replica
+        refreshed from the caller's state and its mirror, `steps` steps,
+        and the caller's state taking shard 0's replica where it has one.
+        With `streams` (a stream a shard, all on the caller's card) each
+        shard's launches and incoming copies run on its own stream, forked
+        from the current stream and joined into it, ordered by events: a
+        shard's copies wait for the other shards' seals, and its next seal
+        for the other shards' copies of its plane. Without, each shard's
+        work runs on its device's current stream, and PyTorch orders each
+        copy between devices against both devices' streams. The two
+        schemes stay apart until a host with several cards can test the
+        streams and events across devices: only the one-card scheme is
+        captured, and the eager one is what a mesh of cards ran before."""
         shards = self.shards
-        fresh = len(self.copied) != len(problem) or any(
-            ref() is not leaf for ref, leaf in zip(self.copied, problem))
-        for shard in shards:
-            with _on(shard["device"]):
+        planes = self.planes()
+        if streams is None:
+            def on(index):
+                return _on(shards[index]["device"])
+        else:
+            def on(index):
+                return torch.cuda.stream(streams[index])
+            origin = torch.cuda.current_stream()
+            for stream in streams:
+                stream.wait_stream(origin)
+            sealed = [torch.cuda.Event() for _ in shards]
+            copied = [torch.cuda.Event() for _ in shards]
+        for index, shard in enumerate(shards):
+            with on(index):
                 for copy, leaf in zip(shard.get("replica", ()), state):
                     copy.copy_(leaf)
-                if fresh:
-                    for copy, leaf in zip(shard.get("problem", ()), problem):
-                        copy.copy_(leaf)
                 _call("mtpu_sat_shard_mirror", shard["block_values"])
-        self.copied = tuple(weakref.ref(leaf) for leaf in problem)
-        planes = self.planes()
-        for _ in range(steps):
-            for shard in shards:
-                with _on(shard["device"]):
-                    _call("mtpu_sat_shard_propagate", shard["block_values"])
+        for step in range(steps):
             for index, shard in enumerate(shards):
-                with _on(shard["device"]):
+                with on(index):
+                    if streams is not None and step:
+                        for other in range(len(shards)):
+                            if other != index:
+                                streams[index].wait_event(copied[other])
+                    _call("mtpu_sat_shard_propagate", shard["block_values"])
+                    if streams is not None:
+                        sealed[index].record(streams[index])
+            for index, shard in enumerate(shards):
+                with on(index):
                     for other in range(len(shards)):
                         if other != index:
+                            if streams is not None:
+                                streams[index].wait_event(sealed[other])
                             planes[index][other].copy_(planes[other][other])
-            for shard in shards:
-                with _on(shard["device"]):
+                    if streams is not None:
+                        copied[index].record(streams[index])
                     _call("mtpu_sat_shard_resolve", shard["block_values"])
+        if streams is not None:
+            for stream in streams:
+                origin.wait_stream(stream)
         if "replica" in shards[0]:
             with _on(state.assign.device):
                 for leaf, value in zip(state, shards[0]["replica"]):
@@ -1608,17 +1644,44 @@ class _SatShardPlan:
         LAUNCHES["sat_step"] += 1
         LAUNCHES["sat_shard_combine"] += 1
 
+    def launch(self, state, problem, steps: int, graph: bool) -> None:
+        """One chunk: the problem's copies refreshed from the caller's
+        problem when it is other tensors than the last chunk's, then the
+        chunk (`_chunk`): with `graph` and `one_card`, one replay of the
+        chunk's CUDA graph, captured on the plan's streams for these
+        tensors and the step count; else eager host calls, a step at a
+        time."""
+        fresh = len(self.copied) != len(problem) or any(
+            ref() is not leaf for ref, leaf in zip(self.copied, problem))
+        if fresh:
+            for shard in self.shards:
+                with _on(shard["device"]):
+                    for copy, leaf in zip(shard.get("problem", ()), problem):
+                        copy.copy_(leaf)
+        self.copied = tuple(weakref.ref(leaf) for leaf in problem)
+        if graph and self.one_card:
+            _replay(self.graphs, list(state) + list(problem), (steps,),
+                    lambda: (lambda: self._chunk(state, steps, self.streams)),
+                    ("mtpu_sat_preload",), "sat_shard_chunk")
+        else:
+            self._chunk(state, steps, None)
+
 
 _SAT_SHARD_PLANS = _Plans(limit=2)
 
 
 def sat_run_sharded(state, problem, steps: int, forced_depth: int,
-                    mesh: tuple, var_tile: int = SAT_VAR_TILE):
+                    mesh: tuple, var_tile: int = SAT_VAR_TILE,
+                    graph: bool = True):
     """K13: `steps` DPLL steps of every probe over the clause shards of
     `mesh` (one a device; a device may repeat), in place, as JAX
-    `_get_sharded_runner`: eager host calls, a step at a time (every
-    shard's gate and propagate, the exchange planes' copies to every
-    shard's device, every shard's combine, count and apply). `state` and
+    `_get_sharded_runner`. A step is every shard's gate, propagate and
+    seal, the exchange planes' copies to every shard, and every shard's
+    combine, count and apply. With every shard on the state's card and
+    `graph`, the chunk is one replay of its CUDA graph (captured once for
+    these tensors, arguments and step count; a shard a stream); otherwise
+    (`graph=False`, or a mesh of several devices) eager host calls, a
+    step at a time. A failed capture or replay raises. `state` and
     `problem` as `sat_run`'s (no freeze: the JAX package never shards a
     batch); the tiles must divide over the mesh. Returns the state."""
     if steps < 0:
@@ -1629,7 +1692,7 @@ def sat_run_sharded(state, problem, steps: int, forced_depth: int,
     plan = _SAT_SHARD_PLANS.get(tensors, static, lambda: _SatShardPlan(
         state, problem, forced_depth, mesh, var_tile))
     if steps:
-        plan.launch(state, problem, steps)
+        plan.launch(state, problem, steps, graph)
     return state
 
 
@@ -1655,10 +1718,12 @@ def sat_shard_replicas(state, problem, forced_depth: int, mesh: tuple,
 def sat_shard_planes(state, problem, forced_depth: int, mesh: tuple,
                      var_tile: int = SAT_VAR_TILE) -> list:
     """Every shard's exchange planes after the last `sat_run_sharded` of
-    these tensors and arguments: int32 [D, Q * P * (V1 + ceil(V1 / 32) +
-    2)] a shard (keys, keyed-var bitmap words, conflict and unit flags).
-    The combine clears its own shard's plane; the others hold the copies
-    of the last step's."""
+    these tensors and arguments: int32 [D, Q * P * 2 * (ceil(V1 / 32) +
+    1)] a shard, each plane the keyed-var bitmap words [Q * P, NW], the
+    FALSE-phase bitmap words [Q * P, NW] (a var's bit set where the
+    shard's highest clause keying it implies FALSE), the conflict and the
+    unit flags [Q * P] each. A shard's seal writes its own plane whole
+    each step; the other slots hold the copies of the last step's."""
     return _sat_shard_plan(state, problem, forced_depth, mesh,
                            var_tile).planes()
 

@@ -41,22 +41,29 @@
 // K13, the clause-sharded chunk (mythril_tpu/parallel/jax_solver.py:397
 // `_get_sharded_runner`, `_step` with axis_name "clauses"): D shards, each
 // with a replica of the state and the mirror and a contiguous block of the
-// clause tiles, on its own device or several on one. Per step the host runs
+// clause tiles, on its own device or several on one. Per step
 //
 //   propagate  on every shard (`mtpu_sat_shard_propagate`: the gate, then
 //              propagate over the shard's clause range [C0, C1) into the
-//              shard's own exchange plane: keys, bitmap, flags);
-//   copies     every shard's plane to every other shard's device;
-//   combine    on every shard (`mtpu_sat_shard_resolve`: the new kernel
+//              shard's own step scratch, as K11's, then the seal
+//              `sat_shard_seal_kernel`, a thread per (probe, bitmap word):
+//              it writes the shard's exchange plane, two bitmap words (the
+//              keyed vars, and those whose highest clause in the shard
+//              implies FALSE) and the conflict and unit flags, and zeroes
+//              the keys, words and flags it read);
+//   copies     every shard's plane to every other shard;
+//   combine    on every shard (`mtpu_sat_shard_resolve`:
 //              `sat_shard_combine_kernel`, a thread per (probe, bitmap
-//              word), folds the D planes into the step scratch that count
-//              and apply read: bitmap words and flags by OR, and for each
-//              keyed var the larger of the shards' phase codes, as JAX's
-//              pmax; within a shard its highest clause still wins, the last
-//              write of its own tile scan), then count and apply.
+//              word), ORs the D planes' words and flags into the step
+//              scratch and writes each keyed var the key 2 | TRUE bit,
+//              TRUE where no shard's FALSE bit is set: JAX's pmax of the
+//              shards' phases; then count and apply).
 //
 // So the shards of one variable race as in JAX: a FALSE from any shard
-// beats a TRUE from another whatever their clause indices.
+// beats a TRUE from another whatever their clause indices. A plane is two
+// bits a var and two flags a probe, so the copies move 2 * NW + 2 words a
+// probe and no key. With every shard on the caller's card the wrapper
+// replays a chunk as one CUDA graph, a stream a shard.
 //
 // Bound: bytes. A step reads each clause's literals once (12 B) and one
 // mirror byte per literal and searching probe, then per probe the branch's
@@ -443,53 +450,80 @@ __global__ void sat_apply_kernel(Args a) {
     }
 }
 
-// K13: a thread per (probe row, bitmap word) of every query. It reads the
-// word of each of the D exchange planes; for each var keyed in any, the
-// shards' keys there (phase: the key's low bit, TRUE or FALSE), and writes
-// into the step scratch (zero on entry, as K11 leaves it) the OR of the
-// words, the largest phase as a key of that phase (2 | TRUE bit, which is
-// all apply reads of a key) and, in its row's first word's thread, the OR
-// of the flags. It zeroes what this shard's propagate wrote in its own
-// plane (the other planes are overwritten whole by the next step's copies).
+// K13's plane of one shard: int32 [2 * Q * P * NW + 2 * Q * P] (layout.cuh
+// K11_XCHG)
+__device__ __forceinline__ long long sat_plane(const SatView& s) {
+    return 2 * s.Q * s.P * (s.NW + 1);
+}
+
+// K13's seal: a thread per (probe row, bitmap word) of every query. It
+// reads the shard's bitmap word and, for each var keyed there, the shard's
+// key (its highest clause's), and writes into the shard's own plane the
+// word, the word of the vars whose key is FALSE and, in its row's first
+// word's thread, the two flags. It zeroes what it read, so the step
+// scratch is zero again for the combine, as K11 leaves it.
+__global__ void sat_shard_seal_kernel(Args a) {
+    const SatView s = sat_view(a);
+    const long long rows = s.Q * s.P, words = rows * s.NW;
+    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (i >= words) return;
+    const long long row = i / s.NW, w = i % s.NW;
+    uint32_t* own = arg_ptr<uint32_t>(a, K11_XCHG) + a.v[K11_SHARD] * sat_plane(s);
+    const uint32_t word = s.bits[i];
+    uint32_t false_word = 0;
+    if (word) {
+        int32_t* key = s.key + row * s.V1 + w * 32;
+        for (uint32_t left = word; left; left &= left - 1) {
+            const int b = __ffs(left) - 1;
+            false_word |= static_cast<uint32_t>((key[b] & 1) == 0) << b;
+            key[b] = 0;
+        }
+        s.bits[i] = 0;
+    }
+    own[i] = word;
+    own[words + i] = false_word;
+    if (w == 0) {
+        own[2 * words + row] = static_cast<uint32_t>(s.conflict[row]);
+        own[2 * words + rows + row] = static_cast<uint32_t>(s.unit[row]);
+        s.conflict[row] = 0;
+        s.unit[row] = 0;
+    }
+}
+
+// K13's combine: a thread per (probe row, bitmap word) of every query. It
+// ORs the word and the FALSE word of each of the D planes, writes the word
+// into the step scratch (zero on entry: the seal left it so) and each of
+// its vars the key 2 | TRUE bit (all apply reads of a key), and in its
+// row's first word's thread the ORs of the flags. It reads no key.
 __global__ void sat_shard_combine_kernel(Args a) {
     const SatView s = sat_view(a);
-    const long long rows = s.Q * s.P;
+    const long long rows = s.Q * s.P, words = rows * s.NW;
     const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (i >= rows * s.NW) return;
+    if (i >= words) return;
     const long long row = i / s.NW, w = i % s.NW;
-    const long long plane = rows * (s.V1 + s.NW + 2), n_shards = a.v[K11_SHARDS];
-    int32_t* xchg = arg_ptr<int32_t>(a, K11_XCHG);
-    int32_t* own = xchg + a.v[K11_SHARD] * plane;
-    const long long at_bits = rows * s.V1 + row * s.NW + w;
-    uint32_t word = 0;
-    for (long long d = 0; d < n_shards; ++d) word |= static_cast<uint32_t>(xchg[d * plane + at_bits]);
+    const long long plane = sat_plane(s), n_shards = a.v[K11_SHARDS];
+    const uint32_t* xchg = arg_ptr<const uint32_t>(a, K11_XCHG);
+    uint32_t word = 0, false_word = 0;
+    for (long long d = 0; d < n_shards; ++d) {
+        word |= xchg[d * plane + i];
+        false_word |= xchg[d * plane + words + i];
+    }
     if (word) {
-        s.bits[row * s.NW + w] = word;
+        s.bits[i] = word;
+        int32_t* key = s.key + row * s.V1 + w * 32;
         for (uint32_t left = word; left; left &= left - 1) {
-            const long long v = w * 32 + __ffs(left) - 1;
-            int phase = SAT_UNASSIGNED;
-            for (long long d = 0; d < n_shards; ++d) {
-                const int k = xchg[d * plane + row * s.V1 + v];
-                const int shard_phase = k == 0 ? SAT_UNASSIGNED : ((k & 1) ? SAT_TRUE : SAT_FALSE);
-                phase = shard_phase > phase ? shard_phase : phase;
-            }
-            s.key[row * s.V1 + v] = 2 | (phase == SAT_TRUE ? 1 : 0);
+            const int b = __ffs(left) - 1;
+            key[b] = 2 | static_cast<int>(((false_word >> b) & 1) ^ 1);
         }
     }
-    for (uint32_t left = static_cast<uint32_t>(own[at_bits]); left; left &= left - 1)
-        own[row * s.V1 + w * 32 + __ffs(left) - 1] = 0;
-    own[at_bits] = 0;
     if (w == 0) {
-        const long long at_flags = rows * (s.V1 + s.NW) + row;
-        int conflict = 0, unit = 0;
+        uint32_t conflict = 0, unit = 0;
         for (long long d = 0; d < n_shards; ++d) {
-            conflict |= xchg[d * plane + at_flags];
-            unit |= xchg[d * plane + at_flags + rows];
+            conflict |= xchg[d * plane + 2 * words + row];
+            unit |= xchg[d * plane + 2 * words + rows + row];
         }
-        if (conflict) s.conflict[row] = 1;
-        if (unit) s.unit[row] = 1;
-        own[at_flags] = 0;
-        own[at_flags + rows] = 0;
+        s.conflict[row] = conflict != 0;
+        s.unit[row] = unit != 0;
     }
 }
 
@@ -558,9 +592,9 @@ MTPU_EXPORT int mtpu_sat_run(const long long* values, int n, void* stream) {
     return rc;
 }
 
-// K13's entries, one shard's block each: the chunk's mirror; a step's gate
-// and propagate into the shard's own exchange plane; a step's combine of
-// the planes (copied in by the host) and its count and apply
+// K13's entries, one shard's block each: the chunk's mirror; a step's gate,
+// propagate and seal into the shard's own exchange plane; a step's combine
+// of the planes (copied in by the wrapper) and its count and apply
 static int sat_shard_args(const long long* values, int n, Args* a, SatGrid* g) {
     *a = mtpu_pack(values, n);
     const long long D = a->v[K11_SHARDS], shard = a->v[K11_SHARD];
@@ -576,29 +610,31 @@ MTPU_EXPORT int mtpu_sat_shard_mirror(const long long* values, int n, void* stre
     return MTPU_LAUNCH_STATUS();
 }
 
+// a launch of a thread per (probe, bitmap word), checked
+static int sat_word_blocks(const Args& a, int* blocks) {
+    const long long words = a.v[K11_Q] * a.v[K11_P] * ((a.v[K11_V1] + 31) / 32);
+    const long long n = (words + SAT_PROP_THREADS - 1) / SAT_PROP_THREADS;
+    if (n > 0x7FFFFFFFLL) return 1;
+    *blocks = static_cast<int>(n);
+    return 0;
+}
+
 MTPU_EXPORT int mtpu_sat_shard_propagate(const long long* values, int n, void* stream) {
     Args a;
     SatGrid g;
-    if (sat_shard_args(values, n, &a, &g)) return 1;
-    const long long rows = a.v[K11_Q] * a.v[K11_P], V1 = a.v[K11_V1];
-    const long long NW = (V1 + 31) / 32;
-    int32_t* own = reinterpret_cast<int32_t*>(a.v[K11_XCHG]) + a.v[K11_SHARD] * rows * (V1 + NW + 2);
-    a.v[K11_KEY] = reinterpret_cast<long long>(own);
-    a.v[K11_BITS] = reinterpret_cast<long long>(own + rows * V1);
-    a.v[K11_CONFLICT] = reinterpret_cast<long long>(own + rows * (V1 + NW));
-    a.v[K11_UNIT] = reinterpret_cast<long long>(own + rows * (V1 + NW + 1));
+    int blocks;
+    if (sat_shard_args(values, n, &a, &g) || sat_word_blocks(a, &blocks)) return 1;
     sat_propagate(a, g, stream);
+    MTPU_LAUNCH(sat_shard_seal_kernel, blocks, SAT_PROP_THREADS, stream, a);
     return MTPU_LAUNCH_STATUS();
 }
 
 MTPU_EXPORT int mtpu_sat_shard_resolve(const long long* values, int n, void* stream) {
     Args a;
     SatGrid g;
-    if (sat_shard_args(values, n, &a, &g)) return 1;
-    const long long words = a.v[K11_Q] * a.v[K11_P] * ((a.v[K11_V1] + 31) / 32);
-    const long long blocks = (words + SAT_PROP_THREADS - 1) / SAT_PROP_THREADS;
-    if (blocks > 0x7FFFFFFFLL) return 1;
-    MTPU_LAUNCH(sat_shard_combine_kernel, static_cast<int>(blocks), SAT_PROP_THREADS, stream, a);
+    int blocks;
+    if (sat_shard_args(values, n, &a, &g) || sat_word_blocks(a, &blocks)) return 1;
+    MTPU_LAUNCH(sat_shard_combine_kernel, blocks, SAT_PROP_THREADS, stream, a);
     sat_resolve(a, g, stream);
     return MTPU_LAUNCH_STATUS();
 }
@@ -608,5 +644,5 @@ MTPU_EXPORT int mtpu_sat_preload(const long long*, int, void*) {
     return MTPU_PRELOAD(sat_mirror_kernel) | MTPU_PRELOAD(sat_gate_kernel)
            | MTPU_PRELOAD(sat_propagate_kernel<1>) | MTPU_PRELOAD(sat_propagate_kernel<4>)
            | MTPU_PRELOAD(sat_count_kernel) | MTPU_PRELOAD(sat_apply_kernel)
-           | MTPU_PRELOAD(sat_shard_combine_kernel);
+           | MTPU_PRELOAD(sat_shard_seal_kernel) | MTPU_PRELOAD(sat_shard_combine_kernel);
 }

@@ -326,22 +326,67 @@ def _set_at(base: torch.Tensor, index: torch.Tensor,
                         values.to(base.dtype).unsqueeze(-1))
 
 
-def _implied(key: torch.Tensor, unit_var: torch.Tensor, v1: int,
-             shard: torch.Tensor, n_shards: int) -> torch.Tensor:
-    """int8 [Q, P, V1] phase codes of the implied vars, from each clause's
-    key ((clause + 1) << 1 | TRUE bit, 0: no unit), var and shard: inside
-    each shard the highest clause's phase (the last write of JAX's tile
-    scan), then the larger code over the shards (JAX's pmax over the
-    "clauses" axis)."""
+def _shard_keys(key: torch.Tensor, unit_var: torch.Tensor, v1: int,
+                shard: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """int64 [Q, P, D, V1]: each shard's key of each var, the highest of
+    its clauses' keys ((clause + 1) << 1 | TRUE bit, 0: no unit) for that
+    var (the last write of JAX's tile scan); var 0 never keyed."""
     n_queries, n_probes, _ = key.shape
     implied_key = torch.zeros((n_queries, n_probes, n_shards * v1),
                               dtype=torch.int64, device=key.device)
     implied_key.scatter_reduce_(-1, unit_var + shard * v1, key, "amax")
     implied_key = implied_key.view(n_queries, n_probes, n_shards, v1)
     implied_key[..., 0] = 0
+    return implied_key
+
+
+def _implied(key: torch.Tensor, unit_var: torch.Tensor, v1: int,
+             shard: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """int8 [Q, P, V1] phase codes of the implied vars, from each clause's
+    key ((clause + 1) << 1 | TRUE bit, 0: no unit), var and shard: inside
+    each shard the highest clause's phase (`_shard_keys`), then the larger
+    code over the shards (JAX's pmax over the "clauses" axis)."""
+    implied_key = _shard_keys(key, unit_var, v1, shard, n_shards)
     phase = torch.where(implied_key == 0, _UNASSIGNED,
                         torch.where((implied_key & 1) == 1, _TRUE, _FALSE))
     return phase.amax(-2).to(torch.int8)
+
+
+def _clause_units(assign: torch.Tensor, lits: torch.Tensor,
+                  valid: torch.Tensor) -> tuple:
+    """Unit propagation over every clause at once, on batched views: per
+    (query, probe, clause) whether the clause is a conflict (every literal
+    false), and its key ((clause + 1) << 1 | TRUE bit; 0 unless a unit
+    clause) and unit var (0 unless a unit clause)."""
+    n_queries, n_probes, _ = assign.shape
+    n_clauses = lits.shape[1]
+    lit64 = lits.long()
+    var = lit64.abs()                                        # [Q, C, 3]
+    av = torch.gather(assign, -1, var.reshape(n_queries, 1, -1).expand(
+        -1, n_probes, -1)).reshape(n_queries, n_probes, n_clauses, 3)
+    # the value that makes each literal true, and the one that leaves it
+    # open; a pad slot (0) matches neither (3 is no assignment code)
+    true_code = torch.where(lit64 > 0, _TRUE, _FALSE)
+    true_code = torch.where(lit64 == 0, 3, true_code).to(torch.int8)[:, None]
+    open_code = torch.where(lit64 == 0, 3, _UNASSIGNED).to(torch.int8)[:, None]
+    val_true = av == true_code
+    val_unassigned = av == open_code
+    clause_sat = val_true.any(-1) | ~valid[:, None, :]       # [Q, P, C]
+    n_un = val_unassigned.sum(-1)
+    clause_conflict = ~clause_sat & (n_un == 0)
+    unit_clause = ~clause_sat & (n_un == 1)
+    # the first unassigned slot (argmax of a bool row)
+    unit_slot = torch.where(val_unassigned[..., 0], 0,
+                            torch.where(val_unassigned[..., 1], 1, 2))
+    unit_lit = torch.gather(lit64[:, None].expand(-1, n_probes, -1, -1), -1,
+                            unit_slot.unsqueeze(-1)).squeeze(-1)
+    # the highest clause index decides a variable implied by several units
+    # (inside each shard)
+    clause = torch.arange(n_clauses, device=assign.device)
+    key = torch.where(unit_clause, ((clause + 1) << 1) | (unit_lit > 0).long(),
+                      0)
+    unit_var = torch.where(unit_clause, unit_lit.abs(), 0)
+    return clause_conflict, key, unit_var
 
 
 def _step_batched(state: SolverState, lits: torch.Tensor, valid: torch.Tensor,
@@ -361,32 +406,9 @@ def _step_batched(state: SolverState, lits: torch.Tensor, valid: torch.Tensor,
 
     # ---- unit propagation over every clause at once ---------------------------
     n_clauses = lits.shape[1]
-    lit64 = lits.long()
-    var = lit64.abs()                                        # [Q, C, 3]
-    av = torch.gather(assign, -1, var.reshape(n_queries, 1, -1).expand(
-        -1, n_probes, -1)).reshape(n_queries, n_probes, n_clauses, 3)
-    # the value that makes each literal true, and the one that leaves it
-    # open; a pad slot (0) matches neither (3 is no assignment code)
-    true_code = torch.where(lit64 > 0, _TRUE, _FALSE)
-    true_code = torch.where(lit64 == 0, 3, true_code).to(torch.int8)[:, None]
-    open_code = torch.where(lit64 == 0, 3, _UNASSIGNED).to(torch.int8)[:, None]
-    val_true = av == true_code
-    val_unassigned = av == open_code
-    clause_sat = val_true.any(-1) | ~valid[:, None, :]       # [Q, P, C]
-    n_un = val_unassigned.sum(-1)
-    conflict = (~clause_sat & (n_un == 0)).any(-1)           # [Q, P]
-    unit_clause = ~clause_sat & (n_un == 1)
-    # the first unassigned slot (argmax of a bool row)
-    unit_slot = torch.where(val_unassigned[..., 0], 0,
-                            torch.where(val_unassigned[..., 1], 1, 2))
-    unit_lit = torch.gather(lit64[:, None].expand(-1, n_probes, -1, -1), -1,
-                            unit_slot.unsqueeze(-1)).squeeze(-1)
-    # the highest clause index decides a variable implied by several units
-    # (inside each shard)
+    clause_conflict, key, unit_var = _clause_units(assign, lits, valid)
+    conflict = clause_conflict.any(-1)                       # [Q, P]
     clause = torch.arange(n_clauses, device=dev)
-    key = torch.where(unit_clause, ((clause + 1) << 1) | (unit_lit > 0).long(),
-                      0)
-    unit_var = torch.where(unit_clause, unit_lit.abs(), 0)
     implied = _implied(key, unit_var, v1, clause // (n_clauses // n_shards),
                        n_shards)
     newly = (implied != 0) & (assign == _UNASSIGNED)         # [Q, P, V1]
@@ -538,8 +560,10 @@ def run_chunk_sharded(state: SolverState, problem: DeviceProblem,
                       chunk: int, forced_depth: int, mesh: tuple
                       ) -> SolverState:
     """`chunk` steps of the clause-sharded route over `mesh` (one shard a
-    device), in place: K13 on CUDA tensors (eager: every shard's launches
-    and the planes' copies, a step at a time), the twin on CPU tensors."""
+    device), in place: K13 on CUDA tensors (a mesh all on the state's card:
+    one replay of the chunk's CUDA graph; a mesh of several cards: every
+    shard's launches and the planes' copies, a step at a time), the twin
+    on CPU tensors."""
     if not state.assign.is_cuda:
         return run_chunk_sharded_reference(state, problem, chunk,
                                            forced_depth, len(mesh))

@@ -365,3 +365,80 @@ def test_host_sharded_chunk_matches_twin(on_host, case):
                 assert kernel.assign[:, 6].tolist() == [2, 2]
         assert ops.LAUNCHES["sat_shard_combine"] == n_chunks
         assert ops.LAUNCHES["sat_step"] == n_chunks
+
+
+def _bitmap_words(bits: torch.Tensor) -> torch.Tensor:
+    """int32 [..., ceil(V1 / 32)] words of a bool [..., V1] (var v at bit
+    v % 32 of word v // 32), as the kernels' bitmaps lay them out."""
+    v1 = bits.shape[-1]
+    padded = torch.zeros(bits.shape[:-1] + (-(-v1 // 32) * 32,),
+                         dtype=torch.int64)
+    padded[..., :v1] = bits.long()
+    weights = torch.tensor([1 << b for b in range(32)], dtype=torch.int64)
+    words = (padded.view(bits.shape[:-1] + (-1, 32)) * weights).sum(-1)
+    return torch.from_numpy(words.numpy().astype(np.uint32).view(np.int32))
+
+
+def sealed_planes(state, tensors, n_shards) -> torch.Tensor:
+    """int32 [D, N_XCHG]: what each shard's seal writes after a propagate
+    of `state`, derived from the twin: the keyed-var and FALSE-phase
+    bitmaps of `_shard_keys`' [Q, P, D, V1] keys, and the conflict and
+    unit flags of the shard's clauses, for the searching probes."""
+    batched, lits, valid, _ = ds._batched(state, tensors)
+    n_queries, n_probes, v1 = batched.assign.shape
+    n_clauses = lits.shape[1]
+    conflict, key, unit_var = ds._clause_units(batched.assign, lits, valid)
+    shard = torch.arange(n_clauses) // (n_clauses // n_shards)
+    keys = ds._shard_keys(key, unit_var, v1, shard, n_shards)
+    searching = (batched.status == ds.SEARCHING)[..., None]
+    keyed = (keys != 0) & searching[..., None]
+    by_shard = (n_queries, n_probes, n_shards, n_clauses // n_shards)
+    flags = [(conflict & searching).view(by_shard).any(-1),
+             ((key != 0) & searching).view(by_shard).any(-1)]
+    planes = []
+    for d in range(n_shards):
+        planes.append(torch.cat(
+            [_bitmap_words(keyed[:, :, d]).flatten(),
+             _bitmap_words(keyed[:, :, d] & (keys[:, :, d] & 1 == 0))
+             .flatten()]
+            + [flag[:, :, d].flatten().to(torch.int32) for flag in flags]))
+    return torch.stack(planes)
+
+
+def _padded_to(clauses, n_vars, n_shards):
+    """`clauses` with satisfied padding until the tiles divide over D."""
+    while ds.build_problem(clauses, n_vars).lits.shape[0] % n_shards:
+        clauses = clauses + [[1, 2, 3]] * (4 * ds.TILE + 1)
+    return clauses
+
+
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+@pytest.mark.parametrize("case", sorted(SHIM_CASES))
+def test_host_sealed_planes_are_the_twins_keys(on_host, case, n_shards):
+    """After each K13 step (as many as the case's chunks hold) every slot
+    of every shard's exchange planes holds the sealing shard's plane (two
+    bitmaps a probe and two flags), and that plane is the twin's: the vars
+    the shard's clauses key and those whose highest such clause implies
+    FALSE, from `_shard_keys` on the state before the step. The step's
+    result is the twin's too, and some step keys a var."""
+    make, n_probes, _, chunk, n_chunks = SHIM_CASES[case]
+    clauses, n_vars = make()
+    clauses = _padded_to(clauses, n_vars, n_shards)
+    problem = ds.build_problem(clauses, n_vars)
+    tensors = ds.device_problem(problem, "cpu")
+    depth = ds.forced_depth_of(n_probes)
+    mesh = (torch.device("cpu"),) * n_shards
+    state = ds.initial_state(problem.init_assign, n_probes, "cpu")
+    kernel = convert.clone(state)
+    keyed = 0
+    for step in range(chunk * n_chunks):
+        want = sealed_planes(state, tensors, n_shards)
+        keyed += int(want[:, :-2 * n_probes].any())
+        ops.sat_run_sharded(kernel, tensors, 1, depth, mesh, var_tile=64)
+        for index, planes in enumerate(ops.sat_shard_planes(
+                kernel, tensors, depth, mesh, var_tile=64)):
+            assert torch.equal(planes, want), \
+                f"{case} D={n_shards} step {step} shard {index}"
+        ds.run_chunk_sharded_reference(state, tensors, 1, depth, n_shards)
+        assert all(torch.equal(a, b) for a, b in zip(kernel, state))
+    assert keyed, f"{case} D={n_shards}: no step keyed a var"

@@ -21,7 +21,10 @@ Each case runs from `fresh` counters, solver backend, registries and
 tracers on both sides (tests/_torch_engine.py `run_on`), and from empty
 sets of run shape keys: each solver's `_SHAPES_RUN` is a process global
 that an earlier file on the same worker may have filled, and a status
-reply counts it (`warmset.observed_buckets`)."""
+reply counts it (`warmset.observed_buckets`); and from empty snapshot
+rings, the `metrics` reply's tail of another process global, which
+another file's requests may have filled (tests/test_torch_serve_fleet.py
+records two concurrent requests there, in the order they finished)."""
 
 import json
 
@@ -31,12 +34,14 @@ import torch
 from _torch_engine import JAX, PORT, report_parity, run_on
 from chip_smoke import (ANALYZE_RUNS, EXPECTED_ANALYZE, KILLBILLY,
                         OPTIMIZE_CODES, TX_ORIGIN, deterministic)
+from mythril_tpu.observe import export as jexport
 from mythril_tpu.parallel import jax_solver
 from mythril_tpu.serve import protocol as jprotocol
 from mythril_tpu.serve import result_store as jresult_store
 from mythril_tpu.serve import service as jservice
 from mythril_tpu_torch.frontends.asm import (assemble, creation_wrapper,
                                              dispatcher)
+from mythril_tpu_torch.observe import export as pexport
 from mythril_tpu_torch.parallel import device_solver
 from mythril_tpu_torch.parallel import frontier as pf
 from mythril_tpu_torch.serve import protocol as pprotocol
@@ -128,6 +133,15 @@ def both(tmp_path, frames, **settings):
 def _no_shapes_run(monkeypatch):
     monkeypatch.setattr(jax_solver, "_SHAPES_RUN", set())
     monkeypatch.setattr(device_solver, "_SHAPES_RUN", set())
+
+
+@pytest.fixture(autouse=True)
+def _empty_rings():
+    for export in (jexport, pexport):
+        export.reset_ring()
+    yield
+    for export in (jexport, pexport):
+        export.reset_ring()
 
 
 @pytest.fixture(autouse=True)

@@ -75,6 +75,18 @@ def _supervisor(side, tmp_path, **overrides):
     return side.supervisor.Supervisor(workers, **defaults)
 
 
+def _settle(sup) -> None:
+    """Wait (10 s at most) until every slot holds a live worker. A slot
+    whose worker died is first in backoff (`backoff_ms` doubled a
+    consecutive death), then restarting until the new worker reports
+    ready: which of the two a read right after a case sees depends on how
+    long the case's own return took, so the pool is read once settled."""
+    deadline = 200
+    while sup.status()["live"] < sup.workers and deadline:
+        threading.Event().wait(0.05)
+        deadline -= 1
+
+
 def _status(sup) -> dict:
     """The pool's status; its workers as a sorted list without pids and
     slots (which of two warm workers takes a job is a race)."""
@@ -189,11 +201,9 @@ def test_supervisor_case_matches_jax(tmp_path, case, overrides):
         sup = _supervisor(side, directory, **overrides)
         try:
             sup.start()
-            deadline = 200
-            while sup.status()["live"] < sup.workers and deadline:
-                threading.Event().wait(0.05)
-                deadline -= 1
+            _settle(sup)
             result = case(side, sup)
+            _settle(sup)
             observed[name] = json.loads(json.dumps(
                 (result, _metric_view(side), _status(sup))))
         finally:
