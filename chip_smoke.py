@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout; one CUDA card
     python3 chip_smoke.py --headline   # only the two headline analyses
     python3 chip_smoke.py --sat-shard  # only the build and phase 22a
+    python3 chip_smoke.py --load       # only the build and phase 20m
 
 It builds the hand-written kernels (K1-K13, eleven sources) from the
 checkout's sources, holds each against its plain PyTorch version on the
@@ -31,7 +32,8 @@ port's daemon has answered analyze requests on the card, cold, warm, as a
 fleet and through its worker pool (phase 20j), and its CLI has analyzed a
 contract read from a stub JSON-RPC chain with its storage faulted in from
 the chain (phase 20k) and a Solidity file and a foundry project through a
-stub solc (phase 20l).
+stub solc (phase 20l), and the daemon has answered an open-loop load,
+uncontended and then past its capacity (phase 20m).
 Every phase prints one JSON line; any mismatch raises, and the run exits
 non-zero. Each frontier* phase drives its
 configuration once more with every summary the loop reads (K5 and its
@@ -343,6 +345,24 @@ copy to the host) held word for word to the twin on the same tensors
      --project-root foundry --engine tpu -t 2` (forge's artifact layout)
      held to EXPECTED_SOLIDITY: each issue's SWC id, address and source
      mapping (file, line, code);
+20m. serve_load_tpu: tools/torch_loadgen.py's SLO A/B (the JAX
+     tools/loadgen.py's profiles: 20 s at 0.6 Hz interactive only, then 30
+     s at 4 Hz with three bulk requests in four over 5 contracts, 1
+     worker elastic to 2, queue 4, autoscale every 300 ms, up after 2)
+     against the port's daemon with `--engine tpu`, started by
+     torch_loadgen's launcher under SERVE_RUNNER, then one unloaded
+     request of each contract to a daemon with no result store: each
+     unloaded reply's result and frontier counters held to EXPECTED_LOAD
+     (the JAX daemon's), every answered reply's result to its contract's;
+     tools/load_smoke.py's invariants 1, 2, 4 and 5 asserted (no
+     interactive shed, a bulk shed, a scale-up to a pool of 2, a
+     result-store hit); a line with each class's p50, p95 and p99, the
+     interactive p99 beside its bound max(2x, +5 s) of the baseline's
+     (measured, not asserted), the sheds and when, scale-ups, store hits,
+     each worker's spawn-to-ready time, each engine run's seconds, a fresh
+     process's start by step (torch, the worker's modules, the CUDA
+     context, the kernel libraries) and the launches of K1, K2, K4, K5,
+     K6, K8 and K9; `--load` runs only the build and this phase;
  21. sat_lane: captured queries (tests/data/smt2_corpus.tar.gz, two of
      each bucket) through the port's from_smt2 -> lower_constraints ->
      Blaster -> `solve_cnf_device` with its defaults: CNF sizes (and, where
@@ -381,11 +401,11 @@ copy to the host) held word for word to the twin on the same tensors
      queries shard through the dispatch: exit and issues held to
      EXPECTED_ANALYZE_TPU, and it fails unless the combine launched;
  23. the kernels line: each kernel's launches on the main-path phases (8, 9,
-     12, 13, 18, 19, 20d-20l, 21, 22, 22a; 20g's also on their own; K3's are
+     12, 13, 18, 19, 20d-20m, 21, 22, 22a; 20g's also on their own; K3's are
      its allocations folded
      into K4's steps and K10's passes and its standalone calls in 20d-20f
      and 20k; K11's from the analyzer, 20e, and from the optimizer, 20i,
-     also on their own; the serving tier's, 20j, and the on-chain and
+     also on their own; the serving tier's, 20j and 20m, and the on-chain and
      Solidity inputs', 20k and 20l, on their own too), its
      time, its plain version's time, the least time the card could take
      and the library call's time (K11's per step).
@@ -5564,18 +5584,20 @@ def phase_optimize_jax() -> dict:
 #: launches and graph replays to OUT at exit, with the counts after the
 #: warm set's warmup, each CUDA-graph capture's window on the system's
 #: monotonic clock, and each engine run's launches beside the worker job
-#: it served (its id and whether it was a retry); a daemon's workers run
-#: under it too, each into a file of its own beside OUT (a worker that
-#: dies writes none)
+#: it served (its id and whether it was a retry), and each worker's
+#: spawn-to-ready time in a daemon's pool; a pool's fork server runs under
+#: it too, and each worker it forks writes a file of its own beside OUT (a
+#: worker that dies writes none). It imports torch only once the daemon's
+#: service is built, as the daemon itself does
 SERVE_RUNNER = r"""
 import atexit, json, os, runpy, sys, time
-
-import torch
 
 sys.path.insert(0, {repo!r})
 out, module = sys.argv[1], sys.argv[2]
 sys.argv = [module, *sys.argv[3:]]
-marks = {{"captures": [], "runs": []}}
+marks = {{"captures": [], "runs": [], "spawns": []}}
+# a worker forked by a fork server under this runner writes its own file
+runner_pid = os.getpid()
 
 
 def counts():
@@ -5585,29 +5607,36 @@ def counts():
 
 
 def dump():
-    with open(out, "w") as handle:
+    path = out if os.getpid() == runner_pid else f"{{out}}-{{os.getpid()}}"
+    with open(path, "w") as handle:
         json.dump({{**counts(), "marks": marks}}, handle)
 
 
 atexit.register(dump)
-capture_enter = torch.cuda.graph.__enter__
-capture_exit = torch.cuda.graph.__exit__
 
 
-def timed_enter(self):
-    self.started_at = time.monotonic()
-    return capture_enter(self)
+def time_captures():
+    # torch is imported here, not first: a daemon builds its service (and
+    # starts its pool's fork server) before its own import of torch
+    import torch
+
+    capture_enter = torch.cuda.graph.__enter__
+    capture_exit = torch.cuda.graph.__exit__
+
+    def timed_enter(self):
+        self.started_at = time.monotonic()
+        return capture_enter(self)
+
+    def timed_exit(self, *exc):
+        try:
+            return capture_exit(self, *exc)
+        finally:
+            marks["captures"].append([self.started_at, time.monotonic()])
+
+    torch.cuda.graph.__enter__ = timed_enter
+    torch.cuda.graph.__exit__ = timed_exit
 
 
-def timed_exit(self, *exc):
-    try:
-        return capture_exit(self, *exc)
-    finally:
-        marks["captures"].append([self.started_at, time.monotonic()])
-
-
-torch.cuda.graph.__enter__ = timed_enter
-torch.cuda.graph.__exit__ = timed_exit
 from mythril_tpu_torch.observe import slog
 from mythril_tpu_torch.serve import service, supervisor, warmset
 
@@ -5625,6 +5654,9 @@ def marked_warmup(self):
 def job_event(name, **fields):
     if name == "serve.worker.job":
         job.update(job_id=fields.get("job_id"), retry=fields.get("retry"))
+    if name == "serve.worker.ready":
+        marks["spawns"].append({{"slot": fields.get("slot"),
+                                "seconds": fields.get("spawn_s")}})
     return event(name, **fields)
 
 
@@ -5633,28 +5665,37 @@ run_local = service.AnalysisService._run_analysis_local
 
 def counted_run(self, *args, **kwargs):
     before = counts()["launches"]
+    started = time.monotonic()
     try:
         return run_local(self, *args, **kwargs)
     finally:
         after = counts()["launches"]
-        marks["runs"].append({{**job, "launches": {{
-            name: after[name] - before[name] for name in after}}}})
+        marks["runs"].append({{**job, "seconds": time.monotonic() - started,
+                              "launches": {{name: after[name] - before[name]
+                                           for name in after}}}})
 
 
-command = supervisor.Supervisor._worker_command
+def runner_fork_server(self):
+    return [sys.executable, os.path.abspath(__file__),
+            f"{{out}}.worker-{{os.urandom(4).hex()}}",
+            "mythril_tpu_torch.serve.forkserver"]
 
 
-def runner_command(self):
-    argv = command(self)
-    at = argv.index("-m")
-    return [argv[0], os.path.abspath(__file__),
-            f"{{out}}.worker-{{os.urandom(4).hex()}}", *argv[at + 1:]]
+startup = service.AnalysisService.startup
+
+
+def timed_startup(self):
+    time_captures()
+    return startup(self)
 
 
 warmset.WarmSet.warmup = marked_warmup
 slog.event = job_event
 service.AnalysisService._run_analysis_local = counted_run
-supervisor.Supervisor._worker_command = runner_command
+service.AnalysisService.startup = timed_startup
+supervisor.Supervisor._fork_server_command = runner_fork_server
+if module == "mythril_tpu_torch.serve.forkserver":
+    time_captures()  # before the forks: the workers inherit it
 runpy.run_module(module, run_name="__main__", alter_sys=True)
 """
 #: how long a daemon may take to answer its first ping
@@ -5709,9 +5750,7 @@ class ServeDaemon:
 
     def stop(self) -> dict:
         """Shut the daemon down (exit 0 or fail); its process's and its
-        workers' counts, summed: {"launches", "replays", "after_warmup",
-        "captures", "runs"}: the daemon's capture windows, and every
-        engine run of the daemon and its workers with its launches."""
+        workers' counts (`runner_counts`)."""
         reply = self.request({"op": "shutdown"}, timeout=120)
         try:
             code = self.proc.wait(120)
@@ -5720,23 +5759,33 @@ class ServeDaemon:
         self.log.close()
         if not reply.get("ok") or code != 0:
             self.fail(f"shutdown {reply}, exit {code}")
-        with open(self.counts_path) as handle:
-            own = json.load(handle)
-        total = {key: dict(own[key]) for key in ("launches", "replays")}
-        total["runs"] = list(own["marks"]["runs"])
-        directory = os.path.dirname(self.counts_path)
-        prefix = os.path.basename(self.counts_path) + ".worker-"
-        for filename in sorted(os.listdir(directory)):
-            if filename.startswith(prefix):
-                with open(os.path.join(directory, filename)) as handle:
-                    worker = json.load(handle)
-                for key in ("launches", "replays"):
-                    for name, count in worker[key].items():
-                        total[key][name] += count
-                total["runs"] += worker["marks"]["runs"]
-        total["after_warmup"] = own["marks"].get("after_warmup")
-        total["captures"] = own["marks"]["captures"]
-        return total
+        return runner_counts(self.counts_path)
+
+
+def runner_counts(counts_path: str) -> dict:
+    """What a daemon under SERVE_RUNNER and its workers wrote at their
+    exit, summed: {"launches", "replays", "after_warmup", "captures",
+    "runs", "spawns"}: the daemon's capture windows and its workers'
+    spawn-to-ready times, and every engine run of the daemon and its
+    workers with its launches."""
+    with open(counts_path) as handle:
+        own = json.load(handle)
+    total = {key: dict(own[key]) for key in ("launches", "replays")}
+    total["runs"] = list(own["marks"]["runs"])
+    directory = os.path.dirname(counts_path)
+    prefix = os.path.basename(counts_path) + ".worker-"
+    for filename in sorted(os.listdir(directory)):
+        if filename.startswith(prefix):
+            with open(os.path.join(directory, filename)) as handle:
+                worker = json.load(handle)
+            for key in ("launches", "replays"):
+                for name, count in worker[key].items():
+                    total[key][name] += count
+            total["runs"] += worker["marks"]["runs"]
+    total["after_warmup"] = own["marks"].get("after_warmup")
+    total["captures"] = own["marks"]["captures"]
+    total["spawns"] = own["marks"]["spawns"]
+    return total
 
 
 def serve_analyze(name: str, contract, modules, transaction_count: int,
@@ -6025,6 +6074,257 @@ def phase_serve_tpu() -> dict:
                  "sat_step"):
         if not launches[name]:
             raise AssertionError(f"serve_tpu: {name} never launched")
+    return launches
+
+
+# ---- phase 20m: serve_load_tpu ---------------------------------------------------------
+
+#: the kernels of the daemon's `--engine tpu` analyses whose launches the
+#: load phase reports: K1, K2, K4, K5, K6, K8 and K9
+LOAD_KERNELS = ("keccak", "evm_step", "sym_step", "frontier_summary",
+                "pack_rows", "arena_delta", "telemetry")
+
+#: the JAX daemon's reply to one analyze request of each contract of
+#: tools/loadgen.py's corpus (`build_corpus(5)`): its result (the reply's
+#: `torch_loadgen.RESULT_KEYS`, from tools/loadgen.py's daemon: engine
+#: host, solver cdcl) and the frontier counters of the same request under
+#: `"engine": "tpu"` (the JAX frontier on the CPU); recomputed by
+#: tests/test_torch_tools.py. No report of this corpus holds an issue: a
+#: reply held to it shows a whole, complete, issue-free analysis, not that
+#: an issue was found.
+_LOAD_RESULT = {"issue_count": 0, "incomplete": False, "coverage": {},
+                "report": {"error": None, "issues": [], "success": True}}
+_LOAD_FRONTIER = {"cold_sload_pauses": 0, "deaths": 0, "escapes": 2,
+                  "executed": 2, "forks": 0, "reseeds": 0}
+EXPECTED_LOAD = {
+    "600050600035600055600160005260206000f3": {
+        "result": _LOAD_RESULT, "frontier": _LOAD_FRONTIER},
+    "600150600035600055600160005260206000f3": {
+        "result": _LOAD_RESULT, "frontier": _LOAD_FRONTIER},
+    "600250600035600055600160005260206000f3": {
+        "result": _LOAD_RESULT, "frontier": _LOAD_FRONTIER},
+    "600350600035600055600160005260206000f3": {
+        "result": _LOAD_RESULT, "frontier": _LOAD_FRONTIER},
+    "600450600035600055600160005260206000f3": {
+        "result": _LOAD_RESULT, "frontier": _LOAD_FRONTIER},
+}
+
+
+#: a fresh process's start on the card, step by step, as a serve worker
+#: started by a fresh interpreter would make it: torch's import, the
+#: worker's modules, the CUDA context, the eleven kernel libraries
+#: (seconds from the process's first line)
+PROCESS_START = r"""
+import json, sys, time
+started = time.perf_counter()
+marks = {{}}
+import torch
+marks["import_torch"] = time.perf_counter() - started
+sys.path.insert(0, {repo!r})
+from mythril_tpu_torch.serve import service, worker
+marks["import_worker"] = time.perf_counter() - started
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+marks["cuda_context"] = time.perf_counter() - started
+from mythril_tpu_torch.kernels import build
+for name in build.SOURCES:
+    build.load(name)
+marks["kernel_libraries"] = time.perf_counter() - started
+print(json.dumps(marks))
+"""
+
+
+def process_start_s() -> dict:
+    """PROCESS_START's marks in a fresh interpreter."""
+    proc = subprocess.run(
+        [sys.executable, "-c", PROCESS_START.format(
+            repo=os.path.dirname(os.path.abspath(__file__)))],
+        capture_output=True, text=True, timeout=300, check=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _spread(values: list) -> list:
+    """[n, min, median, max] of `values` (an empty list for none)."""
+    values = sorted(values)
+    if not values:
+        return []
+    return [len(values), values[0], values[len(values) // 2], values[-1]]
+
+
+def phase_serve_load_tpu() -> dict:
+    """Phase 20m: tools/torch_loadgen.py's SLO A/B against the port's
+    daemon with `--engine tpu`, the JAX tool's two profiles as they stand
+    (an uncontended interactive-only baseline, then the contended run: 1
+    worker elastic to 2, queue 4, autoscale every 300 ms, up after 2),
+    then one unloaded request of each corpus contract, one at a time, to a
+    daemon with one worker and no result store; each daemon and its
+    workers (forked by its fork server) under SERVE_RUNNER. Asserts
+    tools/load_smoke.py's invariants 1 (no interactive request shed), 2
+    (bulk shed), 4 (a scale-up to a pool of 2) and 5 (result-store hits).
+    Each unloaded reply's result and frontier counters equal
+    EXPECTED_LOAD's (the JAX daemon's), and every answered reply of both
+    runs equals its contract's unloaded result; a reply the daemon
+    computed under load ran the frontier (its counters at least the
+    unloaded ones: deltas of concurrent requests add up). The line gives
+    per-class percentiles, the interactive p99 beside max(2x, +5 s) of the
+    baseline's (measured, not asserted: that floor was set for CPU noise),
+    sheds with their times beside the pool's first live sample, each
+    worker's spawn-to-ready, each engine run's seconds, a fresh process's
+    start step by step (PROCESS_START) and the K-kernel launches. Returns
+    the launches of the three daemons and their workers."""
+    import shutil
+    import tempfile
+
+    from mythril_tpu_torch.serve import client
+    from tools import torch_loadgen
+
+    work = tempfile.mkdtemp(prefix="chip-smoke-load-")
+    runner = os.path.join(work, "serve_runner.py")
+    with open(runner, "w") as handle:
+        handle.write(SERVE_RUNNER.format(
+            repo=os.path.dirname(os.path.abspath(__file__))))
+    stopped = []
+
+    class LoadDaemon(torch_loadgen.SpawnedDaemon):
+        """A daemon under SERVE_RUNNER, with launcher flags of its own
+        after the profile's; every daemon's counts are read at its stop,
+        before its directory goes."""
+
+        def __init__(self, args, extra=()):
+            self.extra = list(extra)
+            super().__init__(args)
+
+        def command(self, argv):
+            self.counts_path = os.path.join(self.workdir,
+                                            "daemon.counts.json")
+            return [sys.executable, runner, self.counts_path,
+                    "tools.torch_loadgen", "daemon", *argv, *self.extra]
+
+        def stop(self):
+            try:
+                self.shutdown()
+                if self.process.returncode != 0:
+                    raise AssertionError(
+                        f"serve_load_tpu: daemon exit "
+                        f"{self.process.returncode}\n{self.log_tail()}")
+                stopped.append(runner_counts(self.counts_path))
+            finally:
+                shutil.rmtree(self.workdir, ignore_errors=True)
+
+    unloaded = {}
+    try:
+        started = time.perf_counter()
+        ab = torch_loadgen.slo_ab(engine="tpu", spawn=LoadDaemon)
+        wall_s = time.perf_counter() - started
+        daemon = LoadDaemon(torch_loadgen.build_parser().parse_args(
+            [*torch_loadgen.BASELINE_PROFILE, "--engine", "tpu"]),
+            extra=["--no-result-store"])
+        try:
+            daemon.wait_ready()
+            for code in EXPECTED_LOAD:
+                unloaded[code] = client.request(
+                    {"op": "analyze", "code": code,
+                     "priority": "interactive"},
+                    socket_path=daemon.socket_path, timeout=240)
+        finally:
+            daemon.stop()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    baseline, contended = ab["baseline"], ab["contended"]
+    classes = contended["classes"]
+    problems = []
+    for code, reply in unloaded.items():
+        got = {"result": torch_loadgen.reply_result(reply),
+               "frontier": reply.get("frontier")}
+        if reply.get("cached") or got != EXPECTED_LOAD[code]:
+            problems.append(f"unloaded reply of {code[:8]} is not the JAX "
+                            f"daemon's: {got} cached={reply.get('cached')}")
+    answered = [record for run in (baseline, contended)
+                for record in run["records"] if record["outcome"] == "ok"]
+    computed = [record for record in answered if not record["cached"]]
+    differ = [(record["code"][:8], record["priority"], record["result"])
+              for record in answered
+              if record["result"] != EXPECTED_LOAD[record["code"]]["result"]]
+    idle_runs = [record["frontier"] for record in computed
+                 if not record["frontier"] or any(
+                     record["frontier"].get(name, 0) < floor
+                     for name, floor in EXPECTED_LOAD[record["code"]][
+                         "frontier"].items())]
+    base_p99 = ab["slo"]["baseline_interactive_p99_ms"]
+    load_p99 = ab["slo"]["contended_interactive_p99_ms"]
+    p99_bound = max(2.0 * base_p99, base_p99 + 5000.0)
+    launches = {name: 0 for name in ops.LAUNCHES}
+    for counts in stopped:
+        for name, count in counts["launches"].items():
+            launches[name] += count
+    transport = [outcome for name in classes
+                 for outcome in classes[name]["outcomes"]
+                 if outcome.startswith("transport:")]
+    # the pool's first live worker on the load's clock: the last status
+    # sample with no live worker
+    cold_until = max((sample["t_s"] for sample in contended["trajectory"]
+                      if not sample.get("pool_live")), default=0.0)
+    shed_at = sorted(record["at_s"] + record["elapsed_ms"] / 1000.0
+                     for record in contended["records"]
+                     if record["priority"] == "interactive"
+                     and record["outcome"] == "overloaded")
+    if classes["interactive"]["shed"]:
+        problems.append(f"{classes['interactive']['shed']} interactive "
+                        f"request(s) shed, at {shed_at} s (the pool's "
+                        f"first live sample at {cold_until} s)")
+    if classes["bulk"]["shed"] < 1:
+        problems.append("no bulk request was shed")
+    if transport:
+        problems.append(f"transport failures {transport}")
+    if not contended["autoscale"]["scale_ups"] \
+            or (contended["autoscale"]["peak_pool"] or 0) < 2:
+        problems.append(f"no scale-up to a pool of 2: "
+                        f"{contended['autoscale']}")
+    if not contended["cache"]["store_hits"]:
+        problems.append("no result-store hit")
+    if differ:
+        problems.append(f"replies whose result is not their contract's "
+                        f"unloaded one: {differ[:4]}")
+    if idle_runs:
+        problems.append(f"computed replies whose frontier did less than "
+                        f"the unloaded run's: {idle_runs[:4]}")
+    if len(stopped) != 3:
+        problems.append(f"{len(stopped)} daemons' counts read, expected 3")
+    idle = [name for name in LOAD_KERNELS if not launches[name]]
+    if idle:
+        problems.append(f"kernels never launched: {idle}")
+    emit({"phase": "serve_load_tpu", "clock": "host", "wall_s": wall_s,
+          "classes": {name: {key: rollup[key] for key in (
+              "sent", "ok", "cached", "shed", "p50_ms", "p95_ms",
+              "p99_ms")} for name, rollup in classes.items()},
+          "baseline_interactive": {key: baseline["classes"]["interactive"][
+              key] for key in ("sent", "ok", "cached", "p50_ms", "p95_ms",
+                               "p99_ms")},
+          "interactive_p99_ms": load_p99,
+          "interactive_p99_bound_ms": p99_bound,
+          "interactive_p99_within_bound": load_p99 <= p99_bound,
+          "interactive_p99_ratio": ab["slo"]["interactive_p99_ratio"],
+          "shed": {name: rollup["shed"] for name, rollup in classes.items()},
+          "interactive_shed_at_s": shed_at,
+          "pool_cold_until_s": cold_until,
+          "scale_ups": contended["autoscale"]["scale_ups"],
+          "peak_pool": contended["autoscale"]["peak_pool"],
+          "store_hits": contended["cache"]["store_hits"],
+          "store_hit_rate": contended["cache"]["store_hit_rate"],
+          "replies_checked": len(answered) + len(unloaded),
+          "replies_computed": len(computed) + len(unloaded),
+          "reference_issue_lists_nonempty": sum(
+              1 for expected in EXPECTED_LOAD.values()
+              if expected["result"]["report"]["issues"]),
+          "worker_spawn_to_ready_s": [
+              [spawn["seconds"] for spawn in counts["spawns"]]
+              for counts in stopped],
+          "engine_run_s": [_spread([run["seconds"] for run in counts["runs"]])
+                           for counts in stopped],
+          "process_start_s": process_start_s(),
+          "launches": {name: launches[name] for name in LOAD_KERNELS}})
+    if problems:
+        raise AssertionError("serve_load_tpu: " + "; ".join(problems))
     return launches
 
 
@@ -7187,6 +7487,13 @@ def main() -> int:
         print(CARD, flush=True)
         print_ok()
         return 0
+    if sys.argv[1:] == ["--load"]:
+        build.build_all()
+        emit({"phase": "serve_load_tpu",
+              "launches": phase_serve_load_tpu()})
+        print(CARD, flush=True)
+        print_ok()
+        return 0
     if sys.argv[1:] == ["--sat-shard"]:
         build.build_all()
         record, _ = phase_sat_shard(dev)
@@ -7250,6 +7557,9 @@ def main() -> int:
     # the daemon: its processes' launches, read from each at its exit
     serve_launches = phase_serve_tpu()
     main_path_launches.append(serve_launches)
+    # the daemon under open-loop load, baseline and contended
+    load_launches = phase_serve_load_tpu()
+    main_path_launches.append(load_launches)
     # on-chain input through a stub chain, then Solidity and foundry input
     # through a stub solc
     onchain_launches = phase_onchain_tpu()
@@ -7279,6 +7589,8 @@ def main() -> int:
         record["launches_analyze_fleet"] = fleet_launches[name]
         # the serving tier's share (serve_tpu's daemons and workers)
         record["launches_serve"] = serve_launches[name]
+        # the daemon's under load (serve_load_tpu's daemons and workers)
+        record["launches_serve_load"] = load_launches[name]
         # the on-chain and Solidity inputs' shares (onchain_tpu,
         # solidity_tpu)
         record["launches_onchain"] = onchain_launches[name]

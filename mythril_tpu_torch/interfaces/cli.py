@@ -407,28 +407,34 @@ def _cmd_serve(cli_args) -> int:
     from ..serve.service import AnalysisService
     from ..serve.warmset import default_manifest_path
 
-    # the card is resolved before the daemon starts: without one a tpu or
-    # jax daemon exits 2 (DeviceUnavailable), as analyze does
-    if cli_args.engine == "tpu":
-        from ..parallel import frontier
-
-        frontier.resolve_device()
-    if cli_args.solver == "jax":
-        from ..smt.solver import dispatch
-
-        dispatch.resolve_device()
     settings = {name: value for name, value in (
         ("max_inflight", cli_args.max_inflight),
         ("workers", cli_args.workers),
         ("workers_min", cli_args.workers_min),
         ("workers_max", cli_args.workers_max),
         ("queue_max", cli_args.queue_max)) if value is not None}
+    # built first, so that a worker pool's fork server imports torch
+    # while this process resolves the card
     service = AnalysisService(
         solver=cli_args.solver, engine=cli_args.engine,
         strategy=cli_args.strategy,
         manifest_path=cli_args.manifest or default_manifest_path(),
         warmup=not cli_args.no_warmup, fleet=cli_args.fleet,
         inject_fault=cli_args.inject_fault, **settings)
+    # the card is resolved before the daemon serves: without one a tpu or
+    # jax daemon exits 2 (DeviceUnavailable), as analyze does
+    try:
+        if cli_args.engine == "tpu":
+            from ..parallel import frontier
+
+            frontier.resolve_device()
+        if cli_args.solver == "jax":
+            from ..smt.solver import dispatch
+
+            dispatch.resolve_device()
+    except BaseException:
+        service.close()
+        raise
     install_sigterm_drain(service)
     if cli_args.stdio:
         from ..serve.daemon import serve_stdio

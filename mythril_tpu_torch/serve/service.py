@@ -64,7 +64,10 @@ The port's copy of mythril_tpu/serve/service.py. Every knob the JAX
 service reads is a keyword argument of :class:`AnalysisService` (and of
 :func:`execution_timeout_s`) whose default is the knob's: the module
 constants below, `admission.QUEUE_MAX`/`RETRY_AFTER_MS`,
-`result_store.RESULT_STORE_MAX` and `warmset.VERDICT_SIDECAR_MAX`.
+`result_store.RESULT_STORE_MAX` and `warmset.VERDICT_SIDECAR_MAX`; the
+worker heartbeat and the autoscaler's interval, which the JAX supervisor
+and autoscaler read themselves, pass through to them
+(`supervisor.HEARTBEAT_MS`, `autoscale.INTERVAL_MS`).
 ``engine="tpu"`` requests run `parallel/frontier.execute_message_call_tpu`
 (K1-K10) and ``solver="jax"`` requests K11 on the devices that
 `frontier.configure` and `dispatch.configure` name (the card by default);
@@ -89,9 +92,11 @@ from typing import Dict, Optional
 from . import protocol
 from .admission import (QUEUE_MAX, RETRY_AFTER_MS, AdmissionQueue,
                         Overloaded)
+from .autoscale import INTERVAL_MS
 from .quarantine import QuarantinedContract, contract_key
 from .result_store import (RESULT_STORE_MAX, ResultStore, result_key,
                            results_path_for)
+from .supervisor import HEARTBEAT_MS
 from .warmset import VERDICT_SIDECAR_MAX, WarmSet
 from ..observe import export, metrics, slog, trace
 
@@ -490,10 +495,11 @@ class AnalysisService:
     ``result_store`` RESULT_STORE, ``result_store_max`` RESULT_STORE_MAX,
     ``verdict_sidecar`` VERDICT_SIDECAR, ``verdict_sidecar_max``
     VERDICT_SIDECAR_MAX, ``trace_out`` TRACE, ``workers_min``/
-    ``workers_max`` SERVE_WORKERS_MIN/MAX. The pool's heartbeat, backoff
-    and quarantine knobs and the autoscaler's policy knobs are
-    `Supervisor`'s and `Autoscaler`'s keyword arguments, at their
-    defaults here."""
+    ``workers_max`` SERVE_WORKERS_MIN/MAX, ``heartbeat_ms``
+    SERVE_WORKER_HEARTBEAT_MS, ``autoscale_interval_ms``
+    SERVE_AUTOSCALE_INTERVAL_MS. The pool's backoff and quarantine knobs
+    and the autoscaler's other policy knobs are `Supervisor`'s and
+    `Autoscaler`'s keyword arguments, at their defaults here."""
 
     def __init__(self, solver: str = "cdcl", engine: str = "host",
                  strategy: str = "bfs",
@@ -515,7 +521,9 @@ class AnalysisService:
                  verdict_sidecar_max: int = VERDICT_SIDECAR_MAX,
                  trace_out: Optional[str] = None,
                  workers_min: int = 0,
-                 workers_max: int = 0):
+                 workers_max: int = 0,
+                 heartbeat_ms: int = HEARTBEAT_MS,
+                 autoscale_interval_ms: int = INTERVAL_MS):
         self.solver = solver
         self.engine = engine
         self.strategy = strategy
@@ -541,7 +549,7 @@ class AnalysisService:
                 self.workers, manifest_path=manifest_path,
                 solver=self.solver, engine=self.engine,
                 strategy=self.strategy, warmup=self.warmup_enabled,
-                inject_fault=inject_fault,
+                inject_fault=inject_fault, heartbeat_ms=heartbeat_ms,
                 max_deadline_ms=max_deadline_ms,
                 verdict_sidecar=verdict_sidecar,
                 verdict_sidecar_max=verdict_sidecar_max)
@@ -565,7 +573,8 @@ class AnalysisService:
             self._autoscaler = Autoscaler(self._supervisor,
                                           self._admission,
                                           minimum=workers_min,
-                                          maximum=workers_max)
+                                          maximum=workers_max,
+                                          interval_ms=autoscale_interval_ms)
         self._engine_lock = threading.Lock()
         self._fleet_workdir: Optional[str] = None
         self._started = time.monotonic()
@@ -593,6 +602,13 @@ class AnalysisService:
             self.warmset.record_observed()
         if self._autoscaler is not None:
             self._autoscaler.start()
+
+    def close(self) -> None:
+        """Stop what the constructor started (the worker pool's fork
+        server) for a service that will not serve: a daemon whose card
+        could not be resolved."""
+        if self._supervisor is not None:
+            self._supervisor.stop()
 
     def shutdown(self, drain_ms: Optional[int] = None) -> None:
         """Graceful drain, then stop: admission closes (new analyzes get

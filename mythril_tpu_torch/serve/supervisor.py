@@ -49,6 +49,11 @@ flags. A worker runs the frontier and the SAT lane with their default
 settings, on the card. A retry without a checkpoint is not moved to the
 JAX supervisor's host ladder (engine=host, solver=cdcl): work asked of
 the card stays on the card, and its job carries no ``ladder`` flag.
+The pool's workers are forked by a fork server that has already imported
+torch (serve/forkserver.py), which the supervisor starts when it is
+built, not spawned as fresh interpreters: a spawn costs a fork and the
+worker's CUDA context instead of torch's import. A ``worker_argv`` that
+does not run the worker module is spawned with ``Popen`` as before.
 """
 
 from __future__ import annotations
@@ -76,6 +81,8 @@ from ..support.checkpoint import request_checkpoint_path
 
 log = logging.getLogger(__name__)
 
+#: the module a worker runs
+WORKER_MODULE = "mythril_tpu_torch.serve.worker"
 #: per-slot backoff ceiling — a permanently sick worker retries every
 #: 30 s forever instead of growing an unbounded sleep
 MAX_BACKOFF_S = 30.0
@@ -225,6 +232,12 @@ class Supervisor:
         self._stopping = threading.Event()
         self._workdir = tempfile.mkdtemp(prefix="myth-tpu-torch-serve-ckpt-")
         self._spawn_threads: List[threading.Thread] = []
+        # started now, so that torch's import in the fork server overlaps
+        # whatever the daemon does before its pool starts
+        self._forks = None
+        self._forks_lock = threading.Lock()
+        if self._forked(self._worker_command()):
+            self._forks = self._new_fork_server()
 
     # -- pool lifecycle ----------------------------------------------------------------
 
@@ -265,13 +278,17 @@ class Supervisor:
             except queue.Empty:
                 break
         metrics.set_gauge("serve.worker.pool", 0)
+        with self._forks_lock:
+            if self._forks is not None:
+                self._forks.close()
+                self._forks = None
         shutil.rmtree(self._workdir, ignore_errors=True)
         slog.event("serve.worker.pool_stop", workers=self.workers)
 
     def _worker_command(self) -> List[str]:
         if self._worker_argv is not None:
             return list(self._worker_argv)
-        argv = [sys.executable, "-m", "mythril_tpu_torch.serve.worker",
+        argv = [sys.executable, "-m", WORKER_MODULE,
                 "--solver", self.solver, "--engine", self.engine,
                 "--strategy", self.strategy,
                 "--heartbeat-ms", str(int(self.heartbeat_s * 1000)),
@@ -286,6 +303,38 @@ class Supervisor:
         if slog.sink_path():
             argv += ["--slog", slog.sink_path()]
         return argv
+
+    def _fork_server_command(self) -> List[str]:
+        return [sys.executable, "-m", "mythril_tpu_torch.serve.forkserver"]
+
+    def _new_fork_server(self):
+        # imported here: the fork server's own process runs the module
+        # as __main__, and may have imported this one first
+        from .forkserver import ForkServer
+
+        return ForkServer(self._fork_server_command())
+
+    def _forked(self, argv: List[str]) -> bool:
+        """Whether `argv` runs the worker module, so the fork server
+        starts it."""
+        return self._worker_argv is None \
+            and argv[1:3] == ["-m", WORKER_MODULE]
+
+    def _start_worker(self):
+        """A new worker process: forked by the fork server (started
+        again if it died), or `Popen` for another worker command."""
+        argv = self._worker_command()
+        if not self._forked(argv):
+            return subprocess.Popen(argv, stdin=subprocess.PIPE,
+                                    stdout=subprocess.PIPE, stderr=None,
+                                    bufsize=0)
+        with self._forks_lock:
+            if self._stopping.is_set():
+                raise OSError("the pool is stopping")
+            if self._forks is None or self._forks.closed:
+                self._forks = self._new_fork_server()
+            forks = self._forks
+        return forks.spawn(argv[3:])
 
     def _respawn_async(self, handle: _WorkerHandle, delay_s: float,
                        restart: bool) -> None:
@@ -308,11 +357,12 @@ class Supervisor:
                     return
             with self._lock:
                 handle.state = RESTARTING
+            spawned_at = time.monotonic()
             try:
-                proc = subprocess.Popen(
-                    self._worker_command(), stdin=subprocess.PIPE,
-                    stdout=subprocess.PIPE, stderr=None, bufsize=0)
+                proc = self._start_worker()
             except OSError as error:
+                if self._stopping.is_set():
+                    return
                 log.error("cannot spawn worker for slot %d: %s",
                           handle.slot, error)
                 delay_s = min(max(delay_s, self.backoff_s) * 2,
@@ -332,7 +382,8 @@ class Supervisor:
                     metrics.inc("serve.worker.restarts")
                 metrics.set_gauge("serve.worker.pool", self._live_count())
                 slog.event("serve.worker.ready", slot=handle.slot,
-                           pid=proc.pid, restart=restart)
+                           pid=proc.pid, restart=restart,
+                           spawn_s=round(time.monotonic() - spawned_at, 4))
                 trace.instant("serve.worker.ready", slot=handle.slot,
                               pid=proc.pid)
                 self._idle.put(handle)

@@ -1,10 +1,10 @@
-"""The port stands alone: no module of mythril_tpu_torch, and nothing that
-chip_smoke.py imports, loads jax or anything of mythril_tpu (the SMT façade,
-the host solver stack, the host engine, the plugins, detectors, analyzer
-and CLI, the superoptimizer, the concolic driver, the extension discovery,
-the serving tier, the JSON-RPC client and the Solidity front end
-included); its entry points run on the card unless
-asked for the CPU."""
+"""The port stands alone: no module of mythril_tpu_torch, nothing that
+chip_smoke.py imports and no tool of the port (tools/torch_*.py) loads jax
+or anything of mythril_tpu (the SMT façade, the host solver stack, the host
+engine, the plugins, detectors, analyzer and CLI, the superoptimizer, the
+concolic driver, the extension discovery, the serving tier, the JSON-RPC
+client and the Solidity front end included); its entry points run on the
+card unless asked for the CPU."""
 
 import os
 import subprocess
@@ -92,7 +92,7 @@ print("SERVE", all(m in sys.modules for m in (
     "mythril_tpu_torch.serve.http_shim", "mythril_tpu_torch.serve.quarantine",
     "mythril_tpu_torch.serve.result_store", "mythril_tpu_torch.serve.service",
     "mythril_tpu_torch.serve.supervisor", "mythril_tpu_torch.serve.warmset",
-    "mythril_tpu_torch.serve.worker")))
+    "mythril_tpu_torch.serve.worker", "mythril_tpu_torch.serve.forkserver")))
 print("BAD", bad)
 """
 
@@ -110,6 +110,41 @@ def test_port_and_smoke_import_no_jax():
     assert "CORE True" in proc.stdout
     assert "ANALYSIS True" in proc.stdout
     assert "SERVE True" in proc.stdout
+
+
+#: the port's tools beside the JAX package's: each imports only the port
+PORT_TOOLS = ("tools.torch_cfaview", "tools.torch_loadgen",
+              "tools.torch_load_smoke", "tools.torch_serve_smoke",
+              "tools.torch_chaos_smoke", "tools.torch_warm_smoke")
+
+_BLOCKED = r"""
+import importlib, sys
+sys.path.insert(0, {repo!r})
+
+
+class Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name in ("jax", "jaxlib", "mythril_tpu") \
+                or name.startswith(("jax.", "jaxlib.", "mythril_tpu.")):
+            raise ImportError(f"blocked: {{name}}")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+for name in {tools!r}:
+    importlib.import_module(name)
+print("IMPORTED", len({tools!r}))
+"""
+
+
+def test_port_tools_import_with_jax_blocked():
+    """The tools/torch_*.py files import with jax and mythril_tpu blocked
+    in the process."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED.format(repo=REPO, tools=PORT_TOOLS)],
+        capture_output=True, text=True, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"IMPORTED {len(PORT_TOOLS)}" in proc.stdout
 
 
 def test_entry_points_default_to_cuda():

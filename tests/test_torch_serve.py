@@ -38,6 +38,16 @@ from mythril_tpu_torch.serve import warmset as pwarmset
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for the case, the count before it given back
+    after, so that no later case in the process runs at one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _clean_registries():
     jmetrics.reset()
@@ -382,10 +392,9 @@ QUERIES = [([[1, 2], [-1, 2], [-2, 3]], 3), ([[1], [-1]], 1),
            ([[1, -2, 3], [2], [-3, -1]], 3), ([[4, 5], [-4], [-5, 1]], 5)]
 
 
-def test_observed_shape_keys_match_jax(monkeypatch):
+def test_observed_shape_keys_match_jax(monkeypatch, one_torch_thread):
     """The same queries on the port's CPU lane and on JAX's record the same
     shape keys, and count compiles and reuses alike."""
-    torch.set_num_threads(1)
     monkeypatch.setattr(device_solver, "_SHAPES_RUN", set())
     monkeypatch.setattr(jax_solver, "_SHAPES_RUN", set())
     monkeypatch.setattr(jax_solver, "_AOT_EXECUTABLES", {})
@@ -406,12 +415,12 @@ def test_observed_shape_keys_match_jax(monkeypatch):
          ("xla.bucket_compiles", "xla.bucket_reuses")]
 
 
-def test_warmup_then_solve_reuses_bucket(tmp_path, monkeypatch):
+def test_warmup_then_solve_reuses_bucket(tmp_path, monkeypatch,
+                                         one_torch_thread):
     """The port's form of the JAX test of the same name: a manifest-warmed
     bucket makes the first real solve of that shape a reuse."""
     from mythril_tpu_torch.smt.solver import dispatch
 
-    torch.set_num_threads(1)
     monkeypatch.setattr(device_solver, "_SHAPES_RUN", set())
     path = str(tmp_path / "warmset.json")
     device_solver.solve_cnf_device_batch([([[1]], 1)], n_probes=2, chunk=4,
@@ -503,6 +512,10 @@ def _keyword_defaults():
         (service["drain_ms"].default, "MYTHRIL_TPU_SERVE_DRAIN_MS"),
         (supervisor["heartbeat_ms"].default,
          "MYTHRIL_TPU_SERVE_WORKER_HEARTBEAT_MS"),
+        (service["heartbeat_ms"].default,
+         "MYTHRIL_TPU_SERVE_WORKER_HEARTBEAT_MS"),
+        (service["autoscale_interval_ms"].default,
+         "MYTHRIL_TPU_SERVE_AUTOSCALE_INTERVAL_MS"),
         (supervisor["quarantine_after"].default,
          "MYTHRIL_TPU_SERVE_QUARANTINE_AFTER"),
     ]
@@ -529,6 +542,7 @@ def test_worker_argv_carries_what_jax_puts_in_the_environment(tmp_path):
             solver="jax", warmup=False, max_deadline_ms=1234,
             verdict_sidecar=False, verdict_sidecar_max=9)
         argv = sup._worker_command()
+        sup.stop()
     finally:
         slog.reset()
     assert argv[1:3] == ["-m", "mythril_tpu_torch.serve.worker"]

@@ -18,8 +18,10 @@ Reference cases: tests/test_cfa.py :69-354, test_absint.py :213-448 and
 test_taint.py :162-340 and :485, with the JAX knobs replaced by the
 port's keyword arguments and pass switches (`staticanalysis.ENABLED`).
 The assertions on the metric registry run on the port's own registry
-(mythril_tpu_torch/observe/), and each build is a span; the cases that
-need the cfaview CLI or the serve warm set wait (ROADMAP A 14, 12)."""
+(mythril_tpu_torch/observe/), and each build is a span. The cfaview CLI
+cases run against the port's tools/torch_cfaview.py in
+tests/test_torch_tools.py; the warm set's summary store is held in
+tests/test_torch_serve.py."""
 
 import dataclasses
 import json

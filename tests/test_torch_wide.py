@@ -4,7 +4,8 @@ one block, and K4's cached step plan, checked without a card.
 * the twins equal JAX at 2048 lanes: `run_chunk_reference` for a chunk and
   `merge_pass_reference` for one pass, at a narrow geometry, on lanes
   whose 32-lane blocks each hold a forking seed, spinning fillers and three
-  DEAD lanes, so forks claim, push and spill;
+  DEAD lanes, so forks claim, push and spill; and no index write of theirs
+  there puts two values in one cell but in a drop slot nothing reads;
 * the kernel sources, compiled by g++ under tests/_host_shim.h, equal the
   twins at 2048 lanes: K4 with K3's four allocations folded in at D = 1
   (a segment spanning 32 blocks), D = 2 with telemetry, and D = 64 (two
@@ -80,6 +81,31 @@ def test_wide_twins_match_jax():
     for kind, want, mine in zip(KINDS, ref[:3], got[:3]):
         assert_same(want, mine, f"merge {kind}.")
     assert np.array_equal(np.asarray(ref[3]), got[3].numpy())
+
+
+def test_wide_twins_write_no_cell_twice():
+    """No index write of `run_chunk_reference` or `merge_pass_reference`
+    on the wide lanes puts two different values in one cell, but in the
+    drop slots that nothing reads: the twins' results cannot depend on the
+    order of a write's CPU threads."""
+    from _torch_writes import conflicting_writes
+
+    state, planes, arena = wide_lanes()
+    sched = jsym.new_scheduler(state, planes, POOL_ROWS, ESC_ROWS)
+    tree = [to_port(k, t) for k, t in zip(KINDS, (state, planes, arena,
+                                                  sched))]
+    _, (merge_pcs, _, mem_pcs, mem_words) = jax_static_tables(
+        [BRANCHY5, PLANES, KILL])
+    with conflicting_writes() as found:
+        tree = list(tsym.run_chunk_reference(*tree, STEPS))
+        tsym.merge_pass_reference(*tree[:3], merge_pcs, mem_pcs, mem_words,
+                                  n_rounds=2)
+    assert found["writes"] > 500
+    assert all(drop for _, _, drop, _ in found["conflicts"]), \
+        found["conflicts"]
+    assert {caller for caller, _, _, _ in found["conflicts"]} <= {
+        "parallel/symstep.py:sym_step_reference",
+        "parallel/lockstep.py:mem_write"}
 
 
 @pytest.mark.parametrize("n_shards, telemetry, lanes_per_block, group",
